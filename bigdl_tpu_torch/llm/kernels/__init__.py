@@ -1,0 +1,51 @@
+"""Hand-written CUDA kernels of the served path and their plain PyTorch
+versions. Importing this package builds nothing; the kernels compile at
+first launch, or all at once with :func:`build_kernels`."""
+
+from bigdl_tpu_torch.llm.kernels import _build
+from bigdl_tpu_torch.llm.kernels.int4_matmul import (
+    dequant_q4, int4_matmul, int4_matmul_reference, quantize_tpu,
+    to_tpu_layout)
+from bigdl_tpu_torch.llm.kernels.paged_attention import (
+    merge_attention_partial, paged_attention_decode_stats,
+    paged_attention_reference_stats, paged_attention_stats)
+from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
+    ragged_prefill, ragged_prefill_attention, ragged_prefill_reference)
+from bigdl_tpu_torch.llm.kernels.sampling import (make_sampled_step,
+                                                  sample_tokens)
+
+# csrc/<name>.cu sources, one shared library each
+KERNEL_SOURCES = ("int4_matmul", "paged_attention", "ragged_prefill")
+
+# the wrappers whose ``launches`` count the kernels of the served path
+WRAPPERS = {"int4_matmul": int4_matmul,
+            "paged_attention_decode_stats": paged_attention_decode_stats,
+            "ragged_prefill_attention": ragged_prefill_attention}
+
+
+def build_kernels():
+    """Compile every kernel source in parallel (one ``nvcc`` each) and
+    load the libraries; returns ``{source: seconds}`` for the sources
+    built in this call (empty when all were cached)."""
+    before = dict(_build.build_seconds)
+    _build.build_all(KERNEL_SOURCES)
+    return {k: v for k, v in _build.build_seconds.items()
+            if before.get(k) != v}
+
+
+def reset_launch_counts():
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def launch_counts():
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+__all__ = ["KERNEL_SOURCES", "WRAPPERS", "build_kernels", "dequant_q4",
+           "int4_matmul", "int4_matmul_reference", "launch_counts",
+           "make_sampled_step", "merge_attention_partial",
+           "paged_attention_decode_stats", "paged_attention_reference_stats",
+           "paged_attention_stats", "quantize_tpu", "ragged_prefill",
+           "ragged_prefill_attention", "ragged_prefill_reference",
+           "reset_launch_counts", "sample_tokens", "to_tpu_layout"]

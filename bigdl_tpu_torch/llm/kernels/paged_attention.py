@@ -1,0 +1,179 @@
+"""Paged KV-cache decode attention — the port of
+``bigdl_tpu/llm/kernels/paged_attention.py`` (the flash-state "stats"
+variant the serving engine runs, and the merge that folds the current
+token in).
+
+The KV cache is a page pool ``(num_pages, H_kv, page_size, D)`` per
+layer; a request owns the pages named by its block-table row. The
+engine views the pools of all layers as one flat ``(L·P, ...)`` array
+and offsets the table by ``l·P`` (serving.paged_attend), so the kernel
+never sees a per-layer copy.
+
+:func:`paged_attention_decode_stats` launches the CUDA kernel
+(``bigdl_tpu_torch/csrc/paged_attention.cu``) for CUDA tensors, or
+raises; it takes :func:`paged_attention_reference_stats`, the plain
+PyTorch version, only for CPU tensors. The dispatch is by the tensors'
+device, not by a global backend.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from bigdl_tpu_torch.llm.kernels import _build
+
+LANE = 128   # the JAX package's block-table bucketing unit (kept for shapes)
+
+_KV_ENTRY = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def _sliced_tables(block_tables: torch.Tensor, lengths: torch.Tensor,
+                   page: int):
+    """Slice the table columns to the live page span before the dense
+    gather of the plain versions: tables are bucketed to the engine's
+    worst case, and gathering every column would pad the gather with
+    capacity nobody owns. Masking is untouched: every valid position is
+    below the live span by construction."""
+    pages_max = block_tables.shape[1]
+    max_len = int(lengths.max()) if lengths.numel() else 0
+    live = -(-max_len // page)
+    return block_tables[:, :max(1, min(live, pages_max))]
+
+
+def _gather(pages: torch.Tensor, block_tables: torch.Tensor):
+    """(P, Hkv, page, D) pool + (B, n) table → (B, n·page, Hkv, D)."""
+    b, n = block_tables.shape
+    _, hkv, page, d = pages.shape
+    return (pages[block_tables.long()].permute(0, 1, 3, 2, 4)
+            .reshape(b, n * page, hkv, d))
+
+
+def paged_attention_reference_stats(q, k_pages, v_pages, block_tables,
+                                    lengths,
+                                    sliding_window: Optional[int] = None):
+    """Plain version of :func:`paged_attention_decode_stats` (same
+    contract): a gather of the live pages and masked attention in f32."""
+    b, hq, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    g = hq // hkv
+    block_tables = _sliced_tables(block_tables, lengths, page)
+    k_all = _gather(k_pages, block_tables).to(torch.float32)
+    v_all = _gather(v_pages, block_tables).to(torch.float32)
+    s_max = k_all.shape[1]
+    qg = q.reshape(b, hkv, g, d).to(torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_all) * scale
+    pos = torch.arange(s_max, device=q.device)[None, :]
+    lens = lengths.to(torch.int64)[:, None]
+    mask = pos < lens                                          # (B, S)
+    if sliding_window is not None:
+        mask &= pos >= lens - sliding_window
+    mask4 = mask[:, None, None, :]
+    s = torch.where(mask4, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)                                         # (B,H,G)
+    # p must be 0 (not exp(0)) on masked slots of all-masked rows,
+    # where m == -1e30 would make s - m == 0
+    p = torch.where(mask4, torch.exp(s - m[..., None]),
+                    torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v_all)
+    any_valid = mask.any(dim=-1)[:, None, None]
+    m = torch.where(any_valid, m, torch.full_like(m, -1e30))
+    return acc.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
+
+
+def paged_attention_decode_stats(q, k_pages, v_pages, block_tables,
+                                 lengths, page_size: int = 16,
+                                 sliding_window: Optional[int] = None):
+    """Decode-step attention over a paged KV cache, WITHOUT normalising:
+    the flash-style partial state ``(acc (B, Hq, D) f32, m (B, Hq) f32,
+    l (B, Hq) f32)`` over the first ``lengths[b]`` tokens (the current
+    token excluded), so the caller can fold further tokens in with
+    :func:`merge_attention_partial`. Rows with ``lengths == 0`` return
+    ``(0, -1e30, 0)``.
+
+    q (B, Hq, D); pools (P, Hkv, page_size, D) bf16 or f32;
+    block_tables (B, pages_max) int32; lengths (B,) int32. Unlike the
+    Mosaic kernel, ``pages_max`` need not be a multiple of
+    ``LANE // page_size``."""
+    b, hq, d = q.shape
+    p_, hkv, page, d2 = k_pages.shape
+    if page != page_size or d2 != d or tuple(v_pages.shape) != \
+            tuple(k_pages.shape):
+        raise ValueError(f"pools {tuple(k_pages.shape)} do not match q "
+                         f"{tuple(q.shape)} / page_size {page_size}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if q.device.type == "cpu":
+        return paged_attention_reference_stats(
+            q, k_pages, v_pages, block_tables, lengths,
+            sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention: unsupported device {q.device}")
+    dev = q.device
+    if any(t.device != dev for t in (k_pages, v_pages, block_tables,
+                                     lengths)):
+        raise ValueError("paged attention: all tensors on one device")
+    if k_pages.dtype not in _KV_ENTRY or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"paged attention: pools must be bf16 or f32, "
+                         f"got {k_pages.dtype}/{v_pages.dtype}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("paged attention: block_tables and lengths must "
+                         "be int32")
+    if hq // hkv > 8 or d > 128:
+        raise ValueError(f"paged attention kernel takes Hq/Hkv <= 8 and "
+                         f"D <= 128, got {hq // hkv} and {d}")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("paged attention: pools must be contiguous")
+    qf = q.to(torch.float32).contiguous()
+    bt = block_tables.contiguous()
+    lens = lengths.contiguous()
+    acc = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    m = torch.empty((b, hq), dtype=torch.float32, device=dev)
+    l = torch.empty((b, hq), dtype=torch.float32, device=dev)
+    if b == 0:
+        return acc, m, l
+    P, I, F = _build.P, _build.I, _build.F
+    fn = _build.bind("paged_attention",
+                     f"paged_decode_stats_{_KV_ENTRY[k_pages.dtype]}",
+                     [P] * 8 + [I] * 7 + [F, P])
+    rc = fn(qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            bt.data_ptr(), lens.data_ptr(), acc.data_ptr(), m.data_ptr(),
+            l.data_ptr(), b, hq, hkv, page, d, bt.shape[1],
+            -1 if sliding_window is None else int(sliding_window),
+            1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream)
+    paged_attention_decode_stats.launches += 1
+    _build.check(rc, "paged_attention_decode_stats")
+    return acc, m, l
+
+
+paged_attention_decode_stats.launches = 0
+
+
+# the JAX package's dispatch name; the wrapper already chooses by device
+paged_attention_stats = paged_attention_decode_stats
+
+
+def merge_attention_partial(acc, m, l, q, k_new, v_new):
+    """Fold one extra key/value token into a flash-style partial state.
+
+    ``(acc, m, l)`` from :func:`paged_attention_stats`; ``q`` (B, Hq, D)
+    current queries; ``k_new``/``v_new`` (B, Hkv, D) the token being
+    decoded (before its page write). Returns the NORMALISED attention
+    output (B, Hq, D) f32 over the union — ``paged_attention`` after
+    writing the token, with the pool untouched."""
+    b, hq, d = q.shape
+    g = hq // k_new.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    kr = torch.repeat_interleave(k_new.to(torch.float32), g, dim=1)
+    vr = torch.repeat_interleave(v_new.to(torch.float32), g, dim=1)
+    s_self = (q.to(torch.float32) * kr).sum(dim=-1) * scale
+    m_new = torch.maximum(m, s_self)
+    alpha = torch.exp(m - m_new)                               # (B, Hq)
+    beta = torch.exp(s_self - m_new)
+    l_new = l * alpha + beta
+    return ((acc * alpha[..., None] + vr * beta[..., None])
+            / torch.clamp(l_new, min=1e-30)[..., None])

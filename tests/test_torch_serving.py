@@ -1,0 +1,201 @@
+"""The port's ``LLMServer`` (paged decode + whole-prompt ragged prefill,
+pipeline depth 1) against the JAX package's engine, plus the port's
+rules: greedy outputs are token-identical to the JAX ``LLMServer`` on
+``LlamaConfig.tiny()`` q4_0 (f32 params and f32 KV, so argmax near-ties
+cannot flip); pages and budget come back when requests finish; the
+options this slice does not implement raise ``NotImplementedError``;
+and no module of ``bigdl_tpu_torch`` imports JAX or ``bigdl_tpu``."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from bigdl_tpu.llm.models import llama as jllama
+from bigdl_tpu.llm.serving import LLMServer as JServer
+
+from bigdl_tpu_torch.llm.convert import params_from_numpy
+from bigdl_tpu_torch.llm.models import llama as tllama
+from bigdl_tpu_torch.llm.serving import LLMServer, OverloadError
+
+PAGE = 8
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The same f32 q4_0 tiny weights as a JAX model and a port model."""
+    cfg = jllama.LlamaConfig.tiny()
+    p = jllama.quantize_params(jllama.init_params(cfg, 0, dtype=jnp.float32),
+                               "sym_int4")
+    jm = jllama.LlamaForCausalLM(cfg, p, max_cache_len=128,
+                                 cache_dtype=jnp.float32)
+    tm = tllama.LlamaForCausalLM(
+        tllama.LlamaConfig.tiny(),
+        params_from_numpy(jax.tree_util.tree_map(np.asarray, p), "cpu"),
+        cache_dtype=torch.float32, page_size=PAGE, device="cpu")
+    return jm, tm
+
+
+def _workload():
+    """5 overlapping requests of different lengths (prompts cross page
+    boundaries; max_batch=2 forces queueing and slot reuse)."""
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 250, n).astype(np.int32)
+               for n in (5, 17, 9, 30, 12)]
+    return prompts, [6, 4, 8, 5, 7]
+
+
+def _serve(srv, prompts, lens):
+    srv.start()
+    try:
+        return [r.get(timeout=600) for r in
+                [srv.submit(p, max_new_tokens=n)
+                 for p, n in zip(prompts, lens)]]
+    finally:
+        srv.stop()
+
+
+class TestEngineParity:
+    def test_greedy_token_identical_to_jax(self, pair):
+        jm, tm = pair
+        prompts, lens = _workload()
+        want = _serve(JServer(jm, max_batch=2, max_seq_len=64,
+                              page_size=PAGE, ragged_prefill=True,
+                              pipeline_depth=1), prompts, lens)
+        srv = LLMServer(tm, max_batch=2, max_seq_len=64, page_size=PAGE,
+                        device="cpu")
+        got = _serve(srv, prompts, lens)
+        assert got == want
+        assert srv.errors == []
+        # every page and the whole budget came back
+        assert srv.pages_in_use == 0
+        assert len(srv._free) == srv._num_pages - 1
+        assert srv._budget_avail == srv._num_pages - 1
+
+    def test_eos_finishes_early(self, pair):
+        jm, tm = pair
+        prompts, lens = _workload()
+        base = _serve(LLMServer(tm, max_batch=2, max_seq_len=64,
+                                page_size=PAGE, device="cpu"),
+                      prompts[:1], [8])[0]
+        # the first token after the first that did not occur before it
+        j = next(i for i in range(1, len(base)) if base[i] not in base[:i])
+        eos = base[j]
+        want = _serve(JServer(jm, max_batch=2, max_seq_len=64,
+                              page_size=PAGE, ragged_prefill=True,
+                              pipeline_depth=1, eos_token_id=eos),
+                      prompts[:1], [8])
+        got = _serve(LLMServer(tm, max_batch=2, max_seq_len=64,
+                               page_size=PAGE, eos_token_id=eos,
+                               device="cpu"), prompts[:1], [8])
+        assert got == want and got[0] == base[:j + 1]
+
+    def test_alone_equals_batched(self, pair):
+        """Every step runs all max_batch rows, so a request's tokens do
+        not depend on its neighbours: served alone = served in a batch."""
+        _, tm = pair
+        prompts, lens = _workload()
+        batched = _serve(LLMServer(tm, max_batch=4, max_seq_len=64,
+                                   page_size=PAGE, device="cpu"),
+                         prompts, lens)
+        alone = _serve(LLMServer(tm, max_batch=4, max_seq_len=64,
+                                 page_size=PAGE, device="cpu"),
+                       prompts[3:4], lens[3:4])
+        assert alone[0] == batched[3]
+
+    def test_sampled_contract(self, pair):
+        """Sampled decode: in-vocab tokens of the asked count, and the
+        same seed gives the same tokens."""
+        _, tm = pair
+        prompts, lens = _workload()
+        runs = [_serve(LLMServer(tm, max_batch=2, max_seq_len=64,
+                                 page_size=PAGE, temperature=0.9, top_k=5,
+                                 sample_seed=11, device="cpu"),
+                       prompts, lens) for _ in range(2)]
+        assert runs[0] == runs[1]
+        for toks, n in zip(runs[0], lens):
+            assert len(toks) == n and all(0 <= t < 256 for t in toks)
+
+
+class TestEngineRules:
+    @pytest.mark.parametrize("opt", [
+        {"kvcache": True}, {"kvtier": True}, {"mixed": True},
+        {"spec": True}, {"priority": True}, {"slo": True},
+        {"watchdog_timeout": 5.0}, {"paged": False},
+        {"pipeline_depth": 2}, {"ragged_prefill": False}])
+    def test_unsupported_options_raise(self, pair, opt):
+        _, tm = pair
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LLMServer(tm, device="cpu", **opt)
+
+    def test_page_size_follows_the_model(self, pair):
+        _, tm = pair
+        assert LLMServer(tm, device="cpu")._page == tm.page_size == PAGE
+        with pytest.raises(ValueError, match="page_size"):
+            LLMServer(tm, page_size=2 * PAGE, device="cpu")
+
+    def test_unknown_option_is_a_type_error(self, pair):
+        _, tm = pair
+        with pytest.raises(TypeError):
+            LLMServer(tm, device="cpu", no_such_option=1)
+
+    def test_needs_a_device(self, pair, monkeypatch):
+        _, tm = pair
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LLMServer(tm)
+
+    def test_submit_validation(self, pair):
+        _, tm = pair
+        srv = LLMServer(tm, max_batch=2, max_seq_len=32, page_size=PAGE,
+                        max_queue=1, device="cpu")
+        with pytest.raises(ValueError):
+            srv.submit(np.arange(30), max_new_tokens=8)
+        with pytest.raises(ValueError):
+            srv.submit(np.arange(3), max_new_tokens=0)
+        srv.submit(np.arange(3), max_new_tokens=2)      # not started
+        with pytest.raises(OverloadError):
+            srv.submit(np.arange(3), max_new_tokens=2)
+        srv.stop(drain=False)
+
+    def test_default_pool_size(self, pair):
+        """Page 0 is trash; default num_pages = 1 + max_batch *
+        ceil(max_seq_len / page); tables keep the JAX engine's width."""
+        jm, tm = pair
+        srv = LLMServer(tm, max_batch=3, max_seq_len=40, page_size=PAGE,
+                        device="cpu")
+        ref = JServer(jm, max_batch=3, max_seq_len=40, page_size=PAGE,
+                      ragged_prefill=True, pipeline_depth=1)
+        assert srv._num_pages == 1 + 3 * 5 == ref._num_pages
+        assert srv._pages_cap == ref._pages_cap
+        assert tuple(srv._k_pages.shape) == tuple(ref._k_pages.shape)
+        ref.stop()
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port pulls in neither JAX nor any
+    ``bigdl_tpu`` module."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import bigdl_tpu_torch\n"
+        "for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,\n"
+        "                               'bigdl_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
+        "             or n.startswith(('jax.', 'jaxlib'))\n"
+        "             or n == 'bigdl_tpu' or n.startswith('bigdl_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules\n"
+        "           if n.startswith('bigdl_tpu_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 15
