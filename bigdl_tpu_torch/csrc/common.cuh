@@ -28,6 +28,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// an f32 accumulator written out as f32 or rounded once to bf16
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
 // the JAX package's "minus infinity" for masked scores and empty rows
 constexpr float NEG_BIG = -1e30f;
 

@@ -30,6 +30,11 @@
 //   fixed order: the summation order of an output element depends on K
 //   only, never on M or on other rows (a request served alone gets the
 //   same bits as in a batch). No split-K across blocks, no atomics.
+// - any N: when N % 4 == 0 a thread's 4 packed bytes and 4 scales are
+//   one aligned 32-bit and one 128-bit load; otherwise (BERT's 768->2
+//   classifier) the same thread reads them byte by byte and treats the
+//   columns past N as zero. The arithmetic, and so every bit of a valid
+//   column, is the same on both paths.
 
 #include "common.cuh"
 
@@ -48,12 +53,30 @@ __device__ __forceinline__ float nib_m8(uint32_t n) {
   return __int_as_float(0x4B000000u | n) - 8388616.0f;
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+// the 4 packed bytes of columns n0..n0+3 (``left`` = N - n0 of them valid)
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_q(const uint8_t* p, int left) {
+  if (VEC) return __ldg(reinterpret_cast<const uint32_t*>(p));
+  uint32_t w = 0;
+#pragma unroll
+  for (int c = 0; c < COLS; ++c)
+    if (c < left) w |= (uint32_t)__ldg(p + c) << (8 * c);
+  return w;
 }
 
-template <typename OutT>
+template <bool VEC>
+__device__ __forceinline__ void load_s(const float* p, int left,
+                                       float s[COLS]) {
+  if (VEC) {
+    const float4 s4 = __ldg(reinterpret_cast<const float4*>(p));
+    s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) s[c] = c < left ? __ldg(p + c) : 0.f;
+}
+
+template <typename OutT, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 int4_matmul_kernel(const __nv_bfloat162* __restrict__ x2,
                    const uint8_t* __restrict__ q,
@@ -75,9 +98,10 @@ int4_matmul_kernel(const __nv_bfloat162* __restrict__ x2,
     for (int c = 0; c < COLS; ++c) acc[m][c] = 0.f;
 
   if (n0 < N) {
+    const int left = N - n0;
     for (int g = ks; g < groups; g += KS) {
-      const float4 s4 =
-          __ldg(reinterpret_cast<const float4*>(scale + (size_t)g * N + n0));
+      float s[COLS];
+      load_s<VEC>(scale + (size_t)g * N + n0, left, s);
       float gacc[MT][COLS];
 #pragma unroll
       for (int m = 0; m < MT; ++m)
@@ -86,8 +110,7 @@ int4_matmul_kernel(const __nv_bfloat162* __restrict__ x2,
 #pragma unroll 4
       for (int r = 0; r < HALF; ++r) {
         const int row = g * HALF + r;
-        const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(
-            q + (size_t)row * N + n0));
+        const uint32_t w = load_q<VEC>(q + (size_t)row * N + n0, left);
         float lo[COLS], hi[COLS];
 #pragma unroll
         for (int c = 0; c < COLS; ++c) {
@@ -105,7 +128,6 @@ int4_matmul_kernel(const __nv_bfloat162* __restrict__ x2,
           }
         }
       }
-      const float s[COLS] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -124,7 +146,7 @@ int4_matmul_kernel(const __nv_bfloat162* __restrict__ x2,
     if (m < mrows && n < N) {
       float v = 0.f;
       for (int k = 0; k < KS; ++k) v += part[k][m][c];
-      store(out + (size_t)(m0 + m) * N + n, v);
+      bigdl::store(out + (size_t)(m0 + m) * N + n, v);
     }
   }
 }
@@ -133,7 +155,9 @@ template <typename OutT>
 int launch(const void* x, const void* q, const void* scale, void* out,
            long long M, long long K, long long N, void* stream) {
   dim3 grid((unsigned)((N + TN - 1) / TN), (unsigned)((M + MT - 1) / MT));
-  int4_matmul_kernel<OutT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = N % COLS ? int4_matmul_kernel<OutT, false>
+                         : int4_matmul_kernel<OutT, true>;
+  kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const __nv_bfloat162*>(x),
       reinterpret_cast<const uint8_t*>(q),
       reinterpret_cast<const float*>(scale), reinterpret_cast<OutT*>(out),
@@ -144,8 +168,8 @@ int launch(const void* x, const void* q, const void* scale, void* out,
 }  // namespace
 
 // C interface (bound with ctypes). Preconditions, checked by the Python
-// wrapper: K % 32 == 0, N % 4 == 0, all tensors contiguous and 16-byte
-// aligned, M, K, N > 0.
+// wrapper: K % 32 == 0, all tensors contiguous and 16-byte aligned,
+// M, K, N > 0.
 extern "C" int int4_matmul_bf16out(const void* x, const void* q,
                                    const void* scale, void* out, long long M,
                                    long long K, long long N, void* stream) {

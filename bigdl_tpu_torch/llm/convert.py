@@ -18,7 +18,9 @@ import torch
 from bigdl_tpu_torch.device import resolve_device
 
 
-def _tensor(a: np.ndarray, device: torch.device):
+def tensor_from_numpy(a: np.ndarray, device: torch.device):
+    """One numpy array → an owned tensor on ``device``, bf16 carried bit
+    for bit; a string array (a ``"qtype"`` tag) stays a string."""
     if a.dtype.kind in "US":
         return str(a)                  # a "qtype" string leaf, as array
     a = np.array(a, order="C", copy=True)     # writable, owned
@@ -39,7 +41,7 @@ def params_from_numpy(tree: Any, device=None) -> Any:
         if isinstance(x, dict):
             return {k: carry(v) for k, v in x.items()}
         if isinstance(x, np.ndarray):
-            return _tensor(x, dev)
+            return tensor_from_numpy(x, dev)
         return x
 
     return carry(tree)

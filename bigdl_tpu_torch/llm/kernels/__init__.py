@@ -1,11 +1,13 @@
-"""Hand-written CUDA kernels of the served path and their plain PyTorch
-versions. Importing this package builds nothing; the kernels compile at
-first launch, or all at once with :func:`build_kernels`."""
+"""Hand-written CUDA kernels of the port's paths (the served Llama path
+and the low-bit DLlib/nano path) and their plain PyTorch versions.
+Importing this package builds nothing; the kernels compile at first
+launch, or all at once with :func:`build_kernels`."""
 
 from bigdl_tpu_torch.llm.kernels import _build
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
-    dequant_q4, int4_matmul, int4_matmul_reference, quantize_tpu,
-    to_tpu_layout)
+    asym_int4_matmul, asym_int4_matmul_reference, dequant_q4, dequant_q4_1,
+    dequant_q8_0, int4_matmul, int4_matmul_reference, int8_matmul,
+    int8_matmul_reference, quantize_tpu, to_tpu_layout)
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
     merge_attention_partial, paged_attention_decode_stats,
     paged_attention_reference_stats, paged_attention_stats)
@@ -15,10 +17,13 @@ from bigdl_tpu_torch.llm.kernels.sampling import (make_sampled_step,
                                                   sample_tokens)
 
 # csrc/<name>.cu sources, one shared library each
-KERNEL_SOURCES = ("int4_matmul", "paged_attention", "ragged_prefill")
+KERNEL_SOURCES = ("int4_matmul", "lowbit_matmul", "paged_attention",
+                  "ragged_prefill")
 
-# the wrappers whose ``launches`` count the kernels of the served path
+# the wrappers whose ``launches`` count the kernels of the port's paths
 WRAPPERS = {"int4_matmul": int4_matmul,
+            "asym_int4_matmul": asym_int4_matmul,
+            "int8_matmul": int8_matmul,
             "paged_attention_decode_stats": paged_attention_decode_stats,
             "ragged_prefill_attention": ragged_prefill_attention}
 
@@ -42,8 +47,11 @@ def launch_counts():
     return {name: w.launches for name, w in WRAPPERS.items()}
 
 
-__all__ = ["KERNEL_SOURCES", "WRAPPERS", "build_kernels", "dequant_q4",
-           "int4_matmul", "int4_matmul_reference", "launch_counts",
+__all__ = ["KERNEL_SOURCES", "WRAPPERS", "asym_int4_matmul",
+           "asym_int4_matmul_reference", "build_kernels", "dequant_q4",
+           "dequant_q4_1", "dequant_q8_0", "int4_matmul",
+           "int4_matmul_reference", "int8_matmul", "int8_matmul_reference",
+           "launch_counts",
            "make_sampled_step", "merge_attention_partial",
            "paged_attention_decode_stats", "paged_attention_reference_stats",
            "paged_attention_stats", "quantize_tpu", "ragged_prefill",

@@ -1,21 +1,23 @@
-"""q4_0 dequant-matmul — the port of ``bigdl_tpu/llm/kernels/int4_matmul.py``
-(``int4_matmul`` and its layout helpers).
+"""Block-dequant matmuls — the port of ``bigdl_tpu/llm/kernels/int4_matmul.py``
+(``int4_matmul``, ``asym_int4_matmul``, ``int8_matmul`` and their layout
+helpers).
 
 The public layout is the JAX package's k-major "TPU layout": packed
-weights ``q_t`` (K/2, N) uint8 (low nibble = row 2i, high = row 2i+1)
-and scales ``scale_t`` (K/32, N) f32. It suits the CUDA kernel too:
+weights ``q_t`` (K/2, N) uint8 for the 4-bit formats (low nibble = row
+2i, high = row 2i+1) or (K, N) int8 for q8_0, and per-32-group scales
+(and q4_1 zeros) ``(K/32, N)`` f32. It suits the CUDA kernels too:
 neighbouring threads take neighbouring output columns, so the weight
-stream is read coalesced with no transpose
-(``bigdl_tpu_torch/csrc/int4_matmul.cu``).
+stream is read coalesced with no transpose (``csrc/int4_matmul.cu`` for
+q4_0, ``csrc/lowbit_matmul.cu`` for q4_1 and q8_0).
 
-:func:`int4_matmul` launches the CUDA kernel for CUDA tensors (or
-raises) and takes :func:`int4_matmul_reference`, the plain PyTorch
-version, only for CPU tensors.
+Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
+takes its plain PyTorch version (``*_reference``: dequantize to f32, f32
+matmul, cast) only for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,41 +29,79 @@ from bigdl_tpu_torch.llm.kernels import _build
 
 def to_tpu_layout(qdict: Dict) -> Dict:
     """ggml row-major ``quantize()`` dict → k-major kernel layout:
-    q (N, K/2) → q_t (K/2, N); scale (N, G) fp16 → scale_t (G, N) f32.
-    Works on numpy arrays and on tensors (kept on their device)."""
-    if qdict.get("qtype", "sym_int4") != "sym_int4":
-        raise NotImplementedError("only sym_int4 has a kernel layout in "
-                                  "the port (ROADMAP Queue 2 items 4-5)")
-    q, s = qdict["q"], qdict["scale"]
-    if isinstance(q, torch.Tensor):
-        return {"qtype": "sym_int4", "q": q.t().contiguous(),
-                "scale": s.to(torch.float32).t().contiguous()}
-    return {"qtype": "sym_int4",
-            "q": np.ascontiguousarray(np.asarray(q).T),
-            "scale": np.ascontiguousarray(np.asarray(s, np.float32).T)}
+    q (N, K/2) or (N, K) → (K/2, N) or (K, N); scale (and zero) (N, G)
+    fp16 → (G, N) f32. Works on numpy arrays and on tensors (kept on
+    their device)."""
+    qtype = qdict.get("qtype", "sym_int4")
+    _check_qtype(qtype)
+    out = {"qtype": qtype}
+    for key in ("q", "scale", "zero"):
+        if key not in qdict:
+            continue
+        a = qdict[key]
+        if isinstance(a, torch.Tensor):
+            a = a if key == "q" else a.to(torch.float32)
+            out[key] = a.t().contiguous()
+        else:
+            a = np.asarray(a) if key == "q" else np.asarray(a, np.float32)
+            out[key] = np.ascontiguousarray(a.T)
+    return out
 
 
 def quantize_tpu(w, qtype: str = "sym_int4") -> Dict:
     """quantize() + to_tpu_layout() in one step — numpy in, numpy out;
     a tensor is quantized on its own device (:func:`quantize_torch`)."""
     if isinstance(w, torch.Tensor):
-        _check_qtype(qtype)
-        return to_tpu_layout(quantize_torch(w))
+        return to_tpu_layout(quantize_torch(w, qtype))
     return to_tpu_layout(quantize(w, qtype))
+
+
+# -- plain versions ----------------------------------------------------------
+
+def _unpack_k(q_t: torch.Tensor) -> torch.Tensor:
+    """(K/2, N) packed bytes → (K, N) int32 nibbles, row 2i = low."""
+    half, n = q_t.shape
+    lo = (q_t & 0xF).to(torch.int32)
+    hi = (q_t >> 4).to(torch.int32)
+    return torch.stack([lo, hi], dim=1).reshape(half * 2, n)
+
+
+def _per_group(q: torch.Tensor) -> torch.Tensor:
+    """(K, N) values → (G, 32, N) f32, to meet (G, 1, N) scales."""
+    k, n = q.shape
+    return q.to(torch.float32).reshape(k // QK, QK, n)
 
 
 def dequant_q4(q_t: torch.Tensor, scale_t: torch.Tensor,
                dtype=torch.float32) -> torch.Tensor:
-    """k-major dequant (the port of ``llama._dequant_q4``): returns
+    """k-major q4_0 dequant (the port of ``llama._dequant_q4``): returns
     w (K, N) so that y = x @ w, with w = scale * (q - 8)."""
-    half, n = q_t.shape
-    lo = (q_t & 0xF).to(torch.int32)
-    hi = (q_t >> 4).to(torch.int32)
-    q = torch.stack([lo, hi], dim=1).reshape(half * 2, n)
-    g = scale_t.shape[0]
-    w = ((q - 8).to(torch.float32).reshape(g, QK, n)
-         * scale_t.to(torch.float32)[:, None, :])
-    return w.reshape(half * 2, n).to(dtype)
+    q = _unpack_k(q_t) - 8
+    w = _per_group(q) * scale_t.to(torch.float32)[:, None, :]
+    return w.reshape(q.shape).to(dtype)
+
+
+def dequant_q4_1(q_t: torch.Tensor, scale_t: torch.Tensor,
+                 zero_t: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """k-major q4_1 dequant: w (K, N) = scale * q + zero, rounded after
+    the product and after the sum (``LowBitLinear._dequant``)."""
+    q = _unpack_k(q_t)
+    w = (_per_group(q) * scale_t.to(torch.float32)[:, None, :]
+         + zero_t.to(torch.float32)[:, None, :])
+    return w.reshape(q.shape).to(dtype)
+
+
+def dequant_q8_0(q_t: torch.Tensor, scale_t: torch.Tensor,
+                 dtype=torch.float32) -> torch.Tensor:
+    """k-major q8_0 dequant: w (K, N) = scale * q, q int8."""
+    w = _per_group(q_t) * scale_t.to(torch.float32)[:, None, :]
+    return w.reshape(q_t.shape).to(dtype)
+
+
+def _plain(x: torch.Tensor, w: torch.Tensor,
+           out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    y = x.to(torch.float32) @ w
+    return y.to(out_dtype if out_dtype is not None else x.dtype)
 
 
 def int4_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
@@ -72,9 +112,86 @@ def int4_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
     matmul, cast to ``out_dtype`` (default: x's dtype). The kernel reads
     x in bf16 (the TPU kernel's cast point); given bf16 x the two see the
     same inputs and differ only in f32 summation order."""
-    w = dequant_q4(q_t, scale_t, torch.float32)
-    y = x.to(torch.float32) @ w
-    return y.to(out_dtype if out_dtype is not None else x.dtype)
+    return _plain(x, dequant_q4(q_t, scale_t), out_dtype)
+
+
+def asym_int4_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
+                               scale_t: torch.Tensor, zero_t: torch.Tensor,
+                               out_dtype: Optional[torch.dtype] = None
+                               ) -> torch.Tensor:
+    """Plain version of :func:`asym_int4_matmul`: :func:`dequant_q4_1`
+    in f32, f32 matmul, cast to ``out_dtype`` (default: x's dtype)."""
+    return _plain(x, dequant_q4_1(q_t, scale_t, zero_t), out_dtype)
+
+
+def int8_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
+                          scale_t: torch.Tensor,
+                          out_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """Plain version of :func:`int8_matmul`: :func:`dequant_q8_0` in
+    f32, f32 matmul, cast to ``out_dtype`` (default: x's dtype)."""
+    return _plain(x, dequant_q8_0(q_t, scale_t), out_dtype)
+
+
+# -- kernel wrappers ---------------------------------------------------------
+
+def _check_shapes(what: str, x: torch.Tensor, q_t: torch.Tensor,
+                  rows_per_k: int, groups: Sequence[torch.Tensor]):
+    if x.dim() != 2:
+        raise ValueError(f"{what}: x must be (M, K), got {tuple(x.shape)}")
+    k = x.shape[1]
+    if q_t.dim() != 2 or q_t.shape[0] * rows_per_k != k or k % QK:
+        raise ValueError(
+            f"{what}: q_t {tuple(q_t.shape)} is not the (K/{rows_per_k}, N) "
+            f"layout for K={k} (K must be a multiple of {QK}); convert "
+            "ggml (N, ...) dicts with to_tpu_layout() first")
+    for t in groups:
+        if tuple(t.shape) != (k // QK, q_t.shape[1]):
+            raise ValueError(f"{what}: scale_t/zero_t {tuple(t.shape)} != "
+                             f"{(k // QK, q_t.shape[1])}")
+
+
+def _cuda_inputs(what: str, x: torch.Tensor, q_t: torch.Tensor,
+                 q_dtype: torch.dtype, groups: Sequence[torch.Tensor],
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """The checks every CUDA entry makes; returns x as contiguous bf16
+    (the TPU kernels' cast point)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if any(t.device != x.device for t in (q_t, *groups)):
+        raise ValueError(f"{what}: x, q_t and the scales must be on one "
+                         "device")
+    if q_t.dtype != q_dtype or any(t.dtype != torch.float32 for t in groups):
+        raise ValueError(f"{what}: q_t must be {q_dtype} and scales "
+                         f"float32, got {q_t.dtype}, "
+                         f"{[t.dtype for t in groups]}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: out_dtype {out_dtype} not bf16/f32")
+    if not q_t.is_contiguous():
+        raise ValueError(f"{what}: q_t must be contiguous")
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be 16-byte aligned")
+    return xb
+
+
+def _group_stride(what: str, t: torch.Tensor) -> int:
+    """Row stride of a (K/32, N) scale/zero tensor: N when it is
+    contiguous, 0 when one row is broadcast to every group (``expand``,
+    nn.quantized's per-channel scale) — the kernel reads either."""
+    g, n = t.shape
+    if n > 1 and t.stride(1) != 1:
+        raise ValueError(f"{what}: scales need unit column stride")
+    if g == 1 or t.stride(0) == n:
+        return n
+    if t.stride(0) == 0:
+        return 0
+    raise ValueError(f"{what}: scale row stride {t.stride(0)} is neither "
+                     f"N={n} nor 0")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def int4_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
@@ -82,40 +199,20 @@ def int4_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
     """y = x @ dequant_q4_0(q, scale) in the k-major layout.
 
     x (M, K); q_t (K/2, N) uint8; scale_t (K/32, N) f32; returns (M, N)
-    in ``out_dtype`` (bf16 or f32 on the card). A CUDA x launches the
-    CUDA kernel (x cast to bf16 first); a CPU x takes the plain
-    version."""
-    if x.dim() != 2:
-        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
-    m, k = x.shape
-    half, n = q_t.shape
-    if half * 2 != k or k % QK:
-        raise ValueError(
-            f"q_t {tuple(q_t.shape)} is not the (K/2, N) layout for K={k} "
-            f"(K must be a multiple of {QK}); convert ggml (N, K/2) dicts "
-            "with to_tpu_layout() first")
-    if tuple(scale_t.shape) != (k // QK, n):
-        raise ValueError(f"scale_t {tuple(scale_t.shape)} != {(k // QK, n)}")
+    in ``out_dtype`` (bf16 or f32 on the card). Any M and N. A CUDA x
+    launches the CUDA kernel (x cast to bf16 first); a CPU x takes the
+    plain version."""
+    _check_shapes("int4_matmul", x, q_t, 2, (scale_t,))
     if x.device.type == "cpu":
         return int4_matmul_reference(x, q_t, scale_t, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"int4_matmul: unsupported device {x.device}")
-    if q_t.device != x.device or scale_t.device != x.device:
-        raise ValueError("int4_matmul: x, q_t and scale_t must be on one "
-                         "device")
-    if q_t.dtype != torch.uint8 or scale_t.dtype != torch.float32:
-        raise ValueError("int4_matmul: q_t must be uint8 and scale_t "
-                         f"float32, got {q_t.dtype}, {scale_t.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"int4_matmul: out_dtype {out_dtype} not bf16/f32")
-    if n % 4:
-        raise ValueError(f"int4_matmul: N={n} must be a multiple of 4")
-    if not (q_t.is_contiguous() and scale_t.is_contiguous()):
-        raise ValueError("int4_matmul: q_t and scale_t must be contiguous")
-    xb = x.to(torch.bfloat16).contiguous()
-    for t in (xb, q_t, scale_t):
+    xb = _cuda_inputs("int4_matmul", x, q_t, torch.uint8, (scale_t,),
+                      out_dtype)
+    if not scale_t.is_contiguous():
+        raise ValueError("int4_matmul: scale_t must be contiguous")
+    for t in (q_t, scale_t):
         if t.data_ptr() % 16:
             raise ValueError("int4_matmul: tensors must be 16-byte aligned")
+    (m, k), n = x.shape, q_t.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
@@ -124,11 +221,76 @@ def int4_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
         else "int4_matmul_f32out", [_build.P] * 4 + [_build.I] * 3
         + [_build.P])
     rc = fn(xb.data_ptr(), q_t.data_ptr(), scale_t.data_ptr(),
-            out.data_ptr(), m, k, n,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr(), m, k, n, _stream(x))
     int4_matmul.launches += 1
     _build.check(rc, "int4_matmul")
     return out
 
 
+def asym_int4_matmul(x: torch.Tensor, q_t: torch.Tensor,
+                     scale_t: torch.Tensor, zero_t: torch.Tensor,
+                     out_dtype: torch.dtype = torch.bfloat16
+                     ) -> torch.Tensor:
+    """y = x @ dequant_q4_1(q, scale, zero) in the k-major layout.
+
+    x (M, K); q_t (K/2, N) uint8; scale_t, zero_t (K/32, N) f32; returns
+    (M, N) in ``out_dtype``. Any M and N. A CUDA x launches the CUDA
+    kernel (x cast to bf16 first); a CPU x takes the plain version."""
+    _check_shapes("asym_int4_matmul", x, q_t, 2, (scale_t, zero_t))
+    if x.device.type == "cpu":
+        return asym_int4_matmul_reference(x, q_t, scale_t, zero_t,
+                                          out_dtype)
+    xb = _cuda_inputs("asym_int4_matmul", x, q_t, torch.uint8,
+                      (scale_t, zero_t), out_dtype)
+    lds = _group_stride("asym_int4_matmul", scale_t)
+    if _group_stride("asym_int4_matmul", zero_t) != lds:
+        raise ValueError("asym_int4_matmul: scale_t and zero_t need one "
+                         "row stride")
+    (m, k), n = x.shape, q_t.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    fn = _build.bind(
+        "lowbit_matmul", "asym_int4_matmul_bf16out"
+        if out_dtype == torch.bfloat16 else "asym_int4_matmul_f32out",
+        [_build.P] * 5 + [_build.I] * 4 + [_build.P])
+    rc = fn(xb.data_ptr(), q_t.data_ptr(), scale_t.data_ptr(),
+            zero_t.data_ptr(), out.data_ptr(), m, k, n, lds, _stream(x))
+    asym_int4_matmul.launches += 1
+    _build.check(rc, "asym_int4_matmul")
+    return out
+
+
+def int8_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """y = x @ dequant_q8_0(q, scale) in the k-major layout — the
+    BigQuant INT8 gemm equivalent.
+
+    x (M, K); q_t (K, N) int8; scale_t (K/32, N) f32, contiguous or one
+    row expanded over the groups (a per-channel scale); returns (M, N)
+    in ``out_dtype``. Any M and N. A CUDA x launches the CUDA kernel (x
+    cast to bf16 first); a CPU x takes the plain version."""
+    _check_shapes("int8_matmul", x, q_t, 1, (scale_t,))
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, q_t, scale_t, out_dtype)
+    xb = _cuda_inputs("int8_matmul", x, q_t, torch.int8, (scale_t,),
+                      out_dtype)
+    lds = _group_stride("int8_matmul", scale_t)
+    (m, k), n = x.shape, q_t.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    fn = _build.bind(
+        "lowbit_matmul", "int8_matmul_bf16out"
+        if out_dtype == torch.bfloat16 else "int8_matmul_f32out",
+        [_build.P] * 4 + [_build.I] * 4 + [_build.P])
+    rc = fn(xb.data_ptr(), q_t.data_ptr(), scale_t.data_ptr(),
+            out.data_ptr(), m, k, n, lds, _stream(x))
+    int8_matmul.launches += 1
+    _build.check(rc, "int8_matmul")
+    return out
+
+
 int4_matmul.launches = 0
+asym_int4_matmul.launches = 0
+int8_matmul.launches = 0

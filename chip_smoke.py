@@ -9,12 +9,14 @@ Phase 1  build every CUDA kernel from ``bigdl_tpu_torch/csrc`` (one
          ``nvcc`` per source, all in parallel) and print the seconds.
 Phase 2  hold each kernel against its plain PyTorch version on the card
          at the Llama-2-7B shapes of the served path, plus GQA (Hq 32,
-         Hkv 8), D=64 and sliding-window shapes; inputs from a seeded
-         ``torch.Generator`` on the card. One JSON line per case with the
-         errors, the tolerance, the kernel's / plain version's / one
-         PyTorch library call's time (CUDA events, median of 25 calls
-         run back to back after warm-up) and the bound (bytes over 3.35 TB/s or FLOPs
-         over 989 TFLOP/s, whichever is larger).
+         Hkv 8), D=64 and sliding-window shapes, and the three
+         dequant-matmuls at the BERT-base shapes (and q4_0 at N = 2, 3,
+         770); inputs from a seeded ``torch.Generator`` on the card. One
+         JSON line per case with the errors, the tolerance, the
+         kernel's / plain version's / one PyTorch library call's time
+         (CUDA events, median of 25 calls run back to back after
+         warm-up) and the bound (bytes over 3.35 TB/s or FLOPs over
+         989 TFLOP/s, whichever is larger).
 Phase 3  the served path on the card against the port's plain path on
          the CPU on a small input (7B width, 2 layers): prefill and decode
          logits within 2e-2 of their largest magnitude. Then build
@@ -29,6 +31,14 @@ Phase 3  the served path on the card against the port's plain path on
 Phase 4  trace one 7B batch-8 decode step with ``torch.profiler``:
          step wall time, device busy time and idle share, kernel
          launches per step, the kernels that take the time.
+Phase 5  BERT-base (full width, 12 layers, random weights from a seed)
+         through nano's ``InferenceOptimizer``: ``trace`` (float, the
+         yardstick), ``quantize`` to int8 / asym_int4 / sym_int4 and
+         ``nn.quantized.quantize_model``, batch 8 x 128: exactly 74
+         launches of the pipeline's matmul kernel per forward (0 of the
+         others), ms per forward, sequences/s, peak memory, and the
+         card's log-probs against the same model's plain path on the CPU
+         (batch 2 x 128). Then one int8 forward traced as in phase 4.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the run
@@ -91,51 +101,110 @@ def check(ok, msg):
 
 # -- phase 2: kernels against their plain versions ---------------------------
 
+# the linears of BERT-base at batch 8 x 128 (M = 1024 rows), and the pooler
+# and classifier, which see one row per sequence; the last field is how
+# many of each one forward launches (12 layers)
+BERT_SHAPES = (("qkvo", 1024, 768, 768, 48), ("ffn1", 1024, 768, 3072, 12),
+               ("ffn2", 1024, 3072, 768, 12), ("pooler", 8, 768, 768, 1),
+               ("classifier", 8, 768, 2, 1))
+
+
+def _planes(torch, dev, gen, kind, k, n):
+    """Random weights in the k-major layout of ``kind``'s kernel."""
+    s = torch.empty((k // 32, n), device=dev).uniform_(0.001, 0.02,
+                                                        generator=gen)
+    if kind == "int8_matmul":
+        return (torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8), s)
+    q = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    if kind == "int4_matmul":
+        return q, s
+    z = torch.empty((k // 32, n), device=dev).uniform_(-0.15, 0.0,
+                                                       generator=gen)
+    return q, s, z
+
+
+def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
+                launches=0, per=None):
+    """One dequant-matmul case: the kernel's f32-out and bf16-out entries
+    against the plain version on the same bf16 x and planes; the entry
+    the path launches (``path_dtype`` out) is the one timed. ``launches``
+    is how many calls of this shape the path makes ``per`` step or
+    forward (0: a shape no path runs)."""
+    from bigdl_tpu_torch.llm import kernels as K
+    fn, ref, deq = {
+        "int4_matmul": (K.int4_matmul, K.int4_matmul_reference,
+                        K.dequant_q4),
+        "asym_int4_matmul": (K.asym_int4_matmul,
+                             K.asym_int4_matmul_reference, K.dequant_q4_1),
+        "int8_matmul": (K.int8_matmul, K.int8_matmul_reference,
+                        K.dequant_q8_0)}[kind]
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    planes = _planes(torch, dev, gen, kind, k, n)
+    got = fn(x, *planes, out_dtype=torch.float32)
+    want = ref(x, *planes, torch.float32)
+    got16 = fn(x, *planes, out_dtype=torch.bfloat16)
+    want16 = ref(x, *planes, torch.bfloat16)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    tol = 2e-5 * scale
+    err16 = (got16.float() - want16.float()).abs().max().item()
+    tol16 = 1e-4 + 2.0 ** -7 * scale
+    w16 = deq(*planes, dtype=torch.bfloat16)
+    out_bytes = 2 if path_dtype == torch.bfloat16 else 4
+    nbytes = (m * k * 2 + sum(p.numel() * p.element_size() for p in planes)
+              + m * n * out_bytes)
+    b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
+    row = {
+        "kernel": kind, "case": f"{what} M={m} K={k} N={n}",
+        "path_out": str(path_dtype).replace("torch.", ""),
+        "max_abs_err": err, "max_rel_err": err / scale, "tol": tol,
+        "tol_rule": "f32 out: 2e-5 * max|plain| (f32 sums, another order); "
+                    "bf16 out: 1e-4 + 1 bf16 ulp of max|plain| (2^-7 of it)",
+        "max_abs_err_bf16out": err16, "tol_bf16out": tol16,
+        "ms": time_ms(lambda: fn(x, *planes, out_dtype=path_dtype)),
+        "plain_ms": time_ms(lambda: ref(x, *planes, path_dtype)),
+        "library_ms": time_ms(lambda: torch.matmul(x, w16)),
+        "library": "torch.matmul(x, dequantized bf16 w)",
+        "bound_ms": b_ms, "bound_by": b_by,
+        "launches": launches, "launches_per": per,
+        "passed": err <= tol and err16 <= tol16}
+    del x, planes, got, want, got16, want16, w16
+    return row
+
+
 def int4_cases(torch, dev, gen):
-    from bigdl_tpu_torch.llm.kernels.int4_matmul import (
-        dequant_q4, int4_matmul, int4_matmul_reference)
+    """q4_0 at the Llama-2-7B shapes (bf16 out, as served), at the BERT
+    shapes (f32 out, as the sym_int4 pipeline runs it) and at N = 3 and
+    770 (N not a multiple of 4)."""
     out = []
-    for m in (8, 512):
-        for k, n, what in ((4096, 12288, "qkv_proj"), (4096, 4096, "o_proj"),
-                           (4096, 22016, "gate_up_proj"),
-                           (11008, 4096, "down_proj"),
-                           (4096, 32000, "lm_head")):
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            q = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
-                              dtype=torch.uint8)
-            s = torch.empty((k // 32, n), device=dev).uniform_(
-                0.001, 0.02, generator=gen)
-            got = int4_matmul(x, q, s, out_dtype=torch.float32)
-            want = int4_matmul_reference(x, q, s, torch.float32)
-            # the bf16-out entry is the one the served path launches
-            got16 = int4_matmul(x, q, s)
-            want16 = int4_matmul_reference(x, q, s, torch.bfloat16)
-            torch.cuda.synchronize()
-            scale = want.abs().max().item()
-            err = (got - want).abs().max().item()
-            tol = 1e-4 * scale
-            err16 = (got16.float() - want16.float()).abs().max().item()
-            tol16 = scale * 2.0 ** -7 + tol
-            w16 = dequant_q4(q, s, torch.bfloat16)
-            nbytes = m * k * 2 + k // 2 * n + k // 32 * n * 4 + m * n * 2
-            b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
-            out.append({
-                "kernel": "int4_matmul", "case": f"{what} M={m} K={k} N={n}",
-                "max_abs_err": err, "max_rel_err": err / scale, "tol": tol,
-                "tol_rule": "f32 out: 1e-4 * max|plain| (f32 sums, another "
-                            "order); bf16 out: that plus 1 bf16 ulp of "
-                            "max|plain| (2^-7 of it)",
-                "max_abs_err_bf16out": err16, "tol_bf16out": tol16,
-                "ms": time_ms(lambda: int4_matmul(x, q, s)),
-                "plain_ms": time_ms(
-                    lambda: int4_matmul_reference(x, q, s, torch.bfloat16)),
-                "library_ms": time_ms(lambda: torch.matmul(x, w16)),
-                "library": "torch.matmul(x, dequantized bf16 w)",
-                "bound_ms": b_ms, "bound_by": b_by,
-                "passed": err <= tol and err16 <= tol16})
-            del x, q, s, w16, got, want, got16, want16
+    for m, per in ((8, "7B decode step"), (512, "7B prefill")):
+        for k, n, what, count in (
+                (4096, 12288, "qkv_proj", 32), (4096, 4096, "o_proj", 32),
+                (4096, 22016, "gate_up_proj", 32),
+                (11008, 4096, "down_proj", 32), (4096, 32000, "lm_head", 1)):
+            out.append(matmul_case(torch, dev, gen, "int4_matmul", what, m,
+                                   k, n, torch.bfloat16, count, per))
+    for what, m, k, n, count in BERT_SHAPES:
+        out.append(matmul_case(torch, dev, gen, "int4_matmul",
+                               f"BERT {what}", m, k, n, torch.float32, count,
+                               "BERT sym_int4 forward"))
+    for n in (3, 770):
+        out.append(matmul_case(torch, dev, gen, "int4_matmul", "odd N", 8,
+                               768, n, torch.float32))
     return out
+
+
+def lowbit_cases(torch, dev, gen):
+    """q4_1 and q8_0 at the BERT-base shapes, f32 out as the pipelines
+    run them."""
+    return [matmul_case(torch, dev, gen, kind, f"BERT {what}", m, k, n,
+                        torch.float32, count, f"BERT {qtype} forward")
+            for kind, qtype in (("int8_matmul", "int8"),
+                                ("asym_int4_matmul", "asym_int4"))
+            for what, m, k, n, count in BERT_SHAPES]
 
 
 def _gathered(torch, pages, bt, n_tok, g):
@@ -334,10 +403,11 @@ def serve_7b(torch, dev):
     L = cfg.num_hidden_layers
     n_prefill = len(prompts)
     expect = {"int4_matmul": (n_prefill + steps) * (4 * L + 1),
+              "asym_int4_matmul": 0, "int8_matmul": 0,
               "paged_attention_decode_stats": steps * L,
               "ragged_prefill_attention": n_prefill * L}
-    check(all(v > 0 for v in counts.values()), f"a kernel never ran: "
-          f"{counts}")
+    check(all(counts[k] > 0 for k, v in expect.items() if v),
+          f"a kernel of the served path never ran: {counts}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
     ttft = [r.t_first_token - r.t_submit for r in reqs]
     decode_s = t_end - max(r.t_first_token for r in reqs)
@@ -425,13 +495,47 @@ def reference_check(torch, dev):
             "max_rel_err_logits": errs, "tol": tol, "passed": True}
 
 
-def profile_decode(torch, model, steps=3):
-    """Where a 7B batch-8 decode step's time goes: the engine's own step
-    function (``paged_decode_step_sampled``) on a mid-decode state,
-    timed on the host clock to the token fetch, then traced with
-    ``torch.profiler`` (CUDA kernel intervals: device busy time, kernel
-    launches, time by kernel)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(torch, step, what, steps=3):
+    """Where one ``step()`` call's time goes: its host-clock wall time
+    (median of 5; ``step`` ends in a fetch to the host), then a
+    ``torch.profiler`` trace of ``steps`` calls (CUDA kernel intervals:
+    device busy time, kernel launches, time by kernel)."""
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    with torch.inference_mode():
+        for _ in range(2):
+            step()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.events() if e.device_type == cuda_t]
+    by_name = {}
+    for e in kern:
+        n = e.name if len(e.name) < 60 else e.name[:57] + "..."
+        t, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    busy = sum(t for t, _ in by_name.values()) / steps
+    wall = statistics.median(walls)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"phase": "profile", "what": what, "step_wall_ms": wall,
+            "device_busy_ms": busy if kern else None,
+            "device_idle_share": (1 - busy / wall) if kern else None,
+            "kernel_launches_per_step": len(kern) / steps,
+            "top_kernels_ms_per_step": {n: [t / steps, c / steps]
+                                        for n, (t, c) in top}}
+
+
+def profile_decode(torch, model):
+    """A 7B batch-8 decode step: the engine's own step function
+    (``paged_decode_step_sampled``) on a mid-decode state, to the token
+    fetch."""
     from bigdl_tpu_torch.llm.serving import paged_decode_step_sampled
 
     cfg, dev = model.config, model.device
@@ -452,35 +556,108 @@ def profile_decode(torch, model, steps=3):
                                          last, active, page=page)[0]
         return toks.cpu()
 
-    with torch.inference_mode():
-        for _ in range(2):
-            step()
+    return profile(torch, step, "7B decode step, batch 8, lens 33..316")
+
+
+# -- phase 5: the BERT-base low-bit path --------------------------------------
+
+# which kernel each pipeline's linears launch; 6 linears in each of the 12
+# layers, plus the pooler and the classifier
+BERT_PIPELINE_KERNELS = {"float (trace)": None, "int8": "int8_matmul",
+                         "asym_int4": "asym_int4_matmul",
+                         "sym_int4": "int4_matmul",
+                         "quantize_model": "int8_matmul"}
+MATMUL_KERNELS = ("int4_matmul", "asym_int4_matmul", "int8_matmul")
+
+
+def bert_path(torch, dev):
+    """BERT-base (full width, 12 layers, weights from a seed) through
+    nano's pipelines: ``trace`` (float, the yardstick),
+    ``InferenceOptimizer.quantize`` with int8 / asym_int4 / sym_int4, and
+    the DLlib ``nn.quantized.quantize_model`` surgery. Each pipeline
+    serves batch 8 x 128: exact launch counts (zeroed just before), ms
+    per forward (median of 10, host clock to the numpy result),
+    sequences/s, peak memory; then the card's log-probs against the same
+    quantized model's plain path on the CPU at batch 2 x 128 — within
+    2e-2 of their largest magnitude (the kernels read x in bf16, the CPU
+    path in f32) and the same argmax on every row."""
+    import copy
+
+    import numpy as np
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.models.bert import BertConfig, build_classifier
+    from bigdl_tpu_torch.nano import InferenceOptimizer
+    from bigdl_tpu_torch.nano.inference_optimizer import _CompiledModel
+    from bigdl_tpu_torch.nn import set_seed
+
+    cfg = BertConfig.base()
+    set_seed(0)
+    t0 = time.perf_counter()
+    model = build_classifier(cfg, 2, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.randint(0, cfg.vocab_size, (8, 128),
+                        generator=torch.Generator().manual_seed(5)).numpy()
+    n_linears = 6 * cfg.num_hidden_layers + 2
+    builders = {
+        "float (trace)": lambda: InferenceOptimizer.trace(model, device=dev),
+        "int8": lambda: InferenceOptimizer.quantize(model, "int8",
+                                                    device=dev),
+        "asym_int4": lambda: InferenceOptimizer.quantize(
+            model, "asym_int4", device=dev),
+        "sym_int4": lambda: InferenceOptimizer.quantize(
+            model, "sym_int4", device=dev),
+        "quantize_model": lambda: InferenceOptimizer._quantize_convs(
+            model, device=dev)}
+    rows = {}
+    for name, build in builders.items():
+        t0 = time.perf_counter()
+        pipe = build()
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        pipe.forward(ids)                    # warm-up: cuBLAS handles
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        y = pipe.forward(ids)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(y.shape == (8, 2) and bool(np.isfinite(y).all()),
+              f"BERT {name}: output {y.shape} not finite")
+        want = dict.fromkeys(counts, 0)
+        if BERT_PIPELINE_KERNELS[name]:
+            want[BERT_PIPELINE_KERNELS[name]] = n_linears
+        check(counts == want, f"BERT {name}: launch counts {counts} != "
+              f"{want}")
         walls = []
-        for _ in range(5):
+        for _ in range(10):
             t0 = time.perf_counter()
-            step()
+            pipe.forward(ids)
             walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                step()
-    cuda_t = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.events() if e.device_type == cuda_t]
-    by_name = {}
-    for e in kern:
-        n = e.name if len(e.name) < 60 else e.name[:57] + "..."
-        t, c = by_name.get(n, (0.0, 0))
-        by_name[n] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-    busy = sum(t for t, _ in by_name.values()) / steps
-    wall = statistics.median(walls)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"phase": "profile", "what": "7B decode step, batch 8, lens "
-            "33..316", "step_wall_ms": wall,
-            "device_busy_ms": busy if kern else None,
-            "device_idle_share": (1 - busy / wall) if kern else None,
-            "kernel_launches_per_step": len(kern) / steps,
-            "top_kernels_ms_per_step": {n: [t / steps, c / steps]
-                                        for n, (t, c) in top}}
+        ms = statistics.median(walls)
+        cpu = _CompiledModel(copy.deepcopy(pipe._model), "cpu").forward(
+            ids[:2])
+        card = pipe.forward(ids[:2])
+        err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+        same = bool((card.argmax(1) == cpu.argmax(1)).all())
+        check(err <= 2e-2 and same, f"BERT {name}: card vs CPU log-probs "
+              f"{card.tolist()} vs {cpu.tolist()} (rel err {err})")
+        rows[name] = {"kernel": BERT_PIPELINE_KERNELS[name],
+                      "launches": counts, "convert_s": convert_s,
+                      "ms_per_forward": ms, "ms_all": walls,
+                      "sequences_per_s": 8 / ms * 1e3,
+                      "peak_mem_gb": peak / 1e9,
+                      "card_vs_cpu_rel_err": err, "same_argmax": same,
+                      "logprobs_row0": y[0].tolist()}
+        if name == "int8":
+            prof = profile(torch, lambda: pipe.forward(ids),
+                           "BERT-base int8 forward, batch 8 x 128")
+        del pipe
+    return {"phase": "bert", "model": "BERT-base classifier (random "
+            "weights from seed 0, 12 layers, full width), 2 labels",
+            "batch": [8, 128], "weights_build_s": build_s,
+            "linears_per_forward": n_linears, "tol": 2e-2,
+            "pipelines": rows}, prof
 
 
 def main() -> int:
@@ -514,8 +691,8 @@ def main() -> int:
           "wall_s": time.perf_counter() - t0})
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = (int4_cases(torch, dev, gen) + paged_cases(torch, dev, gen)
-             + ragged_cases(torch, dev, gen))
+    cases = (int4_cases(torch, dev, gen) + lowbit_cases(torch, dev, gen)
+             + paged_cases(torch, dev, gen) + ragged_cases(torch, dev, gen))
     for c in cases:
         emit(c)
     bad = [c["case"] for c in cases if not c["passed"]]
@@ -528,10 +705,25 @@ def main() -> int:
     prof = profile_decode(torch, model)
     emit(prof)
     del model
+    torch.cuda.empty_cache()
+    bert, bert_prof = bert_path(torch, dev)
+    emit(bert)
+    emit(bert_prof)
+
+    # launches on each path, each read with the counts zeroed just before
+    paths = {"serve_7b": serve["launches"]}
+    for name, row in bert["pipelines"].items():
+        paths[f"bert {name}"] = row["launches"]
 
     heads = {"int4_matmul": ("qkv_proj M=8 K=4096 N=12288",
                              "bigdl_tpu_torch/csrc/int4_matmul.cu",
                              "bigdl_tpu/llm/kernels/int4_matmul.py:220"),
+             "asym_int4_matmul": (
+                 "BERT qkvo M=1024", "bigdl_tpu_torch/csrc/lowbit_matmul.cu",
+                 "bigdl_tpu/llm/kernels/int4_matmul.py:287"),
+             "int8_matmul": (
+                 "BERT qkvo M=1024", "bigdl_tpu_torch/csrc/lowbit_matmul.cu",
+                 "bigdl_tpu/llm/kernels/int4_matmul.py:334"),
              "paged_attention_decode_stats": (
                  "7B decode", "bigdl_tpu_torch/csrc/paged_attention.cu",
                  "bigdl_tpu/llm/kernels/paged_attention.py:377"),
@@ -542,17 +734,22 @@ def main() -> int:
     for name, (case, src, replaces) in heads.items():
         c = next(c for c in cases
                  if c["kernel"] == name and c["case"].startswith(case))
+        by_path = {p: n[name] for p, n in paths.items() if n[name]}
+        check(by_path, f"{name} never ran on a path: {paths}")
         summary.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": serve["launches"][name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "case": c["case"], "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
             "passed": all(x["passed"] for x in cases
                           if x["kernel"] == name)})
-    report = {"nvidia_smi": smi, "cases": cases, "reference": ref,
-              "serve": serve, "profile": prof, "kernels": summary}
+    report = {"nvidia_smi": smi, "build": built, "cases": cases,
+              "reference": ref,
+              "serve": serve, "profile": prof, "bert": bert,
+              "bert_profile": bert_prof, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

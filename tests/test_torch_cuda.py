@@ -8,14 +8,15 @@ has only PyTorch (the tests' conftest imports JAX, hence
 
 Each kernel is built from ``bigdl_tpu_torch/csrc`` at its first launch.
 The CPU parity of the plain versions against the JAX package lives in
-``tests/test_torch_{int4_matmul,paged_attention,ragged_prefill}.py``.
+``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``.
 """
 
 import pytest
 import torch
 
-from bigdl_tpu_torch.llm.kernels.int4_matmul import (int4_matmul,
-                                                     int4_matmul_reference)
+from bigdl_tpu_torch.llm.kernels.int4_matmul import (
+    asym_int4_matmul, asym_int4_matmul_reference, int4_matmul,
+    int4_matmul_reference, int8_matmul, int8_matmul_reference)
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
     paged_attention_decode_stats, paged_attention_reference_stats)
 from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
@@ -32,7 +33,9 @@ def cuda():
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 12288),
-                                   (8, 11008, 4096), (37, 256, 132)])
+                                   (8, 11008, 4096), (37, 256, 132),
+                                   (8, 768, 2), (37, 256, 3),
+                                   (1024, 768, 770)])
 def test_int4_matmul(cuda, m, k, n):
     """Same bf16 x and f32 weights on both sides; f32 sums in another
     order: 1e-4 of max|y| for f32 out, plus one bf16 ulp of max|y|
@@ -68,6 +71,73 @@ def test_int4_matmul_rows_independent(cuda):
     full = int4_matmul(x, q, s, out_dtype=torch.float32)
     alone = int4_matmul(x[3:4].contiguous(), q, s, out_dtype=torch.float32)
     assert torch.equal(full[3:4], alone)
+
+
+def _lowbit_inputs(kind, m, k, n, seed, device):
+    """bf16 x and random planes in the k-major layout: q4_1 nibbles with
+    scale and zero, or q8_0 int8 with scale."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+    s = torch.empty((k // 32, n), device=device).uniform_(
+        0.001, 0.02, generator=g)
+    if kind == "asym_int4":
+        q = torch.randint(0, 256, (k // 2, n), generator=g, device=device,
+                          dtype=torch.uint8)
+        z = torch.empty((k // 32, n), device=device).uniform_(
+            -0.15, 0.0, generator=g)
+        return x, (q, s, z)
+    q = torch.randint(-127, 128, (k, n), generator=g, device=device,
+                      dtype=torch.int8)
+    return x, (q, s)
+
+
+LOWBIT = {"asym_int4": (asym_int4_matmul, asym_int4_matmul_reference),
+          "sym_int8": (int8_matmul, int8_matmul_reference)}
+
+
+@pytest.mark.parametrize("kind", sorted(LOWBIT))
+@pytest.mark.parametrize("m,k,n", [(8, 768, 2), (1024, 768, 768),
+                                   (64, 768, 3072), (37, 3072, 768),
+                                   (5, 96, 130)])
+def test_lowbit_matmul(cuda, kind, m, k, n):
+    """Same bf16 x and f32 dequantized weights on both sides, f32 sums in
+    another order: 2e-5 of max|y| for f32 out; for bf16 out that plus
+    one bf16 ulp of max|y| (2^-7 of it). Exactly one launch per call."""
+    fn, ref = LOWBIT[kind]
+    x, planes = _lowbit_inputs(kind, m, k, n, 0, cuda)
+    before = fn.launches
+    got = fn(x, *planes, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = ref(x, *planes, torch.float32)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2e-5 * scale
+    got16 = fn(x, *planes)
+    assert got16.dtype == torch.bfloat16
+    err16 = (got16.float() - ref(x, *planes, torch.bfloat16).float()) \
+        .abs().max().item()
+    assert err16 <= 1e-4 + 2.0 ** -7 * scale
+
+
+@pytest.mark.parametrize("kind", sorted(LOWBIT))
+def test_lowbit_matmul_rows_independent(cuda, kind):
+    """Row 3 of an M=130 product equals the same row computed alone."""
+    fn, _ = LOWBIT[kind]
+    x, planes = _lowbit_inputs(kind, 130, 512, 200, 1, cuda)
+    full = fn(x, *planes, out_dtype=torch.float32)
+    alone = fn(x[3:4].contiguous(), *planes, out_dtype=torch.float32)
+    assert torch.equal(full[3:4], alone)
+
+
+def test_int8_matmul_broadcast_scale(cuda):
+    """A per-channel scale expanded over the groups (row stride 0, as
+    ``nn.quantized.Linear`` passes it) equals the materialised one."""
+    x, (q, s) = _lowbit_inputs("sym_int8", 40, 768, 300, 2, cuda)
+    view = s[:1].expand(s.shape[0], s.shape[1])
+    assert view.stride(0) == 0
+    got = int8_matmul(x, q, view, out_dtype=torch.float32)
+    want = int8_matmul(x, q, view.contiguous(), out_dtype=torch.float32)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("hq,hkv,d,win", [(32, 32, 128, None),

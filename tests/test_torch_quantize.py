@@ -73,7 +73,7 @@ class TestQuantize:
 
     def test_unsupported_qtype_raises(self):
         with pytest.raises(NotImplementedError):
-            quantize(np.zeros((2, QK), np.float32), "asym_int4")
+            quantize(np.zeros((2, QK), np.float32), "nf4")
         with pytest.raises(ValueError):
             quantize(np.zeros((2, 33), np.float32))
 
