@@ -1,20 +1,30 @@
-// Paged decode attention, flash-state ("stats") variant.
+// Paged decode attention: the flash-state ("stats") variant and the
+// normalised variant, one kernel for both (runtime flag `normalize`).
 //
 // Replaces: bigdl_tpu/llm/kernels/paged_attention.py,
 //   paged_attention_decode_stats (pl.pallas_call of
 //   _paged_decode_kernel_pm_stats, page-major, and of
-//   _paged_decode_kernel_stats, head-minor). The page_major flag chose a
-//   TPU DMA layout, not a different result: this one kernel computes the
-//   function of both bodies.
+//   _paged_decode_kernel_stats, head-minor) with normalize = 0, and
+//   paged_attention_decode (pl.pallas_call of _paged_decode_kernel_pm and
+//   _paged_decode_kernel) with normalize = 1. The page_major flag chose
+//   a TPU DMA layout, not a different result: this one kernel computes the
+//   function of all four bodies.
 //
 // Contract: one query token per row b. q (B, Hq, D) f32; pools
-// (P, Hkv, page, D) bf16 or f32 (a flat (L*P) view; the caller offsets
-// the block table by l*P); block_tables (B, pages_max) int32; lengths (B,)
-// int32 = tokens to attend, EXCLUDING the current one. Outputs the
-// unnormalised flash state acc (B, Hq, D) f32, m (B, Hq) f32,
-// l (B, Hq) f32 over positions pos < len (and pos >= len - window when
-// window >= 0). A row with no valid position writes (0, -1e30, 0), the
-// identity of the combine.
+// (P, Hkv, page, D) bf16 or f32 (a flat (L*P) view with the block table
+// offset by l*P, or one layer's view of an (L, P, ...) pool: the pointer
+// need not be the start of an allocation, every load is one element);
+// block_tables (B, pages_max) int32; lengths (B,) int32 = tokens to
+// attend. The window covers positions pos < len and pos >= len - window
+// (window >= 0). The caller decides what len counts: the stats entry is
+// called with the current token EXCLUDED (and the window shrunk by one),
+// the normalised entry with it INCLUDED (the token already written to its
+// page).
+//   stats:      acc (B, Hq, D) f32 unnormalised, m (B, Hq) f32,
+//               l (B, Hq) f32; a row with no valid position writes
+//               (0, -1e30, 0), the identity of the combine.
+//   normalised: out (B, Hq, D) f32 = acc / max(l, 1e-30); a row with no
+//               valid position writes 0, as the Pallas kernel does.
 //
 // What bounds it on the H100: the K/V bytes of the live tokens,
 // 2 * len * D * sizeof(kv) per (row, kv head) — memory, not arithmetic
@@ -34,7 +44,12 @@
 //   (running max, rescale, sum) with one lane per key, and all threads
 //   update the f32 accumulators, reading V rows coalesced;
 // - masked keys are never read and contribute exactly 0 (p is set to 0
-//   for them, not exp of a large negative number).
+//   for them, not exp of a large negative number);
+// - the flag is a runtime argument, not a template parameter: as a
+//   template flag, nvcc compiled the normalised instance with a stack
+//   frame and register spills, and it ran markedly slower than the stats
+//   instance of the same body (measured on an H100, PERF.md); one
+//   instance per pool type runs both at the same speed.
 
 #include "common.cuh"
 
@@ -50,16 +65,14 @@ constexpr int ACC_PER_THREAD = MAXG * MAXD / THREADS;
 
 template <typename KV>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_stats_kernel(const float* __restrict__ q,
-                          const KV* __restrict__ k_pages,
-                          const KV* __restrict__ v_pages,
-                          const int* __restrict__ bt,
-                          const int* __restrict__ lens,
-                          float* __restrict__ acc_out,
-                          float* __restrict__ m_out,
-                          float* __restrict__ l_out, int Hq, int Hkv,
-                          int page, int D, int pages_max, int window,
-                          float scale) {
+paged_decode_kernel(const float* __restrict__ q,
+                    const KV* __restrict__ k_pages,
+                    const KV* __restrict__ v_pages,
+                    const int* __restrict__ bt, const int* __restrict__ lens,
+                    float* __restrict__ acc_out, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int Hq, int Hkv, int page,
+                    int D, int pages_max, int window, float scale,
+                    int normalize) {
   __shared__ float s_p[MAXG][CHUNK];
   __shared__ float s_m[MAXG], s_l[MAXG], s_alpha[MAXG];
   __shared__ long long s_row[CHUNK];
@@ -156,16 +169,18 @@ paged_decode_stats_kernel(const float* __restrict__ q,
     }
     __syncthreads();
   }
+  // a row with no chunk never passed a barrier after the init of s_l
+  __syncthreads();
 #pragma unroll
   for (int i = 0; i < ACC_PER_THREAD; ++i) {
     const int e = threadIdx.x + THREADS * i;
     if (e < g * D) {
       const int gi = e / D, d = e % D;
-      acc_out[((size_t)b * Hq + h * g + gi) * D + d] = acc[i];
+      const float v = normalize ? acc[i] / fmaxf(s_l[gi], 1e-30f) : acc[i];
+      acc_out[((size_t)b * Hq + h * g + gi) * D + d] = v;
     }
   }
-  __syncthreads();
-  if (threadIdx.x < g) {
+  if (!normalize && threadIdx.x < g) {
     m_out[(size_t)b * Hq + h * g + threadIdx.x] = s_m[threadIdx.x];
     l_out[(size_t)b * Hq + h * g + threadIdx.x] = s_l[threadIdx.x];
   }
@@ -176,14 +191,15 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
            const void* lens, void* acc, void* m, void* l, long long B,
            long long Hq, long long Hkv, long long page, long long D,
            long long pages_max, long long window, float scale,
-           void* stream) {
-  paged_decode_stats_kernel<KV>
+           bool normalize, void* stream) {
+  paged_decode_kernel<KV>
       <<<(unsigned)(B * Hkv), THREADS, 0, (cudaStream_t)stream>>>(
           reinterpret_cast<const float*>(q), reinterpret_cast<const KV*>(kp),
           reinterpret_cast<const KV*>(vp), reinterpret_cast<const int*>(bt),
           reinterpret_cast<const int*>(lens), reinterpret_cast<float*>(acc),
           reinterpret_cast<float*>(m), reinterpret_cast<float*>(l), (int)Hq,
-          (int)Hkv, (int)page, (int)D, (int)pages_max, (int)window, scale);
+          (int)Hkv, (int)page, (int)D, (int)pages_max, (int)window, scale,
+          (int)normalize);
   return (int)cudaGetLastError();
 }
 
@@ -192,16 +208,29 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
 // C interface. Preconditions, checked by the Python wrapper: Hq % Hkv ==
 // 0 with Hq / Hkv <= 8, D <= 128, contiguous tensors, B * Hkv > 0;
 // window < 0 means no sliding window.
-#define BIGDL_PAGED_ENTRY(NAME, KV)                                        \
+#define BIGDL_PAGED_STATS_ENTRY(NAME, KV)                                  \
   extern "C" int NAME(const void* q, const void* kp, const void* vp,       \
                       const void* bt, const void* lens, void* acc,         \
                       void* m, void* l, long long B, long long Hq,         \
                       long long Hkv, long long page, long long D,          \
                       long long pages_max, long long window, float scale,  \
                       void* stream) {                                      \
-    return launch<KV>(q, kp, vp, bt, lens, acc, m, l, B, Hq, Hkv, page, D, \
-                      pages_max, window, scale, stream);                   \
+    return launch<KV>(q, kp, vp, bt, lens, acc, m, l, B, Hq, Hkv, page,    \
+                      D, pages_max, window, scale, false, stream);         \
   }
 
-BIGDL_PAGED_ENTRY(paged_decode_stats_bf16, __nv_bfloat16)
-BIGDL_PAGED_ENTRY(paged_decode_stats_f32, float)
+#define BIGDL_PAGED_ENTRY(NAME, KV)                                        \
+  extern "C" int NAME(const void* q, const void* kp, const void* vp,       \
+                      const void* bt, const void* lens, void* out,         \
+                      long long B, long long Hq, long long Hkv,            \
+                      long long page, long long D, long long pages_max,    \
+                      long long window, float scale, void* stream) {       \
+    return launch<KV>(q, kp, vp, bt, lens, out, nullptr, nullptr, B, Hq,   \
+                      Hkv, page, D, pages_max, window, scale, true,        \
+                      stream);                                             \
+  }
+
+BIGDL_PAGED_STATS_ENTRY(paged_decode_stats_bf16, __nv_bfloat16)
+BIGDL_PAGED_STATS_ENTRY(paged_decode_stats_f32, float)
+BIGDL_PAGED_ENTRY(paged_decode_bf16, __nv_bfloat16)
+BIGDL_PAGED_ENTRY(paged_decode_f32, float)

@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels of the port's paths (the served Llama path
-and the low-bit DLlib/nano path) and their plain PyTorch versions.
+"""Hand-written CUDA kernels of the port's paths (the served Llama path,
+``generate()`` and the low-bit DLlib/nano path) and their plain PyTorch
+versions.
 Importing this package builds nothing; the kernels compile at first
 launch, or all at once with :func:`build_kernels`."""
 
@@ -9,7 +10,8 @@ from bigdl_tpu_torch.llm.kernels.int4_matmul import (
     dequant_q8_0, int4_matmul, int4_matmul_reference, int8_matmul,
     int8_matmul_reference, quantize_tpu, to_tpu_layout)
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
-    merge_attention_partial, paged_attention_decode_stats,
+    merge_attention_partial, paged_attention, paged_attention_decode,
+    paged_attention_decode_stats, paged_attention_reference,
     paged_attention_reference_stats, paged_attention_stats)
 from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
     ragged_prefill, ragged_prefill_attention, ragged_prefill_reference)
@@ -25,7 +27,8 @@ WRAPPERS = {"int4_matmul": int4_matmul,
             "asym_int4_matmul": asym_int4_matmul,
             "int8_matmul": int8_matmul,
             "paged_attention_decode_stats": paged_attention_decode_stats,
-            "ragged_prefill_attention": ragged_prefill_attention}
+            "ragged_prefill_attention": ragged_prefill_attention,
+            "paged_attention_decode": paged_attention_decode}
 
 
 def build_kernels():
@@ -52,8 +55,9 @@ __all__ = ["KERNEL_SOURCES", "WRAPPERS", "asym_int4_matmul",
            "dequant_q4_1", "dequant_q8_0", "int4_matmul",
            "int4_matmul_reference", "int8_matmul", "int8_matmul_reference",
            "launch_counts",
-           "make_sampled_step", "merge_attention_partial",
-           "paged_attention_decode_stats", "paged_attention_reference_stats",
+           "make_sampled_step", "merge_attention_partial", "paged_attention",
+           "paged_attention_decode", "paged_attention_decode_stats",
+           "paged_attention_reference", "paged_attention_reference_stats",
            "paged_attention_stats", "quantize_tpu", "ragged_prefill",
            "ragged_prefill_attention", "ragged_prefill_reference",
            "reset_launch_counts", "sample_tokens", "to_tpu_layout"]

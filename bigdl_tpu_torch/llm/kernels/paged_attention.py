@@ -1,7 +1,8 @@
 """Paged KV-cache decode attention — the port of
-``bigdl_tpu/llm/kernels/paged_attention.py`` (the flash-state "stats"
-variant the serving engine runs, and the merge that folds the current
-token in).
+``bigdl_tpu/llm/kernels/paged_attention.py``: the flash-state "stats"
+variant the serving engine runs, the merge that folds the current token
+in, and the normalised variant behind the ``paged_attention()``
+dispatch.
 
 The KV cache is a page pool ``(num_pages, H_kv, page_size, D)`` per
 layer; a request owns the pages named by its block-table row. The
@@ -9,11 +10,12 @@ engine views the pools of all layers as one flat ``(L·P, ...)`` array
 and offsets the table by ``l·P`` (serving.paged_attend), so the kernel
 never sees a per-layer copy.
 
-:func:`paged_attention_decode_stats` launches the CUDA kernel
-(``bigdl_tpu_torch/csrc/paged_attention.cu``) for CUDA tensors, or
-raises; it takes :func:`paged_attention_reference_stats`, the plain
-PyTorch version, only for CPU tensors. The dispatch is by the tensors'
-device, not by a global backend.
+:func:`paged_attention_decode_stats` and :func:`paged_attention_decode`
+launch the CUDA kernel (``bigdl_tpu_torch/csrc/paged_attention.cu``, one
+body for both) for CUDA tensors, or raise; they take their plain PyTorch
+versions (:func:`paged_attention_reference_stats`,
+:func:`paged_attention_reference`) only for CPU tensors. The dispatch is
+by the tensors' device, not by a global backend.
 """
 
 from __future__ import annotations
@@ -85,6 +87,54 @@ def paged_attention_reference_stats(q, k_pages, v_pages, block_tables,
     return acc.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
 
 
+def _check_pools(q, k_pages, v_pages, page_size: int):
+    b, hq, d = q.shape
+    _, hkv, page, d2 = k_pages.shape
+    if page != page_size or d2 != d or tuple(v_pages.shape) != \
+            tuple(k_pages.shape):
+        raise ValueError(f"pools {tuple(k_pages.shape)} do not match q "
+                         f"{tuple(q.shape)} / page_size {page_size}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+
+
+def _cuda_args(q, k_pages, v_pages, block_tables, lengths,
+               sliding_window: Optional[int]):
+    """The checks every CUDA entry makes. Returns the pointers the C
+    entries take before their outputs (q f32, pools, table, lengths),
+    the arguments after them (``B, Hq, Hkv, page, D, pages_max, window,
+    scale, stream``), and the tensors behind the pointers, which the
+    caller holds until the launch: a pointer does not keep a temporary
+    (the f32 copy of q) alive, and its memory could go to the outputs."""
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention: unsupported device {q.device}")
+    dev = q.device
+    if any(t.device != dev for t in (k_pages, v_pages, block_tables,
+                                     lengths)):
+        raise ValueError("paged attention: all tensors on one device")
+    if k_pages.dtype not in _KV_ENTRY or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"paged attention: pools must be bf16 or f32, "
+                         f"got {k_pages.dtype}/{v_pages.dtype}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("paged attention: block_tables and lengths must "
+                         "be int32")
+    b, hq, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    if hq // hkv > 8 or d > 128:
+        raise ValueError(f"paged attention kernel takes Hq/Hkv <= 8 and "
+                         f"D <= 128, got {hq // hkv} and {d}")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("paged attention: pools must be contiguous")
+    qf = q.to(torch.float32).contiguous()
+    bt = block_tables.contiguous()
+    lens = lengths.contiguous()
+    head = (qf, k_pages, v_pages, bt, lens)
+    tail = (b, hq, hkv, page, d, bt.shape[1],
+            -1 if sliding_window is None else int(sliding_window),
+            1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream)
+    return [t.data_ptr() for t in head], list(tail), head
+
+
 def paged_attention_decode_stats(q, k_pages, v_pages, block_tables,
                                  lengths, page_size: int = 16,
                                  sliding_window: Optional[int] = None):
@@ -99,52 +149,24 @@ def paged_attention_decode_stats(q, k_pages, v_pages, block_tables,
     block_tables (B, pages_max) int32; lengths (B,) int32. Unlike the
     Mosaic kernel, ``pages_max`` need not be a multiple of
     ``LANE // page_size``."""
-    b, hq, d = q.shape
-    p_, hkv, page, d2 = k_pages.shape
-    if page != page_size or d2 != d or tuple(v_pages.shape) != \
-            tuple(k_pages.shape):
-        raise ValueError(f"pools {tuple(k_pages.shape)} do not match q "
-                         f"{tuple(q.shape)} / page_size {page_size}")
-    if hq % hkv:
-        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    _check_pools(q, k_pages, v_pages, page_size)
     if q.device.type == "cpu":
         return paged_attention_reference_stats(
             q, k_pages, v_pages, block_tables, lengths,
             sliding_window=sliding_window)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged attention: unsupported device {q.device}")
-    dev = q.device
-    if any(t.device != dev for t in (k_pages, v_pages, block_tables,
-                                     lengths)):
-        raise ValueError("paged attention: all tensors on one device")
-    if k_pages.dtype not in _KV_ENTRY or v_pages.dtype != k_pages.dtype:
-        raise ValueError(f"paged attention: pools must be bf16 or f32, "
-                         f"got {k_pages.dtype}/{v_pages.dtype}")
-    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError("paged attention: block_tables and lengths must "
-                         "be int32")
-    if hq // hkv > 8 or d > 128:
-        raise ValueError(f"paged attention kernel takes Hq/Hkv <= 8 and "
-                         f"D <= 128, got {hq // hkv} and {d}")
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("paged attention: pools must be contiguous")
-    qf = q.to(torch.float32).contiguous()
-    bt = block_tables.contiguous()
-    lens = lengths.contiguous()
-    acc = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
-    m = torch.empty((b, hq), dtype=torch.float32, device=dev)
-    l = torch.empty((b, hq), dtype=torch.float32, device=dev)
+    ptrs, tail, _keep = _cuda_args(q, k_pages, v_pages, block_tables,
+                                   lengths, sliding_window)
+    b, hq, d = q.shape
+    acc = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, hq), dtype=torch.float32, device=q.device)
     if b == 0:
         return acc, m, l
     P, I, F = _build.P, _build.I, _build.F
     fn = _build.bind("paged_attention",
                      f"paged_decode_stats_{_KV_ENTRY[k_pages.dtype]}",
                      [P] * 8 + [I] * 7 + [F, P])
-    rc = fn(qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            bt.data_ptr(), lens.data_ptr(), acc.data_ptr(), m.data_ptr(),
-            l.data_ptr(), b, hq, hkv, page, d, bt.shape[1],
-            -1 if sliding_window is None else int(sliding_window),
-            1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(*ptrs, acc.data_ptr(), m.data_ptr(), l.data_ptr(), *tail)
     paged_attention_decode_stats.launches += 1
     _build.check(rc, "paged_attention_decode_stats")
     return acc, m, l
@@ -177,3 +199,70 @@ def merge_attention_partial(acc, m, l, q, k_new, v_new):
     l_new = l * alpha + beta
     return ((acc * alpha[..., None] + vr * beta[..., None])
             / torch.clamp(l_new, min=1e-30)[..., None])
+
+
+def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths,
+                              sliding_window: Optional[int] = None):
+    """Plain version of :func:`paged_attention_decode` (same contract): a
+    gather of the live pages and a masked softmax in f32, cast to
+    ``q.dtype``. As in the JAX package's reference, a row with
+    ``lengths == 0`` is a softmax over nothing but masked scores, which
+    is uniform: it returns the mean of the gathered V rows (the kernel
+    returns 0 there, as the Pallas kernel does)."""
+    b, hq, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    g = hq // hkv
+    block_tables = _sliced_tables(block_tables, lengths, page)
+    k_all = _gather(k_pages, block_tables).to(torch.float32)
+    v_all = _gather(v_pages, block_tables).to(torch.float32)
+    s_max = k_all.shape[1]
+    qg = q.reshape(b, hkv, g, d).to(torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_all) * scale
+    pos = torch.arange(s_max, device=q.device)[None, :]
+    lens = lengths.to(torch.int64)[:, None]
+    mask = pos < lens                                          # (B, S)
+    if sliding_window is not None:
+        mask &= pos >= lens - sliding_window
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_all)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_attention_decode(q, k_pages, v_pages, block_tables, lengths,
+                           page_size: int = 16,
+                           sliding_window: Optional[int] = None):
+    """Decode-step attention over a paged KV cache, normalised.
+
+    q (B, Hq, D) current-token queries; pools (P, Hkv, page_size, D)
+    bf16 or f32; block_tables (B, pages_max) int32 physical page ids;
+    lengths (B,) int32 context lengths INCLUDING the current token, whose
+    K/V must already be in its page. Returns (B, Hq, D) in ``q.dtype``;
+    a row with ``lengths == 0`` returns 0 on the card. Unlike the Mosaic
+    kernel, ``pages_max`` need not be a multiple of ``LANE //
+    page_size``, and D needs no padding to 128."""
+    _check_pools(q, k_pages, v_pages, page_size)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, block_tables,
+                                         lengths,
+                                         sliding_window=sliding_window)
+    ptrs, tail, _keep = _cuda_args(q, k_pages, v_pages, block_tables,
+                                   lengths, sliding_window)
+    out = torch.empty(tuple(q.shape), dtype=torch.float32, device=q.device)
+    if q.shape[0] == 0:
+        return out.to(q.dtype)
+    P, I, F = _build.P, _build.I, _build.F
+    fn = _build.bind("paged_attention",
+                     f"paged_decode_{_KV_ENTRY[k_pages.dtype]}",
+                     [P] * 6 + [I] * 7 + [F, P])
+    rc = fn(*ptrs, out.data_ptr(), *tail)
+    paged_attention_decode.launches += 1
+    _build.check(rc, "paged_attention_decode")
+    return out.to(q.dtype)
+
+
+paged_attention_decode.launches = 0
+
+# the JAX package's dispatch name; the wrapper already chooses by device
+paged_attention = paged_attention_decode

@@ -1,8 +1,10 @@
-"""Llama family — the port of ``bigdl_tpu/llm/models/llama.py``, the
-parts on the served path: the config, parameter fusion and q4_0
+"""Llama family — the port of ``bigdl_tpu/llm/models/llama.py``: the
+config and its presets, random init, parameter fusion and q4_0
 quantization, the layer math (``_linear``, ``rms_norm``, ``rope``,
-``attention_qkv``, ``mlp``), the ragged in-place prefill and a minimal
-model holder.
+``attention_qkv``, ``mlp``, ``_attention``), the dense-cache
+``forward``, the token loops (``decode_scan`` over the dense cache,
+``decode_scan_paged`` over a page pool), the ragged in-place prefill of
+the serving engine, and :class:`LlamaForCausalLM` with ``generate``.
 
 Parameters are nested dicts of tensors with the JAX package's keys and
 layouts: stacked per layer (``params["layers"][name]`` has a leading
@@ -12,21 +14,34 @@ k-major kernel layout ``{"q": (K/2, N) uint8, "scale": (K/32, N) f32}``
 package tree across). Layers run in a Python loop: PyTorch is eager, so
 the JAX ``lax.scan`` has no counterpart to keep.
 
-The dense ``forward``/``generate``/``decode_scan*`` path and MoE are not
-ported yet (ROADMAP Queue 1 item 3).
+PyTorch runs eagerly, so there is no jit and no donation: ``forward``
+writes the dense cache IN PLACE and ``decode_scan*`` are Python loops.
+The mixture-of-experts FFN, tensor-parallel ``param_pspecs``/``shard``
+and the ring-attention prefill are not ported (ROADMAP Queue 1 items 3
+and 10); asking for them raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.llm.ggml.quantize import QK
 from bigdl_tpu_torch.llm.kernels.int4_matmul import int4_matmul, quantize_tpu
+from bigdl_tpu_torch.llm.kernels.paged_attention import LANE
+from bigdl_tpu_torch.llm.kernels.sampling import sample_tokens
+from bigdl_tpu_torch.parallel.ring_attention import online_block_update
+
+_MOE = ("the mixture-of-experts FFN is not ported yet (ROADMAP Queue 1 "
+        "item 3)")
+_PARALLEL = ("tensor and sequence parallelism (param_pspecs / shard, ring "
+             "attention) are ROADMAP Queue 1 item 10")
 
 
 @dataclasses.dataclass
@@ -40,15 +55,23 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    # cache windows larger than this use blockwise online-softmax attention
+    # (the (Tq, S) score matrix never materialises beyond one block column)
+    attn_block_size: int = 1024
     # Mistral-style sliding-window attention: position p attends only to
     # [p - sliding_window + 1, p]. None = full causal (Llama).
     sliding_window: Optional[int] = None
+    # Qwen2-style attention bias on the q/k/v projections
+    attention_bias: bool = False
     # "half" = Llama rotate-half; "glm" = interleaved pairs over the first
     # head_dim * partial_rotary_factor dims
     rope_mode: str = "half"
     partial_rotary_factor: float = 1.0
-    # mixture-of-experts FFN: not ported yet (0 = dense FFN)
+    # mixture-of-experts FFN: kept for from_hf, not ported (0 = dense FFN)
     num_experts: int = 0
+    num_experts_per_tok: int = 2
+    expert_capacity_factor: float = 1.25
 
     @property
     def head_dim(self) -> int:
@@ -59,11 +82,97 @@ class LlamaConfig:
         return cls()
 
     @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        return cls(vocab_size=128256, intermediate_size=14336,
+                   num_key_value_heads=8, rope_theta=500000.0,
+                   max_position_embeddings=8192)
+
+    @classmethod
+    def mistral_7b(cls) -> "LlamaConfig":
+        """Mistral-7B-v0.1: Llama block structure + GQA(8) + 4k sliding
+        window."""
+        return cls(intermediate_size=14336, num_key_value_heads=8,
+                   max_position_embeddings=8192, sliding_window=4096,
+                   rms_norm_eps=1e-5, rope_theta=10000.0)
+
+    @classmethod
+    def qwen2_7b(cls) -> "LlamaConfig":
+        """Qwen2-7B: Llama block + GQA(4) + q/k/v biases."""
+        return cls(vocab_size=152064, hidden_size=3584,
+                   intermediate_size=18944, num_hidden_layers=28,
+                   num_attention_heads=28, num_key_value_heads=4,
+                   max_position_embeddings=32768, rope_theta=1e6,
+                   rms_norm_eps=1e-6, attention_bias=True)
+
+    @classmethod
+    def tiny_qwen2(cls, vocab: int = 256) -> "LlamaConfig":
+        return cls(vocab_size=vocab, hidden_size=64, intermediate_size=128,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=128,
+                   attention_bias=True)
+
+    @classmethod
+    def glm4_9b(cls) -> "LlamaConfig":
+        """GLM-4-9B (the ChatGLM lineage): Llama-shaped block +
+        interleaved partial rotary (first half of the head dims),
+        GQA(2), q/k/v biases."""
+        return cls(vocab_size=151552, hidden_size=4096,
+                   intermediate_size=13696, num_hidden_layers=40,
+                   num_attention_heads=32, num_key_value_heads=2,
+                   max_position_embeddings=8192, rms_norm_eps=1.5625e-07,
+                   rope_theta=10000.0, attention_bias=True,
+                   rope_mode="glm", partial_rotary_factor=0.5)
+
+    @classmethod
+    def tiny_glm(cls, vocab: int = 256) -> "LlamaConfig":
+        return cls(vocab_size=vocab, hidden_size=64, intermediate_size=128,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=128,
+                   attention_bias=True, rope_mode="glm",
+                   partial_rotary_factor=0.5)
+
+    @classmethod
+    def mixtral_8x7b(cls) -> "LlamaConfig":
+        raise NotImplementedError(f"Mixtral-8x7B: {_MOE}")
+
+    @classmethod
+    def tiny_moe(cls, vocab: int = 256) -> "LlamaConfig":
+        raise NotImplementedError(f"tiny_moe: {_MOE}")
+
+    @classmethod
     def tiny(cls, vocab: int = 256) -> "LlamaConfig":
         """Test-size config (the JAX package's ``LlamaConfig.tiny``)."""
         return cls(vocab_size=vocab, hidden_size=64, intermediate_size=128,
                    num_hidden_layers=2, num_attention_heads=4,
                    num_key_value_heads=2, max_position_embeddings=128)
+
+    @classmethod
+    def from_hf(cls, hf_config) -> "LlamaConfig":
+        """An HF config object (or any attribute shim over config.json)
+        → LlamaConfig, field for field as the JAX package reads it."""
+        g = (lambda k, d: getattr(hf_config, k, d))
+        return cls(
+            vocab_size=g("vocab_size", 32000),
+            hidden_size=g("hidden_size", 4096),
+            intermediate_size=g("intermediate_size", 11008),
+            num_hidden_layers=g("num_hidden_layers", 32),
+            num_attention_heads=g("num_attention_heads", 32),
+            num_key_value_heads=g("num_key_value_heads",
+                                  g("num_attention_heads", 32)),
+            max_position_embeddings=g("max_position_embeddings", 4096),
+            rms_norm_eps=g("rms_norm_eps", 1e-5),
+            rope_theta=g("rope_theta", 10000.0),
+            tie_word_embeddings=g("tie_word_embeddings", False),
+            # Qwen2 configs carry sliding_window=4096 but apply it only
+            # when use_sliding_window is set (HF default False)
+            sliding_window=(g("sliding_window", None)
+                            if g("use_sliding_window", True) else None),
+            attention_bias=bool(g("attention_bias",
+                                  g("model_type", "") == "qwen2")),
+            rope_mode=("glm" if g("model_type", "") == "glm" else "half"),
+            partial_rotary_factor=g("partial_rotary_factor", 1.0) or 1.0,
+            num_experts=g("num_local_experts", 0) or 0,
+            num_experts_per_tok=g("num_experts_per_tok", 2) or 2)
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +202,47 @@ def linear_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, int]]:
     }
 
 
+def init_params(cfg: LlamaConfig, seed: int = 0, dtype=torch.bfloat16,
+                device=None) -> Dict[str, Any]:
+    """Random-init params (tests and benchmarks without checkpoints), made
+    on ``device`` (``None`` = the GPU) from a seeded ``torch.Generator``:
+    the JAX package's shapes, scales (``1/sqrt(fan_in)``, 0.02 for the
+    embedding) and dtypes. ``jax.random`` cannot be reproduced, so a test
+    that needs the JAX package's weights carries them across with
+    ``params_from_numpy``. Stacked weights are drawn one layer at a time
+    in f32 and cast, so the f32 temporary is one layer's, not L layers'."""
+    if cfg.num_experts:
+        raise NotImplementedError(_MOE)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, L = cfg.hidden_size, cfg.num_hidden_layers
+
+    def mk(shape, scale=None, lead=()):
+        scale = scale or (1.0 / np.sqrt(shape[-1]))
+        out = torch.empty(lead + shape, dtype=dtype, device=dev)
+        for idx in np.ndindex(*lead):
+            out[idx] = (torch.randn(shape, generator=gen, device=dev,
+                                    dtype=torch.float32) * scale).to(dtype)
+        return out
+
+    shapes = linear_shapes(cfg)
+    layers: Dict[str, Any] = {name: {"w": mk(shape, lead=(L,))}
+                              for name, shape in shapes.items()}
+    if cfg.attention_bias:
+        for name in ("q_proj", "k_proj", "v_proj"):
+            layers[name]["b"] = torch.zeros((L, shapes[name][0]),
+                                            dtype=dtype, device=dev)
+    layers["input_layernorm"] = torch.ones((L, h), dtype=dtype, device=dev)
+    layers["post_attention_layernorm"] = torch.ones((L, h), dtype=dtype,
+                                                    device=dev)
+    params = {"embed_tokens": mk((cfg.vocab_size, h), 0.02),
+              "norm": torch.ones((h,), dtype=dtype, device=dev),
+              "layers": layers}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = {"w": mk((cfg.vocab_size, h))}
+    return params
+
+
 def fuse_decoder_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Concatenate per-layer q/k/v → ``qkv_proj`` and gate/up →
     ``gate_up_proj`` along the output dim: dense stacked ``w`` (L, N, K)
@@ -119,11 +269,13 @@ def fuse_decoder_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def quantize_params(params: Dict[str, Any],
-                    qtype: str = "sym_int4") -> Dict[str, Any]:
+def quantize_params(params: Dict[str, Any], qtype: str = "sym_int4",
+                    quantize_lm_head: bool = False,
+                    fuse: bool = True) -> Dict[str, Any]:
     """q4_0-quantize every decoder linear (stacked per layer) into the
-    k-major kernel layout, on the weights' own device, then fuse qkv and
-    gate/up; norms, embeddings and ``lm_head`` stay as they are.
+    k-major kernel layout, on the weights' own device; with ``fuse``,
+    then concatenate qkv and gate/up. Norms and embeddings stay as they
+    are; ``lm_head`` stays dense unless ``quantize_lm_head``.
     Bit-identical to the JAX package's ``quantize_params`` on the same
     weights."""
     if qtype != "sym_int4":
@@ -136,8 +288,7 @@ def quantize_params(params: Dict[str, Any],
     for name in names:
         w = layers[name]["w"]
         if w.dim() != 3:
-            raise NotImplementedError(
-                "MoE expert-stacked FFN weights are not ported yet")
+            raise NotImplementedError(_MOE)
         tds = [quantize_tpu(w[l], qtype) for l in range(w.shape[0])]
         nd = {"q": torch.stack([td["q"] for td in tds]),
               "scale": torch.stack([td["scale"] for td in tds])}
@@ -145,7 +296,13 @@ def quantize_params(params: Dict[str, Any],
             nd["b"] = layers[name]["b"]
         layers[name] = nd
     out["layers"] = layers
-    return fuse_decoder_params(out)
+    if fuse:
+        out = fuse_decoder_params(out)
+    if quantize_lm_head and "lm_head" in out:
+        td = quantize_tpu(out["lm_head"]["w"], qtype)
+        out["lm_head"] = {"q": td["q"], "scale": td["scale"],
+                          "qtype": qtype}
+    return out
 
 
 def layer_params(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
@@ -283,6 +440,133 @@ def decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions,
     return x, k, v
 
 
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """The dense KV cache ``{"k", "v": (L, B, max_len, Hkv, D), "pos"}``
+    on ``device`` (``None`` = the GPU); ``pos`` is a Python int, the
+    number of positions written."""
+    dev = resolve_device(device)
+    shape = (cfg.num_hidden_layers, batch, max_len,
+             cfg.num_key_value_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": 0}
+
+
+def _attention(q, k_all, v_all, q_positions, kv_len_mask, cfg,
+               alibi_slopes=None):
+    """q (B, Tq, Hq, D); k_all/v_all (B, S, Hkv, D), the full cache
+    window; kv_len_mask (B or 1, S) True where the slot is valid;
+    q_positions (B, Tq). Slot ``s`` attends iff ``s <= q_position`` (and
+    ``s > q_position - sliding_window``). ``alibi_slopes`` (Hq,) adds
+    Bloom-style per-head linear position biases (single-block path only).
+    Returns (B, Tq, Hq·D) in q's dtype.
+
+    GQA-aware: query heads are grouped onto their kv head inside the
+    einsum, repeated K/V is never materialised. Scores, softmax and the
+    V product run in f32 on f32 copies (the JAX einsums'
+    ``preferred_element_type=float32``). A window longer than
+    ``cfg.attn_block_size`` goes blockwise with the online softmax of
+    :func:`online_block_update`, so one (Tq × block) score column lives
+    at a time, never the (Tq × S) matrix. The last block is shorter
+    instead of padded as in the JAX package: padded slots are masked and
+    add exactly 0, so the result is the same."""
+    b, tq, hq, d = q.shape
+    s, hkv = k_all.shape[1], k_all.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, tq, hkv, g, d).to(torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    qpos = q_positions.to(torch.int64)                      # (B, Tq)
+
+    def _causal(slot_idx):
+        """(B, Tq, S') causal (+ sliding window) mask for slot indices."""
+        m = slot_idx[None, None, :] <= qpos[..., None]
+        if cfg.sliding_window is not None:
+            m &= slot_idx[None, None, :] > (qpos[..., None]
+                                            - cfg.sliding_window)
+        return m
+
+    slots = torch.arange(s, device=q.device)
+    if s <= cfg.attn_block_size:
+        logits = torch.einsum("bthgd,bshd->bhgts", qg,
+                              k_all.to(torch.float32)) * scale
+        if alibi_slopes is not None:
+            slopes = alibi_slopes.to(torch.float32).reshape(hkv, g)
+            logits = logits + (slopes[None, :, :, None, None]
+                               * slots.to(torch.float32))
+        mask = _causal(slots) & kv_len_mask[:, None, :]     # (B, Tq, S)
+        logits = logits.masked_fill_(~mask[:, None, None], -1e30)
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgts,bshd->bthgd", p, v_all.to(torch.float32))
+        return out.to(q.dtype).reshape(b, tq, hq * d)
+
+    if alibi_slopes is not None:
+        raise NotImplementedError(
+            "ALiBi rides the single-block path: set attn_block_size >= "
+            "max_position_embeddings on ALiBi configs")
+    blk = cfg.attn_block_size
+    kv_len_mask = kv_len_mask.expand(b, s)
+    acc = torch.zeros((b, hkv, g, tq, d), dtype=torch.float32,
+                      device=q.device)
+    rmax = torch.full((b, hkv, g, tq), -1e30, dtype=torch.float32,
+                      device=q.device)
+    rsum = torch.zeros((b, hkv, g, tq), dtype=torch.float32,
+                       device=q.device)
+    for s0 in range(0, s, blk):
+        cols = slice(s0, min(s0 + blk, s))
+        mask = _causal(slots[cols]) & kv_len_mask[:, None, cols]
+        acc, rmax, rsum = online_block_update(
+            qg, k_all[:, cols], v_all[:, cols], mask, acc, rmax, rsum,
+            scale=scale)
+    out = (acc / torch.clamp(rsum, min=1e-30)[..., None]).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, hq * d)
+
+
+def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
+            cache: Dict[str, Any], positions: torch.Tensor,
+            ring: Optional[tuple] = None,
+            unroll: int = 1) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One forward pass over ``tokens`` (B, T), writing their K/V into the
+    dense cache at ``cache["pos"]`` and attending the cache window;
+    returns ``(logits (B, T, V) f32, new_cache)``. Works for prefill
+    (T = prompt length) and decode (T = 1).
+
+    The cache is written IN PLACE (the JAX package donates it; here the
+    returned dict holds the same tensors): a caller that still needs the
+    old cache must copy it first. ``ring=`` (sequence-parallel prefill)
+    is ROADMAP Queue 1 item 10; ``unroll`` > 1 unrolled the JAX layer
+    scan and has no meaning in eager PyTorch."""
+    if ring is not None:
+        raise NotImplementedError(f"ring= prefill: {_PARALLEL}")
+    if unroll not in (0, 1):
+        raise NotImplementedError(
+            "unroll= unrolls the JAX package's layer scan; it is not "
+            "applicable in eager PyTorch, where layers run in a loop")
+    if cfg.num_experts:
+        raise NotImplementedError(_MOE)
+    k_cache, v_cache = cache["k"], cache["v"]
+    start, t = int(cache["pos"]), tokens.shape[1]
+    s_max = k_cache.shape[2]
+    if start + t > s_max:
+        raise ValueError(f"writing {t} positions at {start} overflows the "
+                         f"cache of {s_max}")
+    x = params["embed_tokens"][tokens.long()]              # (B, T, H)
+    valid = (torch.arange(s_max, device=x.device) < start + t)[None, :]
+
+    def attend(l, q, k, v):
+        k_cache[l, :, start:start + t] = k.to(k_cache.dtype)
+        v_cache[l, :, start:start + t] = v.to(v_cache.dtype)
+        return _attention(q, k_cache[l], v_cache[l], positions, valid, cfg)
+
+    for l in range(cfg.num_hidden_layers):
+        x, _, _ = decoder_layer(layer_params(params["layers"], l), x,
+                                positions, cfg,
+                                lambda q, k, v, l=l: attend(l, q, k, v))
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    logits = lm_logits(params, x)
+    return logits.to(torch.float32), {"k": k_cache, "v": v_cache,
+                                      "pos": start + t}
+
+
 def paged_prefill_ragged(params, cfg: LlamaConfig, k_pages, v_pages, toks,
                          length: int, offset: int, bt_row, phys, slots,
                          fork_dst: int, fork_src: int, *, page: int):
@@ -330,25 +614,253 @@ def paged_prefill_ragged(params, cfg: LlamaConfig, k_pages, v_pages, toks,
 
 
 # ---------------------------------------------------------------------------
+# token loops
+# ---------------------------------------------------------------------------
+
+def _pick_token(logits, generator, do_sample: bool, temperature,
+                top_k: int):
+    """logits (B, V) → (B,) int32 next tokens (the engine's
+    :func:`sample_tokens`, noise from ``generator``)."""
+    return sample_tokens(logits, generator, do_sample=do_sample,
+                         temperature=temperature, top_k=top_k)
+
+
+def _next_tokens(last, generator, temperature, finished, do_sample, top_k,
+                 eos_token_id):
+    nxt = _pick_token(last, generator, do_sample, temperature, top_k)
+    if eos_token_id is not None:
+        nxt = torch.where(finished, torch.full_like(nxt, eos_token_id), nxt)
+        finished = finished | (nxt == eos_token_id)
+    return nxt, finished
+
+
+def decode_scan(params, cache, last_logits, generator, temperature,
+                finished=None, *, cfg, num_tokens: int,
+                do_sample: bool = False, top_k: int = 0,
+                eos_token_id: Optional[int] = None):
+    """``num_tokens`` autoregressive steps over the dense cache: each step
+    picks a token from the previous logits and runs it through
+    :func:`forward` at position ``cache["pos"]``.
+
+    Returns ``(tokens (B, num_tokens) int32, cache, last_logits,
+    generator, finished)``. After EOS a row keeps emitting
+    ``eos_token_id`` (HF padding semantics); ``finished`` (B,) bool
+    carries that state across calls, so a caller decoding in chunks must
+    pass the returned mask back in."""
+    b = last_logits.shape[0]
+    if finished is None:
+        finished = torch.zeros((b,), dtype=torch.bool,
+                               device=last_logits.device)
+    last, toks = last_logits, []
+    for _ in range(num_tokens):
+        nxt, finished = _next_tokens(last, generator, temperature, finished,
+                                     do_sample, top_k, eos_token_id)
+        pos = torch.full((b, 1), int(cache["pos"]), dtype=torch.int32,
+                         device=nxt.device)
+        logits, cache = forward(params, cfg, nxt[:, None], cache, pos)
+        last = logits[:, -1]
+        toks.append(nxt)
+    return torch.stack(toks, dim=1), cache, last, generator, finished
+
+
+def pageify_cache(cache: Dict[str, Any], page: int = 16
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense prefill cache (L, B, S, H, D) → page pools (L, 1 + B·maxp,
+    H, page, D) and block tables (B, maxp) int32: row ``i`` gets the
+    contiguous page run ``1 + i·maxp ..`` (page 0 is the trash page, as
+    in the serving allocator), ``maxp`` padded to the JAX kernel's
+    ``LANE // page`` multiple. Bit-identical to the JAX package's."""
+    if page <= 0 or LANE % page:
+        raise ValueError(
+            f"page_size {page} must divide the kernel lane width "
+            f"{LANE} (8/16/32/64/128)")
+    k, v = cache["k"], cache["v"]
+    L, B, S, H, D = k.shape
+    ppb = LANE // page
+    cap = -(-S // page)
+    maxp = -(-cap // ppb) * ppb
+
+    full, rem = divmod(S, page)
+
+    def pageify(a):
+        # (L, B, S, H, D) -> (L, 1 + B*maxp, H, page, D); the trash page,
+        # the tail of the last page and the padding pages stay zero
+        pages = torch.zeros((L, 1 + B * maxp, H, page, D), dtype=a.dtype,
+                            device=a.device)
+        body = pages[:, 1:].view(L, B, maxp, H, page, D)
+        body[:, :, :full] = a[:, :, :full * page].reshape(
+            L, B, full, page, H, D).permute(0, 1, 2, 4, 3, 5)
+        if rem:
+            body[:, :, full, :, :rem] = a[:, :, full * page:].permute(
+                0, 1, 3, 2, 4)
+        return pages
+
+    bt = 1 + (torch.arange(B, device=k.device)[:, None] * maxp
+              + torch.arange(maxp, device=k.device)[None, :]).to(torch.int32)
+    return pageify(k), pageify(v), bt
+
+
+def decode_scan_paged(params, k_pages, v_pages, bt, pos, last_logits,
+                      generator, temperature, finished=None, *, cfg,
+                      page: int, num_tokens: int, do_sample: bool = False,
+                      top_k: int = 0, eos_token_id: Optional[int] = None):
+    """The :func:`decode_scan` token loop over a PAGED pool, through the
+    serving engine's ``paged_decode_step``: attention reads only the live
+    pages (the stats kernel plus the merge of the current token), and
+    each step writes every layer's new K/V into the pools in place.
+    ``pos`` is the shared position (generate is rectangular). Returns
+    ``(tokens (B, T) int32, k_pages, v_pages, pos, last, generator,
+    finished)``."""
+    from bigdl_tpu_torch.llm.serving import paged_decode_step
+    b = last_logits.shape[0]
+    if finished is None:
+        finished = torch.zeros((b,), dtype=torch.bool,
+                               device=last_logits.device)
+    pos, last, toks = int(pos), last_logits, []
+    for _ in range(num_tokens):
+        nxt, finished = _next_tokens(last, generator, temperature, finished,
+                                     do_sample, top_k, eos_token_id)
+        lens = torch.full((b,), pos, dtype=torch.int32, device=nxt.device)
+        last, k_pages, v_pages = paged_decode_step(
+            params, cfg, k_pages, v_pages, bt, lens, nxt, page=page)
+        pos += 1
+        toks.append(nxt)
+    return (torch.stack(toks, dim=1), k_pages, v_pages, pos, last,
+            generator, finished)
+
+
+# ---------------------------------------------------------------------------
 # model holder
 # ---------------------------------------------------------------------------
 
 class LlamaForCausalLM:
-    """What the serving engine needs of a model: ``config``, ``params``
-    on ``device``, the KV ``cache_dtype`` and the ``page_size``.
-    ``device=None`` means the GPU (and raises without one)."""
+    """Generation facade: ``config``, ``params`` on ``device``, the KV
+    ``cache_dtype`` and ``page_size`` (what the serving engine reads),
+    and ``__call__`` (prefill into a fresh dense cache) and ``generate``.
+
+    ``paged_decode`` (default) runs ``generate``'s token loop over a page
+    pool (:func:`decode_scan_paged`): the dense prefill cache is cut into
+    pages once, and attention reads only live pages each token.
+    ``paged_decode=False`` keeps the dense-cache loop
+    (:func:`decode_scan`). ``decode_unroll`` unrolled the JAX layer scan
+    and only 1 is meaningful here. ``device=None`` means the GPU (and
+    raises without one)."""
 
     def __init__(self, cfg: LlamaConfig, params: Dict[str, Any],
+                 max_cache_len: int = 512,
                  cache_dtype: torch.dtype = torch.bfloat16,
+                 decode_unroll: int = 1, paged_decode: bool = True,
                  page_size: int = 16, device=None):
         if cfg.num_experts:
-            raise NotImplementedError("MoE FFN is not ported yet "
-                                      "(ROADMAP Queue 1 item 3)")
+            raise NotImplementedError(_MOE)
+        if decode_unroll not in (0, 1):
+            raise NotImplementedError(
+                "decode_unroll unrolls the JAX package's layer scan; it is "
+                "not applicable in eager PyTorch")
         self.device = resolve_device(device)
         self.config = cfg
         self.params = _to_device(params, self.device)
         self.cache_dtype = cache_dtype
+        self.max_cache_len = min(max_cache_len, cfg.max_position_embeddings)
+        self.paged_decode = paged_decode
         self.page_size = page_size
+
+    @classmethod
+    def from_config(cls, cfg: LlamaConfig, seed: int = 0,
+                    load_in_low_bit: Optional[str] = None,
+                    max_cache_len: int = 512,
+                    device=None) -> "LlamaForCausalLM":
+        """Random weights from ``seed`` (:func:`init_params`), made on
+        ``device``, optionally quantized (``lm_head`` stays dense)."""
+        dev = resolve_device(device)
+        params = init_params(cfg, seed, device=dev)
+        if load_in_low_bit:
+            params = quantize_params(params, load_in_low_bit)
+        return cls(cfg, params, max_cache_len, device=dev)
+
+    def quantize(self, qtype: str = "sym_int4") -> "LlamaForCausalLM":
+        self.params = quantize_params(self.params, qtype)
+        return self
+
+    def shard(self, mesh) -> "LlamaForCausalLM":
+        raise NotImplementedError(f"shard(): {_PARALLEL}")
+
+    def sequence_parallel(self, mesh, axis: str = "seq"
+                          ) -> "LlamaForCausalLM":
+        raise NotImplementedError(f"sequence_parallel(): {_PARALLEL}")
+
+    def _tokens(self, ids) -> torch.Tensor:
+        if isinstance(ids, torch.Tensor):
+            return ids.to(self.device, torch.int32)
+        return torch.as_tensor(np.asarray(ids), dtype=torch.int32,
+                               device=self.device)
+
+    def __call__(self, tokens, cache=None, positions=None):
+        """Forward ``tokens`` (B, T) from ``cache`` (a fresh dense cache of
+        ``max_cache_len`` in ``cache_dtype`` when None) at ``positions``
+        (default ``cache["pos"] + 0..T-1``); returns ``(logits (B, T, V)
+        f32, cache)``. A cache passed in is written in place."""
+        tokens = self._tokens(tokens)
+        b, t = tokens.shape
+        if cache is None:
+            cache = init_cache(self.config, b, self.max_cache_len,
+                               dtype=self.cache_dtype, device=self.device)
+        if positions is None:
+            positions = (int(cache["pos"]) + torch.arange(
+                t, dtype=torch.int32, device=self.device)).expand(b, t)
+        with torch.no_grad():
+            return forward(self.params, self.config, tokens, cache,
+                           positions)
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, eos_token_id: Optional[int] = None,
+                 seed: int = 0, decode_chunk: int = 32) -> np.ndarray:
+        """Greedy or sampled autoregressive decode. input_ids (B, T0);
+        returns (B, T0 + new) int32 numpy. One dense prefill, then the
+        token loop in chunks of ``decode_chunk`` when ``eos_token_id`` is
+        set (the host stops once every row finished), else in one go.
+        Sampling noise comes from a ``torch.Generator`` seeded with
+        ``seed`` on the model's device."""
+        tokens = self._tokens(input_ids)
+        b, t0 = tokens.shape
+        if t0 + max_new_tokens > self.max_cache_len:
+            raise ValueError(
+                f"sequence {t0}+{max_new_tokens} exceeds cache "
+                f"{self.max_cache_len}")
+        logits, cache = self(tokens)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        last = logits[:, -1].clone()       # not a view pinning (B, T, V)
+        del logits
+        pieces = [tokens.cpu().numpy()]
+        remaining = max_new_tokens
+        chunk = max_new_tokens if eos_token_id is None else decode_chunk
+        finished = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        kw = dict(cfg=self.config, do_sample=do_sample, top_k=top_k,
+                  eos_token_id=eos_token_id)
+        with torch.no_grad():
+            if self.paged_decode:
+                k_pages, v_pages, bt = pageify_cache(cache,
+                                                     page=self.page_size)
+                pos = cache["pos"]
+                del cache
+            while remaining > 0:
+                n = min(chunk, remaining)
+                if self.paged_decode:
+                    toks, k_pages, v_pages, pos, last, gen, finished = \
+                        decode_scan_paged(
+                            self.params, k_pages, v_pages, bt, pos, last,
+                            gen, temperature, finished, page=self.page_size,
+                            num_tokens=n, **kw)
+                else:
+                    toks, cache, last, gen, finished = decode_scan(
+                        self.params, cache, last, gen, temperature,
+                        finished, num_tokens=n, **kw)
+                pieces.append(toks.cpu().numpy())
+                remaining -= n
+                if eos_token_id is not None and bool(finished.all()):
+                    break
+        return np.concatenate(pieces, axis=1)
 
     @classmethod
     def synthetic_q4(cls, cfg: LlamaConfig, device=None, seed: int = 0,

@@ -8,15 +8,19 @@ Phase 0  require a CUDA device (exit 2 without one) and print the card's
 Phase 1  build every CUDA kernel from ``bigdl_tpu_torch/csrc`` (one
          ``nvcc`` per source, all in parallel) and print the seconds.
 Phase 2  hold each kernel against its plain PyTorch version on the card
-         at the Llama-2-7B shapes of the served path, plus GQA (Hq 32,
-         Hkv 8), D=64 and sliding-window shapes, and the three
-         dequant-matmuls at the BERT-base shapes (and q4_0 at N = 2, 3,
-         770); inputs from a seeded ``torch.Generator`` on the card. One
-         JSON line per case with the errors, the tolerance, the
-         kernel's / plain version's / one PyTorch library call's time
-         (CUDA events, median of 25 calls run back to back after
-         warm-up) and the bound (bytes over 3.35 TB/s or FLOPs over
-         989 TFLOP/s, whichever is larger).
+         at the Llama-2-7B shapes of the served path and the Mistral-7B
+         shapes of ``generate`` (q4_0 linears at decode batch 4 and
+         prefill 4 x 512; stats decode at lengths 512..575 and 4199),
+         plus GQA (Hq 32, Hkv 8), D=64 and sliding-window shapes, the
+         three dequant-matmuls at the BERT-base shapes (and q4_0 at N =
+         2, 3, 770), and kernel 6 (normalised paged decode) at Mistral
+         decode, one 4233-token Mistral row and Llama-2-7B MHA; inputs
+         from a seeded ``torch.Generator`` on the card. One JSON line per
+         case with the errors, the tolerance, the kernel's / plain
+         version's / one PyTorch library call's time (CUDA events,
+         median of 25 calls run back to back after warm-up) and the
+         bound (bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s,
+         whichever is larger).
 Phase 3  the served path on the card against the port's plain path on
          the CPU on a small input (7B width, 2 layers): prefill and decode
          logits within 2e-2 of their largest magnitude. Then build
@@ -39,6 +43,22 @@ Phase 5  BERT-base (full width, 12 layers, random weights from a seed)
          others), ms per forward, sequences/s, peak memory, and the
          card's log-probs against the same model's plain path on the CPU
          (batch 2 x 128). Then one int8 forward traced as in phase 4.
+Phase 6  bigdl-llm's ``generate()`` on Mistral-7B q4_0 (full width, 32
+         layers, weights from a seed made and quantized on the card
+         through ``AutoModelForCausalLM.from_pretrained``): (a) batch 4 x
+         512 prompts, 64 new tokens, paged decode, then dense decode
+         (first-step logits against the paged step within 2e-2; leading
+         equal tokens reported); (b) batch 1 x 4200 prompt, 32 new
+         tokens (blockwise prefill, the 4096 window bites). Each run with
+         exact launch counts (4·L·(1+n) int4_matmul, L·n stats kernels,
+         0 others), in-vocab tokens, prefill s, decode tok/s, peak
+         memory. On (b)'s prefill pools, kernel 6 on every layer against
+         stats + merge of the last token and against its plain version.
+         Then one decode step of (a) traced as in phase 4.
+Phase 7  a 2-layer full-width Mistral safetensors checkpoint (bf16, ~1.4
+         GB, written here) loaded by ``from_pretrained(dir,
+         load_in_4bit=True)`` on the card and on the CPU: prefill logits
+         within 2e-2, 8 greedy tokens each.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the run
@@ -175,10 +195,16 @@ def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
     return row
 
 
+# Mistral-7B's fused linears (K, N): GQA makes qkv N = 4096 + 2 * 1024
+MISTRAL_LINEARS = ((4096, 6144, "qkv_proj"), (4096, 4096, "o_proj"),
+                   (4096, 28672, "gate_up_proj"), (14336, 4096, "down_proj"))
+
+
 def int4_cases(torch, dev, gen):
-    """q4_0 at the Llama-2-7B shapes (bf16 out, as served), at the BERT
-    shapes (f32 out, as the sym_int4 pipeline runs it) and at N = 3 and
-    770 (N not a multiple of 4)."""
+    """q4_0 at the Llama-2-7B shapes (bf16 out, as served), at the
+    Mistral-7B shapes of ``generate`` (bf16 out), at the BERT shapes (f32
+    out, as the sym_int4 pipeline runs it) and at N = 3 and 770 (N not a
+    multiple of 4)."""
     out = []
     for m, per in ((8, "7B decode step"), (512, "7B prefill")):
         for k, n, what, count in (
@@ -187,6 +213,13 @@ def int4_cases(torch, dev, gen):
                 (11008, 4096, "down_proj", 32), (4096, 32000, "lm_head", 1)):
             out.append(matmul_case(torch, dev, gen, "int4_matmul", what, m,
                                    k, n, torch.bfloat16, count, per))
+    # Mistral-7B's linears at generate (a)'s decode step (batch 4) and
+    # prefill (4 x 512 rows); lm_head stays dense on that path
+    for m, per in ((4, "Mistral decode step"), (2048, "Mistral prefill")):
+        for k, n, what in MISTRAL_LINEARS:
+            out.append(matmul_case(torch, dev, gen, "int4_matmul",
+                                   f"Mistral {what}", m, k, n,
+                                   torch.bfloat16, 32, per))
     for what, m, k, n, count in BERT_SHAPES:
         out.append(matmul_case(torch, dev, gen, "int4_matmul",
                                f"BERT {what}", m, k, n, torch.float32, count,
@@ -217,28 +250,61 @@ def _gathered(torch, pages, bt, n_tok, g):
     return a.repeat_interleave(g, dim=1)
 
 
-def paged_cases(torch, dev, gen):
+def _paged_inputs(torch, dev, gen, hq, hkv, d, lens, page=16):
+    """bf16 q and pools, a shuffled block table with room for ``lens``,
+    int32 lengths, all on the card from ``gen``."""
+    B = len(lens)
+    maxp = max(32, -(-max(lens) // page) + 1)
+    P = 1 + B * maxp
+    q = torch.randn((B, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    kp, vp = (torch.randn((P, hkv, page, d), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    bt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[
+        :B * maxp]).reshape(B, maxp).to(torch.int32)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, ln
+
+
+def _sdpa_yardstick(torch, q, kp, vp, bt, lens, win):
+    """``F.scaled_dot_product_attention`` of one query per row over the
+    gathered live K/V (GQA heads expanded, window masked), ready to time;
+    empty rows are kept finite."""
     import torch.nn.functional as F
+    dev = q.device
+    smax = max(lens)
+    g = q.shape[1] // kp.shape[1]
+    kg = _gathered(torch, kp, bt, smax, g)
+    vg = _gathered(torch, vp, bt, smax, g)
+    pos = torch.arange(smax, device=dev)[None]
+    ln = torch.tensor(lens, device=dev)[:, None]
+    mask = pos < ln
+    if win is not None:
+        mask &= pos >= ln - win
+    mask[:, 0] |= ~mask.any(dim=1)
+    mask = mask[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
+
+
+LENS_MAIN = [17, 57, 98, 139, 180, 220, 260, 300]
+
+
+def paged_cases(torch, dev, gen):
     from bigdl_tpu_torch.llm.kernels.paged_attention import (
         paged_attention_decode_stats, paged_attention_reference_stats)
-    page, B, maxp = 16, 8, 32
-    lens_main = [17, 57, 98, 139, 180, 220, 260, 300]
+    page = 16
     out = []
     for what, hq, hkv, d, win, lens in (
-            ("7B decode", 32, 32, 128, None, lens_main),
-            ("GQA Hkv=8", 32, 8, 128, None, [0] + lens_main[1:]),
-            ("D=64", 32, 32, 64, None, lens_main),
-            ("GQA window=100", 32, 8, 128, 100, lens_main)):
-        P = 1 + B * maxp
-        q = torch.randn((B, hq, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        kp = torch.randn((P, hkv, page, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        vp = torch.randn((P, hkv, page, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        bt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[
-            :B * maxp]).reshape(B, maxp).to(torch.int32)
-        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            ("7B decode", 32, 32, 128, None, LENS_MAIN),
+            ("GQA Hkv=8", 32, 8, 128, None, [0] + LENS_MAIN[1:]),
+            ("D=64", 32, 32, 64, None, LENS_MAIN),
+            ("GQA window=100", 32, 8, 128, 100, LENS_MAIN),
+            # generate (a)'s decode, lengths excluding the current token
+            # and the window shrunk by one, as paged_attend calls it
+            ("Mistral decode", 32, 8, 128, 4095, [512, 533, 554, 575]),
+            ("Mistral long", 32, 8, 128, 4095, [4199])):
+        q, kp, vp, bt, ln = _paged_inputs(torch, dev, gen, hq, hkv, d, lens)
+        B = len(lens)
         acc, m, l = paged_attention_decode_stats(q, kp, vp, bt, ln, page,
                                                  sliding_window=win)
         racc, rm, rl = paged_attention_reference_stats(
@@ -253,24 +319,15 @@ def paged_cases(torch, dev, gen):
         empty_ok = bool(torch.all(m[~live] == -1e30)
                         and torch.all(l[~live] == 0)
                         and torch.all(acc[~live] == 0))
-        # library yardstick: SDPA over the gathered live K/V
-        smax = max(lens)
-        kg = _gathered(torch, kp, bt, smax, hq // hkv)
-        vg = _gathered(torch, vp, bt, smax, hq // hkv)
-        pos = torch.arange(smax, device=dev)[None]
-        mask = pos < ln[:, None].long()
-        if win is not None:
-            mask &= pos >= ln[:, None].long() - win
-        mask[:, 0] |= ~mask.any(dim=1)          # keep empty rows finite
-        mask = mask[:, None, None, :]
-        q4 = q[:, :, None, :]
         n_att = sum(min(x, win) if win else x for x in lens)
         nbytes = (q.numel() * 2 + n_att * hkv * d * 2 * 2 + bt.numel() * 4
                   + B * 4 + acc.numel() * 4 + 2 * m.numel() * 4)
         b_ms, b_by = bound(nbytes, 4.0 * n_att * hq * d)
         out.append({
             "kernel": "paged_attention_decode_stats",
-            "case": f"{what} B={B} Hq={hq} Hkv={hkv} D={d} page={page}",
+            "case": f"{what} B={B} Hq={hq} Hkv={hkv} D={d} page={page}"
+                    + (f" window={win}" if win else ""),
+            "lens": lens,
             "max_abs_err": err, "max_abs_err_m": err_m,
             "max_rel_err_l": err_l, "tol": 1e-3,
             "tol_rule": "1e-3 on acc/l and m, 1e-3 relative on l "
@@ -279,12 +336,60 @@ def paged_cases(torch, dev, gen):
                 q, kp, vp, bt, ln, page, sliding_window=win)),
             "plain_ms": time_ms(lambda: paged_attention_reference_stats(
                 q, kp, vp, bt, ln, sliding_window=win)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q4, kg, vg, attn_mask=mask)),
+            "library_ms": time_ms(_sdpa_yardstick(torch, q, kp, vp, bt, lens,
+                                                  win)),
             "library": "F.scaled_dot_product_attention on gathered K/V",
             "bound_ms": b_ms, "bound_by": b_by,
             "passed": (err <= 1e-3 and err_m <= 1e-3 and err_l <= 1e-3
                        and empty_ok)})
+    return out
+
+
+def paged_norm_cases(torch, dev, gen):
+    """Kernel 6, the normalised paged decode behind ``paged_attention()``,
+    against ``paged_attention_reference`` (lengths include the current
+    token, the window is not shrunk): Mistral-7B decode (GQA 4:1), one
+    long Mistral row where the 4096 window bites, and Llama-2-7B MHA. q
+    and the output are bf16: f32 math on both sides, then one rounding."""
+    from bigdl_tpu_torch.llm.kernels.paged_attention import (
+        paged_attention_decode, paged_attention_reference)
+    page = 16
+    out = []
+    for what, hq, hkv, d, win, lens in (
+            ("Mistral decode", 32, 8, 128, 4096, [513, 534, 555, 576]),
+            ("Mistral long", 32, 8, 128, 4096, [4233]),
+            ("7B MHA", 32, 32, 128, None, LENS_MAIN)):
+        q, kp, vp, bt, ln = _paged_inputs(torch, dev, gen, hq, hkv, d, lens)
+        B = len(lens)
+        got = paged_attention_decode(q, kp, vp, bt, ln, page,
+                                     sliding_window=win)
+        want = paged_attention_reference(q, kp, vp, bt, ln,
+                                         sliding_window=win)
+        torch.cuda.synchronize()
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 1e-3 + 2.0 ** -7 * scale
+        n_att = sum(min(x, win) if win else x for x in lens)
+        nbytes = (q.numel() * 2 + n_att * hkv * d * 2 * 2 + bt.numel() * 4
+                  + B * 4 + got.numel() * 2)
+        b_ms, b_by = bound(nbytes, 4.0 * n_att * hq * d)
+        out.append({
+            "kernel": "paged_attention_decode",
+            "case": f"{what} B={B} Hq={hq} Hkv={hkv} D={d} page={page}"
+                    + (f" window={win}" if win else ""),
+            "lens": lens, "max_abs_err": err, "tol": tol,
+            "tol_rule": "1e-3 + one bf16 ulp of max|plain| (2^-7 of it): "
+                        "f32 math on the same bf16 q and K/V, each side "
+                        "rounds its output to bf16 once",
+            "ms": time_ms(lambda: paged_attention_decode(
+                q, kp, vp, bt, ln, page, sliding_window=win)),
+            "plain_ms": time_ms(lambda: paged_attention_reference(
+                q, kp, vp, bt, ln, sliding_window=win)),
+            "library_ms": time_ms(_sdpa_yardstick(torch, q, kp, vp, bt, lens,
+                                                  win)),
+            "library": "F.scaled_dot_product_attention on gathered K/V",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "passed": err <= tol and bool(torch.isfinite(got).all())})
     return out
 
 
@@ -405,7 +510,8 @@ def serve_7b(torch, dev):
     expect = {"int4_matmul": (n_prefill + steps) * (4 * L + 1),
               "asym_int4_matmul": 0, "int8_matmul": 0,
               "paged_attention_decode_stats": steps * L,
-              "ragged_prefill_attention": n_prefill * L}
+              "ragged_prefill_attention": n_prefill * L,
+              "paged_attention_decode": 0}
     check(all(counts[k] > 0 for k, v in expect.items() if v),
           f"a kernel of the served path never ran: {counts}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
@@ -559,6 +665,298 @@ def profile_decode(torch, model):
     return profile(torch, step, "7B decode step, batch 8, lens 33..316")
 
 
+# -- phase 6: generate() on Mistral-7B ----------------------------------------
+
+# (batch, prompt tokens, new tokens, max_cache_len) of the two generate
+# runs, and the checkpoint's config.json: Mistral-7B-v0.1's, cut to 2
+# layers
+GEN_A = (4, 512, 64, 1024)
+GEN_B = (1, 4200, 32, 4352)
+CKPT = {"model_type": "mistral", "architectures": ["MistralForCausalLM"],
+        "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+        "num_hidden_layers": 2, "num_attention_heads": 32,
+        "num_key_value_heads": 8, "max_position_embeddings": 8192,
+        "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "sliding_window": 4096,
+        "tie_word_embeddings": False}
+
+def _launch_expect(counts, L, n, paged):
+    """What one ``generate`` of ``n`` new tokens must launch: every
+    decoder linear (4 a layer) at the prefill and at each of the n
+    steps, and with paged decode one stats kernel a layer a step; the
+    dense ``lm_head`` launches nothing."""
+    want = dict.fromkeys(counts, 0)
+    want["int4_matmul"] = 4 * L * (1 + n)
+    if paged:
+        want["paged_attention_decode_stats"] = L * n
+    return want
+
+
+def _generate_run(torch, model, ids, n, what):
+    """One ``generate`` with the counters zeroed just before: exact
+    launch counts, in-vocab tokens, wall time, peak memory. The prompt's
+    prefill is timed alone just before (the same call generate makes
+    first); decode tok/s = B·n / (generate wall - that prefill)."""
+    from bigdl_tpu_torch.llm import kernels
+    cfg = model.config
+    B, T = ids.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del logits, cache
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=n)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = _launch_expect(counts, cfg.num_hidden_layers, n,
+                          model.paged_decode)
+    check(counts == want, f"generate {what}: launch counts {counts} != "
+          f"{want}")
+    new = out[:, T:]
+    check(new.shape == (B, n) and bool(((new >= 0)
+                                        & (new < cfg.vocab_size)).all()),
+          f"generate {what}: tokens {new.shape} out of vocab")
+    return {"what": what, "batch": B, "prompt_tokens": T,
+            "new_tokens": n, "max_cache_len": model.max_cache_len,
+            "paged_decode": model.paged_decode, "launches": counts,
+            "prefill_s": prefill_s, "generate_s": wall,
+            "decode_tok_per_s": B * n / (wall - prefill_s),
+            "decode_step_ms": (wall - prefill_s) / n * 1e3,
+            "peak_mem_gb": peak / 1e9,
+            "tokens_row0": new[0].tolist()}, out
+
+
+def generate_phase(torch, dev):
+    """bigdl-llm's entry point on Mistral-7B q4_0 at full width and all
+    32 layers: ``AutoModelForCausalLM.from_pretrained(LlamaConfig.
+    mistral_7b(), load_in_4bit=True)`` (random bf16 weights from seed 0
+    made on the card, quantized there; lm_head dense), then
+    (a) batch 4 x 512-token prompts, 64 new tokens, max_cache_len 1024
+        (single-block dense prefill attention), paged decode; then the
+        same with ``paged_decode=False`` — its first decode step's logits
+        against the paged step's (2e-2 of their largest magnitude) and
+        how many leading greedy tokens agree (reported only);
+    (b) batch 1 x 4200-token prompt, 32 new tokens, max_cache_len 4352
+        (blockwise prefill attention; the 4096 window bites), and on its
+        prefill pools, per layer, kernel 6 (``paged_attention()`` over
+        4200 tokens) against stats over 4199 + the merge of token 4199,
+        and against the plain version (1e-3, f32 q).
+    Then a profile of one decode step of (a)."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.kernels.paged_attention import (
+        merge_attention_partial, paged_attention, paged_attention_reference,
+        paged_attention_stats)
+    from bigdl_tpu_torch.llm.models.llama import (LlamaConfig,
+                                                  LlamaForCausalLM, forward,
+                                                  pageify_cache)
+    from bigdl_tpu_torch.llm.serving import paged_decode_step
+    from bigdl_tpu_torch.llm.transformers import AutoModelForCausalLM
+
+    cfg = LlamaConfig.mistral_7b()
+    L, page = cfg.num_hidden_layers, 16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = AutoModelForCausalLM.from_pretrained(
+        cfg, load_in_4bit=True, max_cache_len=1024, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(model.params))
+    rows = {}
+    hgen = torch.Generator().manual_seed(11)
+
+    # (a): the first decode step, paged against dense, on one prefill
+    B, T, n, _ = GEN_A
+    ids_a = torch.randint(0, cfg.vocab_size, (B, T), generator=hgen).numpy()
+    with torch.no_grad():
+        logits, cache = model(ids_a)
+        tok0 = logits[:, -1].argmax(-1).to(torch.int32)
+        kp, vp, bt = pageify_cache(cache, page=page)
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        lg_paged = paged_decode_step(model.params, cfg, kp, vp, bt, lens,
+                                     tok0, page=page)[0]
+        lg_dense = forward(model.params, cfg, tok0[:, None], cache,
+                           torch.full((B, 1), T, dtype=torch.int32,
+                                      device=dev))[0][:, 0]
+    step_err = ((lg_paged - lg_dense).abs().max()
+                / lg_dense.abs().max()).item()
+    check(step_err <= 2e-2, f"first decode step, paged vs dense logits: "
+          f"rel err {step_err}")
+    del logits, cache, lg_paged, lg_dense
+    rows["a"], out_a = _generate_run(torch, model, ids_a, n, "(a)")
+    model.paged_decode = False
+    rows["a_dense"], out_d = _generate_run(torch, model, ids_a, n,
+                                           "(a) dense decode")
+    model.paged_decode = True
+    agree = [int(next((i for i in range(n) if out_a[r, T + i]
+                       != out_d[r, T + i]), n)) for r in range(B)]
+    rows["a_dense"].update(first_step_rel_err=step_err, tol=2e-2,
+                           leading_tokens_equal_to_paged=agree)
+    prof = profile(torch, lambda: paged_decode_step(
+        model.params, cfg, kp, vp, bt, lens, tok0, page=page)[0]
+        .argmax(-1).cpu(), f"Mistral-7B decode step (paged), batch {B}, "
+        f"context {T}")
+    del kp, vp, bt
+
+    # (b): a long prompt, and kernel 6 on its prefill pools
+    B, T, n, cache_len = GEN_B
+    long_model = LlamaForCausalLM(cfg, model.params,
+                                  max_cache_len=cache_len, device=dev)
+    ids_b = torch.randint(0, cfg.vocab_size, (B, T), generator=hgen).numpy()
+    qgen = torch.Generator(device=dev).manual_seed(12)
+    with torch.no_grad():
+        _, cache = long_model(ids_b)
+        kp, vp, bt = pageify_cache(cache, page=page)
+        win = cfg.sliding_window
+        qs = [torch.randn((B, cfg.num_attention_heads, cfg.head_dim),
+                          generator=qgen, device=dev) for _ in range(L)]
+        n_all = torch.full((B,), T, dtype=torch.int32, device=dev)
+        kernels.reset_launch_counts()
+        outs = [paged_attention(qs[l], kp[l], vp[l], bt, n_all, page,
+                                sliding_window=win) for l in range(L)]
+        pa_counts = kernels.launch_counts()
+        errs_merge, errs_plain = [], []
+        for l in range(L):
+            st = paged_attention_stats(qs[l], kp[l], vp[l], bt, n_all - 1,
+                                       page, sliding_window=win - 1)
+            merged = merge_attention_partial(
+                *st, qs[l], cache["k"][l, :, T - 1], cache["v"][l, :, T - 1])
+            plain = paged_attention_reference(qs[l], kp[l], vp[l], bt,
+                                              n_all, sliding_window=win)
+            errs_merge.append((outs[l] - merged).abs().max().item())
+            errs_plain.append((outs[l] - plain).abs().max().item())
+    want = dict.fromkeys(pa_counts, 0)
+    want["paged_attention_decode"] = L
+    check(pa_counts == want, f"paged_attention() launches {pa_counts}")
+    check(max(errs_merge) <= 1e-3 and max(errs_plain) <= 1e-3,
+          f"kernel 6 on generate's pools: merge {max(errs_merge)}, plain "
+          f"{max(errs_plain)}")
+    identity = {"what": f"paged_attention() on generate (b)'s prefill "
+                f"pools, every layer: {T} tokens, window {win}, f32 q",
+                "launches": pa_counts, "max_abs_err_vs_stats_merge":
+                max(errs_merge), "max_abs_err_vs_plain": max(errs_plain),
+                "tol": 1e-3, "passed": True}
+    del cache, kp, vp, bt, outs
+    rows["b"], _ = _generate_run(torch, long_model, ids_b, n, "(b)")
+    return {"phase": "generate", "model": "Mistral-7B q4_0 (random weights "
+            "from seed 0, 32 layers, full width; lm_head dense bf16)",
+            "entry": "AutoModelForCausalLM.from_pretrained(LlamaConfig."
+            "mistral_7b(), load_in_4bit=True).generate",
+            "build_and_quantize_s": build_s, "build_peak_gb": build_peak / 1e9,
+            "weights_gb": weight_bytes / 1e9, "runs": rows,
+            "pool_identity": identity}, prof
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        elif hasattr(v, "element_size"):
+            yield v
+
+
+def write_safetensors(torch, fname, tensors):
+    """A safetensors file from bf16 tensors: 8-byte little-endian header
+    length, the JSON header (padded to 8 bytes), the raw data in order."""
+    import struct
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 2
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(fname, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().view(torch.int16).numpy()
+                    .tobytes())
+
+
+def checkpoint_check(torch, dev):
+    """A 2-layer, full-width Mistral-7B checkpoint in bf16 (random
+    weights from a seed, ~1.4 GB) written to a temporary directory,
+    loaded with ``from_pretrained(dir, load_in_4bit=True)`` on the card
+    and on the CPU: prefill logits of a 48-token prompt within 2e-2 of
+    their largest magnitude (the card's kernels read activations in
+    bf16), and 8 greedy tokens from each (reported)."""
+    import tempfile
+    from bigdl_tpu_torch.llm.transformers import AutoModelForCausalLM
+    H, I, V, L = (CKPT[k] for k in ("hidden_size", "intermediate_size",
+                                     "vocab_size", "num_hidden_layers"))
+    KV = H // CKPT["num_attention_heads"] * CKPT["num_key_value_heads"]
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def w(n, k, scale=None):
+        return (torch.randn((n, k), generator=g, device=dev)
+                * (scale or k ** -0.5)).to(torch.bfloat16)
+
+    def norm():
+        return (1 + 0.05 * torch.randn((H,), generator=g, device=dev)).to(
+            torch.bfloat16)
+
+    tensors = {"model.embed_tokens.weight": w(V, H, 0.02)}
+    for l in range(L):
+        p = f"model.layers.{l}."
+        tensors.update({
+            p + "self_attn.q_proj.weight": w(H, H),
+            p + "self_attn.k_proj.weight": w(KV, H),
+            p + "self_attn.v_proj.weight": w(KV, H),
+            p + "self_attn.o_proj.weight": w(H, H),
+            p + "mlp.gate_proj.weight": w(I, H),
+            p + "mlp.up_proj.weight": w(I, H),
+            p + "mlp.down_proj.weight": w(H, I),
+            p + "input_layernorm.weight": norm(),
+            p + "post_attention_layernorm.weight": norm()})
+    tensors["model.norm.weight"] = norm()
+    tensors["lm_head.weight"] = w(V, H)
+    ids = torch.randint(0, V, (1, 48),
+                        generator=torch.Generator().manual_seed(22)).numpy()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_safetensors(torch, os.path.join(d, "model.safetensors"),
+                          tensors)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(CKPT, f)
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(d, "model.safetensors"))
+        del tensors
+        out, load_s = {}, {}
+        for name, where in (("gpu", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            m = AutoModelForCausalLM.from_pretrained(
+                d, load_in_4bit=True, max_cache_len=128, device=where)
+            load_s[name] = time.perf_counter() - t0
+            logits, _ = m(ids)
+            out[name] = (logits[0, -1].float().cpu(),
+                         m.generate(ids, max_new_tokens=8)[0, 48:].tolist(),
+                         m.params)
+    g_lg, c_lg = out["gpu"][0], out["cpu"][0]
+    check(bool(torch.isfinite(g_lg).all()), "checkpoint logits not finite")
+    err = ((g_lg - c_lg).abs().max() / c_lg.abs().max()).item()
+    check(err <= 2e-2, f"checkpoint card vs CPU logits: rel err {err}")
+    same_planes = all(torch.equal(a.cpu(), b) for a, b in zip(
+        _leaves(out["gpu"][2]), _leaves(out["cpu"][2])))
+    toks = {k: v[1] for k, v in out.items()}
+    lead = next((i for i, (a, b) in enumerate(zip(toks["gpu"], toks["cpu"]))
+                 if a != b), len(toks["gpu"]))
+    return {"phase": "checkpoint", "model": "Mistral-7B width, 2 layers, "
+            "bf16 safetensors (random weights, seed 21)",
+            "file_gb": nbytes / 1e9, "write_s": write_s, "load_s": load_s,
+            "prompt_tokens": 48, "prefill_max_rel_err_logits": err,
+            "tol": 2e-2, "params_bit_identical_card_vs_cpu": same_planes,
+            "greedy_tokens": toks, "leading_tokens_equal": lead,
+            "passed": True}
+
+
 # -- phase 5: the BERT-base low-bit path --------------------------------------
 
 # which kernel each pipeline's linears launch; 6 linears in each of the 12
@@ -692,7 +1090,8 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = (int4_cases(torch, dev, gen) + lowbit_cases(torch, dev, gen)
-             + paged_cases(torch, dev, gen) + ragged_cases(torch, dev, gen))
+             + paged_cases(torch, dev, gen) + ragged_cases(torch, dev, gen)
+             + paged_norm_cases(torch, dev, gen))
     for c in cases:
         emit(c)
     bad = [c["case"] for c in cases if not c["passed"]]
@@ -709,11 +1108,22 @@ def main() -> int:
     bert, bert_prof = bert_path(torch, dev)
     emit(bert)
     emit(bert_prof)
+    torch.cuda.empty_cache()
+    gen_row, gen_prof = generate_phase(torch, dev)
+    emit(gen_row)
+    emit(gen_prof)
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_check(torch, dev)
+    emit(ckpt)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": serve["launches"]}
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = row["launches"]
+    for name, row in gen_row["runs"].items():
+        paths[f"generate {row['what']}"] = row["launches"]
+    paths["paged_attention() on generate pools"] = \
+        gen_row["pool_identity"]["launches"]
 
     heads = {"int4_matmul": ("qkv_proj M=8 K=4096 N=12288",
                              "bigdl_tpu_torch/csrc/int4_matmul.cu",
@@ -729,7 +1139,10 @@ def main() -> int:
                  "bigdl_tpu/llm/kernels/paged_attention.py:377"),
              "ragged_prefill_attention": (
                  "7B prefill", "bigdl_tpu_torch/csrc/ragged_prefill.cu",
-                 "bigdl_tpu/llm/kernels/ragged_prefill.py:189")}
+                 "bigdl_tpu/llm/kernels/ragged_prefill.py:189"),
+             "paged_attention_decode": (
+                 "Mistral decode", "bigdl_tpu_torch/csrc/paged_attention.cu",
+                 "bigdl_tpu/llm/kernels/paged_attention.py:260")}
     summary = []
     for name, (case, src, replaces) in heads.items():
         c = next(c for c in cases
@@ -749,7 +1162,9 @@ def main() -> int:
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
               "reference": ref,
               "serve": serve, "profile": prof, "bert": bert,
-              "bert_profile": bert_prof, "kernels": summary}
+              "bert_profile": bert_prof, "generate": gen_row,
+              "generate_profile": gen_prof, "checkpoint": ckpt,
+              "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

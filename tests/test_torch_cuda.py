@@ -8,7 +8,8 @@ has only PyTorch (the tests' conftest imports JAX, hence
 
 Each kernel is built from ``bigdl_tpu_torch/csrc`` at its first launch.
 The CPU parity of the plain versions against the JAX package lives in
-``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``.
+``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``,
+and of ``generate`` in ``tests/test_torch_generate.py``.
 """
 
 import pytest
@@ -18,7 +19,9 @@ from bigdl_tpu_torch.llm.kernels.int4_matmul import (
     asym_int4_matmul, asym_int4_matmul_reference, int4_matmul,
     int4_matmul_reference, int8_matmul, int8_matmul_reference)
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
-    paged_attention_decode_stats, paged_attention_reference_stats)
+    merge_attention_partial, paged_attention, paged_attention_decode,
+    paged_attention_decode_stats, paged_attention_reference,
+    paged_attention_reference_stats)
 from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
     ragged_prefill_attention, ragged_prefill_reference)
 
@@ -198,3 +201,118 @@ def test_ragged_prefill_attention(cuda, hq, hkv, d, off, slen, tq, win):
                                     sliding_window=win)
     assert torch.isfinite(got).all()
     assert (got[:, :slen] - want[:, :slen]).abs().max().item() < 1e-3
+
+
+def _pool(g, P, hkv, d, device, lead=()):
+    return (torch.randn(lead + (P, hkv, PAGE, d), generator=g,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+
+
+@pytest.mark.parametrize("hq,hkv,d,win,lens", [
+    (32, 32, 128, None, [1, 2, 15, 16, 17, 100, 255, 384]),   # MHA
+    (32, 8, 128, None, [1, 33, 513, 576, 1000, 2049, 4000, 4233]),  # GQA
+    (32, 8, 128, 4096, [1, 4095, 4096, 4097, 4200, 4233, 700, 9]),  # window
+    (32, 32, 64, None, [1, 7, 64, 65, 300, 301, 1200, 4233]),  # D = 64
+    (8, 2, 64, 40, [3, 39, 40, 41, 90, 1, 2, 333])])
+def test_paged_attention_decode(cuda, hq, hkv, d, win, lens):
+    """Kernel 6 against its plain version on bf16 pools and bf16 queries:
+    f32 math on both sides, then one rounding to bf16 — within 1e-3 plus
+    one bf16 ulp of max|out| (2^-7 of it). Exactly one launch."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, maxp = len(lens), -(-max(lens) // PAGE) + 3
+    P = 1 + B * maxp
+    q = torch.randn((B, hq, d), generator=g, device=cuda).to(torch.bfloat16)
+    kp, vp = _pool(g, P, hkv, d, cuda)
+    bt = (1 + torch.randperm(P - 1, generator=g, device=cuda)[:B * maxp]) \
+        .reshape(B, maxp).to(torch.int32)
+    ln = torch.tensor(lens, device=cuda, dtype=torch.int32)
+    before = paged_attention_decode.launches
+    got = paged_attention(q, kp, vp, bt, ln, page_size=PAGE,
+                          sliding_window=win)
+    torch.cuda.synchronize()
+    assert paged_attention_decode.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = paged_attention_reference(q, kp, vp, bt, ln, sliding_window=win)
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-3 + 2.0 ** -7 * scale
+
+
+def test_paged_attention_decode_length_zero_is_zero(cuda):
+    """The kernel follows the Pallas kernel: a row with length 0 is 0
+    (the plain version follows the JAX reference: the mean of V)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    kp, vp = _pool(g, 9, 2, 64, cuda)
+    q = torch.randn((2, 8, 64), generator=g, device=cuda)
+    bt = torch.arange(1, 9, device=cuda, dtype=torch.int32).reshape(2, 4)
+    ln = torch.tensor([0, 20], device=cuda, dtype=torch.int32)
+    got = paged_attention_decode(q, kp, vp, bt, ln, page_size=PAGE)
+    assert torch.all(got[0] == 0)
+    want = paged_attention_reference(q, kp, vp, bt, ln)
+    assert (got[1] - want[1]).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("layer", [1, 3])
+def test_paged_attention_on_layer_views(cuda, layer):
+    """``k_pages[l]`` of an (L, P, Hkv, page, D) pool is a contiguous view
+    whose pointer is not the start of the allocation: kernel 6 on it
+    equals the plain version, and equals stats over ``len - 1`` tokens
+    (window shrunk by one) merged with token ``len - 1`` (1e-3, f32 q)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    L, B, hq, hkv, d, maxp, win = 4, 2, 32, 8, 128, 20, 150
+    P = 1 + B * maxp
+    kp, vp = _pool(g, P, hkv, d, cuda, lead=(L,))
+    q = torch.randn((B, hq, d), generator=g, device=cuda)
+    bt = (1 + torch.arange(B * maxp, device=cuda)).reshape(B, maxp).to(
+        torch.int32)
+    ln = torch.tensor([200, 317], device=cuda, dtype=torch.int32)
+    kl, vl = kp[layer], vp[layer]
+    assert kl.is_contiguous() and kl.data_ptr() != kp.data_ptr()
+    got = paged_attention(q, kl, vl, bt, ln, page_size=PAGE,
+                          sliding_window=win)
+    want = paged_attention_reference(q, kl, vl, bt, ln, sliding_window=win)
+    assert (got - want).abs().max().item() < 1e-3
+    pos = (ln - 1).long()
+    phys = bt[torch.arange(B, device=cuda), pos // PAGE].long()
+    k_last = kl[phys, :, pos % PAGE]                       # (B, Hkv, D)
+    v_last = vl[phys, :, pos % PAGE]
+    st = paged_attention_decode_stats(q, kl, vl, bt, ln - 1, PAGE,
+                                      sliding_window=win - 1)
+    merged = merge_attention_partial(*st, q, k_last, v_last)
+    assert (got - merged).abs().max().item() < 1e-3
+
+
+def test_tiny_generate_card_vs_cpu(cuda):
+    """``generate`` on the card (every int4_matmul and stats-kernel launch
+    counted) against the port's plain path on the CPU, same f32 q4_0
+    weights: the first step's logits within 2e-2 of their largest
+    magnitude (the kernels read activations in bf16), and the launch
+    counts exactly 4·L·(1 + n) and L·n."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.models.llama import (LlamaConfig,
+                                                  LlamaForCausalLM,
+                                                  init_params,
+                                                  quantize_params)
+    cfg = LlamaConfig.tiny()
+    params = quantize_params(init_params(cfg, 0, dtype=torch.float32,
+                                         device="cpu"))
+    ids = torch.randint(0, 256, (2, 24),
+                        generator=torch.Generator().manual_seed(0)).numpy()
+    cpu = LlamaForCausalLM(cfg, params, 64, torch.float32, device="cpu")
+    card = LlamaForCausalLM(cfg, params, 64, torch.float32, device=cuda)
+    lc, _ = cpu(ids)
+    lg, _ = card(ids)
+    rel = ((lg.cpu() - lc).abs().max() / lc.abs().max()).item()
+    assert rel < 2e-2
+    n, L = 8, cfg.num_hidden_layers
+    kernels.reset_launch_counts()
+    out = card.generate(ids, max_new_tokens=n)
+    counts = kernels.launch_counts()
+    assert counts["int4_matmul"] == 4 * L * (1 + n)
+    assert counts["paged_attention_decode_stats"] == L * n
+    assert out.shape == (2, 24 + n) and out.max() < 256
+    card.paged_decode = False
+    kernels.reset_launch_counts()
+    dense = card.generate(ids, max_new_tokens=n)
+    assert kernels.launch_counts()["paged_attention_decode_stats"] == 0
+    assert dense.shape == out.shape

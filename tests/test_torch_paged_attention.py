@@ -1,10 +1,12 @@
-"""Kernel 2 of the port, ``paged_attention_decode_stats`` (flash state of
-one decode query over a paged KV pool), with its merge and the decode
-scatter, held against the JAX package on the same seeded numpy inputs:
-the plain PyTorch version against the Pallas kernel in interpret mode
-and against ``paged_attention_reference_stats``. Ragged lengths
-(including 0), GQA and a sliding window are covered. The CUDA kernel
-runs only on the card: ``tests/test_torch_cuda.py``."""
+"""Kernels 2 and 6 of the port — ``paged_attention_decode_stats`` (flash
+state of one decode query over a paged KV pool, with its merge and the
+decode scatter) and ``paged_attention_decode`` (the normalised variant
+behind the ``paged_attention()`` dispatch) — held against the JAX
+package on the same seeded numpy inputs: the plain PyTorch versions
+against the Pallas kernels in interpret mode and against the JAX
+references. Ragged lengths, GQA and a sliding window are covered; length
+0, where the two JAX functions differ, is asserted on each side. The
+CUDA kernel runs only on the card: ``tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -15,13 +17,19 @@ import jax.numpy as jnp
 from bigdl_tpu.llm.kernels.paged_attention import (
     merge_attention_partial as j_merge)
 from bigdl_tpu.llm.kernels.paged_attention import (
+    paged_attention_decode as j_decode)
+from bigdl_tpu.llm.kernels.paged_attention import (
+    paged_attention_reference as j_ref)
+from bigdl_tpu.llm.kernels.paged_attention import (
     paged_attention_decode_stats as j_stats)
 from bigdl_tpu.llm.kernels.paged_attention import (
     paged_attention_reference_stats as j_ref_stats)
 from bigdl_tpu.llm.serving import scatter_new_kv as j_scatter
 
+from bigdl_tpu_torch.llm.kernels import launch_counts
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
-    merge_attention_partial, paged_attention_decode_stats,
+    merge_attention_partial, paged_attention, paged_attention_decode,
+    paged_attention_decode_stats, paged_attention_reference,
     paged_attention_reference_stats, paged_attention_stats)
 from bigdl_tpu_torch.llm.serving import scatter_new_kv
 
@@ -132,3 +140,110 @@ class TestPlainVersion:
         with pytest.raises(ValueError, match="page_size"):
             paged_attention_stats(*_t(q, kp, vp, bt, ln), page_size=8)
 
+
+
+NORM_CASES = [  # (Hq, Hkv, D, lens >= 1, window)
+    (4, 4, 16, [1, 5, 77, 128], None),        # MHA
+    (8, 2, 32, [1, 16, 17, 100], None),       # GQA g=4
+    (4, 2, 16, [2, 3, 50, 128], 20),          # GQA + window
+]
+
+
+class TestNormalisedPlainVersion:
+    """Kernel 6's plain version, ``paged_attention_reference``."""
+
+    @pytest.mark.parametrize("hq,hkv,d,lens,win", NORM_CASES)
+    def test_matches_pallas_interpret(self, hq, hkv, d, lens, win):
+        """Tolerance 2e-5: f32 softmax of the same inputs, another order
+        of summation (online in the kernel, one pass here)."""
+        q, kp, vp, bt, ln = _setup(10, 4, hq, hkv, d, lens=lens)
+        want = j_decode(*_j(q, kp, vp, bt, ln), page_size=PAGE,
+                        interpret=True, sliding_window=win)
+        got = paged_attention_decode(*_t(q, kp, vp, bt, ln),
+                                     page_size=PAGE, sliding_window=win)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+
+    @pytest.mark.parametrize("hq,hkv,d,lens,win", NORM_CASES)
+    def test_matches_xla_reference(self, hq, hkv, d, lens, win):
+        """The same gather-and-softmax: 1e-5."""
+        q, kp, vp, bt, ln = _setup(11, 4, hq, hkv, d, lens=lens)
+        want = j_ref(*_j(q, kp, vp, bt, ln), sliding_window=win)
+        got = paged_attention_reference(*_t(q, kp, vp, bt, ln),
+                                        sliding_window=win)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_bf16_query_gives_bf16(self):
+        """Output in q.dtype; the bf16 rounding of the f32 result is the
+        only difference from the f32 query's output."""
+        q, kp, vp, bt, ln = _setup(12, 4, 8, 2, 32, lens=[1, 9, 40, 128])
+        qb = torch.from_numpy(q).to(torch.bfloat16)
+        got = paged_attention(qb, *_t(kp, vp, bt, ln), page_size=PAGE)
+        want = paged_attention_reference(qb.float(), *_t(kp, vp, bt, ln))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                                   rtol=2.0 ** -8, atol=1e-6)
+
+    def test_length_zero_each_side(self):
+        """Length 0 is where the two JAX functions part: the Pallas
+        kernel returns 0 (acc = 0, l = 0), the reference a softmax over
+        nothing but masked scores, which is uniform — the mean of the
+        gathered V rows. The port's plain version follows the reference
+        (the CUDA kernel follows the Pallas kernel: test_torch_cuda.py)."""
+        q, kp, vp, bt, ln = _setup(13, 3, 4, 2, 16, lens=[0, 20, 5])
+        kern = np.asarray(j_decode(*_j(q, kp, vp, bt, ln), page_size=PAGE,
+                                   interpret=True))
+        assert np.all(kern[0] == 0.0)
+        want = np.asarray(j_ref(*_j(q, kp, vp, bt, ln)))
+        got = paged_attention_reference(*_t(q, kp, vp, bt, ln)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        # the live span is ceil(20 / 16) = 2 pages of row 0's table
+        mean_v = vp[bt[0, :2]].transpose(1, 0, 2, 3).reshape(
+            2, 2 * PAGE, 16).mean(axis=1)                  # (Hkv, D)
+        np.testing.assert_allclose(got[0], np.repeat(mean_v, 2, axis=0),
+                                   rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("window", [None, 24])
+    def test_write_then_attend_equals_stats_merge(self, window):
+        """The identity the engine's decode rests on: stats over the
+        first ``lens`` tokens (window shrunk by one) merged with the
+        current token equal writing that token to its page and attending
+        ``lens + 1`` tokens (1e-5, f32)."""
+        rs = np.random.RandomState(14)
+        B, Hq, Hkv, D = 3, 8, 2, 32
+        q, kp, vp, bt, ln = _setup(15, B, Hq, Hkv, D, lens=[0, 37, 127])
+        kn = rs.randn(B, Hkv, D).astype(np.float32)
+        vn = rs.randn(B, Hkv, D).astype(np.float32)
+        st = paged_attention_stats(*_t(q, kp, vp, bt, ln), page_size=PAGE,
+                                   sliding_window=None if window is None
+                                   else window - 1)
+        got = merge_attention_partial(*st, *_t(q, kn, vn))
+        kp2, vp2 = kp.copy(), vp.copy()
+        for b in range(B):
+            pid = bt[b, ln[b] // PAGE]
+            kp2[pid, :, ln[b] % PAGE] = kn[b]
+            vp2[pid, :, ln[b] % PAGE] = vn[b]
+        want = paged_attention(*_t(q, kp2, vp2, bt, ln + 1), page_size=PAGE,
+                               sliding_window=window)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+    def test_cpu_dispatch_launches_no_kernel(self):
+        q, kp, vp, bt, ln = _setup(16, 2, 4, 4, 16, lens=[3, 40])
+        before = launch_counts()
+        paged_attention(*_t(q, kp, vp, bt, ln), page_size=PAGE)
+        assert launch_counts() == before
+        assert "paged_attention_decode" in before
+
+    def test_checks(self):
+        q, kp, vp, bt, ln = _setup(17, 2, 6, 4, 16, lens=[3, 40])
+        with pytest.raises(ValueError, match="multiple"):
+            paged_attention(*_t(q, kp, vp, bt, ln), page_size=PAGE)
+        q, kp, vp, bt, ln = _setup(17, 2, 4, 4, 16, lens=[3, 40])
+        with pytest.raises(ValueError, match="page_size"):
+            paged_attention(*_t(q, kp, vp, bt, ln), page_size=8)
+        with pytest.raises(ValueError, match="device"):
+            paged_attention(*(t.to("meta") for t in _t(q, kp, vp, bt, ln)),
+                            page_size=PAGE)
