@@ -12,14 +12,13 @@
 //
 // Contract: one query token per row b. q (B, Hq, D) f32; pools
 // (P, Hkv, page, D) bf16 or f32 (a flat (L*P) view with the block table
-// offset by l*P, or one layer's view of an (L, P, ...) pool: the pointer
-// need not be the start of an allocation, every load is one element);
-// block_tables (B, pages_max) int32; lengths (B,) int32 = tokens to
-// attend. The window covers positions pos < len and pos >= len - window
-// (window >= 0). The caller decides what len counts: the stats entry is
-// called with the current token EXCLUDED (and the window shrunk by one),
-// the normalised entry with it INCLUDED (the token already written to its
-// page).
+// offset by l*P, or one layer's view of an (L, P, ...) pool), 16-byte
+// aligned, D a power of two <= 128 with D % 8 == 0; block_tables
+// (B, pages_max) int32; lengths (B,) int32 = tokens to attend. The window
+// covers positions pos < len and pos >= len - window (window >= 0). The
+// caller decides what len counts: the stats entry is called with the
+// current token EXCLUDED (and the window shrunk by one), the normalised
+// entry with it INCLUDED (the token already written to its page).
 //   stats:      acc (B, Hq, D) f32 unnormalised, m (B, Hq) f32,
 //               l (B, Hq) f32; a row with no valid position writes
 //               (0, -1e30, 0), the identity of the combine.
@@ -28,28 +27,35 @@
 //
 // What bounds it on the H100: the K/V bytes of the live tokens,
 // 2 * len * D * sizeof(kv) per (row, kv head) — memory, not arithmetic
-// (2 * D FLOPs per key per query head).
+// (2 * D operations per key per query head).
 //
-// Simple design and what it does about that bound:
-// - one block per (row b, kv head h) handles the g = Hq/Hkv query heads
-//   that share the head, so each K/V row is read from device memory once
-//   per block and reused for all g queries (GQA);
-// - keys are walked in chunks of 32 positions, each position's physical
-//   page looked up in the block table; only positions inside
-//   [start, len) are read — nothing past a row's length is fetched, and
-//   there is no padding of the table to a lane multiple;
-// - scores: each warp takes 8 keys of the chunk; its 32 lanes split D,
-//   read the key row coalesced and reduce the g dot products with
-//   shuffles; then one warp per query head runs the online-softmax update
-//   (running max, rescale, sum) with one lane per key, and all threads
-//   update the f32 accumulators, reading V rows coalesced;
-// - masked keys are never read and contribute exactly 0 (p is set to 0
-//   for them, not exp of a large negative number);
+// Design (split-sequence, "flash-decoding"):
+// - a row's live range [start, len) is cut at the multiples of `split`
+//   keys (SPLIT_KEYS in llm/kernels/paged_attention.py, a multiple of the
+//   page size): the cut depends on the row's own start and len only,
+//   never on the batch, Hkv or the card, so a row's result does not
+//   depend on its neighbours;
+// - the grid is (B * Hkv, splits); block (row b, kv head h, split j)
+//   computes the flash state of its keys for the g = Hq / Hkv query heads
+//   of h, reading each K/V row once for all g queries (GQA); a split
+//   outside the row's range exits at once;
+// - inside a block, K and V rows are read as 16-byte vectors (8 bf16 a
+//   lane; a 128-wide bf16 row is 16 lanes), 8 vectors in flight a lane;
+//   three passes over the split with one barrier each: the scores of all
+//   its keys into shared memory, then per head the max, exp and sum, then
+//   P @ V with each thread summing its own keys in order, and the threads'
+//   sums added in a fixed order;
+// - the splits of a (row, kv head) are combined in split order by the
+//   block that arrives last (an arrival counter zeroed by the wrapper,
+//   __threadfence before the arrival); the scratch states are allocated
+//   by the wrapper. No float atomics, so the result does not depend on
+//   the order the blocks ran in. A row with one split writes its result
+//   directly;
+// - masked keys are never read;
 // - the flag is a runtime argument, not a template parameter: as a
-//   template flag, nvcc compiled the normalised instance with a stack
-//   frame and register spills, and it ran markedly slower than the stats
-//   instance of the same body (measured on an H100, PERF.md); one
-//   instance per pool type runs both at the same speed.
+//   template flag, nvcc compiled the normalised instance of the earlier
+//   one-block-per-head kernel with a stack frame and register spills, and
+//   it ran markedly slower (measured on an H100, PERF.md).
 
 #include "common.cuh"
 
@@ -57,11 +63,27 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int NW = THREADS / 32;
-constexpr int CHUNK = 32;
-constexpr int MAXG = 8;               // query heads per kv head
-constexpr int MAXD = 128;
-constexpr int DPL = MAXD / 32;        // head-dim elements per lane
-constexpr int ACC_PER_THREAD = MAXG * MAXD / THREADS;
+constexpr int MAXG = 8;          // query heads per kv head
+constexpr int MAX_SPLIT = 512;   // keys per split
+constexpr int U = 8;             // 16-byte loads in flight per lane
+
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&f)[8]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+}
 
 template <typename KV>
 __global__ void __launch_bounds__(THREADS)
@@ -70,163 +92,263 @@ paged_decode_kernel(const float* __restrict__ q,
                     const KV* __restrict__ v_pages,
                     const int* __restrict__ bt, const int* __restrict__ lens,
                     float* __restrict__ acc_out, float* __restrict__ m_out,
-                    float* __restrict__ l_out, int Hq, int Hkv, int page,
-                    int D, int pages_max, int window, float scale,
-                    int normalize) {
-  __shared__ float s_p[MAXG][CHUNK];
-  __shared__ float s_m[MAXG], s_l[MAXG], s_alpha[MAXG];
-  __shared__ long long s_row[CHUNK];
+                    float* __restrict__ l_out, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int* __restrict__ arrivals,
+                    int Hq, int Hkv, int page, int D, int pages_max,
+                    int window, float scale, int normalize, int split,
+                    int nsplit) {
+  constexpr int E = 16 / sizeof(KV);           // elements per vector
+  __shared__ long long s_row[MAX_SPLIT];
+  // the scores (MAXG x MAX_SPLIT), then the threads' P @ V sums
+  __shared__ float s_buf[(THREADS * E * MAXG > MAXG * MAX_SPLIT)
+                             ? THREADS * E * MAXG
+                             : MAXG * MAX_SPLIT];
+  __shared__ float s_m[MAXG], s_l[MAXG];
+  __shared__ int s_last;
 
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
-  const int g = Hq / Hkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x, j = blockIdx.y;
+  const int b = bh / Hkv, h = bh % Hkv, g = Hq / Hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int len = lens[b];
   const int start = window >= 0 ? max(0, len - window) : 0;
+  const int first = start / split;
+  const int nsr = len > start ? (len + split - 1) / split - first : 0;
+  const size_t head0 = (size_t)b * Hq + h * g;   // first query head of h
 
-  // this lane's slice of the g queries (d = lane + 32 j)
-  float qr[MAXG][DPL];
+  if (nsr == 0) {                  // nothing to attend
+    if (j == 0) {
+      for (int e = tid; e < g * D; e += THREADS)
+        acc_out[head0 * D + e] = 0.f;
+      if (!normalize && tid < g) {
+        m_out[head0 + tid] = bigdl::NEG_BIG;
+        l_out[head0 + tid] = 0.f;
+      }
+    }
+    return;
+  }
+  const int js = j - first;        // this block's split of the row
+  if (js < 0 || js >= nsr) return;
+  const int t_lo = max(start, j * split);
+  const int n = min(len, (j + 1) * split) - t_lo;   // >= 1
+
+  for (int t = tid; t < n; t += THREADS) {
+    const int pos = t_lo + t;
+    const long long phys = bt[(size_t)b * pages_max + pos / page];
+    s_row[t] = ((phys * Hkv + h) * page + pos % page) * (long long)D;
+  }
+  __syncthreads();
+
+  // pass 1: scores. A key row is LPK lanes of E elements; a warp reads
+  // KPW keys per load
+  const int LPK = D / E, KPW = 32 / LPK;
+  float* s_p = s_buf;
+  {
+    const int sub = lane % LPK, kl = lane / LPK;
+    float qr[MAXG][E];
+#pragma unroll
+    for (int gi = 0; gi < MAXG; ++gi)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        qr[gi][e] = gi < g ? q[(head0 + gi) * D + sub * E + e] : 0.f;
+    for (int t0 = warp * KPW; t0 < n; t0 += NW * KPW * U) {
+      float kf[U][E];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u * NW * KPW + kl;
+        if (t < n) {
+          load_vec(k_pages + s_row[t] + sub * E, kf[u]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kf[u][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + u * NW * KPW + kl;
+#pragma unroll
+        for (int gi = 0; gi < MAXG; ++gi) {
+          if (gi >= g) break;
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) dot = fmaf(qr[gi][e], kf[u][e], dot);
+          for (int o = LPK / 2; o > 0; o >>= 1)
+            dot += __shfl_xor_sync(bigdl::FULL_MASK, dot, o);
+          if (sub == 0 && t < n) s_p[gi * MAX_SPLIT + t] = dot * scale;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // pass 2: per query head, the split's max, p = exp(s - max) and sum
+  for (int gi = warp; gi < g; gi += NW) {
+    float* s = s_p + gi * MAX_SPLIT;
+    float mx = -INFINITY;
+    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, s[t]);
+    mx = bigdl::warp_max(mx);
+    float sum = 0.f;
+    for (int t = lane; t < n; t += 32) {
+      const float p = expf(s[t] - mx);
+      s[t] = p;
+      sum += p;
+    }
+    sum = bigdl::warp_sum(sum);
+    if (lane == 0) {
+      s_m[gi] = mx;
+      s_l[gi] = sum;
+    }
+  }
+  __syncthreads();
+
+  // pass 3: P @ V. Thread = (slot, d-vector); a slot sums keys slot,
+  // slot + NSLOT, ... in order
+  const int NSLOT = THREADS / LPK;
+  const int slot = tid / LPK, dsub = tid % LPK;
+  float a[MAXG][E];
 #pragma unroll
   for (int gi = 0; gi < MAXG; ++gi)
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int d = lane + 32 * j;
-      qr[gi][j] = (gi < g && d < D)
-                      ? q[((size_t)b * Hq + h * g + gi) * D + d]
-                      : 0.f;
-    }
-  float acc[ACC_PER_THREAD];
+    for (int e = 0; e < E; ++e) a[gi][e] = 0.f;
+  for (int t0 = slot; t0 < n; t0 += NSLOT * U) {
+    float vf[U][E];
 #pragma unroll
-  for (int i = 0; i < ACC_PER_THREAD; ++i) acc[i] = 0.f;
-  if (threadIdx.x < MAXG) {
-    s_m[threadIdx.x] = bigdl::NEG_BIG;
-    s_l[threadIdx.x] = 0.f;
-  }
-
-  for (int t0 = start; t0 < len; t0 += CHUNK) {
-    if (threadIdx.x < CHUNK) {
-      const int pos = t0 + threadIdx.x;
-      long long row = -1;
-      if (pos < len) {
-        const long long phys = bt[(size_t)b * pages_max + pos / page];
-        row = ((phys * Hkv + h) * page + pos % page) * (long long)D;
-      }
-      s_row[threadIdx.x] = row;
-    }
-    __syncthreads();
-    // scores: warp w takes keys w, w + NW, ...
-    for (int t = warp; t < CHUNK; t += NW) {
-      const long long row = s_row[t];
-      if (row < 0) continue;                     // warp-uniform
-      float kv[DPL];
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * NSLOT;
+      if (t < n) {
+        load_vec(v_pages + s_row[t] + dsub * E, vf[u]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        const int d = lane + 32 * j;
-        kv[j] = d < D ? bigdl::to_f32(k_pages[row + d]) : 0.f;
-      }
-#pragma unroll
-      for (int gi = 0; gi < MAXG; ++gi) {
-        if (gi >= g) break;
-        float dot = 0.f;
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) dot = fmaf(qr[gi][j], kv[j], dot);
-        dot = bigdl::warp_sum(dot);
-        if (lane == 0) s_p[gi][t] = dot * scale;
+        for (int e = 0; e < E; ++e) vf[u][e] = 0.f;
       }
     }
-    __syncthreads();
-    // online softmax: one warp per query head, one lane per key
-    for (int gi = warp; gi < g; gi += NW) {
-      const bool valid = s_row[lane] >= 0;
-      const float s = valid ? s_p[gi][lane] : -INFINITY;
-      const float m_cur = bigdl::warp_max(s);    // t0 < len: one is valid
-      const float m_old = s_m[gi];
-      const float m_new = fmaxf(m_old, m_cur);
-      const float p = valid ? expf(s - m_new) : 0.f;
-      const float psum = bigdl::warp_sum(p);
-      s_p[gi][lane] = p;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        s_alpha[gi] = alpha;
-        s_l[gi] = s_l[gi] * alpha + psum;
-        s_m[gi] = m_new;
-      }
-    }
-    __syncthreads();
-    // accumulators: element e = (gi, d), read V rows coalesced
 #pragma unroll
-    for (int i = 0; i < ACC_PER_THREAD; ++i) {
-      const int e = threadIdx.x + THREADS * i;
-      if (e < g * D) {
-        const int gi = e / D, d = e % D;
-        float a = acc[i] * s_alpha[gi];
-        for (int t = 0; t < CHUNK; ++t) {
-          const long long row = s_row[t];
-          if (row >= 0)
-            a = fmaf(s_p[gi][t], bigdl::to_f32(v_pages[row + d]), a);
+    for (int u = 0; u < U; ++u) {
+      const int t = t0 + u * NSLOT;
+      if (t < n) {
+#pragma unroll
+        for (int gi = 0; gi < MAXG; ++gi) {
+          if (gi >= g) break;
+          const float p = s_p[gi * MAX_SPLIT + t];
+#pragma unroll
+          for (int e = 0; e < E; ++e) a[gi][e] = fmaf(p, vf[u][e], a[gi][e]);
         }
-        acc[i] = a;
       }
     }
-    __syncthreads();
   }
-  // a row with no chunk never passed a barrier after the init of s_l
-  __syncthreads();
+  __syncthreads();                 // the scores are read for the last time
+  float* red = s_buf;              // (NSLOT, MAXG, D)
 #pragma unroll
-  for (int i = 0; i < ACC_PER_THREAD; ++i) {
-    const int e = threadIdx.x + THREADS * i;
-    if (e < g * D) {
-      const int gi = e / D, d = e % D;
-      const float v = normalize ? acc[i] / fmaxf(s_l[gi], 1e-30f) : acc[i];
-      acc_out[((size_t)b * Hq + h * g + gi) * D + d] = v;
-    }
+  for (int gi = 0; gi < MAXG; ++gi) {
+    if (gi >= g) break;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      red[(slot * MAXG + gi) * D + dsub * E + e] = a[gi][e];
   }
-  if (!normalize && threadIdx.x < g) {
-    m_out[(size_t)b * Hq + h * g + threadIdx.x] = s_m[threadIdx.x];
-    l_out[(size_t)b * Hq + h * g + threadIdx.x] = s_l[threadIdx.x];
+  __syncthreads();
+
+  float* pa = part_acc + ((size_t)bh * nsplit + js) * g * D;
+  for (int e = tid; e < g * D; e += THREADS) {
+    const int gi = e / D, d = e % D;
+    float v = 0.f;
+    for (int s = 0; s < NSLOT; ++s) v += red[(s * MAXG + gi) * D + d];
+    if (nsr == 1)
+      acc_out[head0 * D + e] =
+          normalize ? v / fmaxf(s_l[gi], 1e-30f) : v;
+    else
+      pa[e] = v;
+  }
+  if (nsr == 1) {
+    if (!normalize && tid < g) {
+      m_out[head0 + tid] = s_m[tid];
+      l_out[head0 + tid] = s_l[tid];
+    }
+    return;
+  }
+  float* ml = part_ml + (size_t)bh * nsplit * 2 * MAXG;
+  if (tid < g) {
+    ml[js * 2 * MAXG + tid] = s_m[tid];
+    ml[js * 2 * MAXG + MAXG + tid] = s_l[tid];
+  }
+  // the last block of (row, kv head) to arrive combines the splits
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(arrivals + bh, 1) == nsr - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* pa0 = part_acc + (size_t)bh * nsplit * g * D;
+  for (int e = tid; e < g * D; e += THREADS) {
+    const int gi = e / D;
+    float mx = bigdl::NEG_BIG;
+    for (int s = 0; s < nsr; ++s)
+      mx = fmaxf(mx, __ldcg(ml + s * 2 * MAXG + gi));
+    float l = 0.f, v = 0.f;
+    for (int s = 0; s < nsr; ++s) {
+      const float w = expf(__ldcg(ml + s * 2 * MAXG + gi) - mx);
+      l = fmaf(__ldcg(ml + s * 2 * MAXG + MAXG + gi), w, l);
+      v = fmaf(__ldcg(pa0 + (size_t)s * g * D + e), w, v);
+    }
+    acc_out[head0 * D + e] = normalize ? v / fmaxf(l, 1e-30f) : v;
+    if (!normalize && e % D == 0) {
+      m_out[head0 + gi] = mx;
+      l_out[head0 + gi] = l;
+    }
   }
 }
 
 template <typename KV>
 int launch(const void* q, const void* kp, const void* vp, const void* bt,
-           const void* lens, void* acc, void* m, void* l, long long B,
-           long long Hq, long long Hkv, long long page, long long D,
-           long long pages_max, long long window, float scale,
-           bool normalize, void* stream) {
+           const void* lens, void* acc, void* m, void* l, void* part_acc,
+           void* part_ml, void* arrivals, long long B, long long Hq,
+           long long Hkv, long long page, long long D, long long pages_max,
+           long long window, float scale, bool normalize, long long split,
+           long long nsplit, void* stream) {
   paged_decode_kernel<KV>
-      <<<(unsigned)(B * Hkv), THREADS, 0, (cudaStream_t)stream>>>(
+      <<<dim3((unsigned)(B * Hkv), (unsigned)nsplit), THREADS, 0,
+         (cudaStream_t)stream>>>(
           reinterpret_cast<const float*>(q), reinterpret_cast<const KV*>(kp),
           reinterpret_cast<const KV*>(vp), reinterpret_cast<const int*>(bt),
           reinterpret_cast<const int*>(lens), reinterpret_cast<float*>(acc),
-          reinterpret_cast<float*>(m), reinterpret_cast<float*>(l), (int)Hq,
-          (int)Hkv, (int)page, (int)D, (int)pages_max, (int)window, scale,
-          (int)normalize);
+          reinterpret_cast<float*>(m), reinterpret_cast<float*>(l),
+          reinterpret_cast<float*>(part_acc),
+          reinterpret_cast<float*>(part_ml), reinterpret_cast<int*>(arrivals),
+          (int)Hq, (int)Hkv, (int)page, (int)D, (int)pages_max, (int)window,
+          scale, (int)normalize, (int)split, (int)nsplit);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface. Preconditions, checked by the Python wrapper: Hq % Hkv ==
-// 0 with Hq / Hkv <= 8, D <= 128, contiguous tensors, B * Hkv > 0;
-// window < 0 means no sliding window.
+// 0 with Hq / Hkv <= 8; D a power of two, 8 <= D <= 128; contiguous
+// tensors, pools 16-byte aligned; B * Hkv > 0; split a multiple of the
+// page size, <= 512; nsplit * split >= pages_max * page; part_acc
+// (B * Hkv, nsplit, g, D) f32, part_ml (B * Hkv, nsplit, 2, 8) f32,
+// arrivals (B * Hkv,) int32 zeros; window < 0 means no sliding window.
 #define BIGDL_PAGED_STATS_ENTRY(NAME, KV)                                  \
   extern "C" int NAME(const void* q, const void* kp, const void* vp,       \
                       const void* bt, const void* lens, void* acc,         \
-                      void* m, void* l, long long B, long long Hq,         \
+                      void* m, void* l, void* part_acc, void* part_ml,     \
+                      void* arrivals, long long B, long long Hq,           \
                       long long Hkv, long long page, long long D,          \
                       long long pages_max, long long window, float scale,  \
-                      void* stream) {                                      \
-    return launch<KV>(q, kp, vp, bt, lens, acc, m, l, B, Hq, Hkv, page,    \
-                      D, pages_max, window, scale, false, stream);         \
+                      long long split, long long nsplit, void* stream) {   \
+    return launch<KV>(q, kp, vp, bt, lens, acc, m, l, part_acc, part_ml,   \
+                      arrivals, B, Hq, Hkv, page, D, pages_max, window,    \
+                      scale, false, split, nsplit, stream);                \
   }
 
 #define BIGDL_PAGED_ENTRY(NAME, KV)                                        \
   extern "C" int NAME(const void* q, const void* kp, const void* vp,       \
                       const void* bt, const void* lens, void* out,         \
+                      void* part_acc, void* part_ml, void* arrivals,       \
                       long long B, long long Hq, long long Hkv,            \
                       long long page, long long D, long long pages_max,    \
-                      long long window, float scale, void* stream) {       \
-    return launch<KV>(q, kp, vp, bt, lens, out, nullptr, nullptr, B, Hq,   \
-                      Hkv, page, D, pages_max, window, scale, true,        \
+                      long long window, float scale, long long split,      \
+                      long long nsplit, void* stream) {                    \
+    return launch<KV>(q, kp, vp, bt, lens, out, nullptr, nullptr,          \
+                      part_acc, part_ml, arrivals, B, Hq, Hkv, page, D,    \
+                      pages_max, window, scale, true, split, nsplit,       \
                       stream);                                             \
   }
 

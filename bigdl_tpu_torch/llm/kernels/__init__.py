@@ -6,21 +6,23 @@ launch, or all at once with :func:`build_kernels`."""
 
 from bigdl_tpu_torch.llm.kernels import _build
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
-    asym_int4_matmul, asym_int4_matmul_reference, dequant_q4, dequant_q4_1,
-    dequant_q8_0, int4_matmul, int4_matmul_reference, int8_matmul,
-    int8_matmul_reference, quantize_tpu, to_tpu_layout)
+    TC_MIN_M, TC_SMS, asym_int4_matmul, asym_int4_matmul_reference,
+    dequant_q4, dequant_q4_1, dequant_q8_0, int4_matmul, int4_matmul_grouped,
+    int4_matmul_reference, int4_route, int8_matmul, int8_matmul_reference,
+    quantize_tpu, tc_block_shape, to_tpu_layout)
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
-    merge_attention_partial, paged_attention, paged_attention_decode,
-    paged_attention_decode_stats, paged_attention_reference,
-    paged_attention_reference_stats, paged_attention_stats)
+    SPLIT_KEYS, merge_attention_partial, paged_attention,
+    paged_attention_decode, paged_attention_decode_stats,
+    paged_attention_reference, paged_attention_reference_stats,
+    paged_attention_stats, split_stats_reference)
 from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
     ragged_prefill, ragged_prefill_attention, ragged_prefill_reference)
 from bigdl_tpu_torch.llm.kernels.sampling import (make_sampled_step,
                                                   sample_tokens)
 
 # csrc/<name>.cu sources, one shared library each
-KERNEL_SOURCES = ("int4_matmul", "lowbit_matmul", "paged_attention",
-                  "ragged_prefill")
+KERNEL_SOURCES = ("int4_matmul", "int4_matmul_tc", "lowbit_matmul",
+                  "paged_attention", "ragged_prefill")
 
 # the wrappers whose ``launches`` count the kernels of the port's paths
 WRAPPERS = {"int4_matmul": int4_matmul,
@@ -44,20 +46,26 @@ def build_kernels():
 def reset_launch_counts():
     for w in WRAPPERS.values():
         w.launches = 0
+    int4_matmul.tc_launches = 0
 
 
 def launch_counts():
-    return {name: w.launches for name, w in WRAPPERS.items()}
+    """Launches per wrapper, and ``int4_matmul_tc``: how many of
+    ``int4_matmul``'s took the tensor-core route."""
+    counts = {name: w.launches for name, w in WRAPPERS.items()}
+    counts["int4_matmul_tc"] = int4_matmul.tc_launches
+    return counts
 
 
-__all__ = ["KERNEL_SOURCES", "WRAPPERS", "asym_int4_matmul",
-           "asym_int4_matmul_reference", "build_kernels", "dequant_q4",
-           "dequant_q4_1", "dequant_q8_0", "int4_matmul",
-           "int4_matmul_reference", "int8_matmul", "int8_matmul_reference",
-           "launch_counts",
+__all__ = ["KERNEL_SOURCES", "SPLIT_KEYS", "TC_MIN_M", "TC_SMS", "WRAPPERS",
+           "asym_int4_matmul", "asym_int4_matmul_reference", "build_kernels",
+           "dequant_q4", "dequant_q4_1", "dequant_q8_0", "int4_matmul",
+           "int4_matmul_grouped", "int4_matmul_reference", "int4_route",
+           "int8_matmul", "int8_matmul_reference", "launch_counts",
            "make_sampled_step", "merge_attention_partial", "paged_attention",
            "paged_attention_decode", "paged_attention_decode_stats",
            "paged_attention_reference", "paged_attention_reference_stats",
            "paged_attention_stats", "quantize_tpu", "ragged_prefill",
            "ragged_prefill_attention", "ragged_prefill_reference",
-           "reset_launch_counts", "sample_tokens", "to_tpu_layout"]
+           "reset_launch_counts", "sample_tokens", "split_stats_reference",
+           "tc_block_shape", "to_tpu_layout"]

@@ -7,8 +7,15 @@ weights ``q_t`` (K/2, N) uint8 for the 4-bit formats (low nibble = row
 2i, high = row 2i+1) or (K, N) int8 for q8_0, and per-32-group scales
 (and q4_1 zeros) ``(K/32, N)`` f32. It suits the CUDA kernels too:
 neighbouring threads take neighbouring output columns, so the weight
-stream is read coalesced with no transpose (``csrc/int4_matmul.cu`` for
-q4_0, ``csrc/lowbit_matmul.cu`` for q4_1 and q8_0).
+stream is read coalesced with no transpose (``csrc/int4_matmul.cu`` and
+``csrc/int4_matmul_tc.cu`` for q4_0, ``csrc/lowbit_matmul.cu`` for q4_1
+and q8_0).
+
+q4_0 has two CUDA kernels, and :func:`int4_route` picks one from the
+shape alone before the launch: the tensor-core GEMM
+(``int4_matmul_tc.cu``) for ``M >= TC_MIN_M`` rows when ``N % 16 == 0``,
+the CUDA-core kernel (``int4_matmul.cu``) otherwise — decode (M <= 8),
+BERT's N = 2 classifier and N = 770.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 takes its plain PyTorch version (``*_reference``: dequantize to f32, f32
@@ -17,7 +24,7 @@ matmul, cast) only for CPU tensors.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +32,13 @@ import torch
 from bigdl_tpu_torch.llm.ggml.quantize import (QK, _check_qtype, quantize,
                                                quantize_torch)
 from bigdl_tpu_torch.llm.kernels import _build
+
+# the least M that takes the tensor-core q4_0 kernel. Chosen from H100
+# timings of both kernels at the served prefill buckets 16..512 (PERF.md)
+TC_MIN_M = 16
+# the SMs of an H100 SXM: the tensor-core kernel's block shape is chosen
+# so that a small product still makes one full wave (tc_block_shape)
+TC_SMS = 132
 
 
 def to_tpu_layout(qdict: Dict) -> Dict:
@@ -115,6 +129,27 @@ def int4_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
     return _plain(x, dequant_q4(q_t, scale_t), out_dtype)
 
 
+def int4_matmul_grouped(x: torch.Tensor, q_t: torch.Tensor,
+                        scale_t: torch.Tensor,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """The CUDA kernels' algebra in plain PyTorch: per 32-row group g the
+    f32 partial ``P_g = x_g @ (q_g - 8)`` of exact products, then
+    ``acc += s_g * P_g`` in group order, cast to ``out_dtype`` (default:
+    x's dtype). Equals :func:`int4_matmul_reference` up to f32 summation
+    order; the tests hold it to the JAX package."""
+    m, k = x.shape
+    g = k // QK
+    xg = x.to(torch.float32).reshape(m, g, QK).transpose(0, 1)
+    part = torch.bmm(xg, _per_group(_unpack_k(q_t) - 8))     # (G, M, N)
+    acc = torch.zeros((m, q_t.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    s = scale_t.to(torch.float32)
+    for i in range(g):
+        acc = acc + s[i] * part[i]
+    return acc.to(out_dtype if out_dtype is not None else x.dtype)
+
+
 def asym_int4_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
                                scale_t: torch.Tensor, zero_t: torch.Tensor,
                                out_dtype: Optional[torch.dtype] = None
@@ -194,14 +229,59 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def int4_route(m: int, n: int) -> str:
+    """Which CUDA kernel :func:`int4_matmul` launches for an (M, K) x
+    (K, N) product: ``"tc"`` (tensor cores, ``csrc/int4_matmul_tc.cu``)
+    when ``m >= TC_MIN_M`` and ``n % 16 == 0`` (16-byte rows of q for
+    its TMA loads), else ``"cuda_core"`` (``csrc/int4_matmul.cu``).
+    Both keep the exact f32 product ``s·(q-8)``; the order of an output's
+    sum depends on K and the route only, never on the other rows."""
+    return "tc" if m >= TC_MIN_M and n % 16 == 0 else "cuda_core"
+
+
+def tc_block_shape(m: int, n: int) -> Tuple[int, int]:
+    """The output tile (rows, columns) of one block of the tensor-core
+    kernel, from the shape alone: 64 x 64 while those blocks make at
+    most one wave at two a SM (``<= 2 * TC_SMS``), else 128 x 128, or
+    64 x 128 when M <= 64 (a 128-row block would be half empty). Chosen
+    from H100 timings of all three (PERF.md). Every row's sum runs in
+    the same order whatever the tile."""
+    if -(-m // 64) * -(-n // 64) <= 2 * TC_SMS:
+        return 64, 64
+    return (128, 128) if m > 64 else (64, 128)
+
+
+def _int4_launch(xb: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
+                 out: torch.Tensor, route: str,
+                 tile: Optional[Tuple[int, int]] = None) -> int:
+    """Launch one q4_0 kernel on checked CUDA tensors; counts the launch
+    (``int4_matmul.launches``, and ``int4_matmul.tc_launches`` for the
+    tensor-core route) and returns the C entry's error code. ``tile``
+    overrides :func:`tc_block_shape` (timing only)."""
+    (m, k), n = xb.shape, q_t.shape[1]
+    lib = "int4_matmul_tc" if route == "tc" else "int4_matmul"
+    ints = [m, k, n]
+    if route == "tc":
+        ints.extend(tile or tc_block_shape(m, n))
+    fn = _build.bind(
+        lib, f"{lib}_{'bf16' if out.dtype == torch.bfloat16 else 'f32'}out",
+        [_build.P] * 4 + [_build.I] * len(ints) + [_build.P])
+    rc = fn(xb.data_ptr(), q_t.data_ptr(), scale_t.data_ptr(),
+            out.data_ptr(), *ints, _stream(xb))
+    int4_matmul.launches += 1
+    if route == "tc":
+        int4_matmul.tc_launches += 1
+    return rc
+
+
 def int4_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """y = x @ dequant_q4_0(q, scale) in the k-major layout.
 
     x (M, K); q_t (K/2, N) uint8; scale_t (K/32, N) f32; returns (M, N)
     in ``out_dtype`` (bf16 or f32 on the card). Any M and N. A CUDA x
-    launches the CUDA kernel (x cast to bf16 first); a CPU x takes the
-    plain version."""
+    launches the CUDA kernel :func:`int4_route` names (x cast to bf16
+    first); a CPU x takes the plain version."""
     _check_shapes("int4_matmul", x, q_t, 2, (scale_t,))
     if x.device.type == "cpu":
         return int4_matmul_reference(x, q_t, scale_t, out_dtype)
@@ -216,14 +296,8 @@ def int4_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    fn = _build.bind(
-        "int4_matmul", "int4_matmul_bf16out" if out_dtype == torch.bfloat16
-        else "int4_matmul_f32out", [_build.P] * 4 + [_build.I] * 3
-        + [_build.P])
-    rc = fn(xb.data_ptr(), q_t.data_ptr(), scale_t.data_ptr(),
-            out.data_ptr(), m, k, n, _stream(x))
-    int4_matmul.launches += 1
-    _build.check(rc, "int4_matmul")
+    _build.check(_int4_launch(xb, q_t, scale_t, out, int4_route(m, n)),
+                 "int4_matmul")
     return out
 
 
@@ -292,5 +366,6 @@ def int8_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
 
 
 int4_matmul.launches = 0
+int4_matmul.tc_launches = 0
 asym_int4_matmul.launches = 0
 int8_matmul.launches = 0

@@ -16,6 +16,11 @@ body for both) for CUDA tensors, or raise; they take their plain PyTorch
 versions (:func:`paged_attention_reference_stats`,
 :func:`paged_attention_reference`) only for CPU tensors. The dispatch is
 by the tensors' device, not by a global backend.
+
+The kernel splits each row's live keys at the multiples of
+:data:`SPLIT_KEYS` and combines the splits' flash states in split order;
+:func:`split_stats_reference` is the same split-and-combine in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -28,6 +33,12 @@ import torch
 from bigdl_tpu_torch.llm.kernels import _build
 
 LANE = 128   # the JAX package's block-table bucketing unit (kept for shapes)
+
+# keys per split of the CUDA kernel (a multiple of the page size, at most
+# 512): a row's live range [start, len) is cut at the multiples of it.
+# Chosen from H100 timings of 128, 256 and 512 at the Mistral-7B B=1
+# (4199 keys) and B=4 (512..575) and Llama-2-7B B=8 shapes (PERF.md).
+SPLIT_KEYS = 128
 
 _KV_ENTRY = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -120,11 +131,15 @@ def _cuda_args(q, k_pages, v_pages, block_tables, lengths,
                          "be int32")
     b, hq, d = q.shape
     _, hkv, page, _ = k_pages.shape
-    if hq // hkv > 8 or d > 128:
+    if hq // hkv > 8 or d > 128 or d % 8 or d & (d - 1):
         raise ValueError(f"paged attention kernel takes Hq/Hkv <= 8 and "
-                         f"D <= 128, got {hq // hkv} and {d}")
+                         f"D a power of two in [8, 128], got {hq // hkv} "
+                         f"and {d}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged attention: pools must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged attention: pools must be 16-byte aligned "
+                         "(the kernel reads 16-byte vectors)")
     qf = q.to(torch.float32).contiguous()
     bt = block_tables.contiguous()
     lens = lengths.contiguous()
@@ -133,6 +148,101 @@ def _cuda_args(q, k_pages, v_pages, block_tables, lengths,
             -1 if sliding_window is None else int(sliding_window),
             1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream)
     return [t.data_ptr() for t in head], list(tail), head
+
+
+def _scratch(q, k_pages, block_tables, split_keys: int):
+    """The split states and arrival counters one launch needs, made
+    here (the kernel allocates nothing): ``nsplit`` covers the longest
+    row the table can hold, so it is known without reading the lengths
+    back. Returns ``(nsplit, part_acc, part_ml, arrivals)``."""
+    b, hq, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    if split_keys % page or not 0 < split_keys <= 512:
+        raise ValueError(f"paged attention: split_keys {split_keys} must be "
+                         f"a multiple of the page size {page}, at most 512")
+    nsplit = max(1, -(-block_tables.shape[1] * page // split_keys))
+    dev = q.device
+    part_acc = torch.empty((b * hkv, nsplit, hq // hkv, d),
+                           dtype=torch.float32, device=dev)
+    part_ml = torch.empty((b * hkv, nsplit, 2, 8), dtype=torch.float32,
+                          device=dev)
+    arrivals = torch.zeros((b * hkv,), dtype=torch.int32, device=dev)
+    return nsplit, part_acc, part_ml, arrivals
+
+
+def _decode_cuda(q, k_pages, v_pages, block_tables, lengths,
+                 sliding_window: Optional[int], normalize: bool,
+                 split_keys: int = SPLIT_KEYS):
+    """Kernels 2 and 6 on CUDA tensors: ``(acc, m, l)``, or with
+    ``normalize`` the normalised f32 output. Counts the launch on the
+    entry point it serves. A ``split_keys`` other than
+    :data:`SPLIT_KEYS` is for timing the split size only."""
+    ptrs, tail, _keep = _cuda_args(q, k_pages, v_pages, block_tables,
+                                   lengths, sliding_window)
+    b, hq, d = q.shape
+    outs = [torch.empty((b, hq, d), dtype=torch.float32, device=q.device)]
+    if not normalize:
+        outs += [torch.empty((b, hq), dtype=torch.float32, device=q.device)
+                 for _ in range(2)]
+    if b > 0:
+        nsplit, *scratch = _scratch(q, k_pages, block_tables, split_keys)
+        P, I, F = _build.P, _build.I, _build.F
+        fn = _build.bind(
+            "paged_attention", f"paged_decode_{'' if normalize else 'stats_'}"
+            f"{_KV_ENTRY[k_pages.dtype]}",
+            [P] * (len(ptrs) + len(outs) + 3) + [I] * 7 + [F, I, I, P])
+        rc = fn(*ptrs, *(t.data_ptr() for t in outs),
+                *(t.data_ptr() for t in scratch), *tail[:-1], split_keys,
+                nsplit, tail[-1])
+        entry = (paged_attention_decode if normalize
+                 else paged_attention_decode_stats)
+        entry.launches += 1
+        _build.check(rc, entry.__name__)
+    return outs[0] if normalize else tuple(outs)
+
+
+def split_stats_reference(q, k_pages, v_pages, block_tables, lengths,
+                          sliding_window: Optional[int] = None,
+                          split_keys: int = SPLIT_KEYS):
+    """The CUDA kernel's split-and-combine in plain PyTorch (same
+    contract as :func:`paged_attention_reference_stats`): each row's
+    live range ``[start, len)`` is cut at the multiples of
+    ``split_keys``; each split's ``(acc, m, l)`` is computed alone, and
+    the splits are combined in split order (``m`` the max of theirs,
+    ``l`` and ``acc`` the sums of theirs times ``exp(m_j - m)``).
+    Length-0 rows give the identity ``(0, -1e30, 0)``."""
+    b, hq, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    g = hq // hkv
+    k_all = _gather(k_pages, block_tables).to(torch.float32)
+    v_all = _gather(v_pages, block_tables).to(torch.float32)
+    qg = q.reshape(b, hkv, g, d).to(torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    acc = torch.zeros((b, hkv, g, d), dtype=torch.float32)
+    m = torch.full((b, hkv, g), -1e30, dtype=torch.float32)
+    l = torch.zeros((b, hkv, g), dtype=torch.float32)
+    for r in range(b):
+        n = int(lengths[r])
+        start = max(0, n - sliding_window) if sliding_window is not None \
+            else 0
+        states = []
+        for j in range(start // split_keys, -(-n // split_keys)):
+            lo, hi = max(start, j * split_keys), min(n, (j + 1) * split_keys)
+            s = torch.einsum("hgd,shd->hgs", qg[r],
+                             k_all[r, lo:hi]) * scale
+            mj = s.amax(dim=-1)
+            p = torch.exp(s - mj[..., None])
+            states.append((torch.einsum("hgs,shd->hgd", p, v_all[r, lo:hi]),
+                           mj, p.sum(dim=-1)))
+        if not states:
+            continue
+        mx = torch.stack([st[1] for st in states]).amax(dim=0)
+        for a_j, m_j, l_j in states:
+            w = torch.exp(m_j - mx)
+            acc[r] += a_j * w[..., None]
+            l[r] += l_j * w
+        m[r] = mx
+    return acc.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
 
 
 def paged_attention_decode_stats(q, k_pages, v_pages, block_tables,
@@ -154,22 +264,8 @@ def paged_attention_decode_stats(q, k_pages, v_pages, block_tables,
         return paged_attention_reference_stats(
             q, k_pages, v_pages, block_tables, lengths,
             sliding_window=sliding_window)
-    ptrs, tail, _keep = _cuda_args(q, k_pages, v_pages, block_tables,
-                                   lengths, sliding_window)
-    b, hq, d = q.shape
-    acc = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, hq), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, hq), dtype=torch.float32, device=q.device)
-    if b == 0:
-        return acc, m, l
-    P, I, F = _build.P, _build.I, _build.F
-    fn = _build.bind("paged_attention",
-                     f"paged_decode_stats_{_KV_ENTRY[k_pages.dtype]}",
-                     [P] * 8 + [I] * 7 + [F, P])
-    rc = fn(*ptrs, acc.data_ptr(), m.data_ptr(), l.data_ptr(), *tail)
-    paged_attention_decode_stats.launches += 1
-    _build.check(rc, "paged_attention_decode_stats")
-    return acc, m, l
+    return _decode_cuda(q, k_pages, v_pages, block_tables, lengths,
+                        sliding_window, False)
 
 
 paged_attention_decode_stats.launches = 0
@@ -247,19 +343,8 @@ def paged_attention_decode(q, k_pages, v_pages, block_tables, lengths,
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
                                          lengths,
                                          sliding_window=sliding_window)
-    ptrs, tail, _keep = _cuda_args(q, k_pages, v_pages, block_tables,
-                                   lengths, sliding_window)
-    out = torch.empty(tuple(q.shape), dtype=torch.float32, device=q.device)
-    if q.shape[0] == 0:
-        return out.to(q.dtype)
-    P, I, F = _build.P, _build.I, _build.F
-    fn = _build.bind("paged_attention",
-                     f"paged_decode_{_KV_ENTRY[k_pages.dtype]}",
-                     [P] * 6 + [I] * 7 + [F, P])
-    rc = fn(*ptrs, out.data_ptr(), *tail)
-    paged_attention_decode.launches += 1
-    _build.check(rc, "paged_attention_decode")
-    return out.to(q.dtype)
+    return _decode_cuda(q, k_pages, v_pages, block_tables, lengths,
+                        sliding_window, True).to(q.dtype)
 
 
 paged_attention_decode.launches = 0

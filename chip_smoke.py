@@ -8,19 +8,25 @@ Phase 0  require a CUDA device (exit 2 without one) and print the card's
 Phase 1  build every CUDA kernel from ``bigdl_tpu_torch/csrc`` (one
          ``nvcc`` per source, all in parallel) and print the seconds.
 Phase 2  hold each kernel against its plain PyTorch version on the card
-         at the Llama-2-7B shapes of the served path and the Mistral-7B
+         at the Llama-2-7B shapes of the served path (q4_0 linears at the
+         prefill buckets 16..512 and at decode batch 8) and the Mistral-7B
          shapes of ``generate`` (q4_0 linears at decode batch 4 and
          prefill 4 x 512; stats decode at lengths 512..575 and 4199),
-         plus GQA (Hq 32, Hkv 8), D=64 and sliding-window shapes, the
-         three dequant-matmuls at the BERT-base shapes (and q4_0 at N =
-         2, 3, 770), and kernel 6 (normalised paged decode) at Mistral
-         decode, one 4233-token Mistral row and Llama-2-7B MHA; inputs
-         from a seeded ``torch.Generator`` on the card. One JSON line per
-         case with the errors, the tolerance, the kernel's / plain
-         version's / one PyTorch library call's time (CUDA events,
-         median of 25 calls run back to back after warm-up) and the
-         bound (bytes over 3.35 TB/s or FLOPs over 989 TFLOP/s,
-         whichever is larger).
+         plus GQA (Hq 32, Hkv 8), D=64, sliding-window and split-boundary
+         shapes, the three dequant-matmuls at the BERT-base shapes (and
+         q4_0 at N = 2, 3, 770), and kernel 6 (normalised paged decode)
+         at Mistral decode, one 4233-token Mistral row and Llama-2-7B MHA;
+         inputs from a seeded ``torch.Generator`` on the card. Every q4_0
+         row names the kernel its route takes (``int4_matmul_tc`` for
+         M >= TC_MIN_M and N % 16 == 0); at the buckets both q4_0
+         kernels are held and timed (``ms_tc``, ``ms_cuda_core``), every
+         tensor-core row at its three block tiles (``ms_by_tile``, the
+         tiles' outputs bit-equal), and the paged main-path shapes at
+         split sizes 128, 256 and 512 (``ms_by_split``). One JSON line per case with the errors,
+         the tolerance, the kernel's / plain version's / one PyTorch
+         library call's time (CUDA events, median of 25 calls run back to
+         back after warm-up) and the bound (bytes over 3.35 TB/s or FLOPs
+         over 989 TFLOP/s, whichever is larger).
 Phase 3  the served path on the card against the port's plain path on
          the CPU on a small input (7B width, 2 layers): prefill and decode
          logits within 2e-2 of their largest magnitude. Then build
@@ -29,8 +35,9 @@ Phase 3  the served path on the card against the port's plain path on
          17..300 tokens, 32 new tokens each) through ``LLMServer``
          (max_batch 8, max_seq_len 512, page 16), check every request got
          32 in-vocab tokens, that the launch counters (zeroed just before)
-         are exactly what the path must launch, and that one request
-         served again alone on a fresh server gives the same tokens.
+         are exactly what the path must launch (each prompt's prefill on
+         the q4_0 route of its bucket), and that one request served again
+         alone on a fresh server gives the same tokens.
          Prints TTFT, decode tok/s and peak device memory.
 Phase 4  trace one 7B batch-8 decode step with ``torch.profiler``:
          step wall time, device busy time and idle share, kernel
@@ -40,8 +47,9 @@ Phase 5  BERT-base (full width, 12 layers, random weights from a seed)
          yardstick), ``quantize`` to int8 / asym_int4 / sym_int4 and
          ``nn.quantized.quantize_model``, batch 8 x 128: exactly 74
          launches of the pipeline's matmul kernel per forward (0 of the
-         others), ms per forward, sequences/s, peak memory, and the
-         card's log-probs against the same model's plain path on the CPU
+         others; sym_int4's 72 M=1024 linears on the tensor cores), ms
+         per forward, sequences/s, peak memory, and the card's log-probs
+         against the same model's plain path on the CPU
          (batch 2 x 128). Then one int8 forward traced as in phase 4.
 Phase 6  bigdl-llm's ``generate()`` on Mistral-7B q4_0 (full width, 32
          layers, weights from a seed made and quantized on the card
@@ -50,10 +58,11 @@ Phase 6  bigdl-llm's ``generate()`` on Mistral-7B q4_0 (full width, 32
          (first-step logits against the paged step within 2e-2; leading
          equal tokens reported); (b) batch 1 x 4200 prompt, 32 new
          tokens (blockwise prefill, the 4096 window bites). Each run with
-         exact launch counts (4·L·(1+n) int4_matmul, L·n stats kernels,
-         0 others), in-vocab tokens, prefill s, decode tok/s, peak
-         memory. On (b)'s prefill pools, kernel 6 on every layer against
-         stats + merge of the last token and against its plain version.
+         exact launch counts (4·L·(1+n) int4_matmul, the prefill's 4·L
+         of them on the tensor cores, L·n stats kernels, 0 others),
+         in-vocab tokens, prefill s, decode tok/s, peak memory. On (b)'s
+         prefill pools, kernel 6 on every layer against stats + merge of
+         the last token and against its plain version.
          Then one decode step of (a) traced as in phase 4.
 Phase 7  a 2-layer full-width Mistral safetensors checkpoint (bf16, ~1.4
          GB, written here) loaded by ``from_pretrained(dir,
@@ -145,13 +154,29 @@ def _planes(torch, dev, gen, kind, k, n):
     return q, s, z
 
 
+def _forced_route(torch, route, x, q, s, out_dtype, tile=None):
+    """One q4_0 call through the named kernel (and tensor-core tile)
+    whatever the rules say (the TC_MIN_M and block-shape sweeps)."""
+    from bigdl_tpu_torch.llm.kernels import _build
+    from bigdl_tpu_torch.llm.kernels.int4_matmul import _int4_launch
+    out = torch.empty((x.shape[0], q.shape[1]), dtype=out_dtype,
+                      device=x.device)
+    _build.check(_int4_launch(x, q, s, out, route, tile), f"int4 {route}")
+    return out
+
+
+TC_TILES = ((128, 128), (64, 128), (64, 64))
+
+
 def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
-                launches=0, per=None):
+                launches=0, per=None, both_routes=False):
     """One dequant-matmul case: the kernel's f32-out and bf16-out entries
     against the plain version on the same bf16 x and planes; the entry
     the path launches (``path_dtype`` out) is the one timed. ``launches``
     is how many calls of this shape the path makes ``per`` step or
-    forward (0: a shape no path runs)."""
+    forward (0: a shape no path runs). A q4_0 row names the route the
+    rule takes; with ``both_routes`` both q4_0 kernels are also held to
+    the plain version and timed (``ms_tc``, ``ms_cuda_core``)."""
     from bigdl_tpu_torch.llm import kernels as K
     fn, ref, deq = {
         "int4_matmul": (K.int4_matmul, K.int4_matmul_reference,
@@ -177,8 +202,10 @@ def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
     nbytes = (m * k * 2 + sum(p.numel() * p.element_size() for p in planes)
               + m * n * out_bytes)
     b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
+    route = K.int4_route(m, n) if kind == "int4_matmul" else None
     row = {
-        "kernel": kind, "case": f"{what} M={m} K={k} N={n}",
+        "kernel": "int4_matmul_tc" if route == "tc" else kind,
+        "route": route, "case": f"{what} M={m} K={k} N={n}",
         "path_out": str(path_dtype).replace("torch.", ""),
         "max_abs_err": err, "max_rel_err": err / scale, "tol": tol,
         "tol_rule": "f32 out: 2e-5 * max|plain| (f32 sums, another order); "
@@ -191,6 +218,31 @@ def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
         "bound_ms": b_ms, "bound_by": b_by,
         "launches": launches, "launches_per": per,
         "passed": err <= tol and err16 <= tol16}
+    if route == "tc":
+        # every tile gives the same bits; each is timed, which is how
+        # tc_block_shape was chosen
+        row["tile"] = "x".join(map(str, K.tc_block_shape(m, n)))
+        ref_out = _forced_route(torch, "tc", x, *planes, torch.float32,
+                                TC_TILES[0])
+        row["ms_by_tile"] = {}
+        for tile in TC_TILES:
+            same = torch.equal(_forced_route(
+                torch, "tc", x, *planes, torch.float32, tile), ref_out)
+            row["passed"] &= same
+            row["ms_by_tile"]["x".join(map(str, tile))] = time_ms(
+                lambda: _forced_route(torch, "tc", x, *planes, path_dtype,
+                                      tile))
+        del ref_out
+    if both_routes:
+        for r in ("tc", "cuda_core"):
+            if n % 16 and r == "tc":
+                continue
+            e = (_forced_route(torch, r, x, *planes, torch.float32)
+                 - want).abs().max().item()
+            row[f"max_abs_err_{r}"] = e
+            row["passed"] &= e <= tol
+            row[f"ms_{r}"] = time_ms(lambda: _forced_route(
+                torch, r, x, *planes, path_dtype))
     del x, planes, got, want, got16, want16, w16
     return row
 
@@ -206,20 +258,32 @@ def int4_cases(torch, dev, gen):
     out, as the sym_int4 pipeline runs it) and at N = 3 and 770 (N not a
     multiple of 4)."""
     out = []
+    # the served prefill buckets: every request's prompt is padded to a
+    # power of two (at least one page); both routes timed (TC_MIN_M)
+    for m in (16, 32, 64, 128, 256):
+        for k, n, what in ((4096, 12288, "qkv_proj"),
+                           (4096, 22016, "gate_up_proj")):
+            out.append(matmul_case(torch, dev, gen, "int4_matmul", what, m,
+                                   k, n, torch.bfloat16, 32,
+                                   f"7B prefill, bucket {m}",
+                                   both_routes=True))
     for m, per in ((8, "7B decode step"), (512, "7B prefill")):
         for k, n, what, count in (
                 (4096, 12288, "qkv_proj", 32), (4096, 4096, "o_proj", 32),
                 (4096, 22016, "gate_up_proj", 32),
                 (11008, 4096, "down_proj", 32), (4096, 32000, "lm_head", 1)):
             out.append(matmul_case(torch, dev, gen, "int4_matmul", what, m,
-                                   k, n, torch.bfloat16, count, per))
+                                   k, n, torch.bfloat16, count, per,
+                                   both_routes=what in ("qkv_proj",
+                                                        "gate_up_proj")))
     # Mistral-7B's linears at generate (a)'s decode step (batch 4) and
     # prefill (4 x 512 rows); lm_head stays dense on that path
     for m, per in ((4, "Mistral decode step"), (2048, "Mistral prefill")):
         for k, n, what in MISTRAL_LINEARS:
             out.append(matmul_case(torch, dev, gen, "int4_matmul",
                                    f"Mistral {what}", m, k, n,
-                                   torch.bfloat16, 32, per))
+                                   torch.bfloat16, 32, per,
+                                   both_routes=m > 8 and what == "o_proj"))
     for what, m, k, n, count in BERT_SHAPES:
         out.append(matmul_case(torch, dev, gen, "int4_matmul",
                                f"BERT {what}", m, k, n, torch.float32, count,
@@ -287,14 +351,28 @@ def _sdpa_yardstick(torch, q, kp, vp, bt, lens, win):
 
 
 LENS_MAIN = [17, 57, 98, 139, 180, 220, 260, 300]
+# lengths on and next to the split boundaries (SPLIT_KEYS = S): S*j +- 1,
+# one exactly on a boundary, an empty row and a short one
+SPLIT_SWEEP = (128, 256, 512)
+
+
+def _split_lens(S):
+    return [S - 1, S, S + 1, 2 * S - 1, 2 * S + 1, 3 * S + 1, 0, 5]
 
 
 def paged_cases(torch, dev, gen):
+    """Kernel 2 (stats) against its plain version; the main-path shapes
+    are also timed at every split size of ``SPLIT_SWEEP``
+    (``ms_by_split``), which is how SPLIT_KEYS was chosen."""
     from bigdl_tpu_torch.llm.kernels.paged_attention import (
-        paged_attention_decode_stats, paged_attention_reference_stats)
+        SPLIT_KEYS, _decode_cuda, paged_attention_decode_stats,
+        paged_attention_reference_stats)
     page = 16
     out = []
+    S = SPLIT_KEYS
     for what, hq, hkv, d, win, lens in (
+            ("split boundaries", 32, 8, 128, None, _split_lens(S)),
+            ("split boundaries window=300", 32, 8, 128, 300, _split_lens(S)),
             ("7B decode", 32, 32, 128, None, LENS_MAIN),
             ("GQA Hkv=8", 32, 8, 128, None, [0] + LENS_MAIN[1:]),
             ("D=64", 32, 32, 64, None, LENS_MAIN),
@@ -339,9 +417,12 @@ def paged_cases(torch, dev, gen):
             "library_ms": time_ms(_sdpa_yardstick(torch, q, kp, vp, bt, lens,
                                                   win)),
             "library": "F.scaled_dot_product_attention on gathered K/V",
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "split_keys": S,
             "passed": (err <= 1e-3 and err_m <= 1e-3 and err_l <= 1e-3
                        and empty_ok)})
+        if what.startswith(("7B decode", "Mistral")):
+            out[-1]["ms_by_split"] = {sk: time_ms(lambda: _decode_cuda(
+                q, kp, vp, bt, ln, win, False, sk)) for sk in SPLIT_SWEEP}
     return out
 
 
@@ -352,10 +433,13 @@ def paged_norm_cases(torch, dev, gen):
     long Mistral row where the 4096 window bites, and Llama-2-7B MHA. q
     and the output are bf16: f32 math on both sides, then one rounding."""
     from bigdl_tpu_torch.llm.kernels.paged_attention import (
-        paged_attention_decode, paged_attention_reference)
+        SPLIT_KEYS, _decode_cuda, paged_attention_decode,
+        paged_attention_reference)
     page = 16
     out = []
     for what, hq, hkv, d, win, lens in (
+            ("split boundaries window=300", 32, 8, 128, 300,
+             [x for x in _split_lens(SPLIT_KEYS) if x]),
             ("Mistral decode", 32, 8, 128, 4096, [513, 534, 555, 576]),
             ("Mistral long", 32, 8, 128, 4096, [4233]),
             ("7B MHA", 32, 32, 128, None, LENS_MAIN)):
@@ -388,8 +472,11 @@ def paged_norm_cases(torch, dev, gen):
             "library_ms": time_ms(_sdpa_yardstick(torch, q, kp, vp, bt, lens,
                                                   win)),
             "library": "F.scaled_dot_product_attention on gathered K/V",
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "split_keys": SPLIT_KEYS,
             "passed": err <= tol and bool(torch.isfinite(got).all())})
+        if not what.startswith("split"):
+            out[-1]["ms_by_split"] = {sk: time_ms(lambda: _decode_cuda(
+                q, kp, vp, bt, ln, win, True, sk)) for sk in SPLIT_SWEEP}
     return out
 
 
@@ -507,11 +594,22 @@ def serve_7b(torch, dev):
               f"request {i}: token out of vocab")
     L = cfg.num_hidden_layers
     n_prefill = len(prompts)
+    # each prompt is prefilled alone at its bucket (a power of two, at
+    # least one page): its 4 linears a layer and lm_head take the route
+    # of (bucket, N); decode steps (M <= 8) never take the tensor cores
+    buckets = [max(16, 1 << (len(p) - 1).bit_length()) for p in prompts]
+    ns = [t.shape[-1] for t in (model.params["layers"][k]["q"] for k in (
+        "qkv_proj", "o_proj", "gate_up_proj", "down_proj"))]
+    ns.append(model.params["lm_head"]["q"].shape[-1])
     expect = {"int4_matmul": (n_prefill + steps) * (4 * L + 1),
               "asym_int4_matmul": 0, "int8_matmul": 0,
               "paged_attention_decode_stats": steps * L,
               "ragged_prefill_attention": n_prefill * L,
-              "paged_attention_decode": 0}
+              "paged_attention_decode": 0,
+              "int4_matmul_tc": sum(
+                  (L if i < 4 else 1) for bk in buckets
+                  for i, n in enumerate(ns)
+                  if kernels.int4_route(bk, n) == "tc")}
     check(all(counts[k] > 0 for k, v in expect.items() if v),
           f"a kernel of the served path never ran: {counts}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
@@ -534,7 +632,8 @@ def serve_7b(torch, dev):
     return {
         "phase": "serve", "model": "Llama-2-7B q4_0 (synthetic weights, "
         "32 layers, full width)", "requests": len(prompts),
-        "prompt_lens": plens, "max_new_tokens": 32, "decode_steps": steps,
+        "prompt_lens": plens, "prefill_buckets": buckets,
+        "max_new_tokens": 32, "decode_steps": steps,
         "launches": counts, "weights_build_s": build_s,
         "ttft_ms_mean": statistics.mean(ttft) * 1e3,
         "ttft_ms_max": max(ttft) * 1e3,
@@ -679,13 +778,19 @@ CKPT = {"model_type": "mistral", "architectures": ["MistralForCausalLM"],
         "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "sliding_window": 4096,
         "tie_word_embeddings": False}
 
-def _launch_expect(counts, L, n, paged):
+def _launch_expect(counts, model, rows, n, paged):
     """What one ``generate`` of ``n`` new tokens must launch: every
     decoder linear (4 a layer) at the prefill and at each of the n
-    steps, and with paged decode one stats kernel a layer a step; the
-    dense ``lm_head`` launches nothing."""
+    steps, the prefill's (``rows`` = batch x prompt) on the route the
+    rule gives its shapes, and with paged decode one stats kernel a
+    layer a step; the dense ``lm_head`` launches nothing."""
+    from bigdl_tpu_torch.llm.kernels import int4_route
+    L = model.config.num_hidden_layers
     want = dict.fromkeys(counts, 0)
     want["int4_matmul"] = 4 * L * (1 + n)
+    want["int4_matmul_tc"] = L * sum(
+        int4_route(rows, model.params["layers"][k]["q"].shape[-1]) == "tc"
+        for k in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj"))
     if paged:
         want["paged_attention_decode_stats"] = L * n
     return want
@@ -712,8 +817,7 @@ def _generate_run(torch, model, ids, n, what):
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = _launch_expect(counts, cfg.num_hidden_layers, n,
-                          model.paged_decode)
+    want = _launch_expect(counts, model, B * T, n, model.paged_decode)
     check(counts == want, f"generate {what}: launch counts {counts} != "
           f"{want}")
     new = out[:, T:]
@@ -1025,6 +1129,12 @@ def bert_path(torch, dev):
         want = dict.fromkeys(counts, 0)
         if BERT_PIPELINE_KERNELS[name]:
             want[BERT_PIPELINE_KERNELS[name]] = n_linears
+        if BERT_PIPELINE_KERNELS[name] == "int4_matmul":
+            # the M = 1024 linears on the tensor cores, the pooler and
+            # the classifier (M = 8) on the CUDA-core kernel
+            want["int4_matmul_tc"] = sum(
+                c for _, m, _, n, c in BERT_SHAPES
+                if kernels.int4_route(m, n) == "tc")
         check(counts == want, f"BERT {name}: launch counts {counts} != "
               f"{want}")
         walls = []
@@ -1117,17 +1227,24 @@ def main() -> int:
     emit(ckpt)
 
     # launches on each path, each read with the counts zeroed just before
-    paths = {"serve_7b": serve["launches"]}
+    paths = {"serve_7b": dict(serve["launches"])}
     for name, row in bert["pipelines"].items():
-        paths[f"bert {name}"] = row["launches"]
+        paths[f"bert {name}"] = dict(row["launches"])
     for name, row in gen_row["runs"].items():
-        paths[f"generate {row['what']}"] = row["launches"]
-    paths["paged_attention() on generate pools"] = \
-        gen_row["pool_identity"]["launches"]
+        paths[f"generate {row['what']}"] = dict(row["launches"])
+    paths["paged_attention() on generate pools"] = dict(
+        gen_row["pool_identity"]["launches"])
 
+    # the wrapper's count covers both q4_0 routes: the CUDA-core kernel's
+    # launches are the calls less those on the tensor cores
+    for n in paths.values():
+        n["int4_matmul"] -= n["int4_matmul_tc"]
     heads = {"int4_matmul": ("qkv_proj M=8 K=4096 N=12288",
                              "bigdl_tpu_torch/csrc/int4_matmul.cu",
                              "bigdl_tpu/llm/kernels/int4_matmul.py:220"),
+             "int4_matmul_tc": ("Mistral gate_up_proj M=2048",
+                                "bigdl_tpu_torch/csrc/int4_matmul_tc.cu",
+                                "bigdl_tpu/llm/kernels/int4_matmul.py:220"),
              "asym_int4_matmul": (
                  "BERT qkvo M=1024", "bigdl_tpu_torch/csrc/lowbit_matmul.cu",
                  "bigdl_tpu/llm/kernels/int4_matmul.py:287"),
@@ -1153,7 +1270,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "case": c["case"], "max_abs_err": c["max_abs_err"],
+            "case": c["case"], "route_rule": (
+                f"M >= TC_MIN_M={kernels.TC_MIN_M} and N % 16 "
+                "== 0 take int4_matmul_tc (tile: 64x64 while "
+                f"ceil(M/64)*ceil(N/64) <= 2*{kernels.TC_SMS}, else "
+                "128x128, or 64x128 for M <= 64), else int4_matmul"
+                if name.startswith("int4") else None),
+            "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],

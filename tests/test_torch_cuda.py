@@ -16,12 +16,12 @@ import pytest
 import torch
 
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
-    asym_int4_matmul, asym_int4_matmul_reference, int4_matmul,
-    int4_matmul_reference, int8_matmul, int8_matmul_reference)
+    TC_MIN_M, asym_int4_matmul, asym_int4_matmul_reference, int4_matmul,
+    int4_matmul_reference, int4_route, int8_matmul, int8_matmul_reference)
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
-    merge_attention_partial, paged_attention, paged_attention_decode,
-    paged_attention_decode_stats, paged_attention_reference,
-    paged_attention_reference_stats)
+    SPLIT_KEYS, merge_attention_partial, paged_attention,
+    paged_attention_decode, paged_attention_decode_stats,
+    paged_attention_reference, paged_attention_reference_stats)
 from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
     ragged_prefill_attention, ragged_prefill_reference)
 
@@ -63,17 +63,112 @@ def test_int4_matmul(cuda, m, k, n):
     assert err16 / scale < 2.0 ** -7 + 1e-4
 
 
-def test_int4_matmul_rows_independent(cuda):
-    """The summation order of an output element does not depend on M:
-    row 3 of an M=37 product equals the same row computed alone."""
-    g = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn((37, 1024), generator=g, device=cuda).to(torch.bfloat16)
-    q = torch.randint(0, 256, (512, 256), generator=g, device=cuda,
+# the tensor-core route at every served prefill bucket at or above
+# TC_MIN_M, Mistral's M = 2048, ragged M, K = 14336 (448 groups) and
+# N = 28672; decided inside the test, never at import
+TC_SHAPES = [(m, 4096, 4096) for m in (16, 32, 64, 128, 256, 512, 1024)] + [
+    (2048, 4096, 6144), (100, 4096, 4096), (130, 4096, 12288),
+    (2047, 4096, 4096), (256, 14336, 4096), (2048, 4096, 28672),
+    (512, 11008, 4096), (1024, 768, 3072), (130, 96, 160)]
+
+
+@pytest.mark.parametrize("m,k,n", TC_SHAPES)
+def test_int4_matmul_tc(cuda, m, k, n):
+    """The tensor-core kernel against the plain version, f32 and bf16
+    out, under the same tolerances as the CUDA-core kernel: 2e-5 of
+    max|y| for f32 out (exact f32 products of bf16 x and q-8, f32 sums in
+    another order), plus one bf16 ulp of max|y| for bf16 out. Shapes
+    below ``TC_MIN_M`` take the other route and are covered above."""
+    if int4_route(m, n) != "tc":
+        pytest.skip(f"M={m} < TC_MIN_M={TC_MIN_M}: the CUDA-core route")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randint(0, 256, (k // 2, n), generator=g, device=cuda,
                       dtype=torch.uint8)
-    s = torch.rand((32, 256), generator=g, device=cuda) * 0.02
-    full = int4_matmul(x, q, s, out_dtype=torch.float32)
-    alone = int4_matmul(x[3:4].contiguous(), q, s, out_dtype=torch.float32)
-    assert torch.equal(full[3:4], alone)
+    s = torch.empty((k // 32, n), device=cuda).uniform_(0.001, 0.02,
+                                                        generator=g)
+    before = (int4_matmul.launches, int4_matmul.tc_launches)
+    got = int4_matmul(x, q, s, out_dtype=torch.float32)
+    got16 = int4_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert (int4_matmul.launches, int4_matmul.tc_launches) == (
+        before[0] + 2, before[1] + 2)
+    want = int4_matmul_reference(x, q, s, torch.float32)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2e-5 * scale
+    want16 = int4_matmul_reference(x, q, s, torch.bfloat16)
+    err16 = (got16.float() - want16.float()).abs().max().item()
+    assert err16 <= 1e-4 + 2.0 ** -7 * scale
+
+
+@pytest.mark.parametrize("m,k,n", [(130, 96, 160), (2047, 4096, 4096),
+                                   (1024, 768, 768), (16, 4096, 22016)])
+def test_int4_matmul_tc_tiles_agree(cuda, m, k, n):
+    """Every block shape of the tensor-core kernel gives the same bits
+    (the same ``wgmma`` per 64 rows, the same rescale chain), in f32 and
+    bf16 out; so the shape rule never changes a result."""
+    from bigdl_tpu_torch.llm.kernels import _build
+    from bigdl_tpu_torch.llm.kernels.int4_matmul import _int4_launch
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randint(0, 256, (k // 2, n), generator=g, device=cuda,
+                      dtype=torch.uint8)
+    s = torch.rand((k // 32, n), generator=g, device=cuda) * 0.02
+    for dt in (torch.float32, torch.bfloat16):
+        outs = []
+        for tile in ((128, 128), (64, 128), (64, 64)):
+            o = torch.empty((m, n), device=cuda, dtype=dt)
+            _build.check(_int4_launch(x, q, s, o, "tc", tile), "tc")
+            outs.append(o)
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+    want = int4_matmul_reference(x, q, s, torch.float32)
+    scale = want.abs().max().item()
+    assert (outs[0].float() - want).abs().max().item() <= (
+        1e-4 + 2.0 ** -7 * scale)
+
+
+@pytest.mark.parametrize("m,n,route", [
+    (1, 4096, "cuda_core"), (8, 12288, "cuda_core"), (4, 28672, "cuda_core"),
+    (TC_MIN_M - 1, 4096, "cuda_core"), (TC_MIN_M, 4096, "tc"),
+    (512, 12288, "tc"), (2048, 28672, "tc"), (1024, 768, "tc"),
+    (1024, 770, "cuda_core"), (8, 2, "cuda_core"), (4200, 6144, "tc")])
+def test_int4_matmul_route_counters(cuda, m, n, route):
+    """The route rule sends each shape where it says, and the counters
+    show it: every call adds one to ``launches``, the tensor-core route
+    one to ``tc_launches`` as well."""
+    assert int4_route(m, n) == route
+    x = torch.zeros((m, 64), device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros((32, n), device=cuda, dtype=torch.uint8)
+    s = torch.zeros((2, n), device=cuda)
+    before = (int4_matmul.launches, int4_matmul.tc_launches)
+    int4_matmul(x, q, s)
+    assert int4_matmul.launches == before[0] + 1
+    assert int4_matmul.tc_launches == before[1] + (route == "tc")
+
+
+def _int4_row3(device, m, k=1024, n=256):
+    g = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn((512, k), generator=g, device=device).to(torch.bfloat16)
+    q = torch.randint(0, 256, (k // 2, n), generator=g, device=device,
+                      dtype=torch.uint8)
+    s = torch.rand((k // 32, n), generator=g, device=device) * 0.02
+    return int4_matmul(x[:m].contiguous(), q, s,
+                       out_dtype=torch.float32)[3]
+
+
+@pytest.mark.parametrize("route", ["cuda_core", "tc"])
+def test_int4_matmul_rows_independent(cuda, route):
+    """The summation order of an output element does not depend on M
+    within a route: on the CUDA-core route row 3 of an M=8 product equals
+    that row of M=4 (and of M=``TC_MIN_M - 1``); on the tensor-core route
+    row 3 of M=512 equals that row of M=``TC_MIN_M``, bit for bit."""
+    if route == "tc":
+        big, small = 512, TC_MIN_M
+        assert int4_route(big, 256) == int4_route(small, 256) == "tc"
+    else:
+        big, small = TC_MIN_M - 1, 4
+        assert int4_route(big, 256) == int4_route(small, 256) == "cuda_core"
+    assert torch.equal(_int4_row3(cuda, big), _int4_row3(cuda, small))
 
 
 def _lowbit_inputs(kind, m, k, n, seed, device):
@@ -238,6 +333,77 @@ def test_paged_attention_decode(cuda, hq, hkv, d, win, lens):
     assert err <= 1e-3 + 2.0 ** -7 * scale
 
 
+def _split_lens():
+    """Lengths at the kernel's split boundaries: SPLIT_KEYS * j +- 1, one
+    exactly at a boundary, 0, a short row and a long one."""
+    S = SPLIT_KEYS
+    return [S - 1, S, S + 1, 2 * S - 1, 2 * S + 1, 3 * S + 1, 0, 5]
+
+
+@pytest.mark.parametrize("hq,hkv,win", [(32, 8, None), (32, 8, 300),
+                                        (32, 32, None), (8, 2, SPLIT_KEYS)])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_paged_attention_split_boundaries(cuda, hq, hkv, win, normalize):
+    """Both entries at lengths on and next to the split boundaries, with
+    windows that cut splits (300 starts inside one, SPLIT_KEYS starts on
+    a boundary for some rows), a length-0 row and bf16 pools, against
+    the plain versions under their unchanged tolerances (1e-3)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    lens = _split_lens()
+    B, d = len(lens), 128
+    maxp = -(-max(lens) // PAGE) + 2
+    P = 1 + B * maxp
+    q = torch.randn((B, hq, d), generator=g, device=cuda)
+    kp, vp = _pool(g, P, hkv, d, cuda)
+    bt = (1 + torch.randperm(P - 1, generator=g, device=cuda)[:B * maxp]) \
+        .reshape(B, maxp).to(torch.int32)
+    ln = torch.tensor(lens, device=cuda, dtype=torch.int32)
+    live = ln > 0
+    if normalize:
+        got = paged_attention_decode(q, kp, vp, bt, ln, PAGE,
+                                     sliding_window=win)
+        want = paged_attention_reference(q, kp, vp, bt, ln,
+                                         sliding_window=win)
+        assert (got[live] - want[live]).abs().max().item() < 1e-3
+        assert torch.all(got[~live] == 0)
+        return
+    acc, m, l = paged_attention_decode_stats(q, kp, vp, bt, ln, PAGE,
+                                             sliding_window=win)
+    racc, rm, rl = paged_attention_reference_stats(q, kp, vp, bt, ln,
+                                                   sliding_window=win)
+    out = acc[live] / l[live][..., None]
+    rout = racc[live] / rl[live][..., None]
+    assert (out - rout).abs().max().item() < 1e-3
+    assert (m - rm).abs().max().item() < 1e-3
+    assert ((l - rl).abs() / rl.clamp(min=1)).max().item() < 1e-3
+    assert torch.all(m[~live] == -1e30) and torch.all(l[~live] == 0)
+    assert torch.all(acc[~live] == 0)
+
+
+@pytest.mark.parametrize("split_keys", [128, 256, 512])
+def test_paged_attention_long_row_any_split(cuda, split_keys):
+    """B=1 at 4233 keys, Mistral's GQA and window (4096): every split
+    size the kernel takes gives the plain version's result (1e-3), and
+    the row alone equals the same row inside a batch, bit for bit."""
+    from bigdl_tpu_torch.llm.kernels.paged_attention import _decode_cuda
+    g = torch.Generator(device=cuda).manual_seed(5)
+    hq, hkv, d, win = 32, 8, 128, 4096
+    lens = [4233, 17, 600]
+    maxp = -(-max(lens) // PAGE) + 1
+    P = 1 + len(lens) * maxp
+    q = torch.randn((len(lens), hq, d), generator=g, device=cuda)
+    kp, vp = _pool(g, P, hkv, d, cuda)
+    bt = (1 + torch.arange(len(lens) * maxp, device=cuda)).reshape(
+        len(lens), maxp).to(torch.int32)
+    ln = torch.tensor(lens, device=cuda, dtype=torch.int32)
+    got = _decode_cuda(q, kp, vp, bt, ln, win, True, split_keys)
+    want = paged_attention_reference(q, kp, vp, bt, ln, sliding_window=win)
+    assert (got - want).abs().max().item() < 1e-3
+    alone = _decode_cuda(q[:1], kp, vp, bt[:1], ln[:1], win, True,
+                         split_keys)
+    assert torch.equal(alone, got[:1])
+
+
 def test_paged_attention_decode_length_zero_is_zero(cuda):
     """The kernel follows the Pallas kernel: a row with length 0 is 0
     (the plain version follows the JAX reference: the mean of V)."""
@@ -250,6 +416,28 @@ def test_paged_attention_decode_length_zero_is_zero(cuda):
     assert torch.all(got[0] == 0)
     want = paged_attention_reference(q, kp, vp, bt, ln)
     assert (got[1] - want[1]).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("layer", [1, 3])
+def test_paged_attention_stats_on_layer_views_split(cuda, layer):
+    """The stats entry on a layer view of an (L, P, ...) pool at lengths
+    that span several splits equals the plain version (1e-3)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    L, hq, hkv, d = 4, 32, 8, 128
+    lens = [SPLIT_KEYS * 3 + 7, SPLIT_KEYS + 1]
+    maxp = -(-max(lens) // PAGE) + 1
+    P = 1 + len(lens) * maxp
+    kp, vp = _pool(g, P, hkv, d, cuda, lead=(L,))
+    q = torch.randn((len(lens), hq, d), generator=g, device=cuda)
+    bt = (1 + torch.arange(len(lens) * maxp, device=cuda)).reshape(
+        len(lens), maxp).to(torch.int32)
+    ln = torch.tensor(lens, device=cuda, dtype=torch.int32)
+    acc, m, l = paged_attention_decode_stats(q, kp[layer], vp[layer], bt, ln,
+                                             PAGE, sliding_window=700)
+    racc, rm, rl = paged_attention_reference_stats(
+        q, kp[layer], vp[layer], bt, ln, sliding_window=700)
+    assert (acc / l[..., None] - racc / rl[..., None]).abs().max() < 1e-3
+    assert (m - rm).abs().max().item() < 1e-3
 
 
 @pytest.mark.parametrize("layer", [1, 3])
@@ -309,6 +497,10 @@ def test_tiny_generate_card_vs_cpu(cuda):
     out = card.generate(ids, max_new_tokens=n)
     counts = kernels.launch_counts()
     assert counts["int4_matmul"] == 4 * L * (1 + n)
+    # the prefill's 2 x 24 = 48 rows take the tensor-core route when
+    # TC_MIN_M allows it and N % 16 == 0; decode (2 rows) never does
+    tc_prefill = 4 * L if int4_route(48, 16) == "tc" else 0
+    assert counts["int4_matmul_tc"] == tc_prefill
     assert counts["paged_attention_decode_stats"] == L * n
     assert out.shape == (2, 24 + n) and out.max() < 256
     card.paged_decode = False

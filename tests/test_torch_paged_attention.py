@@ -6,7 +6,9 @@ package on the same seeded numpy inputs: the plain PyTorch versions
 against the Pallas kernels in interpret mode and against the JAX
 references. Ragged lengths, GQA and a sliding window are covered; length
 0, where the two JAX functions differ, is asserted on each side. The
-CUDA kernel runs only on the card: ``tests/test_torch_cuda.py``."""
+CUDA kernel's split-and-combine is modelled in plain PyTorch
+(``split_stats_reference``) and held to the JAX reference too. The CUDA
+kernel runs only on the card: ``tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -28,9 +30,10 @@ from bigdl_tpu.llm.serving import scatter_new_kv as j_scatter
 
 from bigdl_tpu_torch.llm.kernels import launch_counts
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
-    merge_attention_partial, paged_attention, paged_attention_decode,
-    paged_attention_decode_stats, paged_attention_reference,
-    paged_attention_reference_stats, paged_attention_stats)
+    SPLIT_KEYS, merge_attention_partial, paged_attention,
+    paged_attention_decode, paged_attention_decode_stats,
+    paged_attention_reference, paged_attention_reference_stats,
+    paged_attention_stats, split_stats_reference)
 from bigdl_tpu_torch.llm.serving import scatter_new_kv
 
 PAGE = 16
@@ -247,3 +250,58 @@ class TestNormalisedPlainVersion:
         with pytest.raises(ValueError, match="device"):
             paged_attention(*(t.to("meta") for t in _t(q, kp, vp, bt, ln)),
                             page_size=PAGE)
+
+
+SPLIT_CASES = [  # (Hq, Hkv, D, lens, window, split_keys)
+    (4, 4, 16, [0, 31, 32, 33, 127], None, 32),     # on and next to a cut
+    (8, 2, 32, [1, 48, 49, 95, 128], None, 48),     # GQA g=4, 3-page splits
+    (4, 2, 16, [0, 40, 63, 64, 100], 20, 32),       # window inside a split
+    (4, 2, 16, [17, 64, 65, 96, 127], 32, 32),      # window = one split
+    (8, 4, 16, [5, 70, 128, 33, 0], 50, 16),        # one page a split
+    (4, 4, 16, [0, 9, 128, 100, 127], None, SPLIT_KEYS),
+]
+
+
+class TestSplitCombine:
+    """The CUDA kernel's split-sequence algebra: each row's live range
+    cut at the multiples of ``split_keys``, one flash state per split,
+    combined in split order — against the JAX package's
+    ``paged_attention_reference_stats`` on the same numpy inputs, with
+    empty splits (a window that starts past them), length-0 rows and
+    windows. f32 on both sides: 1e-5."""
+
+    @pytest.mark.parametrize("hq,hkv,d,lens,win,split", SPLIT_CASES)
+    def test_matches_xla_reference(self, hq, hkv, d, lens, win, split):
+        q, kp, vp, bt, ln = _setup(20, len(lens), hq, hkv, d, lens=lens)
+        want = j_ref_stats(*_j(q, kp, vp, bt, ln), sliding_window=win)
+        got = split_stats_reference(*_t(q, kp, vp, bt, ln),
+                                    sliding_window=win, split_keys=split)
+        _assert_state(got, want, 1e-5)
+
+    @pytest.mark.parametrize("split", [16, 32, 64])
+    def test_normalised_matches_pallas_interpret(self, split):
+        """``acc / l`` of the combined state equals the normalised Pallas
+        kernel (interpret mode) on rows with lengths >= 1: 2e-5."""
+        lens, win = [1, 33, 64, 100], 40
+        q, kp, vp, bt, ln = _setup(21, 4, 8, 2, 16, lens=lens)
+        want = j_decode(*_j(q, kp, vp, bt, ln), page_size=PAGE,
+                        interpret=True, sliding_window=win)
+        acc, _, l = split_stats_reference(*_t(q, kp, vp, bt, ln),
+                                          sliding_window=win,
+                                          split_keys=split)
+        np.testing.assert_allclose((acc / l[..., None]).numpy(),
+                                   np.asarray(want), rtol=2e-5, atol=2e-5)
+
+    def test_split_keys_checked(self):
+        """The wrapper refuses a split that is not a whole number of pages
+        or is above the kernel's 512 (checked before any launch)."""
+        from bigdl_tpu_torch.llm.kernels.paged_attention import _scratch
+        q, kp, vp, bt, ln = _setup(22, 2, 4, 4, 16, lens=[3, 40])
+        for bad in (24, 0, 1024):
+            with pytest.raises(ValueError, match="split_keys"):
+                _scratch(*_t(q, kp, bt), bad)
+        nsplit, part_acc, part_ml, arrivals = _scratch(*_t(q, kp, bt), 32)
+        assert nsplit == -(-bt.shape[1] * PAGE // 32)
+        assert tuple(part_acc.shape) == (2 * 4, nsplit, 1, 16)
+        assert tuple(part_ml.shape) == (2 * 4, nsplit, 2, 8)
+        assert arrivals.dtype == torch.int32 and not arrivals.any()
