@@ -6,10 +6,11 @@ launch, or all at once with :func:`build_kernels`."""
 
 from bigdl_tpu_torch.llm.kernels import _build
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
-    TC_MIN_M, TC_SMS, asym_int4_matmul, asym_int4_matmul_reference,
-    dequant_q4, dequant_q4_1, dequant_q8_0, int4_matmul, int4_matmul_grouped,
-    int4_matmul_reference, int4_route, int8_matmul, int8_matmul_reference,
-    quantize_tpu, tc_block_shape, to_tpu_layout)
+    TC_MIN_M, TC_SMS, asym_int4_matmul, asym_int4_matmul_grouped,
+    asym_int4_matmul_reference, dequant_q4, dequant_q4_1, dequant_q8_0,
+    int4_matmul, int4_matmul_grouped, int4_matmul_reference, int8_matmul,
+    int8_matmul_grouped, int8_matmul_reference, matmul_route, quantize_tpu,
+    tc_block_shape, to_tpu_layout)
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
     SPLIT_KEYS, merge_attention_partial, paged_attention,
     paged_attention_decode, paged_attention_decode_stats,
@@ -22,7 +23,7 @@ from bigdl_tpu_torch.llm.kernels.sampling import (make_sampled_step,
 
 # csrc/<name>.cu sources, one shared library each
 KERNEL_SOURCES = ("int4_matmul", "int4_matmul_tc", "lowbit_matmul",
-                  "paged_attention", "ragged_prefill")
+                  "lowbit_matmul_tc", "paged_attention", "ragged_prefill")
 
 # the wrappers whose ``launches`` count the kernels of the port's paths
 WRAPPERS = {"int4_matmul": int4_matmul,
@@ -43,25 +44,34 @@ def build_kernels():
             if before.get(k) != v}
 
 
+# the dequant-matmul wrappers, whose ``tc_launches`` count the launches
+# that took the tensor-core route (``matmul_route``)
+TC_WRAPPERS = (int4_matmul, asym_int4_matmul, int8_matmul)
+
+
 def reset_launch_counts():
     for w in WRAPPERS.values():
         w.launches = 0
-    int4_matmul.tc_launches = 0
+    for w in TC_WRAPPERS:
+        w.tc_launches = 0
 
 
 def launch_counts():
-    """Launches per wrapper, and ``int4_matmul_tc``: how many of
-    ``int4_matmul``'s took the tensor-core route."""
+    """Launches per wrapper, and ``<wrapper>_tc`` for each dequant-matmul:
+    how many of its launches took the tensor-core route."""
     counts = {name: w.launches for name, w in WRAPPERS.items()}
-    counts["int4_matmul_tc"] = int4_matmul.tc_launches
+    for w in TC_WRAPPERS:
+        counts[f"{w.__name__}_tc"] = w.tc_launches
     return counts
 
 
-__all__ = ["KERNEL_SOURCES", "SPLIT_KEYS", "TC_MIN_M", "TC_SMS", "WRAPPERS",
-           "asym_int4_matmul", "asym_int4_matmul_reference", "build_kernels",
-           "dequant_q4", "dequant_q4_1", "dequant_q8_0", "int4_matmul",
-           "int4_matmul_grouped", "int4_matmul_reference", "int4_route",
-           "int8_matmul", "int8_matmul_reference", "launch_counts",
+__all__ = ["KERNEL_SOURCES", "SPLIT_KEYS", "TC_MIN_M", "TC_SMS",
+           "TC_WRAPPERS", "WRAPPERS", "asym_int4_matmul",
+           "asym_int4_matmul_grouped", "asym_int4_matmul_reference",
+           "build_kernels", "dequant_q4", "dequant_q4_1", "dequant_q8_0",
+           "int4_matmul", "int4_matmul_grouped", "int4_matmul_reference",
+           "int8_matmul", "int8_matmul_grouped", "int8_matmul_reference",
+           "launch_counts", "matmul_route",
            "make_sampled_step", "merge_attention_partial", "paged_attention",
            "paged_attention_decode", "paged_attention_decode_stats",
            "paged_attention_reference", "paged_attention_reference_stats",

@@ -10,7 +10,9 @@ and an unchanged one loads in milliseconds. :func:`build_all` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a nonzero code into a ``RuntimeError``.
+:func:`check` turns a nonzero code into a ``RuntimeError``. ``ptxas``
+runs verbose: each build's log (registers, stack and spills of every
+kernel, and any warning) is kept beside its library (:func:`build_log`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -84,6 +86,8 @@ def _finish(name: str, proc: subprocess.Popen):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(rc {proc.returncode}):\n{log.decode()}")
+    with open(f"{proc.out}.log", "wb") as f:
+        f.write(log)
     os.replace(proc.tmp, proc.out)
     build_seconds[name] = time.perf_counter() - proc.t0
 
@@ -106,6 +110,16 @@ def build_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
         for n in procs:
             _libs[n] = ctypes.CDLL(_lib_path(n))
         return {n: _libs[n] for n in names}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output of the build of ``csrc/<name>.cu`` that is loaded
+    (built in this process or earlier), or "" if it is not built."""
+    path = f"{_lib_path(name)}.log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

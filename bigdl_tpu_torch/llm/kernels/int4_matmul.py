@@ -7,15 +7,15 @@ weights ``q_t`` (K/2, N) uint8 for the 4-bit formats (low nibble = row
 2i, high = row 2i+1) or (K, N) int8 for q8_0, and per-32-group scales
 (and q4_1 zeros) ``(K/32, N)`` f32. It suits the CUDA kernels too:
 neighbouring threads take neighbouring output columns, so the weight
-stream is read coalesced with no transpose (``csrc/int4_matmul.cu`` and
-``csrc/int4_matmul_tc.cu`` for q4_0, ``csrc/lowbit_matmul.cu`` for q4_1
-and q8_0).
+stream is read coalesced with no transpose.
 
-q4_0 has two CUDA kernels, and :func:`int4_route` picks one from the
-shape alone before the launch: the tensor-core GEMM
-(``int4_matmul_tc.cu``) for ``M >= TC_MIN_M`` rows when ``N % 16 == 0``,
-the CUDA-core kernel (``int4_matmul.cu``) otherwise — decode (M <= 8),
-BERT's N = 2 classifier and N = 770.
+Each format has two CUDA kernels, and :func:`matmul_route` picks one
+from the shape alone before the launch: the tensor-core GEMM for
+``M >= TC_MIN_M`` rows when ``N % 16 == 0`` (``csrc/int4_matmul_tc.cu``
+for q4_0, ``csrc/lowbit_matmul_tc.cu`` for q4_1 and q8_0, one main loop
+in ``csrc/tc_gemm.cuh``), the CUDA-core kernel otherwise
+(``csrc/int4_matmul.cu``, ``csrc/lowbit_matmul.cu``) — decode (M <= 8),
+BERT's pooler and N = 2 classifier, N = 770.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 takes its plain PyTorch version (``*_reference``: dequantize to f32, f32
@@ -33,8 +33,9 @@ from bigdl_tpu_torch.llm.ggml.quantize import (QK, _check_qtype, quantize,
                                                quantize_torch)
 from bigdl_tpu_torch.llm.kernels import _build
 
-# the least M that takes the tensor-core q4_0 kernel. Chosen from H100
-# timings of both kernels at the served prefill buckets 16..512 (PERF.md)
+# the least M that takes the tensor-core kernels. Chosen from H100
+# timings of both q4_0 kernels at the served prefill buckets 16..512
+# (PERF.md)
 TC_MIN_M = 16
 # the SMs of an H100 SXM: the tensor-core kernel's block shape is chosen
 # so that a small product still makes one full wave (tc_block_shape)
@@ -129,25 +130,61 @@ def int4_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
     return _plain(x, dequant_q4(q_t, scale_t), out_dtype)
 
 
+def _grouped(x: torch.Tensor, q: torch.Tensor, scale_t: torch.Tensor,
+             zero_t: Optional[torch.Tensor],
+             out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The tensor-core kernels' algebra on (K, N) integer weights ``q``:
+    per 32-row group g the f32 partial ``P_g = x_g @ q_g`` of exact
+    products (and the row sums ``X_g`` of x_g), then ``acc += s_g * P_g``
+    (then ``acc += z_g * X_g``) in group order."""
+    m, k = x.shape
+    xg = x.to(torch.float32).reshape(m, k // QK, QK).transpose(0, 1)
+    part = torch.bmm(xg, _per_group(q))                      # (G, M, N)
+    xsum = xg.sum(-1)[..., None]                             # (G, M, 1)
+    acc = torch.zeros((m, q.shape[1]), dtype=torch.float32, device=x.device)
+    s = scale_t.to(torch.float32)
+    z = None if zero_t is None else zero_t.to(torch.float32)
+    for i in range(k // QK):
+        acc = acc + s[i] * part[i]
+        if z is not None:
+            acc = acc + z[i] * xsum[i]
+    return acc.to(out_dtype if out_dtype is not None else x.dtype)
+
+
 def int4_matmul_grouped(x: torch.Tensor, q_t: torch.Tensor,
                         scale_t: torch.Tensor,
                         out_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
-    """The CUDA kernels' algebra in plain PyTorch: per 32-row group g the
-    f32 partial ``P_g = x_g @ (q_g - 8)`` of exact products, then
+    """The CUDA kernels' q4_0 algebra in plain PyTorch: per 32-row group
+    g the f32 partial ``P_g = x_g @ (q_g - 8)`` of exact products, then
     ``acc += s_g * P_g`` in group order, cast to ``out_dtype`` (default:
     x's dtype). Equals :func:`int4_matmul_reference` up to f32 summation
     order; the tests hold it to the JAX package."""
-    m, k = x.shape
-    g = k // QK
-    xg = x.to(torch.float32).reshape(m, g, QK).transpose(0, 1)
-    part = torch.bmm(xg, _per_group(_unpack_k(q_t) - 8))     # (G, M, N)
-    acc = torch.zeros((m, q_t.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    s = scale_t.to(torch.float32)
-    for i in range(g):
-        acc = acc + s[i] * part[i]
-    return acc.to(out_dtype if out_dtype is not None else x.dtype)
+    return _grouped(x, _unpack_k(q_t) - 8, scale_t, None, out_dtype)
+
+
+def asym_int4_matmul_grouped(x: torch.Tensor, q_t: torch.Tensor,
+                             scale_t: torch.Tensor, zero_t: torch.Tensor,
+                             out_dtype: Optional[torch.dtype] = None
+                             ) -> torch.Tensor:
+    """The tensor-core kernel's q4_1 algebra: per group the exact f32
+    partial ``x_g @ q_g`` (q in 0..15) and the row sums ``X_g``, then
+    ``acc += s_g * P_g + z_g * X_g`` in group order (the TPU kernel's
+    separate zero-point dot). Tests only; the wrapper's plain version is
+    :func:`asym_int4_matmul_reference`."""
+    return _grouped(x, _unpack_k(q_t), scale_t, zero_t, out_dtype)
+
+
+def int8_matmul_grouped(x: torch.Tensor, q_t: torch.Tensor,
+                        scale_t: torch.Tensor,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """The tensor-core kernel's q8_0 algebra: per group the exact f32
+    partial ``x_g @ q_g`` (q int8), then ``acc += s_g * P_g`` in group
+    order; a per-channel (stride-0) scale rescales every group alike.
+    Tests only; the wrapper's plain version is
+    :func:`int8_matmul_reference`."""
+    return _grouped(x, q_t, scale_t, None, out_dtype)
 
 
 def asym_int4_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
@@ -229,49 +266,90 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def int4_route(m: int, n: int) -> str:
-    """Which CUDA kernel :func:`int4_matmul` launches for an (M, K) x
-    (K, N) product: ``"tc"`` (tensor cores, ``csrc/int4_matmul_tc.cu``)
-    when ``m >= TC_MIN_M`` and ``n % 16 == 0`` (16-byte rows of q for
-    its TMA loads), else ``"cuda_core"`` (``csrc/int4_matmul.cu``).
-    Both keep the exact f32 product ``s·(q-8)``; the order of an output's
-    sum depends on K and the route only, never on the other rows."""
+def matmul_route(m: int, n: int) -> str:
+    """Which CUDA kernel a dequant-matmul wrapper launches for an (M, K)
+    x (K, N) product, for all three formats: ``"tc"`` (tensor cores,
+    ``csrc/int4_matmul_tc.cu`` / ``csrc/lowbit_matmul_tc.cu``) when
+    ``m >= TC_MIN_M`` and ``n % 16 == 0`` (16-byte rows of q for its TMA
+    loads), else ``"cuda_core"`` (``csrc/int4_matmul.cu`` /
+    ``csrc/lowbit_matmul.cu``). Both keep the exact f32 products of the
+    integer weights and scales; the order of an output's sum depends on
+    K and the route only, never on the other rows."""
     return "tc" if m >= TC_MIN_M and n % 16 == 0 else "cuda_core"
 
 
-def tc_block_shape(m: int, n: int) -> Tuple[int, int]:
+def tc_block_shape(m: int, n: int,
+                   zero_point: bool = False) -> Tuple[int, int]:
     """The output tile (rows, columns) of one block of the tensor-core
-    kernel, from the shape alone: 64 x 64 while those blocks make at
-    most one wave at two a SM (``<= 2 * TC_SMS``), else 128 x 128, or
-    64 x 128 when M <= 64 (a 128-row block would be half empty). Chosen
+    kernels, from the shape and the format: 64 x 64 while those blocks
+    make at most one wave at two a SM (``<= 2 * TC_SMS``), else 64 x 128
+    when M <= 64 (a 128-row block would be half empty), else 128 x 128 —
+    or 64 x 64 for a format with a ``zero_point`` (q4_1), whose 128 x 128
+    instance runs at 246 registers with twice the rescale work. Chosen
     from H100 timings of all three (PERF.md). Every row's sum runs in
     the same order whatever the tile."""
     if -(-m // 64) * -(-n // 64) <= 2 * TC_SMS:
         return 64, 64
-    return (128, 128) if m > 64 else (64, 128)
+    if m <= 64:
+        return 64, 128
+    return (64, 64) if zero_point else (128, 128)
 
 
-def _int4_launch(xb: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
-                 out: torch.Tensor, route: str,
-                 tile: Optional[Tuple[int, int]] = None) -> int:
-    """Launch one q4_0 kernel on checked CUDA tensors; counts the launch
-    (``int4_matmul.launches``, and ``int4_matmul.tc_launches`` for the
+# wrapper name -> (CUDA-core library, tensor-core library)
+_LIBS = {"int4_matmul": ("int4_matmul", "int4_matmul_tc"),
+         "asym_int4_matmul": ("lowbit_matmul", "lowbit_matmul_tc"),
+         "int8_matmul": ("lowbit_matmul", "lowbit_matmul_tc")}
+
+
+def _launch(wrapper, xb: torch.Tensor, planes: Sequence[torch.Tensor],
+            out: torch.Tensor, route: str, lds: Optional[int] = None,
+            tile: Optional[Tuple[int, int]] = None) -> int:
+    """Launch one of ``wrapper``'s kernels on checked CUDA tensors
+    (``planes``: q_t, scale_t[, zero_t]; ``lds`` the planes' row stride,
+    None for q4_0, whose entries take contiguous scales); counts the
+    launch (``wrapper.launches``, and ``wrapper.tc_launches`` for the
     tensor-core route) and returns the C entry's error code. ``tile``
-    overrides :func:`tc_block_shape` (timing only)."""
-    (m, k), n = xb.shape, q_t.shape[1]
-    lib = "int4_matmul_tc" if route == "tc" else "int4_matmul"
-    ints = [m, k, n]
+    overrides :func:`tc_block_shape` (timing and tests only)."""
+    name = wrapper.__name__
+    (m, k), n = xb.shape, planes[0].shape[1]
+    lib = _LIBS[name][route == "tc"]
+    ints = [m, k, n] + ([] if lds is None else [lds])
     if route == "tc":
-        ints.extend(tile or tc_block_shape(m, n))
+        ints.extend(tile or tc_block_shape(m, n, name == "asym_int4_matmul"))
     fn = _build.bind(
-        lib, f"{lib}_{'bf16' if out.dtype == torch.bfloat16 else 'f32'}out",
-        [_build.P] * 4 + [_build.I] * len(ints) + [_build.P])
-    rc = fn(xb.data_ptr(), q_t.data_ptr(), scale_t.data_ptr(),
-            out.data_ptr(), *ints, _stream(xb))
-    int4_matmul.launches += 1
+        lib, f"{name}{'_tc' if route == 'tc' else ''}_"
+        f"{'bf16' if out.dtype == torch.bfloat16 else 'f32'}out",
+        [_build.P] * (len(planes) + 2) + [_build.I] * len(ints) + [_build.P])
+    rc = fn(xb.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(),
+            *ints, _stream(xb))
+    wrapper.launches += 1
     if route == "tc":
-        int4_matmul.tc_launches += 1
+        wrapper.tc_launches += 1
     return rc
+
+
+def _run(wrapper, x: torch.Tensor, planes: Sequence[torch.Tensor],
+         q_dtype: torch.dtype, out_dtype: torch.dtype,
+         lds: Optional[int]) -> torch.Tensor:
+    """Check the CUDA inputs, route, launch, check the error code. q4_0
+    (``lds`` None) takes contiguous 16-byte aligned planes on both
+    routes; q4_1 and q8_0 need the alignment (TMA's) on the tensor-core
+    route only."""
+    name = wrapper.__name__
+    xb = _cuda_inputs(name, x, planes[0], q_dtype, planes[1:], out_dtype)
+    if lds is None and not planes[1].is_contiguous():
+        raise ValueError(f"{name}: scale_t must be contiguous")
+    (m, _), n = x.shape, planes[0].shape[1]
+    route = matmul_route(m, n)
+    if ((lds is None or route == "tc")
+            and any(t.data_ptr() % 16 for t in planes)):
+        raise ValueError(f"{name}: q_t and the scales must be 16-byte "
+                         "aligned")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    _build.check(_launch(wrapper, xb, planes, out, route, lds), name)
+    return out
 
 
 def int4_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
@@ -280,25 +358,13 @@ def int4_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
 
     x (M, K); q_t (K/2, N) uint8; scale_t (K/32, N) f32; returns (M, N)
     in ``out_dtype`` (bf16 or f32 on the card). Any M and N. A CUDA x
-    launches the CUDA kernel :func:`int4_route` names (x cast to bf16
+    launches the CUDA kernel :func:`matmul_route` names (x cast to bf16
     first); a CPU x takes the plain version."""
     _check_shapes("int4_matmul", x, q_t, 2, (scale_t,))
     if x.device.type == "cpu":
         return int4_matmul_reference(x, q_t, scale_t, out_dtype)
-    xb = _cuda_inputs("int4_matmul", x, q_t, torch.uint8, (scale_t,),
-                      out_dtype)
-    if not scale_t.is_contiguous():
-        raise ValueError("int4_matmul: scale_t must be contiguous")
-    for t in (q_t, scale_t):
-        if t.data_ptr() % 16:
-            raise ValueError("int4_matmul: tensors must be 16-byte aligned")
-    (m, k), n = x.shape, q_t.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0 or n == 0:
-        return out
-    _build.check(_int4_launch(xb, q_t, scale_t, out, int4_route(m, n)),
-                 "int4_matmul")
-    return out
+    return _run(int4_matmul, x, (q_t, scale_t), torch.uint8, out_dtype,
+                None)
 
 
 def asym_int4_matmul(x: torch.Tensor, q_t: torch.Tensor,
@@ -309,30 +375,18 @@ def asym_int4_matmul(x: torch.Tensor, q_t: torch.Tensor,
 
     x (M, K); q_t (K/2, N) uint8; scale_t, zero_t (K/32, N) f32; returns
     (M, N) in ``out_dtype``. Any M and N. A CUDA x launches the CUDA
-    kernel (x cast to bf16 first); a CPU x takes the plain version."""
+    kernel :func:`matmul_route` names (x cast to bf16 first); a CPU x
+    takes the plain version."""
     _check_shapes("asym_int4_matmul", x, q_t, 2, (scale_t, zero_t))
     if x.device.type == "cpu":
         return asym_int4_matmul_reference(x, q_t, scale_t, zero_t,
                                           out_dtype)
-    xb = _cuda_inputs("asym_int4_matmul", x, q_t, torch.uint8,
-                      (scale_t, zero_t), out_dtype)
     lds = _group_stride("asym_int4_matmul", scale_t)
     if _group_stride("asym_int4_matmul", zero_t) != lds:
         raise ValueError("asym_int4_matmul: scale_t and zero_t need one "
                          "row stride")
-    (m, k), n = x.shape, q_t.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0 or n == 0:
-        return out
-    fn = _build.bind(
-        "lowbit_matmul", "asym_int4_matmul_bf16out"
-        if out_dtype == torch.bfloat16 else "asym_int4_matmul_f32out",
-        [_build.P] * 5 + [_build.I] * 4 + [_build.P])
-    rc = fn(xb.data_ptr(), q_t.data_ptr(), scale_t.data_ptr(),
-            zero_t.data_ptr(), out.data_ptr(), m, k, n, lds, _stream(x))
-    asym_int4_matmul.launches += 1
-    _build.check(rc, "asym_int4_matmul")
-    return out
+    return _run(asym_int4_matmul, x, (q_t, scale_t, zero_t), torch.uint8,
+                out_dtype, lds)
 
 
 def int8_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
@@ -342,30 +396,16 @@ def int8_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
 
     x (M, K); q_t (K, N) int8; scale_t (K/32, N) f32, contiguous or one
     row expanded over the groups (a per-channel scale); returns (M, N)
-    in ``out_dtype``. Any M and N. A CUDA x launches the CUDA kernel (x
-    cast to bf16 first); a CPU x takes the plain version."""
+    in ``out_dtype``. Any M and N. A CUDA x launches the CUDA kernel
+    :func:`matmul_route` names (x cast to bf16 first); a CPU x takes the
+    plain version."""
     _check_shapes("int8_matmul", x, q_t, 1, (scale_t,))
     if x.device.type == "cpu":
         return int8_matmul_reference(x, q_t, scale_t, out_dtype)
-    xb = _cuda_inputs("int8_matmul", x, q_t, torch.int8, (scale_t,),
-                      out_dtype)
     lds = _group_stride("int8_matmul", scale_t)
-    (m, k), n = x.shape, q_t.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0 or n == 0:
-        return out
-    fn = _build.bind(
-        "lowbit_matmul", "int8_matmul_bf16out"
-        if out_dtype == torch.bfloat16 else "int8_matmul_f32out",
-        [_build.P] * 4 + [_build.I] * 4 + [_build.P])
-    rc = fn(xb.data_ptr(), q_t.data_ptr(), scale_t.data_ptr(),
-            out.data_ptr(), m, k, n, lds, _stream(x))
-    int8_matmul.launches += 1
-    _build.check(rc, "int8_matmul")
-    return out
+    return _run(int8_matmul, x, (q_t, scale_t), torch.int8, out_dtype, lds)
 
 
-int4_matmul.launches = 0
-int4_matmul.tc_launches = 0
-asym_int4_matmul.launches = 0
-int8_matmul.launches = 0
+for _w in (int4_matmul, asym_int4_matmul, int8_matmul):
+    _w.launches = 0
+    _w.tc_launches = 0

@@ -6,7 +6,10 @@
 Phase 0  require a CUDA device (exit 2 without one) and print the card's
          name and power limit as ``nvidia-smi`` gives them.
 Phase 1  build every CUDA kernel from ``bigdl_tpu_torch/csrc`` (one
-         ``nvcc`` per source, all in parallel) and print the seconds.
+         ``nvcc`` per source, all in parallel) and print the seconds and
+         what ``ptxas -v`` says of each kernel (registers, stack, spills,
+         warnings); every instance of the tensor-core main loop must
+         build with no spill and no C7520 / C7514 serialisation warning.
 Phase 2  hold each kernel against its plain PyTorch version on the card
          at the Llama-2-7B shapes of the served path (q4_0 linears at the
          prefill buckets 16..512 and at decode batch 8) and the Mistral-7B
@@ -14,15 +17,18 @@ Phase 2  hold each kernel against its plain PyTorch version on the card
          prefill 4 x 512; stats decode at lengths 512..575 and 4199),
          plus GQA (Hq 32, Hkv 8), D=64, sliding-window and split-boundary
          shapes, the three dequant-matmuls at the BERT-base shapes (and
-         q4_0 at N = 2, 3, 770), and kernel 6 (normalised paged decode)
-         at Mistral decode, one 4233-token Mistral row and Llama-2-7B MHA;
-         inputs from a seeded ``torch.Generator`` on the card. Every q4_0
-         row names the kernel its route takes (``int4_matmul_tc`` for
-         M >= TC_MIN_M and N % 16 == 0); at the buckets both q4_0
-         kernels are held and timed (``ms_tc``, ``ms_cuda_core``), every
-         tensor-core row at its three block tiles (``ms_by_tile``, the
-         tiles' outputs bit-equal), and the paged main-path shapes at
-         split sizes 128, 256 and 512 (``ms_by_split``). One JSON line per case with the errors,
+         q4_0 at N = 2, 3, 770; q8_0 also with the per-channel stride-0
+         scale of ``quantize_model``, bit-equal to the materialised one),
+         and kernel 6 (normalised paged decode) at Mistral decode, one
+         4233-token Mistral row and Llama-2-7B MHA; inputs from a seeded
+         ``torch.Generator`` on the card. Every dequant-matmul row names
+         the kernel its route takes (``<wrapper>_tc`` for M >= TC_MIN_M
+         and N % 16 == 0); at the q4_0 buckets and the BERT M = 1024
+         rows both kernels are held and timed (``ms_tc``,
+         ``ms_cuda_core``), every tensor-core row at its three block
+         tiles (``ms_by_tile``, the tiles' outputs bit-equal), and the
+         paged main-path shapes at split sizes 128, 256 and 512
+         (``ms_by_split``). One JSON line per case with the errors,
          the tolerance, the kernel's / plain version's / one PyTorch
          library call's time (CUDA events, median of 25 calls run back to
          back after warm-up) and the bound (bytes over 3.35 TB/s or FLOPs
@@ -46,8 +52,8 @@ Phase 5  BERT-base (full width, 12 layers, random weights from a seed)
          through nano's ``InferenceOptimizer``: ``trace`` (float, the
          yardstick), ``quantize`` to int8 / asym_int4 / sym_int4 and
          ``nn.quantized.quantize_model``, batch 8 x 128: exactly 74
-         launches of the pipeline's matmul kernel per forward (0 of the
-         others; sym_int4's 72 M=1024 linears on the tensor cores), ms
+         launches of the pipeline's matmul wrapper per forward (0 of the
+         others), its 72 M=1024 linears on the tensor cores, ms
          per forward, sequences/s, peak memory, and the card's log-probs
          against the same model's plain path on the CPU
          (batch 2 x 128). Then one int8 forward traced as in phase 4.
@@ -128,6 +134,51 @@ def check(ok, msg):
         raise AssertionError(msg)
 
 
+# -- phase 1: the build ---------------------------------------------------------
+
+# the sources of the tensor-core main loop (csrc/tc_gemm.cuh): ptxas must
+# neither spill nor serialise its wgmma (C7520: one under a branch;
+# C7514: an accumulator read while one is in flight)
+TC_SOURCES = ("int4_matmul_tc", "lowbit_matmul_tc")
+
+
+def _demangle(names):
+    import shutil
+    if not names or shutil.which("c++filt") is None:
+        return {n: n for n in names}
+    out = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                         capture_output=True, timeout=60).stdout.split("\n")
+    return {n: (d.split(">(")[0] + ">" if ">(" in d else d)
+            for n, d in zip(names, out)}
+
+
+def ptxas_report(log):
+    """What ``ptxas -v`` said of each kernel of one build: registers,
+    stack frame and spill bytes by (demangled) kernel, and its warnings."""
+    import re
+    kern, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            kern.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            kern[cur].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            kern[cur]["registers"] = int(m.group(1))
+    names = _demangle(sorted(kern))
+    return {"kernels": {names[k]: v for k, v in kern.items()},
+            "warnings": [l.strip() for l in log.splitlines()
+                         if "warning" in l.lower()]}
+
+
 # -- phase 2: kernels against their plain versions ---------------------------
 
 # the linears of BERT-base at batch 8 x 128 (M = 1024 rows), and the pooler
@@ -154,14 +205,18 @@ def _planes(torch, dev, gen, kind, k, n):
     return q, s, z
 
 
-def _forced_route(torch, route, x, q, s, out_dtype, tile=None):
-    """One q4_0 call through the named kernel (and tensor-core tile)
-    whatever the rules say (the TC_MIN_M and block-shape sweeps)."""
+def _forced_route(torch, kind, route, x, planes, out_dtype, tile=None):
+    """One call of ``kind``'s wrapper through the named kernel (and
+    tensor-core tile) whatever the rules say (the TC_MIN_M and
+    block-shape sweeps)."""
+    from bigdl_tpu_torch.llm import kernels as K
     from bigdl_tpu_torch.llm.kernels import _build
-    from bigdl_tpu_torch.llm.kernels.int4_matmul import _int4_launch
-    out = torch.empty((x.shape[0], q.shape[1]), dtype=out_dtype,
+    from bigdl_tpu_torch.llm.kernels.int4_matmul import _group_stride, _launch
+    lds = None if kind == "int4_matmul" else _group_stride(kind, planes[1])
+    out = torch.empty((x.shape[0], planes[0].shape[1]), dtype=out_dtype,
                       device=x.device)
-    _build.check(_int4_launch(x, q, s, out, route, tile), f"int4 {route}")
+    _build.check(_launch(getattr(K, kind), x, planes, out, route, lds, tile),
+                 f"{kind} {route}")
     return out
 
 
@@ -169,14 +224,17 @@ TC_TILES = ((128, 128), (64, 128), (64, 64))
 
 
 def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
-                launches=0, per=None, both_routes=False):
+                launches=0, per=None, both_routes=False, per_channel=False):
     """One dequant-matmul case: the kernel's f32-out and bf16-out entries
     against the plain version on the same bf16 x and planes; the entry
     the path launches (``path_dtype`` out) is the one timed. ``launches``
     is how many calls of this shape the path makes ``per`` step or
-    forward (0: a shape no path runs). A q4_0 row names the route the
-    rule takes; with ``both_routes`` both q4_0 kernels are also held to
-    the plain version and timed (``ms_tc``, ``ms_cuda_core``)."""
+    forward (0: a shape no path runs). A row names the kernel the route
+    rule takes; with ``both_routes`` both kernels are also held to the
+    plain version and timed (``ms_tc``, ``ms_cuda_core``). With
+    ``per_channel`` (q8_0) the scale is one row expanded over the groups
+    (stride 0, as ``nn.quantized.Linear`` passes it), and the result must
+    equal the materialised scale's bit for bit."""
     from bigdl_tpu_torch.llm import kernels as K
     fn, ref, deq = {
         "int4_matmul": (K.int4_matmul, K.int4_matmul_reference,
@@ -187,6 +245,8 @@ def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
                         K.dequant_q8_0)}[kind]
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     planes = _planes(torch, dev, gen, kind, k, n)
+    if per_channel:
+        planes = (planes[0], planes[1][:1].expand(k // 32, n))
     got = fn(x, *planes, out_dtype=torch.float32)
     want = ref(x, *planes, torch.float32)
     got16 = fn(x, *planes, out_dtype=torch.bfloat16)
@@ -199,13 +259,16 @@ def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
     tol16 = 1e-4 + 2.0 ** -7 * scale
     w16 = deq(*planes, dtype=torch.bfloat16)
     out_bytes = 2 if path_dtype == torch.bfloat16 else 4
-    nbytes = (m * k * 2 + sum(p.numel() * p.element_size() for p in planes)
-              + m * n * out_bytes)
+    # each input read once: a per-channel scale is its one row
+    nbytes = (m * k * 2 + planes[0].numel() * planes[0].element_size()
+              + sum(p[:1].numel() * 4 if per_channel else p.numel() * 4
+                    for p in planes[1:]) + m * n * out_bytes)
     b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
-    route = K.int4_route(m, n) if kind == "int4_matmul" else None
+    route = K.matmul_route(m, n)
     row = {
-        "kernel": "int4_matmul_tc" if route == "tc" else kind,
-        "route": route, "case": f"{what} M={m} K={k} N={n}",
+        "kernel": f"{kind}_tc" if route == "tc" else kind,
+        "route": route, "case": f"{what} M={m} K={k} N={n}"
+        + (" per-channel scale" if per_channel else ""),
         "path_out": str(path_dtype).replace("torch.", ""),
         "max_abs_err": err, "max_rel_err": err / scale, "tol": tol,
         "tol_rule": "f32 out: 2e-5 * max|plain| (f32 sums, another order); "
@@ -218,31 +281,37 @@ def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
         "bound_ms": b_ms, "bound_by": b_by,
         "launches": launches, "launches_per": per,
         "passed": err <= tol and err16 <= tol16}
+    if per_channel:
+        same = torch.equal(fn(x, planes[0], planes[1].contiguous(),
+                              out_dtype=torch.float32), got)
+        row["equal_to_materialised_scale"] = same
+        row["passed"] &= same
     if route == "tc":
         # every tile gives the same bits; each is timed, which is how
         # tc_block_shape was chosen
-        row["tile"] = "x".join(map(str, K.tc_block_shape(m, n)))
-        ref_out = _forced_route(torch, "tc", x, *planes, torch.float32,
+        row["tile"] = "x".join(map(str, K.tc_block_shape(
+            m, n, kind == "asym_int4_matmul")))
+        ref_out = _forced_route(torch, kind, "tc", x, planes, torch.float32,
                                 TC_TILES[0])
         row["ms_by_tile"] = {}
         for tile in TC_TILES:
             same = torch.equal(_forced_route(
-                torch, "tc", x, *planes, torch.float32, tile), ref_out)
+                torch, kind, "tc", x, planes, torch.float32, tile), ref_out)
             row["passed"] &= same
             row["ms_by_tile"]["x".join(map(str, tile))] = time_ms(
-                lambda: _forced_route(torch, "tc", x, *planes, path_dtype,
-                                      tile))
+                lambda: _forced_route(torch, kind, "tc", x, planes,
+                                      path_dtype, tile))
         del ref_out
     if both_routes:
         for r in ("tc", "cuda_core"):
             if n % 16 and r == "tc":
                 continue
-            e = (_forced_route(torch, r, x, *planes, torch.float32)
+            e = (_forced_route(torch, kind, r, x, planes, torch.float32)
                  - want).abs().max().item()
             row[f"max_abs_err_{r}"] = e
             row["passed"] &= e <= tol
             row[f"ms_{r}"] = time_ms(lambda: _forced_route(
-                torch, r, x, *planes, path_dtype))
+                torch, kind, r, x, planes, path_dtype))
     del x, planes, got, want, got16, want16, w16
     return row
 
@@ -296,11 +365,14 @@ def int4_cases(torch, dev, gen):
 
 def lowbit_cases(torch, dev, gen):
     """q4_1 and q8_0 at the BERT-base shapes, f32 out as the pipelines
-    run them."""
+    run them (the M = 1024 rows on both routes), and q8_0 with the
+    per-channel stride-0 scale of ``quantize_model``."""
     return [matmul_case(torch, dev, gen, kind, f"BERT {what}", m, k, n,
-                        torch.float32, count, f"BERT {qtype} forward")
-            for kind, qtype in (("int8_matmul", "int8"),
-                                ("asym_int4_matmul", "asym_int4"))
+                        torch.float32, count, f"BERT {pipe} forward",
+                        both_routes=m > 8, per_channel=pc)
+            for kind, pipe, pc in (("int8_matmul", "int8", False),
+                                   ("asym_int4_matmul", "asym_int4", False),
+                                   ("int8_matmul", "quantize_model", True))
             for what, m, k, n, count in BERT_SHAPES]
 
 
@@ -603,13 +675,14 @@ def serve_7b(torch, dev):
     ns.append(model.params["lm_head"]["q"].shape[-1])
     expect = {"int4_matmul": (n_prefill + steps) * (4 * L + 1),
               "asym_int4_matmul": 0, "int8_matmul": 0,
+              "asym_int4_matmul_tc": 0, "int8_matmul_tc": 0,
               "paged_attention_decode_stats": steps * L,
               "ragged_prefill_attention": n_prefill * L,
               "paged_attention_decode": 0,
               "int4_matmul_tc": sum(
                   (L if i < 4 else 1) for bk in buckets
                   for i, n in enumerate(ns)
-                  if kernels.int4_route(bk, n) == "tc")}
+                  if kernels.matmul_route(bk, n) == "tc")}
     check(all(counts[k] > 0 for k, v in expect.items() if v),
           f"a kernel of the served path never ran: {counts}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
@@ -784,12 +857,12 @@ def _launch_expect(counts, model, rows, n, paged):
     steps, the prefill's (``rows`` = batch x prompt) on the route the
     rule gives its shapes, and with paged decode one stats kernel a
     layer a step; the dense ``lm_head`` launches nothing."""
-    from bigdl_tpu_torch.llm.kernels import int4_route
+    from bigdl_tpu_torch.llm.kernels import matmul_route
     L = model.config.num_hidden_layers
     want = dict.fromkeys(counts, 0)
     want["int4_matmul"] = 4 * L * (1 + n)
     want["int4_matmul_tc"] = L * sum(
-        int4_route(rows, model.params["layers"][k]["q"].shape[-1]) == "tc"
+        matmul_route(rows, model.params["layers"][k]["q"].shape[-1]) == "tc"
         for k in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj"))
     if paged:
         want["paged_attention_decode_stats"] = L * n
@@ -1127,14 +1200,14 @@ def bert_path(torch, dev):
         check(y.shape == (8, 2) and bool(np.isfinite(y).all()),
               f"BERT {name}: output {y.shape} not finite")
         want = dict.fromkeys(counts, 0)
-        if BERT_PIPELINE_KERNELS[name]:
-            want[BERT_PIPELINE_KERNELS[name]] = n_linears
-        if BERT_PIPELINE_KERNELS[name] == "int4_matmul":
+        kern = BERT_PIPELINE_KERNELS[name]
+        if kern:
+            want[kern] = n_linears
             # the M = 1024 linears on the tensor cores, the pooler and
             # the classifier (M = 8) on the CUDA-core kernel
-            want["int4_matmul_tc"] = sum(
+            want[f"{kern}_tc"] = sum(
                 c for _, m, _, n, c in BERT_SHAPES
-                if kernels.int4_route(m, n) == "tc")
+                if kernels.matmul_route(m, n) == "tc")
         check(counts == want, f"BERT {name}: launch counts {counts} != "
               f"{want}")
         walls = []
@@ -1177,6 +1250,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from bigdl_tpu_torch.llm import kernels
+        from bigdl_tpu_torch.llm.kernels import _build
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -1195,8 +1269,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = kernels.build_kernels()
+    ptxas = {n: ptxas_report(_build.build_log(n))
+             for n in kernels.KERNEL_SOURCES}
     emit({"phase": "build", "seconds": built,
-          "wall_s": time.perf_counter() - t0})
+          "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
+    for n in TC_SOURCES:
+        rep = ptxas[n]
+        check(rep["kernels"] and all(
+            k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0
+            for k in rep["kernels"].values()), f"{n}: a spill: {rep}")
+        check(not any("C7520" in w or "C7514" in w for w in rep["warnings"]),
+              f"{n}: wgmma serialised: {rep['warnings']}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = (int4_cases(torch, dev, gen) + lowbit_cases(torch, dev, gen)
@@ -1235,10 +1318,11 @@ def main() -> int:
     paths["paged_attention() on generate pools"] = dict(
         gen_row["pool_identity"]["launches"])
 
-    # the wrapper's count covers both q4_0 routes: the CUDA-core kernel's
-    # launches are the calls less those on the tensor cores
+    # a dequant-matmul wrapper's count covers both routes: the CUDA-core
+    # kernel's launches are the calls less those on the tensor cores
     for n in paths.values():
-        n["int4_matmul"] -= n["int4_matmul_tc"]
+        for w in MATMUL_KERNELS:
+            n[w] -= n[f"{w}_tc"]
     heads = {"int4_matmul": ("qkv_proj M=8 K=4096 N=12288",
                              "bigdl_tpu_torch/csrc/int4_matmul.cu",
                              "bigdl_tpu/llm/kernels/int4_matmul.py:220"),
@@ -1246,10 +1330,18 @@ def main() -> int:
                                 "bigdl_tpu_torch/csrc/int4_matmul_tc.cu",
                                 "bigdl_tpu/llm/kernels/int4_matmul.py:220"),
              "asym_int4_matmul": (
-                 "BERT qkvo M=1024", "bigdl_tpu_torch/csrc/lowbit_matmul.cu",
+                 "BERT pooler M=8", "bigdl_tpu_torch/csrc/lowbit_matmul.cu",
+                 "bigdl_tpu/llm/kernels/int4_matmul.py:287"),
+             "asym_int4_matmul_tc": (
+                 "BERT ffn2 M=1024",
+                 "bigdl_tpu_torch/csrc/lowbit_matmul_tc.cu",
                  "bigdl_tpu/llm/kernels/int4_matmul.py:287"),
              "int8_matmul": (
-                 "BERT qkvo M=1024", "bigdl_tpu_torch/csrc/lowbit_matmul.cu",
+                 "BERT pooler M=8", "bigdl_tpu_torch/csrc/lowbit_matmul.cu",
+                 "bigdl_tpu/llm/kernels/int4_matmul.py:334"),
+             "int8_matmul_tc": (
+                 "BERT ffn2 M=1024",
+                 "bigdl_tpu_torch/csrc/lowbit_matmul_tc.cu",
                  "bigdl_tpu/llm/kernels/int4_matmul.py:334"),
              "paged_attention_decode_stats": (
                  "7B decode", "bigdl_tpu_torch/csrc/paged_attention.cu",
@@ -1262,6 +1354,7 @@ def main() -> int:
                  "bigdl_tpu/llm/kernels/paged_attention.py:260")}
     summary = []
     for name, (case, src, replaces) in heads.items():
+        wrapper = name.removesuffix("_tc")
         c = next(c for c in cases
                  if c["kernel"] == name and c["case"].startswith(case))
         by_path = {p: n[name] for p, n in paths.items() if n[name]}
@@ -1272,10 +1365,12 @@ def main() -> int:
             "launches_by_path": by_path,
             "case": c["case"], "route_rule": (
                 f"M >= TC_MIN_M={kernels.TC_MIN_M} and N % 16 "
-                "== 0 take int4_matmul_tc (tile: 64x64 while "
+                f"== 0 take {wrapper}_tc (tile: 64x64 while "
                 f"ceil(M/64)*ceil(N/64) <= 2*{kernels.TC_SMS}, else "
-                "128x128, or 64x128 for M <= 64), else int4_matmul"
-                if name.startswith("int4") else None),
+                "64x128 for M <= 64, else "
+                + ("64x64" if wrapper == "asym_int4_matmul" else "128x128")
+                + f"), else {wrapper}"
+                if wrapper in MATMUL_KERNELS else None),
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -1287,7 +1382,7 @@ def main() -> int:
               "serve": serve, "profile": prof, "bert": bert,
               "bert_profile": bert_prof, "generate": gen_row,
               "generate_profile": gen_prof, "checkpoint": ckpt,
-              "kernels": summary}
+              "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -17,7 +17,7 @@ import torch
 
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
     TC_MIN_M, asym_int4_matmul, asym_int4_matmul_reference, int4_matmul,
-    int4_matmul_reference, int4_route, int8_matmul, int8_matmul_reference)
+    int4_matmul_reference, matmul_route, int8_matmul, int8_matmul_reference)
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
     SPLIT_KEYS, merge_attention_partial, paged_attention,
     paged_attention_decode, paged_attention_decode_stats,
@@ -79,7 +79,7 @@ def test_int4_matmul_tc(cuda, m, k, n):
     max|y| for f32 out (exact f32 products of bf16 x and q-8, f32 sums in
     another order), plus one bf16 ulp of max|y| for bf16 out. Shapes
     below ``TC_MIN_M`` take the other route and are covered above."""
-    if int4_route(m, n) != "tc":
+    if matmul_route(m, n) != "tc":
         pytest.skip(f"M={m} < TC_MIN_M={TC_MIN_M}: the CUDA-core route")
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
@@ -108,7 +108,7 @@ def test_int4_matmul_tc_tiles_agree(cuda, m, k, n):
     (the same ``wgmma`` per 64 rows, the same rescale chain), in f32 and
     bf16 out; so the shape rule never changes a result."""
     from bigdl_tpu_torch.llm.kernels import _build
-    from bigdl_tpu_torch.llm.kernels.int4_matmul import _int4_launch
+    from bigdl_tpu_torch.llm.kernels.int4_matmul import _launch
     g = torch.Generator(device=cuda).manual_seed(7)
     x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
     q = torch.randint(0, 256, (k // 2, n), generator=g, device=cuda,
@@ -118,7 +118,8 @@ def test_int4_matmul_tc_tiles_agree(cuda, m, k, n):
         outs = []
         for tile in ((128, 128), (64, 128), (64, 64)):
             o = torch.empty((m, n), device=cuda, dtype=dt)
-            _build.check(_int4_launch(x, q, s, o, "tc", tile), "tc")
+            _build.check(_launch(int4_matmul, x, (q, s), o, "tc", None,
+                                 tile), "tc")
             outs.append(o)
         assert all(torch.equal(outs[0], o) for o in outs[1:])
     want = int4_matmul_reference(x, q, s, torch.float32)
@@ -136,7 +137,7 @@ def test_int4_matmul_route_counters(cuda, m, n, route):
     """The route rule sends each shape where it says, and the counters
     show it: every call adds one to ``launches``, the tensor-core route
     one to ``tc_launches`` as well."""
-    assert int4_route(m, n) == route
+    assert matmul_route(m, n) == route
     x = torch.zeros((m, 64), device=cuda, dtype=torch.bfloat16)
     q = torch.zeros((32, n), device=cuda, dtype=torch.uint8)
     s = torch.zeros((2, n), device=cuda)
@@ -164,10 +165,10 @@ def test_int4_matmul_rows_independent(cuda, route):
     row 3 of M=512 equals that row of M=``TC_MIN_M``, bit for bit."""
     if route == "tc":
         big, small = 512, TC_MIN_M
-        assert int4_route(big, 256) == int4_route(small, 256) == "tc"
+        assert matmul_route(big, 256) == matmul_route(small, 256) == "tc"
     else:
         big, small = TC_MIN_M - 1, 4
-        assert int4_route(big, 256) == int4_route(small, 256) == "cuda_core"
+        assert matmul_route(big, 256) == matmul_route(small, 256) == "cuda_core"
     assert torch.equal(_int4_row3(cuda, big), _int4_row3(cuda, small))
 
 
@@ -218,24 +219,129 @@ def test_lowbit_matmul(cuda, kind, m, k, n):
 
 
 @pytest.mark.parametrize("kind", sorted(LOWBIT))
-def test_lowbit_matmul_rows_independent(cuda, kind):
-    """Row 3 of an M=130 product equals the same row computed alone."""
+@pytest.mark.parametrize("route", ["cuda_core", "tc"])
+def test_lowbit_matmul_rows_independent(cuda, kind, route):
+    """The summation order of an output element does not depend on M
+    within a route: on the tensor-core route row 3 of M=512 equals that
+    row of M=``TC_MIN_M``; on the CUDA-core route row 3 of M=15 equals
+    that row of M=4, bit for bit."""
     fn, _ = LOWBIT[kind]
-    x, planes = _lowbit_inputs(kind, 130, 512, 200, 1, cuda)
-    full = fn(x, *planes, out_dtype=torch.float32)
-    alone = fn(x[3:4].contiguous(), *planes, out_dtype=torch.float32)
-    assert torch.equal(full[3:4], alone)
+    big, small = (512, TC_MIN_M) if route == "tc" else (15, 4)
+    assert matmul_route(big, 256) == matmul_route(small, 256) == route
+    x, planes = _lowbit_inputs(kind, 512, 512, 256, 1, cuda)
+    rows = [fn(x[:m].contiguous(), *planes, out_dtype=torch.float32)[3]
+            for m in (big, small)]
+    assert torch.equal(rows[0], rows[1])
 
 
-def test_int8_matmul_broadcast_scale(cuda):
-    """A per-channel scale expanded over the groups (row stride 0, as
-    ``nn.quantized.Linear`` passes it) equals the materialised one."""
-    x, (q, s) = _lowbit_inputs("sym_int8", 40, 768, 300, 2, cuda)
-    view = s[:1].expand(s.shape[0], s.shape[1])
-    assert view.stride(0) == 0
-    got = int8_matmul(x, q, view, out_dtype=torch.float32)
-    want = int8_matmul(x, q, view.contiguous(), out_dtype=torch.float32)
+# the tensor-core route of q4_1 and q8_0: BERT-base's M = 1024 linears,
+# ragged M, K = 3072 and 96 (three groups), N = 16, 160 and 3072
+LOWBIT_TC_SHAPES = [(1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768),
+                    (100, 768, 768), (130, 96, 160), (2047, 3072, 768),
+                    (64, 96, 16), (512, 3072, 3072), (16, 768, 3072)]
+
+
+@pytest.mark.parametrize("kind", sorted(LOWBIT))
+@pytest.mark.parametrize("m,k,n", LOWBIT_TC_SHAPES)
+def test_lowbit_matmul_tc(cuda, kind, m, k, n):
+    """The tensor-core kernels against the plain version, f32 and bf16
+    out, under the CUDA-core kernel's tolerances: 2e-5 of max|y| for f32
+    out (exact f32 products of bf16 x and the integer q, f32 rescales in
+    another order), plus one bf16 ulp of max|y| for bf16 out. Each call
+    one launch, on the tensor-core route."""
+    fn, ref = LOWBIT[kind]
+    assert matmul_route(m, n) == "tc"
+    x, planes = _lowbit_inputs(kind, m, k, n, 3, cuda)
+    before = (fn.launches, fn.tc_launches)
+    got = fn(x, *planes, out_dtype=torch.float32)
+    got16 = fn(x, *planes)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches) == (before[0] + 2, before[1] + 2)
+    want = ref(x, *planes, torch.float32)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2e-5 * scale
+    err16 = (got16.float() - ref(x, *planes, torch.bfloat16).float()) \
+        .abs().max().item()
+    assert err16 <= 1e-4 + 2.0 ** -7 * scale
+
+
+def _per_channel(planes):
+    """The scale (and zero) planes as one row expanded over the groups
+    (row stride 0)."""
+    return (planes[0],) + tuple(p[:1].expand(p.shape[0], p.shape[1])
+                                for p in planes[1:])
+
+
+@pytest.mark.parametrize("kind,per_channel", [
+    ("asym_int4", False), ("sym_int8", False), ("asym_int4", True),
+    ("sym_int8", True)])
+@pytest.mark.parametrize("m,k,n", [(130, 96, 160), (2047, 3072, 768),
+                                   (1024, 768, 768), (16, 768, 3072)])
+def test_lowbit_matmul_tc_tiles_agree(cuda, kind, per_channel, m, k, n):
+    """Every block shape of the tensor-core kernels gives the same bits
+    (the same ``wgmma`` per 64 rows, the same rescale chain), in f32 and
+    bf16 out, also with a per-channel (stride-0) scale."""
+    from bigdl_tpu_torch.llm.kernels import _build
+    from bigdl_tpu_torch.llm.kernels.int4_matmul import _launch
+    fn, ref = LOWBIT[kind]
+    x, planes = _lowbit_inputs(kind, m, k, n, 7, cuda)
+    if per_channel:
+        planes = _per_channel(planes)
+    lds = 0 if per_channel else n
+    for dt in (torch.float32, torch.bfloat16):
+        outs = []
+        for tile in ((128, 128), (64, 128), (64, 64)):
+            o = torch.empty((m, n), device=cuda, dtype=dt)
+            _build.check(_launch(fn, x, planes, o, "tc", lds, tile), "tc")
+            outs.append(o)
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+    want = ref(x, *planes, torch.float32)
+    scale = want.abs().max().item()
+    assert (outs[0].float() - want).abs().max().item() <= (
+        1e-4 + 2.0 ** -7 * scale)
+
+
+@pytest.mark.parametrize("kind", sorted(LOWBIT))
+@pytest.mark.parametrize("m,n,route", [
+    (8, 768, "cuda_core"), (8, 2, "cuda_core"), (TC_MIN_M - 1, 768,
+                                                 "cuda_core"),
+    (TC_MIN_M, 768, "tc"), (1024, 768, "tc"), (1024, 3072, "tc"),
+    (1024, 2, "cuda_core"), (1024, 130, "cuda_core"), (4200, 16, "tc")])
+def test_lowbit_matmul_route_counters(cuda, kind, m, n, route):
+    """The route rule sends each shape where it says, and the counters
+    show it: every call adds one to ``launches``, the tensor-core route
+    one to ``tc_launches`` as well; ``launch_counts()`` reports the
+    latter as ``<wrapper>_tc``."""
+    from bigdl_tpu_torch.llm import kernels
+    fn, _ = LOWBIT[kind]
+    assert matmul_route(m, n) == route
+    x, planes = _lowbit_inputs(kind, m, 64, n, 4, cuda)
+    before = (fn.launches, fn.tc_launches)
+    fn(x, *planes)
+    assert fn.launches == before[0] + 1
+    assert fn.tc_launches == before[1] + (route == "tc")
+    assert kernels.launch_counts()[f"{fn.__name__}_tc"] == fn.tc_launches
+
+
+@pytest.mark.parametrize("kind", sorted(LOWBIT))
+@pytest.mark.parametrize("n", [300, 768])
+def test_int8_matmul_broadcast_scale(cuda, kind, n):
+    """A per-channel scale (and q4_1 zero) expanded over the groups (row
+    stride 0, as ``nn.quantized.Linear`` passes it) equals the
+    materialised one bit for bit, on the CUDA-core route (N = 300) and
+    on the tensor-core route (N = 768), and the plain version within
+    2e-5 of max|y|."""
+    fn, ref = LOWBIT[kind]
+    x, planes = _lowbit_inputs(kind, 40, 768, n, 2, cuda)
+    view = _per_channel(planes)
+    assert all(p.stride(0) == 0 for p in view[1:])
+    tc = fn.tc_launches
+    got = fn(x, *view, out_dtype=torch.float32)
+    assert fn.tc_launches == tc + (matmul_route(40, n) == "tc")
+    want = fn(x, *(p.contiguous() for p in view), out_dtype=torch.float32)
     assert torch.equal(got, want)
+    plain = ref(x, *view, torch.float32)
+    assert (got - plain).abs().max().item() <= 2e-5 * plain.abs().max().item()
 
 
 @pytest.mark.parametrize("hq,hkv,d,win", [(32, 32, 128, None),
@@ -499,7 +605,7 @@ def test_tiny_generate_card_vs_cpu(cuda):
     assert counts["int4_matmul"] == 4 * L * (1 + n)
     # the prefill's 2 x 24 = 48 rows take the tensor-core route when
     # TC_MIN_M allows it and N % 16 == 0; decode (2 rows) never does
-    tc_prefill = 4 * L if int4_route(48, 16) == "tc" else 0
+    tc_prefill = 4 * L if matmul_route(48, 16) == "tc" else 0
     assert counts["int4_matmul_tc"] == tc_prefill
     assert counts["paged_attention_decode_stats"] == L * n
     assert out.shape == (2, 24 + n) and out.max() < 256

@@ -21,7 +21,7 @@ from bigdl_tpu.llm.models.llama import _dequant_q4 as j_dequant
 
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
     TC_MIN_M, TC_SMS, dequant_q4, int4_matmul, int4_matmul_grouped,
-    int4_matmul_reference, int4_route, quantize_tpu, tc_block_shape)
+    int4_matmul_reference, matmul_route, quantize_tpu, tc_block_shape)
 
 
 def _bf16_exact(a):
@@ -157,23 +157,23 @@ PREFILL_SHAPES = [(512, 12288), (512, 22016), (512, 32000), (2048, 6144),
 class TestRoute:
     @pytest.mark.parametrize("m,n", DECODE_SHAPES)
     def test_decode_takes_cuda_cores(self, m, n):
-        assert int4_route(m, n) == "cuda_core"
+        assert matmul_route(m, n) == "cuda_core"
 
     @pytest.mark.parametrize("m,n", PREFILL_SHAPES)
     def test_prefill_takes_tensor_cores(self, m, n):
-        assert int4_route(m, n) == "tc"
+        assert matmul_route(m, n) == "tc"
 
     @pytest.mark.parametrize("m", [TC_MIN_M, 512, 4096])
     @pytest.mark.parametrize("n", [2, 3, 770, 4104])
     def test_n_not_multiple_of_16_takes_cuda_cores(self, m, n):
         """BERT's N = 2 classifier, N = 3 and 770: any M."""
-        assert int4_route(m, n) == "cuda_core"
+        assert matmul_route(m, n) == "cuda_core"
 
     def test_threshold(self):
         """The rule is a pure function of the shape around one constant."""
         assert 8 < TC_MIN_M <= 512
-        assert int4_route(TC_MIN_M - 1, 4096) == "cuda_core"
-        assert int4_route(TC_MIN_M, 4096) == "tc"
+        assert matmul_route(TC_MIN_M - 1, 4096) == "cuda_core"
+        assert matmul_route(TC_MIN_M, 4096) == "tc"
 
 
 # (M, N) -> the tensor-core kernel's block tile, as timed on the H100:

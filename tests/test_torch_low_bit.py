@@ -6,6 +6,9 @@ on the same seeded numpy inputs:
 - quantization and the k-major layout bit for bit;
 - each kernel's plain PyTorch version against the Pallas kernel run in
   interpret mode (f32 out);
+- the tensor-core kernels' group-scaled algebra
+  (``asym_int4_matmul_grouped``, ``int8_matmul_grouped``) against the
+  same, and the route and tile rules and C entries they launch through;
 - the modules on the same carried states, in f32.
 
 The CUDA kernels run only on the card: ``tests/test_torch_cuda.py``."""
@@ -32,8 +35,10 @@ from bigdl_tpu_torch.llm.ggml.quantize import (QK, dequantize, quantize,
                                                quantize_torch)
 from bigdl_tpu_torch.llm.kernels import launch_counts
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
-    asym_int4_matmul, dequant_q4, dequant_q4_1, dequant_q8_0, int8_matmul,
-    quantize_tpu, to_tpu_layout)
+    TC_MIN_M, asym_int4_matmul, asym_int4_matmul_grouped, dequant_q4,
+    dequant_q4_1, dequant_q8_0, int4_matmul, int8_matmul,
+    int8_matmul_grouped, matmul_route, quantize_tpu, tc_block_shape,
+    to_tpu_layout)
 from bigdl_tpu_torch.llm.transformers.low_bit_linear import LowBitLinear
 from bigdl_tpu_torch.nn import quantized
 from bigdl_tpu_torch.nn.layers.linear import Linear
@@ -216,6 +221,211 @@ class TestKernels:
             int8_matmul(x, q, s[:1])
         with pytest.raises(ValueError, match="multiple of 32"):
             asym_int4_matmul(x[:, :40], q[:20], s, s)
+
+
+class TestGroupedAlgebra:
+    """The tensor-core kernels' algebra in plain PyTorch — per 32-row
+    group an exact f32 partial ``x_g @ q_g`` (and the row sums ``X_g``),
+    then ``acc += s_g * P_g (+ z_g * X_g)`` in group order — against the
+    Pallas kernels in interpret mode and against the JAX package's numpy
+    dequant + f32 matmul. Tolerance 1e-5 of max|y|: the same bf16 x and
+    exact f32 products on every side, summed in other orders."""
+
+    @staticmethod
+    def _close(got, want):
+        scale = max(np.abs(want).max(), 1e-6)
+        assert np.abs(np.asarray(got) - want).max() / scale < 1e-5
+
+    @pytest.mark.parametrize("m,k,n", KSHAPES)
+    def test_asym_int4_matches_pallas_interpret(self, m, k, n):
+        x, td = _kernel_inputs(11, "asym_int4", m, k, n)
+        want = np.asarray(j_asym_int4_matmul(
+            jnp.asarray(x), jnp.asarray(td["q"]), jnp.asarray(td["scale"]),
+            jnp.asarray(td["zero"]), interpret=True,
+            out_dtype=jnp.float32), np.float32)
+        got = asym_int4_matmul_grouped(
+            torch.from_numpy(x), *(torch.from_numpy(td[key])
+                                   for key in ("q", "scale", "zero")),
+            out_dtype=torch.float32)
+        self._close(got.numpy(), want)
+
+    @pytest.mark.parametrize("m,k,n", KSHAPES)
+    def test_asym_int4_matches_jax_reference(self, m, k, n):
+        rs = np.random.RandomState(12)
+        x = _bf16_exact(rs.randn(m, k).astype(np.float32))
+        qd = j_quantize((rs.randn(n, k) * 0.1 + 0.02).astype(np.float32),
+                        "asym_int4")
+        want = x @ j_dequantize(qd).T
+        td = j_layout(qd)
+        got = asym_int4_matmul_grouped(
+            torch.from_numpy(x), *(torch.from_numpy(td[key])
+                                   for key in ("q", "scale", "zero")))
+        self._close(got.numpy(), want)
+
+    @pytest.mark.parametrize("m,k,n", KSHAPES)
+    def test_int8_matches_pallas_interpret(self, m, k, n):
+        x, td = _kernel_inputs(13, "sym_int8", m, k, n)
+        want = np.asarray(j_int8_matmul(
+            jnp.asarray(x), jnp.asarray(td["q"]), jnp.asarray(td["scale"]),
+            interpret=True, out_dtype=jnp.float32), np.float32)
+        got = int8_matmul_grouped(torch.from_numpy(x),
+                                  torch.from_numpy(td["q"]),
+                                  torch.from_numpy(td["scale"]),
+                                  out_dtype=torch.float32)
+        self._close(got.numpy(), want)
+
+    @pytest.mark.parametrize("m,k,n", KSHAPES)
+    def test_int8_matches_jax_reference(self, m, k, n):
+        rs = np.random.RandomState(14)
+        x = _bf16_exact(rs.randn(m, k).astype(np.float32))
+        qd = j_quantize((rs.randn(n, k) * 0.1).astype(np.float32),
+                        "sym_int8")
+        want = x @ j_dequantize(qd).T
+        td = j_layout(qd)
+        got = int8_matmul_grouped(torch.from_numpy(x),
+                                  torch.from_numpy(td["q"]),
+                                  torch.from_numpy(td["scale"]))
+        self._close(got.numpy(), want)
+
+    @pytest.mark.parametrize("m,k,n", KSHAPES)
+    def test_int8_per_channel(self, m, k, n):
+        """A per-channel scale as ``nn.quantized.Linear`` passes it (one
+        row, stride 0 over the groups) against the Pallas kernel on the
+        broadcast scale and against the JAX package's
+        ``nn.quantized.Linear`` arithmetic, ``x @ (q * s)`` in f32."""
+        rs = np.random.RandomState(15)
+        x = _bf16_exact(rs.randn(m, k).astype(np.float32))
+        q = rs.randint(-127, 128, (k, n)).astype(np.int8)
+        s = rs.uniform(0.001, 0.02, n).astype(np.float32)
+        s_t = np.broadcast_to(s, (k // QK, n))
+        want = np.asarray(j_int8_matmul(
+            jnp.asarray(x), jnp.asarray(q), jnp.asarray(s_t),
+            interpret=True, out_dtype=jnp.float32), np.float32)
+        view = torch.from_numpy(s)[None, :].expand(k // QK, n)
+        assert view.stride(0) == 0
+        got = int8_matmul_grouped(torch.from_numpy(x), torch.from_numpy(q),
+                                  view, out_dtype=torch.float32).numpy()
+        self._close(got, want)
+        self._close(got, x @ (q.astype(np.float32) * s))
+
+
+# (M, N) of the low-bit BERT path: the 72 M = 1024 linears a forward take
+# the tensor cores, the pooler and N = 2 classifier (M = 8) and an N that
+# is not a multiple of 16 the CUDA cores
+BERT_ROUTES = [((1024, 768), "tc"), ((1024, 3072), "tc"),
+               ((8, 768), "cuda_core"), ((8, 2), "cuda_core"),
+               ((1024, 2), "cuda_core"), ((1024, 130), "cuda_core"),
+               ((TC_MIN_M - 1, 768), "cuda_core"), ((TC_MIN_M, 768), "tc")]
+# the tensor-core tile at those shapes for q8_0 (no zero point) and q4_1
+# (zero point), as timed on the H100 (PERF.md)
+BERT_TILES = [((1024, 768), (64, 64), (64, 64)),
+              ((1024, 3072), (128, 128), (64, 64)),
+              ((16, 768), (64, 64), (64, 64)),
+              ((2047, 768), (128, 128), (64, 64)),
+              ((64, 28672), (64, 128), (64, 128))]
+
+
+class TestRoute:
+    """One route rule (``matmul_route``) and one tile rule
+    (``tc_block_shape``) for the three dequant-matmul formats."""
+
+    @pytest.mark.parametrize("mn,route", BERT_ROUTES)
+    def test_bert_shapes(self, mn, route):
+        assert matmul_route(*mn) == route
+
+    @pytest.mark.parametrize("mn,tile,tile_zero_point", BERT_TILES)
+    def test_bert_tiles(self, mn, tile, tile_zero_point):
+        assert tc_block_shape(*mn) == tile
+        assert tc_block_shape(*mn, zero_point=True) == tile_zero_point
+
+    @pytest.mark.parametrize("m", [16, 64, 65, 1000, 4096])
+    @pytest.mark.parametrize("n", [16, 768, 8448, 28672])
+    def test_zero_point_never_takes_128_rows(self, m, n):
+        """q4_1 takes q4_0's tile except its 128 x 128, which becomes
+        64 x 64 (timed faster on the H100)."""
+        tile = tc_block_shape(m, n)
+        want = (64, 64) if tile == (128, 128) else tile
+        assert tc_block_shape(m, n, zero_point=True) == want
+
+    @pytest.mark.parametrize("m", [1, 8, TC_MIN_M - 1, TC_MIN_M, 1024])
+    @pytest.mark.parametrize("n", [2, 16, 130, 768, 3072])
+    def test_rule(self, m, n):
+        assert matmul_route(m, n) == (
+            "tc" if m >= TC_MIN_M and n % 16 == 0 else "cuda_core")
+
+
+def _c_params(lib, entry):
+    """The parameter kinds of a C entry in ``csrc/<lib>.cu``: "P" for a
+    pointer (or the stream), "I" for a ``long long``."""
+    import os
+    import re
+    from bigdl_tpu_torch.llm.kernels import _build
+    with open(os.path.join(_build.CSRC, f"{lib}.cu")) as f:
+        src = f.read()
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    assert m, f"{entry} not in {lib}.cu"
+    return ["I" if "long long" in p else "P" for p in m.group(1).split(",")]
+
+
+class TestLaunchBinding:
+    """``_launch`` binds the C entry of the route and format with the
+    entry's own parameter list (read from the source: a pointer declared
+    as an integer would be cut to 32 bits) and counts the launch. The
+    library is not loaded: ``_build.bind`` is replaced by a recorder."""
+
+    @pytest.mark.parametrize("kind", ["int4_matmul", "asym_int4_matmul",
+                                      "int8_matmul"])
+    @pytest.mark.parametrize("route", ["cuda_core", "tc"])
+    @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+    def test_entry_and_arguments(self, monkeypatch, kind, route, out_dtype):
+        import importlib
+        from bigdl_tpu_torch.llm.kernels import _build
+        mod = importlib.import_module("bigdl_tpu_torch.llm.kernels."
+                                      "int4_matmul")
+        calls = []
+
+        def bind(lib, entry, argtypes):
+            def fn(*args):
+                calls.append((lib, entry, argtypes, args))
+                return 0
+            return fn
+
+        monkeypatch.setattr(_build, "bind", bind)
+        monkeypatch.setattr(mod, "_stream", lambda x: 0)
+        wrapper = {"int4_matmul": int4_matmul,
+                   "asym_int4_matmul": asym_int4_matmul,
+                   "int8_matmul": int8_matmul}[kind]
+        m, k, n = 32, 64, 48
+        x = torch.zeros((m, k), dtype=torch.bfloat16)
+        q = torch.zeros((k if kind == "int8_matmul" else k // 2, n),
+                        dtype=torch.int8 if kind == "int8_matmul"
+                        else torch.uint8)
+        planes = [q, torch.zeros((k // QK, n))]
+        if kind == "asym_int4_matmul":
+            planes.append(torch.zeros((k // QK, n)))
+        out = torch.empty((m, n), dtype=out_dtype)
+        lds = None if kind == "int4_matmul" else n
+        before = (wrapper.launches, wrapper.tc_launches)
+        assert mod._launch(wrapper, x, planes, out, route, lds) == 0
+        assert (wrapper.launches, wrapper.tc_launches) == (
+            before[0] + 1, before[1] + (route == "tc"))
+        (lib, entry, argtypes, args), = calls
+        tc = route == "tc"
+        assert lib == mod._LIBS[kind][tc]
+        assert entry == (f"{kind}{'_tc' if tc else ''}_"
+                         f"{'bf16' if out_dtype == torch.bfloat16 else 'f32'}"
+                         "out")
+        kinds = ["I" if a is _build.I else "P" for a in argtypes]
+        assert kinds == _c_params(lib, entry)
+        assert len(args) == len(argtypes)
+        # x, the planes and out by pointer, then M, K, N (lds) (tile)
+        ints = list(args[len(planes) + 2:-1])
+        assert ints[:3] == [m, k, n]
+        if lds is not None:
+            assert ints[3] == lds
+        if tc:
+            assert tuple(ints[-2:]) == tc_block_shape(
+                m, n, kind == "asym_int4_matmul")
 
 
 def _x(seed, shape):
