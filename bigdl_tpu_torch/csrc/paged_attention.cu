@@ -13,8 +13,10 @@
 // Contract: one query token per row b. q (B, Hq, D) f32; pools
 // (P, Hkv, page, D) bf16 or f32 (a flat (L*P) view with the block table
 // offset by l*P, or one layer's view of an (L, P, ...) pool), 16-byte
-// aligned, D a power of two <= 128 with D % 8 == 0; block_tables
-// (B, pages_max) int32; lengths (B,) int32 = tokens to attend. The window
+// aligned, D a multiple of 8 up to 256 on bf16 pools, a multiple of 4
+// up to 128 or of 8 up to 256 on f32 pools; any group
+// g = Hq / Hkv >= 1; block_tables (B, pages_max) int32; lengths (B,)
+// int32 = tokens to attend. The window
 // covers positions pos < len and pos >= len - window (window >= 0). The
 // caller decides what len counts: the stats entry is called with the
 // current token EXCLUDED (and the window shrunk by one), the normalised
@@ -35,12 +37,21 @@
 //   page size): the cut depends on the row's own start and len only,
 //   never on the batch, Hkv or the card, so a row's result does not
 //   depend on its neighbours;
-// - the grid is (B * Hkv, splits); block (row b, kv head h, split j)
-//   computes the flash state of its keys for the g = Hq / Hkv query heads
-//   of h, reading each K/V row once for all g queries (GQA); a split
-//   outside the row's range exits at once;
-// - inside a block, K and V rows are read as 16-byte vectors (8 bf16 a
-//   lane; a 128-wide bf16 row is 16 lanes), 8 vectors in flight a lane;
+// - the g = Hq / Hkv query heads of a kv head are cut into chunks of at
+//   most MAXG = 8 (the shared arrays are sized by it); the grid is
+//   (B * Hkv * ceil(g / 8), splits); block (row b, kv head h, chunk c,
+//   split j) computes the flash state of its keys for the chunk's query
+//   heads, reading each K/V row once for all of them (GQA; a group of 16
+//   reads its rows twice, the second time mostly from L2); a split
+//   outside the row's range exits at once. A head's arithmetic is the
+//   same in every chunk and every position of a chunk, so its result
+//   depends on neither;
+// - inside a block, K and V rows are read as vectors of E elements, 8
+//   bf16 (16 bytes) or 4 f32 (16 bytes; 8, as two 16-byte loads, for f32
+//   rows wider than 128), a 128-wide bf16 row on 16 lanes, 8 vectors in
+//   flight a lane;
+//   a row takes the power of two of lanes at or above its vectors (an
+//   80-wide bf16 row: 10 lanes of 16), the lanes past its end hold zeros;
 //   three passes over the split with one barrier each: the scores of all
 //   its keys into shared memory, then per head the max, exp and sum, then
 //   P @ V with each thread summing its own keys in order, and the threads'
@@ -63,7 +74,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int NW = THREADS / 32;
-constexpr int MAXG = 8;          // query heads per kv head
+constexpr int MAXG = 8;          // query heads a block (a chunk of g)
 constexpr int MAX_SPLIT = 512;   // keys per split
 constexpr int U = 8;             // 16-byte loads in flight per lane
 
@@ -80,12 +91,19 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
   }
 }
 
-__device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+// E f32: one 16-byte load a 4 (E = 4), two for 8 (E = 8)
+template <int E>
+__device__ __forceinline__ void load_vec(const float* p, float (&f)[E]) {
+#pragma unroll
+  for (int i = 0; i < E / 4; ++i) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+    f[4 * i] = v.x, f[4 * i + 1] = v.y, f[4 * i + 2] = v.z,
+    f[4 * i + 3] = v.w;
+  }
 }
 
-template <typename KV>
+// E: the elements a lane reads of a row at once (8 bf16; 4 or 8 f32)
+template <typename KV, int E>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const float* __restrict__ q,
                     const KV* __restrict__ k_pages,
@@ -97,7 +115,6 @@ paged_decode_kernel(const float* __restrict__ q,
                     int Hq, int Hkv, int page, int D, int pages_max,
                     int window, float scale, int normalize, int split,
                     int nsplit) {
-  constexpr int E = 16 / sizeof(KV);           // elements per vector
   __shared__ long long s_row[MAX_SPLIT];
   // the scores (MAXG x MAX_SPLIT), then the threads' P @ V sums
   __shared__ float s_buf[(THREADS * E * MAXG > MAXG * MAX_SPLIT)
@@ -106,14 +123,20 @@ paged_decode_kernel(const float* __restrict__ q,
   __shared__ float s_m[MAXG], s_l[MAXG];
   __shared__ int s_last;
 
-  const int bh = blockIdx.x, j = blockIdx.y;
-  const int b = bh / Hkv, h = bh % Hkv, g = Hq / Hkv;
+  // block x = (row b, kv head h, chunk c); the scratch of a (b, h, c) is
+  // indexed by x, its heads strided by GC, the chunks' largest size
+  const int bhc = blockIdx.x, j = blockIdx.y;
+  const int G = Hq / Hkv, nchunk = (G + MAXG - 1) / MAXG;
+  const int GC = min(G, MAXG), c = bhc % nchunk, bh = bhc / nchunk;
+  const int b = bh / Hkv, h = bh % Hkv;
+  const int g = min(MAXG, G - c * MAXG);           // heads of this chunk
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int len = lens[b];
   const int start = window >= 0 ? max(0, len - window) : 0;
   const int first = start / split;
   const int nsr = len > start ? (len + split - 1) / split - first : 0;
-  const size_t head0 = (size_t)b * Hq + h * g;   // first query head of h
+  // the chunk's first query head
+  const size_t head0 = (size_t)b * Hq + h * G + c * MAXG;
 
   if (nsr == 0) {                  // nothing to attend
     if (j == 0) {
@@ -138,24 +161,30 @@ paged_decode_kernel(const float* __restrict__ q,
   }
   __syncthreads();
 
-  // pass 1: scores. A key row is LPK lanes of E elements; a warp reads
-  // KPW keys per load
-  const int LPK = D / E, KPW = 32 / LPK;
+  // pass 1: scores. A key row is LPK vectors of E elements on LP2 lanes
+  // (the power of two at or above LPK; lanes sub >= LPK hold zeros); a
+  // warp reads KPW keys per load
+  const int LPK = D / E;
+  int LP2 = 1;
+  while (LP2 < LPK) LP2 <<= 1;
+  const int KPW = 32 / LP2;
   float* s_p = s_buf;
   {
-    const int sub = lane % LPK, kl = lane / LPK;
+    const int sub = lane % LP2, kl = lane / LP2;
+    const bool in_row = sub < LPK;
     float qr[MAXG][E];
 #pragma unroll
     for (int gi = 0; gi < MAXG; ++gi)
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        qr[gi][e] = gi < g ? q[(head0 + gi) * D + sub * E + e] : 0.f;
+        qr[gi][e] = gi < g && in_row ? q[(head0 + gi) * D + sub * E + e]
+                                     : 0.f;
     for (int t0 = warp * KPW; t0 < n; t0 += NW * KPW * U) {
       float kf[U][E];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int t = t0 + u * NW * KPW + kl;
-        if (t < n) {
+        if (t < n && in_row) {
           load_vec(k_pages + s_row[t] + sub * E, kf[u]);
         } else {
 #pragma unroll
@@ -171,7 +200,7 @@ paged_decode_kernel(const float* __restrict__ q,
           float dot = 0.f;
 #pragma unroll
           for (int e = 0; e < E; ++e) dot = fmaf(qr[gi][e], kf[u][e], dot);
-          for (int o = LPK / 2; o > 0; o >>= 1)
+          for (int o = LP2 / 2; o > 0; o >>= 1)
             dot += __shfl_xor_sync(bigdl::FULL_MASK, dot, o);
           if (sub == 0 && t < n) s_p[gi * MAX_SPLIT + t] = dot * scale;
         }
@@ -202,8 +231,9 @@ paged_decode_kernel(const float* __restrict__ q,
 
   // pass 3: P @ V. Thread = (slot, d-vector); a slot sums keys slot,
   // slot + NSLOT, ... in order
-  const int NSLOT = THREADS / LPK;
-  const int slot = tid / LPK, dsub = tid % LPK;
+  const int NSLOT = THREADS / LP2;
+  const int slot = tid / LP2, dsub = tid % LP2;
+  const bool d_in = dsub < LPK;
   float a[MAXG][E];
 #pragma unroll
   for (int gi = 0; gi < MAXG; ++gi)
@@ -214,7 +244,7 @@ paged_decode_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = t0 + u * NSLOT;
-      if (t < n) {
+      if (t < n && d_in) {
         load_vec(v_pages + s_row[t] + dsub * E, vf[u]);
       } else {
 #pragma unroll
@@ -239,14 +269,14 @@ paged_decode_kernel(const float* __restrict__ q,
   float* red = s_buf;              // (NSLOT, MAXG, D)
 #pragma unroll
   for (int gi = 0; gi < MAXG; ++gi) {
-    if (gi >= g) break;
+    if (gi >= g || !d_in) break;
 #pragma unroll
     for (int e = 0; e < E; ++e)
       red[(slot * MAXG + gi) * D + dsub * E + e] = a[gi][e];
   }
   __syncthreads();
 
-  float* pa = part_acc + ((size_t)bh * nsplit + js) * g * D;
+  float* pa = part_acc + ((size_t)bhc * nsplit + js) * GC * D;
   for (int e = tid; e < g * D; e += THREADS) {
     const int gi = e / D, d = e % D;
     float v = 0.f;
@@ -264,29 +294,29 @@ paged_decode_kernel(const float* __restrict__ q,
     }
     return;
   }
-  float* ml = part_ml + (size_t)bh * nsplit * 2 * MAXG;
+  float* ml = part_ml + (size_t)bhc * nsplit * 2 * GC;
   if (tid < g) {
-    ml[js * 2 * MAXG + tid] = s_m[tid];
-    ml[js * 2 * MAXG + MAXG + tid] = s_l[tid];
+    ml[js * 2 * GC + tid] = s_m[tid];
+    ml[js * 2 * GC + GC + tid] = s_l[tid];
   }
   // the last block of (row, kv head) to arrive combines the splits
   __threadfence();
   __syncthreads();
-  if (tid == 0) s_last = atomicAdd(arrivals + bh, 1) == nsr - 1;
+  if (tid == 0) s_last = atomicAdd(arrivals + bhc, 1) == nsr - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  const float* pa0 = part_acc + (size_t)bh * nsplit * g * D;
+  const float* pa0 = part_acc + (size_t)bhc * nsplit * GC * D;
   for (int e = tid; e < g * D; e += THREADS) {
     const int gi = e / D;
     float mx = bigdl::NEG_BIG;
     for (int s = 0; s < nsr; ++s)
-      mx = fmaxf(mx, __ldcg(ml + s * 2 * MAXG + gi));
+      mx = fmaxf(mx, __ldcg(ml + s * 2 * GC + gi));
     float l = 0.f, v = 0.f;
     for (int s = 0; s < nsr; ++s) {
-      const float w = expf(__ldcg(ml + s * 2 * MAXG + gi) - mx);
-      l = fmaf(__ldcg(ml + s * 2 * MAXG + MAXG + gi), w, l);
-      v = fmaf(__ldcg(pa0 + (size_t)s * g * D + e), w, v);
+      const float w = expf(__ldcg(ml + s * 2 * GC + gi) - mx);
+      l = fmaf(__ldcg(ml + s * 2 * GC + GC + gi), w, l);
+      v = fmaf(__ldcg(pa0 + (size_t)s * GC * D + e), w, v);
     }
     acc_out[head0 * D + e] = normalize ? v / fmaxf(l, 1e-30f) : v;
     if (!normalize && e % D == 0) {
@@ -296,15 +326,16 @@ paged_decode_kernel(const float* __restrict__ q,
   }
 }
 
-template <typename KV>
+template <typename KV, int E>
 int launch(const void* q, const void* kp, const void* vp, const void* bt,
            const void* lens, void* acc, void* m, void* l, void* part_acc,
            void* part_ml, void* arrivals, long long B, long long Hq,
            long long Hkv, long long page, long long D, long long pages_max,
            long long window, float scale, bool normalize, long long split,
            long long nsplit, void* stream) {
-  paged_decode_kernel<KV>
-      <<<dim3((unsigned)(B * Hkv), (unsigned)nsplit), THREADS, 0,
+  const long long nchunk = (Hq / Hkv + MAXG - 1) / MAXG;
+  paged_decode_kernel<KV, E>
+      <<<dim3((unsigned)(B * Hkv * nchunk), (unsigned)nsplit), THREADS, 0,
          (cudaStream_t)stream>>>(
           reinterpret_cast<const float*>(q), reinterpret_cast<const KV*>(kp),
           reinterpret_cast<const KV*>(vp), reinterpret_cast<const int*>(bt),
@@ -317,14 +348,33 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
   return (int)cudaGetLastError();
 }
 
+// a row of D f32 takes vectors of 4 up to D = 128 (32 lanes), of 8 beyond
+template <typename KV>
+int launch_d(const void* q, const void* kp, const void* vp, const void* bt,
+             const void* lens, void* acc, void* m, void* l, void* part_acc,
+             void* part_ml, void* arrivals, long long B, long long Hq,
+             long long Hkv, long long page, long long D, long long pages_max,
+             long long window, float scale, bool normalize, long long split,
+             long long nsplit, void* stream) {
+  if (sizeof(KV) == 2 || D <= 128)
+    return launch<KV, 16 / sizeof(KV)>(
+        q, kp, vp, bt, lens, acc, m, l, part_acc, part_ml, arrivals, B, Hq,
+        Hkv, page, D, pages_max, window, scale, normalize, split, nsplit,
+        stream);
+  return launch<KV, 8>(q, kp, vp, bt, lens, acc, m, l, part_acc, part_ml,
+                       arrivals, B, Hq, Hkv, page, D, pages_max, window,
+                       scale, normalize, split, nsplit, stream);
+}
+
 }  // namespace
 
 // C interface. Preconditions, checked by the Python wrapper: Hq % Hkv ==
-// 0 with Hq / Hkv <= 8; D a power of two, 8 <= D <= 128; contiguous
-// tensors, pools 16-byte aligned; B * Hkv > 0; split a multiple of the
-// page size, <= 512; nsplit * split >= pages_max * page; part_acc
-// (B * Hkv, nsplit, g, D) f32, part_ml (B * Hkv, nsplit, 2, 8) f32,
-// arrivals (B * Hkv,) int32 zeros; window < 0 means no sliding window.
+// 0; D as in the contract above; contiguous tensors,
+// pools 16-byte aligned; B * Hkv > 0; split a multiple of the page size,
+// <= 512; nsplit * split >= pages_max * page; with g = Hq / Hkv, C =
+// ceil(g / 8) chunks and GC = min(g, 8): part_acc (B * Hkv * C, nsplit,
+// GC, D) f32, part_ml (B * Hkv * C, nsplit, 2, GC) f32, arrivals
+// (B * Hkv * C,) int32 zeros; window < 0 means no sliding window.
 #define BIGDL_PAGED_STATS_ENTRY(NAME, KV)                                  \
   extern "C" int NAME(const void* q, const void* kp, const void* vp,       \
                       const void* bt, const void* lens, void* acc,         \
@@ -333,9 +383,9 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
                       long long Hkv, long long page, long long D,          \
                       long long pages_max, long long window, float scale,  \
                       long long split, long long nsplit, void* stream) {   \
-    return launch<KV>(q, kp, vp, bt, lens, acc, m, l, part_acc, part_ml,   \
-                      arrivals, B, Hq, Hkv, page, D, pages_max, window,    \
-                      scale, false, split, nsplit, stream);                \
+    return launch_d<KV>(q, kp, vp, bt, lens, acc, m, l, part_acc, part_ml, \
+                        arrivals, B, Hq, Hkv, page, D, pages_max, window,  \
+                        scale, false, split, nsplit, stream);              \
   }
 
 #define BIGDL_PAGED_ENTRY(NAME, KV)                                        \
@@ -346,10 +396,10 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
                       long long page, long long D, long long pages_max,    \
                       long long window, float scale, long long split,      \
                       long long nsplit, void* stream) {                    \
-    return launch<KV>(q, kp, vp, bt, lens, out, nullptr, nullptr,          \
-                      part_acc, part_ml, arrivals, B, Hq, Hkv, page, D,    \
-                      pages_max, window, scale, true, split, nsplit,       \
-                      stream);                                             \
+    return launch_d<KV>(q, kp, vp, bt, lens, out, nullptr, nullptr,        \
+                        part_acc, part_ml, arrivals, B, Hq, Hkv, page, D,  \
+                        pages_max, window, scale, true, split, nsplit,     \
+                        stream);                                           \
   }
 
 BIGDL_PAGED_STATS_ENTRY(paged_decode_stats_bf16, __nv_bfloat16)

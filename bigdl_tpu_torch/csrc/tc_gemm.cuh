@@ -73,6 +73,11 @@
 // Preconditions (checked by the Python wrappers): N % 16 == 0 (16-byte
 // rows of q for TMA), K % 32 == 0, x and q contiguous, every tensor
 // 16-byte aligned.
+//
+// The mbarrier, TMA and `wgmma` wrappers and the descriptors below also
+// serve the tensor-core attention kernel (csrc/ragged_prefill_tc.cu):
+// K-major B (transpose flag 0) for Q K^T, A from registers for P V, and
+// TMA boxes of rank 4.
 #pragma once
 
 #include <cuda.h>
@@ -160,6 +165,17 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
+// a 4-D tile of ``map`` at (c0 innermost, c1, c2, c3)
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2, int c3,
+                                       uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
 // generic-proxy writes (st.shared) made visible to wgmma
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -212,8 +228,9 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "n"(SCALE_D));
 }
 
-// the same for a 64 x 64 tile (32 values a thread)
-template <int SCALE_D>
+// the same for a 64 x 64 tile (32 values a thread); TB = 0 reads B
+// K-major (each of its 64 columns a row of K in shared memory)
+template <int SCALE_D, int TB = 1>
 __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
                                       uint64_t db) {
   asm volatile(
@@ -222,7 +239,7 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -230,7 +247,64 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "n"(SCALE_D));
+      : "l"(da), "l"(db), "n"(SCALE_D), "n"(TB));
+}
+
+// A from registers: D (64 x 64 f32) += A * B, A this thread's 8 bf16 of a
+// 64 x 16 tile in the accumulator's row layout (a[0]: row lane / 4 of the
+// warp's 16, columns 2 (lane % 4) + {0, 1}; a[1]: that row + 8; a[2],
+// a[3]: the same rows, columns + 8), B MN-major in shared memory
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "n"(SCALE_D));
+}
+
+// the same for a 64 x 128 tile (64 values a thread)
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "n"(SCALE_D));
 }
 
 // the row sums: D (64 x 8 f32, 4 a thread) = A * ones (+ D if SCALE_D),
@@ -510,8 +584,20 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// a row-major (outer, inner) tensor read in (box_outer, box_inner) tiles;
-// out-of-range elements read as zero
+// a tensor of ``rank`` dims (innermost first; strides in bytes of dims 1..)
+// read in ``box`` tiles; out-of-range elements read as zero
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                       const void* base, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  return encoder()(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims,
+                   strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a row-major (outer, inner) tensor read in (box_outer, box_inner) tiles
 inline bool tile_map(CUtensorMap* map, CUtensorMapDataType type,
                      const void* base, long long inner, long long outer,
                      long long row_bytes, int box_inner, int box_outer,
@@ -519,11 +605,7 @@ inline bool tile_map(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
   const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t step[2] = {1, 1};
-  return encoder()(map, type, 2, const_cast<void*>(base), dims, strides, box,
-                   step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map(map, type, 2, base, dims, strides, box, swizzle);
 }
 
 // a contiguous (K/32, N) f32 plane, or its one row (per channel)

@@ -17,13 +17,15 @@ from bigdl_tpu_torch.llm.kernels.paged_attention import (
     paged_attention_reference, paged_attention_reference_stats,
     paged_attention_stats, split_stats_reference)
 from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
-    ragged_prefill, ragged_prefill_attention, ragged_prefill_reference)
+    ragged_prefill, ragged_prefill_attention, ragged_prefill_reference,
+    ragged_route, ragged_tiles_reference)
 from bigdl_tpu_torch.llm.kernels.sampling import (make_sampled_step,
                                                   sample_tokens)
 
 # csrc/<name>.cu sources, one shared library each
 KERNEL_SOURCES = ("int4_matmul", "int4_matmul_tc", "lowbit_matmul",
-                  "lowbit_matmul_tc", "paged_attention", "ragged_prefill")
+                  "lowbit_matmul_tc", "paged_attention", "ragged_prefill",
+                  "ragged_prefill_tc")
 
 # the wrappers whose ``launches`` count the kernels of the port's paths
 WRAPPERS = {"int4_matmul": int4_matmul,
@@ -44,9 +46,11 @@ def build_kernels():
             if before.get(k) != v}
 
 
-# the dequant-matmul wrappers, whose ``tc_launches`` count the launches
-# that took the tensor-core route (``matmul_route``)
-TC_WRAPPERS = (int4_matmul, asym_int4_matmul, int8_matmul)
+# the wrappers with two kernels, whose ``tc_launches`` count the launches
+# that took the tensor-core route (``matmul_route`` for the
+# dequant-matmuls, ``ragged_route`` for ragged prefill)
+TC_WRAPPERS = (int4_matmul, asym_int4_matmul, int8_matmul,
+               ragged_prefill_attention)
 
 
 def reset_launch_counts():
@@ -57,8 +61,9 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    """Launches per wrapper, and ``<wrapper>_tc`` for each dequant-matmul:
-    how many of its launches took the tensor-core route."""
+    """Launches per wrapper, and ``<wrapper>_tc`` for each wrapper of
+    ``TC_WRAPPERS``: how many of its launches took the tensor-core
+    route."""
     counts = {name: w.launches for name, w in WRAPPERS.items()}
     for w in TC_WRAPPERS:
         counts[f"{w.__name__}_tc"] = w.tc_launches
@@ -77,5 +82,6 @@ __all__ = ["KERNEL_SOURCES", "SPLIT_KEYS", "TC_MIN_M", "TC_SMS",
            "paged_attention_reference", "paged_attention_reference_stats",
            "paged_attention_stats", "quantize_tpu", "ragged_prefill",
            "ragged_prefill_attention", "ragged_prefill_reference",
-           "reset_launch_counts", "sample_tokens", "split_stats_reference",
+           "ragged_route", "ragged_tiles_reference", "reset_launch_counts",
+           "sample_tokens", "split_stats_reference",
            "tc_block_shape", "to_tpu_layout"]

@@ -18,9 +18,10 @@ versions (:func:`paged_attention_reference_stats`,
 by the tensors' device, not by a global backend.
 
 The kernel splits each row's live keys at the multiples of
-:data:`SPLIT_KEYS` and combines the splits' flash states in split order;
-:func:`split_stats_reference` is the same split-and-combine in plain
-PyTorch.
+:data:`SPLIT_KEYS` and combines the splits' flash states in split order,
+and cuts a kv head's query heads into chunks of at most
+:data:`HEAD_CHUNK`, one block each; :func:`split_stats_reference` is the
+same split-and-combine, chunk by chunk, in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -39,6 +40,11 @@ LANE = 128   # the JAX package's block-table bucketing unit (kept for shapes)
 # Chosen from H100 timings of 128, 256 and 512 at the Mistral-7B B=1
 # (4199 keys) and B=4 (512..575) and Llama-2-7B B=8 shapes (PERF.md).
 SPLIT_KEYS = 128
+
+# query heads a block of the CUDA kernel computes (MAXG in
+# csrc/paged_attention.cu): a kv head's g = Hq / Hkv heads are cut into
+# ceil(g / HEAD_CHUNK) chunks, one block each
+HEAD_CHUNK = 8
 
 _KV_ENTRY = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -131,10 +137,14 @@ def _cuda_args(q, k_pages, v_pages, block_tables, lengths,
                          "be int32")
     b, hq, d = q.shape
     _, hkv, page, _ = k_pages.shape
-    if hq // hkv > 8 or d > 128 or d % 8 or d & (d - 1):
-        raise ValueError(f"paged attention kernel takes Hq/Hkv <= 8 and "
-                         f"D a power of two in [8, 128], got {hq // hkv} "
-                         f"and {d}")
+    # a lane reads 8 bf16 or 4 f32 of a row (8 f32 past 128), 32 lanes
+    # at most a row
+    if not (d % 8 == 0 and d <= 256 or k_pages.dtype == torch.float32
+            and d % 4 == 0 and d <= 128):
+        raise ValueError(
+            f"paged attention kernel takes D a multiple of 8 up to 256 (f32 "
+            f"pools: also a multiple of 4 up to 128), got D={d} (ROADMAP "
+            f"Queue 3)")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged attention: pools must be contiguous")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
@@ -154,19 +164,23 @@ def _scratch(q, k_pages, block_tables, split_keys: int):
     """The split states and arrival counters one launch needs, made
     here (the kernel allocates nothing): ``nsplit`` covers the longest
     row the table can hold, so it is known without reading the lengths
-    back. Returns ``(nsplit, part_acc, part_ml, arrivals)``."""
+    back. One (row, kv head, head chunk) has ``nsplit`` states of ``gc =
+    min(g, HEAD_CHUNK)`` heads and one counter. Returns ``(nsplit,
+    part_acc, part_ml, arrivals)``."""
     b, hq, d = q.shape
     _, hkv, page, _ = k_pages.shape
     if split_keys % page or not 0 < split_keys <= 512:
         raise ValueError(f"paged attention: split_keys {split_keys} must be "
                          f"a multiple of the page size {page}, at most 512")
     nsplit = max(1, -(-block_tables.shape[1] * page // split_keys))
+    g = hq // hkv
+    blocks, gc = b * hkv * -(-g // HEAD_CHUNK), min(g, HEAD_CHUNK)
     dev = q.device
-    part_acc = torch.empty((b * hkv, nsplit, hq // hkv, d),
-                           dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b * hkv, nsplit, 2, 8), dtype=torch.float32,
+    part_acc = torch.empty((blocks, nsplit, gc, d), dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty((blocks, nsplit, 2, gc), dtype=torch.float32,
                           device=dev)
-    arrivals = torch.zeros((b * hkv,), dtype=torch.int32, device=dev)
+    arrivals = torch.zeros((blocks,), dtype=torch.int32, device=dev)
     return nsplit, part_acc, part_ml, arrivals
 
 
@@ -205,12 +219,13 @@ def split_stats_reference(q, k_pages, v_pages, block_tables, lengths,
                           sliding_window: Optional[int] = None,
                           split_keys: int = SPLIT_KEYS):
     """The CUDA kernel's split-and-combine in plain PyTorch (same
-    contract as :func:`paged_attention_reference_stats`): each row's
-    live range ``[start, len)`` is cut at the multiples of
-    ``split_keys``; each split's ``(acc, m, l)`` is computed alone, and
-    the splits are combined in split order (``m`` the max of theirs,
-    ``l`` and ``acc`` the sums of theirs times ``exp(m_j - m)``).
-    Length-0 rows give the identity ``(0, -1e30, 0)``."""
+    contract as :func:`paged_attention_reference_stats`): a kv head's
+    query heads are taken :data:`HEAD_CHUNK` at a time, as the kernel's
+    blocks take them; each row's live range ``[start, len)`` is cut at
+    the multiples of ``split_keys``; each split's ``(acc, m, l)`` is
+    computed alone, and the splits are combined in split order (``m`` the
+    max of theirs, ``l`` and ``acc`` the sums of theirs times
+    ``exp(m_j - m)``). Length-0 rows give the identity ``(0, -1e30, 0)``."""
     b, hq, d = q.shape
     _, hkv, page, _ = k_pages.shape
     g = hq // hkv
@@ -225,23 +240,27 @@ def split_stats_reference(q, k_pages, v_pages, block_tables, lengths,
         n = int(lengths[r])
         start = max(0, n - sliding_window) if sliding_window is not None \
             else 0
-        states = []
-        for j in range(start // split_keys, -(-n // split_keys)):
-            lo, hi = max(start, j * split_keys), min(n, (j + 1) * split_keys)
-            s = torch.einsum("hgd,shd->hgs", qg[r],
-                             k_all[r, lo:hi]) * scale
-            mj = s.amax(dim=-1)
-            p = torch.exp(s - mj[..., None])
-            states.append((torch.einsum("hgs,shd->hgd", p, v_all[r, lo:hi]),
-                           mj, p.sum(dim=-1)))
-        if not states:
-            continue
-        mx = torch.stack([st[1] for st in states]).amax(dim=0)
-        for a_j, m_j, l_j in states:
-            w = torch.exp(m_j - mx)
-            acc[r] += a_j * w[..., None]
-            l[r] += l_j * w
-        m[r] = mx
+        for c0 in range(0, g, HEAD_CHUNK):
+            heads = slice(c0, min(g, c0 + HEAD_CHUNK))
+            states = []
+            for j in range(start // split_keys, -(-n // split_keys)):
+                lo = max(start, j * split_keys)
+                hi = min(n, (j + 1) * split_keys)
+                s = torch.einsum("hgd,shd->hgs", qg[r, :, heads],
+                                 k_all[r, lo:hi]) * scale
+                mj = s.amax(dim=-1)
+                p = torch.exp(s - mj[..., None])
+                states.append((torch.einsum("hgs,shd->hgd", p,
+                                            v_all[r, lo:hi]),
+                               mj, p.sum(dim=-1)))
+            if not states:
+                continue
+            mx = torch.stack([st[1] for st in states]).amax(dim=0)
+            for a_j, m_j, l_j in states:
+                w = torch.exp(m_j - mx)
+                acc[r, :, heads] += a_j * w[..., None]
+                l[r, :, heads] += l_j * w
+            m[r, :, heads] = mx
     return acc.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
 
 

@@ -20,8 +20,13 @@ Phase 2  hold each kernel against its plain PyTorch version on the card
          q4_0 at N = 2, 3, 770; q8_0 also with the per-channel stride-0
          scale of ``quantize_model``, bit-equal to the materialised one),
          and kernel 6 (normalised paged decode) at Mistral decode, one
-         4233-token Mistral row and Llama-2-7B MHA; inputs from a seeded
-         ``torch.Generator`` on the card. Every dequant-matmul row names
+         4233-token Mistral row and Llama-2-7B MHA; kernels 2 and 6 also at
+         GLM-4-9B's decode (Hq 32 / Hkv 2, a group of 16) and StarCoder-15B's
+         (MQA, a group of 48); kernel 3 at the 7B, Mistral (window 4096),
+         GLM-4-9B and D = 96 shapes on both routes (``ragged_route``:
+         ``ragged_prefill_attention_tc`` for bf16, held to 2^-8 max|V| of
+         both plain versions, the CUDA-core kernel at 1e-3) and once with
+         f32 pools; inputs from a seeded ``torch.Generator`` on the card. Every dequant-matmul row names
          the kernel its route takes (``<wrapper>_tc`` for M >= TC_MIN_M
          and N % 16 == 0); at the q4_0 buckets and the BERT M = 1024
          rows both kernels are held and timed (``ms_tc``,
@@ -42,9 +47,12 @@ Phase 3  the served path on the card against the port's plain path on
          (max_batch 8, max_seq_len 512, page 16), check every request got
          32 in-vocab tokens, that the launch counters (zeroed just before)
          are exactly what the path must launch (each prompt's prefill on
-         the q4_0 route of its bucket), and that one request served again
-         alone on a fresh server gives the same tokens.
-         Prints TTFT, decode tok/s and peak device memory.
+         the q4_0 route of its bucket, its attention on the tensor cores),
+         and that one request served again alone on a fresh server gives
+         the same tokens. Prints TTFT, decode tok/s and peak device memory.
+         Then that request on a server with an f32 KV cache (the CUDA-core
+         ragged kernel), with exact launch counts. The card-vs-CPU check
+         runs at GLM-4-9B width too (2 layers, g = 16).
 Phase 4  trace one 7B batch-8 decode step with ``torch.profiler``:
          step wall time, device busy time and idle share, kernel
          launches per step, the kernels that take the time.
@@ -74,6 +82,16 @@ Phase 7  a 2-layer full-width Mistral safetensors checkpoint (bf16, ~1.4
          GB, written here) loaded by ``from_pretrained(dir,
          load_in_4bit=True)`` on the card and on the CPU: prefill logits
          within 2e-2, 8 greedy tokens each.
+Phase 8  GLM-4-9B q4_0 (full width, 40 layers, 32 query heads on 2 KV
+         heads; weights from a seed made and quantized on the card by
+         ``from_pretrained``): ``generate`` on 2 x 1024 prompts, 32 new
+         tokens, paged then dense decode (first-step logits within 2e-2),
+         exact launch counts; then ``LLMServer`` on 4 greedy requests of
+         100..1000 tokens, 16 new each (max_batch 4, page 16): exact
+         launch counts (the prefill attention on the tensor cores), in-vocab
+         tokens, one request alone on a fresh server equal to its batched
+         tokens, TTFT and decode tok/s. One paged decode step of the
+         ``generate`` batch traced as in phase 4.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the run
@@ -136,10 +154,10 @@ def check(ok, msg):
 
 # -- phase 1: the build ---------------------------------------------------------
 
-# the sources of the tensor-core main loop (csrc/tc_gemm.cuh): ptxas must
-# neither spill nor serialise its wgmma (C7520: one under a branch;
-# C7514: an accumulator read while one is in flight)
-TC_SOURCES = ("int4_matmul_tc", "lowbit_matmul_tc")
+# the tensor-core sources (on csrc/tc_gemm.cuh): ptxas must neither spill
+# nor serialise their wgmma (C7520: one under a branch; C7514: an
+# accumulator read while one is in flight)
+TC_SOURCES = ("int4_matmul_tc", "lowbit_matmul_tc", "ragged_prefill_tc")
 
 
 def _demangle(names):
@@ -423,6 +441,8 @@ def _sdpa_yardstick(torch, q, kp, vp, bt, lens, win):
 
 
 LENS_MAIN = [17, 57, 98, 139, 180, 220, 260, 300]
+# decode at B = 4 around 1024 tokens (the GLM-4-9B phase's contexts)
+GLM_DECODE_LENS = [990, 1023, 1040, 1100]
 # lengths on and next to the split boundaries (SPLIT_KEYS = S): S*j +- 1,
 # one exactly on a boundary, an empty row and a short one
 SPLIT_SWEEP = (128, 256, 512)
@@ -452,7 +472,10 @@ def paged_cases(torch, dev, gen):
             # generate (a)'s decode, lengths excluding the current token
             # and the window shrunk by one, as paged_attend calls it
             ("Mistral decode", 32, 8, 128, 4095, [512, 533, 554, 575]),
-            ("Mistral long", 32, 8, 128, 4095, [4199])):
+            ("Mistral long", 32, 8, 128, 4095, [4199]),
+            # a group of 16 (GLM-4-9B) and of 48 (StarCoder-15B's MQA)
+            ("GLM-4-9B decode", 32, 2, 128, None, GLM_DECODE_LENS),
+            ("StarCoder-15B decode", 48, 1, 128, None, GLM_DECODE_LENS)):
         q, kp, vp, bt, ln = _paged_inputs(torch, dev, gen, hq, hkv, d, lens)
         B = len(lens)
         acc, m, l = paged_attention_decode_stats(q, kp, vp, bt, ln, page,
@@ -514,7 +537,11 @@ def paged_norm_cases(torch, dev, gen):
              [x for x in _split_lens(SPLIT_KEYS) if x]),
             ("Mistral decode", 32, 8, 128, 4096, [513, 534, 555, 576]),
             ("Mistral long", 32, 8, 128, 4096, [4233]),
-            ("7B MHA", 32, 32, 128, None, LENS_MAIN)):
+            ("7B MHA", 32, 32, 128, None, LENS_MAIN),
+            ("GLM-4-9B decode", 32, 2, 128, None,
+             [x + 1 for x in GLM_DECODE_LENS]),
+            ("StarCoder-15B decode", 48, 1, 128, None,
+             [x + 1 for x in GLM_DECODE_LENS])):
         q, kp, vp, bt, ln = _paged_inputs(torch, dev, gen, hq, hkv, d, lens)
         B = len(lens)
         got = paged_attention_decode(q, kp, vp, bt, ln, page,
@@ -552,79 +579,167 @@ def paged_norm_cases(torch, dev, gen):
     return out
 
 
+# kernel 3's cases: (what, Hq, Hkv, D, offset, seq_len, Tq, window, pools'
+# dtype); the served prefills run at offset 0 (no prefix cache yet), the
+# rows at offsets > 0 are the prefix cache's and the chunked prefill's
+RAGGED_SHAPES = (
+    ("7B prefill", 32, 32, 128, 0, 300, 512, None, "bf16"),
+    ("7B offset>0", 32, 32, 128, 64, 200, 256, None, "bf16"),
+    ("GQA Hkv=8", 32, 8, 128, 32, 256, 256, None, "bf16"),
+    ("D=64", 32, 32, 64, 20, 100, 128, None, "bf16"),
+    ("GQA window=64", 32, 8, 128, 48, 150, 256, 64, "bf16"),
+    ("Mistral prefill", 32, 8, 128, 0, 512, 512, 4096, "bf16"),
+    ("Mistral offset>0", 32, 8, 128, 3800, 400, 512, 4096, "bf16"),
+    ("GLM-4-9B prefill", 32, 2, 128, 0, 1000, 1024, None, "bf16"),
+    ("GLM-4-9B offset>0", 32, 2, 128, 700, 300, 512, None, "bf16"),
+    ("D=96", 64, 8, 96, 40, 200, 256, None, "bf16"),
+    # the served 7B prefill with an f32 KV cache: the CUDA-core route
+    ("7B prefill f32 cache", 32, 32, 128, 0, 300, 512, None, "f32"))
+
+
 def ragged_cases(torch, dev, gen):
+    """Kernel 3 on its route (``ragged_route``) against both plain
+    versions: the tensor-core kernel (bf16) within 2^-8 max|V| (P rounded
+    to bf16, relative 2^-9, on a convex combination of V rows), the
+    CUDA-core kernel (f32 math) within 1e-3; padded rows 0. Every bf16
+    row also holds and times the CUDA-core kernel on the same inputs
+    (``ms_tc``, ``ms_cuda_core``), beside SDPA on the gathered K/V and
+    SDPA's own error against the plain version."""
     import torch.nn.functional as F
     from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
-        ragged_prefill_attention, ragged_prefill_reference)
-    page, P, maxp = 16, 64, 32
+        _ragged_cuda, ragged_prefill_attention, ragged_prefill_reference,
+        ragged_route, ragged_tiles_reference)
+    page = 16
     out = []
-    for what, hq, hkv, d, off, slen, tq, win in (
-            ("7B prefill", 32, 32, 128, 0, 300, 512, None),
-            ("7B offset>0", 32, 32, 128, 64, 200, 256, None),
-            ("GQA Hkv=8", 32, 8, 128, 32, 256, 256, None),
-            ("D=64", 32, 32, 64, 20, 100, 128, None),
-            ("GQA window=64", 32, 8, 128, 48, 150, 256, 64)):
+    for what, hq, hkv, d, off, slen, tq, win, kv in RAGGED_SHAPES:
+        kvt = torch.bfloat16 if kv == "bf16" else torch.float32
+        maxp = -(-(off + 1) // page) + 1
+        P = 1 + maxp + 8
         q = torch.randn((1, tq, hq, d), generator=gen, device=dev).to(
             torch.bfloat16)
         ks, vs = (torch.randn((1, tq, hkv, d), generator=gen, device=dev)
-                  .to(torch.bfloat16) for _ in range(2))
+                  .to(kvt) for _ in range(2))
         kp, vp = (torch.randn((P, hkv, page, d), generator=gen, device=dev)
-                  .to(torch.bfloat16) for _ in range(2))
-        bt = torch.randperm(P, generator=gen, device=dev)[:maxp].reshape(
-            1, maxp).to(torch.int32)
+                  .to(kvt) for _ in range(2))
+        bt = (1 + torch.randperm(P - 1, generator=gen, device=dev)[
+            :maxp]).reshape(1, maxp).to(torch.int32)
         offs = torch.tensor([off], dtype=torch.int32, device=dev)
         lens = torch.tensor([slen], dtype=torch.int32, device=dev)
         args = (q, ks, vs, kp, vp, bt, offs, lens)
+        route = ragged_route(q, kp)
         got = ragged_prefill_attention(*args, page_size=page,
                                        sliding_window=win)
         want = ragged_prefill_reference(*args, sliding_window=win)
         torch.cuda.synchronize()
+        vmax = max(vs.float().abs().max().item(),
+                   vp.float().abs().max().item())
+        tol_tc, tol_cc = 2.0 ** -8 * vmax, 1e-3
+        tol = tol_tc if route == "tc" else tol_cc
         err = (got[:, :slen] - want[:, :slen]).abs().max().item()
-        finite = bool(torch.isfinite(got).all())
+        padded_zero = not got[:, slen:].any().item()
         # library yardstick: SDPA over gathered prefix + suffix K/V
         g = hq // hkv
         kpre = _gathered(torch, kp, bt, off, g) if off else None
         vpre = _gathered(torch, vp, bt, off, g) if off else None
         ksuf = ks[0, :slen].permute(1, 0, 2).repeat_interleave(g, 0)[None]
         vsuf = vs[0, :slen].permute(1, 0, 2).repeat_interleave(g, 0)[None]
-        kall = torch.cat([kpre, ksuf], 2) if off else ksuf
-        vall = torch.cat([vpre, vsuf], 2) if off else vsuf
+        kall = (torch.cat([kpre, ksuf], 2) if off else ksuf).to(q.dtype)
+        vall = (torch.cat([vpre, vsuf], 2) if off else vsuf).to(q.dtype)
         qpos = off + torch.arange(slen, device=dev)[:, None]
         kpos = torch.arange(off + slen, device=dev)[None]
         mask = kpos <= qpos
         if win is not None:
             mask &= kpos > qpos - win
         ql = q[0, :slen].permute(1, 0, 2)[None]
+        sdpa = F.scaled_dot_product_attention(ql, kall, vall, attn_mask=mask)
+        sdpa_err = (sdpa[0].permute(1, 0, 2).float()
+                    - want[0, :slen]).abs().max().item()
         keys = [min(off + j + 1, win) if win else off + j + 1
                 for j in range(slen)]
         # prefix positions some query needs (the window may drop some)
         n_pre = off - (max(0, off - win + 1) if win else 0)
-        # the kernel reads only the seq_len live rows of q and of the
-        # suffix K/V; it writes all Tq output rows (padding comes out
-        # finite, by contract)
-        nbytes = (slen * hq * d * 2 + 2 * slen * hkv * d * 2
-                  + n_pre * hkv * d * 2 * 2 + got.numel() * 4)
+        # each input read once: the live rows of q and of the suffix K/V,
+        # the prefix rows the queries need; all Tq output rows written
+        kvb = kp.element_size()
+        nbytes = (slen * hq * d * 2 + 2 * slen * hkv * d * kvb
+                  + n_pre * hkv * d * kvb * 2 + got.numel() * 4)
         b_ms, b_by = bound(nbytes, 4.0 * sum(keys) * hq * d)
-        out.append({
-            "kernel": "ragged_prefill_attention",
+        row = {
+            "kernel": "ragged_prefill_attention"
+                      + ("_tc" if route == "tc" else ""),
+            "route": route,
             "case": f"{what} Tq={tq} seq_len={slen} offset={off} Hq={hq} "
-                    f"Hkv={hkv} D={d}" + (f" window={win}" if win else ""),
-            "max_abs_err": err, "tol": 1e-3,
-            "tol_rule": "1e-3 on the valid rows (f32 softmax of the same "
-                        "bf16 K/V); padded rows finite",
+                    f"Hkv={hkv} D={d}" + (f" window={win}" if win else "")
+                    + f" {kv} pools",
+            "max_abs_err": err, "tol": tol,
+            "tol_rule": "tensor cores: 2^-8 * max|V| of both plain versions "
+                        "(P rounded to bf16); CUDA cores: 1e-3 (f32 "
+                        "softmax of the same K/V); padded rows 0",
+            "max_abs_err_sdpa": sdpa_err,
             "ms": time_ms(lambda: ragged_prefill_attention(
                 *args, page_size=page, sliding_window=win)),
             "plain_ms": time_ms(lambda: ragged_prefill_reference(
                 *args, sliding_window=win)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 ql, kall, vall, attn_mask=mask)),
-            "library": "F.scaled_dot_product_attention on gathered K/V",
+            "library": "F.scaled_dot_product_attention on gathered bf16 K/V",
             "bound_ms": b_ms, "bound_by": b_by,
-            "passed": err <= 1e-3 and finite})
+            "passed": err <= tol and padded_zero
+                      and bool(torch.isfinite(got).all())}
+        if route == "tc":
+            tiles = ragged_tiles_reference(*args, sliding_window=win)
+            e = (got[:, :slen] - tiles[:, :slen]).abs().max().item()
+            row["max_abs_err_vs_tiles_model"] = e
+            row["passed"] &= e <= tol_tc
+            for r, t in (("tc", tol_tc), ("cuda_core", tol_cc)):
+                e = (_ragged_cuda(*args, win, r)[:, :slen]
+                     - want[:, :slen]).abs().max().item()
+                row[f"max_abs_err_{r}"] = e
+                row["passed"] &= e <= t
+                row[f"ms_{r}"] = time_ms(lambda: _ragged_cuda(*args, win, r))
+            del tiles
+        out.append(row)
+        del q, ks, vs, kp, vp, got, want, kall, vall, sdpa
     return out
 
 
 # -- phase 3: the served path at 7B -------------------------------------------
+
+def _serve_expect(model, prompts, steps):
+    """What ``LLMServer`` must launch for ``prompts`` served to the end in
+    ``steps`` decode steps: each prompt is prefilled alone at its bucket
+    (a power of two, at least one page), its 4 linears a layer (and a
+    quantized lm_head) on the route of (bucket, N), its attention on the
+    route of the pools (``ragged_route``); every step runs the linears at
+    M = max_batch <= 8 (the CUDA-core route) and one stats kernel a
+    layer. Returns ``(buckets, {wrapper: launches})``."""
+    import torch
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.kernels.ragged_prefill import ragged_route
+    cfg, params = model.config, model.params
+    L = cfg.num_hidden_layers
+    buckets = [max(16, 1 << (len(p) - 1).bit_length()) for p in prompts]
+    ns = [(params["layers"][k]["q"].shape[-1], L) for k in (
+        "qkv_proj", "o_proj", "gate_up_proj", "down_proj")]
+    if "q" in params["lm_head"]:
+        ns.append((params["lm_head"]["q"].shape[-1], 1))
+    per_pass = sum(c for _, c in ns)
+    # the route of the prefill attention's inputs: bf16 q (the served
+    # activations) over pools of the model's cache dtype
+    tc_attn = ragged_route(
+        torch.empty((0, 0, 0, cfg.head_dim), dtype=torch.bfloat16),
+        torch.empty((0, 0, model.page_size, cfg.head_dim),
+                    dtype=model.cache_dtype)) == "tc"
+    expect = dict.fromkeys(kernels.launch_counts(), 0)
+    expect.update({
+        "int4_matmul": (len(prompts) + steps) * per_pass,
+        "int4_matmul_tc": sum(c for bk in buckets for n, c in ns
+                              if kernels.matmul_route(bk, n) == "tc"),
+        "paged_attention_decode_stats": steps * L,
+        "ragged_prefill_attention": len(prompts) * L,
+        "ragged_prefill_attention_tc": len(prompts) * L if tc_attn else 0})
+    return buckets, expect
+
 
 def serve_7b(torch, dev):
     from bigdl_tpu_torch.llm import kernels
@@ -664,25 +779,7 @@ def serve_7b(torch, dev):
         check(len(toks) == 32, f"request {i}: {len(toks)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in toks),
               f"request {i}: token out of vocab")
-    L = cfg.num_hidden_layers
-    n_prefill = len(prompts)
-    # each prompt is prefilled alone at its bucket (a power of two, at
-    # least one page): its 4 linears a layer and lm_head take the route
-    # of (bucket, N); decode steps (M <= 8) never take the tensor cores
-    buckets = [max(16, 1 << (len(p) - 1).bit_length()) for p in prompts]
-    ns = [t.shape[-1] for t in (model.params["layers"][k]["q"] for k in (
-        "qkv_proj", "o_proj", "gate_up_proj", "down_proj"))]
-    ns.append(model.params["lm_head"]["q"].shape[-1])
-    expect = {"int4_matmul": (n_prefill + steps) * (4 * L + 1),
-              "asym_int4_matmul": 0, "int8_matmul": 0,
-              "asym_int4_matmul_tc": 0, "int8_matmul_tc": 0,
-              "paged_attention_decode_stats": steps * L,
-              "ragged_prefill_attention": n_prefill * L,
-              "paged_attention_decode": 0,
-              "int4_matmul_tc": sum(
-                  (L if i < 4 else 1) for bk in buckets
-                  for i, n in enumerate(ns)
-                  if kernels.matmul_route(bk, n) == "tc")}
+    buckets, expect = _serve_expect(model, prompts, steps)
     check(all(counts[k] > 0 for k, v in expect.items() if v),
           f"a kernel of the served path never ran: {counts}")
     check(counts == expect, f"launch counts {counts} != expected {expect}")
@@ -702,6 +799,31 @@ def serve_7b(torch, dev):
         srv2.stop()
     check(alone == outs[alone_i], f"request {alone_i} alone {alone} != "
           f"batched {outs[alone_i]}")
+
+    # the same request on a server with an f32 KV cache: its prefill
+    # attention takes the CUDA-core kernel (f32 pools), its decode the f32
+    # instance of the stats kernel
+    f32_model = LlamaForCausalLM(cfg, model.params,
+                                 cache_dtype=torch.float32, device=dev)
+    srv3 = LLMServer(f32_model, **kw).start()
+    try:
+        steps0 = srv3.steps
+        kernels.reset_launch_counts()
+        toks32 = srv3.submit(prompts[alone_i], max_new_tokens=32).get(
+            timeout=600)
+        counts32 = kernels.launch_counts()
+        steps32 = srv3.steps - steps0
+    finally:
+        srv3.stop()
+    check(not srv3.errors, f"f32-cache engine errors: {srv3.errors}")
+    _, want32 = _serve_expect(f32_model, prompts[alone_i:alone_i + 1],
+                              steps32)
+    check(counts32 == want32, f"f32-cache launch counts {counts32} != "
+          f"{want32}")
+    check(len(toks32) == 32 and all(0 <= t < cfg.vocab_size
+                                    for t in toks32),
+          f"f32-cache tokens {toks32}")
+    del srv3, f32_model
     return {
         "phase": "serve", "model": "Llama-2-7B q4_0 (synthetic weights, "
         "32 layers, full width)", "requests": len(prompts),
@@ -714,25 +836,34 @@ def serve_7b(torch, dev):
         "decode_tok_per_s": decode_tokens / decode_s,
         "decode_step_ms": decode_s / max(steps - 1, 1) * 1e3,
         "peak_mem_gb": peak / 1e9, "alone_equals_batched": True,
-        "tokens_first_request": outs[0]}, model
+        "tokens_first_request": outs[0],
+        "f32_cache": {"request": alone_i, "launches": counts32,
+                      "decode_steps": steps32, "tokens": toks32,
+                      "leading_tokens_equal_to_bf16_cache": next(
+                          (i for i, (a, b) in enumerate(zip(toks32, alone))
+                           if a != b), len(alone))}}, model
 
 
-def reference_check(torch, dev):
+def reference_check(torch, dev, preset="llama2_7b"):
     """The served path on the card against the port's plain path on the
-    CPU, on a small input: Llama-2-7B at full width cut to 2 layers, the
+    CPU, on a small input: the ``preset``'s model (Llama-2-7B, or
+    GLM-4-9B with its group of 16) at full width cut to 2 layers, the
     same synthetic q4_0 weights on both devices, one ragged prefill of a
-    40-token prompt and one paged decode step (the same token fed to
-    both). Logits must agree to 2e-2 of their largest magnitude: both
-    sides run bf16 activations and f32 accumulation, and differ only
-    where bf16 rounds a value that the other side's f32 sums put a hair
-    across a rounding boundary."""
+    40-token prompt (on the tensor cores, counted) and one paged decode
+    step (the same token fed to both). Logits must agree to 2e-2 of
+    their largest magnitude: both sides run bf16 activations and f32
+    accumulation, and differ only where bf16 rounds a value that the
+    other side's f32 sums put a hair across a rounding boundary, or
+    where the card rounds P to bf16 in the prefill attention."""
     import dataclasses
+    from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.models.llama import (LlamaConfig,
                                                   LlamaForCausalLM,
                                                   paged_prefill_ragged)
     from bigdl_tpu_torch.llm.serving import paged_decode_step
 
-    cfg = dataclasses.replace(LlamaConfig.llama2_7b(), num_hidden_layers=2)
+    cfg = dataclasses.replace(getattr(LlamaConfig, preset)(),
+                              num_hidden_layers=2)
     gpu = LlamaForCausalLM.synthetic_q4(cfg, device=dev, seed=3)
     cpu = LlamaForCausalLM(cfg, gpu.params, device="cpu")
     page, T, bucket = 16, 40, 64
@@ -743,9 +874,10 @@ def reference_check(torch, dev):
     phys = torch.where(pos < T, bt_row[(pos // page).clamp(max=3)],
                        torch.zeros_like(pos)).to(torch.int32)
     slots = (pos % page).to(torch.int32)
-    out, tok = {}, None
+    out, tok, counts = {}, None, {}
     for name, m in (("gpu", gpu), ("cpu", cpu)):
         d = m.device
+        kernels.reset_launch_counts()
         shape = (cfg.num_hidden_layers, 6, cfg.num_key_value_heads, page,
                  cfg.head_dim)
         kp = torch.zeros(shape, dtype=m.cache_dtype, device=d)
@@ -761,6 +893,12 @@ def reference_check(torch, dev):
                 torch.tensor([T], dtype=torch.int32, device=d),
                 torch.tensor([tok], device=d), page=page)[0]
         out[name] = (last.float().cpu(), logits[0].float().cpu())
+        counts[name] = kernels.launch_counts()
+    L = cfg.num_hidden_layers
+    check(counts["gpu"]["ragged_prefill_attention_tc"] == L
+          and counts["gpu"]["paged_attention_decode_stats"] == L
+          and not any(counts["cpu"].values()),
+          f"reference check launches: {counts}")
     errs = {}
     for i, what in enumerate(("prefill", "decode")):
         g, c = out["gpu"][i], out["cpu"][i]
@@ -768,8 +906,10 @@ def reference_check(torch, dev):
         errs[what] = ((g - c).abs().max() / c.abs().max()).item()
     tol = 2e-2
     check(max(errs.values()) <= tol, f"card vs CPU logits: {errs}")
-    return {"phase": "reference", "model": "Llama-2-7B width, 2 layers, "
-            "synthetic q4_0", "prompt_tokens": T,
+    return {"phase": "reference", "model": f"{preset} width (Hq "
+            f"{cfg.num_attention_heads} / Hkv {cfg.num_key_value_heads}), "
+            "2 layers, synthetic q4_0", "prompt_tokens": T,
+            "card_launches": counts["gpu"],
             "max_rel_err_logits": errs, "tol": tol, "passed": True}
 
 
@@ -1134,6 +1274,149 @@ def checkpoint_check(torch, dev):
             "passed": True}
 
 
+# -- phase 8: GLM-4-9B, a group of 16, on both engines ------------------------
+
+# (batch, prompt tokens, new tokens, max_cache_len) of generate, and the
+# served requests' prompt lengths and new tokens
+GLM_GEN = (2, 1024, 32, 1152)
+GLM_SERVE = ((100, 350, 700, 1000), 16)
+
+
+def glm_phase(torch, dev):
+    """GLM-4-9B q4_0 at full width and all 40 layers (32 query heads on 2
+    KV heads: paged decode at g = 16, ragged prefill at g = 16 on the
+    tensor cores): ``from_pretrained(LlamaConfig.glm4_9b(),
+    load_in_4bit=True)`` (random bf16 weights from seed 0 made on the
+    card, quantized there; lm_head dense), then ``generate`` on 2 x 1024
+    prompts, 32 new tokens, paged decode and then dense decode (the first
+    decode step's logits within 2e-2 of each other), each with exact
+    launch counts; then ``LLMServer`` (max_batch 4, page 16) on 4 greedy
+    requests of 100, 350, 700 and 1000 tokens, 16 new tokens each: exact
+    launch counts, in-vocab tokens, one request alone on a fresh server
+    equal to its batched tokens, TTFT and decode tok/s. Returns the row
+    and a profile of one paged decode step of the ``generate`` batch."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.models.llama import (LlamaConfig, forward,
+                                                  pageify_cache)
+    from bigdl_tpu_torch.llm.serving import LLMServer, paged_decode_step
+    from bigdl_tpu_torch.llm.transformers import AutoModelForCausalLM
+
+    cfg = LlamaConfig.glm4_9b()
+    L, page = cfg.num_hidden_layers, 16
+    B, T, n, cache_len = GLM_GEN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = AutoModelForCausalLM.from_pretrained(
+        cfg, load_in_4bit=True, max_cache_len=cache_len, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(model.params))
+    hgen = torch.Generator().manual_seed(31)
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=hgen).numpy()
+
+    # the first decode step, paged (kernel 2 at g = 16) against dense
+    with torch.no_grad():
+        logits, cache = model(ids)
+        tok0 = logits[:, -1].argmax(-1).to(torch.int32)
+        kp, vp, bt = pageify_cache(cache, page=page)
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        kernels.reset_launch_counts()
+        lg_paged = paged_decode_step(model.params, cfg, kp, vp, bt, lens,
+                                     tok0, page=page)[0]
+        step_stats = kernels.launch_counts()["paged_attention_decode_stats"]
+        lg_dense = forward(model.params, cfg, tok0[:, None], cache,
+                           torch.full((B, 1), T, dtype=torch.int32,
+                                      device=dev))[0][:, 0]
+    step_err = ((lg_paged - lg_dense).abs().max()
+                / lg_dense.abs().max()).item()
+    check(step_stats == L, f"GLM paged step: {step_stats} stats launches")
+    check(step_err <= 2e-2, f"GLM first decode step, paged vs dense logits: "
+          f"rel err {step_err}")
+    prof = profile(torch, lambda: paged_decode_step(
+        model.params, cfg, kp, vp, bt, lens, tok0, page=page)[0]
+        .argmax(-1).cpu(), f"GLM-4-9B decode step (paged), batch {B}, "
+        f"context {T}")
+    del logits, cache, kp, vp, bt, lg_paged, lg_dense
+    runs = {}
+    runs["paged"], out_p = _generate_run(torch, model, ids, n,
+                                         "GLM-4-9B paged")
+    model.paged_decode = False
+    runs["dense"], out_d = _generate_run(torch, model, ids, n,
+                                         "GLM-4-9B dense")
+    model.paged_decode = True
+    runs["dense"].update(first_step_rel_err=step_err, tol=2e-2,
+                         leading_tokens_equal_to_paged=[
+                             int(next((i for i in range(n) if out_p[r, T + i]
+                                       != out_d[r, T + i]), n))
+                             for r in range(B)])
+    torch.cuda.empty_cache()
+
+    # LLMServer: 4 requests at once, then one of them alone
+    plens, new = GLM_SERVE
+    prompts = [torch.randint(0, cfg.vocab_size, (k,), generator=hgen)
+               .numpy() for k in plens]
+    kw = dict(max_batch=4, max_seq_len=max(plens) + new + page,
+              page_size=page)
+    srv = LLMServer(model, **kw).start()
+    try:
+        srv.submit(prompts[0][:20], max_new_tokens=2).get(timeout=600)
+        check(not srv.errors, f"GLM engine errors: {srv.errors}")
+        steps0 = srv.steps
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t_start = time.perf_counter()
+        reqs = [srv.submit(p, max_new_tokens=new) for p in prompts]
+        outs = [r.get(timeout=900) for r in reqs]
+        t_end = time.perf_counter()
+        counts = kernels.launch_counts()
+        steps = srv.steps - steps0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        srv.stop()
+    check(not srv.errors, f"GLM engine errors: {srv.errors}")
+    for i, toks in enumerate(outs):
+        check(len(toks) == new and all(0 <= t < cfg.vocab_size
+                                       for t in toks),
+              f"GLM request {i}: tokens {toks}")
+    buckets, expect = _serve_expect(model, prompts, steps)
+    check(expect["ragged_prefill_attention_tc"] == len(prompts) * L,
+          "GLM prefill attention is not on the tensor-core route")
+    check(counts == expect, f"GLM served launch counts {counts} != "
+          f"{expect}")
+    alone_i = 1
+    srv2 = LLMServer(model, **kw).start()
+    try:
+        alone = srv2.submit(prompts[alone_i], max_new_tokens=new).get(
+            timeout=600)
+    finally:
+        srv2.stop()
+    check(alone == outs[alone_i], f"GLM request {alone_i} alone {alone} != "
+          f"batched {outs[alone_i]}")
+    ttft = [r.t_first_token - r.t_submit for r in reqs]
+    decode_s = t_end - max(r.t_first_token for r in reqs)
+    serve = {"requests": len(prompts), "prompt_lens": list(plens),
+             "prefill_buckets": buckets, "max_new_tokens": new,
+             "decode_steps": steps, "launches": counts,
+             "ttft_ms_mean": statistics.mean(ttft) * 1e3,
+             "ttft_ms_max": max(ttft) * 1e3, "wall_s": t_end - t_start,
+             "decode_tok_per_s": sum(len(o) - 1 for o in outs) / decode_s,
+             "decode_step_ms": decode_s / max(steps - 1, 1) * 1e3,
+             "peak_mem_gb": peak / 1e9, "alone_equals_batched": True,
+             "tokens_first_request": outs[0]}
+    del model, srv, srv2
+    return {"phase": "glm", "model": "GLM-4-9B q4_0 (random weights from "
+            "seed 0, 40 layers, full width, Hq 32 / Hkv 2; lm_head dense "
+            "bf16)", "entry": "AutoModelForCausalLM.from_pretrained("
+            "LlamaConfig.glm4_9b(), load_in_4bit=True)",
+            "build_and_quantize_s": build_s,
+            "build_peak_gb": build_peak / 1e9,
+            "weights_gb": weight_bytes / 1e9, "generate": runs,
+            "serve": serve}, prof
+
+
 # -- phase 5: the BERT-base low-bit path --------------------------------------
 
 # which kernel each pipeline's linears launch; 6 linears in each of the 12
@@ -1292,6 +1575,9 @@ def main() -> int:
 
     ref = reference_check(torch, dev)
     emit(ref)
+    ref_glm = reference_check(torch, dev, "glm4_9b")
+    emit(ref_glm)
+    torch.cuda.empty_cache()
     serve, model = serve_7b(torch, dev)
     emit(serve)
     prof = profile_decode(torch, model)
@@ -1308,20 +1594,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     ckpt = checkpoint_check(torch, dev)
     emit(ckpt)
+    torch.cuda.empty_cache()
+    glm, glm_prof = glm_phase(torch, dev)
+    emit(glm)
+    emit(glm_prof)
 
     # launches on each path, each read with the counts zeroed just before
-    paths = {"serve_7b": dict(serve["launches"])}
+    paths = {"serve_7b": dict(serve["launches"]),
+             "serve_7b f32 cache": dict(serve["f32_cache"]["launches"])}
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = dict(row["launches"])
     for name, row in gen_row["runs"].items():
         paths[f"generate {row['what']}"] = dict(row["launches"])
     paths["paged_attention() on generate pools"] = dict(
         gen_row["pool_identity"]["launches"])
+    for row in glm["generate"].values():
+        paths[f"generate {row['what']}"] = dict(row["launches"])
+    paths["serve GLM-4-9B"] = dict(glm["serve"]["launches"])
 
-    # a dequant-matmul wrapper's count covers both routes: the CUDA-core
+    # a two-kernel wrapper's count covers both routes: the CUDA-core
     # kernel's launches are the calls less those on the tensor cores
     for n in paths.values():
-        for w in MATMUL_KERNELS:
+        for w in MATMUL_KERNELS + ("ragged_prefill_attention",):
             n[w] -= n[f"{w}_tc"]
     heads = {"int4_matmul": ("qkv_proj M=8 K=4096 N=12288",
                              "bigdl_tpu_torch/csrc/int4_matmul.cu",
@@ -1346,8 +1640,12 @@ def main() -> int:
              "paged_attention_decode_stats": (
                  "7B decode", "bigdl_tpu_torch/csrc/paged_attention.cu",
                  "bigdl_tpu/llm/kernels/paged_attention.py:377"),
+             "ragged_prefill_attention_tc": (
+                 "7B prefill", "bigdl_tpu_torch/csrc/ragged_prefill_tc.cu",
+                 "bigdl_tpu/llm/kernels/ragged_prefill.py:189"),
              "ragged_prefill_attention": (
-                 "7B prefill", "bigdl_tpu_torch/csrc/ragged_prefill.cu",
+                 "7B prefill f32 cache",
+                 "bigdl_tpu_torch/csrc/ragged_prefill.cu",
                  "bigdl_tpu/llm/kernels/ragged_prefill.py:189"),
              "paged_attention_decode": (
                  "Mistral decode", "bigdl_tpu_torch/csrc/paged_attention.cu",
@@ -1370,7 +1668,11 @@ def main() -> int:
                 "64x128 for M <= 64, else "
                 + ("64x64" if wrapper == "asym_int4_matmul" else "128x128")
                 + f"), else {wrapper}"
-                if wrapper in MATMUL_KERNELS else None),
+                if wrapper in MATMUL_KERNELS else
+                "bf16 q and pools, D % 16 == 0, D <= 128, page % 8 == 0 "
+                "take ragged_prefill_attention_tc, else "
+                "ragged_prefill_attention"
+                if wrapper == "ragged_prefill_attention" else None),
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -1378,7 +1680,8 @@ def main() -> int:
             "passed": all(x["passed"] for x in cases
                           if x["kernel"] == name)})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
-              "reference": ref,
+              "reference": ref, "reference_glm": ref_glm, "glm": glm,
+              "glm_profile": glm_prof,
               "serve": serve, "profile": prof, "bert": bert,
               "bert_profile": bert_prof, "generate": gen_row,
               "generate_profile": gen_prof, "checkpoint": ckpt,

@@ -23,7 +23,8 @@ from bigdl_tpu_torch.llm.kernels.paged_attention import (
     paged_attention_decode, paged_attention_decode_stats,
     paged_attention_reference, paged_attention_reference_stats)
 from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
-    ragged_prefill_attention, ragged_prefill_reference)
+    ragged_prefill_attention, ragged_prefill_reference, ragged_route,
+    ragged_tiles_reference)
 
 PAGE = 16
 
@@ -404,6 +405,157 @@ def test_ragged_prefill_attention(cuda, hq, hkv, d, off, slen, tq, win):
     assert (got[:, :slen] - want[:, :slen]).abs().max().item() < 1e-3
 
 
+# the tensor-core route: the 7B main path (offset 0), Mistral's GQA with
+# its window, GLM-4-9B's group of 16, offsets > 0 off the page and the
+# tile, a served bucket below 64 rows, D = 64 / 80 / 16 (zero columns), and
+# a page of 8 (boxes of 8 rows)
+TC_RAGGED = [  # (Hq, Hkv, D, offset, seq_len, Tq, window, page)
+    (32, 32, 128, 0, 300, 512, None, 16), (32, 8, 128, 37, 200, 256, 4096, 16),
+    (32, 8, 128, 300, 250, 256, 128, 16), (32, 2, 128, 0, 300, 512, None, 16),
+    (32, 2, 128, 1000, 24, 32, None, 16), (32, 32, 64, 80, 60, 64, None, 16),
+    (16, 2, 80, 45, 100, 128, 70, 8), (8, 1, 16, 3, 9, 16, None, 16)]
+
+
+@pytest.mark.parametrize("hq,hkv,d,off,slen,tq,win,page", TC_RAGGED)
+def test_ragged_prefill_attention_tc(cuda, hq, hkv, d, off, slen, tq, win,
+                                     page):
+    """bf16 q, pools and suffix K/V take the tensor-core kernel: valid rows
+    within 2^-8 max|V| of both plain versions (P rounded to bf16, as the
+    TPU kernel's DEFAULT-precision dots round it, relative error 2^-9 on
+    a convex combination of V rows), padded rows 0, and one launch on
+    each counter."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    maxp = -(-(off + 1) // page) + 2
+    P = 3 + maxp
+    q = torch.randn((1, tq, hq, d), generator=g, device=cuda).to(
+        torch.bfloat16)
+    ks, vs = (torch.randn((1, tq, hkv, d), generator=g, device=cuda)
+              .to(torch.bfloat16) for _ in range(2))
+    kp, vp = (torch.randn((P, hkv, page, d), generator=g, device=cuda)
+              .to(torch.bfloat16) for _ in range(2))
+    bt = (1 + torch.randperm(P - 1, generator=g, device=cuda)[:maxp]) \
+        .reshape(1, maxp).to(torch.int32)
+    offs = torch.tensor([off], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([slen], dtype=torch.int32, device=cuda)
+    args = (q, ks, vs, kp, vp, bt, offs, lens)
+    assert ragged_route(q, kp) == "tc"
+    before = (ragged_prefill_attention.launches,
+              ragged_prefill_attention.tc_launches)
+    got = ragged_prefill_attention(*args, page_size=page, sliding_window=win)
+    torch.cuda.synchronize()
+    assert (ragged_prefill_attention.launches,
+            ragged_prefill_attention.tc_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    tol = 2.0 ** -8 * max(vs.float().abs().max().item(),
+                          vp.float().abs().max().item())
+    for want in (ragged_prefill_reference(*args, sliding_window=win),
+                 ragged_tiles_reference(*args, sliding_window=win)):
+        assert (got[:, :slen] - want[:, :slen]).abs().max().item() <= tol
+    assert torch.isfinite(got).all() and not got[:, slen:].any()
+
+
+def test_ragged_prefill_route_counters(cuda):
+    """f32 q or f32 pools, or D not a multiple of 16, take the CUDA-core
+    kernel: ``launches`` counts every call, ``tc_launches`` only the
+    tensor-core ones, and ``launch_counts()`` reports both."""
+    from bigdl_tpu_torch.llm import kernels
+    g = torch.Generator(device=cuda).manual_seed(10)
+    for qt, kt, d, route in ((torch.bfloat16, torch.bfloat16, 64, "tc"),
+                             (torch.float32, torch.bfloat16, 64,
+                              "cuda_core"),
+                             (torch.bfloat16, torch.float32, 64,
+                              "cuda_core"),
+                             (torch.bfloat16, torch.bfloat16, 40,
+                              "cuda_core")):
+        q = torch.randn((1, 16, 4, d), generator=g, device=cuda).to(qt)
+        ks, vs = (torch.randn((1, 16, 2, d), generator=g, device=cuda)
+                  .to(kt) for _ in range(2))
+        kp, vp = (torch.randn((4, 2, PAGE, d), generator=g, device=cuda)
+                  .to(kt) for _ in range(2))
+        bt = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+        offs, lens = (torch.tensor([v], dtype=torch.int32, device=cuda)
+                      for v in (20, 11))
+        assert ragged_route(q, kp) == route
+        kernels.reset_launch_counts()
+        got = ragged_prefill_attention(q, ks, vs, kp, vp, bt, offs, lens,
+                                       page_size=PAGE)
+        counts = kernels.launch_counts()
+        assert counts["ragged_prefill_attention"] == 1
+        assert counts["ragged_prefill_attention_tc"] == (route == "tc")
+        want = ragged_prefill_reference(q, ks, vs, kp, vp, bt, offs, lens)
+        vmax = max(vs.float().abs().max().item(),
+                   vp.float().abs().max().item())
+        tol = 2.0 ** -8 * vmax if route == "tc" else 1e-3
+        assert (got[:, :11] - want[:, :11]).abs().max().item() <= tol
+
+
+# kernels 2 and 6 past the old limits: groups of 7 (Qwen2-7B), 16 (GLM-4-9B)
+# and 48 (StarCoder's MQA), and D = 80, 96 (GPT-NeoX-20B) and 256; f32
+# pools at D = 20 (4-wide vectors) and 256 (8-wide)
+WIDE_PAGED = [  # (Hq, Hkv, D, window, pools)
+    (28, 4, 128, None, "bf16"), (32, 2, 128, None, "bf16"),
+    (48, 1, 128, 300, "bf16"), (32, 4, 80, None, "bf16"),
+    (64, 8, 96, 200, "bf16"), (16, 2, 256, None, "bf16"),
+    (16, 1, 20, None, "f32"), (16, 2, 256, 300, "f32")]
+
+
+@pytest.mark.parametrize("hq,hkv,d,win,pools", WIDE_PAGED)
+@pytest.mark.parametrize("normalize", [False, True])
+def test_paged_attention_any_group_and_d(cuda, hq, hkv, d, win, pools,
+                                         normalize):
+    """Both entries at lengths across the split boundaries and a length-0
+    row, against the plain versions (1e-3); the row alone equals the
+    same row in the batch, bit for bit."""
+    from bigdl_tpu_torch.llm.kernels.paged_attention import _decode_cuda
+    g = torch.Generator(device=cuda).manual_seed(11)
+    lens = [SPLIT_KEYS * 3 + 5, 0, 17, SPLIT_KEYS, 700, 1]
+    maxp = -(-max(lens) // PAGE) + 1
+    P = 1 + len(lens) * maxp
+    q = torch.randn((len(lens), hq, d), generator=g, device=cuda)
+    kp, vp = _pool(g, P, hkv, d, cuda)
+    if pools == "f32":
+        kp, vp = kp.float(), vp.float()
+    bt = (1 + torch.randperm(P - 1, generator=g, device=cuda)[
+        :len(lens) * maxp]).reshape(len(lens), maxp).to(torch.int32)
+    ln = torch.tensor(lens, device=cuda, dtype=torch.int32)
+    live = ln > 0
+    got = _decode_cuda(q, kp, vp, bt, ln, win, normalize)
+    alone = _decode_cuda(q[:1], kp, vp, bt[:1], ln[:1], win, normalize)
+    torch.cuda.synchronize()
+    if normalize:
+        want = paged_attention_reference(q, kp, vp, bt, ln,
+                                         sliding_window=win)
+        assert (got[live] - want[live]).abs().max().item() < 1e-3
+        assert torch.all(got[~live] == 0)
+        assert torch.equal(alone, got[:1])
+        return
+    acc, m, l = got
+    racc, rm, rl = paged_attention_reference_stats(q, kp, vp, bt, ln,
+                                                   sliding_window=win)
+    out = acc[live] / l[live][..., None]
+    rout = racc[live] / rl[live][..., None]
+    assert (out - rout).abs().max().item() < 1e-3
+    assert (m - rm).abs().max().item() < 1e-3
+    assert ((l - rl).abs() / rl.clamp(min=1)).max().item() < 1e-3
+    assert torch.all(m[~live] == -1e30) and torch.all(acc[~live] == 0)
+    assert all(torch.equal(a, b[:1]) for a, b in zip(alone, got))
+
+
+def test_paged_attention_refuses_wide_rows(cuda):
+    """D past 256, not a multiple of 8 (bf16), or past 128 and not a
+    multiple of 8 (f32) raises, naming the limit."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for d, dt in ((264, torch.bfloat16), (132, torch.float32),
+                  (36, torch.bfloat16), (264, torch.float32)):
+        kp, vp = (torch.randn((3, 1, PAGE, d), generator=g, device=cuda)
+                  .to(dt) for _ in range(2))
+        q = torch.randn((1, 2, d), generator=g, device=cuda)
+        bt = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+        ln = torch.tensor([5], dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="Queue 3"):
+            paged_attention_decode_stats(q, kp, vp, bt, ln, PAGE)
+
+
 def _pool(g, P, hkv, d, device, lead=()):
     return (torch.randn(lead + (P, hkv, PAGE, d), generator=g,
                         device=device).to(torch.bfloat16) for _ in range(2))
@@ -614,3 +766,40 @@ def test_tiny_generate_card_vs_cpu(cuda):
     dense = card.generate(ids, max_new_tokens=n)
     assert kernels.launch_counts()["paged_attention_decode_stats"] == 0
     assert dense.shape == out.shape
+
+
+def test_tiny_gqa16_served_alone_equals_batched(cuda):
+    """A tiny model with GLM-4-9B's group (16 query heads on one kv head)
+    served on the card: the paged decode kernel at g = 16 and the ragged
+    prefill kernel on both routes' counters; one request served alone on
+    a fresh server gives the tokens it got in a batch of three."""
+    import dataclasses
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.models.llama import (LlamaConfig,
+                                                  LlamaForCausalLM)
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    cfg = dataclasses.replace(LlamaConfig.tiny_glm(), hidden_size=256,
+                              num_attention_heads=16, num_key_value_heads=1)
+    model = LlamaForCausalLM.synthetic_q4(cfg, device=cuda, seed=4)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 256, (n,), generator=gen).numpy()
+               for n in (9, 40, 23)]
+
+    def serve(ps):
+        srv = LLMServer(model, max_batch=4, max_seq_len=96,
+                        page_size=16).start()
+        try:
+            return [r.get(timeout=600) for r in
+                    [srv.submit(p, max_new_tokens=12) for p in ps]]
+        finally:
+            srv.stop()
+
+    kernels.reset_launch_counts()
+    batched = serve(prompts)
+    counts = kernels.launch_counts()
+    L = cfg.num_hidden_layers
+    assert counts["ragged_prefill_attention_tc"] == 3 * L
+    assert counts["ragged_prefill_attention"] == 3 * L
+    assert counts["paged_attention_decode_stats"] > 0
+    assert all(len(t) == 12 and max(t) < 256 for t in batched)
+    assert serve(prompts[1:2]) == batched[1:2]

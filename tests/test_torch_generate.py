@@ -310,10 +310,15 @@ class TestParams:
 def _cfg(name):
     if name == "tiny_window":
         return dataclasses.replace(jl.LlamaConfig.tiny(), sliding_window=24)
+    if name == "tiny_gqa16":
+        # GLM-4-9B's group, 16 query heads on one kv head, at tiny width
+        return dataclasses.replace(jl.LlamaConfig.tiny_glm(), hidden_size=128,
+                                   num_attention_heads=16,
+                                   num_key_value_heads=1)
     return getattr(jl.LlamaConfig, name)()
 
 
-CONFIGS = ["tiny", "tiny_glm", "tiny_qwen2", "tiny_window"]
+CONFIGS = ["tiny", "tiny_glm", "tiny_qwen2", "tiny_window", "tiny_gqa16"]
 
 
 @pytest.fixture(scope="module", params=CONFIGS)
@@ -367,6 +372,20 @@ class TestGenerate:
         np.testing.assert_array_equal(got, want)
         row = got[0, 30:]
         assert row[j] == eos and np.all(row[j:] == eos)
+
+    def test_engine_serves_jax_tokens(self, models):
+        """The port's ``LLMServer`` (ragged prefill, paged decode) serves
+        each prompt the greedy tokens of the JAX package's ``generate``."""
+        m, ids = models
+        want = m["jax", True].generate(ids, max_new_tokens=NEW)[:, 30:]
+        srv = LLMServer(m["port", True], max_batch=2, max_seq_len=48,
+                        device="cpu").start()
+        try:
+            got = [r.get(timeout=600) for r in
+                   [srv.submit(row, max_new_tokens=NEW) for row in ids]]
+        finally:
+            srv.stop()
+        assert got == want.tolist()
 
     def test_sampled_contract(self, models):
         """Same seed → same tokens; every token in the top-k support of

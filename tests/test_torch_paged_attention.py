@@ -62,6 +62,10 @@ CASES = [  # (Hq, Hkv, D, lens, window)
     (4, 4, 16, [0, 5, 77, 128], None),
     (8, 4, 32, [1, 16, 17, 100], None),       # GQA g=2
     (4, 2, 16, [0, 3, 50, 128], 20),          # window, length 0
+    (16, 1, 16, [0, 9, 64, 128], None),       # g=16 (GLM-4-9B's group)
+    (48, 1, 8, [2, 31, 100, 128], 40),        # MQA g=48 (StarCoder's)
+    (4, 2, 80, [1, 17, 90, 128], None),       # D=80
+    (8, 2, 96, [0, 33, 66, 127], 50),         # D=96 (GPT-NeoX-20B's)
 ]
 
 
@@ -149,6 +153,10 @@ NORM_CASES = [  # (Hq, Hkv, D, lens >= 1, window)
     (4, 4, 16, [1, 5, 77, 128], None),        # MHA
     (8, 2, 32, [1, 16, 17, 100], None),       # GQA g=4
     (4, 2, 16, [2, 3, 50, 128], 20),          # GQA + window
+    (16, 1, 16, [1, 9, 64, 128], None),       # g=16
+    (48, 1, 8, [2, 31, 100, 128], 40),        # MQA g=48
+    (4, 2, 80, [1, 17, 90, 128], None),       # D=80
+    (8, 2, 96, [3, 33, 66, 127], 50),         # D=96
 ]
 
 
@@ -259,13 +267,17 @@ SPLIT_CASES = [  # (Hq, Hkv, D, lens, window, split_keys)
     (4, 2, 16, [17, 64, 65, 96, 127], 32, 32),      # window = one split
     (8, 4, 16, [5, 70, 128, 33, 0], 50, 16),        # one page a split
     (4, 4, 16, [0, 9, 128, 100, 127], None, SPLIT_KEYS),
+    (16, 1, 16, [0, 31, 33, 64, 128], None, 32),    # g=16: two head chunks
+    (48, 1, 8, [5, 47, 48, 97, 128], 60, 48),       # MQA g=48: six chunks
+    (24, 2, 96, [1, 63, 64, 65, 128], None, 64),    # g=12: chunks of 8 and 4
 ]
 
 
 class TestSplitCombine:
-    """The CUDA kernel's split-sequence algebra: each row's live range
-    cut at the multiples of ``split_keys``, one flash state per split,
-    combined in split order — against the JAX package's
+    """The CUDA kernel's split-sequence algebra: a kv head's query heads
+    taken 8 at a time (``HEAD_CHUNK``), each row's live range cut at the
+    multiples of ``split_keys``, one flash state per split, combined in
+    split order — against the JAX package's
     ``paged_attention_reference_stats`` on the same numpy inputs, with
     empty splits (a window that starts past them), length-0 rows and
     windows. f32 on both sides: 1e-5."""
@@ -303,5 +315,12 @@ class TestSplitCombine:
         nsplit, part_acc, part_ml, arrivals = _scratch(*_t(q, kp, bt), 32)
         assert nsplit == -(-bt.shape[1] * PAGE // 32)
         assert tuple(part_acc.shape) == (2 * 4, nsplit, 1, 16)
-        assert tuple(part_ml.shape) == (2 * 4, nsplit, 2, 8)
+        assert tuple(part_ml.shape) == (2 * 4, nsplit, 2, 1)
         assert arrivals.dtype == torch.int32 and not arrivals.any()
+        # g = 20: chunks of 8, 8 and 4 heads, one block each, the scratch
+        # strided by the largest chunk
+        q, kp, vp, bt, ln = _setup(22, 2, 40, 2, 16, lens=[3, 40])
+        nsplit, part_acc, part_ml, arrivals = _scratch(*_t(q, kp, bt), 32)
+        assert tuple(part_acc.shape) == (2 * 2 * 3, nsplit, 8, 16)
+        assert tuple(part_ml.shape) == (2 * 2 * 3, nsplit, 2, 8)
+        assert tuple(arrivals.shape) == (2 * 2 * 3,)

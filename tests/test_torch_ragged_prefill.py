@@ -4,8 +4,9 @@ and COW fork, held against the JAX package on the same seeded numpy
 inputs: the plain PyTorch version against the Pallas kernel in
 interpret mode and against ``ragged_prefill_reference``. Offset 0 and
 offset > 0, GQA and a window are covered, and padded query rows must be
-finite. The CUDA kernel runs only on the card:
-``tests/test_torch_cuda.py``."""
+finite. ``ragged_tiles_reference``, the plain model of the tensor-core
+kernel's tile walk and bf16 P, is held to both as well. The CUDA kernels
+run only on the card: ``tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -21,7 +22,8 @@ from bigdl_tpu.llm.kvcache.prefill import fork_tail_pages as j_fork
 from bigdl_tpu.llm.kvcache.prefill import scatter_suffix_kv as j_scatter
 
 from bigdl_tpu_torch.llm.kernels.ragged_prefill import (
-    ragged_prefill, ragged_prefill_attention, ragged_prefill_reference)
+    ragged_prefill, ragged_prefill_attention, ragged_prefill_reference,
+    ragged_route, ragged_tiles_reference)
 from bigdl_tpu_torch.llm.kvcache.prefill import (fork_tail_pages,
                                                  scatter_suffix_kv)
 
@@ -96,6 +98,66 @@ class TestPlainVersion:
         before = ragged_prefill_attention.launches
         ragged_prefill(*_t(*args), page_size=PAGE)
         assert ragged_prefill_attention.launches == before
+
+
+# the tensor-core kernel's walk: g = 1, 4 and 16 (query tiles of 64 rows
+# = 4 tokens), D = 16, 32 and 80, offsets off the page and the tile,
+# seq_len not a multiple of 64, a window that cuts a key tile
+TILE_CASES = [  # (Tq, Hq, Hkv, D, offsets, seq_lens, window)
+    (12, 16, 1, 16, [37, 5], [12, 7], None),
+    (40, 8, 2, 32, [70, 0], [40, 33], 50),
+    (72, 2, 2, 80, [19, 100], [72, 65], None),
+]
+
+
+def _tiles_tol(args, p_dtype):
+    """bf16 P: 2^-8 of max|V| (P's rounding, relative 2^-9, on a convex
+    combination of V rows); f32 P: 1e-5 (the online softmax's order)."""
+    vmax = max(np.abs(args[2]).max(), np.abs(args[4]).max())
+    return 2.0 ** -8 * vmax if p_dtype == torch.bfloat16 else 1e-5
+
+
+class TestTilesModel:
+    @pytest.mark.parametrize("p_dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("tq,hq,hkv,d,offs,lens,win", TILE_CASES)
+    def test_matches_xla_reference(self, tq, hq, hkv, d, offs, lens, win,
+                                   p_dtype):
+        args = _setup(6, 2, tq, hq, hkv, d, offs, lens)
+        want = np.asarray(j_ragged_ref(*_j(*args), sliding_window=win))
+        got = ragged_tiles_reference(*_t(*args), sliding_window=win,
+                                     p_dtype=p_dtype)
+        assert got.shape == (2, tq, hq, d) and torch.isfinite(got).all()
+        tol = _tiles_tol(args, p_dtype)
+        for g, w in zip(_valid_rows(got, lens), _valid_rows(want, lens)):
+            assert np.abs(g - w).max() <= tol
+        # rows past seq_len are 0, as the kernel writes them
+        for b, n in enumerate(lens):
+            assert not got[b, n:].any()
+
+    @pytest.mark.parametrize("tq,hq,hkv,d,offs,lens,win", TILE_CASES)
+    def test_matches_pallas_interpret(self, tq, hq, hkv, d, offs, lens,
+                                      win):
+        args = _setup(7, 2, tq, hq, hkv, d, offs, lens)
+        want = j_ragged(*_j(*args), page_size=PAGE, interpret=True,
+                        sliding_window=win)
+        got = ragged_tiles_reference(*_t(*args), sliding_window=win)
+        tol = _tiles_tol(args, torch.bfloat16)
+        for g, w in zip(_valid_rows(got, lens), _valid_rows(want, lens)):
+            assert np.abs(g - w).max() <= tol
+
+    @pytest.mark.parametrize("qt,kt,d,page,route", [
+        (torch.bfloat16, torch.bfloat16, 128, 16, "tc"),
+        (torch.bfloat16, torch.bfloat16, 80, 8, "tc"),
+        (torch.float32, torch.bfloat16, 128, 16, "cuda_core"),
+        (torch.bfloat16, torch.float32, 128, 16, "cuda_core"),
+        (torch.bfloat16, torch.bfloat16, 72, 16, "cuda_core"),
+        (torch.bfloat16, torch.bfloat16, 128, 12, "cuda_core")])
+    def test_route(self, qt, kt, d, page, route):
+        """bf16 q and pools, D % 16 == 0, D <= 128, page % 8 == 0 take
+        the tensor cores; the rest the f32 CUDA-core kernel."""
+        q = torch.zeros((1, 4, 2, d), dtype=qt)
+        kp = torch.zeros((3, 2, page, d), dtype=kt)
+        assert ragged_route(q, kp) == route
 
 
 class TestPrefillScatter:
