@@ -4,6 +4,8 @@ versions.
 Importing this package builds nothing; the kernels compile at first
 launch, or all at once with :func:`build_kernels`."""
 
+import contextlib
+
 from bigdl_tpu_torch.llm.kernels import _build
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
     TC_MIN_M, TC_SMS, asym_int4_matmul, asym_int4_matmul_grouped,
@@ -70,13 +72,47 @@ def launch_counts():
     return counts
 
 
+def _add_counts(delta, sign: int = 1):
+    for name, n in delta.items():
+        if name in WRAPPERS:
+            WRAPPERS[name].launches += sign * n
+        else:                                   # "<wrapper>_tc"
+            WRAPPERS[name.removesuffix("_tc")].tc_launches += sign * n
+
+
+@contextlib.contextmanager
+def launches_of_capture():
+    """Count what a CUDA graph capture launches without counting it: a
+    capture runs no kernel, yet each wrapper bumps its counter as it
+    records one. Yields a dict that holds, on exit, the capture's
+    ``{launch_counts() key: n}`` delta; the counters are then set back
+    by that delta. Each replay of the graph adds it
+    (:func:`add_launches`), so the counters read as if every replayed
+    kernel had been launched from Python."""
+    before = launch_counts()
+    delta = {}
+    try:
+        yield delta
+    finally:
+        after = launch_counts()
+        delta.update({k: after[k] - before[k] for k in after
+                      if after[k] != before[k]})
+        _add_counts(delta, -1)
+
+
+def add_launches(delta):
+    """Add one graph replay's launches (a :func:`launches_of_capture`
+    delta) to the counters."""
+    _add_counts(delta)
+
+
 __all__ = ["KERNEL_SOURCES", "SPLIT_KEYS", "TC_MIN_M", "TC_SMS",
            "TC_WRAPPERS", "WRAPPERS", "asym_int4_matmul",
            "asym_int4_matmul_grouped", "asym_int4_matmul_reference",
-           "build_kernels", "dequant_q4", "dequant_q4_1", "dequant_q8_0",
+           "add_launches", "build_kernels", "dequant_q4", "dequant_q4_1", "dequant_q8_0",
            "int4_matmul", "int4_matmul_grouped", "int4_matmul_reference",
            "int8_matmul", "int8_matmul_grouped", "int8_matmul_reference",
-           "launch_counts", "matmul_route",
+           "launch_counts", "launches_of_capture", "matmul_route",
            "make_sampled_step", "merge_attention_partial", "paged_attention",
            "paged_attention_decode", "paged_attention_decode_stats",
            "paged_attention_reference", "paged_attention_reference_stats",

@@ -42,8 +42,10 @@ def ragged_prefill_attend(k_pages, v_pages, bt_row, offset: int,
     vp_flat = v_pages.view((L * P,) + tuple(v_pages.shape[2:]))
     dev = k_pages.device
     bt = bt_row.reshape(1, -1).to(device=dev, dtype=torch.int32)
-    offs = torch.tensor([int(offset)], dtype=torch.int32, device=dev)
-    lens = torch.tensor([int(seq_len)], dtype=torch.int32, device=dev)
+    # filled on the device: an upload from pageable memory would wait for
+    # the decode steps in flight
+    offs = torch.full((1,), int(offset), dtype=torch.int32, device=dev)
+    lens = torch.full((1,), int(seq_len), dtype=torch.int32, device=dev)
 
     def attend(l, q, k, v):
         return ragged_prefill(q, k, v, kp_flat, vp_flat, bt + l * P, offs,

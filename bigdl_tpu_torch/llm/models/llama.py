@@ -700,6 +700,65 @@ def pageify_cache(cache: Dict[str, Any], page: int = 16
     return pageify(k), pageify(v), bt
 
 
+class PagedDecodeLoop:
+    """The token loop of :func:`decode_scan_paged` over persistent
+    buffers. One token's step — pick it from ``last`` (with the EOS
+    rule), run it through the serving engine's ``paged_decode_step`` at
+    position ``lens``, write back ``last``, ``finished`` and ``lens + 1``
+    in place — is a :class:`CapturedStep`, replayed once a token: the
+    port's ``jax.jit(decode_scan_paged)``. Each token is copied out of
+    the step's output buffer before the next replay. The graph holds the
+    addresses of the pools and ``bt``, so a loop serves one set of pools
+    (``generate`` makes one a call); ``close()`` frees it."""
+
+    def __init__(self, params, cfg, k_pages, v_pages, bt, pos, last_logits,
+                 generator, temperature, finished=None, *, page: int,
+                 do_sample: bool = False, top_k: int = 0,
+                 eos_token_id: Optional[int] = None):
+        from bigdl_tpu_torch.llm.graphs import CapturedStep
+        from bigdl_tpu_torch.llm.serving import paged_decode_step
+        b, dev = last_logits.shape[0], last_logits.device
+        self.pos = int(pos)
+        # the buffers the step reads and writes; its closure holds them,
+        # not this object, so no reference cycle keeps the pools alive
+        self.last = last = last_logits.to(torch.float32).clone()
+        self.finished = fin = (
+            torch.zeros((b,), dtype=torch.bool, device=dev)
+            if finished is None else finished.clone())
+        lens = torch.full((b,), self.pos, dtype=torch.int32, device=dev)
+        self.tok = tok = torch.zeros((b,), dtype=torch.int32, device=dev)
+
+        def step():
+            nxt, fin_new = _next_tokens(last, generator, temperature, fin,
+                                        do_sample, top_k, eos_token_id)
+            logits, kp, vp = paged_decode_step(
+                params, cfg, k_pages, v_pages, bt, lens, nxt, page=page)
+            if kp is not k_pages or vp is not v_pages:
+                raise RuntimeError("the decode step must write the pools "
+                                   "in place: a graph holds their addresses")
+            tok.copy_(nxt)
+            fin.copy_(fin_new)
+            last.copy_(logits)
+            lens.add_(1)
+
+        self.step = CapturedStep(step, dev, generators=(
+            (generator,) if do_sample else ()))
+
+    def run(self, num_tokens: int) -> torch.Tensor:
+        """``num_tokens`` steps; returns their tokens (B, num_tokens)
+        int32 on the device."""
+        toks = torch.empty((self.tok.shape[0], num_tokens),
+                           dtype=torch.int32, device=self.tok.device)
+        for t in range(num_tokens):
+            self.step()
+            toks[:, t] = self.tok
+        self.pos += num_tokens
+        return toks
+
+    def close(self):
+        self.step.close()
+
+
 def decode_scan_paged(params, k_pages, v_pages, bt, pos, last_logits,
                       generator, temperature, finished=None, *, cfg,
                       page: int, num_tokens: int, do_sample: bool = False,
@@ -707,26 +766,21 @@ def decode_scan_paged(params, k_pages, v_pages, bt, pos, last_logits,
     """The :func:`decode_scan` token loop over a PAGED pool, through the
     serving engine's ``paged_decode_step``: attention reads only the live
     pages (the stats kernel plus the merge of the current token), and
-    each step writes every layer's new K/V into the pools in place.
-    ``pos`` is the shared position (generate is rectangular). Returns
-    ``(tokens (B, T) int32, k_pages, v_pages, pos, last, generator,
-    finished)``."""
-    from bigdl_tpu_torch.llm.serving import paged_decode_step
-    b = last_logits.shape[0]
-    if finished is None:
-        finished = torch.zeros((b,), dtype=torch.bool,
-                               device=last_logits.device)
-    pos, last, toks = int(pos), last_logits, []
-    for _ in range(num_tokens):
-        nxt, finished = _next_tokens(last, generator, temperature, finished,
-                                     do_sample, top_k, eos_token_id)
-        lens = torch.full((b,), pos, dtype=torch.int32, device=nxt.device)
-        last, k_pages, v_pages = paged_decode_step(
-            params, cfg, k_pages, v_pages, bt, lens, nxt, page=page)
-        pos += 1
-        toks.append(nxt)
-    return (torch.stack(toks, dim=1), k_pages, v_pages, pos, last,
-            generator, finished)
+    each step writes every layer's new K/V into the pools in place. On
+    the card the step runs as one CUDA graph from the second token on
+    (:class:`PagedDecodeLoop`). ``pos`` is the shared position (generate
+    is rectangular). Returns ``(tokens (B, T) int32, k_pages, v_pages,
+    pos, last, generator, finished)``."""
+    loop = PagedDecodeLoop(params, cfg, k_pages, v_pages, bt, pos,
+                           last_logits, generator, temperature, finished,
+                           page=page, do_sample=do_sample, top_k=top_k,
+                           eos_token_id=eos_token_id)
+    try:
+        toks = loop.run(num_tokens)
+    finally:
+        loop.close()
+    return (toks, k_pages, v_pages, loop.pos, loop.last, generator,
+            loop.finished)
 
 
 # ---------------------------------------------------------------------------
@@ -739,10 +793,12 @@ class LlamaForCausalLM:
     and ``__call__`` (prefill into a fresh dense cache) and ``generate``.
 
     ``paged_decode`` (default) runs ``generate``'s token loop over a page
-    pool (:func:`decode_scan_paged`): the dense prefill cache is cut into
-    pages once, and attention reads only live pages each token.
+    pool (:class:`PagedDecodeLoop`): the dense prefill cache is cut into
+    pages once, attention reads only live pages each token, and on the
+    card the token step replays one CUDA graph from the second token on.
     ``paged_decode=False`` keeps the dense-cache loop
-    (:func:`decode_scan`). ``decode_unroll`` unrolled the JAX layer scan
+    (:func:`decode_scan`), eagerly: ``forward`` slices the cache at a
+    host position, which a graph would bake in. ``decode_unroll`` unrolled the JAX layer scan
     and only 1 is meaningful here. ``device=None`` means the GPU (and
     raises without one)."""
 
@@ -836,30 +892,35 @@ class LlamaForCausalLM:
         remaining = max_new_tokens
         chunk = max_new_tokens if eos_token_id is None else decode_chunk
         finished = torch.zeros((b,), dtype=torch.bool, device=self.device)
-        kw = dict(cfg=self.config, do_sample=do_sample, top_k=top_k,
+        kw = dict(do_sample=do_sample, top_k=top_k,
                   eos_token_id=eos_token_id)
+        loop = None
         with torch.no_grad():
             if self.paged_decode:
+                # one captured step for the whole call, across its chunks
                 k_pages, v_pages, bt = pageify_cache(cache,
                                                      page=self.page_size)
-                pos = cache["pos"]
-                del cache
-            while remaining > 0:
-                n = min(chunk, remaining)
-                if self.paged_decode:
-                    toks, k_pages, v_pages, pos, last, gen, finished = \
-                        decode_scan_paged(
-                            self.params, k_pages, v_pages, bt, pos, last,
-                            gen, temperature, finished, page=self.page_size,
-                            num_tokens=n, **kw)
-                else:
-                    toks, cache, last, gen, finished = decode_scan(
-                        self.params, cache, last, gen, temperature,
-                        finished, num_tokens=n, **kw)
-                pieces.append(toks.cpu().numpy())
-                remaining -= n
-                if eos_token_id is not None and bool(finished.all()):
-                    break
+                loop = PagedDecodeLoop(
+                    self.params, self.config, k_pages, v_pages, bt,
+                    cache["pos"], last, gen, temperature, finished,
+                    page=self.page_size, **kw)
+                del cache, k_pages, v_pages
+            try:
+                while remaining > 0:
+                    n = min(chunk, remaining)
+                    if loop is not None:
+                        toks, finished = loop.run(n), loop.finished
+                    else:
+                        toks, cache, last, gen, finished = decode_scan(
+                            self.params, cache, last, gen, temperature,
+                            finished, cfg=self.config, num_tokens=n, **kw)
+                    pieces.append(toks.cpu().numpy())
+                    remaining -= n
+                    if eos_token_id is not None and bool(finished.all()):
+                        break
+            finally:
+                if loop is not None:
+                    loop.close()
         return np.concatenate(pieces, axis=1)
 
     @classmethod

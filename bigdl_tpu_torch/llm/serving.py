@@ -2,12 +2,15 @@
 ``bigdl_tpu/llm/serving.py``, slice (a) of ROADMAP Queue 1 item 6:
 
 - the device functions of the paged decode step (``paged_attend``,
-  ``scatter_new_kv``, ``paged_decode_step``, and its sampled lift
-  ``paged_decode_step_sampled``);
+  ``scatter_new_kv``, ``paged_decode_step``, its sampled lift
+  ``paged_decode_step_sampled``, and ``bind_decode_step``, that step
+  over the engine's persistent buffers);
 - :class:`LLMServer` with paged decode, whole-prompt ragged prefill,
   worst-case admission budgets, EOS / ``max_new_tokens`` finishing and
-  page release, at ``pipeline_depth=1`` (every decode step drains before
-  the next is dispatched: the synchronous engine).
+  page release, and the JAX engine's pipelined dispatch: block tables
+  and lengths resident on the device, up to ``pipeline_depth`` decode
+  steps in flight (default 2), and the decode step replayed as one
+  captured CUDA graph (``llm/graphs.py``), the port's ``jax.jit``.
 
 The engine's other options raise ``NotImplementedError`` naming their
 ROADMAP item; none is silently ignored.
@@ -20,12 +23,14 @@ import threading
 import time
 import traceback
 import uuid
+from collections import deque
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from bigdl_tpu_torch.device import resolve_device
+from bigdl_tpu_torch.llm.graphs import CapturedStep
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
     LANE, merge_attention_partial, paged_attention_stats)
 from bigdl_tpu_torch.llm.kernels.sampling import make_sampled_step
@@ -123,6 +128,33 @@ def paged_decode_step(params, cfg, k_pages, v_pages, bt, lens, toks, *,
 paged_decode_step_sampled = make_sampled_step(paged_decode_step)
 
 
+def bind_decode_step(params, cfg, k_pages, v_pages, bt, lens, last, active,
+                     toks, *, page: int, temperature: float = 1.0,
+                     generator=None, do_sample: bool = False,
+                     top_k: int = 0):
+    """The engine's decode step as a function of no arguments over
+    persistent buffers, what :class:`CapturedStep` captures: it reads
+    ``bt`` (B, pages_cap) int32 and ``active`` (B,) bool, samples every
+    row's next token from ``last`` (B, V) f32 into ``toks`` (B,) int32,
+    and writes back in place the next logits into ``last``, the advanced
+    lengths into ``lens`` (B,) int32 and every row's new K/V into the
+    pools — so the next call reads what this one wrote."""
+
+    def step():
+        t, logits, kp, vp, new_lens = paged_decode_step_sampled(
+            params, cfg, k_pages, v_pages, bt, lens, last, active,
+            temperature, generator, page=page, do_sample=do_sample,
+            top_k=top_k)
+        if kp is not k_pages or vp is not v_pages:
+            raise RuntimeError("the decode step must write the pools in "
+                               "place: a graph holds their addresses")
+        toks.copy_(t)
+        last.copy_(logits)
+        lens.copy_(new_lens)
+
+    return step
+
+
 class Request:
     """Handle returned by :meth:`LLMServer.submit`."""
 
@@ -164,6 +196,7 @@ _NOT_PORTED = {
 }
 
 
+
 class LLMServer:
     """Continuous-batching engine over a Llama-family model, paged KV.
 
@@ -175,12 +208,31 @@ class LLMServer:
     0 is the trash page that inactive rows and prefill padding write.
 
     Each engine pass admits into free slots (one ragged prefill per
-    admission, the prompt padded to a power-of-two bucket) and runs one
-    decode step over all ``max_batch`` rows, inactive rows masked to the
-    trash page — the batch shape never changes, so a request's tokens do
-    not depend on what else is in the batch. The step's sampled ids are
-    fetched to the host at once (``pipeline_depth=1``): that fetch is the
-    barrier for the step and its pool writes.
+    admission, the prompt padded to a power-of-two bucket) and dispatches
+    one decode step over all ``max_batch`` rows, inactive rows masked to
+    the trash page — the batch shape never changes, so a request's
+    tokens do not depend on what else is in the batch.
+
+    **Pipelined dispatch**, as the JAX engine's. Block tables, lengths,
+    the active mask and the last logits live on the device; the step
+    reads them and advances lengths and logits in place, and the host
+    changes them with small in-place writes in stream order (page
+    grants, prefilled rows, the resets of freed rows). The numpy ``_bt``
+    and ``_lens`` are the host's view at dispatch time. Up to
+    ``pipeline_depth`` steps (default 2) are in flight before the oldest
+    is drained: its sampled ids come back through a pinned host buffer
+    of its own and an event, and EOS / max-token bookkeeping runs one
+    step behind dispatch. Dispatches per request are capped at its
+    ``max_new_tokens``; a token drained for a request that finished
+    meanwhile is discarded. ``pipeline_depth=1`` is the synchronous
+    engine: every step drains before the next dispatch.
+
+    The decode step is one CUDA graph per server (:class:`CapturedStep`,
+    the port's ``jax.jit``), captured at the second decode step over the
+    server's pools, tables, ``_last`` and mask at ``max_batch``;
+    ``temperature``, ``top_k`` and sampling are fixed at construction,
+    as in the JAX step's cache key. Prefill runs eagerly. ``stop()``
+    frees the graph.
 
     ``device=None`` means the GPU (and raises without one); the model
     must live on the same device. ``page_size=None`` takes the model's;
@@ -207,10 +259,6 @@ class LLMServer:
             raise NotImplementedError(
                 "paged=False: the slot-static cache is not ported "
                 "(ROADMAP Queue 1 item 6)")
-        if pipeline_depth not in (None, 1):
-            raise NotImplementedError(
-                f"pipeline_depth={pipeline_depth}: pipelined dispatch is "
-                "ROADMAP Queue 1 item 6(a) at depth 2")
         if ragged_prefill is False:
             raise NotImplementedError(
                 "ragged_prefill=False: the dense staging prefill is "
@@ -233,15 +281,22 @@ class LLMServer:
         self._thread: Optional[threading.Thread] = None
         self._slots: List[Optional[Request]] = [None] * max_batch
         self._remaining = np.zeros(max_batch, np.int64)
+        # the window of dispatched, undrained steps; each record keeps the
+        # pinned host buffers its uploads read until its drain proves the
+        # step (and every copy enqueued before it) retired
+        self.pipeline_depth = max(1, int(2 if pipeline_depth is None
+                                         else pipeline_depth))
+        self._inflight: deque = deque()
+        self._pending_release: List[torch.Tensor] = []
+        self.steps = 0
+        self.host_seconds = 0.0      # dispatch-side host time of the steps
+        self.stall_seconds = 0.0     # time the drains waited on the device
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self._do_sample = self.temperature > 0.0
         self._temp = self.temperature if self._do_sample else 1.0
         self._gen = torch.Generator(device=self.device).manual_seed(
             sample_seed)
-        self._last = torch.zeros((max_batch, cfg.vocab_size),
-                                 dtype=torch.float32, device=self.device)
-        self.steps = 0
         self.errors: List[str] = []
 
         if page_size is None:
@@ -261,16 +316,43 @@ class LLMServer:
         self._num_pages = num_pages or (1 + max_batch * cap)
         shape = (cfg.num_hidden_layers, self._num_pages,
                  cfg.num_key_value_heads, page_size, cfg.head_dim)
+        dev = self.device
         self._k_pages = torch.zeros(shape, dtype=model.cache_dtype,
-                                    device=self.device)
+                                    device=dev)
         self._v_pages = torch.zeros(shape, dtype=model.cache_dtype,
-                                    device=self.device)
+                                    device=dev)
         self._kv = KVCacheManager(self._num_pages, page_size)
-        # host bookkeeping, uploaded with each step (a few hundred ints)
+        # host bookkeeping: the tables as of the latest dispatch
         self._bt = np.zeros((max_batch, self._pages_cap), np.int32)
         self._lens = np.zeros(max_batch, np.int32)
+        self._active = np.zeros(max_batch, bool)
         self._slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
         self._slot_adm: List[Optional[Admission]] = [None] * max_batch
+        # their device twins and the step's other persistent buffers,
+        # made once: the graph holds their addresses, so none is rebound
+        self._bt_dev = torch.zeros((max_batch, self._pages_cap),
+                                   dtype=torch.int32, device=dev)
+        self._lens_dev = torch.zeros(max_batch, dtype=torch.int32,
+                                     device=dev)
+        self._active_dev = torch.zeros(max_batch, dtype=torch.bool,
+                                       device=dev)
+        self._last = torch.zeros((max_batch, cfg.vocab_size),
+                                 dtype=torch.float32, device=dev)
+        self._toks_dev = torch.zeros(max_batch, dtype=torch.int32,
+                                     device=dev)
+        # one host buffer per in-flight step for its sampled ids: replay
+        # N+1 overwrites _toks_dev before step N is drained
+        self._toks_host = [torch.zeros(max_batch, dtype=torch.int32,
+                                       pin_memory=dev.type == "cuda")
+                           for _ in range(self.pipeline_depth)]
+        self._step = CapturedStep(
+            bind_decode_step(model.params, cfg, self._k_pages,
+                             self._v_pages, self._bt_dev, self._lens_dev,
+                             self._last, self._active_dev, self._toks_dev,
+                             page=page_size, temperature=self._temp,
+                             generator=self._gen,
+                             do_sample=self._do_sample, top_k=self.top_k),
+            dev, generators=(self._gen,) if self._do_sample else ())
 
     # -- views ---------------------------------------------------------------
     @property
@@ -321,8 +403,8 @@ class LLMServer:
 
     def stop(self, drain: bool = True, timeout: float = 30.0):
         """Graceful drain (default): refuse new submits, finish every
-        accepted request, then stop the engine thread. ``drain=False``
-        stops at once; accepted requests fail."""
+        accepted request, then stop the engine thread and free the step's
+        graph. ``drain=False`` stops at once; accepted requests fail."""
         self._draining.set()
         if drain and self._thread is not None and self._thread.is_alive():
             deadline = time.monotonic() + timeout
@@ -338,9 +420,13 @@ class LLMServer:
             return     # wedged engine thread still owns the state
         with self._lock:
             self._fail_all("server stopped before the request finished")
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._step.close()
 
     def _idle(self) -> bool:
         return (self._queue.empty() and self._pending_head is None
+                and not self._inflight
                 and all(r is None for r in self._slots))
 
     # -- engine --------------------------------------------------------------
@@ -365,10 +451,17 @@ class LLMServer:
                     time.sleep(0.002)
 
     def _fail_all(self, msg: str):
+        self._inflight.clear()
+        self._pending_release = []
         for i, req in enumerate(self._slots):
             if req is not None:
                 req.error = msg
-                self._finish_slot(i, req)
+                try:
+                    self._finish_slot(i, req)
+                except RuntimeError:
+                    # a sticky CUDA error refuses the device rows' reset;
+                    # the host side of the slot is already released
+                    self.errors.append(traceback.format_exc())
         pending = [self._pending_head] if self._pending_head else []
         self._pending_head = None
         while True:
@@ -379,6 +472,16 @@ class LLMServer:
         for req in pending:
             req.error = msg
             req.done.set()
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device, copied in stream order without a wait:
+        from pinned memory kept by the next dispatched record until its
+        drain proves the copy retired."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+            self._pending_release.append(t)
+        return t.to(self.device, non_blocking=True)
 
     def _admit(self):
         """Fill free slots from the queue, one ragged prefill each. A
@@ -415,7 +518,9 @@ class LLMServer:
     def _prefill_ragged(self, i: int, req: Request, adm):
         """Whole-prompt prefill in place on the page pool: the prompt is
         padded to a power-of-two bucket (at least one page); token j
-        lands in its own page and slot, padding in trash page 0."""
+        lands in its own page and slot, padding in trash page 0. Then
+        row i of the device tables and ``_last`` take the request, in
+        stream order behind any step still in flight."""
         page = self._page
         prompt = req.prompt_ids
         T = len(prompt)
@@ -430,63 +535,111 @@ class LLMServer:
             phys = np.where(pos < T, bt_row[np.minimum(
                 pos // page, self._pages_cap - 1)], 0).astype(np.int32)
             slots = (pos % page).astype(np.int32)
-            dev = self.device
-            self._k_pages, self._v_pages, last = paged_prefill_ragged(
+            bt_d = self._upload(bt_row)
+            kp, vp, last = paged_prefill_ragged(
                 self.model.params, self.cfg, self._k_pages, self._v_pages,
-                torch.from_numpy(toks).to(dev), T, 0,
-                torch.from_numpy(bt_row).to(dev),
-                torch.from_numpy(phys).to(dev),
-                torch.from_numpy(slots).to(dev), 0, 0, page=page)
+                self._upload(toks), T, 0, bt_d, self._upload(phys),
+                self._upload(slots), 0, 0, page=page)
+            if kp is not self._k_pages or vp is not self._v_pages:
+                raise RuntimeError("prefill must write the pools in place")
         except BaseException:
             self._kv.free_owned(own)     # physical pages must not leak
             raise
         self._last[i] = last
-        self._bt[i, :] = 0
-        self._bt[i, :len(own)] = own
+        self._bt_dev[i] = bt_d
+        self._lens_dev[i] = T
+        self._bt[i, :] = bt_row
         self._lens[i] = T
         self._slot_pages[i] = own
         self._slots[i] = req
         self._remaining[i] = req.max_new_tokens
 
-    def _step_paged(self) -> bool:
-        """One decode step for every slot with budget left; False when
-        there is nothing to decode."""
-        disp = [i for i, r in enumerate(self._slots)
+    def _dispatchable(self) -> List[int]:
+        """Slots that get a row in the next step: a live request with
+        dispatches left. Capping dispatches at ``max_new_tokens`` keeps
+        the steps dispatched past a data-dependent EOS inside the
+        admission budget, and a slot whose last step is in flight sits
+        out."""
+        return [i for i, r in enumerate(self._slots)
                 if r is not None and self._remaining[i] > 0]
+
+    def _step_paged(self) -> bool:
+        """Dispatch one decode step for every dispatchable slot, or drain
+        the oldest step in flight when there is none; False when there is
+        nothing to do."""
+        disp = self._dispatchable()
         if not disp:
+            if self._inflight:
+                self._drain_next()
+                return True
             return False
+        t_step = time.perf_counter()
         page = self._page
-        # the page for position lens[i] must exist before the step
+        # the page for position lens[i] must exist before the step; the
+        # grant is one scatter into the device table, not an upload of it
         need = sum(1 for i in disp if int(self._lens[i]) % page == 0)
         if need:
             self._kv.ensure_free(need)
+        grants = []
         for i in disp:
             pos = int(self._lens[i])
             if pos % page == 0:
                 pid = self._kv.take_free()     # guaranteed by the budget
                 self._bt[i, pos // page] = pid
                 self._slot_pages[i].append(pid)
+                grants.append((i * self._pages_cap + pos // page, pid))
+        if grants:
+            at, pid = self._upload(np.ascontiguousarray(
+                np.asarray(grants, np.int64).T))
+            self._bt_dev.view(-1).index_copy_(0, at, pid.to(torch.int32))
         mask = np.zeros(self.max_batch, bool)
         mask[disp] = True
-        dev = self.device
-        toks, logits, self._k_pages, self._v_pages, _ = \
-            paged_decode_step_sampled(
-                self.model.params, self.cfg, self._k_pages, self._v_pages,
-                torch.from_numpy(self._bt).to(dev),
-                torch.from_numpy(self._lens).to(dev), self._last,
-                torch.from_numpy(mask).to(dev), self._temp, self._gen,
-                page=page, do_sample=self._do_sample, top_k=self.top_k)
-        self._last = logits
-        # the fetch of the sampled ids is the step's barrier: it waits for
-        # the step and every pool write enqueued before it
-        vals = toks.cpu().numpy()
-        self.steps += 1
+        if not np.array_equal(mask, self._active):
+            self._active_dev.copy_(self._upload(mask))
+            self._active = mask
+        self._step()
+        out = self._toks_host[self.steps % self.pipeline_depth]
+        out.copy_(self._toks_dev, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
         for i in disp:
             self._lens[i] += 1
             self._remaining[i] -= 1
-        for i in disp:
-            self._apply_token(i, self._slots[i], int(vals[i]))
+        rec = {"out": out, "event": event,
+               "pairs": [(i, self._slots[i]) for i in disp],
+               "pinned": self._pending_release}
+        self._pending_release = []
+        return self._after_dispatch(rec, t_step)
+
+    def _after_dispatch(self, rec: dict, t0: float) -> bool:
+        """Account the dispatch's host time, push the record onto the
+        in-flight window and drain down to the depth (depth 1 drains at
+        once: the synchronous engine)."""
+        rec["host_s"] = time.perf_counter() - t0
+        self.host_seconds += rec["host_s"]
+        self.steps += 1
+        self._inflight.append(rec)
+        while len(self._inflight) >= self.pipeline_depth:
+            self._drain_next()
         return True
+
+    def _drain_next(self):
+        """Retire the oldest step in flight: wait for its event (the step
+        and every write enqueued before it have retired), read its ids,
+        then apply them one step behind dispatch. A slot whose request
+        finished meanwhile discards its token."""
+        rec = self._inflight.popleft()
+        t0 = time.perf_counter()
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        vals = rec["out"].tolist()
+        self.stall_seconds += time.perf_counter() - t0
+        rec["pinned"] = None
+        for i, req in rec["pairs"]:
+            if self._slots[i] is req:
+                self._apply_token(i, req, vals[i])
 
     def _apply_token(self, i: int, req: Request, tok: int):
         req.tokens.append(tok)
@@ -505,6 +658,10 @@ class LLMServer:
         self._slot_pages[i] = []
         self._slot_adm[i] = None
         # orphaned rows must point at trash: a stale id could alias a
-        # reissued page and the inactive row's dummy write clobber it
+        # reissued page and the inactive row's dummy write clobber it.
+        # The device row is reset behind the steps in flight, which still
+        # read the old one (their writes land before any reissue's).
         self._bt[i, :] = 0
         self._lens[i] = 0
+        self._bt_dev[i] = 0
+        self._lens_dev[i] = 0

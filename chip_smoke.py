@@ -44,18 +44,29 @@ Phase 3  the served path on the card against the port's plain path on
          Llama-2-7B at full width and depth with synthetic q4_0
          weights made on the card, serve 8 greedy requests (prompts of
          17..300 tokens, 32 new tokens each) through ``LLMServer``
-         (max_batch 8, max_seq_len 512, page 16), check every request got
-         32 in-vocab tokens, that the launch counters (zeroed just before)
-         are exactly what the path must launch (each prompt's prefill on
-         the q4_0 route of its bucket, its attention on the tensor cores),
-         and that one request served again alone on a fresh server gives
-         the same tokens. Prints TTFT, decode tok/s and peak device memory.
-         Then that request on a server with an f32 KV cache (the CUDA-core
-         ragged kernel), with exact launch counts. The card-vs-CPU check
-         runs at GLM-4-9B width too (2 layers, g = 16).
+         (max_batch 8, max_seq_len 512, page 16) at the default
+         ``pipeline_depth`` 2, every measured decode step a replay of the
+         server's captured CUDA graph; check every request got 32
+         in-vocab tokens, that the launch counters (zeroed just before;
+         a replay adds what its capture launched) are exactly what the
+         path must launch (each prompt's prefill on the q4_0 route of its
+         bucket, its attention on the tensor cores), that the same
+         requests served at ``pipeline_depth=1`` give the same tokens
+         with exact counts, and that one request served again alone on a
+         fresh server gives the same tokens. Prints TTFT, decode tok/s,
+         the host's dispatch and drain-wait time a step, the graph's
+         capture seconds and pool bytes, and peak device memory at both
+         depths. Then that request on a server with an f32 KV cache (the
+         CUDA-core ragged kernel), with exact launch counts. The
+         card-vs-CPU check runs at GLM-4-9B width too (2 layers, g = 16).
 Phase 4  trace one 7B batch-8 decode step with ``torch.profiler``:
          step wall time, device busy time and idle share, kernel
-         launches per step, the kernels that take the time.
+         launches and the host's launch calls per step, the kernels that
+         take the time; first the eager step, then the engine's step as
+         one captured CUDA graph, held bit for bit against the eager step
+         over 4 steps (tokens, logits, lengths, pools) and traced alike.
+         A ``host`` line then sets eager step, graphed step, depth 1 and
+         depth 2 side by side.
 Phase 5  BERT-base (full width, 12 layers, random weights from a seed)
          through nano's ``InferenceOptimizer``: ``trace`` (float, the
          yardstick), ``quantize`` to int8 / asym_int4 / sym_int4 and
@@ -77,7 +88,9 @@ Phase 6  bigdl-llm's ``generate()`` on Mistral-7B q4_0 (full width, 32
          in-vocab tokens, prefill s, decode tok/s, peak memory. On (b)'s
          prefill pools, kernel 6 on every layer against stats + merge of
          the last token and against its plain version.
-         Then one decode step of (a) traced as in phase 4.
+         ``generate``'s paged loop runs its step as one CUDA graph
+         (``PagedDecodeLoop``) from the second token on. Then one decode
+         step of (a) traced as in phase 4, eager and as the loop's graph.
 Phase 7  a 2-layer full-width Mistral safetensors checkpoint (bf16, ~1.4
          GB, written here) loaded by ``from_pretrained(dir,
          load_in_4bit=True)`` on the card and on the CPU: prefill logits
@@ -90,8 +103,9 @@ Phase 8  GLM-4-9B q4_0 (full width, 40 layers, 32 query heads on 2 KV
          100..1000 tokens, 16 new each (max_batch 4, page 16): exact
          launch counts (the prefill attention on the tensor cores), in-vocab
          tokens, one request alone on a fresh server equal to its batched
-         tokens, TTFT and decode tok/s. One paged decode step of the
-         ``generate`` batch traced as in phase 4.
+         tokens, TTFT and decode tok/s, at depth 2 and at depth 1 (the
+         same tokens). One paged decode step of the ``generate`` batch
+         traced as in phase 4, eager and as the loop's graph.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the run
@@ -741,6 +755,75 @@ def _serve_expect(model, prompts, steps):
     return buckets, expect
 
 
+def _serve_run(torch, model, prompts, new, what, **kw):
+    """Serve ``prompts`` (``new`` greedy tokens each, all submitted at
+    once) on a fresh ``LLMServer(model, **kw)`` after a 2-token warm-up
+    request, which runs the first decode step eagerly and captures the
+    second as the server's CUDA graph (outside the measured window, as
+    are the CUDA context, kernel loads and cuBLAS handles). Checks: no
+    engine error, every measured step a graph replay, in-vocab tokens of
+    the asked count, and launch counts (zeroed just before) exactly what
+    the path must launch. Returns ``(row, outputs)``: TTFT, decode tok/s
+    and step ms over the window where every request decodes, the host's
+    dispatch and drain-wait time a step, the graph's capture seconds and
+    pool bytes, and peak memory."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.serving import LLMServer
+
+    cfg = model.config
+    srv = LLMServer(model, **kw).start()
+    try:
+        srv.submit(prompts[0][:20], max_new_tokens=2).get(timeout=600)
+        check(not srv.errors, f"{what}: engine errors: {srv.errors}")
+        graph = srv._step
+        check(graph.graph is not None, f"{what}: the step was not captured")
+        steps0, replays0 = srv.steps, graph.replays
+        host0, stall0 = srv.host_seconds, srv.stall_seconds
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t_start = time.perf_counter()
+        reqs = [srv.submit(p, max_new_tokens=new) for p in prompts]
+        outs = [r.get(timeout=900) for r in reqs]
+        t_end = time.perf_counter()
+        counts = kernels.launch_counts()
+        steps = srv.steps - steps0
+        replays = graph.replays - replays0
+        host_s, stall_s = srv.host_seconds - host0, srv.stall_seconds - stall0
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+    finally:
+        srv.stop()
+    check(not srv.errors, f"{what}: engine errors: {srv.errors}")
+    check(graph.graph is None, f"{what}: stop() left the graph alive")
+    check(replays == steps, f"{what}: {replays} replays for {steps} steps")
+    for i, toks in enumerate(outs):
+        check(len(toks) == new and all(0 <= t < cfg.vocab_size
+                                       for t in toks),
+              f"{what} request {i}: tokens {toks}")
+    buckets, expect = _serve_expect(model, prompts, steps)
+    check(all(counts[k] > 0 for k, v in expect.items() if v),
+          f"{what}: a kernel of the served path never ran: {counts}")
+    check(counts == expect, f"{what}: launch counts {counts} != expected "
+          f"{expect}")
+    ttft = [r.t_first_token - r.t_submit for r in reqs]
+    decode_s = t_end - max(r.t_first_token for r in reqs)
+    return {"pipeline_depth": srv.pipeline_depth, "requests": len(prompts),
+            "prompt_lens": [len(p) for p in prompts],
+            "prefill_buckets": buckets, "max_new_tokens": new,
+            "decode_steps": steps, "graph_replays": replays,
+            "launches": counts,
+            "ttft_ms_mean": statistics.mean(ttft) * 1e3,
+            "ttft_ms_max": max(ttft) * 1e3, "wall_s": t_end - t_start,
+            "decode_tok_per_s": sum(len(o) - 1 for o in outs) / decode_s,
+            "decode_step_ms": decode_s / max(steps - 1, 1) * 1e3,
+            "host_dispatch_ms_per_step": host_s / steps * 1e3,
+            "drain_wait_ms_per_step": stall_s / steps * 1e3,
+            "graph_capture_s": graph.capture_seconds,
+            "graph_pool_mb": graph.pool_bytes / 2**20,
+            "peak_mem_gb": peak / 1e9, "peak_reserved_gb": reserved / 1e9,
+            "tokens_first_request": outs[0]}, outs
+
+
 def serve_7b(torch, dev):
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.models.llama import LlamaConfig, LlamaForCausalLM
@@ -758,36 +841,12 @@ def serve_7b(torch, dev):
                .numpy() for n in plens]
     kw = dict(max_batch=8, max_seq_len=512, page_size=16)
 
-    srv = LLMServer(model, **kw).start()
-    try:
-        # warm-up outside the measured window: CUDA context, kernel
-        # loads and cuBLAS handles are first touched here
-        srv.submit(prompts[0], max_new_tokens=2).get(timeout=600)
-        check(not srv.errors, f"engine errors: {srv.errors}")
-        steps0 = srv.steps
-        kernels.reset_launch_counts()
-        t_start = time.perf_counter()
-        reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
-        outs = [r.get(timeout=900) for r in reqs]
-        t_end = time.perf_counter()
-        counts = kernels.launch_counts()
-        steps = srv.steps - steps0
-    finally:
-        srv.stop()
-    check(not srv.errors, f"engine errors: {srv.errors}")
-    for i, toks in enumerate(outs):
-        check(len(toks) == 32, f"request {i}: {len(toks)} tokens")
-        check(all(0 <= t < cfg.vocab_size for t in toks),
-              f"request {i}: token out of vocab")
-    buckets, expect = _serve_expect(model, prompts, steps)
-    check(all(counts[k] > 0 for k, v in expect.items() if v),
-          f"a kernel of the served path never ran: {counts}")
-    check(counts == expect, f"launch counts {counts} != expected {expect}")
-    ttft = [r.t_first_token - r.t_submit for r in reqs]
-    decode_s = t_end - max(r.t_first_token for r in reqs)
-    decode_tokens = sum(len(o) - 1 for o in outs)
-    peak = torch.cuda.max_memory_allocated()
-    del srv
+    # the default depth (2), then the synchronous engine on the same graph
+    row, outs = _serve_run(torch, model, prompts, 32, "7B depth 2", **kw)
+    check(row["pipeline_depth"] == 2, "the default depth is not 2")
+    row1, outs1 = _serve_run(torch, model, prompts, 32, "7B depth 1",
+                             pipeline_depth=1, **kw)
+    check(outs1 == outs, "7B tokens at depth 1 differ from depth 2")
 
     # one request again, alone, on a fresh server: the same tokens
     alone_i = 3
@@ -826,17 +885,9 @@ def serve_7b(torch, dev):
     del srv3, f32_model
     return {
         "phase": "serve", "model": "Llama-2-7B q4_0 (synthetic weights, "
-        "32 layers, full width)", "requests": len(prompts),
-        "prompt_lens": plens, "prefill_buckets": buckets,
-        "max_new_tokens": 32, "decode_steps": steps,
-        "launches": counts, "weights_build_s": build_s,
-        "ttft_ms_mean": statistics.mean(ttft) * 1e3,
-        "ttft_ms_max": max(ttft) * 1e3,
-        "wall_s": t_end - t_start,
-        "decode_tok_per_s": decode_tokens / decode_s,
-        "decode_step_ms": decode_s / max(steps - 1, 1) * 1e3,
-        "peak_mem_gb": peak / 1e9, "alone_equals_batched": True,
-        "tokens_first_request": outs[0],
+        "32 layers, full width)", **row, "weights_build_s": build_s,
+        "alone_equals_batched": True, "depth1": row1,
+        "depth1_tokens_equal": True,
         "f32_cache": {"request": alone_i, "launches": counts32,
                       "decode_steps": steps32, "tokens": toks32,
                       "leading_tokens_equal_to_bf16_cache": next(
@@ -913,11 +964,20 @@ def reference_check(torch, dev, preset="llama2_7b"):
             "max_rel_err_logits": errs, "tol": tol, "passed": True}
 
 
+# the host's calls that put work on the card's queue: one per kernel when
+# eager, one cudaGraphLaunch per replayed step
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
 def profile(torch, step, what, steps=3):
     """Where one ``step()`` call's time goes: its host-clock wall time
     (median of 5; ``step`` ends in a fetch to the host), then a
     ``torch.profiler`` trace of ``steps`` calls (CUDA kernel intervals:
-    device busy time, kernel launches, time by kernel)."""
+    device busy time, kernel launches, time by kernel; and the host's
+    launch calls, which a graph replay folds into one)."""
+    from collections import Counter
     from torch.profiler import ProfilerActivity, profile as trace
 
     with torch.inference_mode():
@@ -942,19 +1002,44 @@ def profile(torch, step, what, steps=3):
     busy = sum(t for t, _ in by_name.values()) / steps
     wall = statistics.median(walls)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    host = Counter(e.name for e in prof.events()
+                   if e.device_type != cuda_t and e.name in HOST_LAUNCH_CALLS)
     return {"phase": "profile", "what": what, "step_wall_ms": wall,
+            "step_walls_ms": walls,
             "device_busy_ms": busy if kern else None,
             "device_idle_share": (1 - busy / wall) if kern else None,
             "kernel_launches_per_step": len(kern) / steps,
+            "host_launch_calls_per_step": sum(host.values()) / steps,
+            "host_launch_calls_by_name": {n: c / steps
+                                          for n, c in host.items()},
             "top_kernels_ms_per_step": {n: [t / steps, c / steps]
                                         for n, (t, c) in top}}
+
+
+def profile_graphed(torch, captured, fetch, what):
+    """:func:`profile` of a ``CapturedStep`` (each call followed by the
+    fetch of its tokens): its first warm-up call runs eagerly, the second
+    captures, every timed and traced call is a replay. Adds the capture's
+    seconds, the graph pool's bytes and the kernels one replay launches
+    by counter."""
+    row = profile(torch, lambda: (captured(), fetch()), what)
+    check(captured.graph is not None and captured.replays >= 8,
+          f"{what}: the step did not run as a captured graph")
+    row.update(graph_capture_s=captured.capture_seconds,
+               graph_pool_mb=captured.pool_bytes / 2**20,
+               counted_launches_per_replay=dict(captured.launches))
+    return row
 
 
 def profile_decode(torch, model):
     """A 7B batch-8 decode step: the engine's own step function
     (``paged_decode_step_sampled``) on a mid-decode state, to the token
-    fetch."""
-    from bigdl_tpu_torch.llm.serving import paged_decode_step_sampled
+    fetch; then the same step as the engine runs it, one captured CUDA
+    graph (``bind_decode_step``), held bit for bit against the eager
+    step and profiled beside it."""
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.serving import (bind_decode_step,
+                                             paged_decode_step_sampled)
 
     cfg, dev = model.config, model.device
     B, page, cap = 8, 16, 32
@@ -974,7 +1059,40 @@ def profile_decode(torch, model):
                                          last, active, page=page)[0]
         return toks.cpu()
 
-    return profile(torch, step, "7B decode step, batch 8, lens 33..316")
+    row = profile(torch, step, "7B decode step, batch 8, lens 33..316")
+
+    # the engine's step as one CUDA graph, over copies of the same buffers:
+    # bit for bit against the eager step for 4 steps (warm-up, capture,
+    # replays), then profiled the same way
+    toks = torch.zeros(B, dtype=torch.int32, device=dev)
+    st = {"kp": kp, "vp": vp, "bt": bt, "lens": lens, "last": last,
+          "active": active, "toks": toks}
+    g = {k: v.clone() for k, v in st.items()}
+    e = {k: v.clone() for k, v in st.items()}
+    del st, kp, vp
+    captured = CapturedStep(bind_decode_step(
+        model.params, cfg, *(g[k] for k in (
+            "kp", "vp", "bt", "lens", "last", "active", "toks")),
+        page=page), dev)
+    with torch.inference_mode():
+        for i in range(4):
+            captured()
+            t, lg, _, _, ln = paged_decode_step_sampled(
+                model.params, cfg, e["kp"], e["vp"], e["bt"], e["lens"],
+                e["last"], e["active"], page=page)
+            e["last"], e["lens"] = lg, ln
+            check(torch.equal(t, g["toks"]) and torch.equal(lg, g["last"])
+                  and torch.equal(ln, g["lens"]),
+                  f"graphed 7B step {i} differs from the eager step")
+        check(torch.equal(e["kp"], g["kp"]) and torch.equal(e["vp"], g["vp"]),
+              "graphed 7B steps wrote other pools than the eager steps")
+    del e
+    row["graph"] = profile_graphed(
+        torch, captured, lambda: g["toks"].cpu(),
+        "7B decode step as one CUDA graph, batch 8, lens 33..")
+    row["graph_bit_equal_to_eager_steps"] = 4
+    captured.close()
+    return row
 
 
 # -- phase 6: generate() on Mistral-7B ----------------------------------------
@@ -1045,6 +1163,20 @@ def _generate_run(torch, model, ids, n, what):
             "decode_step_ms": (wall - prefill_s) / n * 1e3,
             "peak_mem_gb": peak / 1e9,
             "tokens_row0": new[0].tolist()}, out
+
+
+def _loop_profile(torch, model, kp, vp, bt, pos, last, what):
+    """:func:`profile_graphed` of ``generate``'s paged token step
+    (``PagedDecodeLoop``, greedy) over copies of a prefilled pool, from
+    position ``pos`` and logits ``last``."""
+    from bigdl_tpu_torch.llm.models.llama import PagedDecodeLoop
+    kp2, vp2 = kp.clone(), vp.clone()
+    loop = PagedDecodeLoop(model.params, model.config, kp2, vp2, bt, pos,
+                           last, None, 1.0, page=model.page_size)
+    with torch.no_grad():
+        row = profile_graphed(torch, loop.step, lambda: loop.tok.cpu(), what)
+    loop.close()
+    return row
 
 
 def generate_phase(torch, dev):
@@ -1119,7 +1251,14 @@ def generate_phase(torch, dev):
         model.params, cfg, kp, vp, bt, lens, tok0, page=page)[0]
         .argmax(-1).cpu(), f"Mistral-7B decode step (paged), batch {B}, "
         f"context {T}")
-    del kp, vp, bt
+    with torch.no_grad():
+        lg0 = paged_decode_step(model.params, cfg, kp, vp, bt, lens, tok0,
+                                page=page)[0]
+    prof["graph"] = _loop_profile(
+        torch, model, kp, vp, bt, T, lg0,
+        f"Mistral-7B generate's decode step as one CUDA graph, batch {B}, "
+        f"context {T}..")
+    del kp, vp, bt, lg0
 
     # (b): a long prompt, and kernel 6 on its prefill pools
     B, T, n, cache_len = GEN_B
@@ -1339,6 +1478,10 @@ def glm_phase(torch, dev):
         model.params, cfg, kp, vp, bt, lens, tok0, page=page)[0]
         .argmax(-1).cpu(), f"GLM-4-9B decode step (paged), batch {B}, "
         f"context {T}")
+    prof["graph"] = _loop_profile(
+        torch, model, kp, vp, bt, T, lg_paged,
+        f"GLM-4-9B generate's decode step as one CUDA graph, batch {B}, "
+        f"context {T}..")
     del logits, cache, kp, vp, bt, lg_paged, lg_dense
     runs = {}
     runs["paged"], out_p = _generate_run(torch, model, ids, n,
@@ -1354,38 +1497,21 @@ def glm_phase(torch, dev):
                              for r in range(B)])
     torch.cuda.empty_cache()
 
-    # LLMServer: 4 requests at once, then one of them alone
+    # LLMServer: 4 requests at once at depth 2 and at depth 1, then one
+    # of them alone
     plens, new = GLM_SERVE
     prompts = [torch.randint(0, cfg.vocab_size, (k,), generator=hgen)
                .numpy() for k in plens]
     kw = dict(max_batch=4, max_seq_len=max(plens) + new + page,
               page_size=page)
-    srv = LLMServer(model, **kw).start()
-    try:
-        srv.submit(prompts[0][:20], max_new_tokens=2).get(timeout=600)
-        check(not srv.errors, f"GLM engine errors: {srv.errors}")
-        steps0 = srv.steps
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        t_start = time.perf_counter()
-        reqs = [srv.submit(p, max_new_tokens=new) for p in prompts]
-        outs = [r.get(timeout=900) for r in reqs]
-        t_end = time.perf_counter()
-        counts = kernels.launch_counts()
-        steps = srv.steps - steps0
-        peak = torch.cuda.max_memory_allocated()
-    finally:
-        srv.stop()
-    check(not srv.errors, f"GLM engine errors: {srv.errors}")
-    for i, toks in enumerate(outs):
-        check(len(toks) == new and all(0 <= t < cfg.vocab_size
-                                       for t in toks),
-              f"GLM request {i}: tokens {toks}")
-    buckets, expect = _serve_expect(model, prompts, steps)
-    check(expect["ragged_prefill_attention_tc"] == len(prompts) * L,
+    serve, outs = _serve_run(torch, model, prompts, new, "GLM depth 2", **kw)
+    check(serve["launches"]["ragged_prefill_attention_tc"]
+          == len(prompts) * L,
           "GLM prefill attention is not on the tensor-core route")
-    check(counts == expect, f"GLM served launch counts {counts} != "
-          f"{expect}")
+    serve["depth1"], outs1 = _serve_run(torch, model, prompts, new,
+                                        "GLM depth 1", pipeline_depth=1,
+                                        **kw)
+    check(outs1 == outs, "GLM tokens at depth 1 differ from depth 2")
     alone_i = 1
     srv2 = LLMServer(model, **kw).start()
     try:
@@ -1395,18 +1521,8 @@ def glm_phase(torch, dev):
         srv2.stop()
     check(alone == outs[alone_i], f"GLM request {alone_i} alone {alone} != "
           f"batched {outs[alone_i]}")
-    ttft = [r.t_first_token - r.t_submit for r in reqs]
-    decode_s = t_end - max(r.t_first_token for r in reqs)
-    serve = {"requests": len(prompts), "prompt_lens": list(plens),
-             "prefill_buckets": buckets, "max_new_tokens": new,
-             "decode_steps": steps, "launches": counts,
-             "ttft_ms_mean": statistics.mean(ttft) * 1e3,
-             "ttft_ms_max": max(ttft) * 1e3, "wall_s": t_end - t_start,
-             "decode_tok_per_s": sum(len(o) - 1 for o in outs) / decode_s,
-             "decode_step_ms": decode_s / max(steps - 1, 1) * 1e3,
-             "peak_mem_gb": peak / 1e9, "alone_equals_batched": True,
-             "tokens_first_request": outs[0]}
-    del model, srv, srv2
+    serve.update(alone_equals_batched=True, depth1_tokens_equal=True)
+    del model, srv2
     return {"phase": "glm", "model": "GLM-4-9B q4_0 (random weights from "
             "seed 0, 40 layers, full width, Hq 32 / Hkv 2; lm_head dense "
             "bf16)", "entry": "AutoModelForCausalLM.from_pretrained("
@@ -1601,6 +1717,7 @@ def main() -> int:
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
+             "serve_7b depth 1": dict(serve["depth1"]["launches"]),
              "serve_7b f32 cache": dict(serve["f32_cache"]["launches"])}
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = dict(row["launches"])
@@ -1611,6 +1728,7 @@ def main() -> int:
     for row in glm["generate"].values():
         paths[f"generate {row['what']}"] = dict(row["launches"])
     paths["serve GLM-4-9B"] = dict(glm["serve"]["launches"])
+    paths["serve GLM-4-9B depth 1"] = dict(glm["serve"]["depth1"]["launches"])
 
     # a two-kernel wrapper's count covers both routes: the CUDA-core
     # kernel's launches are the calls less those on the tensor cores
@@ -1679,7 +1797,34 @@ def main() -> int:
             "library_ms": c["library_ms"],
             "passed": all(x["passed"] for x in cases
                           if x["kernel"] == name)})
+    # what the graph gives (eager step against the graphed step, profiled)
+    # and what the depth gives (served at depth 1 against depth 2); the 7B
+    # served step's idle share against the profiled graphed step's device
+    # time (the same step: batch 8, 32 layers)
+    host_out = {}
+    for name, prof_row, runs in (
+            ("7B served", prof, {"depth1": serve["depth1"], "depth2": serve}),
+            ("GLM-4-9B served", glm_prof,
+             {"depth1": glm["serve"]["depth1"], "depth2": glm["serve"]}),
+            ("Mistral-7B generate (a)", gen_prof,
+             {"generate": gen_row["runs"]["a"]}),
+            ("GLM-4-9B generate", glm_prof,
+             {"generate": glm["generate"]["paged"]})):
+        host_out[name] = {
+            "profiled": prof_row["what"],
+            "eager_step_wall_ms": prof_row["step_wall_ms"],
+            "graphed_step_wall_ms": prof_row["graph"]["step_wall_ms"],
+            "graphed_step_busy_ms": prof_row["graph"]["device_busy_ms"],
+            **{f"{run}_{k}": r[k] for run, r in runs.items()
+               for k in ("decode_step_ms", "decode_tok_per_s",
+                         "ttft_ms_mean") if k in r}}
+    busy = prof["graph"]["device_busy_ms"]
+    for d, r in (("depth1", serve["depth1"]), ("depth2", serve)):
+        host_out["7B served"][f"{d}_idle_share_vs_profiled_busy"] = (
+            1 - busy / r["decode_step_ms"] if busy else None)
+    emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
+              "host": host_out,
               "reference": ref, "reference_glm": ref_glm, "glm": glm,
               "glm_profile": glm_prof,
               "serve": serve, "profile": prof, "bert": bert,

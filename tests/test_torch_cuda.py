@@ -7,6 +7,9 @@ has only PyTorch (the tests' conftest imports JAX, hence
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Each kernel is built from ``bigdl_tpu_torch/csrc`` at its first launch.
+The last tests run the served decode step and ``generate``'s paged step
+as captured CUDA graphs (``llm/graphs.py``): bit for bit against the
+eager step, with exact launch counts, at pipeline depths 1 and 2.
 The CPU parity of the plain versions against the JAX package lives in
 ``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``,
 and of ``generate`` in ``tests/test_torch_generate.py``.
@@ -803,3 +806,109 @@ def test_tiny_gqa16_served_alone_equals_batched(cuda):
     assert counts["paged_attention_decode_stats"] > 0
     assert all(len(t) == 12 and max(t) < 256 for t in batched)
     assert serve(prompts[1:2]) == batched[1:2]
+
+
+def _tiny_card_model(cuda):
+    from bigdl_tpu_torch.llm.models.llama import (LlamaConfig,
+                                                  LlamaForCausalLM)
+    return LlamaForCausalLM.synthetic_q4(LlamaConfig.tiny(), device=cuda,
+                                         seed=6)
+
+
+def test_captured_served_step_equals_eager(cuda):
+    """The served decode step as one CUDA graph against the eager
+    ``paged_decode_step_sampled`` on copies of the same buffers: tokens,
+    logits, lengths and pools bit for bit over 6 steps (the first eager,
+    the rest replays; lengths 13 and 15 cross a page, one row inactive).
+    The counters read 6 steps' launches: the warm-up's from Python, each
+    replay's as the capture's delta."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.serving import (bind_decode_step,
+                                             paged_decode_step_sampled)
+    model = _tiny_card_model(cuda)
+    cfg, B, cap = model.config, 4, 4
+    g = torch.Generator(device=cuda).manual_seed(7)
+    shape = (cfg.num_hidden_layers, 1 + B * cap, cfg.num_key_value_heads,
+             PAGE, cfg.head_dim)
+    st = {"kp": torch.randn(shape, generator=g, device=cuda).bfloat16(),
+          "vp": torch.randn(shape, generator=g, device=cuda).bfloat16(),
+          "bt": (1 + torch.arange(B * cap, device=cuda)).reshape(
+              B, cap).int(),
+          "lens": torch.tensor([13, 15, 30, 0], dtype=torch.int32,
+                               device=cuda),
+          "last": torch.randn((B, cfg.vocab_size), generator=g,
+                              device=cuda),
+          "active": torch.tensor([True, True, True, False], device=cuda),
+          "toks": torch.zeros(B, dtype=torch.int32, device=cuda)}
+    eager = {k: v.clone() for k, v in st.items()}
+    step = CapturedStep(bind_decode_step(
+        model.params, cfg, *(st[k] for k in (
+            "kp", "vp", "bt", "lens", "last", "active", "toks")),
+        page=PAGE), cuda)
+    n, seen = 6, []
+    kernels.reset_launch_counts()
+    for _ in range(n):
+        step()
+        seen.append({k: st[k].clone() for k in ("toks", "last", "lens")})
+    counts = kernels.launch_counts()
+    assert step.graph is not None and step.replays == n - 1
+    assert step.launches["paged_attention_decode_stats"] == \
+        cfg.num_hidden_layers
+    assert {k: v for k, v in counts.items() if v} == {
+        k: n * v for k, v in step.launches.items()}
+    e = eager
+    for want in seen:
+        toks, logits, _, _, lens = paged_decode_step_sampled(
+            model.params, cfg, e["kp"], e["vp"], e["bt"], e["lens"],
+            e["last"], e["active"], page=PAGE)
+        e["last"], e["lens"] = logits, lens
+        assert torch.equal(toks, want["toks"])
+        assert torch.equal(logits, want["last"])
+        assert torch.equal(lens, want["lens"])
+    assert torch.equal(e["kp"], st["kp"]) and torch.equal(e["vp"], st["vp"])
+
+
+def _serve_tiny(model, prompts, n, **kw):
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    srv = LLMServer(model, max_batch=2, max_seq_len=64, page_size=PAGE,
+                    device=model.device, **kw).start()
+    try:
+        return [r.get(timeout=600) for r in
+                [srv.submit(p, max_new_tokens=n) for p in prompts]], srv
+    finally:
+        srv.stop()
+
+
+def test_served_depths_equal_generate(cuda):
+    """Greedy tokens served through the graphed step at depth 2 equal
+    depth 1 and each request's own ``generate`` (tiny, bf16), and the
+    graph is freed with its server."""
+    model = _tiny_card_model(cuda)
+    gen = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(0, 256, (k,), generator=gen).numpy()
+               for k in (5, 17, 9, 30)]
+    want = [model.generate(p[None], max_new_tokens=10)[0, len(p):].tolist()
+            for p in prompts]
+    d2, srv = _serve_tiny(model, prompts, 10)
+    assert srv.pipeline_depth == 2 and srv._step.graph is None
+    assert srv._step.capture_seconds > 0 and srv.errors == []
+    d1, _ = _serve_tiny(model, prompts, 10, pipeline_depth=1)
+    assert d2 == d1 == want
+
+
+def test_sampled_graph_draws_new_noise(cuda):
+    """Sampling inside the graph: at a temperature that flattens the
+    logits, a token is the argmax of the noise, so replays that drew the
+    capture's noise again would repeat one token. The same seed gives
+    the same tokens, served and through ``generate``."""
+    model = _tiny_card_model(cuda)
+    prompt = [torch.arange(1, 12).numpy()]
+    runs = [_serve_tiny(model, prompt, 16, temperature=1e4,
+                        sample_seed=3)[0][0] for _ in range(2)]
+    assert runs[0] == runs[1] and len(set(runs[0][2:])) > 4
+    outs = [model.generate(prompt[0][None], max_new_tokens=16,
+                           do_sample=True, temperature=1e4, seed=3)[0, 11:]
+            for _ in range(2)]
+    assert outs[0].tolist() == outs[1].tolist()
+    assert len(set(outs[0][2:].tolist())) > 4

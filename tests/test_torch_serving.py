@@ -1,5 +1,5 @@
 """The port's ``LLMServer`` (paged decode + whole-prompt ragged prefill,
-pipeline depth 1) against the JAX package's engine, plus the port's
+pipelined dispatch) against the JAX package's engine, plus the port's
 rules: greedy outputs are token-identical to the JAX ``LLMServer`` on
 ``LlamaConfig.tiny()`` q4_0 (f32 params and f32 KV, so argmax near-ties
 cannot flip); pages and budget come back when requests finish; the
@@ -124,12 +124,101 @@ class TestEngineParity:
             assert len(toks) == n and all(0 <= t < 256 for t in toks)
 
 
+class TestPipelinedEngine:
+    """The port of ``TestPipelinedEngine``: the dispatch window changes
+    throughput, never tokens; depth 1 is the synchronous engine; steps
+    dispatched past a request's end stay inside its budget."""
+
+    @pytest.mark.parametrize("depth", [1, 2, 4])
+    def test_greedy_parity_across_depths(self, pair, depth):
+        jm, tm = pair
+        prompts, lens = _workload()
+        gen = [tm.generate(p[None], max_new_tokens=n)[0, len(p):].tolist()
+               for p, n in zip(prompts, lens)]
+        kw = dict(max_batch=2, max_seq_len=64, page_size=PAGE,
+                  pipeline_depth=depth)
+        want = _serve(JServer(jm, ragged_prefill=True, **kw), prompts, lens)
+        srv = LLMServer(tm, device="cpu", **kw)
+        got = _serve(srv, prompts, lens)
+        assert got == want == gen and srv.errors == []
+        assert srv.pages_in_use == 0
+        assert srv._budget_avail == srv._num_pages - 1
+        assert sorted(srv._free) == list(range(1, srv._num_pages))
+        assert not srv._inflight and not srv._pending_release
+
+    @pytest.mark.parametrize("depth", [1, 2])
+    def test_device_tables_follow_the_host(self, pair, depth):
+        """Driven inline: after every pass the device tables equal the
+        host's view, and at depth 1 nothing is left in flight."""
+        _, tm = pair
+        prompts, lens = _workload()
+        srv = LLMServer(tm, max_batch=2, max_seq_len=64, page_size=PAGE,
+                        pipeline_depth=depth, device="cpu")
+        reqs = [srv.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, lens)]
+        while not all(r.done.is_set() for r in reqs):
+            srv._admit()
+            srv._step_paged()
+            assert len(srv._inflight) < depth
+            np.testing.assert_array_equal(srv._bt_dev.numpy(), srv._bt)
+            np.testing.assert_array_equal(srv._lens_dev.numpy(), srv._lens)
+
+    def test_small_pool_stays_inside_budget(self, pair):
+        """A pool of 5 pages (2 requests' worst case) under 4 slots at
+        depth 4, with queued waiters: exact greedy output and no page
+        granted past the budget (the free list would raise)."""
+        _, tm = pair
+        prompts = [np.arange(1, 9, dtype=np.int32) for _ in range(6)]
+        want = tm.generate(prompts[0][None], max_new_tokens=8)[0, 8:]
+        srv = LLMServer(tm, max_batch=4, max_seq_len=32, page_size=PAGE,
+                        num_pages=5, pipeline_depth=4, device="cpu")
+        got = _serve(srv, prompts, [8] * 6)
+        assert got == [want.tolist()] * 6 and srv.errors == []
+        assert srv._budget_avail == srv._num_pages - 1
+        assert sorted(srv._free) == list(range(1, srv._num_pages))
+
+    def test_eos_discards_the_token_in_flight(self, pair):
+        _, tm = pair
+        prompts, _ = _workload()
+        base = _serve(LLMServer(tm, max_batch=2, max_seq_len=64,
+                                page_size=PAGE, device="cpu"),
+                      prompts[:1], [8])[0]
+        j = next(i for i in range(1, len(base)) if base[i] not in base[:i])
+        srv = LLMServer(tm, max_batch=2, max_seq_len=64, page_size=PAGE,
+                        eos_token_id=base[j], pipeline_depth=4,
+                        device="cpu")
+        assert _serve(srv, prompts[:1], [8])[0] == base[:j + 1]
+        # steps went on past the EOS until it drained; their tokens were
+        # discarded and their pages came back
+        assert srv.steps == min(8, j + 4)
+        assert srv.pages_in_use == 0 and not srv._inflight
+
+
+def test_capture_adds_no_launches():
+    """What a capture launches is its delta, the capture itself adds
+    nothing, and each replay adds the delta."""
+    from bigdl_tpu_torch.llm import kernels
+    kernels.reset_launch_counts()
+    with kernels.launches_of_capture() as delta:
+        kernels.int4_matmul.launches += 5
+        kernels.int4_matmul.tc_launches += 1
+        kernels.paged_attention_decode_stats.launches += 2
+    assert delta == {"int4_matmul": 5, "int4_matmul_tc": 1,
+                     "paged_attention_decode_stats": 2}
+    assert not any(kernels.launch_counts().values())
+    for _ in range(3):
+        kernels.add_launches(delta)
+    counts = kernels.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        k: 3 * v for k, v in delta.items()}
+
+
 class TestEngineRules:
     @pytest.mark.parametrize("opt", [
         {"kvcache": True}, {"kvtier": True}, {"mixed": True},
         {"spec": True}, {"priority": True}, {"slo": True},
         {"watchdog_timeout": 5.0}, {"paged": False},
-        {"pipeline_depth": 2}, {"ragged_prefill": False}])
+        {"chunk_tokens": 64}, {"ragged_prefill": False}])
     def test_unsupported_options_raise(self, pair, opt):
         _, tm = pair
         with pytest.raises(NotImplementedError, match="ROADMAP"):
