@@ -1,11 +1,11 @@
 // q4_0 dequant-matmul on the tensor cores: y = x @ dequant(q, scale),
 // w = scale * (q - 8), for the prefill shapes (M >= TC_MIN_M rows, set in
-// llm/kernels/int4_matmul.py; smaller M takes csrc/int4_matmul.cu).
+// llm/kernels/int4_matmul.py; smaller M takes csrc/lowbit_gemv.cu).
 //
 // Replaces: bigdl_tpu/llm/kernels/int4_matmul.py, int4_matmul
 //   (_int4_matmul_jit -> pl.pallas_call of _int4_kernel) at large M.
 //
-// Layout: the JAX package's k-major layout, as csrc/int4_matmul.cu:
+// Layout: the JAX package's k-major layout, as csrc/lowbit_gemv.cu:
 // x (M, K) bf16, q (K/2, N) uint8 (low nibble = row 2i, high = row 2i+1),
 // scale (K/32, N) f32, out (M, N) bf16 or f32.
 //

@@ -1,6 +1,6 @@
 // q4_1 and q8_0 dequant-matmuls on the tensor cores, for M >= TC_MIN_M
 // rows and N % 16 == 0 (llm/kernels/int4_matmul.py, matmul_route; the
-// other shapes take csrc/lowbit_matmul.cu):
+// other shapes take csrc/lowbit_gemv.cu):
 //   q4_1: y = x @ (scale * q + zero), q a nibble in [0, 15];
 //   q8_0: y = x @ (scale * q), q an int8 in [-127, 127].
 //

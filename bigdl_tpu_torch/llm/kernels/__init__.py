@@ -11,8 +11,8 @@ from bigdl_tpu_torch.llm.kernels.int4_matmul import (
     TC_MIN_M, TC_SMS, asym_int4_matmul, asym_int4_matmul_grouped,
     asym_int4_matmul_reference, dequant_q4, dequant_q4_1, dequant_q8_0,
     int4_matmul, int4_matmul_grouped, int4_matmul_reference, int8_matmul,
-    int8_matmul_grouped, int8_matmul_reference, matmul_route, quantize_tpu,
-    tc_block_shape, to_tpu_layout)
+    int8_matmul_grouped, int8_matmul_reference, gemv_slices, matmul_route,
+    quantize_tpu, tc_block_shape, to_tpu_layout)
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
     SPLIT_KEYS, merge_attention_partial, paged_attention,
     paged_attention_decode, paged_attention_decode_stats,
@@ -25,9 +25,8 @@ from bigdl_tpu_torch.llm.kernels.sampling import (make_sampled_step,
                                                   sample_tokens)
 
 # csrc/<name>.cu sources, one shared library each
-KERNEL_SOURCES = ("int4_matmul", "int4_matmul_tc", "lowbit_matmul",
-                  "lowbit_matmul_tc", "paged_attention", "ragged_prefill",
-                  "ragged_prefill_tc")
+KERNEL_SOURCES = ("int4_matmul_tc", "lowbit_gemv", "lowbit_matmul_tc",
+                  "paged_attention", "ragged_prefill", "ragged_prefill_tc")
 
 # the wrappers whose ``launches`` count the kernels of the port's paths
 WRAPPERS = {"int4_matmul": int4_matmul,
@@ -53,22 +52,31 @@ def build_kernels():
 # dequant-matmuls, ``ragged_route`` for ragged prefill)
 TC_WRAPPERS = (int4_matmul, asym_int4_matmul, int8_matmul,
                ragged_prefill_attention)
+# the dequant-matmuls, whose ``gemv_launches`` count the launches of the
+# split-K GEMV (``matmul_route`` "gemv")
+GEMV_WRAPPERS = (int4_matmul, asym_int4_matmul, int8_matmul)
+# launch_counts() key suffix -> the counter it reads
+_ROUTE_COUNTERS = {"_tc": ("tc_launches", TC_WRAPPERS),
+                   "_gemv": ("gemv_launches", GEMV_WRAPPERS)}
 
 
 def reset_launch_counts():
     for w in WRAPPERS.values():
         w.launches = 0
-    for w in TC_WRAPPERS:
-        w.tc_launches = 0
+    for attr, ws in _ROUTE_COUNTERS.values():
+        for w in ws:
+            setattr(w, attr, 0)
 
 
 def launch_counts():
-    """Launches per wrapper, and ``<wrapper>_tc`` for each wrapper of
-    ``TC_WRAPPERS``: how many of its launches took the tensor-core
-    route."""
+    """Launches per wrapper, ``<wrapper>_tc`` for each wrapper of
+    ``TC_WRAPPERS`` (how many of its launches took the tensor-core
+    route) and ``<wrapper>_gemv`` for each of ``GEMV_WRAPPERS`` (how many
+    took the GEMV)."""
     counts = {name: w.launches for name, w in WRAPPERS.items()}
-    for w in TC_WRAPPERS:
-        counts[f"{w.__name__}_tc"] = w.tc_launches
+    for suffix, (attr, ws) in _ROUTE_COUNTERS.items():
+        for w in ws:
+            counts[f"{w.__name__}{suffix}"] = getattr(w, attr)
     return counts
 
 
@@ -76,8 +84,11 @@ def _add_counts(delta, sign: int = 1):
     for name, n in delta.items():
         if name in WRAPPERS:
             WRAPPERS[name].launches += sign * n
-        else:                                   # "<wrapper>_tc"
-            WRAPPERS[name.removesuffix("_tc")].tc_launches += sign * n
+            continue
+        suffix = next(s for s in _ROUTE_COUNTERS if name.endswith(s))
+        w = WRAPPERS[name.removesuffix(suffix)]
+        attr = _ROUTE_COUNTERS[suffix][0]
+        setattr(w, attr, getattr(w, attr) + sign * n)
 
 
 @contextlib.contextmanager
@@ -106,10 +117,12 @@ def add_launches(delta):
     _add_counts(delta)
 
 
-__all__ = ["KERNEL_SOURCES", "SPLIT_KEYS", "TC_MIN_M", "TC_SMS",
-           "TC_WRAPPERS", "WRAPPERS", "asym_int4_matmul",
+__all__ = ["GEMV_WRAPPERS", "KERNEL_SOURCES",
+           "SPLIT_KEYS", "TC_MIN_M", "TC_SMS", "TC_WRAPPERS", "WRAPPERS",
+           "asym_int4_matmul",
            "asym_int4_matmul_grouped", "asym_int4_matmul_reference",
-           "add_launches", "build_kernels", "dequant_q4", "dequant_q4_1", "dequant_q8_0",
+           "add_launches", "build_kernels", "dequant_q4", "dequant_q4_1",
+           "dequant_q8_0", "gemv_slices",
            "int4_matmul", "int4_matmul_grouped", "int4_matmul_reference",
            "int8_matmul", "int8_matmul_grouped", "int8_matmul_reference",
            "launch_counts", "launches_of_capture", "matmul_route",

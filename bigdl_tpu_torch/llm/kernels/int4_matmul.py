@@ -13,9 +13,14 @@ Each format has two CUDA kernels, and :func:`matmul_route` picks one
 from the shape alone before the launch: the tensor-core GEMM for
 ``M >= TC_MIN_M`` rows when ``N % 16 == 0`` (``csrc/int4_matmul_tc.cu``
 for q4_0, ``csrc/lowbit_matmul_tc.cu`` for q4_1 and q8_0, one main loop
-in ``csrc/tc_gemm.cuh``), the CUDA-core kernel otherwise
-(``csrc/int4_matmul.cu``, ``csrc/lowbit_matmul.cu``) — decode (M <= 8),
-BERT's pooler and N = 2 classifier, N = 770.
+in ``csrc/tc_gemm.cuh``), the split-K tensor-core GEMV otherwise
+(``csrc/lowbit_gemv.cu``, all three formats) — decode (M <= 8), BERT's
+pooler and N = 2 classifier, N = 770. The GEMV is bound by its weight
+stream: TMA brings each warp 32-row groups of its 128 columns, three in
+flight, whose k-major bytes are the lanes' A fragments as they stand,
+and K is split over :func:`gemv_slices` warps (a thread-block cluster,
+reduced in slice order through distributed shared memory) so that every
+decode shape fills the card.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 takes its plain PyTorch version (``*_reference``: dequantize to f32, f32
@@ -34,12 +39,21 @@ from bigdl_tpu_torch.llm.ggml.quantize import (QK, _check_qtype, quantize,
 from bigdl_tpu_torch.llm.kernels import _build
 
 # the least M that takes the tensor-core kernels. Chosen from H100
-# timings of both q4_0 kernels at the served prefill buckets 16..512
-# (PERF.md)
-TC_MIN_M = 16
+# timings of both routes at M = 1..64 on the decode shapes (PERF.md): the
+# GEMV's time steps with ceil(M / 8), and a 7B layer's four linears are
+# faster on it through M = 32, on the tensor cores from M = 40
+TC_MIN_M = 33
 # the SMs of an H100 SXM: the tensor-core kernel's block shape is chosen
 # so that a small product still makes one full wave (tc_block_shape)
 TC_SMS = 132
+# the GEMV: output columns a warp, warps (K slices) a block, at most 8
+# blocks a cluster along K, and the warps a product should reach (about
+# six an SM: more slices cost more than they hide, timed on the H100,
+# PERF.md)
+GEMV_COLS = 128
+GEMV_WARPS = 4
+GEMV_MAX_SLICES = 8 * GEMV_WARPS
+GEMV_TARGET_WARPS = 768
 
 
 def to_tpu_layout(qdict: Dict) -> Dict:
@@ -130,61 +144,77 @@ def int4_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
     return _plain(x, dequant_q4(q_t, scale_t), out_dtype)
 
 
+def _slice_bounds(groups: int, slices: int):
+    """The groups of each K slice of the GEMV: slice i takes
+    ``[i * G // S, (i + 1) * G // S)`` (some empty when G < S)."""
+    return [(i * groups // slices, (i + 1) * groups // slices)
+            for i in range(slices)]
+
+
 def _grouped(x: torch.Tensor, q: torch.Tensor, scale_t: torch.Tensor,
              zero_t: Optional[torch.Tensor],
-             out_dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """The tensor-core kernels' algebra on (K, N) integer weights ``q``:
-    per 32-row group g the f32 partial ``P_g = x_g @ q_g`` of exact
-    products (and the row sums ``X_g`` of x_g), then ``acc += s_g * P_g``
-    (then ``acc += z_g * X_g``) in group order."""
+             out_dtype: Optional[torch.dtype], slices: int = 1
+             ) -> torch.Tensor:
+    """The CUDA kernels' algebra on (K, N) integer weights ``q``: per
+    32-row group g the f32 partial ``P_g = x_g @ q_g`` of exact products
+    (and the row sums ``X_g`` of x_g), then ``acc += s_g * P_g`` (then
+    ``acc += z_g * X_g``) in group order. With ``slices`` > 1 the groups
+    go in contiguous K slices (:func:`_slice_bounds`), each with its own
+    accumulator from 0, and the slices' sums are added in slice order:
+    the GEMV's order (``csrc/lowbit_gemv.cu``, :func:`gemv_slices`)."""
     m, k = x.shape
     xg = x.to(torch.float32).reshape(m, k // QK, QK).transpose(0, 1)
     part = torch.bmm(xg, _per_group(q))                      # (G, M, N)
     xsum = xg.sum(-1)[..., None]                             # (G, M, 1)
-    acc = torch.zeros((m, q.shape[1]), dtype=torch.float32, device=x.device)
     s = scale_t.to(torch.float32)
     z = None if zero_t is None else zero_t.to(torch.float32)
-    for i in range(k // QK):
-        acc = acc + s[i] * part[i]
-        if z is not None:
-            acc = acc + z[i] * xsum[i]
-    return acc.to(out_dtype if out_dtype is not None else x.dtype)
+    out = torch.zeros((m, q.shape[1]), dtype=torch.float32, device=x.device)
+    for lo, hi in _slice_bounds(k // QK, slices):
+        acc = torch.zeros_like(out)
+        for i in range(lo, hi):
+            acc = acc + s[i] * part[i]
+            if z is not None:
+                acc = acc + z[i] * xsum[i]
+        out = out + acc
+    return out.to(out_dtype if out_dtype is not None else x.dtype)
 
 
 def int4_matmul_grouped(x: torch.Tensor, q_t: torch.Tensor,
                         scale_t: torch.Tensor,
-                        out_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
+                        out_dtype: Optional[torch.dtype] = None,
+                        slices: int = 1) -> torch.Tensor:
     """The CUDA kernels' q4_0 algebra in plain PyTorch: per 32-row group
     g the f32 partial ``P_g = x_g @ (q_g - 8)`` of exact products, then
     ``acc += s_g * P_g`` in group order, cast to ``out_dtype`` (default:
     x's dtype). Equals :func:`int4_matmul_reference` up to f32 summation
-    order; the tests hold it to the JAX package."""
-    return _grouped(x, _unpack_k(q_t) - 8, scale_t, None, out_dtype)
+    order; the tests hold it to the JAX package. ``slices``: the GEMV's
+    split over K (:func:`_grouped`)."""
+    return _grouped(x, _unpack_k(q_t) - 8, scale_t, None, out_dtype,
+                    slices)
 
 
 def asym_int4_matmul_grouped(x: torch.Tensor, q_t: torch.Tensor,
                              scale_t: torch.Tensor, zero_t: torch.Tensor,
-                             out_dtype: Optional[torch.dtype] = None
-                             ) -> torch.Tensor:
-    """The tensor-core kernel's q4_1 algebra: per group the exact f32
+                             out_dtype: Optional[torch.dtype] = None,
+                             slices: int = 1) -> torch.Tensor:
+    """The CUDA kernels' q4_1 algebra: per group the exact f32
     partial ``x_g @ q_g`` (q in 0..15) and the row sums ``X_g``, then
     ``acc += s_g * P_g + z_g * X_g`` in group order (the TPU kernel's
     separate zero-point dot). Tests only; the wrapper's plain version is
     :func:`asym_int4_matmul_reference`."""
-    return _grouped(x, _unpack_k(q_t), scale_t, zero_t, out_dtype)
+    return _grouped(x, _unpack_k(q_t), scale_t, zero_t, out_dtype, slices)
 
 
 def int8_matmul_grouped(x: torch.Tensor, q_t: torch.Tensor,
                         scale_t: torch.Tensor,
-                        out_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
-    """The tensor-core kernel's q8_0 algebra: per group the exact f32
+                        out_dtype: Optional[torch.dtype] = None,
+                        slices: int = 1) -> torch.Tensor:
+    """The CUDA kernels' q8_0 algebra: per group the exact f32
     partial ``x_g @ q_g`` (q int8), then ``acc += s_g * P_g`` in group
     order; a per-channel (stride-0) scale rescales every group alike.
     Tests only; the wrapper's plain version is
     :func:`int8_matmul_reference`."""
-    return _grouped(x, q_t, scale_t, None, out_dtype)
+    return _grouped(x, q_t, scale_t, None, out_dtype, slices)
 
 
 def asym_int4_matmul_reference(x: torch.Tensor, q_t: torch.Tensor,
@@ -268,14 +298,29 @@ def _stream(x: torch.Tensor) -> int:
 
 def matmul_route(m: int, n: int) -> str:
     """Which CUDA kernel a dequant-matmul wrapper launches for an (M, K)
-    x (K, N) product, for all three formats: ``"tc"`` (tensor cores,
-    ``csrc/int4_matmul_tc.cu`` / ``csrc/lowbit_matmul_tc.cu``) when
+    x (K, N) product, for all three formats: ``"tc"`` (the tensor-core
+    GEMM, ``csrc/int4_matmul_tc.cu`` / ``csrc/lowbit_matmul_tc.cu``) when
     ``m >= TC_MIN_M`` and ``n % 16 == 0`` (16-byte rows of q for its TMA
-    loads), else ``"cuda_core"`` (``csrc/int4_matmul.cu`` /
-    ``csrc/lowbit_matmul.cu``). Both keep the exact f32 products of the
-    integer weights and scales; the order of an output's sum depends on
-    K and the route only, never on the other rows."""
-    return "tc" if m >= TC_MIN_M and n % 16 == 0 else "cuda_core"
+    loads), else ``"gemv"`` (``csrc/lowbit_gemv.cu``). Both keep the
+    exact f32 products of the integer weights and scales; the order of
+    an output's sum depends on K, N and the route only, never on the
+    other rows."""
+    return "tc" if m >= TC_MIN_M and n % 16 == 0 else "gemv"
+
+
+def gemv_slices(k: int, n: int) -> int:
+    """The GEMV's number of K slices (one warp each, ``GEMV_WARPS`` to a
+    block, a cluster of ``slices / GEMV_WARPS`` blocks) for a (K, N)
+    weight, whatever M: the least power of two from ``GEMV_WARPS`` that
+    makes ``GEMV_TARGET_WARPS`` warps over the ``GEMV_COLS``-column
+    tiles, at most ``GEMV_MAX_SLICES``, and no more than leaves each
+    slice two 32-row groups. Chosen from H100 timings (PERF.md)."""
+    tiles, groups = -(-n // GEMV_COLS), k // QK
+    s = GEMV_WARPS
+    while (s < GEMV_MAX_SLICES and tiles * s < GEMV_TARGET_WARPS
+           and 4 * s <= groups):
+        s *= 2
+    return s
 
 
 def tc_block_shape(m: int, n: int,
@@ -295,29 +340,33 @@ def tc_block_shape(m: int, n: int,
     return (64, 64) if zero_point else (128, 128)
 
 
-# wrapper name -> (CUDA-core library, tensor-core library)
-_LIBS = {"int4_matmul": ("int4_matmul", "int4_matmul_tc"),
-         "asym_int4_matmul": ("lowbit_matmul", "lowbit_matmul_tc"),
-         "int8_matmul": ("lowbit_matmul", "lowbit_matmul_tc")}
+# wrapper name -> {route: library}
+_LIBS = {"int4_matmul": {"gemv": "lowbit_gemv", "tc": "int4_matmul_tc"},
+         "asym_int4_matmul": {"gemv": "lowbit_gemv",
+                              "tc": "lowbit_matmul_tc"},
+         "int8_matmul": {"gemv": "lowbit_gemv", "tc": "lowbit_matmul_tc"}}
 
 
 def _launch(wrapper, xb: torch.Tensor, planes: Sequence[torch.Tensor],
             out: torch.Tensor, route: str, lds: Optional[int] = None,
-            tile: Optional[Tuple[int, int]] = None) -> int:
+            tile: Optional[Tuple[int, int]] = None,
+            slices: Optional[int] = None) -> int:
     """Launch one of ``wrapper``'s kernels on checked CUDA tensors
     (``planes``: q_t, scale_t[, zero_t]; ``lds`` the planes' row stride,
     None for q4_0, whose entries take contiguous scales); counts the
-    launch (``wrapper.launches``, and ``wrapper.tc_launches`` for the
-    tensor-core route) and returns the C entry's error code. ``tile``
-    overrides :func:`tc_block_shape` (timing and tests only)."""
+    launch (``wrapper.launches``, and ``wrapper.tc_launches`` or
+    ``wrapper.gemv_launches`` by route) and returns the C entry's error
+    code. ``tile`` overrides :func:`tc_block_shape` and ``slices``
+    :func:`gemv_slices` (timing and tests only)."""
     name = wrapper.__name__
     (m, k), n = xb.shape, planes[0].shape[1]
-    lib = _LIBS[name][route == "tc"]
     ints = [m, k, n] + ([] if lds is None else [lds])
     if route == "tc":
         ints.extend(tile or tc_block_shape(m, n, name == "asym_int4_matmul"))
+    else:
+        ints.append(slices or gemv_slices(k, n))
     fn = _build.bind(
-        lib, f"{name}{'_tc' if route == 'tc' else ''}_"
+        _LIBS[name][route], f"{name}_{route}_"
         f"{'bf16' if out.dtype == torch.bfloat16 else 'f32'}out",
         [_build.P] * (len(planes) + 2) + [_build.I] * len(ints) + [_build.P])
     rc = fn(xb.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(),
@@ -325,6 +374,8 @@ def _launch(wrapper, xb: torch.Tensor, planes: Sequence[torch.Tensor],
     wrapper.launches += 1
     if route == "tc":
         wrapper.tc_launches += 1
+    else:
+        wrapper.gemv_launches += 1
     return rc
 
 
@@ -334,7 +385,7 @@ def _run(wrapper, x: torch.Tensor, planes: Sequence[torch.Tensor],
     """Check the CUDA inputs, route, launch, check the error code. q4_0
     (``lds`` None) takes contiguous 16-byte aligned planes on both
     routes; q4_1 and q8_0 need the alignment (TMA's) on the tensor-core
-    route only."""
+    route only (the GEMV reads unaligned planes byte by byte)."""
     name = wrapper.__name__
     xb = _cuda_inputs(name, x, planes[0], q_dtype, planes[1:], out_dtype)
     if lds is None and not planes[1].is_contiguous():
@@ -409,3 +460,4 @@ def int8_matmul(x: torch.Tensor, q_t: torch.Tensor, scale_t: torch.Tensor,
 for _w in (int4_matmul, asym_int4_matmul, int8_matmul):
     _w.launches = 0
     _w.tc_launches = 0
+    _w.gemv_launches = 0

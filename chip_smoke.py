@@ -8,8 +8,9 @@ Phase 0  require a CUDA device (exit 2 without one) and print the card's
 Phase 1  build every CUDA kernel from ``bigdl_tpu_torch/csrc`` (one
          ``nvcc`` per source, all in parallel) and print the seconds and
          what ``ptxas -v`` says of each kernel (registers, stack, spills,
-         warnings); every instance of the tensor-core main loop must
-         build with no spill and no C7520 / C7514 serialisation warning.
+         warnings); every instance of the tensor-core main loop and of
+         the GEMV must build with no spill, and the tensor-core main loop
+         with no C7520 / C7514 serialisation warning.
 Phase 2  hold each kernel against its plain PyTorch version on the card
          at the Llama-2-7B shapes of the served path (q4_0 linears at the
          prefill buckets 16..512 and at decode batch 8) and the Mistral-7B
@@ -26,14 +27,19 @@ Phase 2  hold each kernel against its plain PyTorch version on the card
          GLM-4-9B and D = 96 shapes on both routes (``ragged_route``:
          ``ragged_prefill_attention_tc`` for bf16, held to 2^-8 max|V| of
          both plain versions, the CUDA-core kernel at 1e-3) and once with
-         f32 pools; inputs from a seeded ``torch.Generator`` on the card. Every dequant-matmul row names
-         the kernel its route takes (``<wrapper>_tc`` for M >= TC_MIN_M
-         and N % 16 == 0); at the q4_0 buckets and the BERT M = 1024
-         rows both kernels are held and timed (``ms_tc``,
-         ``ms_cuda_core``), every tensor-core row at its three block
-         tiles (``ms_by_tile``, the tiles' outputs bit-equal), and the
-         paged main-path shapes at split sizes 128, 256 and 512
-         (``ms_by_split``). One JSON line per case with the errors,
+         f32 pools; inputs from a seeded ``torch.Generator`` on the card.
+         Every dequant-matmul row names the kernel its route takes
+         (``<wrapper>_tc`` for M >= TC_MIN_M and N % 16 == 0, else
+         ``<wrapper>_gemv``, the split-K GEMV); at the q4_0 buckets and
+         the BERT M = 1024 rows both kernels are held and timed
+         (``ms_tc``, ``ms_gemv``), every tensor-core row at its three
+         block tiles (``ms_by_tile``, the tiles' outputs bit-equal),
+         every 7B and Mistral decode row at the GEMV's K-slice counts
+         4..32 (``ms_by_slices``), the decode rows also at M = 1 and 2,
+         and the paged main-path shapes at split sizes 128, 256 and 512
+         (``ms_by_split``). A route sweep holds and times both routes at
+         M = 1..64 on the 7B and Mistral decode shapes (how TC_MIN_M was
+         set). One JSON line per case with the errors,
          the tolerance, the kernel's / plain version's / one PyTorch
          library call's time (CUDA events, median of 25 calls run back to
          back after warm-up) and the bound (bytes over 3.35 TB/s or FLOPs
@@ -172,6 +178,8 @@ def check(ok, msg):
 # nor serialise their wgmma (C7520: one under a branch; C7514: an
 # accumulator read while one is in flight)
 TC_SOURCES = ("int4_matmul_tc", "lowbit_matmul_tc", "ragged_prefill_tc")
+# the sources whose every instance must build with no spill
+SPILL_FREE = TC_SOURCES + ("lowbit_gemv",)
 
 
 def _demangle(names):
@@ -237,36 +245,41 @@ def _planes(torch, dev, gen, kind, k, n):
     return q, s, z
 
 
-def _forced_route(torch, kind, route, x, planes, out_dtype, tile=None):
+def _forced_route(torch, kind, route, x, planes, out_dtype, tile=None,
+                  slices=None):
     """One call of ``kind``'s wrapper through the named kernel (and
-    tensor-core tile) whatever the rules say (the TC_MIN_M and
-    block-shape sweeps)."""
+    tensor-core tile or GEMV K slices) whatever the rules say (the
+    TC_MIN_M, block-shape and slice sweeps)."""
     from bigdl_tpu_torch.llm import kernels as K
     from bigdl_tpu_torch.llm.kernels import _build
     from bigdl_tpu_torch.llm.kernels.int4_matmul import _group_stride, _launch
     lds = None if kind == "int4_matmul" else _group_stride(kind, planes[1])
     out = torch.empty((x.shape[0], planes[0].shape[1]), dtype=out_dtype,
                       device=x.device)
-    _build.check(_launch(getattr(K, kind), x, planes, out, route, lds, tile),
-                 f"{kind} {route}")
+    _build.check(_launch(getattr(K, kind), x, planes, out, route, lds, tile,
+                         slices), f"{kind} {route}")
     return out
 
 
 TC_TILES = ((128, 128), (64, 128), (64, 64))
+GEMV_SLICES = (4, 8, 16, 32)
 
 
 def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
-                launches=0, per=None, both_routes=False, per_channel=False):
+                launches=0, per=None, both_routes=False, per_channel=False,
+                slices_sweep=False):
     """One dequant-matmul case: the kernel's f32-out and bf16-out entries
     against the plain version on the same bf16 x and planes; the entry
     the path launches (``path_dtype`` out) is the one timed. ``launches``
     is how many calls of this shape the path makes ``per`` step or
     forward (0: a shape no path runs). A row names the kernel the route
     rule takes; with ``both_routes`` both kernels are also held to the
-    plain version and timed (``ms_tc``, ``ms_cuda_core``). With
-    ``per_channel`` (q8_0) the scale is one row expanded over the groups
-    (stride 0, as ``nn.quantized.Linear`` passes it), and the result must
-    equal the materialised scale's bit for bit."""
+    plain version and timed (``ms_tc``, ``ms_gemv``); with
+    ``slices_sweep`` a GEMV row is timed at every K-slice count of
+    ``GEMV_SLICES`` (``ms_by_slices``, how ``gemv_slices`` was chosen).
+    With ``per_channel`` (q8_0) the scale is one row expanded over the
+    groups (stride 0, as ``nn.quantized.Linear`` passes it), and the
+    result must equal the materialised scale's bit for bit."""
     from bigdl_tpu_torch.llm import kernels as K
     fn, ref, deq = {
         "int4_matmul": (K.int4_matmul, K.int4_matmul_reference,
@@ -298,7 +311,7 @@ def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
     b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
     route = K.matmul_route(m, n)
     row = {
-        "kernel": f"{kind}_tc" if route == "tc" else kind,
+        "kernel": f"{kind}_{route}",
         "route": route, "case": f"{what} M={m} K={k} N={n}"
         + (" per-channel scale" if per_channel else ""),
         "path_out": str(path_dtype).replace("torch.", ""),
@@ -334,8 +347,15 @@ def matmul_case(torch, dev, gen, kind, what, m, k, n, path_dtype,
                 lambda: _forced_route(torch, kind, "tc", x, planes,
                                       path_dtype, tile))
         del ref_out
+    if route == "gemv":
+        row["slices"] = K.gemv_slices(k, n)
+    if route == "gemv" and slices_sweep:
+        row["ms_by_slices"] = {
+            str(sl): time_ms(lambda: _forced_route(
+                torch, kind, "gemv", x, planes, path_dtype, slices=sl))
+            for sl in GEMV_SLICES}
     if both_routes:
-        for r in ("tc", "cuda_core"):
+        for r in ("tc", "gemv"):
             if n % 16 and r == "tc":
                 continue
             e = (_forced_route(torch, kind, r, x, planes, torch.float32)
@@ -368,23 +388,32 @@ def int4_cases(torch, dev, gen):
                                    k, n, torch.bfloat16, 32,
                                    f"7B prefill, bucket {m}",
                                    both_routes=True))
-    for m, per in ((8, "7B decode step"), (512, "7B prefill")):
-        for k, n, what, count in (
-                (4096, 12288, "qkv_proj", 32), (4096, 4096, "o_proj", 32),
-                (4096, 22016, "gate_up_proj", 32),
-                (11008, 4096, "down_proj", 32), (4096, 32000, "lm_head", 1)):
+    # decode at the served batch (8) and at 1 and 2 rows (no path's
+    # count: the served step always runs max_batch rows), and prefill
+    for m, per, count in ((1, None, 0), (2, None, 0),
+                          (8, "7B decode step", 32), (512, "7B prefill", 32)):
+        for k, n, what, c in (
+                (4096, 12288, "qkv_proj", count), (4096, 4096, "o_proj", count),
+                (4096, 22016, "gate_up_proj", count),
+                (11008, 4096, "down_proj", count),
+                (4096, 32000, "lm_head", count and 1)):
             out.append(matmul_case(torch, dev, gen, "int4_matmul", what, m,
-                                   k, n, torch.bfloat16, count, per,
+                                   k, n, torch.bfloat16, c, per,
                                    both_routes=what in ("qkv_proj",
-                                                        "gate_up_proj")))
-    # Mistral-7B's linears at generate (a)'s decode step (batch 4) and
-    # prefill (4 x 512 rows); lm_head stays dense on that path
-    for m, per in ((4, "Mistral decode step"), (2048, "Mistral prefill")):
+                                                        "gate_up_proj"),
+                                   slices_sweep=m == 8))
+    # Mistral-7B's linears at generate (b)'s decode step (batch 1), (a)'s
+    # (batch 4) and (a)'s prefill (4 x 512 rows); lm_head stays dense on
+    # that path
+    for m, per, count in ((1, "Mistral (b) decode step", 32), (2, None, 0),
+                          (4, "Mistral decode step", 32),
+                          (2048, "Mistral prefill", 32)):
         for k, n, what in MISTRAL_LINEARS:
             out.append(matmul_case(torch, dev, gen, "int4_matmul",
                                    f"Mistral {what}", m, k, n,
-                                   torch.bfloat16, 32, per,
-                                   both_routes=m > 8 and what == "o_proj"))
+                                   torch.bfloat16, count, per,
+                                   both_routes=m > 8 and what == "o_proj",
+                                   slices_sweep=m in (1, 4)))
     for what, m, k, n, count in BERT_SHAPES:
         out.append(matmul_case(torch, dev, gen, "int4_matmul",
                                f"BERT {what}", m, k, n, torch.float32, count,
@@ -395,17 +424,59 @@ def int4_cases(torch, dev, gen):
     return out
 
 
+# the M of the route sweep, and its shapes (7B and Mistral decode)
+SWEEP_M = (1, 2, 4, 8, 12, 15, 16, 24, 32, 40, 48, 64)
+SWEEP_SHAPES = ((4096, 12288, "7B qkv_proj"), (4096, 4096, "7B o_proj"),
+                (4096, 22016, "7B gate_up_proj"), (11008, 4096, "7B down_proj"),
+                (4096, 4096, "Mistral o_proj"), (14336, 4096, "Mistral down_proj"))
+
+
+def route_sweep(torch, dev, gen):
+    """Both q4_0 kernels forced at every M of ``SWEEP_M`` on the decode
+    shapes: each held to the plain version (f32 out, 2e-5 of max|y|) and
+    timed with the path's bf16 out. The least M at which the tensor-core
+    GEMM is faster on these shapes is what ``TC_MIN_M`` is set from."""
+    from bigdl_tpu_torch.llm import kernels as K
+    rows = []
+    for k, n, what in SWEEP_SHAPES:
+        planes = _planes(torch, dev, gen, "int4_matmul", k, n)
+        row = {"case": f"{what} K={k} N={n}", "ms_gemv": {}, "ms_tc": {},
+               "route": {}, "passed": True}
+        for m in SWEEP_M:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            want = K.int4_matmul_reference(x, *planes, torch.float32)
+            tol = 2e-5 * want.abs().max().item()
+            for r in ("gemv", "tc"):
+                got = _forced_route(torch, "int4_matmul", r, x, planes,
+                                    torch.float32)
+                row["passed"] &= (got - want).abs().max().item() <= tol
+                row[f"ms_{r}"][m] = time_ms(lambda: _forced_route(
+                    torch, "int4_matmul", r, x, planes, torch.bfloat16))
+            row["route"][m] = K.matmul_route(m, n)
+        rows.append(row)
+        del planes
+    return rows
+
+
 def lowbit_cases(torch, dev, gen):
     """q4_1 and q8_0 at the BERT-base shapes, f32 out as the pipelines
     run them (the M = 1024 rows on both routes), and q8_0 with the
-    per-channel stride-0 scale of ``quantize_model``."""
+    per-channel stride-0 scale of ``quantize_model``; then both formats
+    on the GEMV at M = 1 and 2 on the 7B qkv and Mistral down shapes (no
+    path runs them: the GEMV's q4_1 and q8_0 instances at decode
+    sizes)."""
     return [matmul_case(torch, dev, gen, kind, f"BERT {what}", m, k, n,
                         torch.float32, count, f"BERT {pipe} forward",
                         both_routes=m > 8, per_channel=pc)
             for kind, pipe, pc in (("int8_matmul", "int8", False),
                                    ("asym_int4_matmul", "asym_int4", False),
                                    ("int8_matmul", "quantize_model", True))
-            for what, m, k, n, count in BERT_SHAPES]
+            for what, m, k, n, count in BERT_SHAPES] + [
+        matmul_case(torch, dev, gen, kind, what, m, k, n, torch.bfloat16)
+        for kind in ("int8_matmul", "asym_int4_matmul") for m in (1, 2)
+        for k, n, what in ((4096, 12288, "7B qkv_proj"),
+                           (14336, 4096, "Mistral down_proj"))]
 
 
 def _gathered(torch, pages, bt, n_tok, g):
@@ -725,7 +796,7 @@ def _serve_expect(model, prompts, steps):
     (a power of two, at least one page), its 4 linears a layer (and a
     quantized lm_head) on the route of (bucket, N), its attention on the
     route of the pools (``ragged_route``); every step runs the linears at
-    M = max_batch <= 8 (the CUDA-core route) and one stats kernel a
+    M = max_batch <= 8 (the GEMV) and one stats kernel a
     layer. Returns ``(buckets, {wrapper: launches})``."""
     import torch
     from bigdl_tpu_torch.llm import kernels
@@ -745,10 +816,12 @@ def _serve_expect(model, prompts, steps):
         torch.empty((0, 0, model.page_size, cfg.head_dim),
                     dtype=model.cache_dtype)) == "tc"
     expect = dict.fromkeys(kernels.launch_counts(), 0)
+    tc = sum(c for bk in buckets for n, c in ns
+             if kernels.matmul_route(bk, n) == "tc")
     expect.update({
         "int4_matmul": (len(prompts) + steps) * per_pass,
-        "int4_matmul_tc": sum(c for bk in buckets for n, c in ns
-                              if kernels.matmul_route(bk, n) == "tc"),
+        "int4_matmul_tc": tc,
+        "int4_matmul_gemv": (len(prompts) + steps) * per_pass - tc,
         "paged_attention_decode_stats": steps * L,
         "ragged_prefill_attention": len(prompts) * L,
         "ragged_prefill_attention_tc": len(prompts) * L if tc_attn else 0})
@@ -1122,6 +1195,7 @@ def _launch_expect(counts, model, rows, n, paged):
     want["int4_matmul_tc"] = L * sum(
         matmul_route(rows, model.params["layers"][k]["q"].shape[-1]) == "tc"
         for k in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj"))
+    want["int4_matmul_gemv"] = want["int4_matmul"] - want["int4_matmul_tc"]
     if paged:
         want["paged_attention_decode_stats"] = L * n
     return want
@@ -1603,10 +1677,11 @@ def bert_path(torch, dev):
         if kern:
             want[kern] = n_linears
             # the M = 1024 linears on the tensor cores, the pooler and
-            # the classifier (M = 8) on the CUDA-core kernel
+            # the classifier (M = 8) on the GEMV
             want[f"{kern}_tc"] = sum(
                 c for _, m, _, n, c in BERT_SHAPES
                 if kernels.matmul_route(m, n) == "tc")
+            want[f"{kern}_gemv"] = n_linears - want[f"{kern}_tc"]
         check(counts == want, f"BERT {name}: launch counts {counts} != "
               f"{want}")
         walls = []
@@ -1672,13 +1747,15 @@ def main() -> int:
              for n in kernels.KERNEL_SOURCES}
     emit({"phase": "build", "seconds": built,
           "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
-    for n in TC_SOURCES:
+    for n in SPILL_FREE:
         rep = ptxas[n]
         check(rep["kernels"] and all(
             k.get("spill_stores", 1) == 0 and k.get("spill_loads", 1) == 0
             for k in rep["kernels"].values()), f"{n}: a spill: {rep}")
-        check(not any("C7520" in w or "C7514" in w for w in rep["warnings"]),
-              f"{n}: wgmma serialised: {rep['warnings']}")
+    for n in TC_SOURCES:
+        check(not any("C7520" in w or "C7514" in w
+                      for w in ptxas[n]["warnings"]),
+              f"{n}: wgmma serialised: {ptxas[n]['warnings']}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = (int4_cases(torch, dev, gen) + lowbit_cases(torch, dev, gen)
@@ -1686,7 +1763,10 @@ def main() -> int:
              + paged_norm_cases(torch, dev, gen))
     for c in cases:
         emit(c)
-    bad = [c["case"] for c in cases if not c["passed"]]
+    sweep = route_sweep(torch, dev, gen)
+    emit({"phase": "route_sweep", "tc_min_m": kernels.TC_MIN_M,
+          "rows": sweep})
+    bad = [c["case"] for c in cases + sweep if not c["passed"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
 
     ref = reference_check(torch, dev)
@@ -1730,26 +1810,29 @@ def main() -> int:
     paths["serve GLM-4-9B"] = dict(glm["serve"]["launches"])
     paths["serve GLM-4-9B depth 1"] = dict(glm["serve"]["depth1"]["launches"])
 
-    # a two-kernel wrapper's count covers both routes: the CUDA-core
-    # kernel's launches are the calls less those on the tensor cores
-    for n in paths.values():
-        for w in MATMUL_KERNELS + ("ragged_prefill_attention",):
-            n[w] -= n[f"{w}_tc"]
-    heads = {"int4_matmul": ("qkv_proj M=8 K=4096 N=12288",
-                             "bigdl_tpu_torch/csrc/int4_matmul.cu",
-                             "bigdl_tpu/llm/kernels/int4_matmul.py:220"),
+    # a two-kernel wrapper's count covers both routes: a dequant-matmul's
+    # calls are its GEMV and tensor-core launches, ragged prefill's
+    # CUDA-core launches the calls less those on the tensor cores
+    for p, n in paths.items():
+        for w in MATMUL_KERNELS:
+            check(n[w] == n[f"{w}_tc"] + n[f"{w}_gemv"],
+                  f"{p}: {w} calls are not its two routes' launches: {n}")
+        n["ragged_prefill_attention"] -= n["ragged_prefill_attention_tc"]
+    heads = {"int4_matmul_gemv": ("qkv_proj M=8 K=4096 N=12288",
+                                  "bigdl_tpu_torch/csrc/lowbit_gemv.cu",
+                                  "bigdl_tpu/llm/kernels/int4_matmul.py:220"),
              "int4_matmul_tc": ("Mistral gate_up_proj M=2048",
                                 "bigdl_tpu_torch/csrc/int4_matmul_tc.cu",
                                 "bigdl_tpu/llm/kernels/int4_matmul.py:220"),
-             "asym_int4_matmul": (
-                 "BERT pooler M=8", "bigdl_tpu_torch/csrc/lowbit_matmul.cu",
+             "asym_int4_matmul_gemv": (
+                 "BERT pooler M=8", "bigdl_tpu_torch/csrc/lowbit_gemv.cu",
                  "bigdl_tpu/llm/kernels/int4_matmul.py:287"),
              "asym_int4_matmul_tc": (
                  "BERT ffn2 M=1024",
                  "bigdl_tpu_torch/csrc/lowbit_matmul_tc.cu",
                  "bigdl_tpu/llm/kernels/int4_matmul.py:287"),
-             "int8_matmul": (
-                 "BERT pooler M=8", "bigdl_tpu_torch/csrc/lowbit_matmul.cu",
+             "int8_matmul_gemv": (
+                 "BERT pooler M=8", "bigdl_tpu_torch/csrc/lowbit_gemv.cu",
                  "bigdl_tpu/llm/kernels/int4_matmul.py:334"),
              "int8_matmul_tc": (
                  "BERT ffn2 M=1024",
@@ -1770,7 +1853,7 @@ def main() -> int:
                  "bigdl_tpu/llm/kernels/paged_attention.py:260")}
     summary = []
     for name, (case, src, replaces) in heads.items():
-        wrapper = name.removesuffix("_tc")
+        wrapper = name.removesuffix("_tc").removesuffix("_gemv")
         c = next(c for c in cases
                  if c["kernel"] == name and c["case"].startswith(case))
         by_path = {p: n[name] for p, n in paths.items() if n[name]}
@@ -1785,7 +1868,7 @@ def main() -> int:
                 f"ceil(M/64)*ceil(N/64) <= 2*{kernels.TC_SMS}, else "
                 "64x128 for M <= 64, else "
                 + ("64x64" if wrapper == "asym_int4_matmul" else "128x128")
-                + f"), else {wrapper}"
+                + f"), else {wrapper}_gemv (K slices: gemv_slices(K, N))"
                 if wrapper in MATMUL_KERNELS else
                 "bf16 q and pools, D % 16 == 0, D <= 128, page % 8 == 0 "
                 "take ragged_prefill_attention_tc, else "
@@ -1824,6 +1907,7 @@ def main() -> int:
             1 - busy / r["decode_step_ms"] if busy else None)
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
+              "route_sweep": sweep,
               "host": host_out,
               "reference": ref, "reference_glm": ref_glm, "glm": glm,
               "glm_profile": glm_prof,

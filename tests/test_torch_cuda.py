@@ -79,12 +79,12 @@ TC_SHAPES = [(m, 4096, 4096) for m in (16, 32, 64, 128, 256, 512, 1024)] + [
 @pytest.mark.parametrize("m,k,n", TC_SHAPES)
 def test_int4_matmul_tc(cuda, m, k, n):
     """The tensor-core kernel against the plain version, f32 and bf16
-    out, under the same tolerances as the CUDA-core kernel: 2e-5 of
-    max|y| for f32 out (exact f32 products of bf16 x and q-8, f32 sums in
-    another order), plus one bf16 ulp of max|y| for bf16 out. Shapes
-    below ``TC_MIN_M`` take the other route and are covered above."""
+    out, under the same tolerances as the GEMV: 2e-5 of max|y| for f32
+    out (exact f32 products of bf16 x and q-8, f32 sums in another
+    order), plus one bf16 ulp of max|y| for bf16 out. Shapes below
+    ``TC_MIN_M`` take the GEMV and are covered above."""
     if matmul_route(m, n) != "tc":
-        pytest.skip(f"M={m} < TC_MIN_M={TC_MIN_M}: the CUDA-core route")
+        pytest.skip(f"M={m} < TC_MIN_M={TC_MIN_M}: the GEMV route")
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
     q = torch.randint(0, 256, (k // 2, n), generator=g, device=cuda,
@@ -133,47 +133,92 @@ def test_int4_matmul_tc_tiles_agree(cuda, m, k, n):
 
 
 @pytest.mark.parametrize("m,n,route", [
-    (1, 4096, "cuda_core"), (8, 12288, "cuda_core"), (4, 28672, "cuda_core"),
-    (TC_MIN_M - 1, 4096, "cuda_core"), (TC_MIN_M, 4096, "tc"),
+    (1, 4096, "gemv"), (8, 12288, "gemv"), (4, 28672, "gemv"),
+    (TC_MIN_M - 1, 4096, "gemv"), (TC_MIN_M, 4096, "tc"),
     (512, 12288, "tc"), (2048, 28672, "tc"), (1024, 768, "tc"),
-    (1024, 770, "cuda_core"), (8, 2, "cuda_core"), (4200, 6144, "tc")])
+    (1024, 770, "gemv"), (8, 2, "gemv"), (4200, 6144, "tc")])
 def test_int4_matmul_route_counters(cuda, m, n, route):
     """The route rule sends each shape where it says, and the counters
-    show it: every call adds one to ``launches``, the tensor-core route
-    one to ``tc_launches`` as well."""
+    show it: every call adds one to ``launches``, and one to
+    ``tc_launches`` or ``gemv_launches`` by route."""
     assert matmul_route(m, n) == route
     x = torch.zeros((m, 64), device=cuda, dtype=torch.bfloat16)
     q = torch.zeros((32, n), device=cuda, dtype=torch.uint8)
     s = torch.zeros((2, n), device=cuda)
-    before = (int4_matmul.launches, int4_matmul.tc_launches)
+    before = (int4_matmul.launches, int4_matmul.tc_launches,
+              int4_matmul.gemv_launches)
     int4_matmul(x, q, s)
     assert int4_matmul.launches == before[0] + 1
     assert int4_matmul.tc_launches == before[1] + (route == "tc")
+    assert int4_matmul.gemv_launches == before[2] + (route == "gemv")
 
 
-def _int4_row3(device, m, k=1024, n=256):
+def _int4_row3(device, m, k=1024, n=256, first=0):
+    """Row 3 of x times the weights, from a product of x's rows
+    ``first .. first + m``."""
     g = torch.Generator(device=device).manual_seed(1)
     x = torch.randn((512, k), generator=g, device=device).to(torch.bfloat16)
     q = torch.randint(0, 256, (k // 2, n), generator=g, device=device,
                       dtype=torch.uint8)
     s = torch.rand((k // 32, n), generator=g, device=device) * 0.02
-    return int4_matmul(x[:m].contiguous(), q, s,
-                       out_dtype=torch.float32)[3]
+    return int4_matmul(x[first:first + m].contiguous(), q, s,
+                       out_dtype=torch.float32)[3 - first]
 
 
-@pytest.mark.parametrize("route", ["cuda_core", "tc"])
+@pytest.mark.parametrize("route", ["gemv", "tc"])
 def test_int4_matmul_rows_independent(cuda, route):
     """The summation order of an output element does not depend on M
-    within a route: on the CUDA-core route row 3 of an M=8 product equals
-    that row of M=4 (and of M=``TC_MIN_M - 1``); on the tensor-core route
-    row 3 of M=512 equals that row of M=``TC_MIN_M``, bit for bit."""
+    within a route: on the GEMV row 3 of an M=``TC_MIN_M - 1`` product
+    equals that row of M=4 and that row alone (M=1); on the tensor-core
+    route row 3 of M=512 equals that row of M=``TC_MIN_M``, bit for
+    bit."""
     if route == "tc":
         big, small = 512, TC_MIN_M
         assert matmul_route(big, 256) == matmul_route(small, 256) == "tc"
     else:
         big, small = TC_MIN_M - 1, 4
-        assert matmul_route(big, 256) == matmul_route(small, 256) == "cuda_core"
+        assert matmul_route(big, 256) == matmul_route(small, 256) == "gemv"
+        alone = _int4_row3(cuda, 1, first=3)
+        assert torch.equal(_int4_row3(cuda, big), alone)
     assert torch.equal(_int4_row3(cuda, big), _int4_row3(cuda, small))
+
+
+GEMV_KINDS = {"sym_int4": (int4_matmul, int4_matmul_reference),
+              "asym_int4": (asym_int4_matmul, asym_int4_matmul_reference),
+              "sym_int8": (int8_matmul, int8_matmul_reference)}
+
+
+@pytest.mark.parametrize("kind", sorted(GEMV_KINDS))
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 15])
+@pytest.mark.parametrize("k,n", [(768, 2), (768, 3), (768, 770),
+                                 (4096, 4096), (4096, 12288),
+                                 (11008, 4096), (14336, 4096)])
+def test_gemv(cuda, kind, m, k, n):
+    """The split-K GEMV (``csrc/lowbit_gemv.cu``) of each format against
+    its plain version: 2e-5 of max|y| for f32 out (exact f32 products,
+    f32 sums in another order), plus one bf16 ulp of max|y| for bf16
+    out; one launch a call, on the GEMV."""
+    fn, ref = GEMV_KINDS[kind]
+    assert matmul_route(m, n) == "gemv"
+    if kind == "sym_int4":
+        g = torch.Generator(device=cuda).manual_seed(5)
+        x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+        planes = (torch.randint(0, 256, (k // 2, n), generator=g,
+                                device=cuda, dtype=torch.uint8),
+                  torch.rand((k // 32, n), generator=g, device=cuda) * 0.02)
+    else:
+        x, planes = _lowbit_inputs(kind, m, k, n, 5, cuda)
+    before = fn.gemv_launches
+    got = fn(x, *planes, out_dtype=torch.float32)
+    got16 = fn(x, *planes)
+    torch.cuda.synchronize()
+    assert fn.gemv_launches == before + 2
+    want = ref(x, *planes, torch.float32)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2e-5 * scale
+    err16 = (got16.float() - ref(x, *planes, torch.bfloat16).float()) \
+        .abs().max().item()
+    assert err16 <= 1e-4 + 2.0 ** -7 * scale
 
 
 def _lowbit_inputs(kind, m, k, n, seed, device):
@@ -223,12 +268,12 @@ def test_lowbit_matmul(cuda, kind, m, k, n):
 
 
 @pytest.mark.parametrize("kind", sorted(LOWBIT))
-@pytest.mark.parametrize("route", ["cuda_core", "tc"])
+@pytest.mark.parametrize("route", ["gemv", "tc"])
 def test_lowbit_matmul_rows_independent(cuda, kind, route):
     """The summation order of an output element does not depend on M
     within a route: on the tensor-core route row 3 of M=512 equals that
-    row of M=``TC_MIN_M``; on the CUDA-core route row 3 of M=15 equals
-    that row of M=4, bit for bit."""
+    row of M=``TC_MIN_M``; on the GEMV row 3 of M=15 equals that row of
+    M=4 and that row alone, bit for bit."""
     fn, _ = LOWBIT[kind]
     big, small = (512, TC_MIN_M) if route == "tc" else (15, 4)
     assert matmul_route(big, 256) == matmul_route(small, 256) == route
@@ -236,13 +281,16 @@ def test_lowbit_matmul_rows_independent(cuda, kind, route):
     rows = [fn(x[:m].contiguous(), *planes, out_dtype=torch.float32)[3]
             for m in (big, small)]
     assert torch.equal(rows[0], rows[1])
+    if route == "gemv":
+        alone = fn(x[3:4].contiguous(), *planes, out_dtype=torch.float32)
+        assert torch.equal(rows[0], alone[0])
 
 
 # the tensor-core route of q4_1 and q8_0: BERT-base's M = 1024 linears,
 # ragged M, K = 3072 and 96 (three groups), N = 16, 160 and 3072
 LOWBIT_TC_SHAPES = [(1024, 768, 768), (1024, 768, 3072), (1024, 3072, 768),
                     (100, 768, 768), (130, 96, 160), (2047, 3072, 768),
-                    (64, 96, 16), (512, 3072, 3072), (16, 768, 3072)]
+                    (64, 96, 16), (512, 3072, 3072), (TC_MIN_M, 768, 3072)]
 
 
 @pytest.mark.parametrize("kind", sorted(LOWBIT))
@@ -307,10 +355,9 @@ def test_lowbit_matmul_tc_tiles_agree(cuda, kind, per_channel, m, k, n):
 
 @pytest.mark.parametrize("kind", sorted(LOWBIT))
 @pytest.mark.parametrize("m,n,route", [
-    (8, 768, "cuda_core"), (8, 2, "cuda_core"), (TC_MIN_M - 1, 768,
-                                                 "cuda_core"),
+    (8, 768, "gemv"), (8, 2, "gemv"), (TC_MIN_M - 1, 768, "gemv"),
     (TC_MIN_M, 768, "tc"), (1024, 768, "tc"), (1024, 3072, "tc"),
-    (1024, 2, "cuda_core"), (1024, 130, "cuda_core"), (4200, 16, "tc")])
+    (1024, 2, "gemv"), (1024, 130, "gemv"), (4200, 16, "tc")])
 def test_lowbit_matmul_route_counters(cuda, kind, m, n, route):
     """The route rule sends each shape where it says, and the counters
     show it: every call adds one to ``launches``, the tensor-core route
@@ -332,8 +379,8 @@ def test_lowbit_matmul_route_counters(cuda, kind, m, n, route):
 def test_int8_matmul_broadcast_scale(cuda, kind, n):
     """A per-channel scale (and q4_1 zero) expanded over the groups (row
     stride 0, as ``nn.quantized.Linear`` passes it) equals the
-    materialised one bit for bit, on the CUDA-core route (N = 300) and
-    on the tensor-core route (N = 768), and the plain version within
+    materialised one bit for bit, on the GEMV (N = 300) and on the
+    tensor-core route (N = 768), and the plain version within
     2e-5 of max|y|."""
     fn, ref = LOWBIT[kind]
     x, planes = _lowbit_inputs(kind, 40, 768, n, 2, cuda)

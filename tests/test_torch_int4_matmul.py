@@ -3,7 +3,7 @@ against the JAX package: its plain PyTorch version against the Pallas
 kernel run in interpret mode and against ``llama._dequant_q4`` + matmul
 (the JAX package's CPU path), on the same seeded numpy inputs; the CUDA
 kernels' group-scaled algebra (``int4_matmul_grouped``) against the same;
-and the shape rule that picks the tensor-core or the CUDA-core kernel.
+and the shape rule that picks the tensor-core GEMM or the GEMV.
 The CUDA kernels run only on the card: ``tests/test_torch_cuda.py``."""
 
 import numpy as np
@@ -157,7 +157,9 @@ PREFILL_SHAPES = [(512, 12288), (512, 22016), (512, 32000), (2048, 6144),
 class TestRoute:
     @pytest.mark.parametrize("m,n", DECODE_SHAPES)
     def test_decode_takes_cuda_cores(self, m, n):
-        assert matmul_route(m, n) == "cuda_core"
+        """Decode shapes take the split-K GEMV (``csrc/lowbit_gemv.cu``),
+        which replaced the CUDA-core kernel."""
+        assert matmul_route(m, n) == "gemv"
 
     @pytest.mark.parametrize("m,n", PREFILL_SHAPES)
     def test_prefill_takes_tensor_cores(self, m, n):
@@ -166,13 +168,13 @@ class TestRoute:
     @pytest.mark.parametrize("m", [TC_MIN_M, 512, 4096])
     @pytest.mark.parametrize("n", [2, 3, 770, 4104])
     def test_n_not_multiple_of_16_takes_cuda_cores(self, m, n):
-        """BERT's N = 2 classifier, N = 3 and 770: any M."""
-        assert matmul_route(m, n) == "cuda_core"
+        """BERT's N = 2 classifier, N = 3 and 770: any M, on the GEMV."""
+        assert matmul_route(m, n) == "gemv"
 
     def test_threshold(self):
         """The rule is a pure function of the shape around one constant."""
         assert 8 < TC_MIN_M <= 512
-        assert matmul_route(TC_MIN_M - 1, 4096) == "cuda_core"
+        assert matmul_route(TC_MIN_M - 1, 4096) == "gemv"
         assert matmul_route(TC_MIN_M, 4096) == "tc"
 
 

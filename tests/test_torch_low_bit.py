@@ -24,6 +24,7 @@ from bigdl_tpu.llm.ggml.quantize import dequantize as j_dequantize
 from bigdl_tpu.llm.ggml.quantize import quantize as j_quantize
 from bigdl_tpu.llm.kernels.int4_matmul import \
     asym_int4_matmul as j_asym_int4_matmul
+from bigdl_tpu.llm.kernels.int4_matmul import int4_matmul as j_int4_matmul
 from bigdl_tpu.llm.kernels.int4_matmul import int8_matmul as j_int8_matmul
 from bigdl_tpu.llm.kernels.int4_matmul import to_tpu_layout as j_layout
 from bigdl_tpu.llm.transformers.low_bit_linear import \
@@ -35,8 +36,9 @@ from bigdl_tpu_torch.llm.ggml.quantize import (QK, dequantize, quantize,
                                                quantize_torch)
 from bigdl_tpu_torch.llm.kernels import launch_counts
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
-    TC_MIN_M, asym_int4_matmul, asym_int4_matmul_grouped, dequant_q4,
-    dequant_q4_1, dequant_q8_0, int4_matmul, int8_matmul,
+    GEMV_WARPS, TC_MIN_M, _slice_bounds, asym_int4_matmul,
+    asym_int4_matmul_grouped, dequant_q4, dequant_q4_1, dequant_q8_0,
+    gemv_slices, int4_matmul, int4_matmul_grouped, int8_matmul,
     int8_matmul_grouped, matmul_route, quantize_tpu, tc_block_shape,
     to_tpu_layout)
 from bigdl_tpu_torch.llm.transformers.low_bit_linear import LowBitLinear
@@ -309,13 +311,52 @@ class TestGroupedAlgebra:
         self._close(got, x @ (q.astype(np.float32) * s))
 
 
+GEMV_FORMATS = {"sym_int4": (j_int4_matmul, int4_matmul_grouped),
+                "asym_int4": (j_asym_int4_matmul, asym_int4_matmul_grouped),
+                "sym_int8": (j_int8_matmul, int8_matmul_grouped)}
+
+
+class TestGemvOrder:
+    """The GEMV's sum order (``csrc/lowbit_gemv.cu``) in plain PyTorch:
+    ``gemv_slices(K, N)`` contiguous K slices, group order inside each,
+    the slices added in order."""
+
+    @pytest.mark.parametrize("qtype", sorted(GEMV_FORMATS))
+    @pytest.mark.parametrize("m", [1, 3, 8])
+    @pytest.mark.parametrize("k,n", [(64, 2), (128, 48), (256, 130)])
+    def test_matches_pallas_interpret(self, qtype, m, k, n):
+        """Against the Pallas kernel in interpret mode: 1e-5 of max|y|
+        (exact f32 products of the same bf16 x, other orders)."""
+        x, td = _kernel_inputs(16, qtype, m, k, n)
+        planes = [td[key] for key in ("q", "scale", "zero") if key in td]
+        jfn, fn = GEMV_FORMATS[qtype]
+        want = np.asarray(jfn(jnp.asarray(x), *map(jnp.asarray, planes),
+                              interpret=True, out_dtype=jnp.float32),
+                          np.float32)
+        got = fn(torch.from_numpy(x), *map(torch.from_numpy, planes),
+                 out_dtype=torch.float32, slices=gemv_slices(k, n))
+        TestGroupedAlgebra._close(got.numpy(), want)
+
+    @pytest.mark.parametrize("k,n", [(64, 2), (768, 768), (4096, 4096),
+                                     (4096, 12288), (11008, 4096),
+                                     (14336, 4096), (4096, 32000)])
+    def test_slices_rule(self, k, n):
+        """A power of two from ``GEMV_WARPS`` to 8 blocks of them, from
+        (K, N) alone; the slices cover the groups in order, once."""
+        s = gemv_slices(k, n)
+        assert s & (s - 1) == 0 and GEMV_WARPS <= s <= 8 * GEMV_WARPS
+        bounds = _slice_bounds(k // QK, s)
+        assert [b for b, _ in bounds[1:]] == [e for _, e in bounds[:-1]]
+        assert (bounds[0][0], bounds[-1][1]) == (0, k // QK)
+
+
 # (M, N) of the low-bit BERT path: the 72 M = 1024 linears a forward take
 # the tensor cores, the pooler and N = 2 classifier (M = 8) and an N that
-# is not a multiple of 16 the CUDA cores
+# is not a multiple of 16 the GEMV
 BERT_ROUTES = [((1024, 768), "tc"), ((1024, 3072), "tc"),
-               ((8, 768), "cuda_core"), ((8, 2), "cuda_core"),
-               ((1024, 2), "cuda_core"), ((1024, 130), "cuda_core"),
-               ((TC_MIN_M - 1, 768), "cuda_core"), ((TC_MIN_M, 768), "tc")]
+               ((8, 768), "gemv"), ((8, 2), "gemv"),
+               ((1024, 2), "gemv"), ((1024, 130), "gemv"),
+               ((TC_MIN_M - 1, 768), "gemv"), ((TC_MIN_M, 768), "tc")]
 # the tensor-core tile at those shapes for q8_0 (no zero point) and q4_1
 # (zero point), as timed on the H100 (PERF.md)
 BERT_TILES = [((1024, 768), (64, 64), (64, 64)),
@@ -351,7 +392,7 @@ class TestRoute:
     @pytest.mark.parametrize("n", [2, 16, 130, 768, 3072])
     def test_rule(self, m, n):
         assert matmul_route(m, n) == (
-            "tc" if m >= TC_MIN_M and n % 16 == 0 else "cuda_core")
+            "tc" if m >= TC_MIN_M and n % 16 == 0 else "gemv")
 
 
 def _c_params(lib, entry):
@@ -375,7 +416,7 @@ class TestLaunchBinding:
 
     @pytest.mark.parametrize("kind", ["int4_matmul", "asym_int4_matmul",
                                       "int8_matmul"])
-    @pytest.mark.parametrize("route", ["cuda_core", "tc"])
+    @pytest.mark.parametrize("route", ["gemv", "tc"])
     @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
     def test_entry_and_arguments(self, monkeypatch, kind, route, out_dtype):
         import importlib
@@ -405,20 +446,23 @@ class TestLaunchBinding:
             planes.append(torch.zeros((k // QK, n)))
         out = torch.empty((m, n), dtype=out_dtype)
         lds = None if kind == "int4_matmul" else n
-        before = (wrapper.launches, wrapper.tc_launches)
+        before = (wrapper.launches, wrapper.tc_launches,
+                  wrapper.gemv_launches)
         assert mod._launch(wrapper, x, planes, out, route, lds) == 0
-        assert (wrapper.launches, wrapper.tc_launches) == (
-            before[0] + 1, before[1] + (route == "tc"))
-        (lib, entry, argtypes, args), = calls
         tc = route == "tc"
-        assert lib == mod._LIBS[kind][tc]
-        assert entry == (f"{kind}{'_tc' if tc else ''}_"
+        assert (wrapper.launches, wrapper.tc_launches,
+                wrapper.gemv_launches) == (before[0] + 1, before[1] + tc,
+                                           before[2] + (not tc))
+        (lib, entry, argtypes, args), = calls
+        assert lib == mod._LIBS[kind][route]
+        assert entry == (f"{kind}_{route}_"
                          f"{'bf16' if out_dtype == torch.bfloat16 else 'f32'}"
                          "out")
         kinds = ["I" if a is _build.I else "P" for a in argtypes]
         assert kinds == _c_params(lib, entry)
         assert len(args) == len(argtypes)
-        # x, the planes and out by pointer, then M, K, N (lds) (tile)
+        # x, the planes and out by pointer, then M, K, N (lds), then the
+        # tile or the GEMV's K slices
         ints = list(args[len(planes) + 2:-1])
         assert ints[:3] == [m, k, n]
         if lds is not None:
@@ -426,6 +470,8 @@ class TestLaunchBinding:
         if tc:
             assert tuple(ints[-2:]) == tc_block_shape(
                 m, n, kind == "asym_int4_matmul")
+        else:
+            assert ints[-1] == gemv_slices(k, n)
 
 
 def _x(seed, shape):

@@ -213,6 +213,24 @@ def test_capture_adds_no_launches():
         k: 3 * v for k, v in delta.items()}
 
 
+def test_capture_carries_gemv_launches():
+    """The GEMV's counters (``<wrapper>_gemv``) go through a capture's
+    delta and each replay like the others."""
+    from bigdl_tpu_torch.llm import kernels
+    kernels.reset_launch_counts()
+    with kernels.launches_of_capture() as delta:
+        for w in kernels.GEMV_WRAPPERS:
+            w.launches += 3
+            w.gemv_launches += 2
+    assert delta == {k: v for w in kernels.GEMV_WRAPPERS for k, v in (
+        (w.__name__, 3), (f"{w.__name__}_gemv", 2))}
+    assert not any(kernels.launch_counts().values())
+    kernels.add_launches(delta)
+    kernels.add_launches(delta)
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        k: 2 * v for k, v in delta.items()}
+
+
 class TestEngineRules:
     @pytest.mark.parametrize("opt", [
         {"kvcache": True}, {"kvtier": True}, {"mixed": True},
