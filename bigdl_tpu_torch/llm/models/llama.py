@@ -3,8 +3,10 @@ config and its presets, random init, parameter fusion and q4_0
 quantization, the layer math (``_linear``, ``rms_norm``, ``rope``,
 ``attention_qkv``, ``mlp``, ``_attention``), the dense-cache
 ``forward``, the token loops (``decode_scan`` over the dense cache,
-``decode_scan_paged`` over a page pool), the ragged in-place prefill of
-the serving engine, and :class:`LlamaForCausalLM` with ``generate``.
+``decode_scan_paged`` over a page pool), the serving engine's prefills
+(``paged_prefill_ragged`` in place, ``paged_prefill_partial`` through a
+dense staging cache) and its mixed prefill+decode step
+(``paged_step_mixed``), and :class:`LlamaForCausalLM` with ``generate``.
 
 Parameters are nested dicts of tensors with the JAX package's keys and
 layouts: stacked per layer (``params["layers"][name]`` has a leading
@@ -36,6 +38,8 @@ from bigdl_tpu_torch.llm.ggml.quantize import QK
 from bigdl_tpu_torch.llm.kernels.int4_matmul import int4_matmul, quantize_tpu
 from bigdl_tpu_torch.llm.kernels.paged_attention import LANE
 from bigdl_tpu_torch.llm.kernels.sampling import sample_tokens
+from bigdl_tpu_torch.llm.kvcache.prefill import (make_mixed_step,
+                                                 make_partial_prefill)
 from bigdl_tpu_torch.parallel.ring_attention import online_block_update
 
 _MOE = ("the mixture-of-experts FFN is not ported yet (ROADMAP Queue 1 "
@@ -568,28 +572,35 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
 
 
 def paged_prefill_ragged(params, cfg: LlamaConfig, k_pages, v_pages, toks,
-                         length: int, offset: int, bt_row, phys, slots,
-                         fork_dst: int, fork_src: int, *, page: int):
+                         length, offset, bt_row, phys, slots, fork_dst,
+                         fork_src, *, page: int):
     """Ragged in-place prefill: the suffix tokens run through the layer
     math while attention reads the cached prefix directly from the page
     pool (kernels/ragged_prefill.py); after the layers, one scatter
     writes every layer's suffix K/V into the pools IN PLACE. The COW
-    tail fork is one page copy ahead of the layers.
+    tail fork is one page copy ahead of the layers (a trash self-copy
+    with no tail).
 
     toks (1, bucket) int; ``length``/``offset`` the true suffix length
-    and its start position; bt_row (pages_cap,) int32; phys/slots
-    (bucket,) scatter targets (padding routed to trash page 0).
+    and its start position, and ``fork_dst``/``fork_src`` the fork's
+    pages, as int32 device scalars (as in the JAX entry point) or ints;
+    bt_row (pages_cap,) int32; phys/slots (bucket,) scatter targets
+    (padding routed to trash page 0). Nothing here reads a device value
+    on the host, so the prefill can run inside a CUDA graph (the engine's
+    mixed step) and the whole-prompt prefill calls the same body.
     Returns ``(k_pages, v_pages, last_logits (V,) f32)``. (The JAX
-    package's ``full_logits`` leg belongs to speculative decoding, ROADMAP
-    Queue 1 item 6(d).)"""
-    from bigdl_tpu_torch.llm.kvcache.prefill import (fork_tail_pages,
+    package's ``full_logits`` leg belongs to speculative decoding,
+    ROADMAP Queue 1 item 6(d).)"""
+    from bigdl_tpu_torch.llm.kvcache.prefill import (device_i32,
+                                                     fork_tail_pages,
                                                      ragged_prefill_attend,
                                                      scatter_suffix_kv)
-    bucket = toks.shape[1]
+    bucket, dev = toks.shape[1], toks.device
+    offset, length = device_i32(offset, dev), device_i32(length, dev)
     k_pages, v_pages = fork_tail_pages(k_pages, v_pages, fork_dst,
                                        fork_src)
     positions = (offset + torch.arange(bucket, dtype=torch.int32,
-                                       device=toks.device))[None]
+                                       device=dev))[None]
     x = params["embed_tokens"][toks.long()]                  # (1, Tq, H)
     attend_l = ragged_prefill_attend(k_pages, v_pages, bt_row, offset,
                                      length, page=page,
@@ -610,7 +621,29 @@ def paged_prefill_ragged(params, cfg: LlamaConfig, k_pages, v_pages, toks,
     k_pages, v_pages = scatter_suffix_kv(k_pages, v_pages, phys, slots,
                                          torch.stack(k_new),
                                          torch.stack(v_new))
-    return k_pages, v_pages, logits[0, length - 1].to(torch.float32)
+    # the last true token's row, picked by a device index
+    last = logits[0].index_select(0, (length - 1).reshape(1).long())[0]
+    return k_pages, v_pages, last.to(torch.float32)
+
+
+# the dense staging prefill behind LLMServer(ragged_prefill=False): the
+# suffix through forward() over the gathered prefix, see kvcache/prefill.py
+paged_prefill_partial = make_partial_prefill(forward, init_cache)
+
+
+def paged_step_mixed(params, cfg, k_pages, v_pages, bt, lens, last,
+                     active, temperature, generator, ctoks, clen, coff,
+                     cbt_row, cphys, cslots, fork_dst, fork_src, *,
+                     page: int, do_sample: bool = False, top_k: int = 0):
+    """The engine's unified mixed prefill+decode step for the llama
+    family: :func:`paged_prefill_ragged` over one chunk, then the sampled
+    decode step over every row (``kvcache.prefill.make_mixed_step``).
+    Returns ``(toks, logits, k_pages, v_pages, new_lens, clast)``."""
+    from bigdl_tpu_torch.llm.serving import paged_decode_step
+    return make_mixed_step(paged_decode_step, paged_prefill_ragged)(
+        params, cfg, k_pages, v_pages, bt, lens, last, active,
+        temperature, generator, ctoks, clen, coff, cbt_row, cphys, cslots,
+        fork_dst, fork_src, page=page, do_sample=do_sample, top_k=top_k)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,20 @@
 """Continuous-batching LLM serving over a paged KV cache — the port of
-``bigdl_tpu/llm/serving.py``, slice (a) of ROADMAP Queue 1 item 6:
+``bigdl_tpu/llm/serving.py``, slices (a)-(c) of ROADMAP Queue 1 item 6:
 
 - the device functions of the paged decode step (``paged_attend``,
   ``scatter_new_kv``, ``paged_decode_step``, its sampled lift
   ``paged_decode_step_sampled``, and ``bind_decode_step``, that step
-  over the engine's persistent buffers);
-- :class:`LLMServer` with paged decode, whole-prompt ragged prefill,
-  worst-case admission budgets, EOS / ``max_new_tokens`` finishing and
-  page release, and the JAX engine's pipelined dispatch: block tables
-  and lengths resident on the device, up to ``pipeline_depth`` decode
-  steps in flight (default 2), and the decode step replayed as one
-  captured CUDA graph (``llm/graphs.py``), the port's ``jax.jit``.
+  over the engine's persistent buffers) and ``bind_mixed_step``, the
+  mixed prefill+decode step over them;
+- :class:`LLMServer` with paged decode, whole-prompt prefill (ragged in
+  place, or dense staging), worst-case admission budgets, EOS /
+  ``max_new_tokens`` finishing and page release; the JAX engine's
+  pipelined dispatch (block tables and lengths resident on the device,
+  up to ``pipeline_depth`` steps in flight, the decode step replayed as
+  one captured CUDA graph, ``llm/graphs.py``, the port's ``jax.jit``);
+  the radix prefix cache (``kvcache=``); and the mixed prefill+decode
+  dispatch with chunked admission (``mixed=``, ``chunk_tokens=``,
+  ``chunk_wait=``), the mixed step one CUDA graph per chunk bucket.
 
 The engine's other options raise ``NotImplementedError`` naming their
 ROADMAP item; none is silently ignored.
@@ -18,13 +22,14 @@ ROADMAP item; none is silently ignored.
 
 from __future__ import annotations
 
+import inspect
 import queue
 import threading
 import time
 import traceback
 import uuid
 from collections import deque
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,9 +41,7 @@ from bigdl_tpu_torch.llm.kernels.paged_attention import (
 from bigdl_tpu_torch.llm.kernels.sampling import make_sampled_step
 from bigdl_tpu_torch.llm.kvcache import Admission, KVCacheManager
 from bigdl_tpu_torch.llm.models.llama import (decoder_layer, layer_params,
-                                              lm_logits,
-                                              paged_prefill_ragged,
-                                              rms_norm)
+                                              lm_logits, rms_norm)
 
 
 class OverloadError(RuntimeError):
@@ -155,6 +158,69 @@ def bind_decode_step(params, cfg, k_pages, v_pages, bt, lens, last, active,
     return step
 
 
+def chunk_operands(ops: torch.Tensor, bucket: int, pages_cap: int):
+    """Views of one prefill's operands packed in one int32 vector (one
+    host copy fills them all): ``toks (1, bucket)``, the device scalars
+    ``length``, ``offset``, ``fork_dst``, ``fork_src``, then ``bt_row
+    (pages_cap,)``, ``phys (bucket,)`` and ``slots (bucket,)`` — the
+    arguments of a family's ``paged_prefill_ragged`` after the pools."""
+    b0 = bucket + 4
+    b1 = b0 + pages_cap
+    return (ops[:bucket].view(1, bucket), ops[bucket], ops[bucket + 1],
+            ops[b0:b1], ops[b1:b1 + bucket], ops[b1 + bucket:],
+            ops[bucket + 2], ops[bucket + 3])
+
+
+def prefill_operands(ids, off: int, end: int, bucket: int, row_pages, *,
+                     page: int, pages_cap: int, fork_dst: int = 0,
+                     fork_src: int = 0) -> np.ndarray:
+    """The packed operands (:func:`chunk_operands`) of a ragged prefill of
+    ``ids[off:end]`` at offset ``off`` over the block-table row
+    ``row_pages``: token j lands in its own page and slot, positions
+    past ``end`` (padding, or a later chunk's) in trash page 0."""
+    ops = np.zeros(bucket * 3 + 4 + pages_cap, np.int32)
+    ops[:end - off] = ids[off:end]
+    ops[bucket:bucket + 4] = (end - off, off, fork_dst, fork_src)
+    bt_row = ops[bucket + 4:bucket + 4 + pages_cap]
+    bt_row[:len(row_pages)] = row_pages
+    pos = off + np.arange(bucket)
+    ops[bucket + 4 + pages_cap:2 * bucket + 4 + pages_cap] = np.where(
+        pos < end, bt_row[np.minimum(pos // page, pages_cap - 1)], 0)
+    ops[2 * bucket + 4 + pages_cap:] = pos % page
+    return ops
+
+
+def bind_mixed_step(params, cfg, k_pages, v_pages, bt, lens, last, active,
+                    toks, ops, clast, *, bucket: int, page: int,
+                    temperature: float = 1.0, generator=None,
+                    do_sample: bool = False, top_k: int = 0, fam_step=None):
+    """The engine's mixed prefill+decode step for one chunk bucket as a
+    function of no arguments over persistent buffers, what
+    :class:`CapturedStep` captures: the decode buffers of
+    :func:`bind_decode_step` (written the same way) plus ``ops``, the
+    chunk's operands packed as :func:`chunk_operands` reads them, and
+    ``clast`` (V,) f32, into which the chunk's last-token logits go."""
+    if fam_step is None:
+        from bigdl_tpu_torch.llm.models.llama import paged_step_mixed
+        fam_step = paged_step_mixed
+    chunk = chunk_operands(ops, bucket, bt.shape[1])
+
+    def step():
+        t, logits, kp, vp, new_lens, cl = fam_step(
+            params, cfg, k_pages, v_pages, bt, lens, last, active,
+            temperature, generator, *chunk, page=page,
+            do_sample=do_sample, top_k=top_k)
+        if kp is not k_pages or vp is not v_pages:
+            raise RuntimeError("the mixed step must write the pools in "
+                               "place: a graph holds their addresses")
+        toks.copy_(t)
+        last.copy_(logits)
+        lens.copy_(new_lens)
+        clast.copy_(cl)
+
+    return step
+
+
 class Request:
     """Handle returned by :meth:`LLMServer.submit`."""
 
@@ -165,9 +231,11 @@ class Request:
         self.tokens: List[int] = []
         self.error: Optional[str] = None
         self.done = threading.Event()
-        # TTFT accounting: submit stamp here, first-token stamp at drain
+        # TTFT accounting: submit stamp here, first-token stamp at drain;
+        # t_tokens holds each token's drain time (one clock read a drain)
         self.t_submit = time.perf_counter()
         self.t_first_token = 0.0
+        self.t_tokens: List[float] = []
 
     def get(self, timeout: Optional[float] = None) -> List[int]:
         if not self.done.wait(timeout):
@@ -177,15 +245,11 @@ class Request:
         return list(self.tokens)
 
 
-# options of the JAX engine that this slice does not implement, and the
+# options of the JAX engine that the port does not implement yet, and the
 # ROADMAP item that will (asking for one raises; none is ignored)
 _NOT_PORTED = {
-    "kvcache": "the radix prefix cache is ROADMAP Queue 1 item 6(b)",
     "kvtier": "the host KV tier is ROADMAP Queue 1 item 6(f)",
     "host_pages": "the host KV tier is ROADMAP Queue 1 item 6(f)",
-    "mixed": "mixed prefill+decode dispatch is ROADMAP Queue 1 item 6(c)",
-    "chunk_tokens": "chunked admission is ROADMAP Queue 1 item 6(c)",
-    "chunk_wait": "chunked admission is ROADMAP Queue 1 item 6(c)",
     "spec": "self-speculative decoding is ROADMAP Queue 1 item 6(d)",
     "spec_k": "self-speculative decoding is ROADMAP Queue 1 item 6(d)",
     "priority": "priority classes and preemption are ROADMAP Queue 1 "
@@ -196,43 +260,69 @@ _NOT_PORTED = {
 }
 
 
+def _pow2_bucket(n: int, page: int) -> int:
+    """The prefill bucket of ``n`` tokens: a power of two, >= one page."""
+    return max(page, 1 << (n - 1).bit_length())
+
 
 class LLMServer:
     """Continuous-batching engine over a Llama-family model, paged KV.
 
     KV lives in a page pool ``(L, num_pages, H_kv, page_size, D)`` on the
     model's device; each request owns ``ceil(tokens / page)`` pages named
-    by its block-table row, taken as tokens land and freed when it
+    by its block-table row, taken as tokens land and given back when it
     finishes. Admission reserves the worst-case page budget of prompt +
     ``max_new_tokens``, so decode never deadlocks on an empty pool; page
     0 is the trash page that inactive rows and prefill padding write.
 
-    Each engine pass admits into free slots (one ragged prefill per
-    admission, the prompt padded to a power-of-two bucket) and dispatches
-    one decode step over all ``max_batch`` rows, inactive rows masked to
-    the trash page — the batch shape never changes, so a request's
-    tokens do not depend on what else is in the batch.
+    Each engine pass admits into free slots and dispatches one step over
+    all ``max_batch`` rows, inactive rows masked to the trash page — the
+    batch shape never changes, so a request's tokens do not depend on
+    what else is in the batch. A prompt is prefilled whole at admission
+    (padded to a power-of-two bucket, at least one page) by the ragged
+    in-place prefill, or with ``ragged_prefill=False`` by the dense
+    staging prefill (``paged_prefill_partial``).
+
+    **Prefix cache** (``kvcache=True``), as the JAX engine's: admission
+    looks the prompt up in a radix index of page-size token chunks
+    (``kvcache/radix.py``), adopts the cached full pages (refcounted and
+    pinned, never written), charges only the uncached suffix, and the
+    prefill runs the suffix alone at its offset, the adopted partial
+    tail page forked (copy-on-write) into a page of its own. A request's
+    full prompt pages are indexed at prefill, prompt + output at EOS;
+    index-only pages are LRU-evicted when the pool runs short.
+
+    **Mixed dispatch** (``mixed=True``): a prompt whose uncached suffix
+    is longer than ``chunk_tokens`` (0 means 4 pages; rounded up to a
+    page) is fed in page-aligned chunks, one a pass, each fused with
+    every decoding row into one mixed step (``paged_step_mixed``), so an
+    admission no longer stalls decode for a whole prefill. Chunked
+    admission charges the ledger chunk by chunk; a chunk that cannot be
+    charged for ``chunk_wait`` seconds (default 30) sheds its request
+    with the partial chain rolled back. Chunking slots rotate round
+    robin; a chunk with no decode row to fuse with runs alone, eagerly.
 
     **Pipelined dispatch**, as the JAX engine's. Block tables, lengths,
-    the active mask and the last logits live on the device; the step
-    reads them and advances lengths and logits in place, and the host
-    changes them with small in-place writes in stream order (page
-    grants, prefilled rows, the resets of freed rows). The numpy ``_bt``
+    the active mask and the last logits live on the device; a step reads
+    them and advances lengths and logits in place, and the host changes
+    them with small in-place writes in stream order. The numpy ``_bt``
     and ``_lens`` are the host's view at dispatch time. Up to
     ``pipeline_depth`` steps (default 2) are in flight before the oldest
     is drained: its sampled ids come back through a pinned host buffer
     of its own and an event, and EOS / max-token bookkeeping runs one
-    step behind dispatch. Dispatches per request are capped at its
-    ``max_new_tokens``; a token drained for a request that finished
-    meanwhile is discarded. ``pipeline_depth=1`` is the synchronous
-    engine: every step drains before the next dispatch.
+    step behind dispatch. ``pipeline_depth=1`` is the synchronous engine.
+    Pages go back to the pool as soon as the host releases them (the
+    JAX engine defers that to the newest step's fence): every later use
+    of a page is enqueued behind the steps still reading it, on the
+    one stream.
 
-    The decode step is one CUDA graph per server (:class:`CapturedStep`,
-    the port's ``jax.jit``), captured at the second decode step over the
-    server's pools, tables, ``_last`` and mask at ``max_batch``;
-    ``temperature``, ``top_k`` and sampling are fixed at construction,
-    as in the JAX step's cache key. Prefill runs eagerly. ``stop()``
-    frees the graph.
+    The decode step is one CUDA graph (:class:`CapturedStep`, the port's
+    ``jax.jit``) captured at its second call, and the mixed step one
+    graph per chunk bucket, captured alike over that bucket's persistent
+    operand buffer (filled by one host copy a pass); ``temperature``,
+    ``top_k`` and sampling are fixed at construction, as in the JAX
+    step's cache key. Whole-prompt prefills and solo chunks run eagerly.
+    ``stop()`` frees the graphs.
 
     ``device=None`` means the GPU (and raises without one); the model
     must live on the same device. ``page_size=None`` takes the model's;
@@ -247,7 +337,10 @@ class LLMServer:
                  pipeline_depth: Optional[int] = None,
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0,
-                 ragged_prefill: Optional[bool] = None, device=None,
+                 ragged_prefill: Optional[bool] = None,
+                 kvcache: bool = False, mixed: bool = False,
+                 chunk_tokens: Optional[int] = None,
+                 chunk_wait: Optional[float] = None, device=None,
                  **options):
         for name, value in options.items():
             if name not in _NOT_PORTED:
@@ -259,16 +352,22 @@ class LLMServer:
             raise NotImplementedError(
                 "paged=False: the slot-static cache is not ported "
                 "(ROADMAP Queue 1 item 6)")
-        if ragged_prefill is False:
-            raise NotImplementedError(
-                "ragged_prefill=False: the dense staging prefill is "
-                "ROADMAP Queue 1 item 5 (make_partial_prefill)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, server on "
                              f"{self.device}")
         self.model = model
         self.cfg = cfg = model.config
+        # the family's entry points, found by the model's module as the
+        # JAX engine finds them (the llama module's by default)
+        from bigdl_tpu_torch.llm.models import llama as _llama
+        fam = inspect.getmodule(type(model))
+        self._fam_ragged_prefill, self._fam_partial_prefill, \
+            self._fam_mixed_step = (
+                getattr(fam, n, getattr(_llama, n)) for n in (
+                    "paged_prefill_ragged", "paged_prefill_partial",
+                    "paged_step_mixed"))
+        self._ragged = ragged_prefill is not False
         self.max_batch = max_batch
         self.max_seq_len = min(max_seq_len, cfg.max_position_embeddings)
         self.eos_token_id = eos_token_id
@@ -307,6 +406,23 @@ class LLMServer:
         if page_size <= 0:
             raise ValueError(f"page_size {page_size} must be positive")
         self._page = page_size
+        # mixed dispatch needs the ragged prefill (a chunk attends the
+        # prefix and its own earlier chunks where they sit in the pool):
+        # under ragged_prefill=False every admission prefills whole, as
+        # in the JAX engine
+        self._mixed = bool(mixed)
+        ct = int(chunk_tokens or 0)
+        if ct <= 0:
+            ct = 4 * page_size
+        self._chunk_tokens = max(page_size, -(-ct // page_size) * page_size)
+        self._chunk_wait = 30.0 if chunk_wait is None else float(chunk_wait)
+        self._mixed_active = self._mixed and self._ragged
+        self._chunk_state: Optional[List[Optional[dict]]] = (
+            [None] * max_batch if self._mixed_active else None)
+        self._chunk_rr = 0
+        self.prefill_chunks_total = 0
+        self.prefill_tokens_total = 0
+        self.mixed_passes = 0
         # block-table width: the JAX engine rounds it up to the Mosaic
         # block multiple (LANE // page); kept so tables compare like with
         # like — the CUDA kernels do not need it
@@ -321,7 +437,8 @@ class LLMServer:
                                     device=dev)
         self._v_pages = torch.zeros(shape, dtype=model.cache_dtype,
                                     device=dev)
-        self._kv = KVCacheManager(self._num_pages, page_size)
+        self._kv = KVCacheManager(self._num_pages, page_size,
+                                  enabled=kvcache)
         # host bookkeeping: the tables as of the latest dispatch
         self._bt = np.zeros((max_batch, self._pages_cap), np.int32)
         self._lens = np.zeros(max_batch, np.int32)
@@ -345,6 +462,7 @@ class LLMServer:
         self._toks_host = [torch.zeros(max_batch, dtype=torch.int32,
                                        pin_memory=dev.type == "cuda")
                            for _ in range(self.pipeline_depth)]
+        self._gens = (self._gen,) if self._do_sample else ()
         self._step = CapturedStep(
             bind_decode_step(model.params, cfg, self._k_pages,
                              self._v_pages, self._bt_dev, self._lens_dev,
@@ -352,13 +470,20 @@ class LLMServer:
                              page=page_size, temperature=self._temp,
                              generator=self._gen,
                              do_sample=self._do_sample, top_k=self.top_k),
-            dev, generators=(self._gen,) if self._do_sample else ())
+            dev, generators=self._gens)
+        # chunk bucket -> (its mixed step, operand buffer, clast buffer)
+        self._mixed_steps: Dict[int, tuple] = {}
 
     # -- views ---------------------------------------------------------------
     @property
     def pages_in_use(self) -> int:
-        """Physical pages owned by live requests."""
-        return sum(len(p) for p in self._slot_pages)
+        """Physical pages owned by live requests, chunked admissions
+        still mid-prompt included."""
+        n = sum(len(p) for p in self._slot_pages)
+        if self._chunk_state is not None:
+            n += sum(len(st["own"]) for st in self._chunk_state
+                     if st is not None)
+        return n
 
     @property
     def _free(self) -> List[int]:
@@ -367,6 +492,12 @@ class LLMServer:
     @property
     def _budget_avail(self) -> int:
         return self._kv.budget_avail
+
+    @property
+    def prefix_tokens_saved(self) -> int:
+        """Prompt tokens served from the prefix cache instead of being
+        prefilled (0 with the cache off)."""
+        return self._kv.prefix_tokens_reused
 
     # -- client API ----------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int = 32) -> Request:
@@ -403,8 +534,9 @@ class LLMServer:
 
     def stop(self, drain: bool = True, timeout: float = 30.0):
         """Graceful drain (default): refuse new submits, finish every
-        accepted request, then stop the engine thread and free the step's
-        graph. ``drain=False`` stops at once; accepted requests fail."""
+        accepted request, then stop the engine thread and free the
+        steps' graphs. ``drain=False`` stops at once; accepted requests
+        fail."""
         self._draining.set()
         if drain and self._thread is not None and self._thread.is_alive():
             deadline = time.monotonic() + timeout
@@ -423,6 +555,8 @@ class LLMServer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._step.close()
+            for step, _, _ in self._mixed_steps.values():
+                step.close()
 
     def _idle(self) -> bool:
         return (self._queue.empty() and self._pending_head is None
@@ -454,14 +588,19 @@ class LLMServer:
         self._inflight.clear()
         self._pending_release = []
         for i, req in enumerate(self._slots):
-            if req is not None:
-                req.error = msg
-                try:
+            if req is None:
+                continue
+            req.error = msg
+            try:
+                if self._chunk_state is not None and \
+                        self._chunk_state[i] is not None:
+                    self._rollback_chunk(i, msg)
+                else:
                     self._finish_slot(i, req)
-                except RuntimeError:
-                    # a sticky CUDA error refuses the device rows' reset;
-                    # the host side of the slot is already released
-                    self.errors.append(traceback.format_exc())
+            except RuntimeError:
+                # a sticky CUDA error refuses the device rows' reset;
+                # the host side of the slot is already released
+                self.errors.append(traceback.format_exc())
         pending = [self._pending_head] if self._pending_head else []
         self._pending_head = None
         while True:
@@ -473,102 +612,403 @@ class LLMServer:
             req.error = msg
             req.done.set()
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """``a`` on the device, copied in stream order without a wait:
-        from pinned memory kept by the next dispatched record until its
-        drain proves the copy retired."""
+    def _pinned(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` as a host tensor for a copy in stream order: pinned on a
+        card and kept by the next dispatched record until its drain
+        proves the copy retired."""
         t = torch.from_numpy(a)
         if self.device.type == "cuda":
             t = t.pin_memory()
             self._pending_release.append(t)
-        return t.to(self.device, non_blocking=True)
+        return t
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device, copied in stream order without a wait."""
+        return self._pinned(a).to(self.device, non_blocking=True)
 
     def _admit(self):
-        """Fill free slots from the queue, one ragged prefill each. A
-        request is admitted only when its worst-case page budget is
-        available; head-of-line: if the next request does not fit, no
-        later one is admitted either."""
+        """Fill free slots from the queue. A request is admitted only
+        when its worst-case page budget (its uncached suffix, with the
+        prefix cache) is available; head-of-line: if the next request
+        does not fit, no later one is admitted either."""
         for i in range(self.max_batch):
             if self._slots[i] is not None:
                 continue
+            if not self._admit_into(i):
+                return
+
+    def _admit_into(self, i: int) -> bool:
+        """Admit one request into free slot ``i``: lookup, suffix-only
+        charge and adoption (``KVCacheManager.admit``), then a whole
+        prefill, or the start of a chunked admission. False stops the
+        slot sweep: the queue is empty or its head is budget-blocked."""
+        page = self._page
+        while True:
             req = self._pending_head
             if req is None:
                 try:
                     req = self._queue.get_nowait()
                 except queue.Empty:
-                    return
+                    return False
             self._pending_head = None
-            adm = self._kv.admit(req.prompt_ids, req.max_new_tokens)
+            ids, budget = req.prompt_ids, req.max_new_tokens
+            chunk_first = None
+            if self._mixed_active and len(ids) > self._chunk_tokens:
+                # a long uncached suffix is fed in chunks, the first
+                # charged now. The pool-size guard keeps a request that
+                # can never be admitted (its cached prefix evicted since
+                # submit) on the unchunked path, where it fails below
+                pk = self._kv.peek(ids, budget)
+                off0 = pk["matched_device"]
+                if pk["pages_needed"] <= self._num_pages - 1 and \
+                        len(ids) - off0 > self._chunk_tokens:
+                    end0 = self._chunk_end(off0, len(ids))
+                    chunk_first = -(-end0 // page) - off0 // page
+            adm = self._kv.admit(ids, budget, chunk_pages=chunk_first)
             if adm is None:
+                peek = self._kv.peek(ids, budget)
+                if peek["pages_needed"] > self._num_pages - 1:
+                    req.error = (
+                        f"request needs {peek['pages_needed']} pages but "
+                        f"the pool holds {self._num_pages - 1} (cached "
+                        "prefix evicted since submit)")
+                    req.done.set()
+                    continue
                 self._pending_head = req            # retry next pass
-                return
+                return False
             self._slot_adm[i] = adm
+            if chunk_first is not None:
+                self._begin_chunked(i, req, adm)
+                return True
             try:
-                self._prefill_ragged(i, req, adm)
+                (self._prefill_ragged if self._ragged
+                 else self._prefill_dense)(i, req, adm)
+                self.prefill_tokens_total += len(ids) - adm.matched_len
             except Exception as e:  # noqa: BLE001 — fails this request
-                # a failing prefill must not leak its budget, nor leave
-                # the client blocked until its timeout; the slot stays
-                # free for the next request
+                # a failing prefill must not leak its budget or adoption
+                # refs, nor leave the client blocked until its timeout;
+                # the slot stays free for the next request
                 self._kv.cancel(adm)
                 self._slot_adm[i] = None
                 self.errors.append(traceback.format_exc())
                 req.error = f"{type(e).__name__}: {e}"
                 req.done.set()
+            return True
 
-    def _prefill_ragged(self, i: int, req: Request, adm):
-        """Whole-prompt prefill in place on the page pool: the prompt is
-        padded to a power-of-two bucket (at least one page); token j
-        lands in its own page and slot, padding in trash page 0. Then
-        row i of the device tables and ``_last`` take the request, in
-        stream order behind any step still in flight."""
+    def _prefill_ragged(self, i: int, req: Request, adm: Admission):
+        """Prefill in place on the page pool: the uncached suffix runs at
+        offset ``matched_len`` (0 with no cache hit) while attention
+        reads the adopted prefix pages through the block table; an
+        adopted partial tail is forked into the request's first own
+        page. Then the slot takes the request (:meth:`_finish_prefill`)."""
         page = self._page
-        prompt = req.prompt_ids
-        T = len(prompt)
-        own = self._kv.alloc(-(-T // page))
+        ids = req.prompt_ids
+        T, off = len(ids), adm.matched_len
+        own = self._kv.alloc(-(-T // page) - off // page)
         try:
-            bucket = max(page, 1 << (T - 1).bit_length())
-            toks = np.zeros((1, bucket), np.int64)
-            toks[0, :T] = prompt
-            bt_row = np.zeros(self._pages_cap, np.int32)
-            bt_row[:len(own)] = own
-            pos = np.arange(bucket)
-            phys = np.where(pos < T, bt_row[np.minimum(
-                pos // page, self._pages_cap - 1)], 0).astype(np.int32)
-            slots = (pos % page).astype(np.int32)
-            bt_d = self._upload(bt_row)
-            kp, vp, last = paged_prefill_ragged(
+            row_pages = list(adm.shared_pages) + own
+            tail = adm.tail_src is not None
+            bucket = _pow2_bucket(T - off, page)
+            ops = self._upload(prefill_operands(
+                ids, off, T, bucket, row_pages, page=page,
+                pages_cap=self._pages_cap, fork_dst=own[0] if tail else 0,
+                fork_src=adm.tail_src if tail else 0))
+            chunk = chunk_operands(ops, bucket, self._pages_cap)
+            kp, vp, last = self._fam_ragged_prefill(
                 self.model.params, self.cfg, self._k_pages, self._v_pages,
-                self._upload(toks), T, 0, bt_d, self._upload(phys),
-                self._upload(slots), 0, 0, page=page)
+                *chunk, page=page)
             if kp is not self._k_pages or vp is not self._v_pages:
                 raise RuntimeError("prefill must write the pools in place")
         except BaseException:
             self._kv.free_owned(own)     # physical pages must not leak
             raise
+        self._finish_prefill(i, req, row_pages, own, last, chunk[3], adm)
+
+    def _prefill_dense(self, i: int, req: Request, adm: Admission):
+        """``ragged_prefill=False``: the suffix through the family's
+        dense staging prefill (``paged_prefill_partial``) over the
+        adopted prefix pages (one trash page when nothing matched),
+        gathered into a temp cache; the write-back window re-writes an
+        adopted tail's shared slots into the request's fork page."""
+        page = self._page
+        ids = req.prompt_ids
+        T, off = len(ids), adm.matched_len
+        koff = off // page
+        own = self._kv.alloc(-(-T // page) - koff)
+        try:
+            row_pages = list(adm.shared_pages) + own
+            gsrc = list(adm.shared_pages)
+            if adm.tail_src is not None:
+                gsrc.append(adm.tail_src)
+            n_pp = 1 << max(len(gsrc) - 1, 0).bit_length()
+            bucket = _pow2_bucket(T - off, page)
+            toks = np.zeros((1, bucket), np.int32)
+            toks[0, :T - off] = ids[off:]
+            pids = np.zeros(n_pp, np.int32)
+            pids[:len(gsrc)] = gsrc
+            pos = koff * page + np.arange(page + bucket)
+            rp = np.asarray(row_pages, np.int32)
+            phys = np.where(pos < T, rp[np.minimum(pos // page,
+                                                   len(rp) - 1)], 0)
+            bt_row = np.zeros(self._pages_cap, np.int32)
+            bt_row[:len(row_pages)] = row_pages
+            kp, vp, last = self._fam_partial_prefill(
+                self.model.params, self.cfg, self._k_pages, self._v_pages,
+                self._upload(toks), T - off, off, self._upload(pids),
+                self._upload(phys.astype(np.int32)),
+                self._upload((pos % page).astype(np.int32)), page=page)
+            if kp is not self._k_pages or vp is not self._v_pages:
+                raise RuntimeError("prefill must write the pools in place")
+        except BaseException:
+            self._kv.free_owned(own)
+            raise
+        self._finish_prefill(i, req, row_pages, own, last,
+                             self._upload(bt_row), adm)
+
+    def _finish_prefill(self, i: int, req: Request, row_pages, own, last,
+                        bt_row_dev, adm: Optional[Admission]):
+        """Shared epilogue of every prefill path: row ``i`` of the device
+        tables and ``_last`` take the request, in stream order behind
+        the prefill; the admission's transient tail ref drops (the fork
+        that read it is enqueued); the slot takes the request and its
+        full prompt pages are indexed."""
         self._last[i] = last
-        self._bt_dev[i] = bt_d
+        self._bt_dev[i] = bt_row_dev
+        T = len(req.prompt_ids)
         self._lens_dev[i] = T
-        self._bt[i, :] = bt_row
+        self._bt[i, :] = 0
+        self._bt[i, :len(row_pages)] = row_pages
         self._lens[i] = T
+        if adm is not None:
+            self._kv.release_transient(adm)
         self._slot_pages[i] = own
         self._slots[i] = req
         self._remaining[i] = req.max_new_tokens
+        self._index_prompt(i, req)
+
+    def _index_prompt(self, i: int, req: Request):
+        """Make the request's FULL prompt pages reusable at once (not at
+        EOS): requests sharing the prompt adopt them while this one still
+        decodes. The partly filled prompt tail stays private until EOS,
+        and adopters fork it rather than race this row's decode writes."""
+        nfull = len(req.prompt_ids) // self._page
+        if self._kv.enabled and nfull:
+            self._kv.insert(req.prompt_ids[:nfull * self._page],
+                            self._bt[i, :nfull])
+
+    # -- mixed prefill+decode dispatch and chunked admission -----------------
+    def _chunk_end(self, off: int, T: int) -> int:
+        """Page-aligned end of the next chunk from ``off``: the largest
+        page multiple within ``chunk_tokens`` of ``off``, so every chunk
+        after the first starts on a page and only the final one (which
+        runs to the prompt's end) may end mid-page."""
+        end = ((off + self._chunk_tokens) // self._page) * self._page
+        return T if end >= T else max(end, off + 1)
+
+    def _begin_chunked(self, i: int, req: Request, adm: Admission):
+        """Admit a long-suffix request without prefilling it: later
+        passes feed the prompt chunk by chunk. The slot is held (no later
+        request overtakes it) but decodes only after the final chunk."""
+        self._chunk_state[i] = {
+            "req": req, "adm": adm, "off": adm.matched_len,
+            "row_pages": list(adm.shared_pages), "own": [],
+            "first": True, "wait_t0": None}
+        self._slots[i] = req
+        self._remaining[i] = 0
+
+    def _chunk_slot(self) -> Optional[int]:
+        """Round-robin pick of the one chunking slot to advance this pass
+        (a pass's prefill budget is one chunk). A request that failed
+        meanwhile is rolled back here."""
+        if self._chunk_state is None:
+            return None
+        n = self.max_batch
+        for k in range(n):
+            i = (self._chunk_rr + k) % n
+            st = self._chunk_state[i]
+            if st is None:
+                continue
+            if st["req"].done.is_set():
+                self._rollback_chunk(i, None)
+                continue
+            self._chunk_rr = (i + 1) % n
+            return i
+        return None
+
+    def _prepare_chunk(self, i: int) -> Optional[dict]:
+        """Ledger charge, pages and operands of slot ``i``'s next chunk.
+        The first chunk was charged at admission; a later one charges its
+        own pages, and the final one also the decode budget, so the sum
+        equals the unchunked charge. None: the ledger cannot cover the
+        chunk now (decode goes on; the chunk retries next pass, and past
+        ``chunk_wait`` its request is shed with the chain rolled back)."""
+        st = self._chunk_state[i]
+        req, adm = st["req"], st["adm"]
+        page, ids = self._page, st["req"].prompt_ids
+        T, off = len(ids), st["off"]
+        end = self._chunk_end(off, T)
+        n_new = -(-end // page) - len(st["row_pages"])
+        final = end == T
+        need = n_new
+        if final:
+            need += (-(-(T + req.max_new_tokens) // page) - (-(-T // page)))
+        charge_now = 0 if st["first"] else need
+        if charge_now and not self._kv.charge_chunk(adm, charge_now):
+            now = time.perf_counter()
+            if st["wait_t0"] is None:
+                st["wait_t0"] = now
+            elif now - st["wait_t0"] > self._chunk_wait:
+                self._rollback_chunk(
+                    i, f"chunked admission starved: the ledger could not "
+                       f"cover the next {charge_now} pages within "
+                       f"{self._chunk_wait:g}s (retriable: partial chain "
+                       "rolled back; resubmit)")
+            return None
+        st["wait_t0"] = None
+        try:
+            if n_new > 0:
+                self._kv.ensure_free(n_new)
+            new_pages = self._kv.alloc(n_new) if n_new > 0 else []
+        except BaseException:
+            self._kv.uncharge_chunk(adm, charge_now)
+            raise
+        tail = st["first"] and adm.tail_src is not None
+        bucket = _pow2_bucket(end - off, page)
+        ops = prefill_operands(ids, off, end, bucket,
+                               st["row_pages"] + new_pages, page=page,
+                               pages_cap=self._pages_cap,
+                               fork_dst=new_pages[0] if tail else 0,
+                               fork_src=adm.tail_src if tail else 0)
+        return {"i": i, "c": end - off, "end": end, "final": final,
+                "bucket": bucket, "new_pages": new_pages,
+                "charged": charge_now, "ops": ops}
+
+    def _chunk_dispatched(self, cargs: dict, clast, bt_row_dev):
+        """After a chunk is enqueued: advance the chunk's cursor; at the
+        first chunk drop the fork source's transient ref; at the final
+        one run the whole prefill's epilogue, the slot turning into a
+        decode row over the chain the chunks built."""
+        i = cargs["i"]
+        st = self._chunk_state[i]
+        st["row_pages"].extend(cargs["new_pages"])
+        st["own"].extend(cargs["new_pages"])
+        st["off"] = cargs["end"]
+        if st["first"]:
+            st["first"] = False
+            self._kv.release_transient(st["adm"])
+        self.prefill_tokens_total += cargs["c"]
+        self.prefill_chunks_total += 1
+        if cargs["final"]:
+            self._chunk_state[i] = None
+            self._finish_prefill(i, st["req"], st["row_pages"], st["own"],
+                                 clast, bt_row_dev, None)
+
+    def _rollback_chunk(self, i: int, msg: Optional[str]):
+        """Shed or abandon a chunked admission mid-prompt: the partial
+        chain's pages, its adoption refs and every charge taken so far go
+        back (at once: every later use of those pages is enqueued behind
+        the steps still reading them), and the request fails retriably
+        (``msg`` None: its handle is already done)."""
+        st = self._chunk_state[i]
+        req, adm = st["req"], st["adm"]
+        self._kv.release_transient(adm)
+        self._kv.release_slot(adm.charge, st["own"], adm.shared_pages)
+        adm.charge = 0
+        adm.shared_pages = []
+        self._chunk_state[i] = None
+        self._slots[i] = None
+        self._remaining[i] = 0
+        self._slot_adm[i] = None
+        if msg is not None and not req.done.is_set():
+            req.error = msg
+            req.done.set()
+
+    def _restore_chunk_pass(self, cargs: dict):
+        """A pass failed after :meth:`_prepare_chunk`: give the chunk's
+        pages and charge back, so a retry starts from the same ledger."""
+        self._kv.free_owned(cargs["new_pages"])
+        self._kv.uncharge_chunk(self._chunk_state[cargs["i"]]["adm"],
+                                cargs["charged"])
+
+    def _dispatch_chunk_solo(self, cargs: dict):
+        """A chunk with no decode row to fuse with: the family's ragged
+        prefill alone, eagerly (the mixed step's chunk leg, the same
+        math)."""
+        try:
+            ops = self._upload(cargs["ops"])
+            chunk = chunk_operands(ops, cargs["bucket"], self._pages_cap)
+            _, _, clast = self._fam_ragged_prefill(
+                self.model.params, self.cfg, self._k_pages, self._v_pages,
+                *chunk, page=self._page)
+        except BaseException:
+            self._restore_chunk_pass(cargs)
+            raise
+        self._chunk_dispatched(cargs, clast, chunk[3])
+
+    def _mixed_step(self, bucket: int) -> tuple:
+        """The mixed step of chunk bucket ``bucket`` (made at its first
+        use): a :class:`CapturedStep` over the decode buffers and the
+        bucket's own operand and ``clast`` buffers."""
+        ms = self._mixed_steps.get(bucket)
+        if ms is None:
+            dev = self.device
+            ops = torch.zeros(bucket * 3 + 4 + self._pages_cap,
+                              dtype=torch.int32, device=dev)
+            clast = torch.zeros(self.cfg.vocab_size, dtype=torch.float32,
+                                device=dev)
+            step = CapturedStep(bind_mixed_step(
+                self.model.params, self.cfg, self._k_pages, self._v_pages,
+                self._bt_dev, self._lens_dev, self._last, self._active_dev,
+                self._toks_dev, ops, clast, bucket=bucket, page=self._page,
+                temperature=self._temp, generator=self._gen,
+                do_sample=self._do_sample, top_k=self.top_k,
+                fam_step=self._fam_mixed_step), dev, generators=self._gens)
+            ms = self._mixed_steps[bucket] = (step, ops, clast)
+        return ms
+
+    def _dispatch_mixed(self, disp, cargs: dict, t_step: float) -> bool:
+        """One mixed pass: every decode row plus one prefill chunk in one
+        step (a replay of the bucket's graph from its second pass on).
+        One host copy fills the bucket's operand buffer in stream order;
+        the pass drains like a decode step (the chunk row emits no
+        token)."""
+        step, ops, clast = self._mixed_step(cargs["bucket"])
+        try:
+            ops.copy_(self._pinned(cargs["ops"]), non_blocking=True)
+            step()
+        except BaseException:
+            self._restore_chunk_pass(cargs)
+            raise
+        rec = self._record(disp)
+        # the final chunk's epilogue goes behind this pass's record: its
+        # table writes pin into the next record's uploads
+        self._chunk_dispatched(cargs, clast, chunk_operands(
+            ops, cargs["bucket"], self._pages_cap)[3])
+        self.mixed_passes += 1
+        return self._after_dispatch(rec, t_step)
 
     def _dispatchable(self) -> List[int]:
         """Slots that get a row in the next step: a live request with
         dispatches left. Capping dispatches at ``max_new_tokens`` keeps
         the steps dispatched past a data-dependent EOS inside the
-        admission budget, and a slot whose last step is in flight sits
-        out."""
+        admission budget; a slot whose last step is in flight, or that
+        is still chunking its prompt, sits out."""
         return [i for i, r in enumerate(self._slots)
                 if r is not None and self._remaining[i] > 0]
 
     def _step_paged(self) -> bool:
-        """Dispatch one decode step for every dispatchable slot, or drain
-        the oldest step in flight when there is none; False when there is
+        """Dispatch one pass: a decode step for every dispatchable slot,
+        fused with the next prefill chunk when a slot is chunking (or the
+        chunk alone when nothing decodes), or drain the oldest step in
+        flight when there is nothing to dispatch; False when there is
         nothing to do."""
+        ci = self._chunk_slot()
         disp = self._dispatchable()
+        cargs = self._prepare_chunk(ci) if ci is not None else None
         if not disp:
+            if cargs is not None:
+                self._dispatch_chunk_solo(cargs)
+                return True
             if self._inflight:
                 self._drain_next()
                 return True
@@ -576,10 +1016,17 @@ class LLMServer:
         t_step = time.perf_counter()
         page = self._page
         # the page for position lens[i] must exist before the step; the
-        # grant is one scatter into the device table, not an upload of it
-        need = sum(1 for i in disp if int(self._lens[i]) % page == 0)
-        if need:
-            self._kv.ensure_free(need)
+        # grant is one scatter into the device table, not an upload of
+        # it. With the prefix cache, warm chains may hold the free list:
+        # evict for all grants BEFORE changing a table
+        try:
+            need = sum(1 for i in disp if int(self._lens[i]) % page == 0)
+            if need:
+                self._kv.ensure_free(need)
+        except BaseException:
+            if cargs is not None:
+                self._restore_chunk_pass(cargs)
+            raise
         grants = []
         for i in disp:
             pos = int(self._lens[i])
@@ -597,7 +1044,16 @@ class LLMServer:
         if not np.array_equal(mask, self._active):
             self._active_dev.copy_(self._upload(mask))
             self._active = mask
+        if cargs is not None:
+            return self._dispatch_mixed(disp, cargs, t_step)
         self._step()
+        return self._after_dispatch(self._record(disp), t_step)
+
+    def _record(self, disp) -> dict:
+        """The in-flight record of the step just enqueued: its sampled
+        ids copied to a host buffer of their own, an event behind them,
+        the rows it decoded (their host lengths advanced) and the pinned
+        buffers its uploads read."""
         out = self._toks_host[self.steps % self.pipeline_depth]
         out.copy_(self._toks_dev, non_blocking=True)
         event = None
@@ -611,7 +1067,7 @@ class LLMServer:
                "pairs": [(i, self._slots[i]) for i in disp],
                "pinned": self._pending_release}
         self._pending_release = []
-        return self._after_dispatch(rec, t_step)
+        return rec
 
     def _after_dispatch(self, rec: dict, t0: float) -> bool:
         """Account the dispatch's host time, push the record onto the
@@ -635,26 +1091,36 @@ class LLMServer:
         if rec["event"] is not None:
             rec["event"].synchronize()
         vals = rec["out"].tolist()
-        self.stall_seconds += time.perf_counter() - t0
+        now = time.perf_counter()
+        self.stall_seconds += now - t0
         rec["pinned"] = None
         for i, req in rec["pairs"]:
             if self._slots[i] is req:
-                self._apply_token(i, req, vals[i])
+                self._apply_token(i, req, vals[i], now)
 
-    def _apply_token(self, i: int, req: Request, tok: int):
+    def _apply_token(self, i: int, req: Request, tok: int, now: float):
         req.tokens.append(tok)
+        req.t_tokens.append(now)
         if len(req.tokens) == 1:
-            req.t_first_token = time.perf_counter()     # TTFT stamp
+            req.t_first_token = now                   # TTFT stamp
         if (self.eos_token_id is not None and tok == self.eos_token_id) \
                 or len(req.tokens) >= req.max_new_tokens:
             self._finish_slot(i, req)
 
     def _finish_slot(self, i: int, req: Request):
+        """Retire a finished request: with the prefix cache, index its
+        prompt + output first (indexed pages stay warm at refcount 1),
+        then drop its refs, pins and charge."""
         req.done.set()
         self._slots[i] = None
         self._remaining[i] = 0
-        self._kv.release_slot(self._slot_adm[i].charge,
-                              self._slot_pages[i])
+        adm = self._slot_adm[i]
+        if self._kv.enabled:
+            toks = np.concatenate([req.prompt_ids,
+                                   np.asarray(req.tokens, np.int32)])
+            self._kv.insert(toks, self._bt[i, :-(-len(toks) // self._page)])
+        self._kv.release_slot(adm.charge if adm else 0, self._slot_pages[i],
+                              adm.shared_pages if adm else ())
         self._slot_pages[i] = []
         self._slot_adm[i] = None
         # orphaned rows must point at trash: a stale id could alias a

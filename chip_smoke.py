@@ -65,6 +65,27 @@ Phase 3  the served path on the card against the port's plain path on
          depths. Then that request on a server with an f32 KV cache (the
          CUDA-core ragged kernel), with exact launch counts. The
          card-vs-CPU check runs at GLM-4-9B width too (2 layers, g = 16).
+Phase 3b the served engine's prefix cache and mixed dispatch on phase 3's
+         model (max_batch 8, max_seq_len 2048, page 16). (a) 8 greedy
+         requests sharing a 1,024-token prefix (64 pages) before phase
+         3's tails of 17..300 tokens, 32 new each, with ``kvcache=True``
+         and off: 7 hits reusing 1,024 tokens each, every request's
+         first-token logits within 2e-2 of the cache-off engine's, exact
+         launch counts (each cached prefill at its tail's bucket), TTFT
+         and decode tok/s both ways. (b) 7 requests of 17..300 tokens
+         decoding 64 new each when an uncached 1,536-token prompt
+         arrives, with ``mixed=True`` (``chunk_tokens`` 64: 24 chunks,
+         each fused with the decode rows into one mixed pass) and
+         ``mixed=False``: the 7 rows' tokens identical, the long
+         request's first-token logits within 2e-2, one capture of the
+         bucket-64 mixed graph and every later mixed pass a replay,
+         exact launch counts; the long request's TTFT, the rows' decode
+         tok/s over its admission window and their longest gap between
+         tokens, both ways. Then one mixed pass (batch 8 + the last
+         64-token chunk at offset 1472) eager and as one CUDA graph, bit
+         for bit over 4 passes, traced as in phase 4: 2 dispatch host
+         calls (the operand copy and the graph launch) and the token
+         fetch.
 Phase 4  trace one 7B batch-8 decode step with ``torch.profiler``:
          step wall time, device busy time and idle share, kernel
          launches and the host's launch calls per step, the kernels that
@@ -665,10 +686,13 @@ def paged_norm_cases(torch, dev, gen):
 
 
 # kernel 3's cases: (what, Hq, Hkv, D, offset, seq_len, Tq, window, pools'
-# dtype); the served prefills run at offset 0 (no prefix cache yet), the
-# rows at offsets > 0 are the prefix cache's and the chunked prefill's
+# dtype); whole-prompt prefills run at offset 0, a cached suffix at its
+# prefix's length (phase 3b (a): 1024) and a chunk at its start (phase 3b
+# (b)'s last chunk: 1472)
 RAGGED_SHAPES = (
     ("7B prefill", 32, 32, 128, 0, 300, 512, None, "bf16"),
+    ("7B cached tail", 32, 32, 128, 1024, 300, 512, None, "bf16"),
+    ("7B last chunk", 32, 32, 128, 1472, 64, 64, None, "bf16"),
     ("7B offset>0", 32, 32, 128, 64, 200, 256, None, "bf16"),
     ("GQA Hkv=8", 32, 8, 128, 32, 256, 256, None, "bf16"),
     ("D=64", 32, 32, 64, 20, 100, 128, None, "bf16"),
@@ -790,20 +814,19 @@ def ragged_cases(torch, dev, gen):
 
 # -- phase 3: the served path at 7B -------------------------------------------
 
-def _serve_expect(model, prompts, steps):
-    """What ``LLMServer`` must launch for ``prompts`` served to the end in
-    ``steps`` decode steps: each prompt is prefilled alone at its bucket
-    (a power of two, at least one page), its 4 linears a layer (and a
-    quantized lm_head) on the route of (bucket, N), its attention on the
-    route of the pools (``ragged_route``); every step runs the linears at
-    M = max_batch <= 8 (the GEMV) and one stats kernel a
-    layer. Returns ``(buckets, {wrapper: launches})``."""
+def _path_expect(model, buckets, steps):
+    """What ``LLMServer`` must launch for prefill legs at ``buckets`` (one
+    for each whole prefill, cached suffix or chunk: a power of two, at
+    least one page) and ``steps`` decode legs: each prefill leg's 4
+    linears a layer (and a quantized lm_head) on the route of (bucket,
+    N), its attention on the route of the pools (``ragged_route``), one
+    ragged kernel a layer; every decode leg runs the linears at M =
+    max_batch <= 8 (the GEMV) and one stats kernel a layer."""
     import torch
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.kernels.ragged_prefill import ragged_route
     cfg, params = model.config, model.params
     L = cfg.num_hidden_layers
-    buckets = [max(16, 1 << (len(p) - 1).bit_length()) for p in prompts]
     ns = [(params["layers"][k]["q"].shape[-1], L) for k in (
         "qkv_proj", "o_proj", "gate_up_proj", "down_proj")]
     if "q" in params["lm_head"]:
@@ -819,25 +842,39 @@ def _serve_expect(model, prompts, steps):
     tc = sum(c for bk in buckets for n, c in ns
              if kernels.matmul_route(bk, n) == "tc")
     expect.update({
-        "int4_matmul": (len(prompts) + steps) * per_pass,
+        "int4_matmul": (len(buckets) + steps) * per_pass,
         "int4_matmul_tc": tc,
-        "int4_matmul_gemv": (len(prompts) + steps) * per_pass - tc,
+        "int4_matmul_gemv": (len(buckets) + steps) * per_pass - tc,
         "paged_attention_decode_stats": steps * L,
-        "ragged_prefill_attention": len(prompts) * L,
-        "ragged_prefill_attention_tc": len(prompts) * L if tc_attn else 0})
-    return buckets, expect
+        "ragged_prefill_attention": len(buckets) * L,
+        "ragged_prefill_attention_tc": len(buckets) * L if tc_attn else 0})
+    return expect
 
 
-def _serve_run(torch, model, prompts, new, what, **kw):
+def _bucket(n, page=16):
+    return max(page, 1 << (n - 1).bit_length())
+
+
+def _serve_expect(model, prompts, steps):
+    """:func:`_path_expect` of ``prompts`` each prefilled whole, alone;
+    returns ``(buckets, {wrapper: launches})``."""
+    buckets = [_bucket(len(p), model.page_size) for p in prompts]
+    return buckets, _path_expect(model, buckets, steps)
+
+
+def _serve_run(torch, model, prompts, new, what, warmup=None,
+               buckets=None, **kw):
     """Serve ``prompts`` (``new`` greedy tokens each, all submitted at
     once) on a fresh ``LLMServer(model, **kw)`` after a 2-token warm-up
-    request, which runs the first decode step eagerly and captures the
-    second as the server's CUDA graph (outside the measured window, as
-    are the CUDA context, kernel loads and cuBLAS handles). Checks: no
-    engine error, every measured step a graph replay, in-vocab tokens of
-    the asked count, and launch counts (zeroed just before) exactly what
-    the path must launch. Returns ``(row, outputs)``: TTFT, decode tok/s
-    and step ms over the window where every request decodes, the host's
+    request (``warmup``, default the first prompt's first 20 tokens),
+    which runs the first decode step eagerly and captures the second as
+    the server's CUDA graph (outside the measured window, as are the
+    CUDA context, kernel loads and cuBLAS handles). Checks: no engine
+    error, every measured step a graph replay, in-vocab tokens of the
+    asked count, and launch counts (zeroed just before) exactly what the
+    path must launch, its prefill legs at ``buckets`` (default: each
+    prompt whole). Returns ``(row, outputs)``: TTFT, decode tok/s and
+    step ms over the window where every request decodes, the host's
     dispatch and drain-wait time a step, the graph's capture seconds and
     pool bytes, and peak memory."""
     from bigdl_tpu_torch.llm import kernels
@@ -846,7 +883,8 @@ def _serve_run(torch, model, prompts, new, what, **kw):
     cfg = model.config
     srv = LLMServer(model, **kw).start()
     try:
-        srv.submit(prompts[0][:20], max_new_tokens=2).get(timeout=600)
+        srv.submit(prompts[0][:20] if warmup is None else warmup,
+                   max_new_tokens=2).get(timeout=600)
         check(not srv.errors, f"{what}: engine errors: {srv.errors}")
         graph = srv._step
         check(graph.graph is not None, f"{what}: the step was not captured")
@@ -864,6 +902,7 @@ def _serve_run(torch, model, prompts, new, what, **kw):
         host_s, stall_s = srv.host_seconds - host0, srv.stall_seconds - stall0
         peak = torch.cuda.max_memory_allocated()
         reserved = torch.cuda.max_memory_reserved()
+        kv = srv._kv.debug_stats()
     finally:
         srv.stop()
     check(not srv.errors, f"{what}: engine errors: {srv.errors}")
@@ -873,7 +912,9 @@ def _serve_run(torch, model, prompts, new, what, **kw):
         check(len(toks) == new and all(0 <= t < cfg.vocab_size
                                        for t in toks),
               f"{what} request {i}: tokens {toks}")
-    buckets, expect = _serve_expect(model, prompts, steps)
+    if buckets is None:
+        buckets = [_bucket(len(p), model.page_size) for p in prompts]
+    expect = _path_expect(model, buckets, steps)
     check(all(counts[k] > 0 for k, v in expect.items() if v),
           f"{what}: a kernel of the served path never ran: {counts}")
     check(counts == expect, f"{what}: launch counts {counts} != expected "
@@ -894,7 +935,7 @@ def _serve_run(torch, model, prompts, new, what, **kw):
             "graph_capture_s": graph.capture_seconds,
             "graph_pool_mb": graph.pool_bytes / 2**20,
             "peak_mem_gb": peak / 1e9, "peak_reserved_gb": reserved / 1e9,
-            "tokens_first_request": outs[0]}, outs
+            "kv": kv, "tokens_first_request": outs[0]}, outs
 
 
 def serve_7b(torch, dev):
@@ -966,6 +1007,360 @@ def serve_7b(torch, dev):
                       "leading_tokens_equal_to_bf16_cache": next(
                           (i for i, (a, b) in enumerate(zip(toks32, alone))
                            if a != b), len(alone))}}, model
+
+
+# -- phase 3b: the prefix cache and mixed dispatch at 7B -----------------------
+
+# (a): a shared 1,024-token prefix (64 pages) before phase 3's tails; (b):
+# 7 decoding requests, then one uncached 1,536-token prompt in chunks of 64.
+# (b)'s prompt lengths each end in a last chunk of >= TC_MIN_M rows (or are
+# one chunk), so a prompt's chunks run the linears on the tensor cores as
+# its whole prefill does and the rows decode from the same state either way
+PREFIX_TOKENS, PREFIX_TAILS = 1024, (17, 57, 98, 139, 180, 220, 260, 300)
+MIXED_PROMPTS, MIXED_NEW = (17, 57, 98, 163, 180, 237, 300), 64
+MIXED_LONG, MIXED_LONG_NEW, MIXED_CHUNK = 1536, 32, 64
+BIG = dict(max_batch=8, max_seq_len=2048, page_size=16)
+
+
+def _chunk_buckets(T, chunk, page=16):
+    """The buckets of a prompt of ``T`` uncached tokens fed in chunks of
+    ``chunk`` (``LLMServer._chunk_end``'s page-aligned cuts)."""
+    out, off = [], 0
+    while off < T:
+        end = min(max((off + chunk) // page * page, off + 1), T)
+        out.append(_bucket(end - off, page))
+        off = end
+    return out
+
+
+def _first_logits(torch, model, prompts, **kw):
+    """The 8 prompts admitted in one pass on a fresh server, driven inline
+    (no decode): ``_last`` then holds each one's first-token logits."""
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    srv = LLMServer(model, **kw)
+    reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
+    srv._admit()
+    check([id(r) for r in srv._slots] == [id(r) for r in reqs],
+          "the 8 prompts were not admitted in one pass")
+    last, stats = srv._last.clone(), srv._kv.debug_stats()
+    srv.stop(drain=False)
+    check(not srv.errors, f"engine errors: {srv.errors}")
+    del srv
+    torch.cuda.empty_cache()
+    return last, stats
+
+
+def _rel_err(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def serve_prefix_cache(torch, model):
+    """(a) 8 greedy requests sharing a 1,024-token prefix, then tails of
+    17..300 tokens (each tail's first token distinct), 32 new each, with
+    ``kvcache=True`` and off: 7 hits reusing 1,024 tokens each, each
+    request's first-token logits within 2e-2 of the cache-off engine's,
+    TTFT and decode tok/s both ways, and exact launch counts (the cached
+    prefills at their tails' buckets)."""
+    cfg = model.config
+    gen = torch.Generator().manual_seed(4)
+    prefix = torch.randint(0, cfg.vocab_size, (PREFIX_TOKENS,),
+                           generator=gen)
+    prompts = []
+    for j, n in enumerate(PREFIX_TAILS):
+        tail = torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+        tail[0] = j + 1
+        prompts.append(torch.cat([prefix, tail]).numpy())
+    warm = torch.randint(0, cfg.vocab_size, (20,), generator=gen)
+    warm[0] = 0
+    whole = [_bucket(len(p)) for p in prompts]
+    cached = whole[:1] + [_bucket(n) for n in PREFIX_TAILS[1:]]
+    out = {}
+    for kv, buckets in ((False, whole), (True, cached)):
+        name = f"prefix cache {'on' if kv else 'off'}"
+        first, stats = _first_logits(torch, model, prompts, kvcache=kv,
+                                     **BIG)
+        row, outs = _serve_run(torch, model, prompts, 32, f"7B {name}",
+                               warmup=warm.numpy(), buckets=buckets,
+                               kvcache=kv, **BIG)
+        torch.cuda.empty_cache()
+        hits = 7 if kv else 0
+        for st in (stats, row["kv"]):
+            check(st["hits"] == hits and st["prefix_tokens_reused"]
+                  == hits * PREFIX_TOKENS, f"{name}: {st}")
+        out[kv] = (row, outs, first)
+    errs = [_rel_err(out[True][2][i], out[False][2][i]) for i in range(8)]
+    check(max(errs) <= 2e-2, f"prefix cache: first-token logits {errs}")
+    lead = [next((k for k, (a, b) in enumerate(zip(x, y)) if a != b),
+                 len(x)) for x, y in zip(out[True][1], out[False][1])]
+    return {"phase": "serve_prefix_cache", "model": "Llama-2-7B q4_0 "
+            "(phase 3's model)", "prefix_tokens": PREFIX_TOKENS,
+            "tails": PREFIX_TAILS, "on": out[True][0],
+            "off": out[False][0],
+            "first_logits_max_rel_err": errs, "tol": 2e-2,
+            "first_logits_bit_equal": [bool(torch.equal(
+                out[True][2][i], out[False][2][i])) for i in range(8)],
+            "leading_equal_tokens": lead,
+            "ttft_ms_mean_on_off": [out[True][0]["ttft_ms_mean"],
+                                    out[False][0]["ttft_ms_mean"]],
+            "ttft_ms_max_on_off": [out[True][0]["ttft_ms_max"],
+                                   out[False][0]["ttft_ms_max"]]}
+
+
+def _serve_inline(srv, prompts, n, late, late_n):
+    """Serve ``prompts`` driven inline (``_admit`` then ``_step_paged``,
+    the engine loop's pass); once each has 2 tokens, submit ``late``.
+    Returns the requests, ``late``'s, and its first-token logits, read
+    from ``_last`` right after its prefill (whole, or the final chunk)."""
+    reqs = [srv.submit(p, max_new_tokens=n) for p in prompts]
+    lr, first = None, None
+
+    def read_first():
+        i = srv._slots.index(lr) if lr in srv._slots else -1
+        return srv._last[i].clone() if first is None and i >= 0 and \
+            srv._remaining[i] == late_n else first
+
+    while lr is None or not all(r.done.is_set() for r in reqs + [lr]):
+        srv._admit()
+        first = read_first()
+        if lr is None and all(len(r.tokens) >= 2 for r in reqs):
+            lr = srv.submit(late, max_new_tokens=late_n)
+            continue
+        srv._step_paged()
+        first = read_first()
+    while srv._inflight:
+        srv._drain_next()
+    return reqs, lr, first
+
+
+def _mixed_run(torch, model, prompts, long_prompt, mixed, what):
+    """(b)'s timed run, served by the engine's thread: a warm-up first (a
+    request decoding while a 3-chunk prompt arrives: the decode graph and,
+    with ``mixed``, bucket 64's mixed graph are captured outside the
+    window), then the 7 requests, and once each has 2 tokens the long
+    prompt. Checks: no engine error, every measured step a replay of its
+    graph, exact launch counts (the chunks at their buckets), in-vocab
+    tokens. Reports the long request's TTFT, the 7 rows' decode tok/s
+    over its admission window (submit to first token) and their longest
+    gap between tokens across it."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    cfg = model.config
+    srv = LLMServer(model, mixed=mixed, chunk_tokens=MIXED_CHUNK,
+                    **BIG).start()
+    try:
+        w = srv.submit(prompts[0], max_new_tokens=24)
+        while len(w.tokens) < 2:
+            time.sleep(0.0005)
+        srv.submit(long_prompt[:192], max_new_tokens=2).get(timeout=600)
+        w.get(timeout=600)
+        check(not srv.errors, f"{what}: engine errors: {srv.errors}")
+        graphs = {"decode": srv._step}
+        if mixed:
+            check(list(srv._mixed_steps) == [MIXED_CHUNK],
+                  f"{what}: mixed buckets {list(srv._mixed_steps)}")
+            graphs["mixed"] = srv._mixed_steps[MIXED_CHUNK][0]
+        check(all(g.graph is not None for g in graphs.values()),
+              f"{what}: a step was not captured in the warm-up")
+        c0 = (srv.steps, srv.prefill_chunks_total, srv.mixed_passes,
+              {k: g.replays for k, g in graphs.items()})
+        kernels.reset_launch_counts()
+        reqs = [srv.submit(p, max_new_tokens=MIXED_NEW) for p in prompts]
+        while any(len(r.tokens) < 2 for r in reqs):
+            time.sleep(0.0005)
+        lr = srv.submit(long_prompt, max_new_tokens=MIXED_LONG_NEW)
+        outs = [r.get(timeout=900) for r in reqs]
+        lout = lr.get(timeout=900)
+        counts = kernels.launch_counts()
+        steps, chunks, passes = (srv.steps - c0[0],
+                                 srv.prefill_chunks_total - c0[1],
+                                 srv.mixed_passes - c0[2])
+        replays = {k: g.replays - c0[3][k] for k, g in graphs.items()}
+        captures = {k: g.capture_seconds for k, g in graphs.items()}
+    finally:
+        srv.stop()
+    check(not srv.errors, f"{what}: engine errors: {srv.errors}")
+    check(replays["decode"] == steps - passes
+          and replays.get("mixed", 0) == passes,
+          f"{what}: replays {replays} for {steps} steps, {passes} mixed")
+    whole, chunked = [], []
+    for p in list(prompts) + [long_prompt]:
+        if mixed and len(p) > MIXED_CHUNK:
+            chunked += _chunk_buckets(len(p), MIXED_CHUNK)
+        else:
+            whole.append(_bucket(len(p)))
+    check(chunks == len(chunked), f"{what}: {chunks} chunks, expected "
+          f"{len(chunked)}")
+    expect = _path_expect(model, whole + chunked, steps)
+    check(counts == expect, f"{what}: launch counts {counts} != {expect}")
+    for toks, n in [(o, MIXED_NEW) for o in outs] + [(lout, MIXED_LONG_NEW)]:
+        check(len(toks) == n and all(0 <= t < cfg.vocab_size for t in toks),
+              f"{what}: tokens {toks}")
+    t0, t1 = lr.t_submit, lr.t_first_token
+    in_win = sum(t0 <= t <= t1 for r in reqs for t in r.t_tokens)
+    gaps = [b - a for r in reqs for a, b in zip(r.t_tokens, r.t_tokens[1:])
+            if b >= t0 and a <= t1]
+    all_gaps = [b - a for r in reqs
+                for a, b in zip(r.t_tokens, r.t_tokens[1:])]
+    return {"what": what, "mixed": mixed, "launches": counts,
+            "decode_steps": steps, "prefill_chunks": chunks,
+            "mixed_passes": passes, "graph_replays": replays,
+            "graph_capture_s": captures,
+            "long_ttft_ms": (t1 - t0) * 1e3,
+            "rows_tok_per_s_in_window": in_win / (t1 - t0),
+            "rows_max_gap_ms_in_window": max(gaps) * 1e3,
+            "rows_gap_ms_in_window_p50_p90": [
+                statistics.median(gaps) * 1e3,
+                statistics.quantiles(gaps, n=10)[-1] * 1e3],
+            "rows_max_gap_ms": max(all_gaps) * 1e3,
+            "rows_median_gap_ms": statistics.median(all_gaps) * 1e3,
+            "tokens_first_request": outs[0]}, outs
+
+
+def serve_mixed(torch, model):
+    """(b) 7 requests of 17..300 tokens decode 64 new tokens each when an
+    uncached 1,536-token prompt arrives, served with ``mixed=True``
+    (chunks of 64) and ``mixed=False``: driven inline, the 7 rows' tokens
+    identical between the modes and the long request's first-token
+    logits within 2e-2; then served by the engine's thread (timed), the
+    same tokens, one capture of bucket 64 and every mixed pass a replay,
+    exact launch counts."""
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    cfg = model.config
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+               for n in MIXED_PROMPTS]
+    long_prompt = torch.randint(0, cfg.vocab_size, (MIXED_LONG,),
+                                generator=gen).numpy()
+    inline, runs = {}, {}
+    for mixed in (False, True):
+        srv = LLMServer(model, mixed=mixed, chunk_tokens=MIXED_CHUNK, **BIG)
+        reqs, lr, first = _serve_inline(srv, prompts, MIXED_NEW,
+                                        long_prompt, MIXED_LONG_NEW)
+        check(not srv.errors, f"mixed={mixed} inline: {srv.errors}")
+        check(srv.prefill_chunks_total == (
+            sum(len(_chunk_buckets(len(p), MIXED_CHUNK))
+                for p in prompts + [long_prompt] if len(p) > MIXED_CHUNK)
+            if mixed else 0), f"mixed={mixed}: {srv.prefill_chunks_total} "
+            "chunks")
+        inline[mixed] = ([r.tokens for r in reqs], lr.tokens, first,
+                         srv.mixed_passes)
+        srv.stop()
+        del srv
+        torch.cuda.empty_cache()
+        runs[mixed], outs = _mixed_run(
+            torch, model, prompts, long_prompt, mixed,
+            f"7B {'mixed' if mixed else 'split'} + {MIXED_LONG}")
+        check(outs == inline[mixed][0], f"mixed={mixed}: the threaded "
+              "run's tokens differ from the inline run's")
+        torch.cuda.empty_cache()
+    check(inline[True][0] == inline[False][0],
+          "the 7 rows' tokens differ between mixed and split dispatch")
+    err = _rel_err(inline[True][2], inline[False][2])
+    check(err <= 2e-2, f"long request's first-token logits: {err}")
+    check(inline[True][3] > 0, "no mixed pass ran")
+    return {"phase": "serve_mixed", "model": "Llama-2-7B q4_0 (phase 3's "
+            "model)", "prompts": MIXED_PROMPTS, "new_tokens": MIXED_NEW,
+            "long_prompt": MIXED_LONG, "long_new": MIXED_LONG_NEW,
+            "chunk_tokens": MIXED_CHUNK, "mixed": runs[True],
+            "split": runs[False], "rows_tokens_equal": True,
+            "long_first_logits_max_rel_err": err, "tol": 2e-2,
+            "long_first_logits_bit_equal": bool(torch.equal(
+                inline[True][2], inline[False][2])),
+            "long_leading_equal_tokens": next(
+                (k for k, (a, b) in enumerate(zip(inline[True][1],
+                                                   inline[False][1]))
+                 if a != b), MIXED_LONG_NEW),
+            "inline_mixed_passes": inline[True][3]}
+
+
+def profile_mixed(torch, model):
+    """One 7B mixed pass (batch 8 decoding at contexts 33..316, plus the
+    last 64-token chunk of a 1,536-token prompt at offset 1472): the
+    eager ``paged_step_mixed`` traced as in phase 4; then the engine's
+    mixed step as one CUDA graph (``bind_mixed_step``) over copies of the
+    same buffers, bit for bit against the eager step for 4 passes
+    (tokens, logits, ``clast``, lengths, pools), and traced with the
+    pass's host work: one copy of the chunk operands from pinned memory,
+    the graph launch, the token fetch."""
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.models.llama import paged_step_mixed
+    from bigdl_tpu_torch.llm.serving import (bind_mixed_step, chunk_operands,
+                                             prefill_operands)
+    cfg, dev = model.config, model.device
+    B, page, cap, bucket = 8, 16, 128, MIXED_CHUNK
+    L, P = cfg.num_hidden_layers, 1 + B * 32 + MIXED_LONG // page
+    shape = (L, P, cfg.num_key_value_heads, page, cfg.head_dim)
+    g = torch.Generator(device=dev).manual_seed(6)
+    st = {"kp": torch.randn(shape, generator=g, device=dev).to(
+              model.cache_dtype),
+          "vp": torch.randn(shape, generator=g, device=dev).to(
+              model.cache_dtype),
+          "bt": torch.zeros((B, cap), dtype=torch.int32, device=dev),
+          "lens": torch.tensor([33, 73, 114, 155, 196, 236, 276, 316],
+                               dtype=torch.int32, device=dev),
+          "last": torch.randn((B, cfg.vocab_size), generator=g, device=dev),
+          "active": torch.ones(B, dtype=torch.bool, device=dev),
+          "toks": torch.zeros(B, dtype=torch.int32, device=dev),
+          "ops": torch.zeros(3 * bucket + 4 + cap, dtype=torch.int32,
+                             device=dev),
+          "clast": torch.zeros(cfg.vocab_size, device=dev)}
+    st["bt"][:, :32] = (1 + torch.arange(B * 32, device=dev)).reshape(B, 32)
+    st["active"][7] = False                     # the chunking slot
+    rows = list(range(1 + B * 32, P))
+    ids = torch.randint(0, cfg.vocab_size, (MIXED_LONG,),
+                        generator=torch.Generator().manual_seed(7)).numpy()
+    ops_host = torch.from_numpy(prefill_operands(
+        ids, MIXED_LONG - bucket, MIXED_LONG, bucket, rows, page=page,
+        pages_cap=cap)).pin_memory()
+    st["ops"].copy_(ops_host)
+    e = {k: v.clone() for k, v in st.items()}
+
+    def eager():
+        t, lg, _, _, ln, cl = paged_step_mixed(
+            model.params, cfg, e["kp"], e["vp"], e["bt"], e["lens"],
+            e["last"], e["active"], 1.0, None,
+            *chunk_operands(e["ops"], bucket, cap), page=page)
+        e["last"], e["lens"] = lg, ln
+        return t, cl
+
+    captured = CapturedStep(bind_mixed_step(
+        model.params, cfg, *(st[k] for k in (
+            "kp", "vp", "bt", "lens", "last", "active", "toks", "ops",
+            "clast")), bucket=bucket, page=page), dev)
+    with torch.inference_mode():
+        for i in range(4):
+            captured()
+            t, cl = eager()
+            check(torch.equal(t, st["toks"]) and torch.equal(
+                e["last"], st["last"]) and torch.equal(e["lens"], st["lens"])
+                and torch.equal(cl, st["clast"]),
+                f"graphed mixed pass {i} differs from the eager pass")
+        check(torch.equal(e["kp"], st["kp"]) and torch.equal(e["vp"],
+                                                              st["vp"]),
+              "graphed mixed passes wrote other pools than the eager ones")
+    row = profile(torch, lambda: eager()[0].cpu(),
+                  "7B mixed pass, batch 8 + a 64-token chunk at 1472")
+    del e
+
+    def graphed():
+        st["ops"].copy_(ops_host, non_blocking=True)
+        captured()
+        return st["toks"].cpu()
+
+    grow = profile(torch, graphed, "7B mixed pass as one CUDA graph")
+    calls = grow["host_launch_calls_by_name"]
+    check(calls.get("cudaGraphLaunch") == 1 and calls.get(
+        "cudaMemcpyAsync") == 2 and grow["host_launch_calls_per_step"] == 3,
+        f"mixed pass host calls: {calls}")
+    grow.update(graph_capture_s=captured.capture_seconds,
+                graph_pool_mb=captured.pool_bytes / 2**20,
+                counted_launches_per_replay=dict(captured.launches),
+                dispatch_host_calls_per_pass=2)
+    row["graph"] = grow
+    row["graph_bit_equal_to_eager_passes"] = 4
+    captured.close()
+    return row
 
 
 def reference_check(torch, dev, preset="llama2_7b"):
@@ -1776,8 +2171,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve, model = serve_7b(torch, dev)
     emit(serve)
+    cache = serve_prefix_cache(torch, model)
+    emit(cache)
+    mixed = serve_mixed(torch, model)
+    emit(mixed)
     prof = profile_decode(torch, model)
     emit(prof)
+    mprof = profile_mixed(torch, model)
+    emit(mprof)
     del model
     torch.cuda.empty_cache()
     bert, bert_prof = bert_path(torch, dev)
@@ -1798,7 +2199,11 @@ def main() -> int:
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
              "serve_7b depth 1": dict(serve["depth1"]["launches"]),
-             "serve_7b f32 cache": dict(serve["f32_cache"]["launches"])}
+             "serve_7b f32 cache": dict(serve["f32_cache"]["launches"]),
+             "serve_7b prefix cache off": dict(cache["off"]["launches"]),
+             "serve_7b prefix cache on": dict(cache["on"]["launches"])}
+    for r in (mixed["split"], mixed["mixed"]):
+        paths[f"serve_7b {r['what'][3:]}"] = dict(r["launches"])
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = dict(row["launches"])
     for name, row in gen_row["runs"].items():
@@ -1905,6 +2310,20 @@ def main() -> int:
     for d, r in (("depth1", serve["depth1"]), ("depth2", serve)):
         host_out["7B served"][f"{d}_idle_share_vs_profiled_busy"] = (
             1 - busy / r["decode_step_ms"] if busy else None)
+    host_out["7B mixed pass"] = {
+        "profiled": mprof["what"],
+        "eager_pass_wall_ms": mprof["step_wall_ms"],
+        "graphed_pass_wall_ms": mprof["graph"]["step_wall_ms"],
+        "graphed_pass_busy_ms": mprof["graph"]["device_busy_ms"],
+        "graphed_host_calls_by_name":
+            mprof["graph"]["host_launch_calls_by_name"],
+        "dispatch_host_calls_per_pass":
+            mprof["graph"]["dispatch_host_calls_per_pass"],
+        **{f"{m}_{k}": mixed[m][k] for m in ("split", "mixed")
+           for k in ("long_ttft_ms", "rows_tok_per_s_in_window",
+                     "rows_max_gap_ms_in_window")},
+        **{f"prefix_cache_{k}": cache[k] for k in ("ttft_ms_mean_on_off",
+                                                   "ttft_ms_max_on_off")}}
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
               "route_sweep": sweep,
@@ -1912,6 +2331,8 @@ def main() -> int:
               "reference": ref, "reference_glm": ref_glm, "glm": glm,
               "glm_profile": glm_prof,
               "serve": serve, "profile": prof, "bert": bert,
+              "serve_prefix_cache": cache, "serve_mixed": mixed,
+              "profile_mixed": mprof,
               "bert_profile": bert_prof, "generate": gen_row,
               "generate_profile": gen_prof, "checkpoint": ckpt,
               "ptxas": ptxas, "kernels": summary}

@@ -457,13 +457,17 @@ def test_ragged_prefill_attention(cuda, hq, hkv, d, off, slen, tq, win):
 
 # the tensor-core route: the 7B main path (offset 0), Mistral's GQA with
 # its window, GLM-4-9B's group of 16, offsets > 0 off the page and the
-# tile, a served bucket below 64 rows, D = 64 / 80 / 16 (zero columns), and
-# a page of 8 (boxes of 8 rows)
+# tile, a served bucket below 64 rows, D = 64 / 80 / 16 (zero columns), a
+# page of 8 (boxes of 8 rows), and the 7B prefix-cache and chunk offsets
 TC_RAGGED = [  # (Hq, Hkv, D, offset, seq_len, Tq, window, page)
     (32, 32, 128, 0, 300, 512, None, 16), (32, 8, 128, 37, 200, 256, 4096, 16),
     (32, 8, 128, 300, 250, 256, 128, 16), (32, 2, 128, 0, 300, 512, None, 16),
     (32, 2, 128, 1000, 24, 32, None, 16), (32, 32, 64, 80, 60, 64, None, 16),
-    (16, 2, 80, 45, 100, 128, 70, 8), (8, 1, 16, 3, 9, 16, None, 16)]
+    (16, 2, 80, 45, 100, 128, 70, 8), (8, 1, 16, 3, 9, 16, None, 16),
+    # the served prefix cache's and chunked prefill's offsets at 7B: a
+    # cached-tail prefill behind a 1024-token prefix, a final 64-row chunk
+    (32, 32, 128, 1024, 300, 512, None, 16),
+    (32, 32, 128, 1472, 64, 64, None, 16)]
 
 
 @pytest.mark.parametrize("hq,hkv,d,off,slen,tq,win,page", TC_RAGGED)
@@ -959,3 +963,179 @@ def test_sampled_graph_draws_new_noise(cuda):
             for _ in range(2)]
     assert outs[0].tolist() == outs[1].tolist()
     assert len(set(outs[0][2:].tolist())) > 4
+
+
+def _mixed_state(model, cuda, B=4, cap=8, extra=8):
+    cfg = model.config
+    g = torch.Generator(device=cuda).manual_seed(11)
+    shape = (cfg.num_hidden_layers, 1 + B * cap + extra,
+             cfg.num_key_value_heads, PAGE, cfg.head_dim)
+    return {"kp": torch.randn(shape, generator=g, device=cuda).bfloat16(),
+            "vp": torch.randn(shape, generator=g, device=cuda).bfloat16(),
+            "bt": (1 + torch.arange(B * cap, device=cuda)).reshape(
+                B, cap).int(),
+            "lens": torch.tensor([13, 15, 30, 0], dtype=torch.int32,
+                                 device=cuda),
+            "last": torch.randn((B, cfg.vocab_size), generator=g,
+                                device=cuda),
+            "active": torch.tensor([True, True, True, False], device=cuda),
+            "toks": torch.zeros(B, dtype=torch.int32, device=cuda)}
+
+
+def test_captured_mixed_step_equals_eager(cuda):
+    """The mixed step of one chunk bucket as one CUDA graph
+    (``bind_mixed_step``) against the eager ``paged_step_mixed`` on
+    copies of the same buffers, over 4 passes whose chunk operands change
+    in the persistent operand buffer (offsets 0..48 of a 60-token prompt
+    in chunks of 16, a COW fork at the first): tokens, logits, ``clast``,
+    lengths and pools bit for bit; one capture, every later pass a
+    replay whose launches the counters read."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.models.llama import paged_step_mixed
+    from bigdl_tpu_torch.llm.serving import (bind_mixed_step, chunk_operands,
+                                             prefill_operands)
+    model = _tiny_card_model(cuda)
+    cfg, cap, bucket = model.config, 8, 16
+    st = _mixed_state(model, cuda, cap=cap)
+    st["ops"] = torch.zeros(3 * bucket + 4 + cap, dtype=torch.int32,
+                            device=cuda)
+    st["clast"] = torch.zeros(cfg.vocab_size, device=cuda)
+    e = {k: v.clone() for k, v in st.items()}
+    step = CapturedStep(bind_mixed_step(
+        model.params, cfg, *(st[k] for k in (
+            "kp", "vp", "bt", "lens", "last", "active", "toks", "ops",
+            "clast")), bucket=bucket, page=PAGE), cuda)
+    ids = torch.randint(0, cfg.vocab_size, (60,),
+                        generator=torch.Generator().manual_seed(1)).numpy()
+    rows = list(range(33, 37))
+    kernels.reset_launch_counts()
+    for k in range(4):
+        off = 16 * k
+        ops = torch.from_numpy(prefill_operands(
+            ids, off, min(off + 16, 60), bucket, rows, page=PAGE,
+            pages_cap=cap, fork_dst=33 if k == 0 else 0,
+            fork_src=5 if k == 0 else 0)).to(cuda)
+        st["ops"].copy_(ops)
+        step()
+        toks, logits, _, _, lens, clast = paged_step_mixed(
+            model.params, cfg, e["kp"], e["vp"], e["bt"], e["lens"],
+            e["last"], e["active"], 1.0, None,
+            *chunk_operands(ops, bucket, cap), page=PAGE)
+        e["last"], e["lens"] = logits, lens
+        assert torch.equal(toks, st["toks"]) and torch.equal(
+            logits, st["last"]) and torch.equal(lens, st["lens"])
+        assert torch.equal(clast, st["clast"])
+    assert torch.equal(e["kp"], st["kp"]) and torch.equal(e["vp"], st["vp"])
+    assert step.graph is not None and step.replays == 3
+    L = cfg.num_hidden_layers
+    assert step.launches["ragged_prefill_attention_tc"] == L
+    assert step.launches["paged_attention_decode_stats"] == L
+    # 4 steps (1 eager, 3 replays) and the 4 eager passes beside them
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        k: 8 * v for k, v in step.launches.items()}
+
+
+def _serve_inline(srv, prompts, n, late, late_n):
+    """Serve ``prompts`` inline; once each has 2 tokens, submit ``late``.
+    Returns the requests, ``late``'s, and its first-token logits, read
+    from ``_last`` right after its prefill (whole or final chunk)."""
+    reqs = [srv.submit(p, max_new_tokens=n) for p in prompts]
+    lr, first = None, None
+
+    def read_first():
+        i = srv._slots.index(lr) if lr in srv._slots else -1
+        return srv._last[i].clone() if first is None and i >= 0 and \
+            srv._remaining[i] == late_n else first
+
+    while lr is None or not all(r.done.is_set() for r in reqs + [lr]):
+        srv._admit()
+        first = read_first()
+        if lr is None and all(len(r.tokens) >= 2 for r in reqs):
+            lr = srv.submit(late, max_new_tokens=late_n)
+            continue
+        srv._step_paged()
+        first = read_first()
+    while srv._inflight:
+        srv._drain_next()
+    return reqs, lr, first
+
+
+def test_mixed_decode_rows_equal_split(cuda):
+    """A 100-token prompt arrives while 3 rows decode: served mixed (in
+    7 chunks of 16, fused with the decode rows) the 3 rows' tokens equal
+    the split engine's bit for bit, the late request's first-token
+    logits agree within 2e-2 of their largest magnitude, and bucket 16's
+    graph is captured once and replayed by the later mixed passes."""
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    model = _tiny_card_model(cuda)
+    gen = torch.Generator().manual_seed(12)
+    prompts = [torch.randint(0, 256, (k,), generator=gen).numpy()
+               for k in (5, 12, 9)]
+    late = torch.randint(0, 256, (100,), generator=gen).numpy()
+    out = {}
+    for mixed in (False, True):
+        srv = LLMServer(model, max_batch=4, max_seq_len=160, page_size=PAGE,
+                        mixed=mixed, chunk_tokens=16, device=cuda)
+        reqs, _, first = _serve_inline(srv, prompts, 24, late, 4)
+        steps = {b: st[0].replays for b, st in srv._mixed_steps.items()}
+        out[mixed] = ([r.tokens for r in reqs], first,
+                      srv.prefill_chunks_total, srv.mixed_passes, steps)
+        srv.stop()
+        assert srv.errors == [] and srv._budget_avail == srv._num_pages - 1
+    (toks0, f0, c0, m0, g0), (toks1, f1, c1, m1, g1) = out[False], out[True]
+    assert toks0 == toks1
+    assert (f0 - f1).abs().max().item() <= 2e-2 * f0.abs().max().item()
+    assert (c0, m0, g0) == (0, 0, {}) and (c1, m1) == (7, 7)
+    assert g1 == {16: 6}             # call 1 eager, call 2 captures
+
+
+def test_prefix_cache_served_on_card(cuda):
+    """The prefix cache on the card: 4 requests sharing a 48-token prefix
+    (3 pages), 3 of them hits with 48 tokens reused each, greedy tokens
+    equal to the cache-off engine's (tiny, bf16: the prefix-split prefill
+    sums keys in another order, so this holds on a small model only)."""
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    model = _tiny_card_model(cuda)
+    gen = torch.Generator().manual_seed(13)
+    shared = torch.randint(0, 256, (48,), generator=gen)
+    prompts = [torch.cat([shared, torch.randint(0, 256, (k,),
+                                                generator=gen)]).numpy()
+               for k in (3, 11, 20, 33)]
+    outs = {}
+    for kv in (False, True):
+        srv = LLMServer(model, max_batch=4, max_seq_len=128, page_size=PAGE,
+                        kvcache=kv, device=cuda)
+        reqs = [srv.submit(p, max_new_tokens=8) for p in prompts]
+        while not all(r.done.is_set() for r in reqs):
+            srv._admit()
+            srv._step_paged()
+        outs[kv] = [r.tokens for r in reqs]
+        if kv:
+            assert srv._kv.hits == 3 and srv.prefix_tokens_saved == 3 * 48
+        srv.stop()
+    assert outs[True] == outs[False]
+
+
+def test_sampled_mixed_and_decode_graphs_share_one_generator(cuda):
+    """Sampling in two graphs (the decode step's and a mixed bucket's),
+    both registered with the server's generator: replays draw new noise
+    (at a temperature that flattens the logits a token is the noise's
+    argmax) and the same seed gives the same tokens."""
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    model = _tiny_card_model(cuda)
+    gen = torch.Generator().manual_seed(14)
+    prompts = [torch.randint(0, 256, (k,), generator=gen).numpy()
+               for k in (5, 9)]
+    late = torch.randint(0, 256, (80,), generator=gen).numpy()
+    runs = []
+    for _ in range(2):
+        srv = LLMServer(model, max_batch=4, max_seq_len=128, page_size=PAGE,
+                        mixed=True, chunk_tokens=16, temperature=1e4,
+                        sample_seed=3, device=cuda)
+        reqs, lr, _ = _serve_inline(srv, prompts, 24, late, 8)
+        assert srv.mixed_passes >= 3 and srv._mixed_steps[16][0].replays
+        runs.append([r.tokens for r in reqs + [lr]])
+        srv.stop()
+    assert runs[0] == runs[1]
+    assert all(len(set(t[2:])) > 3 for t in runs[0][:2])

@@ -233,10 +233,8 @@ def test_capture_carries_gemv_launches():
 
 class TestEngineRules:
     @pytest.mark.parametrize("opt", [
-        {"kvcache": True}, {"kvtier": True}, {"mixed": True},
-        {"spec": True}, {"priority": True}, {"slo": True},
-        {"watchdog_timeout": 5.0}, {"paged": False},
-        {"chunk_tokens": 64}, {"ragged_prefill": False}])
+        {"kvtier": True}, {"spec": True}, {"priority": True},
+        {"slo": True}, {"watchdog_timeout": 5.0}, {"paged": False}])
     def test_unsupported_options_raise(self, pair, opt):
         _, tm = pair
         with pytest.raises(NotImplementedError, match="ROADMAP"):
