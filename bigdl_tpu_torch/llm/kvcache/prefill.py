@@ -11,6 +11,9 @@
   whole prefill can be captured in a CUDA graph;
 - :func:`make_mixed_step`, the engine's unified prefill+decode step: one
   prefill chunk and every decode row in one step;
+- :func:`make_spec_step`, the engine's speculative verify step: one
+  row's drafts as a chunk with full logits and the greedy accept, beside
+  every other decode row;
 - :func:`make_partial_prefill`, the dense staging path behind
   ``ragged_prefill=False``: the family ``forward`` over the prefix
   gathered into a dense temp cache, at a position offset.
@@ -18,8 +21,6 @@
 The JAX package returns new pools from donated buffers; here the pools
 are updated IN PLACE (the pools are the engine's own, and a captured
 graph holds their addresses), and returned for the same call shape.
-The speculative verify step (``make_spec_step``) is ROADMAP Queue 1
-item 6(d).
 """
 
 from __future__ import annotations
@@ -131,6 +132,75 @@ def make_mixed_step(fam_step, fam_ragged):
         return toks, logits, k_pages, v_pages, new_lens, clast
 
     return mixed_step
+
+
+def make_spec_step(fam_step, fam_ragged):
+    """Lift a family ``(paged_decode_step, paged_prefill_ragged)`` pair
+    into the engine's speculative verify step: the mixed step's chunk
+    leg re-aimed at decode. The ``(1, W)`` chunk carries row ``srow``'s
+    next greedy token and then the host's n-gram drafts, run at the
+    row's length as offset; one pass gives the logits of every chunk
+    position, and ``spec_accept`` keeps the prefix greedy decode would
+    have produced anyway.
+
+    - chunk token 0 is computed on the device, ``g0 = argmax(last
+      [srow])``: the token the decode leg would have emitted. With every
+      draft rejected the step is a plain decode step for the row (emit
+      ``g0``, its K/V written at ``lens[srow]``, carry
+      ``chunk_logits[0]``);
+    - the chunk leg is the family's ``paged_prefill_ragged`` with
+      ``full_logits=True`` over the row's own block table, with no fork
+      (``fork_dst`` = ``fork_src`` = 0, the trash self-copy): a decode
+      row's tail pages are its own. Padding past ``n_draft + 1`` goes
+      to trash page 0 through the host's scatter targets;
+    - the decode leg is the sampled decode step with the spec row
+      masked inactive (a trash-page dummy write);
+    - the spec row's length then advances by ``n_acc`` and
+      ``chunk_logits[n_acc - 1]`` goes into its ``last``. K/V written
+      at rejected positions is rolled back by the length alone:
+      attention reads only positions ``< lens``, and later steps
+      overwrite those slots.
+
+    Returns ``(out, logits, k_pages, v_pages, new_lens)``: ``out``
+    ``(B + 1 + W,)`` int32 holds the decode rows' sampled ids (the spec
+    row's lane is unused), ``n_acc``, then the W chunk tokens (the host
+    learns ``g0`` from it). ``srow``, ``n_draft``, the offset and the
+    scatter targets are device data, so the step is captured once per
+    chunk bucket W. The pools are updated in place."""
+    from bigdl_tpu_torch.llm.kernels.sampling import (make_sampled_step,
+                                                      spec_accept)
+    sampled = make_sampled_step(fam_step)
+
+    def spec_step(params, cfg, k_pages, v_pages, bt, lens, last, active,
+                  temperature, generator, srow, ctoks, n_draft, cbt_row,
+                  cphys, cslots, *, page: int, do_sample: bool = False,
+                  top_k: int = 0):
+        b = lens.shape[0]
+        dev = lens.device
+        srow = device_i32(srow, dev).reshape(1)
+        n_draft = device_i32(n_draft, dev)
+        onehot = torch.arange(b, device=dev) == srow
+        g0 = torch.argmax(last.index_select(0, srow.long())[0]).to(
+            torch.int32)
+        ctoks = torch.cat([g0.reshape(1, 1),
+                           ctoks[:, 1:].to(device=dev, dtype=torch.int32)],
+                          1)
+        coff = lens.index_select(0, srow.long())[0]
+        k_pages, v_pages, chunk_logits = fam_ragged(
+            params, cfg, k_pages, v_pages, ctoks, n_draft + 1, coff,
+            cbt_row, cphys, cslots, 0, 0, page=page, full_logits=True)
+        n_acc, new_slast = spec_accept(ctoks[0], chunk_logits, n_draft)
+        toks, logits, k_pages, v_pages, new_lens = sampled(
+            params, cfg, k_pages, v_pages, bt, lens, last,
+            active & ~onehot, temperature, generator, page=page,
+            do_sample=do_sample, top_k=top_k)
+        new_lens = new_lens + torch.where(
+            onehot, n_acc, torch.zeros_like(n_acc)).to(new_lens.dtype)
+        logits = torch.where(onehot[:, None], new_slast[None, :], logits)
+        out = torch.cat([toks[:b], n_acc.reshape(1), ctoks[0]])
+        return out, logits, k_pages, v_pages, new_lens
+
+    return spec_step
 
 
 def make_partial_prefill(forward_fn, init_cache_fn):

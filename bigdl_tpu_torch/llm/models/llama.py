@@ -5,8 +5,9 @@ quantization, the layer math (``_linear``, ``rms_norm``, ``rope``,
 ``forward``, the token loops (``decode_scan`` over the dense cache,
 ``decode_scan_paged`` over a page pool), the serving engine's prefills
 (``paged_prefill_ragged`` in place, ``paged_prefill_partial`` through a
-dense staging cache) and its mixed prefill+decode step
-(``paged_step_mixed``), and :class:`LlamaForCausalLM` with ``generate``.
+dense staging cache), its mixed prefill+decode step
+(``paged_step_mixed``) and speculative verify step (``paged_step_spec``),
+and :class:`LlamaForCausalLM` with ``generate``.
 
 Parameters are nested dicts of tensors with the JAX package's keys and
 layouts: stacked per layer (``params["layers"][name]`` has a leading
@@ -39,7 +40,8 @@ from bigdl_tpu_torch.llm.kernels.int4_matmul import int4_matmul, quantize_tpu
 from bigdl_tpu_torch.llm.kernels.paged_attention import LANE
 from bigdl_tpu_torch.llm.kernels.sampling import sample_tokens
 from bigdl_tpu_torch.llm.kvcache.prefill import (make_mixed_step,
-                                                 make_partial_prefill)
+                                                 make_partial_prefill,
+                                                 make_spec_step)
 from bigdl_tpu_torch.parallel.ring_attention import online_block_update
 
 _MOE = ("the mixture-of-experts FFN is not ported yet (ROADMAP Queue 1 "
@@ -573,7 +575,7 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
 
 def paged_prefill_ragged(params, cfg: LlamaConfig, k_pages, v_pages, toks,
                          length, offset, bt_row, phys, slots, fork_dst,
-                         fork_src, *, page: int):
+                         fork_src, *, page: int, full_logits: bool = False):
     """Ragged in-place prefill: the suffix tokens run through the layer
     math while attention reads the cached prefix directly from the page
     pool (kernels/ragged_prefill.py); after the layers, one scatter
@@ -588,9 +590,9 @@ def paged_prefill_ragged(params, cfg: LlamaConfig, k_pages, v_pages, toks,
     (padding routed to trash page 0). Nothing here reads a device value
     on the host, so the prefill can run inside a CUDA graph (the engine's
     mixed step) and the whole-prompt prefill calls the same body.
-    Returns ``(k_pages, v_pages, last_logits (V,) f32)``. (The JAX
-    package's ``full_logits`` leg belongs to speculative decoding,
-    ROADMAP Queue 1 item 6(d).)"""
+    Returns ``(k_pages, v_pages, last_logits (V,) f32)``; with
+    ``full_logits=True`` (the speculative verify leg) the logits of
+    every bucket row instead, ``(bucket, V)`` f32."""
     from bigdl_tpu_torch.llm.kvcache.prefill import (device_i32,
                                                      fork_tail_pages,
                                                      ragged_prefill_attend,
@@ -621,6 +623,8 @@ def paged_prefill_ragged(params, cfg: LlamaConfig, k_pages, v_pages, toks,
     k_pages, v_pages = scatter_suffix_kv(k_pages, v_pages, phys, slots,
                                          torch.stack(k_new),
                                          torch.stack(v_new))
+    if full_logits:
+        return k_pages, v_pages, logits[0].to(torch.float32)
     # the last true token's row, picked by a device index
     last = logits[0].index_select(0, (length - 1).reshape(1).long())[0]
     return k_pages, v_pages, last.to(torch.float32)
@@ -644,6 +648,22 @@ def paged_step_mixed(params, cfg, k_pages, v_pages, bt, lens, last,
         params, cfg, k_pages, v_pages, bt, lens, last, active,
         temperature, generator, ctoks, clen, coff, cbt_row, cphys, cslots,
         fork_dst, fork_src, page=page, do_sample=do_sample, top_k=top_k)
+
+
+def paged_step_spec(params, cfg, k_pages, v_pages, bt, lens, last, active,
+                    temperature, generator, srow, ctoks, n_draft, cbt_row,
+                    cphys, cslots, *, page: int, do_sample: bool = False,
+                    top_k: int = 0):
+    """The engine's speculative verify step for the llama family: one
+    row's drafts as a :func:`paged_prefill_ragged` chunk with full
+    logits and the greedy accept, beside the sampled decode step over
+    every other row (``kvcache.prefill.make_spec_step``). Returns
+    ``(out (B + 1 + W,) int32, logits, k_pages, v_pages, new_lens)``."""
+    from bigdl_tpu_torch.llm.serving import paged_decode_step
+    return make_spec_step(paged_decode_step, paged_prefill_ragged)(
+        params, cfg, k_pages, v_pages, bt, lens, last, active,
+        temperature, generator, srow, ctoks, n_draft, cbt_row, cphys,
+        cslots, page=page, do_sample=do_sample, top_k=top_k)
 
 
 # ---------------------------------------------------------------------------

@@ -1,27 +1,38 @@
 """Continuous-batching LLM serving over a paged KV cache — the port of
-``bigdl_tpu/llm/serving.py``, slices (a)-(c) of ROADMAP Queue 1 item 6:
+``bigdl_tpu/llm/serving.py``, slices (a)-(e) of ROADMAP Queue 1 item 6:
 
 - the device functions of the paged decode step (``paged_attend``,
   ``scatter_new_kv``, ``paged_decode_step``, its sampled lift
   ``paged_decode_step_sampled``, and ``bind_decode_step``, that step
-  over the engine's persistent buffers) and ``bind_mixed_step``, the
-  mixed prefill+decode step over them;
+  over the engine's persistent buffers), ``bind_mixed_step``, the mixed
+  prefill+decode step over them, and ``bind_spec_step``, the
+  speculative verify step;
+- the SLO classes (``PRIORITY_CLASSES``, ``normalize_priority``,
+  ``CLASS_RETRY_WEIGHTS``) and the class-ordered admission heap;
 - :class:`LLMServer` with paged decode, whole-prompt prefill (ragged in
   place, or dense staging), worst-case admission budgets, EOS /
   ``max_new_tokens`` finishing and page release; the JAX engine's
   pipelined dispatch (block tables and lengths resident on the device,
   up to ``pipeline_depth`` steps in flight, the decode step replayed as
   one captured CUDA graph, ``llm/graphs.py``, the port's ``jax.jit``);
-  the radix prefix cache (``kvcache=``); and the mixed prefill+decode
+  the radix prefix cache (``kvcache=``); the mixed prefill+decode
   dispatch with chunked admission (``mixed=``, ``chunk_tokens=``,
-  ``chunk_wait=``), the mixed step one CUDA graph per chunk bucket.
+  ``chunk_wait=``), the mixed step one CUDA graph per chunk bucket;
+  model-free self-speculative decoding (``spec=``, ``spec_k=``), the
+  verify step one CUDA graph per draft bucket; and priority classes
+  with lossless preemption (``priority=``, ``submit(priority=)``).
 
 The engine's other options raise ``NotImplementedError`` naming their
-ROADMAP item; none is silently ignored.
+ROADMAP item; none is silently ignored. Not ported with speculation
+and preemption: their metric instruments, flight-recorder events and
+the ``llm.spec`` / ``llm.preempt`` fault sites (observability and
+reliability, ROADMAP Queue 1 item 8), and the host-tier export of a
+preempted chain (``_export_chain_locked``, item 6(f)).
 """
 
 from __future__ import annotations
 
+import heapq
 import inspect
 import queue
 import threading
@@ -42,11 +53,85 @@ from bigdl_tpu_torch.llm.kernels.sampling import make_sampled_step
 from bigdl_tpu_torch.llm.kvcache import Admission, KVCacheManager
 from bigdl_tpu_torch.llm.models.llama import (decoder_layer, layer_params,
                                               lm_logits, rms_norm)
+from bigdl_tpu_torch.llm.spec import NGramProposer
 
 
 class OverloadError(RuntimeError):
     """The server refuses a request for capacity (full queue, draining);
     the caller may retry later."""
+
+
+#: SLO classes in strictly descending scheduling priority; anything
+#: unknown normalizes to "standard", so a misdeclared class degrades to
+#: the default instead of failing
+PRIORITY_CLASSES = ("interactive", "standard", "batch")
+_PRIORITY_RANK = {c: r for r, c in enumerate(PRIORITY_CLASSES)}
+#: Retry-After queue-depth weights a class: batch clients back off
+#: harder than interactive ones under the same backlog
+CLASS_RETRY_WEIGHTS = {"interactive": 0.5, "standard": 1.0, "batch": 2.0}
+
+
+def normalize_priority(value) -> str:
+    """A client's class value as a known SLO class ("standard" for None
+    or anything unknown)."""
+    if value is None:
+        return "standard"
+    v = str(value).strip().lower()
+    return v if v in _PRIORITY_RANK else "standard"
+
+
+class _PriorityScheduler:
+    """Class-ordered admission backlog: a heap of ``(rank, seq, req)``,
+    rank orders classes and the sequence keeps FIFO within a class (and
+    makes entries totally ordered). Engine-thread only: the thread-safe
+    boundary stays the intake queue, which ``_admit`` drains into the
+    heap every pass. Made only with ``priority=True``."""
+
+    def __init__(self):
+        self._heap: List[tuple] = []
+        self._seq = 0
+
+    def push(self, req) -> None:
+        self._seq += 1
+        heapq.heappush(self._heap,
+                       (_PRIORITY_RANK[req.priority], self._seq, req))
+
+    def push_entry(self, ent: tuple) -> None:
+        """Re-park a popped entry with its original sequence number: a
+        budget-blocked head keeps its place in line."""
+        heapq.heappush(self._heap, ent)
+
+    def pop_entry(self) -> Optional[tuple]:
+        return heapq.heappop(self._heap) if self._heap else None
+
+    def __len__(self) -> int:
+        return len(self._heap)
+
+    def live(self) -> int:
+        """Entries whose request still waits (done handles are dropped at
+        the next pop)."""
+        return sum(1 for _, _, r in self._heap if not r.done.is_set())
+
+    def best_rank(self) -> Optional[int]:
+        ranks = [e[0] for e in self._heap if not e[2].done.is_set()]
+        return min(ranks) if ranks else None
+
+    def drain(self) -> List[tuple]:
+        ents, self._heap = self._heap, []
+        return ents
+
+    def depths(self) -> Dict[str, int]:
+        """Live backlog by class."""
+        out = {c: 0 for c in PRIORITY_CLASSES}
+        for _, _, r in self._heap:
+            if not r.done.is_set():
+                out[r.priority] += 1
+        return out
+
+    def parked(self) -> int:
+        """Preempted requests waiting to resume."""
+        return sum(1 for _, _, r in self._heap
+                   if r.resume_ids is not None and not r.done.is_set())
 
 
 def paged_attend(k_pages, v_pages, bt, lens, *, page: int,
@@ -221,14 +306,91 @@ def bind_mixed_step(params, cfg, k_pages, v_pages, bt, lens, last, active,
     return step
 
 
+def spec_operands(ops: torch.Tensor, bucket: int, pages_cap: int):
+    """Views of one verify pass's operands packed in one int32 vector
+    (one host copy fills them all): the device scalars ``srow`` and
+    ``n_draft``, ``ctoks (1, bucket)``, then ``bt_row (pages_cap,)``,
+    ``phys (bucket,)`` and ``slots (bucket,)``, returned in the order of
+    a family's ``paged_step_spec`` arguments after the generator."""
+    b0 = 2 + bucket
+    b1 = b0 + pages_cap
+    return (ops[0], ops[2:b0].view(1, bucket), ops[1], ops[b0:b1],
+            ops[b1:b1 + bucket], ops[b1 + bucket:])
+
+
+def verify_operands(srow: int, drafts, pos0: int, bucket: int, bt_row, *,
+                    page: int) -> np.ndarray:
+    """The packed operands (:func:`spec_operands`) of a verify pass for
+    row ``srow`` at length ``pos0``: chunk slot 0 is left for ``g0``
+    (set on the device), the drafts follow, and the ``len(drafts) + 1``
+    live positions land in their pages of the block-table row
+    ``bt_row`` (which already holds the pages they need), padding in
+    trash page 0."""
+    pages_cap = len(bt_row)
+    clen = len(drafts) + 1
+    ops = np.zeros(2 + 3 * bucket + pages_cap, np.int32)
+    ops[:2] = (srow, clen - 1)
+    ops[3:2 + clen] = drafts
+    b0 = 2 + bucket
+    ops[b0:b0 + pages_cap] = bt_row
+    pos = pos0 + np.arange(bucket)
+    ops[b0 + pages_cap:b0 + pages_cap + bucket] = np.where(
+        pos < pos0 + clen,
+        np.asarray(bt_row)[np.minimum(pos // page, pages_cap - 1)], 0)
+    ops[b0 + pages_cap + bucket:] = pos % page
+    return ops
+
+
+def bind_spec_step(params, cfg, k_pages, v_pages, bt, lens, last, active,
+                   sout, ops, *, bucket: int, page: int,
+                   temperature: float = 1.0, generator=None,
+                   do_sample: bool = False, top_k: int = 0, fam_step=None):
+    """The engine's speculative verify step for one draft bucket as a
+    function of no arguments over persistent buffers, what
+    :class:`CapturedStep` captures: the decode buffers of
+    :func:`bind_decode_step` (``last``, ``lens`` and the pools written
+    the same way), ``ops``, the verify chunk's operands packed as
+    :func:`spec_operands` reads them, and ``sout`` (B + 1 + bucket,)
+    int32, into which the step's ids, ``n_acc`` and chunk tokens go."""
+    if fam_step is None:
+        from bigdl_tpu_torch.llm.models.llama import paged_step_spec
+        fam_step = paged_step_spec
+    spec = spec_operands(ops, bucket, bt.shape[1])
+
+    def step():
+        out, logits, kp, vp, new_lens = fam_step(
+            params, cfg, k_pages, v_pages, bt, lens, last, active,
+            temperature, generator, *spec, page=page,
+            do_sample=do_sample, top_k=top_k)
+        if kp is not k_pages or vp is not v_pages:
+            raise RuntimeError("the spec step must write the pools in "
+                               "place: a graph holds their addresses")
+        sout.copy_(out)
+        last.copy_(logits)
+        lens.copy_(new_lens)
+
+    return step
+
+
 class Request:
     """Handle returned by :meth:`LLMServer.submit`."""
 
-    def __init__(self, prompt_ids, max_new_tokens: int):
+    def __init__(self, prompt_ids, max_new_tokens: int,
+                 priority: str = "standard"):
         self.id = str(uuid.uuid4())
         self.prompt_ids = np.asarray(prompt_ids, np.int32).ravel()
         self.max_new_tokens = max_new_tokens
         self.tokens: List[int] = []
+        # the SLO class; plain metadata unless the server schedules by it
+        self.priority = priority
+        # lossless preemption: a preempted request re-queues as prompt +
+        # generated so far (resume_ids) with its remaining budget, and
+        # _hold_rec is the in-flight record that must drain before it
+        # may take a slot again (re-admitted into its old slot earlier,
+        # it would take that record's stale token at the drain)
+        self.resume_ids: Optional[np.ndarray] = None
+        self.preemptions = 0
+        self._hold_rec: Optional[dict] = None
         self.error: Optional[str] = None
         self.done = threading.Event()
         # TTFT accounting: submit stamp here, first-token stamp at drain;
@@ -250,10 +412,6 @@ class Request:
 _NOT_PORTED = {
     "kvtier": "the host KV tier is ROADMAP Queue 1 item 6(f)",
     "host_pages": "the host KV tier is ROADMAP Queue 1 item 6(f)",
-    "spec": "self-speculative decoding is ROADMAP Queue 1 item 6(d)",
-    "spec_k": "self-speculative decoding is ROADMAP Queue 1 item 6(d)",
-    "priority": "priority classes and preemption are ROADMAP Queue 1 "
-                "item 6(e)",
     "slo": "SLO accounting (observability) is ROADMAP Queue 1 item 8",
     "watchdog_timeout": "the engine watchdog (reliability) is ROADMAP "
                         "Queue 1 item 8",
@@ -302,6 +460,28 @@ class LLMServer:
     with the partial chain rolled back. Chunking slots rotate round
     robin; a chunk with no decode row to fuse with runs alone, eagerly.
 
+    **Self-speculative decoding** (``spec=True``, greedy only, on the
+    ragged path): a pass may carry one decode row's n-gram drafts
+    (``llm/spec.py``, at most ``spec_k - 1`` a pass) as a verify chunk
+    (``paged_step_spec``) and emit up to ``spec_k`` tokens for it, the
+    same tokens greedy decode gives. A pass carries a prefill chunk or
+    a verify, never both; rows take turns round robin; a draft hit
+    drains the in-flight window first (drafting needs the row's exact
+    history), and the row sits out dispatch until its record drains,
+    since how far it advanced is known only then.
+
+    **Priority classes** (``priority=True``): requests carry an SLO
+    class (``submit(priority=)``: "interactive", "standard", "batch")
+    and are admitted in class order, FIFO within a class. A waiter that
+    cannot be seated preempts the worst strictly lower-class decode
+    (among equals the youngest), at most one a window of in-flight
+    steps, losslessly: the victim's chain is indexed in the prefix
+    cache (with ``kvcache=True``, else dropped), its slot and pages
+    freed, and it re-queues as prompt + generated so far with the
+    budget it has left, so its resumed tokens equal an unpreempted
+    run's. It stays out of a slot until its last in-flight record has
+    drained.
+
     **Pipelined dispatch**, as the JAX engine's. Block tables, lengths,
     the active mask and the last logits live on the device; a step reads
     them and advances lengths and logits in place, and the host changes
@@ -318,8 +498,9 @@ class LLMServer:
 
     The decode step is one CUDA graph (:class:`CapturedStep`, the port's
     ``jax.jit``) captured at its second call, and the mixed step one
-    graph per chunk bucket, captured alike over that bucket's persistent
-    operand buffer (filled by one host copy a pass); ``temperature``,
+    graph per chunk bucket and the verify step one per draft bucket,
+    captured alike over the bucket's persistent operand buffer (filled
+    by one host copy a pass); ``temperature``,
     ``top_k`` and sampling are fixed at construction, as in the JAX
     step's cache key. Whole-prompt prefills and solo chunks run eagerly.
     ``stop()`` frees the graphs.
@@ -340,8 +521,9 @@ class LLMServer:
                  ragged_prefill: Optional[bool] = None,
                  kvcache: bool = False, mixed: bool = False,
                  chunk_tokens: Optional[int] = None,
-                 chunk_wait: Optional[float] = None, device=None,
-                 **options):
+                 chunk_wait: Optional[float] = None,
+                 spec: bool = False, spec_k: Optional[int] = None,
+                 priority: bool = False, device=None, **options):
         for name, value in options.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -363,10 +545,10 @@ class LLMServer:
         from bigdl_tpu_torch.llm.models import llama as _llama
         fam = inspect.getmodule(type(model))
         self._fam_ragged_prefill, self._fam_partial_prefill, \
-            self._fam_mixed_step = (
+            self._fam_mixed_step, self._fam_spec_step = (
                 getattr(fam, n, getattr(_llama, n)) for n in (
                     "paged_prefill_ragged", "paged_prefill_partial",
-                    "paged_step_mixed"))
+                    "paged_step_mixed", "paged_step_spec"))
         self._ragged = ragged_prefill is not False
         self.max_batch = max_batch
         self.max_seq_len = min(max_seq_len, cfg.max_position_embeddings)
@@ -423,6 +605,35 @@ class LLMServer:
         self.prefill_chunks_total = 0
         self.prefill_tokens_total = 0
         self.mixed_passes = 0
+        # self-speculative decoding: the verify chunk is a ragged chunk
+        # and the accept rule is greedy exact match
+        if spec and self._do_sample:
+            raise ValueError("spec is greedy-only (temperature == 0): the "
+                             "rejection-sampling verify for sampled decode "
+                             "is not implemented, in the JAX engine either")
+        self._spec_active = bool(spec) and self._ragged
+        self._spec_k = max(1, int(4 if spec_k is None else spec_k))
+        self._spec_state: Optional[List[Optional[dict]]] = (
+            [None] * max_batch if self._spec_active else None)
+        # slots whose verify is in flight: how far the row advanced is
+        # data on the device until its record drains, so it sits out
+        self._spec_pending: set = set()
+        self._spec_rr = 0
+        self.spec_passes = 0
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
+        self.spec_emitted_total = 0
+        # the widest verify chunk: g0 and at most spec_k - 1 drafts
+        self._spec_wmax = (max(2, 1 << (self._spec_k - 1).bit_length())
+                           if self._spec_active else 0)
+        # priority classes: the scheduler exists only when asked for
+        self._sched = _PriorityScheduler() if priority else None
+        # the newest in-flight record when the last preemption ran: at
+        # most one preemption a window (its pages serve the waiter only
+        # once it is admitted, and the victim waits for that record)
+        self._preempt_rec: Optional[dict] = None
+        self.preemptions_total = 0
+        self.preempt_resumes_total = 0
         # block-table width: the JAX engine rounds it up to the Mosaic
         # block multiple (LANE // page); kept so tables compare like with
         # like — the CUDA kernels do not need it
@@ -459,9 +670,10 @@ class LLMServer:
                                      device=dev)
         # one host buffer per in-flight step for its sampled ids: replay
         # N+1 overwrites _toks_dev before step N is drained
-        self._toks_host = [torch.zeros(max_batch, dtype=torch.int32,
-                                       pin_memory=dev.type == "cuda")
-                           for _ in range(self.pipeline_depth)]
+        self._toks_host = [torch.zeros(max_batch + (
+            1 + self._spec_wmax if self._spec_active else 0),
+            dtype=torch.int32, pin_memory=dev.type == "cuda")
+            for _ in range(self.pipeline_depth)]
         self._gens = (self._gen,) if self._do_sample else ()
         self._step = CapturedStep(
             bind_decode_step(model.params, cfg, self._k_pages,
@@ -473,6 +685,8 @@ class LLMServer:
             dev, generators=self._gens)
         # chunk bucket -> (its mixed step, operand buffer, clast buffer)
         self._mixed_steps: Dict[int, tuple] = {}
+        # draft bucket -> (its verify step, operand buffer, output buffer)
+        self._spec_steps: Dict[int, tuple] = {}
 
     # -- views ---------------------------------------------------------------
     @property
@@ -500,10 +714,15 @@ class LLMServer:
         return self._kv.prefix_tokens_reused
 
     # -- client API ----------------------------------------------------------
-    def submit(self, prompt_ids, max_new_tokens: int = 32) -> Request:
+    def submit(self, prompt_ids, max_new_tokens: int = 32,
+               priority: Optional[str] = None) -> Request:
+        """Queue a request; ``priority`` is its SLO class (normalized by
+        :func:`normalize_priority`; scheduled by only with
+        ``priority=True``)."""
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        req = Request(prompt_ids, max_new_tokens)
+        req = Request(prompt_ids, max_new_tokens,
+                      priority=normalize_priority(priority))
         if len(req.prompt_ids) == 0:
             raise ValueError("empty prompt")
         if len(req.prompt_ids) + max_new_tokens > self.max_seq_len:
@@ -518,6 +737,12 @@ class LLMServer:
             raise OverloadError("server is draining: not accepting new "
                                 "requests")
         try:
+            # the engine drains the intake into the scheduler's heap every
+            # pass, so bound the intake and the backlog together
+            if self._sched is not None and self.max_queue and \
+                    self._queue.qsize() + len(self._sched) >= \
+                    self.max_queue:
+                raise queue.Full
             self._queue.put_nowait(req)
         except queue.Full:
             raise OverloadError(
@@ -525,6 +750,26 @@ class LLMServer:
                 f"later [needs {pages['pages_needed']} pages, "
                 f"{pages['pages_free']} budget-free]") from None
         return req
+
+    def retry_depth(self, priority: Optional[str] = None) -> float:
+        """Queue depth for a Retry-After: the intake depth, or with the
+        scheduler the intake and its backlog weighted by the class
+        (``CLASS_RETRY_WEIGHTS``)."""
+        depth = self._queue.qsize()
+        if self._sched is None:
+            return depth
+        return ((depth + len(self._sched))
+                * CLASS_RETRY_WEIGHTS[normalize_priority(priority)])
+
+    def class_depths(self) -> Optional[Dict[str, int]]:
+        """Live backlog by SLO class; None without the scheduler."""
+        return self._sched.depths() if self._sched is not None else None
+
+    @property
+    def preempt_parked(self) -> int:
+        """Preempted requests waiting to resume (0 without the
+        scheduler)."""
+        return self._sched.parked() if self._sched is not None else 0
 
     def start(self) -> "LLMServer":
         self._thread = threading.Thread(target=self._loop,
@@ -555,12 +800,14 @@ class LLMServer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._step.close()
-            for step, _, _ in self._mixed_steps.values():
+            for step, _, _ in list(self._mixed_steps.values()) + list(
+                    self._spec_steps.values()):
                 step.close()
 
     def _idle(self) -> bool:
         return (self._queue.empty() and self._pending_head is None
                 and not self._inflight
+                and (self._sched is None or self._sched.live() == 0)
                 and all(r is None for r in self._slots))
 
     # -- engine --------------------------------------------------------------
@@ -601,8 +848,13 @@ class LLMServer:
                 # a sticky CUDA error refuses the device rows' reset;
                 # the host side of the slot is already released
                 self.errors.append(traceback.format_exc())
+        self._spec_pending.clear()
         pending = [self._pending_head] if self._pending_head else []
         self._pending_head = None
+        if self._sched is not None:
+            # heap entries hold no budget: failing their handles is all
+            pending += [r for _, _, r in self._sched.drain()
+                        if not r.done.is_set()]
         while True:
             try:
                 pending.append(self._queue.get_nowait())
@@ -626,16 +878,64 @@ class LLMServer:
         """``a`` on the device, copied in stream order without a wait."""
         return self._pinned(a).to(self.device, non_blocking=True)
 
+    def _prompt_of(self, req: Request) -> np.ndarray:
+        """The ids admission must prefill: the prompt, or after a
+        preemption prompt + generated so far (greedy decode over the
+        longer prompt continues exactly as the unpreempted run)."""
+        return (req.resume_ids if req.resume_ids is not None
+                else req.prompt_ids)
+
+    def _budget_of(self, req: Request) -> int:
+        """The decode budget still owed: ``max_new_tokens`` less the
+        tokens drained before a preemption."""
+        return req.max_new_tokens - len(req.tokens)
+
+    def _sched_pop(self) -> Optional[tuple]:
+        """Pop the best live, unheld heap entry. Done handles are
+        dropped; a preempted request whose hold record is still in
+        flight is skipped and re-parked in its place."""
+        held: List[tuple] = []
+        out = None
+        while True:
+            ent = self._sched.pop_entry()
+            if ent is None:
+                break
+            req = ent[2]
+            if req.done.is_set():
+                continue
+            rec = req._hold_rec
+            if rec is not None:
+                if any(r is rec for r in self._inflight):
+                    held.append(ent)
+                    continue
+                req._hold_rec = None
+            out = ent
+            break
+        for h in held:
+            self._sched.push_entry(h)
+        return out
+
     def _admit(self):
         """Fill free slots from the queue. A request is admitted only
         when its worst-case page budget (its uncached suffix, with the
         prefix cache) is available; head-of-line: if the next request
-        does not fit, no later one is admitted either."""
+        does not fit, no later one is admitted either. With priority
+        classes the intake drains into the class heap first (head of
+        line becomes head of class), and waiters left after the sweep
+        may preempt a lower-class decode."""
+        if self._sched is not None:
+            try:
+                while True:
+                    self._sched.push(self._queue.get_nowait())
+            except queue.Empty:
+                pass
         for i in range(self.max_batch):
             if self._slots[i] is not None:
                 continue
             if not self._admit_into(i):
-                return
+                break
+        if self._sched is not None and self._sched.live():
+            self._consider_preempt()
 
     def _admit_into(self, i: int) -> bool:
         """Admit one request into free slot ``i``: lookup, suffix-only
@@ -644,14 +944,21 @@ class LLMServer:
         slot sweep: the queue is empty or its head is budget-blocked."""
         page = self._page
         while True:
-            req = self._pending_head
-            if req is None:
-                try:
-                    req = self._queue.get_nowait()
-                except queue.Empty:
+            ent = None
+            if self._sched is not None:
+                ent = self._sched_pop()
+                if ent is None:
                     return False
-            self._pending_head = None
-            ids, budget = req.prompt_ids, req.max_new_tokens
+                req = ent[2]
+            else:
+                req = self._pending_head
+                if req is None:
+                    try:
+                        req = self._queue.get_nowait()
+                    except queue.Empty:
+                        return False
+                self._pending_head = None
+            ids, budget = self._prompt_of(req), self._budget_of(req)
             chunk_first = None
             if self._mixed_active and len(ids) > self._chunk_tokens:
                 # a long uncached suffix is fed in chunks, the first
@@ -674,9 +981,14 @@ class LLMServer:
                         "prefix evicted since submit)")
                     req.done.set()
                     continue
-                self._pending_head = req            # retry next pass
+                if ent is not None:
+                    self._sched.push_entry(ent)     # keeps its place
+                else:
+                    self._pending_head = req        # retry next pass
                 return False
             self._slot_adm[i] = adm
+            if self._sched is not None and req.resume_ids is not None:
+                self.preempt_resumes_total += 1
             if chunk_first is not None:
                 self._begin_chunked(i, req, adm)
                 return True
@@ -702,7 +1014,7 @@ class LLMServer:
         adopted partial tail is forked into the request's first own
         page. Then the slot takes the request (:meth:`_finish_prefill`)."""
         page = self._page
-        ids = req.prompt_ids
+        ids = self._prompt_of(req)
         T, off = len(ids), adm.matched_len
         own = self._kv.alloc(-(-T // page) - off // page)
         try:
@@ -731,7 +1043,7 @@ class LLMServer:
         gathered into a temp cache; the write-back window re-writes an
         adopted tail's shared slots into the request's fork page."""
         page = self._page
-        ids = req.prompt_ids
+        ids = self._prompt_of(req)
         T, off = len(ids), adm.matched_len
         koff = off // page
         own = self._kv.alloc(-(-T // page) - koff)
@@ -774,7 +1086,7 @@ class LLMServer:
         full prompt pages are indexed."""
         self._last[i] = last
         self._bt_dev[i] = bt_row_dev
-        T = len(req.prompt_ids)
+        T = len(self._prompt_of(req))
         self._lens_dev[i] = T
         self._bt[i, :] = 0
         self._bt[i, :len(row_pages)] = row_pages
@@ -783,7 +1095,7 @@ class LLMServer:
             self._kv.release_transient(adm)
         self._slot_pages[i] = own
         self._slots[i] = req
-        self._remaining[i] = req.max_new_tokens
+        self._remaining[i] = self._budget_of(req)
         self._index_prompt(i, req)
 
     def _index_prompt(self, i: int, req: Request):
@@ -791,10 +1103,10 @@ class LLMServer:
         EOS): requests sharing the prompt adopt them while this one still
         decodes. The partly filled prompt tail stays private until EOS,
         and adopters fork it rather than race this row's decode writes."""
-        nfull = len(req.prompt_ids) // self._page
+        prompt = self._prompt_of(req)
+        nfull = len(prompt) // self._page
         if self._kv.enabled and nfull:
-            self._kv.insert(req.prompt_ids[:nfull * self._page],
-                            self._bt[i, :nfull])
+            self._kv.insert(prompt[:nfull * self._page], self._bt[i, :nfull])
 
     # -- mixed prefill+decode dispatch and chunked admission -----------------
     def _chunk_end(self, off: int, T: int) -> int:
@@ -818,11 +1130,25 @@ class LLMServer:
 
     def _chunk_slot(self) -> Optional[int]:
         """Round-robin pick of the one chunking slot to advance this pass
-        (a pass's prefill budget is one chunk). A request that failed
-        meanwhile is rolled back here."""
+        (a pass's prefill budget is one chunk); with priority classes the
+        best class's chunker, the lowest slot among equals. A request
+        that failed meanwhile is rolled back here."""
         if self._chunk_state is None:
             return None
         n = self.max_batch
+        if self._sched is not None:
+            best = None
+            for i in range(n):
+                st = self._chunk_state[i]
+                if st is None:
+                    continue
+                if st["req"].done.is_set():
+                    self._rollback_chunk(i, None)
+                    continue
+                key = (_PRIORITY_RANK[st["req"].priority], i)
+                if best is None or key < best[0]:
+                    best = (key, i)
+            return best[1] if best is not None else None
         for k in range(n):
             i = (self._chunk_rr + k) % n
             st = self._chunk_state[i]
@@ -844,25 +1170,44 @@ class LLMServer:
         ``chunk_wait`` its request is shed with the chain rolled back)."""
         st = self._chunk_state[i]
         req, adm = st["req"], st["adm"]
-        page, ids = self._page, st["req"].prompt_ids
+        page, ids = self._page, self._prompt_of(req)
         T, off = len(ids), st["off"]
         end = self._chunk_end(off, T)
         n_new = -(-end // page) - len(st["row_pages"])
         final = end == T
         need = n_new
         if final:
-            need += (-(-(T + req.max_new_tokens) // page) - (-(-T // page)))
+            need += (-(-(T + self._budget_of(req)) // page)
+                     - (-(-T // page)))
         charge_now = 0 if st["first"] else need
         if charge_now and not self._kv.charge_chunk(adm, charge_now):
             now = time.perf_counter()
             if st["wait_t0"] is None:
                 st["wait_t0"] = now
             elif now - st["wait_t0"] > self._chunk_wait:
+                victim = i
+                if self._sched is not None:
+                    # a starved chunker sheds the worst strictly lower
+                    # class chunker instead of itself, if there is one:
+                    # freeing that chain is what unblocks the ledger
+                    rank_i = _PRIORITY_RANK[req.priority]
+                    worst = None
+                    for j in range(self.max_batch):
+                        sj = self._chunk_state[j]
+                        if sj is None or j == i:
+                            continue
+                        rj = _PRIORITY_RANK[sj["req"].priority]
+                        if rj > rank_i and (worst is None
+                                            or (rj, j) > worst[0]):
+                            worst = ((rj, j), j)
+                    if worst is not None:
+                        victim = worst[1]
+                        st["wait_t0"] = now
                 self._rollback_chunk(
-                    i, f"chunked admission starved: the ledger could not "
-                       f"cover the next {charge_now} pages within "
-                       f"{self._chunk_wait:g}s (retriable: partial chain "
-                       "rolled back; resubmit)")
+                    victim, f"chunked admission starved: the ledger could "
+                            f"not cover the next {charge_now} pages within "
+                            f"{self._chunk_wait:g}s (retriable: partial "
+                            "chain rolled back; resubmit)")
             return None
         st["wait_t0"] = None
         try:
@@ -987,14 +1332,123 @@ class LLMServer:
         self.mixed_passes += 1
         return self._after_dispatch(rec, t_step)
 
+    # -- self-speculative decoding -------------------------------------------
+    def _spec_proposer(self, i: int, req: Request):
+        """Slot ``i``'s draft proposer, made anew for each request: the
+        adaptive state is the request's own."""
+        st = self._spec_state[i]
+        if st is None or st["req"] is not req:
+            # min_match 2 and backoff 0.5: the JAX engine's defaults
+            st = self._spec_state[i] = {
+                "req": req, "prop": NGramProposer(k=self._spec_k)}
+        return st["prop"]
+
+    def _spec_history(self, i: int):
+        """Slot ``i``'s row, its proposer and its token history, or None
+        when the row cannot verify now (spent, its verify in flight, or
+        still chunking its prompt)."""
+        req = self._slots[i]
+        if req is None or i in self._spec_pending or self._remaining[i] < 2:
+            return None
+        if self._chunk_state is not None and \
+                self._chunk_state[i] is not None:
+            return None
+        ids = list(map(int, req.prompt_ids)) + list(map(int, req.tokens))
+        return req, self._spec_proposer(i, req), ids
+
+    def _prepare_spec(self) -> Optional[dict]:
+        """Pick one decode row whose history predicts its future and
+        draft for it; None runs the pass as plain decode.
+
+        Two-phase, as the JAX engine's: drafting needs the row's exact
+        history and length, which at depth > 1 are current only once the
+        in-flight window drains, and draining gives up the overlap. So a
+        proposal on the possibly stale history comes first, rows taken
+        round robin, and only a hit drains the window and proposes again
+        on the exact history."""
+        cand = None
+        start = self._spec_rr % self.max_batch
+        for i in (list(range(start, self.max_batch))
+                  + list(range(start))):
+            row = self._spec_history(i)
+            if row is not None and row[1].propose(
+                    row[2], limit=int(self._remaining[i])):
+                cand = i
+                break
+        if cand is None:
+            return None
+        while self._inflight:
+            self._drain_next()
+        i = cand
+        row = self._spec_history(i)
+        if row is None:
+            return None            # the drain finished the row
+        req, prop, ids = row
+        # the proposal's first token targets the position the step fills
+        # with g0 on the device: the drafts are the rest
+        drafts = prop.propose(ids, limit=int(self._remaining[i]))[1:]
+        if not drafts:
+            return None
+        self._spec_rr = i + 1
+        clen = len(drafts) + 1
+        pos0, page = int(self._lens[i]), self._page
+        p_have = -(-pos0 // page)
+        return {"i": i, "req": req, "drafts": drafts, "clen": clen,
+                "bucket": max(2, 1 << (clen - 1).bit_length()),
+                "pos0": pos0, "p_have": p_have,
+                "n_new": -(-(pos0 + clen) // page) - p_have}
+
+    def _spec_step(self, bucket: int) -> tuple:
+        """The verify step of draft bucket ``bucket`` (made at its first
+        use): a :class:`CapturedStep` over the decode buffers and the
+        bucket's own operand and output buffers."""
+        ss = self._spec_steps.get(bucket)
+        if ss is None:
+            dev = self.device
+            ops = torch.zeros(2 + 3 * bucket + self._pages_cap,
+                              dtype=torch.int32, device=dev)
+            sout = torch.zeros(self.max_batch + 1 + bucket,
+                               dtype=torch.int32, device=dev)
+            step = CapturedStep(bind_spec_step(
+                self.model.params, self.cfg, self._k_pages, self._v_pages,
+                self._bt_dev, self._lens_dev, self._last, self._active_dev,
+                sout, ops, bucket=bucket, page=self._page,
+                temperature=self._temp, generator=self._gen,
+                do_sample=self._do_sample, top_k=self.top_k,
+                fam_step=self._fam_spec_step), dev, generators=self._gens)
+            ss = self._spec_steps[bucket] = (step, ops, sout)
+        return ss
+
+    def _dispatch_spec(self, disp, sargs: dict, t_step: float) -> bool:
+        """One speculative pass: every other decode row advances one
+        token while the chosen row's drafts run as a verify chunk (a
+        replay of the bucket's graph from its second pass on). The row's
+        host length advances at the drain, where ``n_acc`` is known."""
+        i, bucket = sargs["i"], sargs["bucket"]
+        step, ops, sout = self._spec_step(bucket)
+        ops.copy_(self._pinned(verify_operands(
+            i, sargs["drafts"], sargs["pos0"], bucket, self._bt[i],
+            page=self._page)), non_blocking=True)
+        step()
+        rec = self._record(disp, sout)
+        n_draft = sargs["clen"] - 1
+        rec["spec"] = {"i": i, "req": sargs["req"], "n_draft": n_draft,
+                       "bucket": bucket}
+        self._spec_pending.add(i)
+        self.spec_proposed_total += n_draft
+        self.spec_passes += 1
+        return self._after_dispatch(rec, t_step)
+
     def _dispatchable(self) -> List[int]:
         """Slots that get a row in the next step: a live request with
         dispatches left. Capping dispatches at ``max_new_tokens`` keeps
         the steps dispatched past a data-dependent EOS inside the
-        admission budget; a slot whose last step is in flight, or that
-        is still chunking its prompt, sits out."""
+        admission budget; a slot whose last step is in flight, that is
+        still chunking its prompt, or whose verify is in flight sits
+        out."""
         return [i for i, r in enumerate(self._slots)
-                if r is not None and self._remaining[i] > 0]
+                if r is not None and self._remaining[i] > 0
+                and i not in self._spec_pending]
 
     def _step_paged(self) -> bool:
         """Dispatch one pass: a decode step for every dispatchable slot,
@@ -1014,13 +1468,31 @@ class LLMServer:
                 return True
             return False
         t_step = time.perf_counter()
+        sargs = None
+        if ci is None and self._spec_active:
+            # a pass carries a prefill chunk or one row's verify chunk,
+            # never both (a chunking admission keeps the pass: TTFT
+            # first). The draft hit may drain the whole window, and rows
+            # may finish at those drains: the decode set is recomputed,
+            # without the verify row (its advance is the chunk's)
+            sargs = self._prepare_spec()
+            si = sargs["i"] if sargs is not None else -1
+            disp = [j for j in self._dispatchable() if j != si]
+            if sargs is None and not disp:
+                if self._inflight:
+                    self._drain_next()
+                return True
         page = self._page
         # the page for position lens[i] must exist before the step; the
         # grant is one scatter into the device table, not an upload of
         # it. With the prefix cache, warm chains may hold the free list:
-        # evict for all grants BEFORE changing a table
+        # evict for all grants BEFORE changing a table. A verify chunk
+        # also takes every page of [pos0, pos0 + clen) the row lacks,
+        # within its admission charge (clen <= remaining)
         try:
             need = sum(1 for i in disp if int(self._lens[i]) % page == 0)
+            if sargs is not None:
+                need += sargs["n_new"]
             if need:
                 self._kv.ensure_free(need)
         except BaseException:
@@ -1035,6 +1507,14 @@ class LLMServer:
                 self._bt[i, pos // page] = pid
                 self._slot_pages[i].append(pid)
                 grants.append((i * self._pages_cap + pos // page, pid))
+        if sargs is not None:
+            si = sargs["i"]
+            for j in range(sargs["n_new"]):
+                pid = self._kv.take_free()
+                col = sargs["p_have"] + j
+                self._bt[si, col] = pid
+                self._slot_pages[si].append(pid)
+                grants.append((si * self._pages_cap + col, pid))
         if grants:
             at, pid = self._upload(np.ascontiguousarray(
                 np.asarray(grants, np.int64).T))
@@ -1044,18 +1524,22 @@ class LLMServer:
         if not np.array_equal(mask, self._active):
             self._active_dev.copy_(self._upload(mask))
             self._active = mask
+        if sargs is not None:
+            return self._dispatch_spec(disp, sargs, t_step)
         if cargs is not None:
             return self._dispatch_mixed(disp, cargs, t_step)
         self._step()
         return self._after_dispatch(self._record(disp), t_step)
 
-    def _record(self, disp) -> dict:
-        """The in-flight record of the step just enqueued: its sampled
-        ids copied to a host buffer of their own, an event behind them,
-        the rows it decoded (their host lengths advanced) and the pinned
-        buffers its uploads read."""
-        out = self._toks_host[self.steps % self.pipeline_depth]
-        out.copy_(self._toks_dev, non_blocking=True)
+    def _record(self, disp, src: Optional[torch.Tensor] = None) -> dict:
+        """The in-flight record of the step just enqueued: its output
+        (``src``, by default the sampled ids) copied to a host buffer of
+        its own, an event behind it, the rows it decoded (their host
+        lengths advanced) and the pinned buffers its uploads read."""
+        src = self._toks_dev if src is None else src
+        out = self._toks_host[self.steps % self.pipeline_depth][
+            :src.shape[0]]
+        out.copy_(src, non_blocking=True)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -1097,8 +1581,37 @@ class LLMServer:
         for i, req in rec["pairs"]:
             if self._slots[i] is req:
                 self._apply_token(i, req, vals[i], now)
+        sp = rec.get("spec")
+        if sp is not None:
+            self._drain_spec(sp, vals, now)
 
-    def _apply_token(self, i: int, req: Request, tok: int, now: float):
+    def _drain_spec(self, sp: dict, vals: List[int], now: float):
+        """A verify record's row: its output is ``[B ids][n_acc][W chunk
+        tokens]``; ``g0`` and the accepted drafts go through
+        :meth:`_apply_token` one by one, so EOS and ``max_new_tokens``
+        stop inside the prefix. The host length advances by ``n_acc``
+        (the device's did in the step) and the proposer observes."""
+        i, req = sp["i"], sp["req"]
+        self._spec_pending.discard(i)
+        if self._slots[i] is not req:
+            return                 # the slot changed hands: nothing to apply
+        b = self.max_batch
+        n_acc = vals[b]
+        self._lens[i] += n_acc
+        self._remaining[i] -= n_acc
+        st = self._spec_state[i]
+        if st is not None:
+            st["prop"].observe(sp["n_draft"], n_acc - 1)
+        self.spec_accepted_total += n_acc - 1
+        self.spec_emitted_total += n_acc
+        for tok in vals[b + 1:b + 1 + n_acc]:
+            if self._apply_token(i, req, tok, now):
+                break
+
+    def _apply_token(self, i: int, req: Request, tok: int,
+                     now: float) -> bool:
+        """Append one drained token; True when it finished the request
+        (EOS or its budget)."""
         req.tokens.append(tok)
         req.t_tokens.append(now)
         if len(req.tokens) == 1:
@@ -1106,12 +1619,23 @@ class LLMServer:
         if (self.eos_token_id is not None and tok == self.eos_token_id) \
                 or len(req.tokens) >= req.max_new_tokens:
             self._finish_slot(i, req)
+            return True
+        return False
 
     def _finish_slot(self, i: int, req: Request):
         """Retire a finished request: with the prefix cache, index its
         prompt + output first (indexed pages stay warm at refcount 1),
         then drop its refs, pins and charge."""
         req.done.set()
+        if self._spec_state is not None:
+            self._spec_state[i] = None   # the next occupant drafts afresh
+        self._release_slot(i, req)
+
+    def _release_slot(self, i: int, req: Request):
+        """Give slot ``i`` back: with the prefix cache, index prompt +
+        output first (indexed pages stay warm at refcount 1), then drop
+        the request's refs, pins and charge, and point the row at
+        trash."""
         self._slots[i] = None
         self._remaining[i] = 0
         adm = self._slot_adm[i]
@@ -1131,3 +1655,61 @@ class LLMServer:
         self._lens[i] = 0
         self._bt_dev[i] = 0
         self._lens_dev[i] = 0
+
+    # -- lossless preemption --------------------------------------------------
+    def _consider_preempt(self):
+        """A waiter the sweep could not seat: preempt the worst strictly
+        lower-class decode, at most one a window of in-flight steps (the
+        victim waits for that window's newest record, and a second
+        victim before it drains could not seat the waiter either).
+        Rows mid-chunk (rollback owns them), spent (they finish at the
+        next drain) or waiting on a verify (their length is still data
+        on the device) are not victims."""
+        rec = self._preempt_rec
+        if rec is not None and any(r is rec for r in self._inflight):
+            return
+        self._preempt_rec = None
+        best = self._sched.best_rank()
+        if best is None:
+            return
+        victim = None
+        for i in range(self.max_batch):
+            req = self._slots[i]
+            if req is None or req.done.is_set():
+                continue
+            if self._chunk_state is not None and \
+                    self._chunk_state[i] is not None:
+                continue
+            if self._remaining[i] <= 0 or i in self._spec_pending:
+                continue
+            rank = _PRIORITY_RANK[req.priority]
+            if rank <= best:
+                continue
+            # worst class first; among equals the youngest decode (the
+            # fewest tokens to prefill again at resume)
+            key = (rank, -len(req.tokens), i)
+            if victim is None or key > victim[0]:
+                victim = (key, i)
+        if victim is not None:
+            self._preempt_slot(victim[1])
+
+    def _preempt_slot(self, i: int):
+        """Evict the decode in slot ``i`` losslessly: with the prefix
+        cache its chain prompt + drained tokens is indexed ("indexed";
+        the resume adopts it as an ordinary hit), else dropped; the
+        slot and pages go back as at a finish, and the request re-queues
+        as prompt + generated so far with the budget it has left. Its
+        hold record, the newest in flight, keeps it out of a slot until
+        that record drains: the drain's identity check would otherwise
+        hand a stale token to it, re-admitted into its old slot. Steps
+        still in flight write past the indexed length, and every later
+        write of a freed page is enqueued behind them."""
+        req = self._slots[i]
+        self._release_slot(i, req)
+        req.resume_ids = np.concatenate(
+            [req.prompt_ids, np.asarray(req.tokens, np.int32)])
+        req.preemptions += 1
+        req._hold_rec = self._inflight[-1] if self._inflight else None
+        self._preempt_rec = req._hold_rec
+        self.preemptions_total += 1
+        self._sched.push(req)

@@ -15,7 +15,8 @@ Phase 2  hold each kernel against its plain PyTorch version on the card
          at the Llama-2-7B shapes of the served path (q4_0 linears at the
          prefill buckets 16..512 and at decode batch 8) and the Mistral-7B
          shapes of ``generate`` (q4_0 linears at decode batch 4 and
-         prefill 4 x 512; stats decode at lengths 512..575 and 4199),
+         prefill 4 x 512; stats decode at lengths 512..575 and 4199,
+         the 7B linears at M = 4, a verify chunk's),
          plus GQA (Hq 32, Hkv 8), D=64, sliding-window and split-boundary
          shapes, the three dequant-matmuls at the BERT-base shapes (and
          q4_0 at N = 2, 3, 770; q8_0 also with the per-channel stride-0
@@ -24,7 +25,8 @@ Phase 2  hold each kernel against its plain PyTorch version on the card
          4233-token Mistral row and Llama-2-7B MHA; kernels 2 and 6 also at
          GLM-4-9B's decode (Hq 32 / Hkv 2, a group of 16) and StarCoder-15B's
          (MQA, a group of 48); kernel 3 at the 7B, Mistral (window 4096),
-         GLM-4-9B and D = 96 shapes on both routes (``ragged_route``:
+         GLM-4-9B and D = 96 shapes and at the 7B verify chunks (2, 4
+         and 8 rows at offsets 17..1001) on both routes (``ragged_route``:
          ``ragged_prefill_attention_tc`` for bf16, held to 2^-8 max|V| of
          both plain versions, the CUDA-core kernel at 1e-3) and once with
          f32 pools; inputs from a seeded ``torch.Generator`` on the card.
@@ -86,6 +88,29 @@ Phase 3b the served engine's prefix cache and mixed dispatch on phase 3's
          for bit over 4 passes, traced as in phase 4: 2 dispatch host
          calls (the operand copy and the graph launch) and the token
          fetch.
+Phase 3c the served engine's self-speculative decoding and priority
+         classes on phase 3's model (max_batch 8, max_seq_len 512, page
+         16, depth 2). (a) One request whose prompt is a seeded 24-token
+         pattern tiled to 288 tokens, 128 new, ``spec_k`` 8, served alone
+         and beside phase 3's first 7 prompts, with ``spec=True`` and
+         ``spec=False`` (each workload served twice on its server, the
+         first run a warm-up): the pattern row's and the aggregate tok/s,
+         verify passes by draft bucket, drafts proposed / accepted /
+         emitted and the acceptance rate, how far the spec row's tokens
+         equal spec-off's; checks drafts accepted, every pass emitting
+         g0 plus its accepted drafts, in-vocab tokens, one capture a
+         bucket and every later verify pass a replay, and exact launch
+         counts (a verify pass of bucket W: the decode leg, plus 129
+         linears at M = W on the GEMV and 32 kernel 3 on the tensor
+         cores). (b) Phase 3's 8 prompts as batch requests, 128 new each,
+         driven inline; after 16 passes an interactive request of 300
+         tokens (32 new), with ``priority=True, kvcache=True`` and with
+         ``priority=False``: its TTFT, the preemption and resume counts,
+         the tokens the resume reused, the victim's longest gap; the
+         victim's tokens before its preemption equal to its tokens
+         without priority, exact launch counts. Then one verify pass
+         (batch 8, 7 drafts at bucket 8) eager and as one CUDA graph, bit
+         for bit over 4 passes, traced as in phase 4.
 Phase 4  trace one 7B batch-8 decode step with ``torch.profiler``:
          step wall time, device busy time and idle share, kernel
          launches and the host's launch calls per step, the kernels that
@@ -410,8 +435,10 @@ def int4_cases(torch, dev, gen):
                                    f"7B prefill, bucket {m}",
                                    both_routes=True))
     # decode at the served batch (8) and at 1 and 2 rows (no path's
-    # count: the served step always runs max_batch rows), and prefill
+    # count: the served step always runs max_batch rows), a verify chunk
+    # of 4 rows (phase 3c), and prefill
     for m, per, count in ((1, None, 0), (2, None, 0),
+                          (4, "7B verify chunk, bucket 4", 32),
                           (8, "7B decode step", 32), (512, "7B prefill", 32)):
         for k, n, what, c in (
                 (4096, 12288, "qkv_proj", count), (4096, 4096, "o_proj", count),
@@ -702,6 +729,12 @@ RAGGED_SHAPES = (
     ("GLM-4-9B prefill", 32, 2, 128, 0, 1000, 1024, None, "bf16"),
     ("GLM-4-9B offset>0", 32, 2, 128, 700, 300, 512, None, "bf16"),
     ("D=96", 64, 8, 96, 40, 200, 256, None, "bf16"),
+    # the speculative verify chunk at 7B (phase 3c): 2, 4 and 8 rows, some
+    # of them padding, at offsets off the page and the 64-key tile
+    ("7B verify W=2", 32, 32, 128, 17, 2, 2, None, "bf16"),
+    ("7B verify W=4", 32, 32, 128, 301, 4, 4, None, "bf16"),
+    ("7B verify W=8", 32, 32, 128, 1001, 8, 8, None, "bf16"),
+    ("7B verify W=8, 5 live", 32, 32, 128, 1001, 5, 8, None, "bf16"),
     # the served 7B prefill with an f32 KV cache: the CUDA-core route
     ("7B prefill f32 cache", 32, 32, 128, 0, 300, 512, None, "f32"))
 
@@ -938,6 +971,16 @@ def _serve_run(torch, model, prompts, new, what, warmup=None,
             "kv": kv, "tokens_first_request": outs[0]}, outs
 
 
+SERVE_7B = dict(max_batch=8, max_seq_len=512, page_size=16)
+
+
+def _phase3_prompts(torch, cfg):
+    """Phase 3's 8 prompts of 17..300 tokens, from a seed."""
+    gen = torch.Generator().manual_seed(1)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+            for n in (17, 57, 98, 139, 180, 220, 260, 300)]
+
+
 def serve_7b(torch, dev):
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.models.llama import LlamaConfig, LlamaForCausalLM
@@ -949,11 +992,8 @@ def serve_7b(torch, dev):
     model = LlamaForCausalLM.synthetic_q4(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    gen = torch.Generator().manual_seed(1)
-    plens = [17, 57, 98, 139, 180, 220, 260, 300]
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen)
-               .numpy() for n in plens]
-    kw = dict(max_batch=8, max_seq_len=512, page_size=16)
+    prompts = _phase3_prompts(torch, cfg)
+    kw = SERVE_7B
 
     # the default depth (2), then the synchronous engine on the same graph
     row, outs = _serve_run(torch, model, prompts, 32, "7B depth 2", **kw)
@@ -1361,6 +1401,348 @@ def profile_mixed(torch, model):
     row["graph_bit_equal_to_eager_passes"] = 4
     captured.close()
     return row
+
+
+# -- phase 3c: speculative decoding and priority classes at 7B ----------------
+
+# (a): one request whose prompt is a 24-token pattern tiled to 288 tokens,
+# 128 new, drafts of up to SPEC_K - 1 a pass; alone and beside phase 3's
+# first 7 prompts. (b): phase 3's 8 prompts as batch requests, 128 new
+# each; after PRI_AFTER passes an interactive request of PRI_LATE tokens
+SPEC_PATTERN, SPEC_PROMPT, SPEC_NEW, SPEC_K = 24, 288, 128, 8
+PRI_NEW, PRI_AFTER, PRI_LATE, PRI_LATE_NEW = 128, 16, 300, 32
+
+
+def _lead(a, b):
+    """Leading equal tokens of ``a`` and ``b`` (the first position where
+    they part, or the length when they never do)."""
+    return next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _spec_run(torch, model, prompts, spec, what):
+    """Serve ``prompts`` (``SPEC_NEW`` greedy tokens each, all submitted
+    at once) on a fresh server with ``spec`` on or off, by the engine's
+    thread, twice: the first run is the warm-up (the decode graph and
+    each draft bucket's verify graph it meets are captured there), the
+    second is measured with the launch counters zeroed just before.
+    Checks: no engine error, in-vocab tokens, every decode step and
+    every verify pass after a bucket's first a replay of its graph (one
+    capture per bucket), exact launch counts (a verify pass of bucket W
+    is a decode leg plus a prefill leg at bucket W: its 129 linears on
+    the GEMV and one tensor-core kernel 3 a layer). With ``spec``: drafts
+    proposed and accepted, and every pass emitting ``g0`` plus its
+    accepted drafts. The tokens' equality with the warm-up's is
+    reported: with several rows drafting, which row verifies when
+    depends on the thread's timing."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    cfg = model.config
+    srv = LLMServer(model, spec=spec, spec_k=SPEC_K, **SERVE_7B).start()
+    try:
+        warm = [r.get(timeout=900) for r in
+                [srv.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]]
+        check(not srv.errors, f"{what}: engine errors: {srv.errors}")
+
+        def snap():
+            return ({"decode": (srv._step.calls, srv._step.replays)} | {
+                b: (st.calls, st.replays)
+                for b, (st, _, _) in srv._spec_steps.items()},
+                srv.steps, srv.spec_passes, srv.spec_proposed_total,
+                srv.spec_accepted_total, srv.spec_emitted_total)
+        g0, *c0 = snap()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [srv.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+        outs = [r.get(timeout=900) for r in reqs]
+        t1 = time.perf_counter()
+        counts = kernels.launch_counts()
+        g1, *c1 = snap()
+        captured = {b: st.capture_seconds
+                    for b, (st, _, _) in srv._spec_steps.items()}
+    finally:
+        srv.stop()
+    check(not srv.errors, f"{what}: engine errors: {srv.errors}")
+    steps, passes, proposed, accepted, emitted = (
+        b - a for a, b in zip(c0, c1))
+    calls = {k: (g1[k][0] - g0.get(k, (0, 0))[0],
+                 g1[k][1] - g0.get(k, (0, 0))[1]) for k in g1}
+    by_bucket = {b: c for b, (c, _) in calls.items() if b != "decode"
+                 and c}
+    check(calls["decode"] == (steps - passes,) * 2,
+          f"{what}: decode graph calls {calls['decode']} for "
+          f"{steps - passes} decode passes")
+    for b in by_bucket:
+        total, replays = g1[b]
+        check((captured[b] is not None) == (total > 1)
+              and replays == total - 1,
+              f"{what}: bucket {b}: {total} calls, {replays} replays")
+    for i, toks in enumerate(outs):
+        check(len(toks) == SPEC_NEW and all(0 <= t < cfg.vocab_size
+                                            for t in toks),
+              f"{what} request {i}: tokens {toks}")
+    buckets = [_bucket(len(p)) for p in prompts] + [
+        b for b, c in by_bucket.items() for _ in range(c)]
+    expect = _path_expect(model, buckets, steps)
+    check(counts == expect, f"{what}: launch counts {counts} != {expect}")
+    if spec:
+        check(passes > 0 and accepted > 0, f"{what}: {passes} verify "
+              f"passes, {accepted} drafts accepted")
+        check(emitted == passes + accepted, f"{what}: emitted {emitted} "
+              f"!= passes {passes} + accepted {accepted}")
+    else:
+        check(passes == 0 and not by_bucket, f"{what}: verify passes")
+    r = reqs[-1]                                   # the pattern request
+    return {"what": what, "spec": spec, "requests": len(prompts),
+            "prompt_lens": [len(p) for p in prompts], "new": SPEC_NEW,
+            "launches": counts, "passes": steps,
+            "verify_passes": passes, "verify_passes_by_bucket": by_bucket,
+            "decode_passes": steps - passes,
+            "drafts_proposed": proposed, "drafts_accepted": accepted,
+            "tokens_emitted_by_verify": emitted,
+            "acceptance_rate": accepted / proposed if proposed else None,
+            "spec_row_ttft_ms": (r.t_first_token - r.t_submit) * 1e3,
+            "spec_row_tok_per_s": (len(r.tokens) - 1)
+            / (r.t_tokens[-1] - r.t_first_token),
+            "aggregate_tok_per_s": sum(map(len, outs)) / (t1 - t0),
+            "wall_s": t1 - t0,
+            "graph_capture_s": {b: captured[b] for b in by_bucket},
+            "tokens_equal_to_warm_up": outs == warm,
+            "spec_row_tokens": outs[-1]}, outs
+
+
+def serve_spec(torch, model):
+    """(a) the pattern request served alone and beside phase 3's first 7
+    prompts, with ``spec=True`` and ``spec=False``: tok/s of the spec row
+    and in all, passes by bucket, drafts proposed / accepted / emitted,
+    and how far the spec row's tokens match the spec-off engine's."""
+    cfg = model.config
+    gen = torch.Generator().manual_seed(9)
+    pattern = torch.randint(0, cfg.vocab_size, (SPEC_PATTERN,),
+                            generator=gen)
+    sp = pattern.repeat(SPEC_PROMPT // SPEC_PATTERN).numpy()
+    others = _phase3_prompts(torch, cfg)[:7]
+    out = {}
+    for name, prompts in (("alone", [sp]), ("beside 7", others + [sp])):
+        for spec in (False, True):
+            row, outs = _spec_run(
+                torch, model, prompts, spec,
+                f"7B spec {'on' if spec else 'off'} {name}")
+            out[(name, spec)] = (row, outs)
+            torch.cuda.empty_cache()
+    res = {"phase": "serve_spec", "model": "Llama-2-7B q4_0 (phase 3's "
+           "model)", "pattern_tokens": SPEC_PATTERN, "prompt": SPEC_PROMPT,
+           "new": SPEC_NEW, "spec_k": SPEC_K}
+    for name in ("alone", "beside 7"):
+        on, off = out[(name, True)], out[(name, False)]
+        res[name] = {"on": on[0], "off": off[0],
+                     "spec_row_leading_equal_tokens": _lead(on[1][-1],
+                                                            off[1][-1]),
+                     "others_leading_equal_tokens": [
+                         _lead(a, b) for a, b in zip(on[1][:-1],
+                                                     off[1][:-1])]}
+    return res
+
+
+def profile_spec(torch, model):
+    """One 7B verify pass (batch 8 at contexts 33..316, row 7 verifying 7
+    drafts at its length, bucket 8): the eager ``paged_step_spec`` traced
+    as in phase 4; then the engine's verify step as one CUDA graph
+    (``bind_spec_step``) over copies of the same buffers, bit for bit
+    against the eager step for 4 passes (ids, ``n_acc``, logits, lengths,
+    every real page), and traced with the pass's host work: one copy of the
+    operands from pinned memory, the graph launch, the fetch."""
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.models.llama import paged_step_spec
+    from bigdl_tpu_torch.llm.serving import (bind_spec_step, spec_operands,
+                                             verify_operands)
+    cfg, dev = model.config, model.device
+    B, page, cap, bucket, srow = 8, 16, 32, 8, 7
+    L, P = cfg.num_hidden_layers, 1 + B * cap
+    shape = (L, P, cfg.num_key_value_heads, page, cfg.head_dim)
+    g = torch.Generator(device=dev).manual_seed(10)
+    st = {"kp": torch.randn(shape, generator=g, device=dev).to(
+              model.cache_dtype),
+          "vp": torch.randn(shape, generator=g, device=dev).to(
+              model.cache_dtype),
+          "bt": (1 + torch.arange(B * cap, device=dev)).reshape(B, cap).to(
+              torch.int32),
+          "lens": torch.tensor([33, 73, 114, 155, 196, 236, 276, 316],
+                               dtype=torch.int32, device=dev),
+          "last": torch.randn((B, cfg.vocab_size), generator=g, device=dev),
+          "active": torch.ones(B, dtype=torch.bool, device=dev),
+          "sout": torch.zeros(B + 1 + bucket, dtype=torch.int32, device=dev),
+          "ops": torch.zeros(2 + 3 * bucket + cap, dtype=torch.int32,
+                             device=dev)}
+    st["active"][srow] = False                  # the verify row sits out
+    bt_row = st["bt"][srow].cpu().numpy()
+    e = {k: v.clone() for k, v in st.items()}
+
+    def ops_now():
+        tok = int(e["last"][srow].argmax())
+        return torch.from_numpy(verify_operands(
+            srow, [tok] * (bucket - 1), int(e["lens"][srow]), bucket,
+            bt_row, page=page)).pin_memory()
+
+    def eager(ops):
+        out, lg, _, _, ln = paged_step_spec(
+            model.params, cfg, e["kp"], e["vp"], e["bt"], e["lens"],
+            e["last"], e["active"], 1.0, None,
+            *spec_operands(ops.to(dev), bucket, cap), page=page)
+        e["last"], e["lens"] = lg, ln
+        return out
+
+    captured = CapturedStep(bind_spec_step(
+        model.params, cfg, *(st[k] for k in (
+            "kp", "vp", "bt", "lens", "last", "active", "sout", "ops")),
+        bucket=bucket, page=page), dev)
+    n_acc = []
+    with torch.inference_mode():
+        for i in range(4):
+            ops = ops_now()
+            st["ops"].copy_(ops)
+            captured()
+            out = eager(ops)
+            check(torch.equal(out, st["sout"]) and torch.equal(
+                e["last"], st["last"]) and torch.equal(e["lens"], st["lens"]),
+                f"graphed verify pass {i} differs from the eager pass")
+            n_acc.append(int(out[B]))
+        # every real page (trash page 0 takes the dummy writes)
+        check(torch.equal(e["kp"][:, 1:], st["kp"][:, 1:]) and torch.equal(
+            e["vp"][:, 1:], st["vp"][:, 1:]),
+            "graphed verify passes wrote other pools than the eager ones")
+    # profiled at a fixed operand vector: the row's length runs ahead of
+    # it, which changes no kernel's shape
+    ops_host = ops_now()
+    row = profile(torch, lambda: eager(ops_host).cpu(),
+                  "7B verify pass, batch 8 + 7 drafts for row 7 at 316+")
+    del e
+
+    def graphed():
+        st["ops"].copy_(ops_host, non_blocking=True)
+        captured()
+        return st["sout"].cpu()
+
+    grow = profile(torch, graphed, "7B verify pass as one CUDA graph")
+    calls = grow["host_launch_calls_by_name"]
+    check(calls.get("cudaGraphLaunch") == 1 and calls.get(
+        "cudaMemcpyAsync") == 2 and grow["host_launch_calls_per_step"] == 3,
+        f"verify pass host calls: {calls}")
+    grow.update(graph_capture_s=captured.capture_seconds,
+                graph_pool_mb=captured.pool_bytes / 2**20,
+                counted_launches_per_replay=dict(captured.launches),
+                dispatch_host_calls_per_pass=2)
+    row["graph"] = grow
+    row["graph_bit_equal_to_eager_passes"] = 4
+    row["n_acc_of_the_4_passes"] = n_acc
+    captured.close()
+    return row
+
+
+def _priority_run(torch, model, batch, late, priority, what):
+    """(b)'s run, driven inline (``_admit`` then ``_step_paged``, the
+    engine loop's pass) so both runs see the same schedule: a warm-up
+    request captures the decode graph; then the batch requests, and
+    after ``PRI_AFTER`` passes the interactive one. Exact launch counts:
+    every prefill leg at its bucket (the resume's at its uncached
+    suffix's) and every decode step."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    cfg = model.config
+    srv = LLMServer(model, priority=priority, kvcache=True, **SERVE_7B)
+    warm = torch.randint(0, cfg.vocab_size, (20,),
+                         generator=torch.Generator().manual_seed(11))
+    warm[0] = 0                                   # no prompt starts so
+    w = srv.submit(warm.numpy(), 4)
+    while not w.done.is_set():
+        srv._admit()
+        srv._step_paged()
+    while srv._inflight:
+        srv._drain_next()
+    check(srv._step.graph is not None, f"{what}: the step was not captured")
+    steps0, saved0 = srv.steps, srv.prefix_tokens_saved
+    kernels.reset_launch_counts()
+    rb = [srv.submit(p, PRI_NEW, "batch") for p in batch]
+    ri, n = None, 0
+    while ri is None or not all(r.done.is_set() for r in rb + [ri]):
+        srv._admit()
+        if ri is None and n == PRI_AFTER:
+            ri = srv.submit(late, PRI_LATE_NEW, "interactive")
+        srv._step_paged()
+        n += 1
+    while srv._inflight:
+        srv._drain_next()
+    counts = kernels.launch_counts()
+    steps, saved = srv.steps - steps0, srv.prefix_tokens_saved - saved0
+    stats = (srv.preemptions_total, srv.preempt_resumes_total)
+    srv.stop()
+    check(not srv.errors, f"{what}: engine errors: {srv.errors}")
+    check(srv._budget_avail == srv._num_pages - 1 and srv.pages_in_use == 0,
+          f"{what}: the ledger did not come back")
+    victims = [j for j, r in enumerate(rb) if r.resume_ids is not None]
+    buckets = [_bucket(len(p)) for p in batch + [late]] + [
+        _bucket(len(rb[j].resume_ids) - saved) for j in victims]
+    check(len(victims) <= 1, f"{what}: victims {victims}")
+    expect = _path_expect(model, buckets, steps)
+    check(counts == expect, f"{what}: launch counts {counts} != {expect}")
+    for r, k in [(r, PRI_NEW) for r in rb] + [(ri, PRI_LATE_NEW)]:
+        check(len(r.tokens) == k and all(0 <= t < cfg.vocab_size
+                                         for t in r.tokens),
+              f"{what}: tokens {r.tokens}")
+    gaps = {j: max(b - a for a, b in zip(r.t_tokens, r.t_tokens[1:]))
+            for j, r in enumerate(rb)}
+    return {"what": what, "priority": priority, "launches": counts,
+            "passes": steps, "preemptions_total": stats[0],
+            "preempt_resumes_total": stats[1], "victims": victims,
+            "resume_tokens_reused": saved,
+            "resume_prefill_buckets": buckets[len(batch) + 1:],
+            "interactive_ttft_ms": (ri.t_first_token - ri.t_submit) * 1e3,
+            "batch_max_gap_ms": {j: v * 1e3 for j, v in gaps.items()},
+            "batch_median_gap_ms": statistics.median(
+                b - a for r in rb for a, b in zip(r.t_tokens,
+                                                  r.t_tokens[1:])) * 1e3
+            }, rb, ri
+
+
+def serve_priority(torch, model):
+    """(b) 8 batch requests (phase 3's prompts, 128 new each) decoding;
+    after 16 passes an interactive request of 300 tokens (32 new). With
+    ``priority=True`` (and the prefix cache) it preempts the youngest
+    batch decode (the tie goes to the highest slot), which resumes from
+    its indexed chain when a slot frees; with ``priority=False`` it waits
+    for a slot. The victim's tokens before the preemption must equal its
+    tokens without priority; how many equal after is reported."""
+    cfg = model.config
+    batch = _phase3_prompts(torch, cfg)
+    late = torch.randint(0, cfg.vocab_size, (PRI_LATE,),
+                         generator=torch.Generator().manual_seed(12))
+    late[0] = 1
+    runs = {}
+    for pri in (True, False):
+        runs[pri] = _priority_run(torch, model, batch, late.numpy(), pri,
+                                  f"7B priority {'on' if pri else 'off'}")
+        torch.cuda.empty_cache()
+    on, rb_on, _ = runs[True]
+    off, rb_off, _ = runs[False]
+    check(on["preemptions_total"] == on["preempt_resumes_total"] == 1
+          and off["preemptions_total"] == 0, f"preemptions: {on}, {off}")
+    v = on["victims"][0]
+    k = len(rb_on[v].resume_ids) - len(batch[v])
+    check(rb_on[v].tokens[:k] == rb_off[v].tokens[:k],
+          "the victim's tokens before its preemption differ from its run "
+          "without priority")
+    return {"phase": "serve_priority", "model": "Llama-2-7B q4_0 (phase "
+            "3's model)", "batch_prompts": [len(p) for p in batch],
+            "batch_new": PRI_NEW, "interactive_prompt": PRI_LATE,
+            "interactive_new": PRI_LATE_NEW, "arrives_after_passes":
+            PRI_AFTER, "on": on, "off": off, "victim": v,
+            "victim_tokens_before_preemption": k,
+            "victim_leading_equal_tokens": _lead(rb_on[v].tokens,
+                                                 rb_off[v].tokens),
+            "victim_max_gap_ms_on_off": [on["batch_max_gap_ms"][v],
+                                         off["batch_max_gap_ms"][v]],
+            "others_tokens_equal": [rb_on[j].tokens == rb_off[j].tokens
+                                    for j in range(len(batch)) if j != v]}
 
 
 def reference_check(torch, dev, preset="llama2_7b"):
@@ -2175,10 +2557,16 @@ def main() -> int:
     emit(cache)
     mixed = serve_mixed(torch, model)
     emit(mixed)
+    spec = serve_spec(torch, model)
+    emit(spec)
+    pri = serve_priority(torch, model)
+    emit(pri)
     prof = profile_decode(torch, model)
     emit(prof)
     mprof = profile_mixed(torch, model)
     emit(mprof)
+    sprof = profile_spec(torch, model)
+    emit(sprof)
     del model
     torch.cuda.empty_cache()
     bert, bert_prof = bert_path(torch, dev)
@@ -2203,6 +2591,9 @@ def main() -> int:
              "serve_7b prefix cache off": dict(cache["off"]["launches"]),
              "serve_7b prefix cache on": dict(cache["on"]["launches"])}
     for r in (mixed["split"], mixed["mixed"]):
+        paths[f"serve_7b {r['what'][3:]}"] = dict(r["launches"])
+    for r in [spec[n][k] for n in ("alone", "beside 7")
+              for k in ("off", "on")] + [pri["off"], pri["on"]]:
         paths[f"serve_7b {r['what'][3:]}"] = dict(r["launches"])
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = dict(row["launches"])
@@ -2324,6 +2715,25 @@ def main() -> int:
                      "rows_max_gap_ms_in_window")},
         **{f"prefix_cache_{k}": cache[k] for k in ("ttft_ms_mean_on_off",
                                                    "ttft_ms_max_on_off")}}
+    host_out["7B verify pass"] = {
+        "profiled": sprof["what"],
+        "eager_pass_wall_ms": sprof["step_wall_ms"],
+        "graphed_pass_wall_ms": sprof["graph"]["step_wall_ms"],
+        "graphed_pass_busy_ms": sprof["graph"]["device_busy_ms"],
+        "graphed_idle_share": sprof["graph"]["device_idle_share"],
+        "graphed_host_calls_by_name":
+            sprof["graph"]["host_launch_calls_by_name"],
+        "dispatch_host_calls_per_pass":
+            sprof["graph"]["dispatch_host_calls_per_pass"],
+        **{f"{n} spec {k}_{m}": spec[n][k][m]
+           for n in ("alone", "beside 7") for k in ("on", "off")
+           for m in ("spec_row_tok_per_s", "aggregate_tok_per_s")}}
+    host_out["7B preemption"] = {
+        "interactive_ttft_ms_on_off": [pri["on"]["interactive_ttft_ms"],
+                                       pri["off"]["interactive_ttft_ms"]],
+        "victim_max_gap_ms_on_off": pri["victim_max_gap_ms_on_off"],
+        "preemptions": pri["on"]["preemptions_total"],
+        "resume_tokens_reused": pri["on"]["resume_tokens_reused"]}
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
               "route_sweep": sweep,
@@ -2332,7 +2742,8 @@ def main() -> int:
               "glm_profile": glm_prof,
               "serve": serve, "profile": prof, "bert": bert,
               "serve_prefix_cache": cache, "serve_mixed": mixed,
-              "profile_mixed": mprof,
+              "profile_mixed": mprof, "serve_spec": spec,
+              "serve_priority": pri, "profile_spec": sprof,
               "bert_profile": bert_prof, "generate": gen_row,
               "generate_profile": gen_prof, "checkpoint": ckpt,
               "ptxas": ptxas, "kernels": summary}

@@ -9,7 +9,9 @@ has only PyTorch (the tests' conftest imports JAX, hence
 Each kernel is built from ``bigdl_tpu_torch/csrc`` at its first launch.
 The last tests run the served decode step and ``generate``'s paged step
 as captured CUDA graphs (``llm/graphs.py``): bit for bit against the
-eager step, with exact launch counts, at pipeline depths 1 and 2.
+eager step, with exact launch counts, at pipeline depths 1 and 2; then
+the mixed and speculative verify steps alike, and the served prefix
+cache, mixed dispatch, speculation and preemption.
 The CPU parity of the plain versions against the JAX package lives in
 ``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``,
 and of ``generate`` in ``tests/test_torch_generate.py``.
@@ -467,7 +469,12 @@ TC_RAGGED = [  # (Hq, Hkv, D, offset, seq_len, Tq, window, page)
     # the served prefix cache's and chunked prefill's offsets at 7B: a
     # cached-tail prefill behind a 1024-token prefix, a final 64-row chunk
     (32, 32, 128, 1024, 300, 512, None, 16),
-    (32, 32, 128, 1472, 64, 64, None, 16)]
+    (32, 32, 128, 1472, 64, 64, None, 16),
+    # speculative verify chunks at 7B: 2, 4 and 8 rows (some of them
+    # padding) at offsets off the page and the tile
+    (32, 32, 128, 17, 2, 2, None, 16), (32, 32, 128, 301, 3, 4, None, 16),
+    (32, 32, 128, 301, 4, 4, None, 16), (32, 32, 128, 1001, 5, 8, None, 16),
+    (32, 32, 128, 1001, 8, 8, None, 16)]
 
 
 @pytest.mark.parametrize("hq,hkv,d,off,slen,tq,win,page", TC_RAGGED)
@@ -1139,3 +1146,181 @@ def test_sampled_mixed_and_decode_graphs_share_one_generator(cuda):
         srv.stop()
     assert runs[0] == runs[1]
     assert all(len(set(t[2:])) > 3 for t in runs[0][:2])
+
+
+@pytest.mark.parametrize("bucket", [2, 4, 8])
+def test_captured_spec_step_equals_eager(cuda, bucket):
+    """The verify step of one draft bucket as one CUDA graph
+    (``bind_spec_step``) against the eager ``paged_step_spec`` on copies
+    of the same buffers, over 4 passes whose operands change in the
+    persistent buffer (row 2 verifying at its growing length, its
+    drafts the eager pass's own greedy tokens so some are accepted):
+    output ids, ``n_acc``, logits, lengths and every real page bit for
+    bit; one
+    capture, every later pass a replay whose launches the counters
+    read."""
+    import numpy as np
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.models.llama import paged_step_spec
+    from bigdl_tpu_torch.llm.serving import (bind_spec_step, spec_operands,
+                                             verify_operands)
+    model = _tiny_card_model(cuda)
+    cfg, cap, B = model.config, 8, 4
+    st = _mixed_state(model, cuda, cap=cap)
+    st["active"][2] = False                  # the verify row sits out
+    st["ops"] = torch.zeros(2 + 3 * bucket + cap, dtype=torch.int32,
+                            device=cuda)
+    st["sout"] = torch.zeros(B + 1 + bucket, dtype=torch.int32,
+                             device=cuda)
+    e = {k: v.clone() for k, v in st.items()}
+    step = CapturedStep(bind_spec_step(
+        model.params, cfg, *(st[k] for k in (
+            "kp", "vp", "bt", "lens", "last", "active", "sout", "ops")),
+        bucket=bucket, page=PAGE), cuda)
+    bt_row = st["bt"][2].cpu().numpy()
+    accepted = 0
+    kernels.reset_launch_counts()
+    for k in range(4):
+        pos0 = int(e["lens"][2])
+        g = int(e["last"][2].argmax())
+        ops = torch.from_numpy(verify_operands(
+            2, [g] * (bucket - 1), pos0, bucket, bt_row, page=PAGE)).to(cuda)
+        st["ops"].copy_(ops)
+        step()
+        out, logits, _, _, lens = paged_step_spec(
+            model.params, cfg, e["kp"], e["vp"], e["bt"], e["lens"],
+            e["last"], e["active"], 1.0, None,
+            *spec_operands(ops, bucket, cap), page=PAGE)
+        e["last"], e["lens"] = logits, lens
+        assert torch.equal(out, st["sout"]) and torch.equal(
+            logits, st["last"]) and torch.equal(lens, st["lens"])
+        n_acc = int(out[B])
+        assert 1 <= n_acc <= bucket and int(lens[2]) == pos0 + n_acc
+        accepted += n_acc - 1
+    # every real page; trash page 0 takes the two inactive rows' dummy
+    # writes at one slot, in either order
+    assert torch.equal(e["kp"][:, 1:], st["kp"][:, 1:])
+    assert torch.equal(e["vp"][:, 1:], st["vp"][:, 1:])
+    assert step.graph is not None and step.replays == 3
+    L = cfg.num_hidden_layers
+    assert step.launches["ragged_prefill_attention_tc"] == L
+    assert step.launches["paged_attention_decode_stats"] == L
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        k: 8 * v for k, v in step.launches.items()}
+    print(f"bucket {bucket}: {accepted} drafts accepted over 4 passes")
+
+
+def _verify_vs_decode(model, cuda, pos0, w, live):
+    """The verify leg (``paged_prefill_ragged(full_logits=True)``) on
+    ``live`` of ``w`` chunk tokens at offset ``pos0`` over a random
+    cached prefix, against ``live`` paged decode steps feeding the same
+    tokens one by one on a copy of the pools. Returns the chunk logits
+    and the largest gap relative to the largest decode logit."""
+    from bigdl_tpu_torch.llm.models.llama import paged_prefill_ragged
+    from bigdl_tpu_torch.llm.serving import paged_decode_step
+    cfg = model.config
+    cap = -(-(pos0 + w) // PAGE)
+    g = torch.Generator(device=cuda).manual_seed(pos0)
+    shape = (cfg.num_hidden_layers, 1 + cap, cfg.num_key_value_heads, PAGE,
+             cfg.head_dim)
+    kp = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    vp = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    bt = torch.arange(1, 1 + cap, dtype=torch.int32, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, w), generator=g,
+                         device=cuda, dtype=torch.int32)
+    pos = pos0 + torch.arange(w, device=cuda)
+    phys = torch.where(pos < pos0 + live, bt[pos // PAGE],
+                       torch.zeros_like(bt[pos // PAGE]))
+    kd, vd = kp.clone(), vp.clone()
+    with torch.inference_mode():
+        _, _, chunk = paged_prefill_ragged(
+            model.params, cfg, kp, vp, toks, live, pos0, bt, phys.int(),
+            (pos % PAGE).int(), 0, 0, page=PAGE, full_logits=True)
+        steps = [paged_decode_step(
+            model.params, cfg, kd, vd, bt[None],
+            torch.tensor([pos0 + j], dtype=torch.int32, device=cuda),
+            toks[0, j:j + 1], page=PAGE)[0][0] for j in range(live)]
+    want = torch.stack(steps)
+    gap = ((chunk[:live] - want).abs().max() / want.abs().max()).item()
+    return chunk, gap
+
+
+@pytest.mark.parametrize("pos0,w,live", [(17, 2, 2), (301, 4, 3),
+                                         (1001, 8, 8)])
+def test_verify_leg_equals_stepwise_decode(cuda, pos0, w, live):
+    """Teacher-forced at tiny width and at Llama-2-7B width cut to 2
+    layers: every live chunk row's logits within 2e-2 of the largest
+    magnitude of step-by-step paged decode's at the same positions (the
+    two attention kernels sum in other orders), and every row finite,
+    padded rows included (``spec_accept`` reads them)."""
+    import dataclasses
+    from bigdl_tpu_torch.llm.models.llama import LlamaConfig, LlamaForCausalLM
+    for model in (_tiny_card_model(cuda), LlamaForCausalLM.synthetic_q4(
+            dataclasses.replace(LlamaConfig.llama2_7b(), num_hidden_layers=2),
+            device=cuda, seed=3)):
+        chunk, gap = _verify_vs_decode(model, cuda, pos0, w, live)
+        assert chunk.shape == (w, model.config.vocab_size)
+        assert chunk.dtype == torch.float32 and torch.isfinite(chunk).all()
+        assert gap <= 2e-2, gap
+        del model
+
+
+def test_served_spec_and_priority_on_card(cuda):
+    """Speculation and preemption served on the card (tiny, bf16):
+    in-vocab tokens, the ledger whole, every pass emitting ``g0`` and its
+    accepted drafts, each draft bucket's graph captured once and
+    replayed after; a preempted batch request resumes, its tokens up to
+    the preemption equal to its run without priority."""
+    import numpy as np
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    model = _tiny_card_model(cuda)
+    V = model.config.vocab_size
+    gen = torch.Generator().manual_seed(15)
+    pattern = torch.randint(0, V, (6,), generator=gen)
+    prompts = [pattern.repeat(8).numpy(),
+               torch.randint(0, V, (9,), generator=gen).numpy()]
+    srv = LLMServer(model, max_batch=2, max_seq_len=128, page_size=PAGE,
+                    spec=True, spec_k=8, device=cuda).start()
+    try:
+        outs = [r.get(timeout=600) for r in
+                [srv.submit(p, max_new_tokens=40) for p in prompts]]
+        graphs = {b: (st.calls, st.replays, st.graph is not None)
+                  for b, (st, _, _) in srv._spec_steps.items()}
+    finally:
+        srv.stop()
+    assert srv.errors == [] and srv.spec_passes > 0
+    assert all(len(o) == 40 and all(0 <= t < V for t in o) for o in outs)
+    assert srv.spec_emitted_total == srv.spec_passes + srv.spec_accepted_total
+    assert srv._budget_avail == srv._num_pages - 1 and srv.pages_in_use == 0
+    assert sum(c for c, _, _ in graphs.values()) == srv.spec_passes
+    for calls, replays, captured in graphs.values():
+        assert (captured, replays) == (calls > 1, max(calls - 1, 0))
+    batch = [torch.randint(0, V, (k,), generator=gen).numpy()
+             for k in (7, 12)]
+    inter = torch.randint(0, V, (10,), generator=gen).numpy()
+    runs = {}
+    for pri in (False, True):
+        srv = LLMServer(model, max_batch=2, max_seq_len=64, page_size=PAGE,
+                        priority=pri, kvcache=True, device=cuda)
+        rb = [srv.submit(p, 24, "batch") for p in batch]
+        ri, n = None, 0
+        while ri is None or not all(r.done.is_set() for r in rb + [ri]):
+            srv._admit()
+            if ri is None and n == 6:
+                ri = srv.submit(inter, 4, "interactive")
+            srv._step_paged()
+            n += 1
+        runs[pri] = ([r.tokens for r in rb], [r.resume_ids for r in rb],
+                     srv.preemptions_total, srv.preempt_resumes_total)
+        assert srv.errors == [] and srv._budget_avail == srv._num_pages - 1
+        srv.stop()
+    toks, resume, pre, res = runs[True]
+    assert pre >= 1 and res == pre and runs[False][2] == 0
+    for j, r in enumerate(resume):
+        if r is not None:
+            k = len(r) - len(batch[j])        # tokens before the preemption
+            assert toks[j][:k] == runs[False][0][j][:k]
+        assert all(0 <= t < V for t in toks[j]) and len(toks[j]) == 24
+    assert any(r is not None for r in resume)
+    assert np.all([len(t) == 24 for t in runs[False][0]])
