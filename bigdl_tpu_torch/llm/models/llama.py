@@ -7,7 +7,9 @@ quantization, the layer math (``_linear``, ``rms_norm``, ``rope``,
 (``paged_prefill_ragged`` in place, ``paged_prefill_partial`` through a
 dense staging cache), its mixed prefill+decode step
 (``paged_step_mixed``) and speculative verify step (``paged_step_spec``),
-and :class:`LlamaForCausalLM` with ``generate``.
+and :class:`LlamaForCausalLM` with ``generate``. A config with
+``num_experts`` runs the mixture-of-experts FFN (``_moe_ffn``, Mixtral)
+in place of the SwiGLU MLP on every one of these paths.
 
 Parameters are nested dicts of tensors with the JAX package's keys and
 layouts: stacked per layer (``params["layers"][name]`` has a leading
@@ -19,9 +21,9 @@ the JAX ``lax.scan`` has no counterpart to keep.
 
 PyTorch runs eagerly, so there is no jit and no donation: ``forward``
 writes the dense cache IN PLACE and ``decode_scan*`` are Python loops.
-The mixture-of-experts FFN, tensor-parallel ``param_pspecs``/``shard``
-and the ring-attention prefill are not ported (ROADMAP Queue 1 items 3
-and 10); asking for them raises.
+Tensor-parallel ``param_pspecs``/``shard`` and the ring-attention
+prefill are not ported (ROADMAP Queue 1 item 10); asking for them
+raises.
 """
 
 from __future__ import annotations
@@ -44,8 +46,11 @@ from bigdl_tpu_torch.llm.kvcache.prefill import (make_mixed_step,
                                                  make_spec_step)
 from bigdl_tpu_torch.parallel.ring_attention import online_block_update
 
-_MOE = ("the mixture-of-experts FFN is not ported yet (ROADMAP Queue 1 "
-        "item 3)")
+# the JAX package's refusal, word for word: its quantize_params keeps
+# expert-stacked weights in bf16
+_MOE_QUANT = ("MoE expert-stacked FFN weights are not ggml-quantized yet "
+              "(experts stay bf16; attention linears of an MoE model can "
+              "be quantized through LowBitLinear module surgery)")
 _PARALLEL = ("tensor and sequence parallelism (param_pspecs / shard, ring "
              "attention) are ROADMAP Queue 1 item 10")
 
@@ -74,7 +79,8 @@ class LlamaConfig:
     # head_dim * partial_rotary_factor dims
     rope_mode: str = "half"
     partial_rotary_factor: float = 1.0
-    # mixture-of-experts FFN: kept for from_hf, not ported (0 = dense FFN)
+    # mixture-of-experts FFN (0 = the dense SwiGLU MLP); a capacity
+    # factor <= 0 is the no-drop mode
     num_experts: int = 0
     num_experts_per_tok: int = 2
     expert_capacity_factor: float = 1.25
@@ -139,11 +145,18 @@ class LlamaConfig:
 
     @classmethod
     def mixtral_8x7b(cls) -> "LlamaConfig":
-        raise NotImplementedError(f"Mixtral-8x7B: {_MOE}")
+        """Mixtral-8x7B: Mistral block + 8-expert top-2 MoE FFN."""
+        return cls(intermediate_size=14336, num_key_value_heads=8,
+                   max_position_embeddings=8192, rope_theta=1e6,
+                   num_experts=8, num_experts_per_tok=2)
 
     @classmethod
     def tiny_moe(cls, vocab: int = 256) -> "LlamaConfig":
-        raise NotImplementedError(f"tiny_moe: {_MOE}")
+        """Test-size MoE config (4 experts, top-2)."""
+        return cls(vocab_size=vocab, hidden_size=64, intermediate_size=128,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=128,
+                   num_experts=4, num_experts_per_tok=2)
 
     @classmethod
     def tiny(cls, vocab: int = 256) -> "LlamaConfig":
@@ -216,9 +229,9 @@ def init_params(cfg: LlamaConfig, seed: int = 0, dtype=torch.bfloat16,
     embedding) and dtypes. ``jax.random`` cannot be reproduced, so a test
     that needs the JAX package's weights carries them across with
     ``params_from_numpy``. Stacked weights are drawn one layer at a time
-    in f32 and cast, so the f32 temporary is one layer's, not L layers'."""
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE)
+    (an MoE config's gate/up/down one expert at a time, as ``(L, E, N,
+    K)`` stacks, beside the router ``(L, E, H)``) in f32 and cast, so
+    the f32 temporary is one layer's or one expert's, not L layers'."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     h, L = cfg.hidden_size, cfg.num_hidden_layers
@@ -232,8 +245,13 @@ def init_params(cfg: LlamaConfig, seed: int = 0, dtype=torch.bfloat16,
         return out
 
     shapes = linear_shapes(cfg)
-    layers: Dict[str, Any] = {name: {"w": mk(shape, lead=(L,))}
-                              for name, shape in shapes.items()}
+    moe = ("gate_proj", "up_proj", "down_proj") if cfg.num_experts else ()
+    layers: Dict[str, Any] = {
+        name: {"w": mk(shape, lead=(L, cfg.num_experts) if name in moe
+                       else (L,))}
+        for name, shape in shapes.items()}
+    if cfg.num_experts:
+        layers["router"] = {"w": mk((cfg.num_experts, h), lead=(L,))}
     if cfg.attention_bias:
         for name in ("q_proj", "k_proj", "v_proj"):
             layers[name]["b"] = torch.zeros((L, shapes[name][0]),
@@ -253,14 +271,16 @@ def fuse_decoder_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Concatenate per-layer q/k/v → ``qkv_proj`` and gate/up →
     ``gate_up_proj`` along the output dim: dense stacked ``w`` (L, N, K)
     on dim 1, k-major quantized ``q``/``scale`` (L, ·, N) on the last dim
-    (q4_0 groups run along K, so an N-concat never mixes groups).
-    Idempotent."""
+    (q4_0 groups run along K, so an N-concat never mixes groups). MoE
+    expert-stacked weights (L, E, N, K) stay unfused. Idempotent."""
     layers = dict(params["layers"])
     for fused, parts in _FUSED_LINEARS.items():
         if fused in layers or not all(p in layers for p in parts):
             continue
         ds = [layers[p] for p in parts]
         if "w" in ds[0]:
+            if any(d["w"].dim() != 3 for d in ds):
+                continue                      # MoE expert-stacked: skip
             fd = {"w": torch.cat([d["w"] for d in ds], dim=1)}
         else:
             fd = {k: torch.cat([d[k] for d in ds], dim=-1)
@@ -283,18 +303,19 @@ def quantize_params(params: Dict[str, Any], qtype: str = "sym_int4",
     then concatenate qkv and gate/up. Norms and embeddings stay as they
     are; ``lm_head`` stays dense unless ``quantize_lm_head``.
     Bit-identical to the JAX package's ``quantize_params`` on the same
-    weights."""
+    weights; like it, refuses MoE expert-stacked weights."""
     if qtype != "sym_int4":
         raise NotImplementedError(
             "the decoder path implements q4_0 (sym_int4) only")
+    if any(isinstance(d, dict) and "w" in d and d["w"].dim() == 4
+           for d in params["layers"].values()):
+        raise NotImplementedError(_MOE_QUANT)
     out = dict(params)
     layers = dict(params["layers"])
     names = [n for n in _LAYER_LINEARS + tuple(_FUSED_LINEARS)
              if n in layers and "w" in layers[n]]
     for name in names:
         w = layers[name]["w"]
-        if w.dim() != 3:
-            raise NotImplementedError(_MOE)
         tds = [quantize_tpu(w[l], qtype) for l in range(w.shape[0])]
         nd = {"q": torch.stack([td["q"] for td in tds]),
               "scale": torch.stack([td["scale"] for td in tds])}
@@ -417,6 +438,78 @@ def mlp(lp: Dict[str, Any], h2: torch.Tensor, dtype) -> torch.Tensor:
     return _linear(lp["down_proj"], (gate * up).to(dtype))
 
 
+def _moe_ffn(lp: Dict[str, Any], h: torch.Tensor,
+             cfg: LlamaConfig) -> torch.Tensor:
+    """Mixtral-style mixture of experts for one decoder layer: every token
+    routes to its top-k experts with renormalised gates; the expert FFNs
+    run in bf16 whatever the params' dtype, as the JAX package's do.
+
+    Routing runs in f32 on the device: router logits, softmax, top-k,
+    the gates divided by their sum. With ``expert_capacity_factor <= 0``
+    (no-drop mode) every expert runs on every token and its output is
+    weighted by the token's scattered gates. Otherwise each expert takes
+    at most ``C = ceil(S·k/E · factor)`` of the call's S rows (every row:
+    padding and inactive rows count, as in the JAX package): the (token,
+    slot) pairs are ranked slot-major (every token's best expert first)
+    by a cumulative count, and a pair past its expert's capacity drops
+    silently. ``C`` comes from the static shape and nothing is read on
+    the host, so the layer runs inside a CUDA graph.
+
+    The expert products are ``torch.matmul`` on transposed views of the
+    ``(E, N, K)`` weights (batched over experts, no weight copy); the
+    dispatch gathers each kept pair's row into its ``(expert, slot)``
+    place and the combine gathers it back, where the JAX package
+    contracts one-hot dispatch tensors (the same values: each place
+    holds at most one row)."""
+    b, t, hd = h.shape
+    S = b * t
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    dev, bf = h.device, torch.bfloat16
+    x = h.reshape(S, hd)
+    logits = x.to(torch.float32) @ lp["router"]["w"].to(torch.float32).t()
+    probs = torch.softmax(logits, dim=-1)                   # (S, E)
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)      # (S, K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+    wg, wu, wd = (lp[n]["w"].to(bf)
+                  for n in ("gate_proj", "up_proj", "down_proj"))
+
+    def experts(xin):
+        """(E, R, H) bf16 rows → (E, R, H) bf16 expert outputs."""
+        gate = torch.matmul(xin, wg.transpose(1, 2))        # (E, R, I)
+        up = torch.matmul(xin, wu.transpose(1, 2))
+        act = (F.silu(gate.to(torch.float32))
+               * up.to(torch.float32)).to(bf)
+        return torch.matmul(act, wd.transpose(1, 2))        # (E, R, H)
+
+    if not cfg.expert_capacity_factor or cfg.expert_capacity_factor <= 0:
+        w_full = torch.zeros((S, E), dtype=torch.float32, device=dev
+                             ).scatter_(1, gate_idx, gate_vals)
+        out = experts(x.to(bf).expand(E, S, hd))           # (E, S, H)
+        y = torch.bmm(w_full.to(bf)[:, None, :], out.transpose(0, 1))
+        return y.reshape(b, t, hd).to(h.dtype)
+
+    C = max(int(np.ceil(S * K / E * cfg.expert_capacity_factor)), 1)
+    # slot-major order: slot 0 of every token first
+    expert_of = gate_idx.t().reshape(-1)                    # (K*S,)
+    gates = gate_vals.t().reshape(-1)
+    sel = (expert_of[:, None] == torch.arange(E, device=dev)).to(
+        torch.float32)                                      # (K*S, E)
+    pos = ((torch.cumsum(sel, dim=0) - sel) * sel).sum(-1)
+    keep = pos < C
+    # a kept pair's place in the flat (E*C) slots; a dropped one goes to
+    # row E*C, a zero row the combine reads back as nothing
+    place = torch.where(keep, expert_of * C + pos.to(torch.int64),
+                        torch.full_like(expert_of, E * C))
+    xin = torch.zeros((E * C + 1, hd), dtype=bf, device=dev)
+    xin.index_copy_(0, place, x.to(bf).repeat(K, 1))
+    out = experts(xin[:E * C].view(E, C, hd)).reshape(E * C, hd)
+    out = torch.cat([out, torch.zeros((1, hd), dtype=bf, device=dev)])
+    y = (gates.to(bf).to(torch.float32)[:, None]
+         * out.index_select(0, place).to(torch.float32)).to(bf)
+    y = y.reshape(K, S, hd).sum(dim=0)
+    return y.reshape(b, t, hd).to(h.dtype)
+
+
 def lm_logits(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """Final projection: the (possibly quantized) ``lm_head``, or the
     embedding-tied plain matmul."""
@@ -442,7 +535,10 @@ def decoder_layer(lp: Dict[str, Any], x: torch.Tensor, positions,
     attn = attend(q, k, v)
     x = x + _linear(lp["o_proj"], attn.to(x.dtype).reshape(b, t, -1))
     h2 = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    x = x + mlp(lp, h2, x.dtype)
+    if cfg.num_experts:
+        x = x + _moe_ffn(lp, h2, cfg)
+    else:
+        x = x + mlp(lp, h2, x.dtype)
     return x, k, v
 
 
@@ -547,8 +643,6 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
         raise NotImplementedError(
             "unroll= unrolls the JAX package's layer scan; it is not "
             "applicable in eager PyTorch, where layers run in a loop")
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE)
     k_cache, v_cache = cache["k"], cache["v"]
     start, t = int(cache["pos"]), tokens.shape[1]
     s_max = k_cache.shape[2]
@@ -860,8 +954,6 @@ class LlamaForCausalLM:
                  cache_dtype: torch.dtype = torch.bfloat16,
                  decode_unroll: int = 1, paged_decode: bool = True,
                  page_size: int = 16, device=None):
-        if cfg.num_experts:
-            raise NotImplementedError(_MOE)
         if decode_unroll not in (0, 1):
             raise NotImplementedError(
                 "decode_unroll unrolls the JAX package's layer scan; it is "
@@ -880,8 +972,11 @@ class LlamaForCausalLM:
                     max_cache_len: int = 512,
                     device=None) -> "LlamaForCausalLM":
         """Random weights from ``seed`` (:func:`init_params`), made on
-        ``device``, optionally quantized (``lm_head`` stays dense)."""
+        ``device``, optionally quantized (``lm_head`` stays dense; an MoE
+        config refuses, before any weight is made)."""
         dev = resolve_device(device)
+        if load_in_low_bit and cfg.num_experts:
+            raise NotImplementedError(_MOE_QUANT)
         params = init_params(cfg, seed, device=dev)
         if load_in_low_bit:
             params = quantize_params(params, load_in_low_bit)

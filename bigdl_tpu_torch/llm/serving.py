@@ -1,5 +1,6 @@
 """Continuous-batching LLM serving over a paged KV cache — the port of
-``bigdl_tpu/llm/serving.py``, slices (a)-(e) of ROADMAP Queue 1 item 6:
+``bigdl_tpu/llm/serving.py``, slices (a)-(e) of ROADMAP Queue 1 item 6
+and its slot-static engine (``paged=False``):
 
 - the device functions of the paged decode step (``paged_attend``,
   ``scatter_new_kv``, ``paged_decode_step``, its sampled lift
@@ -7,6 +8,9 @@
   over the engine's persistent buffers), ``bind_mixed_step``, the mixed
   prefill+decode step over them, and ``bind_spec_step``, the
   speculative verify step;
+- ``slotted_decode_step`` and ``bind_slotted_step``, the slot-static
+  engine's decode step over a dense ``(L, B, max_seq_len, Hkv, D)``
+  cache with one write position a slot;
 - the SLO classes (``PRIORITY_CLASSES``, ``normalize_priority``,
   ``CLASS_RETRY_WEIGHTS``) and the class-ordered admission heap;
 - :class:`LLMServer` with paged decode, whole-prompt prefill (ragged in
@@ -20,7 +24,10 @@
   ``chunk_wait=``), the mixed step one CUDA graph per chunk bucket;
   model-free self-speculative decoding (``spec=``, ``spec_k=``), the
   verify step one CUDA graph per draft bucket; and priority classes
-  with lossless preemption (``priority=``, ``submit(priority=)``).
+  with lossless preemption (``priority=``, ``submit(priority=)``); and
+  the slot-static engine (``paged=False``: one ``max_seq_len`` window a
+  slot, its prompt prefilled by the broadcast pass, its decode step one
+  captured CUDA graph).
 
 The engine's other options raise ``NotImplementedError`` naming their
 ROADMAP item; none is silently ignored. Not ported with speculation
@@ -49,9 +56,11 @@ from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.llm.graphs import CapturedStep
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
     LANE, merge_attention_partial, paged_attention_stats)
-from bigdl_tpu_torch.llm.kernels.sampling import make_sampled_step
+from bigdl_tpu_torch.llm.kernels.sampling import (make_sampled_step,
+                                                  sample_tokens)
 from bigdl_tpu_torch.llm.kvcache import Admission, KVCacheManager
-from bigdl_tpu_torch.llm.models.llama import (decoder_layer, layer_params,
+from bigdl_tpu_torch.llm.models.llama import (_attention, decoder_layer,
+                                              init_cache, layer_params,
                                               lm_logits, rms_norm)
 from bigdl_tpu_torch.llm.spec import NGramProposer
 
@@ -239,6 +248,67 @@ def bind_decode_step(params, cfg, k_pages, v_pages, bt, lens, last, active,
         toks.copy_(t)
         last.copy_(logits)
         lens.copy_(new_lens)
+
+    return step
+
+
+def slotted_decode_step(params, cfg, cache_k, cache_v, pos, toks):
+    """One decode step of the slot-static engine: next-token logits for
+    every row of the dense cache ``(L, B, S, Hkv, D)``, each row's new
+    K/V written IN PLACE at its own position ``pos[b]`` before the layer
+    attends its whole window (``valid``: slots ``<= pos[b]``).
+
+    The JAX step writes with a one-hot ``where`` over the whole cache;
+    here one index write of B rows a layer gives the same values. A row
+    at ``pos == S`` (a finished row whose slot is not yet released)
+    writes nothing, as the one-hot matches no slot: its index is clamped
+    and the old value written back. Attention is the blockwise
+    :func:`_attention` over the full window with a per-row mask; nothing
+    is read on the host, so the step runs inside a CUDA graph.
+
+    ``pos`` (B,) int32, ``toks`` (B,) int. Returns ``(B, V)`` f32."""
+    b, s_max = toks.shape[0], cache_k.shape[2]
+    dev = toks.device
+    x = params["embed_tokens"][toks.long()][:, None]         # (B, 1, H)
+    positions = pos[:, None].to(torch.int32)
+    valid = torch.arange(s_max, device=dev)[None, :] <= positions
+    rows = torch.arange(b, device=dev)
+    at = pos.long().clamp(max=s_max - 1)
+    inside = (pos < s_max)[:, None, None]
+
+    def attend(l, q, k, v):
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            cache[l, rows, at] = torch.where(
+                inside, new[:, 0].to(cache.dtype), cache[l, rows, at])
+        return _attention(q, cache_k[l], cache_v[l], positions, valid, cfg)
+
+    for l in range(cfg.num_hidden_layers):
+        x, _, _ = decoder_layer(layer_params(params["layers"], l), x,
+                                positions, cfg,
+                                lambda q, k, v, l=l: attend(l, q, k, v))
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    return lm_logits(params, x)[:, 0].to(torch.float32)
+
+
+def bind_slotted_step(params, cfg, cache_k, cache_v, pos, last, active,
+                      toks, *, temperature: float = 1.0, generator=None,
+                      do_sample: bool = False, top_k: int = 0):
+    """The slot-static engine's decode step as a function of no
+    arguments over persistent buffers, what :class:`CapturedStep`
+    captures: it samples every row's next token from ``last`` (B, V) f32
+    into ``toks`` (B,) int32, runs :func:`slotted_decode_step` at
+    ``pos`` (B,) int32, writes every row's logits into ``last`` and
+    advances ``pos`` by ``active`` (B,) bool, in place. Inactive rows
+    run at their own position and their logits replace their ``last``,
+    as in the JAX step."""
+
+    def step():
+        t = sample_tokens(last, generator, do_sample=do_sample,
+                          temperature=temperature, top_k=top_k)
+        logits = slotted_decode_step(params, cfg, cache_k, cache_v, pos, t)
+        toks.copy_(t)
+        last.copy_(logits)
+        pos.add_(active.to(pos.dtype))
 
     return step
 
@@ -505,6 +575,21 @@ class LLMServer:
     step's cache key. Whole-prompt prefills and solo chunks run eagerly.
     ``stop()`` frees the graphs.
 
+    **Slot-static cache** (``paged=False``), as the JAX engine's: a dense
+    ``(L, max_batch, max_seq_len, Hkv, D)`` cache, one window a slot
+    (``max_seq_len`` is capped at the model's ``max_cache_len``), a
+    request admitted into any free slot with no page budget. Its prompt
+    is prefilled by a broadcast pass: the prompt as ``max_batch``
+    identical rows through ``forward`` with only slot ``i``'s K/V kept
+    (an MoE layer's capacity counts all of them, as in the JAX engine).
+    The decode step (:func:`slotted_decode_step`) writes each row's K/V
+    at its own position and is one CUDA graph, at any
+    ``pipeline_depth``; ``_lens`` / ``_lens_dev`` hold the slots' write
+    positions (the JAX engine's ``_pos``). A released slot restarts at
+    position 0. The prefix cache does not apply, and ``mixed``, ``spec``,
+    ``priority`` and the host tier refuse with the JAX engine's
+    ``ValueError``; ``pages_in_use`` is -1.
+
     ``device=None`` means the GPU (and raises without one); the model
     must live on the same device. ``page_size=None`` takes the model's;
     another value than the model's raises.
@@ -524,16 +609,30 @@ class LLMServer:
                  chunk_wait: Optional[float] = None,
                  spec: bool = False, spec_k: Optional[int] = None,
                  priority: bool = False, device=None, **options):
+        if not paged:
+            # the JAX engine's refusals, in its order
+            if options.get("kvtier"):
+                raise ValueError("the host tier is page-pool only; "
+                                 "the slot-static cache has no pages")
+            if mixed:
+                raise ValueError("unified mixed dispatch is page-pool "
+                                 "only; the slot-static cache has no "
+                                 "chunked prefill")
+            if priority:
+                raise ValueError("priority scheduling is page-pool "
+                                 "only; lossless preemption needs the "
+                                 "paged KV chain to park and resume")
+            if spec:
+                raise ValueError("self-speculative decoding is "
+                                 "page-pool only; the verify chunk is "
+                                 "a ragged chunk over pool pages")
         for name, value in options.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
             if value not in (None, False, 0):
                 raise NotImplementedError(f"{name}={value!r}: "
                                           f"{_NOT_PORTED[name]}")
-        if not paged:
-            raise NotImplementedError(
-                "paged=False: the slot-static cache is not ported "
-                "(ROADMAP Queue 1 item 6)")
+        self.paged = paged
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, server on "
@@ -544,14 +643,18 @@ class LLMServer:
         # JAX engine finds them (the llama module's by default)
         from bigdl_tpu_torch.llm.models import llama as _llama
         fam = inspect.getmodule(type(model))
-        self._fam_ragged_prefill, self._fam_partial_prefill, \
-            self._fam_mixed_step, self._fam_spec_step = (
+        self._fam_forward, self._fam_ragged_prefill, \
+            self._fam_partial_prefill, self._fam_mixed_step, \
+            self._fam_spec_step = (
                 getattr(fam, n, getattr(_llama, n)) for n in (
-                    "paged_prefill_ragged", "paged_prefill_partial",
-                    "paged_step_mixed", "paged_step_spec"))
+                    "forward", "paged_prefill_ragged",
+                    "paged_prefill_partial", "paged_step_mixed",
+                    "paged_step_spec"))
         self._ragged = ragged_prefill is not False
         self.max_batch = max_batch
-        self.max_seq_len = min(max_seq_len, cfg.max_position_embeddings)
+        self.max_seq_len = (min(max_seq_len, cfg.max_position_embeddings)
+                            if paged else
+                            min(max_seq_len, model.max_cache_len))
         self.eos_token_id = eos_token_id
         self.max_queue = max_queue
         self._queue: "queue.Queue[Request]" = queue.Queue(maxsize=max_queue)
@@ -634,32 +737,39 @@ class LLMServer:
         self._preempt_rec: Optional[dict] = None
         self.preemptions_total = 0
         self.preempt_resumes_total = 0
-        # block-table width: the JAX engine rounds it up to the Mosaic
-        # block multiple (LANE // page); kept so tables compare like with
-        # like — the CUDA kernels do not need it
-        ppb = max(1, LANE // page_size)
-        cap = -(-self.max_seq_len // page_size)
-        self._pages_cap = -(-cap // ppb) * ppb
-        self._num_pages = num_pages or (1 + max_batch * cap)
-        shape = (cfg.num_hidden_layers, self._num_pages,
-                 cfg.num_key_value_heads, page_size, cfg.head_dim)
         dev = self.device
-        self._k_pages = torch.zeros(shape, dtype=model.cache_dtype,
-                                    device=dev)
-        self._v_pages = torch.zeros(shape, dtype=model.cache_dtype,
-                                    device=dev)
-        self._kv = KVCacheManager(self._num_pages, page_size,
-                                  enabled=kvcache)
-        # host bookkeeping: the tables as of the latest dispatch
-        self._bt = np.zeros((max_batch, self._pages_cap), np.int32)
+        self._kv: Optional[KVCacheManager] = None
+        if paged:
+            # block-table width: the JAX engine rounds it up to the Mosaic
+            # block multiple (LANE // page); kept so tables compare like
+            # with like — the CUDA kernels do not need it
+            ppb = max(1, LANE // page_size)
+            cap = -(-self.max_seq_len // page_size)
+            self._pages_cap = -(-cap // ppb) * ppb
+            self._num_pages = num_pages or (1 + max_batch * cap)
+            shape = (cfg.num_hidden_layers, self._num_pages,
+                     cfg.num_key_value_heads, page_size, cfg.head_dim)
+            self._k_pages = torch.zeros(shape, dtype=model.cache_dtype,
+                                        device=dev)
+            self._v_pages = torch.zeros(shape, dtype=model.cache_dtype,
+                                        device=dev)
+            self._kv = KVCacheManager(self._num_pages, page_size,
+                                      enabled=kvcache)
+            # host bookkeeping: the tables as of the latest dispatch
+            self._bt = np.zeros((max_batch, self._pages_cap), np.int32)
+            self._bt_dev = torch.zeros((max_batch, self._pages_cap),
+                                       dtype=torch.int32, device=dev)
+        else:
+            self._cache = init_cache(cfg, max_batch, self.max_seq_len,
+                                     dtype=model.cache_dtype, device=dev)
+        # the rows' lengths (the slot-static engine's write positions)
+        # as of the latest dispatch, and their device twin
         self._lens = np.zeros(max_batch, np.int32)
         self._active = np.zeros(max_batch, bool)
         self._slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
         self._slot_adm: List[Optional[Admission]] = [None] * max_batch
-        # their device twins and the step's other persistent buffers,
-        # made once: the graph holds their addresses, so none is rebound
-        self._bt_dev = torch.zeros((max_batch, self._pages_cap),
-                                   dtype=torch.int32, device=dev)
+        # the device twins and the step's other persistent buffers, made
+        # once: the graph holds their addresses, so none is rebound
         self._lens_dev = torch.zeros(max_batch, dtype=torch.int32,
                                      device=dev)
         self._active_dev = torch.zeros(max_batch, dtype=torch.bool,
@@ -675,13 +785,17 @@ class LLMServer:
             dtype=torch.int32, pin_memory=dev.type == "cuda")
             for _ in range(self.pipeline_depth)]
         self._gens = (self._gen,) if self._do_sample else ()
-        self._step = CapturedStep(
+        sampling = dict(temperature=self._temp, generator=self._gen,
+                        do_sample=self._do_sample, top_k=self.top_k)
+        self._decode = CapturedStep(
             bind_decode_step(model.params, cfg, self._k_pages,
                              self._v_pages, self._bt_dev, self._lens_dev,
                              self._last, self._active_dev, self._toks_dev,
-                             page=page_size, temperature=self._temp,
-                             generator=self._gen,
-                             do_sample=self._do_sample, top_k=self.top_k),
+                             page=page_size, **sampling) if paged else
+            bind_slotted_step(model.params, cfg, self._cache["k"],
+                              self._cache["v"], self._lens_dev, self._last,
+                              self._active_dev, self._toks_dev,
+                              **sampling),
             dev, generators=self._gens)
         # chunk bucket -> (its mixed step, operand buffer, clast buffer)
         self._mixed_steps: Dict[int, tuple] = {}
@@ -692,7 +806,9 @@ class LLMServer:
     @property
     def pages_in_use(self) -> int:
         """Physical pages owned by live requests, chunked admissions
-        still mid-prompt included."""
+        still mid-prompt included; -1 for the slot-static cache."""
+        if not self.paged:
+            return -1
         n = sum(len(p) for p in self._slot_pages)
         if self._chunk_state is not None:
             n += sum(len(st["own"]) for st in self._chunk_state
@@ -711,7 +827,8 @@ class LLMServer:
     def prefix_tokens_saved(self) -> int:
         """Prompt tokens served from the prefix cache instead of being
         prefilled (0 with the cache off)."""
-        return self._kv.prefix_tokens_reused
+        return (self._kv.prefix_tokens_reused if self._kv is not None
+                else 0)
 
     # -- client API ----------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int = 32,
@@ -727,12 +844,16 @@ class LLMServer:
             raise ValueError("empty prompt")
         if len(req.prompt_ids) + max_new_tokens > self.max_seq_len:
             raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
-        pages = self._kv.peek(req.prompt_ids, max_new_tokens)
-        if pages["pages_needed"] > self._num_pages - 1:
-            raise ValueError(
-                f"request needs {pages['pages_needed']} pages but the "
-                f"pool holds {self._num_pages - 1}; it could never be "
-                "admitted")
+        need = ""
+        if self.paged:
+            pages = self._kv.peek(req.prompt_ids, max_new_tokens)
+            if pages["pages_needed"] > self._num_pages - 1:
+                raise ValueError(
+                    f"request needs {pages['pages_needed']} pages but the "
+                    f"pool holds {self._num_pages - 1}; it could never be "
+                    "admitted")
+            need = (f" [needs {pages['pages_needed']} pages, "
+                    f"{pages['pages_free']} budget-free]")
         if self._draining.is_set():
             raise OverloadError("server is draining: not accepting new "
                                 "requests")
@@ -747,8 +868,7 @@ class LLMServer:
         except queue.Full:
             raise OverloadError(
                 f"request queue full ({self.max_queue} waiting); retry "
-                f"later [needs {pages['pages_needed']} pages, "
-                f"{pages['pages_free']} budget-free]") from None
+                f"later{need}") from None
         return req
 
     def retry_depth(self, priority: Optional[str] = None) -> float:
@@ -799,7 +919,7 @@ class LLMServer:
             self._fail_all("server stopped before the request finished")
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self._step.close()
+            self._decode.close()
             for step, _, _ in list(self._mixed_steps.values()) + list(
                     self._spec_steps.values()):
                 step.close()
@@ -817,7 +937,7 @@ class LLMServer:
                 try:
                     with self._lock:
                         self._admit()
-                        busy = self._step_paged()
+                        busy = self._step()
                 except Exception as e:  # noqa: BLE001 — engine boundary
                     # the engine thread survives a failing pass: the
                     # requests in flight fail with the error (a CUDA
@@ -940,8 +1060,10 @@ class LLMServer:
     def _admit_into(self, i: int) -> bool:
         """Admit one request into free slot ``i``: lookup, suffix-only
         charge and adoption (``KVCacheManager.admit``), then a whole
-        prefill, or the start of a chunked admission. False stops the
-        slot sweep: the queue is empty or its head is budget-blocked."""
+        prefill, or the start of a chunked admission; the slot-static
+        cache takes the queue's head at once into the broadcast prefill
+        (:meth:`_prefill_slot`). False stops the slot sweep: the queue is
+        empty or its head is budget-blocked."""
         page = self._page
         while True:
             ent = None
@@ -959,6 +1081,15 @@ class LLMServer:
                         return False
                 self._pending_head = None
             ids, budget = self._prompt_of(req), self._budget_of(req)
+            if not self.paged:
+                try:
+                    self._prefill_slot(i, req)
+                    self.prefill_tokens_total += len(ids)
+                except Exception as e:  # noqa: BLE001 — fails this request
+                    self.errors.append(traceback.format_exc())
+                    req.error = f"{type(e).__name__}: {e}"
+                    req.done.set()
+                return True
             chunk_first = None
             if self._mixed_active and len(ids) > self._chunk_tokens:
                 # a long uncached suffix is fed in chunks, the first
@@ -1107,6 +1238,43 @@ class LLMServer:
         nfull = len(prompt) // self._page
         if self._kv.enabled and nfull:
             self._kv.insert(prompt[:nfull * self._page], self._bt[i, :nfull])
+
+    def _prefill_slot(self, i: int, req: Request):
+        """The slot-static prefill, the JAX engine's broadcast pass: the
+        prompt as ``(max_batch, T)`` identical rows through the family's
+        ``forward`` from the slot's position, of which only row ``i``'s
+        K/V is kept. ``forward`` writes every row's window ``[start,
+        start + T)`` in place, so the other slots' rows of that window
+        are saved before and put back after, also when the pass raises.
+        The pass runs every row, so an MoE layer's capacity sees the
+        batch the JAX pass gives it."""
+        b, t = self.max_batch, len(req.prompt_ids)
+        start = int(self._lens[i])
+        toks = self._upload(np.ascontiguousarray(
+            np.broadcast_to(req.prompt_ids, (b, t))))
+        positions = (start + torch.arange(t, dtype=torch.int32,
+                                          device=self.device)).expand(b, t)
+        window = slice(start, start + t)
+        saved = {n: self._cache[n][:, :, window].clone() for n in ("k", "v")}
+        ok = False
+        try:
+            logits, _ = self._fam_forward(
+                self.model.params, self.cfg, toks,
+                {"k": self._cache["k"], "v": self._cache["v"], "pos": start},
+                positions)
+            ok = True
+        finally:
+            # a pass that raised part way may have written any layer:
+            # every row goes back, row i too unless the pass completed
+            for n, old in saved.items():
+                if ok:
+                    old[:, i] = self._cache[n][:, i, window]
+                self._cache[n][:, :, window] = old
+        self._last[i] = logits[i, -1]
+        self._lens[i] = start + t
+        self._lens_dev[i] = start + t
+        self._slots[i] = req
+        self._remaining[i] = req.max_new_tokens
 
     # -- mixed prefill+decode dispatch and chunked admission -----------------
     def _chunk_end(self, off: int, T: int) -> int:
@@ -1519,17 +1687,43 @@ class LLMServer:
             at, pid = self._upload(np.ascontiguousarray(
                 np.asarray(grants, np.int64).T))
             self._bt_dev.view(-1).index_copy_(0, at, pid.to(torch.int32))
+        self._set_active(disp)
+        if sargs is not None:
+            return self._dispatch_spec(disp, sargs, t_step)
+        if cargs is not None:
+            return self._dispatch_mixed(disp, cargs, t_step)
+        self._decode()
+        return self._after_dispatch(self._record(disp), t_step)
+
+    def _step_slotted(self) -> bool:
+        """One pass of the slot-static engine: the decode step over every
+        row, the dispatchable ones active (their positions advance on the
+        device and in ``_lens``), or a drain when nothing dispatches;
+        False when there is nothing to do."""
+        disp = self._dispatchable()
+        if not disp:
+            if self._inflight:
+                self._drain_next()
+                return True
+            return False
+        t_step = time.perf_counter()
+        self._set_active(disp)
+        self._decode()
+        return self._after_dispatch(self._record(disp), t_step)
+
+    def _step(self) -> bool:
+        """One engine pass after admission: the paged or the slot-static
+        engine's."""
+        return self._step_paged() if self.paged else self._step_slotted()
+
+    def _set_active(self, disp: List[int]):
+        """The device's active mask, rewritten in stream order when the
+        dispatched rows changed."""
         mask = np.zeros(self.max_batch, bool)
         mask[disp] = True
         if not np.array_equal(mask, self._active):
             self._active_dev.copy_(self._upload(mask))
             self._active = mask
-        if sargs is not None:
-            return self._dispatch_spec(disp, sargs, t_step)
-        if cargs is not None:
-            return self._dispatch_mixed(disp, cargs, t_step)
-        self._step()
-        return self._after_dispatch(self._record(disp), t_step)
 
     def _record(self, disp, src: Optional[torch.Tensor] = None) -> dict:
         """The in-flight record of the step just enqueued: its output
@@ -1635,9 +1829,15 @@ class LLMServer:
         """Give slot ``i`` back: with the prefix cache, index prompt +
         output first (indexed pages stay warm at refcount 1), then drop
         the request's refs, pins and charge, and point the row at
-        trash."""
+        trash. A slot-static slot restarts at position 0: stale K/V past
+        the next request's positions is masked and overwritten as it
+        advances."""
         self._slots[i] = None
         self._remaining[i] = 0
+        self._lens[i] = 0
+        self._lens_dev[i] = 0
+        if not self.paged:
+            return
         adm = self._slot_adm[i]
         if self._kv.enabled:
             toks = np.concatenate([req.prompt_ids,
@@ -1652,9 +1852,7 @@ class LLMServer:
         # The device row is reset behind the steps in flight, which still
         # read the old one (their writes land before any reissue's).
         self._bt[i, :] = 0
-        self._lens[i] = 0
         self._bt_dev[i] = 0
-        self._lens_dev[i] = 0
 
     # -- lossless preemption --------------------------------------------------
     def _consider_preempt(self):

@@ -5,7 +5,9 @@
 
 Three inputs load:
 - a ``LlamaConfig`` instance (or ``config=``): random weights from
-  ``seed``, made on the device — the test and benchmark path;
+  ``seed``, made on the device — the test and benchmark path (an MoE
+  config such as ``LlamaConfig.mixtral_8x7b()`` runs bf16: like the JAX
+  package, low-bit refuses its expert-stacked weights);
 - an HF checkpoint directory of the llama lineage (llama, mistral,
   qwen2, glm) with ``config.json`` and safetensors weights: read straight
   into the stacked layout by the port's own reader, one layer at a time,
@@ -29,8 +31,7 @@ import torch
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.llm.kernels.int4_matmul import quantize_tpu
 from bigdl_tpu_torch.llm.models.llama import (
-    _LAYER_LINEARS, LlamaConfig, LlamaForCausalLM, fuse_decoder_params,
-    init_params, quantize_params)
+    _LAYER_LINEARS, LlamaConfig, LlamaForCausalLM, fuse_decoder_params)
 from bigdl_tpu_torch.llm.transformers.st_reader import SafetensorsReader
 
 _OTHER_FAMILIES = ("gpt_neox", "bloom", "gpt_bigcode")
@@ -146,12 +147,10 @@ class AutoModelForCausalLM:
             config, path = path, None
 
         if path is None:
-            cfg = config or LlamaConfig.tiny()
-            params = init_params(cfg, seed, device=dev)
-            if qtype:
-                params = quantize_params(params, qtype)
-            return LlamaForCausalLM(cfg, params, max_cache_len=max_cache_len,
-                                    device=dev)
+            return LlamaForCausalLM.from_config(
+                config or LlamaConfig.tiny(), seed=seed,
+                load_in_low_bit=qtype, max_cache_len=max_cache_len,
+                device=dev)
         if not (os.path.isdir(path)
                 and glob.glob(os.path.join(path, "*.safetensors"))):
             raise NotImplementedError(

@@ -111,6 +111,13 @@ Phase 3c the served engine's self-speculative decoding and priority
          without priority, exact launch counts. Then one verify pass
          (batch 8, 7 drafts at bucket 8) eager and as one CUDA graph, bit
          for bit over 4 passes, traced as in phase 4.
+Phase 3d the slot-static engine (``LLMServer(paged=False)``: a dense
+         512-token window a slot) on phase 3's model and 8 prompts at
+         depths 2 and 1: the broadcast prefill (8 x T rows), exact launch
+         counts (no attention kernel), the same tokens at both depths,
+         where they part from phase 3's paged tokens, TTFT, tok/s, ms a
+         step and peak memory beside phase 3's; then its decode step
+         eager and as one CUDA graph, bit for bit over 4 steps, traced.
 Phase 4  trace one 7B batch-8 decode step with ``torch.profiler``:
          step wall time, device busy time and idle share, kernel
          launches and the host's launch calls per step, the kernels that
@@ -158,6 +165,19 @@ Phase 8  GLM-4-9B q4_0 (full width, 40 layers, 32 query heads on 2 KV
          tokens, TTFT and decode tok/s, at depth 2 and at depth 1 (the
          same tokens). One paged decode step of the ``generate`` batch
          traced as in phase 4, eager and as the loop's graph.
+Phase 9  Mixtral-8x7B (bf16, every width as published, 16 of 32 layers:
+         ~47 GB; weights drawn on the card one expert at a time by
+         ``from_pretrained(LlamaConfig.mixtral_8x7b())``): a 2-layer
+         cut on the card against the CPU's plain path at capacity 1.25
+         and 0.0 (prefill and decode logits within 2e-2); ``generate``
+         4 x 512, 32 new, paged and dense; ``LLMServer`` on phase 3's 8
+         prompts at 1.25 and 0.0, depths 2 and 1, exact launch counts;
+         short inline runs with the prefix cache + mixed dispatch,
+         speculation and priority, each capturing its graphs; the
+         graphed decode step bit for bit against the eager one at both
+         factors, no copy of an expert weight in its trace, one layer's
+         ``_moe_ffn`` and expert products timed against their byte
+         bound, and the graphed step profiled.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the run
@@ -166,6 +186,7 @@ ends nonzero and prints no result. The full report also goes to
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -419,6 +440,13 @@ MISTRAL_LINEARS = ((4096, 6144, "qkv_proj"), (4096, 4096, "o_proj"),
                    (4096, 28672, "gate_up_proj"), (14336, 4096, "down_proj"))
 
 
+# Llama-2-7B's fused q4_0 linears and its q4_0 lm_head (K, N, name,
+# launches a forward: one a layer, lm_head once)
+SEVEN_B_LINEARS = ((4096, 12288, "qkv_proj", 32), (4096, 4096, "o_proj", 32),
+                   (4096, 22016, "gate_up_proj", 32),
+                   (11008, 4096, "down_proj", 32), (4096, 32000, "lm_head", 1))
+
+
 def int4_cases(torch, dev, gen):
     """q4_0 at the Llama-2-7B shapes (bf16 out, as served), at the
     Mistral-7B shapes of ``generate`` (bf16 out), at the BERT shapes (f32
@@ -440,16 +468,22 @@ def int4_cases(torch, dev, gen):
     for m, per, count in ((1, None, 0), (2, None, 0),
                           (4, "7B verify chunk, bucket 4", 32),
                           (8, "7B decode step", 32), (512, "7B prefill", 32)):
-        for k, n, what, c in (
-                (4096, 12288, "qkv_proj", count), (4096, 4096, "o_proj", count),
-                (4096, 22016, "gate_up_proj", count),
-                (11008, 4096, "down_proj", count),
-                (4096, 32000, "lm_head", count and 1)):
+        for k, n, what, c in SEVEN_B_LINEARS:
+            c = c if count else 0
             out.append(matmul_case(torch, dev, gen, "int4_matmul", what, m,
                                    k, n, torch.bfloat16, c, per,
                                    both_routes=what in ("qkv_proj",
                                                         "gate_up_proj"),
                                    slices_sweep=m == 8))
+    # the slot-static engine's broadcast prefill (phase 3d): a prompt of
+    # T tokens runs as max_batch (8) identical rows, every linear and
+    # lm_head at M = 8 x T, not a multiple of any tile's M (the shortest,
+    # a middle and the longest of phase 3's prompts)
+    for t in (17, 139, 300):
+        for k, n, what, c in SEVEN_B_LINEARS:
+            out.append(matmul_case(torch, dev, gen, "int4_matmul", what,
+                                   8 * t, k, n, torch.bfloat16, c,
+                                   f"7B slot-static prefill, T = {t}"))
     # Mistral-7B's linears at generate (b)'s decode step (batch 1), (a)'s
     # (batch 4) and (a)'s prefill (4 x 512 rows); lm_head stays dense on
     # that path
@@ -606,6 +640,12 @@ def paged_cases(torch, dev, gen):
             # and the window shrunk by one, as paged_attend calls it
             ("Mistral decode", 32, 8, 128, 4095, [512, 533, 554, 575]),
             ("Mistral long", 32, 8, 128, 4095, [4199]),
+            # Mixtral's served step (phase 9 (b): 8 rows, no window, phase
+            # 3's prompts 16 tokens in) and its generate (a) step (4 rows
+            # of 512-token prompts, 15 tokens in)
+            ("Mixtral served decode", 32, 8, 128, None,
+             [x + 16 for x in LENS_MAIN]),
+            ("Mixtral generate decode", 32, 8, 128, None, [527] * 4),
             # a group of 16 (GLM-4-9B) and of 48 (StarCoder-15B's MQA)
             ("GLM-4-9B decode", 32, 2, 128, None, GLM_DECODE_LENS),
             ("StarCoder-15B decode", 48, 1, 128, None, GLM_DECODE_LENS)):
@@ -735,6 +775,14 @@ RAGGED_SHAPES = (
     ("7B verify W=4", 32, 32, 128, 301, 4, 4, None, "bf16"),
     ("7B verify W=8", 32, 32, 128, 1001, 8, 8, None, "bf16"),
     ("7B verify W=8, 5 live", 32, 32, 128, 1001, 5, 8, None, "bf16"),
+    # Mixtral's (phase 9, GQA 4:1, no window): a served prefill, a prompt
+    # suffix behind a cached 128-token prefix, a 256-token chunk of the
+    # 1024-token prompt, and its verify chunks (spec_k 8)
+    ("Mixtral prefill", 32, 8, 128, 0, 300, 512, None, "bf16"),
+    ("Mixtral cached suffix", 32, 8, 128, 128, 47, 64, None, "bf16"),
+    ("Mixtral chunk", 32, 8, 128, 768, 256, 256, None, "bf16"),
+    ("Mixtral verify W=8", 32, 8, 128, 301, 8, 8, None, "bf16"),
+    ("Mixtral verify W=8, 5 live", 32, 8, 128, 293, 5, 8, None, "bf16"),
     # the served 7B prefill with an f32 KV cache: the CUDA-core route
     ("7B prefill f32 cache", 32, 32, 128, 0, 300, 512, None, "f32"))
 
@@ -847,22 +895,27 @@ def ragged_cases(torch, dev, gen):
 
 # -- phase 3: the served path at 7B -------------------------------------------
 
-def _path_expect(model, buckets, steps):
+def _path_expect(model, buckets, steps, paged=True):
     """What ``LLMServer`` must launch for prefill legs at ``buckets`` (one
     for each whole prefill, cached suffix or chunk: a power of two, at
     least one page) and ``steps`` decode legs: each prefill leg's 4
-    linears a layer (and a quantized lm_head) on the route of (bucket,
-    N), its attention on the route of the pools (``ragged_route``), one
-    ragged kernel a layer; every decode leg runs the linears at M =
-    max_batch <= 8 (the GEMV) and one stats kernel a layer."""
+    linears a layer (and a quantized lm_head; a bf16 model's linears,
+    Mixtral's, launch none of ours) on the route of (bucket, N), its
+    attention on the route of the pools (``ragged_route``), one ragged
+    kernel a layer; every decode leg runs the linears at M = max_batch
+    <= 8 (the GEMV) and one stats kernel a layer. ``paged=False``: the
+    slot-static engine, whose broadcast prefill (``buckets`` are then
+    its rows, max_batch x prompt) and decode step attend with
+    ``_attention`` and launch no attention kernel."""
     import torch
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.kernels.ragged_prefill import ragged_route
     cfg, params = model.config, model.params
     L = cfg.num_hidden_layers
     ns = [(params["layers"][k]["q"].shape[-1], L) for k in (
-        "qkv_proj", "o_proj", "gate_up_proj", "down_proj")]
-    if "q" in params["lm_head"]:
+        "qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+        if "q" in params["layers"].get(k, {})]
+    if "q" in params.get("lm_head", {}):
         ns.append((params["lm_head"]["q"].shape[-1], 1))
     per_pass = sum(c for _, c in ns)
     # the route of the prefill attention's inputs: bf16 q (the served
@@ -878,9 +931,10 @@ def _path_expect(model, buckets, steps):
         "int4_matmul": (len(buckets) + steps) * per_pass,
         "int4_matmul_tc": tc,
         "int4_matmul_gemv": (len(buckets) + steps) * per_pass - tc,
-        "paged_attention_decode_stats": steps * L,
-        "ragged_prefill_attention": len(buckets) * L,
-        "ragged_prefill_attention_tc": len(buckets) * L if tc_attn else 0})
+        "paged_attention_decode_stats": steps * L * paged,
+        "ragged_prefill_attention": len(buckets) * L * paged,
+        "ragged_prefill_attention_tc": len(buckets) * L * (paged
+                                                           and tc_attn)})
     return expect
 
 
@@ -915,11 +969,12 @@ def _serve_run(torch, model, prompts, new, what, warmup=None,
 
     cfg = model.config
     srv = LLMServer(model, **kw).start()
+    paged = srv.paged
     try:
         srv.submit(prompts[0][:20] if warmup is None else warmup,
                    max_new_tokens=2).get(timeout=600)
         check(not srv.errors, f"{what}: engine errors: {srv.errors}")
-        graph = srv._step
+        graph = srv._decode
         check(graph.graph is not None, f"{what}: the step was not captured")
         steps0, replays0 = srv.steps, graph.replays
         host0, stall0 = srv.host_seconds, srv.stall_seconds
@@ -935,7 +990,7 @@ def _serve_run(torch, model, prompts, new, what, warmup=None,
         host_s, stall_s = srv.host_seconds - host0, srv.stall_seconds - stall0
         peak = torch.cuda.max_memory_allocated()
         reserved = torch.cuda.max_memory_reserved()
-        kv = srv._kv.debug_stats()
+        kv = srv._kv.debug_stats() if paged else None
     finally:
         srv.stop()
     check(not srv.errors, f"{what}: engine errors: {srv.errors}")
@@ -946,8 +1001,9 @@ def _serve_run(torch, model, prompts, new, what, warmup=None,
                                        for t in toks),
               f"{what} request {i}: tokens {toks}")
     if buckets is None:
-        buckets = [_bucket(len(p), model.page_size) for p in prompts]
-    expect = _path_expect(model, buckets, steps)
+        buckets = ([_bucket(len(p), model.page_size) for p in prompts]
+                   if paged else [srv.max_batch * len(p) for p in prompts])
+    expect = _path_expect(model, buckets, steps, paged)
     check(all(counts[k] > 0 for k, v in expect.items() if v),
           f"{what}: a kernel of the served path never ran: {counts}")
     check(counts == expect, f"{what}: launch counts {counts} != expected "
@@ -1040,13 +1096,104 @@ def serve_7b(torch, dev):
     return {
         "phase": "serve", "model": "Llama-2-7B q4_0 (synthetic weights, "
         "32 layers, full width)", **row, "weights_build_s": build_s,
-        "alone_equals_batched": True, "depth1": row1,
+        "alone_equals_batched": True, "depth1": row1, "outputs": outs,
         "depth1_tokens_equal": True,
         "f32_cache": {"request": alone_i, "launches": counts32,
                       "decode_steps": steps32, "tokens": toks32,
                       "leading_tokens_equal_to_bf16_cache": next(
                           (i for i, (a, b) in enumerate(zip(toks32, alone))
                            if a != b), len(alone))}}, model
+
+
+# -- phase 3d: the slot-static engine at 7B ------------------------------------
+
+def serve_slotted(torch, model, paged_row, paged_outs):
+    """Phase 3's 8 requests on the slot-static engine
+    (``LLMServer(paged=False)``: a dense 512-token window a slot, the
+    prompt prefilled by the broadcast pass, the decode step one CUDA
+    graph) at depths 2 and 1: exact launch counts (each prefill's
+    linears at M = 8 x its prompt on their route, the decode linears on
+    the GEMV, no attention kernel), the same tokens at both depths, and
+    where they part from the paged engine's (phase 3, same model)."""
+    prompts = _phase3_prompts(torch, model.config)
+    kw = dict(SERVE_7B, paged=False)
+    row, outs = _serve_run(torch, model, prompts, 32,
+                           "7B slot-static depth 2", **kw)
+    row1, outs1 = _serve_run(torch, model, prompts, 32,
+                             "7B slot-static depth 1", pipeline_depth=1,
+                             **kw)
+    check(outs1 == outs, "7B slot-static tokens at depth 1 differ from "
+          "depth 2")
+    return {"phase": "serve_slotted", "model": "Llama-2-7B q4_0 (phase "
+            "3's model)", **row, "depth1": row1,
+            "depth1_tokens_equal": True,
+            "leading_tokens_equal_to_paged": [
+                _lead(a, b) for a, b in zip(outs, paged_outs)],
+            "paged": {k: paged_row[k] for k in (
+                "decode_tok_per_s", "decode_step_ms", "ttft_ms_mean",
+                "ttft_ms_max", "peak_mem_gb", "host_dispatch_ms_per_step")}}
+
+
+def profile_slotted(torch, model):
+    """The slot-static 7B decode step (batch 8, positions 33..316 in a
+    512-token window of random K/V): eager, then as the engine runs it,
+    one captured CUDA graph (``bind_slotted_step``) held bit for bit
+    against the eager step over 4 steps (tokens, logits, positions, the
+    cache), both traced as in phase 4."""
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.kernels.sampling import sample_tokens
+    from bigdl_tpu_torch.llm.models.llama import init_cache
+    from bigdl_tpu_torch.llm.serving import (bind_slotted_step,
+                                             slotted_decode_step)
+
+    cfg, dev, B = model.config, model.device, 8
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cache = init_cache(cfg, B, SERVE_7B["max_seq_len"],
+                       dtype=model.cache_dtype, device=dev)
+    for t in cache["k"], cache["v"]:
+        t.normal_(generator=gen)
+    st = {"k": cache["k"], "v": cache["v"],
+          "pos": torch.tensor([33, 73, 114, 155, 196, 236, 276, 316],
+                              dtype=torch.int32, device=dev),
+          "last": torch.randn((B, cfg.vocab_size), generator=gen,
+                              device=dev),
+          "active": torch.ones(B, dtype=torch.bool, device=dev),
+          "toks": torch.zeros(B, dtype=torch.int32, device=dev)}
+    del cache
+    g = {k: v.clone() for k, v in st.items()}
+    e = st
+
+    def eager():
+        t = sample_tokens(e["last"])
+        e["last"] = slotted_decode_step(model.params, cfg, e["k"], e["v"],
+                                        e["pos"], t)
+        e["pos"] = e["pos"] + e["active"].to(torch.int32)
+        return t
+
+    captured = CapturedStep(bind_slotted_step(
+        model.params, cfg, *(g[k] for k in (
+            "k", "v", "pos", "last", "active", "toks"))), dev)
+    with torch.inference_mode():
+        for i in range(4):
+            captured()
+            t = eager()
+            check(torch.equal(t, g["toks"])
+                  and torch.equal(e["last"], g["last"])
+                  and torch.equal(e["pos"], g["pos"]),
+                  f"graphed slot-static step {i} differs from the eager "
+                  "step")
+        check(torch.equal(e["k"], g["k"]) and torch.equal(e["v"], g["v"]),
+              "graphed slot-static steps wrote another cache than the "
+              "eager steps")
+    row = profile(torch, lambda: eager().cpu(),
+                  "7B slot-static decode step, batch 8, positions 37..")
+    del e, st
+    row["graph"] = profile_graphed(
+        torch, captured, lambda: g["toks"].cpu(),
+        "7B slot-static decode step as one CUDA graph, batch 8")
+    row["graph_bit_equal_to_eager_steps"] = 4
+    captured.close()
+    return row
 
 
 # -- phase 3b: the prefix cache and mixed dispatch at 7B -----------------------
@@ -1195,7 +1342,7 @@ def _mixed_run(torch, model, prompts, long_prompt, mixed, what):
         srv.submit(long_prompt[:192], max_new_tokens=2).get(timeout=600)
         w.get(timeout=600)
         check(not srv.errors, f"{what}: engine errors: {srv.errors}")
-        graphs = {"decode": srv._step}
+        graphs = {"decode": srv._decode}
         if mixed:
             check(list(srv._mixed_steps) == [MIXED_CHUNK],
                   f"{what}: mixed buckets {list(srv._mixed_steps)}")
@@ -1445,7 +1592,8 @@ def _spec_run(torch, model, prompts, spec, what):
         check(not srv.errors, f"{what}: engine errors: {srv.errors}")
 
         def snap():
-            return ({"decode": (srv._step.calls, srv._step.replays)} | {
+            return ({"decode": (srv._decode.calls,
+                                srv._decode.replays)} | {
                 b: (st.calls, st.replays)
                 for b, (st, _, _) in srv._spec_steps.items()},
                 srv.steps, srv.spec_passes, srv.spec_proposed_total,
@@ -1659,7 +1807,8 @@ def _priority_run(torch, model, batch, late, priority, what):
         srv._step_paged()
     while srv._inflight:
         srv._drain_next()
-    check(srv._step.graph is not None, f"{what}: the step was not captured")
+    check(srv._decode.graph is not None,
+          f"{what}: the step was not captured")
     steps0, saved0 = srv.steps, srv.prefix_tokens_saved
     kernels.reset_launch_counts()
     rb = [srv.submit(p, PRI_NEW, "batch") for p in batch]
@@ -1745,7 +1894,7 @@ def serve_priority(torch, model):
                                     for j in range(len(batch)) if j != v]}
 
 
-def reference_check(torch, dev, preset="llama2_7b"):
+def reference_check(torch, dev, preset="llama2_7b", moe_factor=None):
     """The served path on the card against the port's plain path on the
     CPU, on a small input: the ``preset``'s model (Llama-2-7B, or
     GLM-4-9B with its group of 16) at full width cut to 2 layers, the
@@ -1755,19 +1904,29 @@ def reference_check(torch, dev, preset="llama2_7b"):
     their largest magnitude: both sides run bf16 activations and f32
     accumulation, and differ only where bf16 rounds a value that the
     other side's f32 sums put a hair across a rounding boundary, or
-    where the card rounds P to bf16 in the prefill attention."""
+    where the card rounds P to bf16 in the prefill attention. With
+    ``moe_factor`` (Mixtral-8x7B): random bf16 weights at that expert
+    capacity factor, and a 12-token prompt (the CPU runs the experts in
+    bf16)."""
     import dataclasses
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.models.llama import (LlamaConfig,
                                                   LlamaForCausalLM,
+                                                  init_params,
                                                   paged_prefill_ragged)
     from bigdl_tpu_torch.llm.serving import paged_decode_step
 
     cfg = dataclasses.replace(getattr(LlamaConfig, preset)(),
                               num_hidden_layers=2)
-    gpu = LlamaForCausalLM.synthetic_q4(cfg, device=dev, seed=3)
-    cpu = LlamaForCausalLM(cfg, gpu.params, device="cpu")
     page, T, bucket = 16, 40, 64
+    if moe_factor is None:
+        gpu = LlamaForCausalLM.synthetic_q4(cfg, device=dev, seed=3)
+    else:
+        cfg = dataclasses.replace(cfg, expert_capacity_factor=moe_factor)
+        gpu = LlamaForCausalLM(cfg, init_params(cfg, 3, device=dev),
+                               device=dev)
+        T, bucket = 12, 16
+    cpu = LlamaForCausalLM(cfg, gpu.params, device="cpu")
     prompt = torch.randint(0, cfg.vocab_size, (1, bucket),
                            generator=torch.Generator().manual_seed(2))
     bt_row = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
@@ -1809,7 +1968,9 @@ def reference_check(torch, dev, preset="llama2_7b"):
     check(max(errs.values()) <= tol, f"card vs CPU logits: {errs}")
     return {"phase": "reference", "model": f"{preset} width (Hq "
             f"{cfg.num_attention_heads} / Hkv {cfg.num_key_value_heads}), "
-            "2 layers, synthetic q4_0", "prompt_tokens": T,
+            "2 layers, " + ("synthetic q4_0" if moe_factor is None else
+                            f"bf16, expert capacity factor {moe_factor}"),
+            "prompt_tokens": T,
             "card_launches": counts["gpu"],
             "max_rel_err_logits": errs, "tol": tol, "passed": True}
 
@@ -1961,17 +2122,20 @@ CKPT = {"model_type": "mistral", "architectures": ["MistralForCausalLM"],
 
 def _launch_expect(counts, model, rows, n, paged):
     """What one ``generate`` of ``n`` new tokens must launch: every
-    decoder linear (4 a layer) at the prefill and at each of the n
-    steps, the prefill's (``rows`` = batch x prompt) on the route the
-    rule gives its shapes, and with paged decode one stats kernel a
-    layer a step; the dense ``lm_head`` launches nothing."""
+    q4_0 decoder linear (4 a layer; none in a bf16 model) at the prefill
+    and at each of the n steps, the prefill's (``rows`` = batch x
+    prompt) on the route the rule gives its shapes, and with paged
+    decode one stats kernel a layer a step; the dense ``lm_head``
+    launches nothing."""
     from bigdl_tpu_torch.llm.kernels import matmul_route
     L = model.config.num_hidden_layers
+    layers = model.params["layers"]
+    qs = [k for k in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+          if "q" in layers.get(k, {})]
     want = dict.fromkeys(counts, 0)
-    want["int4_matmul"] = 4 * L * (1 + n)
+    want["int4_matmul"] = len(qs) * L * (1 + n)
     want["int4_matmul_tc"] = L * sum(
-        matmul_route(rows, model.params["layers"][k]["q"].shape[-1]) == "tc"
-        for k in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj"))
+        matmul_route(rows, layers[k]["q"].shape[-1]) == "tc" for k in qs)
     want["int4_matmul_gemv"] = want["int4_matmul"] - want["int4_matmul_tc"]
     if paged:
         want["paged_attention_decode_stats"] = L * n
@@ -2492,6 +2656,316 @@ def bert_path(torch, dev):
             "pipelines": rows}, prof
 
 
+# -- phase 9: Mixtral-8x7B, the mixture-of-experts FFN ------------------------
+
+# Mixtral-8x7B at full width, depth cut 32 -> 16 layers (~47 GB of bf16
+# weights: the whole model's 93 GB does not fit the card, and the JAX
+# package does not quantize expert weights)
+MIXTRAL_LAYERS = 16
+MIXTRAL_FACTORS = (1.25, 0.0)
+MIX_GEN = (4, 512, 32, 1024)       # generate: batch, prompt, new, cache
+
+
+def _mixtral_model(model, factor):
+    """``model`` at another expert capacity factor, sharing its weights."""
+    import dataclasses
+    from bigdl_tpu_torch.llm.models.llama import LlamaForCausalLM
+    return LlamaForCausalLM(
+        dataclasses.replace(model.config, expert_capacity_factor=factor),
+        model.params, max_cache_len=model.max_cache_len, device=model.device)
+
+
+def _drive(srv, reqs, late=(), late_after=4):
+    """Serve inline (``_admit`` then ``_step``, the engine loop's pass):
+    ``reqs`` are ``(prompt, new, class)`` submitted at once, ``late``
+    after ``late_after`` passes. Returns the request handles."""
+    out, n = [srv.submit(p, k, c) for p, k, c in reqs], 0
+    while len(out) < len(reqs) + len(late) or not all(
+            r.done.is_set() for r in out):
+        if n == late_after:
+            out += [srv.submit(p, k, c) for p, k, c in late]
+        srv._admit()
+        srv._step()
+        n += 1
+    while srv._inflight:
+        srv._drain_next()
+    return out
+
+
+def _moe_engine_runs(torch, model):
+    """(c) one short run each of ``kvcache=True`` + ``mixed=True``,
+    ``spec=True`` and ``priority=True`` (with the prefix cache), driven
+    inline: every request completes with in-vocab tokens of its count,
+    the decode graph and the mode's own graphs are captured and
+    replayed, and the mode did its work (mixed passes and cache hits,
+    verify passes, a preemption and its resume)."""
+    import numpy as np
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    cfg = model.config
+    gen = torch.Generator().manual_seed(21)
+
+    def rand(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+
+    shared = rand(128)
+    pattern = rand(24)
+    runs = {
+        "kvcache+mixed": (dict(kvcache=True, mixed=True, chunk_tokens=256,
+                               max_batch=8, max_seq_len=2048),
+                          [(np.concatenate([shared, rand(17 + 30 * j)]),
+                            32, None) for j in range(4)],
+                          [(rand(1024), 16, None)]),
+        "spec": (dict(spec=True, spec_k=8, **SERVE_7B),
+                 [(np.tile(pattern, 12), 64, None)], []),
+        "priority": (dict(priority=True, kvcache=True, max_batch=2,
+                          max_seq_len=512),
+                     [(rand(100 + 20 * j), 48, "batch") for j in range(2)],
+                     [(rand(60), 16, "interactive")]),
+    }
+    out = {}
+    for name, (kw, reqs, late) in runs.items():
+        srv = LLMServer(model, **kw)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hs = _drive(srv, reqs, late)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        graphs = {"decode": srv._decode} | {
+            f"mixed {b}": st for b, (st, _, _) in srv._mixed_steps.items()
+        } | {f"verify {b}": st for b, (st, _, _) in srv._spec_steps.items()}
+        replays = {k: g.replays for k, g in graphs.items()}
+        row = {"what": f"Mixtral {name}", "options": {
+            k: v for k, v in kw.items() if k != "max_seq_len"},
+            "requests": len(hs), "passes": srv.steps, "wall_s": wall,
+            "graph_replays": replays, "launches": counts,
+            "mixed_passes": srv.mixed_passes,
+            "prefill_chunks": srv.prefill_chunks_total,
+            "prefix_tokens_saved": srv.prefix_tokens_saved,
+            "spec_passes": srv.spec_passes,
+            "drafts_accepted": srv.spec_accepted_total,
+            "drafts_proposed": srv.spec_proposed_total,
+            "preemptions": srv.preemptions_total,
+            "resumes": srv.preempt_resumes_total}
+        srv.stop()
+        check(not srv.errors, f"Mixtral {name}: engine errors {srv.errors}")
+        for h, (_, k, _) in zip(hs, reqs + late):
+            check(len(h.tokens) == k and all(0 <= t < cfg.vocab_size
+                                             for t in h.tokens),
+                  f"Mixtral {name}: tokens {h.tokens}")
+        check(replays["decode"] > 0, f"Mixtral {name}: decode not replayed")
+        check(counts["paged_attention_decode_stats"] > 0
+              and counts["ragged_prefill_attention_tc"] > 0,
+              f"Mixtral {name}: kernels 2 / 3 did not run: {counts}")
+        mode = [v for k, v in replays.items() if k.startswith(
+            {"kvcache+mixed": "mixed", "spec": "verify"}.get(name, "-"))]
+        if name == "kvcache+mixed":
+            check(row["mixed_passes"] > 0 and row["prefix_tokens_saved"] > 0
+                  and any(mode), f"Mixtral {name}: {row}")
+        elif name == "spec":
+            check(row["spec_passes"] > 0 and any(mode),
+                  f"Mixtral {name}: {row}")
+        else:
+            check(row["preemptions"] >= 1
+                  and row["resumes"] == row["preemptions"],
+                  f"Mixtral {name}: {row}")
+        out[name] = row
+        del srv
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_step_checks(torch, model):
+    """A Mixtral batch-8 decode step (lengths 33..316 over random bf16
+    pools) at each capacity factor: the engine's step as one captured
+    CUDA graph against the eager step, bit for bit over 4 steps (ids,
+    logits, lengths, every real page); one layer's ``_moe_ffn`` and its
+    three expert products timed at the rows the factor gives them (the
+    step's 8 at no-drop, C = 3 places at 1.25) against their byte
+    bound (every expert's weights read once); no copy of an expert
+    weight in the eager step (``torch.profiler`` with shapes); and at
+    the preset factor the graphed step profiled as in phase 4."""
+    from torch.profiler import ProfilerActivity, profile as trace
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.models.llama import _moe_ffn, layer_params
+    from bigdl_tpu_torch.llm.serving import (bind_decode_step,
+                                             paged_decode_step_sampled)
+    cfg0, dev = model.config, model.device
+    B, page, cap = 8, 16, 32
+    E, I, H = cfg0.num_experts, cfg0.intermediate_size, cfg0.hidden_size
+    L, P = cfg0.num_hidden_layers, 1 + B * cap
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shape = (L, P, cfg0.num_key_value_heads, page, cfg0.head_dim)
+    base = {"kp": torch.randn(shape, generator=gen, device=dev).bfloat16(),
+            "vp": torch.randn(shape, generator=gen, device=dev).bfloat16(),
+            "bt": (1 + torch.arange(B * cap, device=dev)).reshape(
+                B, cap).to(torch.int32),
+            "lens": torch.tensor([33, 73, 114, 155, 196, 236, 276, 316],
+                                 dtype=torch.int32, device=dev),
+            "last": torch.randn((B, cfg0.vocab_size), generator=gen,
+                                device=dev),
+            "active": torch.ones(B, dtype=torch.bool, device=dev),
+            "toks": torch.zeros(B, dtype=torch.int32, device=dev)}
+    expert_bytes = 3 * E * I * H * 2
+    lp = layer_params(model.params["layers"], 0)
+    h = torch.randn((B, 1, H), generator=gen, device=dev).bfloat16()
+    out = {}
+    for factor in MIXTRAL_FACTORS:
+        m = _mixtral_model(model, factor)
+        cfg = m.config
+        g = {k: v.clone() for k, v in base.items()}
+        e = {k: v.clone() for k, v in base.items()}
+        captured = CapturedStep(bind_decode_step(
+            m.params, cfg, *(g[k] for k in (
+                "kp", "vp", "bt", "lens", "last", "active", "toks")),
+            page=page), dev)
+        with torch.inference_mode():
+            for i in range(4):
+                captured()
+                t, lg, _, _, ln = paged_decode_step_sampled(
+                    m.params, cfg, e["kp"], e["vp"], e["bt"], e["lens"],
+                    e["last"], e["active"], page=page)
+                e["last"], e["lens"] = lg, ln
+                check(torch.equal(t, g["toks"]) and torch.equal(
+                    lg, g["last"]) and torch.equal(ln, g["lens"]),
+                    f"graphed Mixtral step {i} (factor {factor}) differs "
+                    "from the eager step")
+            check(torch.equal(e["kp"][:, 1:], g["kp"][:, 1:])
+                  and torch.equal(e["vp"][:, 1:], g["vp"][:, 1:]),
+                  f"graphed Mixtral steps (factor {factor}) wrote other "
+                  "pages than the eager steps")
+            # one eager step traced with shapes: no copy of an expert
+            # weight (a copy would move 2.82 GB a layer, every step)
+            with trace(activities=[ProfilerActivity.CPU],
+                       record_shapes=True) as prof:
+                paged_decode_step_sampled(
+                    m.params, cfg, e["kp"], e["vp"], e["bt"], e["lens"],
+                    e["last"], e["active"], page=page)
+                torch.cuda.synchronize()
+        wshapes = ([E, I, H], [E, H, I], [I, H], [H, I])
+        copies = [(ev.name, ev.input_shapes) for ev in prof.events()
+                  if ev.name in ("aten::copy_", "aten::clone",
+                                 "aten::contiguous", "aten::_to_copy")
+                  and any(list(sh) in wshapes for sh in ev.input_shapes)]
+        check(not copies, f"Mixtral step copies an expert weight: {copies}")
+        bmms = sum(ev.name in ("aten::bmm", "aten::matmul")
+                   for ev in prof.events())
+        # the rows an expert's products take, as _moe_ffn sizes them:
+        # every row (no-drop), else C = ceil(S k / E * factor) places
+        rows = B if factor <= 0 else max(math.ceil(
+            B * cfg.num_experts_per_tok / E * factor), 1)
+        with torch.inference_mode():
+            moe_ms = time_ms(lambda: _moe_ffn(lp, h, cfg))
+            xin = torch.randn((E, rows, H), generator=gen,
+                              device=dev).bfloat16()
+            wg, wu, wd = (lp[n]["w"] for n in ("gate_proj", "up_proj",
+                                               "down_proj"))
+            a = torch.randn((E, rows, I), generator=gen,
+                            device=dev).bfloat16()
+            prod_ms = time_ms(lambda: (
+                torch.matmul(xin, wg.transpose(1, 2)),
+                torch.matmul(xin, wu.transpose(1, 2)),
+                torch.matmul(a, wd.transpose(1, 2))))
+        row = {"factor": factor, "graph_bit_equal_to_eager_steps": 4,
+               "expert_weight_copies": 0, "matmul_ops_per_step": bmms,
+               "moe_ffn_ms_per_layer": moe_ms,
+               "expert_products_ms_per_layer": prod_ms,
+               "expert_product_rows": rows,
+               "expert_bytes_per_layer": expert_bytes,
+               "expert_bound_ms_per_layer": bound(expert_bytes, 0)[0],
+               "moe_ffn_ms_per_step": moe_ms * L,
+               "capture_launches": dict(captured.launches)}
+        if factor == MIXTRAL_FACTORS[0]:
+            row["graph"] = profile_graphed(
+                torch, captured, lambda: g["toks"].cpu(),
+                f"Mixtral decode step as one CUDA graph, batch {B}, "
+                f"{L} layers, factor {factor}")
+        captured.close()
+        out[str(factor)] = row
+        del g, e, captured
+        torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_phase(torch, dev):
+    """Phase 9: Mixtral-8x7B (``LlamaConfig.mixtral_8x7b()``, 16 of 32
+    layers, every width as published: hidden 4096, 32 / 8 heads, D 128,
+    FFN 14336, 8 experts top-2, vocab 32000) in bf16, weights drawn on
+    the card one expert at a time from a seed by
+    ``AutoModelForCausalLM.from_pretrained``. The card-vs-CPU check on a
+    2-layer cut at both capacity factors; (a) ``generate`` 4 x 512, 32
+    new, paged then dense; (b) ``LLMServer`` on phase 3's 8 prompts at
+    capacity 1.25 and 0.0, depths 2 and 1 (exact launch counts: no
+    linear of ours, one kernel 3 a layer a prefill, one kernel 2 a layer
+    a step); (c) the prefix cache with mixed dispatch, speculation and
+    priority at 1.25; the graphed step held to the eager one and
+    profiled."""
+    import dataclasses
+    from bigdl_tpu_torch.llm.models.llama import LlamaConfig
+    from bigdl_tpu_torch.llm.transformers import AutoModelForCausalLM
+
+    refs = {str(f): reference_check(torch, dev, "mixtral_8x7b", f)
+            for f in MIXTRAL_FACTORS}
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(),
+                              num_hidden_layers=MIXTRAL_LAYERS)
+    B, T, n, cache_len = MIX_GEN
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = AutoModelForCausalLM.from_pretrained(
+        cfg, max_cache_len=cache_len, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(model.params))
+
+    ids = torch.randint(0, cfg.vocab_size, (B, T),
+                        generator=torch.Generator().manual_seed(19)).numpy()
+    gen_rows = {}
+    gen_rows["paged"], out_p = _generate_run(torch, model, ids, n, "paged")
+    model.paged_decode = False
+    gen_rows["dense"], out_d = _generate_run(torch, model, ids, n, "dense")
+    model.paged_decode = True
+    gen_rows["dense"]["leading_tokens_equal_to_paged"] = [
+        _lead(out_p[r, T:].tolist(), out_d[r, T:].tolist())
+        for r in range(B)]
+    torch.cuda.empty_cache()
+
+    prompts = _phase3_prompts(torch, cfg)
+    serve = {}
+    for f in MIXTRAL_FACTORS:
+        m = _mixtral_model(model, f)
+        r2, o2 = _serve_run(torch, m, prompts, 32,
+                            f"Mixtral factor {f} depth 2", **SERVE_7B)
+        r1, o1 = _serve_run(torch, m, prompts, 32,
+                            f"Mixtral factor {f} depth 1",
+                            pipeline_depth=1, **SERVE_7B)
+        if f <= 0:
+            # no-drop: a row's experts do not depend on the other rows
+            check(o1 == o2, "Mixtral no-drop tokens differ by depth")
+        r2["depth1"] = r1
+        r2["depth1_leading_equal_tokens"] = [_lead(a, b)
+                                             for a, b in zip(o1, o2)]
+        serve[str(f)] = r2
+        torch.cuda.empty_cache()
+    engine = _moe_engine_runs(torch, model)
+    steps = _moe_step_checks(torch, model)
+    busy = steps[str(MIXTRAL_FACTORS[0])]["graph"]["device_busy_ms"]
+    for f, r in serve.items():
+        for d in (r, r["depth1"]):
+            d["idle_share_vs_profiled_busy"] = (
+                1 - busy / d["decode_step_ms"] if busy else None)
+    del model
+    torch.cuda.empty_cache()
+    return {"phase": "mixtral", "model": "Mixtral-8x7B (bf16, random "
+            f"weights from seed 0, {MIXTRAL_LAYERS} of 32 layers, full "
+            "width)", "entry": "AutoModelForCausalLM.from_pretrained("
+            "LlamaConfig.mixtral_8x7b() cut to 16 layers)",
+            "weights_gb": weight_bytes / 1e9, "build_s": build_s,
+            "reference": refs, "generate": gen_rows, "serve": serve,
+            "engine_modes": engine, "step": steps}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2567,6 +3041,11 @@ def main() -> int:
     emit(mprof)
     sprof = profile_spec(torch, model)
     emit(sprof)
+    torch.cuda.empty_cache()
+    slot = serve_slotted(torch, model, serve, serve["outputs"])
+    emit(slot)
+    slot_prof = profile_slotted(torch, model)
+    emit(slot_prof)
     del model
     torch.cuda.empty_cache()
     bert, bert_prof = bert_path(torch, dev)
@@ -2583,6 +3062,9 @@ def main() -> int:
     glm, glm_prof = glm_phase(torch, dev)
     emit(glm)
     emit(glm_prof)
+    torch.cuda.empty_cache()
+    mix = mixtral_phase(torch, dev)
+    emit(mix)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
@@ -2605,6 +3087,16 @@ def main() -> int:
         paths[f"generate {row['what']}"] = dict(row["launches"])
     paths["serve GLM-4-9B"] = dict(glm["serve"]["launches"])
     paths["serve GLM-4-9B depth 1"] = dict(glm["serve"]["depth1"]["launches"])
+    paths["serve_7b slot-static"] = dict(slot["launches"])
+    paths["serve_7b slot-static depth 1"] = dict(slot["depth1"]["launches"])
+    for name, row in mix["generate"].items():
+        paths[f"generate Mixtral {name}"] = dict(row["launches"])
+    for f, row in mix["serve"].items():
+        paths[f"serve Mixtral factor {f}"] = dict(row["launches"])
+        paths[f"serve Mixtral factor {f} depth 1"] = dict(
+            row["depth1"]["launches"])
+    for name, row in mix["engine_modes"].items():
+        paths[f"serve Mixtral {name}"] = dict(row["launches"])
 
     # a two-kernel wrapper's count covers both routes: a dequant-matmul's
     # calls are its GEMV and tensor-core launches, ragged prefill's
@@ -2734,6 +3226,29 @@ def main() -> int:
         "victim_max_gap_ms_on_off": pri["victim_max_gap_ms_on_off"],
         "preemptions": pri["on"]["preemptions_total"],
         "resume_tokens_reused": pri["on"]["resume_tokens_reused"]}
+    host_out["7B slot-static served"] = {
+        "profiled": slot_prof["what"],
+        "eager_step_wall_ms": slot_prof["step_wall_ms"],
+        "graphed_step_wall_ms": slot_prof["graph"]["step_wall_ms"],
+        "graphed_step_busy_ms": slot_prof["graph"]["device_busy_ms"],
+        "graphed_host_calls_per_step":
+            slot_prof["graph"]["host_launch_calls_per_step"],
+        **{f"{d}_{k}": r[k] for d, r in (("depth2", slot),
+                                          ("depth1", slot["depth1"]))
+           for k in ("decode_step_ms", "decode_tok_per_s", "ttft_ms_mean",
+                     "peak_mem_gb")},
+        **{f"paged_{k}": v for k, v in slot["paged"].items()}}
+    mstep = mix["step"][str(MIXTRAL_FACTORS[0])]
+    host_out["Mixtral served"] = {
+        "profiled": mstep["graph"]["what"],
+        "graphed_step_wall_ms": mstep["graph"]["step_wall_ms"],
+        "graphed_step_busy_ms": mstep["graph"]["device_busy_ms"],
+        "graphed_host_calls_per_step":
+            mstep["graph"]["host_launch_calls_per_step"],
+        **{f"factor {f} {d}_{k}": r[k] for f, r0 in mix["serve"].items()
+           for d, r in (("depth2", r0), ("depth1", r0["depth1"]))
+           for k in ("decode_step_ms", "decode_tok_per_s", "ttft_ms_mean",
+                     "idle_share_vs_profiled_busy")}}
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
               "route_sweep": sweep,
@@ -2746,6 +3261,8 @@ def main() -> int:
               "serve_priority": pri, "profile_spec": sprof,
               "bert_profile": bert_prof, "generate": gen_row,
               "generate_profile": gen_prof, "checkpoint": ckpt,
+              "serve_slotted": slot, "profile_slotted": slot_prof,
+              "mixtral": mix,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

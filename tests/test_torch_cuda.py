@@ -11,7 +11,9 @@ The last tests run the served decode step and ``generate``'s paged step
 as captured CUDA graphs (``llm/graphs.py``): bit for bit against the
 eager step, with exact launch counts, at pipeline depths 1 and 2; then
 the mixed and speculative verify steps alike, and the served prefix
-cache, mixed dispatch, speculation and preemption.
+cache, mixed dispatch, speculation and preemption; then the same steps
+of a mixture-of-experts model at both capacity modes, the slot-static
+engine's step, and both engines served.
 The CPU parity of the plain versions against the JAX package lives in
 ``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``,
 and of ``generate`` in ``tests/test_torch_generate.py``.
@@ -873,6 +875,19 @@ def _tiny_card_model(cuda):
                                          seed=6)
 
 
+def _tiny_moe_card_model(cuda, factor):
+    """tiny_moe at expert capacity ``factor``, random bf16 weights made on
+    the card (MoE experts stay bf16, as in the JAX package)."""
+    import dataclasses
+    from bigdl_tpu_torch.llm.models.llama import (LlamaConfig,
+                                                  LlamaForCausalLM,
+                                                  init_params)
+    cfg = dataclasses.replace(LlamaConfig.tiny_moe(),
+                              expert_capacity_factor=factor)
+    return LlamaForCausalLM(cfg, init_params(cfg, 6, device=cuda),
+                            device=cuda)
+
+
 def test_captured_served_step_equals_eager(cuda):
     """The served decode step as one CUDA graph against the eager
     ``paged_decode_step_sampled`` on copies of the same buffers: tokens,
@@ -880,11 +895,14 @@ def test_captured_served_step_equals_eager(cuda):
     the rest replays; lengths 13 and 15 cross a page, one row inactive).
     The counters read 6 steps' launches: the warm-up's from Python, each
     replay's as the capture's delta."""
+    _captured_decode_check(_tiny_card_model(cuda), cuda)
+
+
+def _captured_decode_check(model, cuda):
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.graphs import CapturedStep
     from bigdl_tpu_torch.llm.serving import (bind_decode_step,
                                              paged_decode_step_sampled)
-    model = _tiny_card_model(cuda)
     cfg, B, cap = model.config, 4, 4
     g = torch.Generator(device=cuda).manual_seed(7)
     shape = (cfg.num_hidden_layers, 1 + B * cap, cfg.num_key_value_heads,
@@ -949,8 +967,8 @@ def test_served_depths_equal_generate(cuda):
     want = [model.generate(p[None], max_new_tokens=10)[0, len(p):].tolist()
             for p in prompts]
     d2, srv = _serve_tiny(model, prompts, 10)
-    assert srv.pipeline_depth == 2 and srv._step.graph is None
-    assert srv._step.capture_seconds > 0 and srv.errors == []
+    assert srv.pipeline_depth == 2 and srv._decode.graph is None
+    assert srv._decode.capture_seconds > 0 and srv.errors == []
     d1, _ = _serve_tiny(model, prompts, 10, pipeline_depth=1)
     assert d2 == d1 == want
 
@@ -997,12 +1015,15 @@ def test_captured_mixed_step_equals_eager(cuda):
     in chunks of 16, a COW fork at the first): tokens, logits, ``clast``,
     lengths and pools bit for bit; one capture, every later pass a
     replay whose launches the counters read."""
+    _captured_mixed_check(_tiny_card_model(cuda), cuda)
+
+
+def _captured_mixed_check(model, cuda):
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.graphs import CapturedStep
     from bigdl_tpu_torch.llm.models.llama import paged_step_mixed
     from bigdl_tpu_torch.llm.serving import (bind_mixed_step, chunk_operands,
                                              prefill_operands)
-    model = _tiny_card_model(cuda)
     cfg, cap, bucket = model.config, 8, 16
     st = _mixed_state(model, cuda, cap=cap)
     st["ops"] = torch.zeros(3 * bucket + 4 + cap, dtype=torch.int32,
@@ -1159,13 +1180,15 @@ def test_captured_spec_step_equals_eager(cuda, bucket):
     bit; one
     capture, every later pass a replay whose launches the counters
     read."""
-    import numpy as np
+    _captured_spec_check(_tiny_card_model(cuda), cuda, bucket)
+
+
+def _captured_spec_check(model, cuda, bucket):
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.graphs import CapturedStep
     from bigdl_tpu_torch.llm.models.llama import paged_step_spec
     from bigdl_tpu_torch.llm.serving import (bind_spec_step, spec_operands,
                                              verify_operands)
-    model = _tiny_card_model(cuda)
     cfg, cap, B = model.config, 8, 4
     st = _mixed_state(model, cuda, cap=cap)
     st["active"][2] = False                  # the verify row sits out
@@ -1324,3 +1347,105 @@ def test_served_spec_and_priority_on_card(cuda):
         assert all(0 <= t < V for t in toks[j]) and len(toks[j]) == 24
     assert any(r is not None for r in resume)
     assert np.all([len(t) == 24 for t in runs[False][0]])
+
+
+@pytest.mark.parametrize("factor", [1.25, 0.0])
+def test_captured_moe_steps_equal_eager(cuda, factor):
+    """The decode, mixed and verify steps of a tiny MoE model (bf16
+    experts, capacity mode and no-drop mode) as CUDA graphs against
+    their eager steps, bit for bit on every real page: the routing and
+    the capacity dispatch are device ops, capture-safe."""
+    model = _tiny_moe_card_model(cuda, factor)
+    _captured_decode_check(model, cuda)
+    _captured_mixed_check(model, cuda)
+    for bucket in (2, 8):
+        _captured_spec_check(model, cuda, bucket)
+
+
+@pytest.mark.parametrize("factor", [1.25, 0.0])
+def test_tiny_moe_card_vs_cpu(cuda, factor):
+    """tiny_moe, the same f32 weights on the card and on the CPU: the
+    prefill logits of two 24-token rows within 2e-2 of their largest
+    magnitude, and ``generate`` on the card with one stats kernel a
+    layer a step (paged) and none dense."""
+    import dataclasses
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.models.llama import (LlamaConfig,
+                                                  LlamaForCausalLM,
+                                                  init_params)
+    cfg = dataclasses.replace(LlamaConfig.tiny_moe(),
+                              expert_capacity_factor=factor)
+    params = init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    ids = torch.randint(0, 256, (2, 24),
+                        generator=torch.Generator().manual_seed(0)).numpy()
+    cpu = LlamaForCausalLM(cfg, params, 64, torch.float32, device="cpu")
+    card = LlamaForCausalLM(cfg, params, 64, torch.float32, device=cuda)
+    lc, _ = cpu(ids)
+    lg, _ = card(ids)
+    assert ((lg.cpu() - lc).abs().max() / lc.abs().max()).item() < 2e-2
+    n, L = 8, cfg.num_hidden_layers
+    for paged in (True, False):
+        card.paged_decode = paged
+        kernels.reset_launch_counts()
+        out = card.generate(ids, max_new_tokens=n)
+        assert kernels.launch_counts()["paged_attention_decode_stats"] == \
+            (L * n if paged else 0)
+        assert out.shape == (2, 24 + n) and out.max() < 256
+
+
+def test_captured_slotted_step_equals_eager(cuda):
+    """The slot-static decode step as one CUDA graph
+    (``bind_slotted_step``) against the eager ``slotted_decode_step`` on
+    copies of the same buffers over 6 steps: tokens, logits, positions
+    and the cache bit for bit; one row inactive and one at the end of
+    its window (it writes nothing)."""
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.kernels.sampling import sample_tokens
+    from bigdl_tpu_torch.llm.models.llama import init_cache
+    from bigdl_tpu_torch.llm.serving import (bind_slotted_step,
+                                             slotted_decode_step)
+    model = _tiny_card_model(cuda)
+    cfg, B, S = model.config, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(7)
+    cache = init_cache(cfg, B, S, device=cuda)
+    for t in cache["k"], cache["v"]:
+        t.normal_(generator=g)
+    st = {"k": cache["k"], "v": cache["v"],
+          "pos": torch.tensor([13, 40, S, 5], dtype=torch.int32,
+                              device=cuda),
+          "last": torch.randn((B, cfg.vocab_size), generator=g,
+                              device=cuda),
+          "active": torch.tensor([True, True, False, False], device=cuda),
+          "toks": torch.zeros(B, dtype=torch.int32, device=cuda)}
+    e = {k: v.clone() for k, v in st.items()}
+    step = CapturedStep(bind_slotted_step(model.params, cfg, *(st[k] for k in (
+        "k", "v", "pos", "last", "active", "toks"))), cuda)
+    for _ in range(6):
+        step()
+        t = sample_tokens(e["last"])
+        e["last"] = slotted_decode_step(model.params, cfg, e["k"], e["v"],
+                                        e["pos"], t)
+        e["pos"] = e["pos"] + e["active"].to(torch.int32)
+        assert torch.equal(t, st["toks"]) and torch.equal(
+            e["last"], st["last"]) and torch.equal(e["pos"], st["pos"])
+    assert step.graph is not None and step.replays == 5
+    assert torch.equal(e["k"], st["k"]) and torch.equal(e["v"], st["v"])
+    assert e["pos"].tolist() == [19, 46, S, 5]
+
+
+def test_served_moe_and_slotted_on_card(cuda):
+    """The engine on the card: tiny_moe (no-drop mode: a row's experts
+    do not depend on the other rows, whatever the thread's schedule)
+    served at depths 2 and 1 and tiny q4_0 on the slot-static engine at
+    depths 2 and 1, through their captured decode steps: every request
+    completes with in-vocab tokens, the same at both depths."""
+    prompts = [torch.randint(0, 256, (k,), generator=torch.Generator()
+                             .manual_seed(k)).numpy() for k in (5, 17, 30)]
+    for model, kw in ((_tiny_moe_card_model(cuda, 0.0), {}),
+                      (_tiny_card_model(cuda), {"paged": False})):
+        runs = [_serve_tiny(model, prompts, 10, pipeline_depth=d, **kw)
+                for d in (2, 1)]
+        for toks, srv in runs:
+            assert srv.errors == [] and srv._decode.capture_seconds > 0
+            assert all(len(t) == 10 and max(t) < 256 for t in toks)
+        assert runs[0][0] == runs[1][0]

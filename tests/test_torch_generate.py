@@ -28,6 +28,7 @@ from bigdl_tpu.parallel.ring_attention import (
 from bigdl_tpu_torch.llm.convert import params_from_numpy
 from bigdl_tpu_torch.llm.models import llama as tl
 from bigdl_tpu_torch.llm.serving import LLMServer
+from bigdl_tpu_torch.llm.transformers import AutoModelForCausalLM
 from bigdl_tpu_torch.parallel.ring_attention import online_block_update
 
 CACHE = 64
@@ -214,15 +215,10 @@ class TestForward:
 class TestParams:
     @pytest.mark.parametrize("preset", [
         "llama2_7b", "llama3_8b", "mistral_7b", "qwen2_7b", "tiny_qwen2",
-        "glm4_9b", "tiny_glm", "tiny"])
+        "glm4_9b", "tiny_glm", "tiny", "mixtral_8x7b", "tiny_moe"])
     def test_presets_equal_jax(self, preset):
         assert dataclasses.asdict(getattr(tl.LlamaConfig, preset)()) == \
             dataclasses.asdict(getattr(jl.LlamaConfig, preset)())
-
-    @pytest.mark.parametrize("preset", ["mixtral_8x7b", "tiny_moe"])
-    def test_moe_presets_raise(self, preset):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            getattr(tl.LlamaConfig, preset)()
 
     @pytest.mark.parametrize("raw", [
         {"model_type": "mistral", "hidden_size": 64, "sliding_window": 16,
@@ -452,9 +448,21 @@ class TestFacade:
         with pytest.raises(NotImplementedError, match="eager"):
             tl.LlamaForCausalLM(tl.LlamaConfig.tiny(), tp, decode_unroll=8,
                                 device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            tl.LlamaForCausalLM(dataclasses.replace(
-                tl.LlamaConfig.tiny(), num_experts=4), tp, device="cpu")
+        # MoE expert weights refuse q4_0 as in the JAX package, word for
+        # word: in quantize_params and, before any weight, from_config
+        jp = jl.init_params(jl.LlamaConfig.tiny_moe(), 0, dtype=jnp.float32)
+        with pytest.raises(NotImplementedError) as want:
+            jl.quantize_params(jp, "sym_int4")
+        moe = tl.LlamaConfig.tiny_moe()
+        for call in (lambda: tl.quantize_params(params_from_numpy(
+                         _np_tree(jp), "cpu"), "sym_int4"),
+                     lambda: tl.LlamaForCausalLM.from_config(
+                         moe, load_in_low_bit="sym_int4", device="cpu"),
+                     lambda: AutoModelForCausalLM.from_pretrained(
+                         moe, load_in_4bit=True, device="cpu")):
+            with pytest.raises(NotImplementedError) as got:
+                call()
+            assert str(got.value) == str(want.value)
 
     def test_entry_points_raise_without_gpu(self, monkeypatch, tiny_q4):
         _, _, tp = tiny_q4

@@ -234,7 +234,7 @@ def test_capture_carries_gemv_launches():
 class TestEngineRules:
     @pytest.mark.parametrize("opt", [
         {"kvtier": True}, {"host_pages": 4},
-        {"slo": True}, {"watchdog_timeout": 5.0}, {"paged": False}])
+        {"slo": True}, {"watchdog_timeout": 5.0}])
     def test_unsupported_options_raise(self, pair, opt):
         _, tm = pair
         with pytest.raises(NotImplementedError, match="ROADMAP"):
