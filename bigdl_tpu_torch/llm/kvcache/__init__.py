@@ -15,13 +15,17 @@
 
 ``enabled=False`` (the default) keeps the manager a pool wrapper: no
 index, every admission charges the full worst case, and page ids flow
-in the JAX engine's order.
+in the JAX engine's order. With the host tier attached
+(:meth:`KVCacheManager.attach_tier`, ``bigdl_tpu_torch/llm/kvtier``),
+evicted full pages spill to the host arena, an admission extends its
+match with the arena chunks that continue it and parks while they
+upload (:meth:`~KVCacheManager.materialize` lands them, and
+:meth:`~KVCacheManager.degrade` turns a failed fetch into a plain miss),
+and :meth:`~KVCacheManager.chain_locations` walks a chain across both
+tiers for the handoff export.
 
-Not ported here: the host KV tier (``attach_tier``, ``_spill``,
-``materialize``, ``degrade``, the ``fetch*`` fields of
-:class:`Admission`; ROADMAP Queue 1 item 6(f)), ``chain_locations`` (the
-handoff export, 6(f)), and the ``kvcache.evict`` fault site and metric
-instruments (reliability and observability, item 8).
+Not ported here: the ``kvcache.evict`` fault site and the metric
+instruments (reliability and observability, ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -43,10 +47,18 @@ class Admission:
     ``shared_pages`` the adopted full-prefix pages (one pool ref and a
     possibly shared pin each); ``tail_src`` the COW fork source when the
     match ended mid-page (a transient ref and pin, dropped once the
-    prefill that copies it is dispatched)."""
+    prefill that copies it is dispatched).
+
+    Host tier: when the match continues in the host arena, ``fetch``
+    names its ``(key, slot)`` chunks, ``fetch_job`` the migration
+    uploading them and ``fetch_reserved`` the budget pre-charged for
+    their pool pages. ``matched_len`` already includes them; a failed
+    fetch rolls it back to ``device_matched`` (:meth:`KVCacheManager.
+    degrade`) and the pre-charge becomes plain suffix budget."""
 
     __slots__ = ("matched_len", "shared_pages", "tail_src", "tail_len",
-                 "charge")
+                 "charge", "fetch", "fetch_job", "fetch_reserved",
+                 "device_matched")
 
     def __init__(self, matched_len: int = 0,
                  shared_pages: Optional[List[int]] = None,
@@ -57,6 +69,10 @@ class Admission:
         self.tail_src = tail_src
         self.tail_len = tail_len
         self.charge = charge
+        self.fetch: List[Any] = []
+        self.fetch_job = None
+        self.fetch_reserved = 0
+        self.device_matched = matched_len
 
 
 class KVCacheManager:
@@ -71,11 +87,97 @@ class KVCacheManager:
         self.enabled = bool(enabled)
         self.index: Optional[RadixIndex] = (
             RadixIndex(self.pool) if self.enabled else None)
+        # the host tier and the engine's page reader / writer, set by
+        # attach_tier; None leaves every tier branch below out
+        self.tier = None
+        self._read_page = None
+        self._write_pages = None
         self._lock = threading.RLock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
         self.prefix_tokens_reused = 0
+
+    # -- host tier -----------------------------------------------------------
+    def attach_tier(self, tier, reader, writer):
+        """Arm the host tier. ``reader(pid)`` enqueues a copy of one page
+        of the engine's pools and returns ``(k, v, ready)``, ``ready``
+        the event behind the copy (None on the CPU); engine thread only,
+        so the copy is enqueued before any later reuse of the id.
+        ``writer(pids, k_devs, v_devs, ready)`` writes fetched pages into
+        the pools in place."""
+        if not self.enabled:
+            raise ValueError(
+                "the host tier extends the prefix cache: enable "
+                "bigdl.llm.kvcache first")
+        self.tier = tier
+        self._read_page = reader
+        self._write_pages = writer
+
+    def _spill(self, token_path, pid: int):
+        """Eviction hook: send the page to the host arena before its id is
+        freed. Best effort: any failure (every slot pinned, a failed
+        copy) leaves the eviction a plain drop."""
+        if len(token_path) % self.page:
+            return              # partial tails prefill again on a miss
+        key = tuple(token_path)
+        slot = self.tier.arena.reserve(key)
+        if slot is None:
+            return              # every slot pinned: skip this spill
+        try:
+            self.tier.migrator.submit_spill(key, slot, *self._read_page(pid))
+        except Exception:  # noqa: BLE001 — a spill is an optimisation
+            self.tier.arena.abort(slot)     # no reserved slot left behind
+            return
+        self.tier.count_spill()
+
+    def materialize(self, adm: Admission, k_devs, v_devs, ready=None):
+        """Land a completed fetch: take pool pages (evicting if need be),
+        write the uploaded pages into them (``ready``: the uploads'
+        event), index the chunks and turn the admission's pre-charge
+        into ordinary pinned adoption. After this the admission is a
+        device prefix hit."""
+        with self._lock:
+            n = len(adm.fetch)
+            if n == 0:
+                return
+            self.ensure_free(n)
+            pids = [self.pool.take_free() for _ in range(n)]
+            self._write_pages(pids, k_devs, v_devs, ready)
+            # index under the chain's identity: the device-matched chunks
+            # keep their nodes, the fetched ones take one index ref each;
+            # a chunk indexed meanwhile by another request keeps its page
+            # and ours stays request-private (freed at EOS)
+            chain = list(adm.fetch[-1][0])
+            self.index.insert(chain, list(adm.shared_pages) + pids)
+            for pid in pids:
+                # take_free's ref becomes the adoption ref; the pin uses
+                # the admission's pre-charge
+                self.pool.pin_precharged(pid)
+            adm.shared_pages.extend(pids)
+            adm.fetch_reserved = 0
+            adm.fetch = []
+            adm.fetch_job = None
+            self.prefix_tokens_reused += n * self.page
+            self.tier.count_fetch(n)
+
+    def degrade(self, adm: Admission):
+        """A failed, timed-out or cancelled fetch becomes a plain miss:
+        the match rolls back to its device part and the pre-charge turns
+        1:1 into the suffix budget of the extra prefill pages (the arena
+        pins are the worker's to release)."""
+        with self._lock:
+            if not adm.fetch:
+                return
+            if adm.fetch_job is not None:
+                adm.fetch_job.cancelled = True
+            adm.charge += adm.fetch_reserved
+            adm.fetch_reserved = 0
+            adm.fetch = []
+            adm.fetch_job = None
+            adm.matched_len = adm.device_matched
+            adm.tail_src, adm.tail_len = None, 0
+            self.tier.count_fetch_failure()
 
     # -- admission -----------------------------------------------------------
     def suffix_budget(self, prompt_len: int, max_new: int,
@@ -88,16 +190,27 @@ class KVCacheManager:
 
     def peek(self, prompt_ids, max_new: int) -> Dict[str, int]:
         """Read-only suffix cost: no refs taken, no LRU touch, no
-        counters."""
+        counters. Host-resident chunks cut the prefill, not the budget
+        (each fetched page pre-charges a page): ``matched_tokens``
+        counts them, ``matched_device`` and ``pages_needed`` do not."""
         with self._lock:
-            matched = 0
+            matched = matched_total = 0
             if self.enabled:
                 m = self.index.lookup(prompt_ids, touch=False)
-                matched = min(m.matched_len, len(prompt_ids) - 1)
+                matched = matched_total = min(m.matched_len,
+                                              len(prompt_ids) - 1)
+                if self.tier is not None:
+                    base = len(m.full_pages) * self.page
+                    host = self.tier.arena.lookup_chunks(
+                        prompt_ids, base, len(prompt_ids) - 1, touch=False)
+                    if host:
+                        matched = base
+                        matched_total = base + len(host) * self.page
             return {"pages_needed": self.suffix_budget(
                         len(prompt_ids), max_new, matched),
                     "pages_free": self.pool.budget_avail,
-                    "matched_tokens": matched, "matched_device": matched}
+                    "matched_tokens": matched_total,
+                    "matched_device": matched}
 
     def admit(self, prompt_ids, max_new: int,
               chunk_pages: Optional[int] = None) -> Optional[Admission]:
@@ -110,7 +223,14 @@ class KVCacheManager:
         ``chunk_pages`` (chunked admission): charge only the first
         chunk's pages; later chunks extend the charge with
         :meth:`charge_chunk`, and the final one tops up the decode
-        budget, so the sum equals the unchunked charge."""
+        budget, so the sum equals the unchunked charge. The host tier is
+        bypassed in this mode.
+
+        With the host tier, arena chunks continuing the device's full
+        pages extend the match (a host chunk beats a device tail, so the
+        tail is dropped); each pre-charges the pool page it will take,
+        and the admission comes back with ``fetch`` armed and its upload
+        submitted."""
         T = len(prompt_ids)
         with self._lock:
             if not self.enabled:
@@ -121,6 +241,14 @@ class KVCacheManager:
                 self.pool.charge(charge)
                 return Admission(charge=charge)
             m = self.index.lookup(prompt_ids)
+            host_chunks = []
+            if self.tier is not None and chunk_pages is None:
+                base = len(m.full_pages) * self.page
+                host_chunks = self.tier.arena.lookup_chunks(
+                    prompt_ids, base, T - 1)
+                if host_chunks:
+                    m.matched_len = base + len(host_chunks) * self.page
+                    m.tail_src, m.tail_len = None, 0
             # a fully cached prompt still runs >= 1 suffix token: the
             # engine needs its logits to start decoding
             if m.matched_len > T - 1:
@@ -136,19 +264,24 @@ class KVCacheManager:
                     m.tail_len = self.page - 1
             if not m.tail_len:
                 m.tail_src = None
+            n_fetch = len(host_chunks)
             charge = (chunk_pages if chunk_pages is not None
                       else self.suffix_budget(T, max_new, m.matched_len))
             adopt = list(m.full_pages)
             if m.tail_src is not None:
                 adopt.append(m.tail_src)
-            if charge + self.pool.pin_cost(adopt) > self.pool.budget_avail:
+            if charge + n_fetch + self.pool.pin_cost(adopt) > \
+                    self.pool.budget_avail:
                 return None
-            self.pool.charge(charge)
+            self.pool.charge(charge + n_fetch)
             for pid in adopt:
                 self.pool.incref(pid)
                 self.pool.pin(pid)
             adm = Admission(m.matched_len, m.full_pages, m.tail_src,
                             m.tail_len, charge)
+            adm.fetch_reserved = n_fetch
+            adm.device_matched = (len(m.full_pages) * self.page
+                                  if host_chunks else m.matched_len)
             try:
                 own_prompt = (chunk_pages if chunk_pages is not None
                               else _ceil_div(T, self.page)
@@ -157,24 +290,39 @@ class KVCacheManager:
             except BaseException:
                 self.cancel(adm)
                 raise
+            # arm the fetch last: nothing below raises, so cancel() never
+            # races the worker's arena unpins
+            if host_chunks:
+                for _key, slot in host_chunks:
+                    self.tier.arena.pin(slot)
+                adm.fetch = host_chunks
+                adm.fetch_job = self.tier.migrator.submit_fetch(host_chunks)
             if m.matched_len:
+                # host tokens count as reused only once their fetch lands
                 self.hits += 1
-                self.prefix_tokens_reused += m.matched_len
+                self.prefix_tokens_reused += adm.device_matched
             else:
                 self.misses += 1
             return adm
 
     def cancel(self, adm: Admission):
-        """Roll an admission back (a failed prefill): drop the adoption
-        refs and pins and the budget charge."""
+        """Roll an admission back (a failed prefill, an abort, a stop with
+        its fetch still parked): drop the adoption refs and pins, the
+        budget charge and any fetch pre-charge. The arena pins are the
+        worker's: cancelling the job makes it release them."""
         with self._lock:
             self.release_transient(adm)
             for pid in adm.shared_pages:
                 self.pool.decref(pid)
                 self.pool.unpin(pid)
             adm.shared_pages = []
-            self.pool.release(adm.charge)
+            if adm.fetch_job is not None:
+                adm.fetch_job.cancelled = True
+            self.pool.release(adm.charge + adm.fetch_reserved)
             adm.charge = 0
+            adm.fetch_reserved = 0
+            adm.fetch = []
+            adm.fetch_job = None
 
     def charge_chunk(self, adm: Admission, n: int) -> bool:
         """Extend a chunked admission's charge by ``n`` pages (the next
@@ -228,10 +376,24 @@ class KVCacheManager:
         with self._lock:
             self.index.insert(tokens, pages)
 
+    def chain_locations(self, tokens):
+        """Where a chain's cached FULL pages live now (the handoff
+        export's walk): device page ids of the radix-resident prefix,
+        then the ``(key, slot)`` arena chunks continuing it."""
+        with self._lock:
+            m = self.index.lookup(tokens)
+            dev = list(m.full_pages)
+            host = []
+            if self.tier is not None:
+                host = self.tier.arena.lookup_chunks(
+                    tokens, len(dev) * self.page, len(tokens))
+            return dev, host
+
     # -- physical pages ------------------------------------------------------
     def ensure_free(self, n: int):
         """Make ``n`` pages allocatable, LRU-evicting index-only chains
-        under pool pressure."""
+        under pool pressure (each evicted full page offered to the host
+        tier first)."""
         with self._lock:
             short = n - self.pool.free_pages()
             if short <= 0:
@@ -240,7 +402,8 @@ class KVCacheManager:
                 raise PagePoolError(
                     "page shortage with the prefix cache disabled: the "
                     "admission budget should have prevented this")
-            freed = self.index.evict_lru(short)
+            freed = self.index.evict_lru(
+                short, spill=self._spill if self.tier is not None else None)
             self.evictions += len(freed)
             if len(freed) < short:
                 raise PagePoolError(
@@ -279,6 +442,8 @@ class KVCacheManager:
                    "prefix_tokens_reused": self.prefix_tokens_reused}
             if self.index is not None:
                 out["index"] = self.index.stats()
+            if self.tier is not None:
+                out["tier"] = self.tier.debug_stats()
             return out
 
 

@@ -166,11 +166,12 @@ class RadixIndex:
     def evict_lru(self, n_pages: int, spill=None) -> List[int]:
         """Drop least-recently-used evictable leaves until ``n_pages``
         ids went back to the free list (or nothing evictable is left);
-        returns them in eviction order."""
-        if spill is not None:
-            raise NotImplementedError(
-                "evict_lru(spill=): the host KV tier is ROADMAP Queue 1 "
-                "item 6(f)")
+        returns them in eviction order.
+
+        ``spill`` (the host tier) is called as ``spill(token_path,
+        page_id)`` for each victim BEFORE its page is decref'd, while the
+        id cannot be reissued; best effort (the manager's hook swallows
+        its failures)."""
         freed: List[int] = []
         while len(freed) < n_pages:
             victim: Optional[RadixNode] = None
@@ -181,6 +182,8 @@ class RadixIndex:
                     victim = node
             if victim is None:
                 break
+            if spill is not None:
+                spill(self.token_path(victim), victim.page)
             del victim.parent.children[victim.chunk]
             self._nodes.remove(victim)
             self.pool.decref(victim.page)

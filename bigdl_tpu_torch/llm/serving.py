@@ -24,17 +24,20 @@ and its slot-static engine (``paged=False``):
   ``chunk_wait=``), the mixed step one CUDA graph per chunk bucket;
   model-free self-speculative decoding (``spec=``, ``spec_k=``), the
   verify step one CUDA graph per draft bucket; and priority classes
-  with lossless preemption (``priority=``, ``submit(priority=)``); and
-  the slot-static engine (``paged=False``: one ``max_seq_len`` window a
-  slot, its prompt prefilled by the broadcast pass, its decode step one
-  captured CUDA graph).
+  with lossless preemption (``priority=``, ``submit(priority=)``); the
+  host KV tier (``kvtier=``, ``host_pages=``) with the chain handoff
+  (``export_chain``, ``import_chain``) and a preempted chain's
+  "exported" mode; the drain and abort surface (``begin_drain``,
+  ``cancel_drain``, ``draining``, ``engine_idle``, ``warm_chains``,
+  ``abort``); and the slot-static engine (``paged=False``: one
+  ``max_seq_len`` window a slot, its prompt prefilled by the broadcast
+  pass, its decode step one captured CUDA graph).
 
 The engine's other options raise ``NotImplementedError`` naming their
-ROADMAP item; none is silently ignored. Not ported with speculation
-and preemption: their metric instruments, flight-recorder events and
-the ``llm.spec`` / ``llm.preempt`` fault sites (observability and
-reliability, ROADMAP Queue 1 item 8), and the host-tier export of a
-preempted chain (``_export_chain_locked``, item 6(f)).
+ROADMAP item; none is silently ignored. Not ported with these paths:
+their metric instruments, flight-recorder events and trace spans, the
+``llm.spec`` / ``llm.preempt`` / ``kvtier.*`` fault sites and the
+watchdog (observability and reliability, ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -59,6 +62,10 @@ from bigdl_tpu_torch.llm.kernels.paged_attention import (
 from bigdl_tpu_torch.llm.kernels.sampling import (make_sampled_step,
                                                   sample_tokens)
 from bigdl_tpu_torch.llm.kvcache import Admission, KVCacheManager
+from bigdl_tpu_torch.llm.kvtier import KVTier
+from bigdl_tpu_torch.llm.kvtier.handoff import (HandoffError, dtype_name,
+                                                deserialize_chain,
+                                                serialize_chain)
 from bigdl_tpu_torch.llm.models.llama import (_attention, decoder_layer,
                                               init_cache, layer_params,
                                               lm_logits, rms_norm)
@@ -461,6 +468,9 @@ class Request:
         self.resume_ids: Optional[np.ndarray] = None
         self.preemptions = 0
         self._hold_rec: Optional[dict] = None
+        # abort() sets it: the engine finishes the slot at its next drain
+        # (or skips the request if it is still queued or fetch-parked)
+        self.cancel_requested = False
         self.error: Optional[str] = None
         self.done = threading.Event()
         # TTFT accounting: submit stamp here, first-token stamp at drain;
@@ -480,8 +490,6 @@ class Request:
 # options of the JAX engine that the port does not implement yet, and the
 # ROADMAP item that will (asking for one raises; none is ignored)
 _NOT_PORTED = {
-    "kvtier": "the host KV tier is ROADMAP Queue 1 item 6(f)",
-    "host_pages": "the host KV tier is ROADMAP Queue 1 item 6(f)",
     "slo": "SLO accounting (observability) is ROADMAP Queue 1 item 8",
     "watchdog_timeout": "the engine watchdog (reliability) is ROADMAP "
                         "Queue 1 item 8",
@@ -552,6 +560,32 @@ class LLMServer:
     run's. It stays out of a slot until its last in-flight record has
     drained.
 
+    **Host KV tier** (``kvtier=True``, with ``kvcache=True``), as the JAX
+    engine's: radix-evicted full pages spill to a host-RAM arena of
+    ``host_pages`` page slots (default 4 x ``num_pages``; page-locked on
+    a card) instead of being dropped, copied out by a background
+    migration worker on its own stream. An admission whose prefix
+    continues in the arena pre-charges a pool page per host chunk and
+    parks, holding its budget but no slot, while the worker uploads the
+    chunks; the engine polls the upload at each pass, writes the pages
+    into the pool in place and admits the request as a device prefix
+    hit. A failed or timed-out fetch (``kvtier_fetch_timeout`` seconds,
+    default 30) degrades to a plain miss. ``kvtier_sync=True`` runs the
+    migrations inline (no thread: the deterministic tests).
+    ``kvtier_sync`` and ``kvtier_fetch_timeout`` are the JAX engine's
+    ``bigdl.llm.kvtier.sync`` and ``bigdl.llm.kvtier.fetch.timeout``
+    settings. :meth:`export_chain` packs a chain's cached full pages (in
+    the pool or the arena) into a handoff blob, :meth:`import_chain`
+    lands one in the arena, and a preempted chain is also exported
+    ("exported" mode, ``preempt_modes``) until its request resumes.
+
+    **Drain and abort**: :meth:`begin_drain` sheds new submits while the
+    accepted ones finish (:meth:`cancel_drain` undoes it),
+    :meth:`engine_idle` says when none is left anywhere (fetch-parked
+    ones included), :meth:`warm_chains` lists the maximal chains warm in
+    either tier, and :meth:`abort` cancels one accepted request, whose
+    slot and pages the engine releases at its next drain.
+
     **Pipelined dispatch**, as the JAX engine's. Block tables, lengths,
     the active mask and the last logits live on the device; a step reads
     them and advances lengths and logits in place, and the host changes
@@ -608,10 +642,13 @@ class LLMServer:
                  chunk_tokens: Optional[int] = None,
                  chunk_wait: Optional[float] = None,
                  spec: bool = False, spec_k: Optional[int] = None,
-                 priority: bool = False, device=None, **options):
+                 priority: bool = False, kvtier: bool = False,
+                 host_pages: Optional[int] = None, kvtier_sync: bool = False,
+                 kvtier_fetch_timeout: float = 30.0, device=None,
+                 **options):
         if not paged:
             # the JAX engine's refusals, in its order
-            if options.get("kvtier"):
+            if kvtier:
                 raise ValueError("the host tier is page-pool only; "
                                  "the slot-static cache has no pages")
             if mixed:
@@ -737,8 +774,22 @@ class LLMServer:
         self._preempt_rec: Optional[dict] = None
         self.preemptions_total = 0
         self.preempt_resumes_total = 0
+        # how each preempted chain was parked (dropped / indexed /
+        # exported), and the exported chains' blobs by request id until
+        # their requests resume
+        self.preempt_modes = {"dropped": 0, "indexed": 0, "exported": 0}
+        self._parked: Optional[Dict[str, bytes]] = {} if priority else None
         dev = self.device
         self._kv: Optional[KVCacheManager] = None
+        self._tier: Optional[KVTier] = None
+        # host-tier admissions parked while their pages upload, and the
+        # landed ones waiting for a slot (engine thread only)
+        self._fetch_wait: List[dict] = []
+        self._fetch_ready: List[tuple] = []
+        # the fetches landed and degraded, and their summed wait from
+        # parking to landing
+        self.fetch_waits = 0
+        self.fetch_wait_seconds = 0.0
         if paged:
             # block-table width: the JAX engine rounds it up to the Mosaic
             # block multiple (LANE // page); kept so tables compare like
@@ -755,6 +806,17 @@ class LLMServer:
                                         device=dev)
             self._kv = KVCacheManager(self._num_pages, page_size,
                                       enabled=kvcache)
+            if kvtier:
+                if not kvcache:
+                    raise ValueError(
+                        "bigdl.llm.kvtier extends the prefix cache: "
+                        "enable bigdl.llm.kvcache too")
+                self._tier = KVTier(host_pages or 4 * self._num_pages,
+                                    page_size, synchronous=kvtier_sync,
+                                    fetch_timeout=kvtier_fetch_timeout,
+                                    device=dev)
+                self._kv.attach_tier(self._tier, reader=self._read_page_kv,
+                                     writer=self._write_pages_kv)
             # host bookkeeping: the tables as of the latest dispatch
             self._bt = np.zeros((max_batch, self._pages_cap), np.int32)
             self._bt_dev = torch.zeros((max_batch, self._pages_cap),
@@ -891,6 +953,139 @@ class LLMServer:
         scheduler)."""
         return self._sched.parked() if self._sched is not None else 0
 
+    # -- the chain handoff ---------------------------------------------------
+    def export_chain(self, tokens) -> bytes:
+        """Pack the cached FULL pages of ``tokens`` into a handoff blob:
+        the pool's pages read under the engine lock (eviction cannot run
+        meanwhile; the copy is behind every write enqueued before it),
+        the arena's chunks that continue them read from the arena. Pages
+        evicted from both tiers are absent: the importer prefills
+        whatever is missing."""
+        if self._tier is None:
+            raise RuntimeError("KV handoff needs bigdl.llm.kvtier.enabled")
+        with self._lock:
+            return self._export_chain_locked(tokens)
+
+    def _export_chain_locked(self, tokens) -> bytes:
+        """The export, the caller holding ``self._lock`` (the preemption
+        path runs it from the engine thread)."""
+        dev, host = self._kv.chain_locations(tokens)
+        k_pages, v_pages = [], []
+        if dev:
+            # one gather and one copy to the host a side, in stream order
+            # behind every write of these pages (not a copy a page)
+            idx = torch.tensor(dev, dtype=torch.long, device=self.device)
+            k_pages, v_pages = (list(pool.index_select(1, idx).transpose(
+                0, 1).contiguous().cpu()) for pool in (self._k_pages,
+                                                       self._v_pages))
+        for key, slot in host:
+            # keyed copy: an import may LRU-re-key the slot between the
+            # lookup and here, and then the export stops at that chunk
+            pages = self._tier.arena.read_keyed(slot, key)
+            if pages is None:
+                break
+            k_pages.append(pages[0])
+            v_pages.append(pages[1])
+        blob = serialize_chain(np.asarray(tokens, np.int64)[
+            :len(k_pages) * self._page], k_pages, v_pages, self._page)
+        self._tier.count_handoff("export", len(blob))
+        return blob
+
+    def import_chain(self, blob: bytes) -> int:
+        """Land a handoff blob's pages in the HOST ARENA; no engine lock,
+        no device write: the next admission of the prompt hits the host
+        tier and the ordinary fetch uploads the pages. Returns the pages
+        imported (fewer than the blob's when the arena is saturated)."""
+        if self._tier is None:
+            raise RuntimeError("KV handoff needs bigdl.llm.kvtier.enabled")
+        toks, k_pages, v_pages, header = deserialize_chain(blob)
+        if not k_pages:
+            return 0
+        cfg = self.cfg
+        want_shape = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                      self._page, cfg.head_dim)
+        want_dtype = dtype_name(self.model.cache_dtype)
+        if int(header["page_size"]) != self._page or \
+                tuple(header["shape"]) != want_shape or \
+                header["dtype"] != want_dtype:
+            raise HandoffError(
+                f"handoff pages {header['shape']}/{header['dtype']}"
+                f"/page={header['page_size']} do not fit this pool "
+                f"{want_shape}/{want_dtype}/page={self._page}")
+        arena = self._tier.arena
+        n = 0
+        for j in range(len(k_pages)):
+            slot = arena.reserve(tuple(toks[:(j + 1) * self._page]))
+            if slot is None:
+                break              # arena saturated: a partial import
+            arena.commit(slot, k_pages[j], v_pages[j])
+            n += 1
+        self._tier.count_handoff("import", len(blob))
+        return n
+
+    # -- drain and abort -------------------------------------------------------
+    def begin_drain(self):
+        """Shed new submits ("server is draining") while every accepted
+        request decodes to its end; a fleet's drain waits for
+        :meth:`engine_idle`, then migrates :meth:`warm_chains`."""
+        self._draining.set()
+
+    def cancel_drain(self):
+        """Accept work again (a no-op on a server that was not
+        draining)."""
+        self._draining.clear()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def engine_idle(self) -> bool:
+        """True when no accepted request remains anywhere: the queue, the
+        held head, the class heap, the fetch-parked lists or a slot
+        (chunked admissions hold their slot)."""
+        with self._lock:
+            return self._no_requests()
+
+    def _no_requests(self) -> bool:
+        return (self._queue.empty() and self._pending_head is None
+                and (self._sched is None or self._sched.live() == 0)
+                and not self._fetch_wait and not self._fetch_ready
+                and all(r is None for r in self._slots))
+
+    def warm_chains(self) -> List[List[int]]:
+        """The token chains warm in this engine's caches: the radix
+        index's leaf paths cut to full pages (tails prefill again by the
+        handoff's contract) and the arena's entries, only the maximal
+        ones kept (exporting a chain ships each prefix page with it).
+        Empty without the prefix cache."""
+        if not self.paged or not self._kv.enabled:
+            return []
+        page = self._page
+        chains: Dict[tuple, None] = {}
+        with self._lock:
+            for path in self._kv.index.leaf_paths():
+                full = (len(path) // page) * page
+                if full:
+                    chains[tuple(path[:full])] = None
+            if self._tier is not None:
+                for key in self._tier.arena.keys():
+                    chains[tuple(key)] = None
+        keep: List[tuple] = []
+        for c in sorted(chains, key=len, reverse=True):
+            if not any(k[:len(c)] == c for k in keep):
+                keep.append(c)
+        return [list(c) for c in keep]
+
+    def abort(self, req: Request, reason: str = "aborted by caller"):
+        """Cancel an accepted request, from any thread (flag only): the
+        engine finishes its slot (its pages released the usual way) at
+        its next drain, and admission skips it if it is still queued or
+        fetch-parked."""
+        req.cancel_requested = True
+        if not req.done.is_set():
+            req.error = req.error or f"request aborted: {reason}"
+            req.done.set()
+
     def start(self) -> "LLMServer":
         self._thread = threading.Thread(target=self._loop,
                                         name="bigdl-torch-llm", daemon=True)
@@ -923,12 +1118,11 @@ class LLMServer:
             for step, _, _ in list(self._mixed_steps.values()) + list(
                     self._spec_steps.values()):
                 step.close()
+        if self._tier is not None:
+            self._tier.close()
 
     def _idle(self) -> bool:
-        return (self._queue.empty() and self._pending_head is None
-                and not self._inflight
-                and (self._sched is None or self._sched.live() == 0)
-                and all(r is None for r in self._slots))
+        return self._no_requests() and not self._inflight
 
     # -- engine --------------------------------------------------------------
     def _loop(self):
@@ -969,6 +1163,15 @@ class LLMServer:
                 # the host side of the slot is already released
                 self.errors.append(traceback.format_exc())
         self._spec_pending.clear()
+        # fetch-parked admissions hold budget but no slot: the grants go
+        # back (the worker releases the arena pins of a cancelled job)
+        for req, adm in [(e["req"], e["adm"]) for e in self._fetch_wait] + \
+                self._fetch_ready:
+            self._kv.cancel(adm)
+            if not req.done.is_set():
+                req.error = msg
+                req.done.set()
+        self._fetch_wait, self._fetch_ready = [], []
         pending = [self._pending_head] if self._pending_head else []
         self._pending_head = None
         if self._sched is not None:
@@ -1042,7 +1245,11 @@ class LLMServer:
         does not fit, no later one is admitted either. With priority
         classes the intake drains into the class heap first (head of
         line becomes head of class), and waiters left after the sweep
-        may preempt a lower-class decode."""
+        may preempt a lower-class decode. Host-tier hits park while
+        their pages upload (budget held, no slot); landed ones are
+        seated first."""
+        if self._fetch_wait:
+            self._poll_fetches()
         if self._sched is not None:
             try:
                 while True:
@@ -1062,10 +1269,33 @@ class LLMServer:
         charge and adoption (``KVCacheManager.admit``), then a whole
         prefill, or the start of a chunked admission; the slot-static
         cache takes the queue's head at once into the broadcast prefill
-        (:meth:`_prefill_slot`). False stops the slot sweep: the queue is
-        empty or its head is budget-blocked."""
+        (:meth:`_prefill_slot`). A landed host-tier fetch takes the slot
+        before the queue does; a host-tier hit parks instead and the
+        sweep goes on filling the slot. False stops the slot sweep: the
+        queue is empty or its head is budget-blocked."""
         page = self._page
         while True:
+            if self._fetch_ready:
+                req, adm = self._fetch_ready[0]
+                if req.done.is_set():
+                    # aborted while fetch-parked: the grant goes back
+                    self._fetch_ready.pop(0)
+                    self._kv.cancel(adm)
+                    continue
+                # room for the pages the prefill will own, made here: the
+                # entry ahead in this pass may have used what the poll saw
+                own = -(-len(self._prompt_of(req)) // page) \
+                    - adm.matched_len // page
+                if own > 0:
+                    self._kv.ensure_free(own)
+                self._fetch_ready.pop(0)
+                # a landed fetch is a device prefix hit; a still long
+                # suffix chunks, its budget charged in full at admission
+                self._prefill_admitted(
+                    i, req, adm, chunked=self._mixed_active
+                    and len(self._prompt_of(req)) - adm.matched_len
+                    > self._chunk_tokens, prepaid=True)
+                return True
             ent = None
             if self._sched is not None:
                 ent = self._sched_pop()
@@ -1080,6 +1310,8 @@ class LLMServer:
                     except queue.Empty:
                         return False
                 self._pending_head = None
+                if req.done.is_set():
+                    continue       # aborted while queued: nothing charged
             ids, budget = self._prompt_of(req), self._budget_of(req)
             if not self.paged:
                 try:
@@ -1093,12 +1325,15 @@ class LLMServer:
             chunk_first = None
             if self._mixed_active and len(ids) > self._chunk_tokens:
                 # a long uncached suffix is fed in chunks, the first
-                # charged now. The pool-size guard keeps a request that
-                # can never be admitted (its cached prefix evicted since
-                # submit) on the unchunked path, where it fails below
+                # charged now; a match the arena extends keeps the
+                # unchunked fetch path. The pool-size guard keeps a
+                # request that can never be admitted (its cached prefix
+                # evicted since submit) on the unchunked path, where it
+                # fails below
                 pk = self._kv.peek(ids, budget)
                 off0 = pk["matched_device"]
-                if pk["pages_needed"] <= self._num_pages - 1 and \
+                if pk["matched_tokens"] == off0 and \
+                        pk["pages_needed"] <= self._num_pages - 1 and \
                         len(ids) - off0 > self._chunk_tokens:
                     end0 = self._chunk_end(off0, len(ids))
                     chunk_first = -(-end0 // page) - off0 // page
@@ -1117,26 +1352,96 @@ class LLMServer:
                 else:
                     self._pending_head = req        # retry next pass
                 return False
-            self._slot_adm[i] = adm
-            if self._sched is not None and req.resume_ids is not None:
-                self.preempt_resumes_total += 1
-            if chunk_first is not None:
-                self._begin_chunked(i, req, adm)
-                return True
-            try:
-                (self._prefill_ragged if self._ragged
-                 else self._prefill_dense)(i, req, adm)
-                self.prefill_tokens_total += len(ids) - adm.matched_len
-            except Exception as e:  # noqa: BLE001 — fails this request
-                # a failing prefill must not leak its budget or adoption
-                # refs, nor leave the client blocked until its timeout;
-                # the slot stays free for the next request
-                self._kv.cancel(adm)
-                self._slot_adm[i] = None
-                self.errors.append(traceback.format_exc())
-                req.error = f"{type(e).__name__}: {e}"
-                req.done.set()
+            if adm.fetch:
+                # a host-tier hit: parked until its pages land; the sweep
+                # goes on filling this slot
+                self._fetch_wait.append({"req": req, "adm": adm,
+                                         "t0": time.perf_counter()})
+                continue
+            self._prefill_admitted(i, req, adm,
+                                   chunked=chunk_first is not None)
             return True
+
+    def _prefill_admitted(self, i: int, req: Request, adm: Admission,
+                          chunked: bool = False, prepaid: bool = False):
+        """Seat a request whose cache grant is held (the shared tail of
+        direct and fetch-parked admissions): a whole prefill, or the
+        start of a chunked admission (``prepaid``: its whole budget was
+        charged at admission)."""
+        self._slot_adm[i] = adm
+        if self._sched is not None and req.resume_ids is not None:
+            self.preempt_resumes_total += 1
+            if self._parked is not None:
+                self._parked.pop(req.id, None)
+        if chunked:
+            self._begin_chunked(i, req, adm, prepaid)
+            return
+        try:
+            (self._prefill_ragged if self._ragged
+             else self._prefill_dense)(i, req, adm)
+            self.prefill_tokens_total += \
+                len(self._prompt_of(req)) - adm.matched_len
+        except Exception as e:  # noqa: BLE001 — fails this request
+            # a failing prefill must not leak its budget or adoption
+            # refs, nor leave the client blocked until its timeout; the
+            # slot stays free for the next request
+            self._kv.cancel(adm)
+            self._slot_adm[i] = None
+            self.errors.append(traceback.format_exc())
+            req.error = f"{type(e).__name__}: {e}"
+            req.done.set()
+
+    def _read_page_kv(self, pid: int):
+        """The spill's copy of one page: ``(k, v, ready)``, standalone
+        copies of ``pool[:, pid]`` enqueued on the engine's stream (ahead
+        of any later reuse of the id) and the event behind them (None on
+        the CPU). Engine thread only."""
+        k = self._k_pages[:, pid].clone()
+        v = self._v_pages[:, pid].clone()
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        return k, v, ready
+
+    def _write_pages_kv(self, pids, k_devs, v_devs, ready=None):
+        """The fetch's landing: write uploaded pages into the pools IN
+        PLACE (the captured steps hold the pools' addresses), behind the
+        uploads' event on the worker's stream."""
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for t in list(k_devs) + list(v_devs):
+                # made on the worker's stream, read on this one
+                t.record_stream(stream)
+        for pid, k, v in zip(pids, k_devs, v_devs):
+            self._k_pages[:, pid].copy_(k)
+            self._v_pages[:, pid].copy_(v)
+
+    def _poll_fetches(self):
+        """Land the finished host-tier fetches: a completed upload is
+        written into the pool (the admission then is a device prefix
+        hit); a failed, cancelled or timed-out one degrades to a plain
+        miss. Either way the admission waits in ``_fetch_ready`` for a
+        slot."""
+        timeout = self._tier.fetch_timeout
+        k = 0
+        while k < len(self._fetch_wait):
+            ent = self._fetch_wait[k]
+            req, adm = ent["req"], ent["adm"]
+            job = adm.fetch_job
+            done = job is None or job.done.is_set()
+            if not done and time.perf_counter() - ent["t0"] <= timeout:
+                k += 1
+                continue
+            if done and job is not None and job.ok and not job.cancelled:
+                self._kv.materialize(adm, job.k_dev, job.v_dev, job.event)
+            else:
+                self._kv.degrade(adm)
+            del self._fetch_wait[k]
+            self.fetch_waits += 1
+            self.fetch_wait_seconds += time.perf_counter() - ent["t0"]
+            self._fetch_ready.append((req, adm))
 
     def _prefill_ragged(self, i: int, req: Request, adm: Admission):
         """Prefill in place on the page pool: the uncached suffix runs at
@@ -1285,14 +1590,17 @@ class LLMServer:
         end = ((off + self._chunk_tokens) // self._page) * self._page
         return T if end >= T else max(end, off + 1)
 
-    def _begin_chunked(self, i: int, req: Request, adm: Admission):
+    def _begin_chunked(self, i: int, req: Request, adm: Admission,
+                       prepaid: bool = False):
         """Admit a long-suffix request without prefilling it: later
         passes feed the prompt chunk by chunk. The slot is held (no later
-        request overtakes it) but decodes only after the final chunk."""
+        request overtakes it) but decodes only after the final chunk.
+        ``prepaid`` admissions (landed host-tier fetches) charged their
+        whole budget at admission; the others charge chunk by chunk."""
         self._chunk_state[i] = {
             "req": req, "adm": adm, "off": adm.matched_len,
             "row_pages": list(adm.shared_pages), "own": [],
-            "first": True, "wait_t0": None}
+            "prepaid": prepaid, "first": True, "wait_t0": None}
         self._slots[i] = req
         self._remaining[i] = 0
 
@@ -1310,7 +1618,7 @@ class LLMServer:
                 st = self._chunk_state[i]
                 if st is None:
                     continue
-                if st["req"].done.is_set():
+                if st["req"].cancel_requested or st["req"].done.is_set():
                     self._rollback_chunk(i, None)
                     continue
                 key = (_PRIORITY_RANK[st["req"].priority], i)
@@ -1322,7 +1630,7 @@ class LLMServer:
             st = self._chunk_state[i]
             if st is None:
                 continue
-            if st["req"].done.is_set():
+            if st["req"].cancel_requested or st["req"].done.is_set():
                 self._rollback_chunk(i, None)
                 continue
             self._chunk_rr = (i + 1) % n
@@ -1344,10 +1652,10 @@ class LLMServer:
         n_new = -(-end // page) - len(st["row_pages"])
         final = end == T
         need = n_new
-        if final:
+        if final and not st["prepaid"]:
             need += (-(-(T + self._budget_of(req)) // page)
                      - (-(-T // page)))
-        charge_now = 0 if st["first"] else need
+        charge_now = 0 if (st["prepaid"] or st["first"]) else need
         if charge_now and not self._kv.charge_chunk(adm, charge_now):
             now = time.perf_counter()
             if st["wait_t0"] is None:
@@ -1425,8 +1733,10 @@ class LLMServer:
         st = self._chunk_state[i]
         req, adm = st["req"], st["adm"]
         self._kv.release_transient(adm)
-        self._kv.release_slot(adm.charge, st["own"], adm.shared_pages)
+        self._kv.release_slot(adm.charge + adm.fetch_reserved, st["own"],
+                              adm.shared_pages)
         adm.charge = 0
+        adm.fetch_reserved = 0
         adm.shared_pages = []
         self._chunk_state[i] = None
         self._slots[i] = None
@@ -1514,9 +1824,10 @@ class LLMServer:
     def _spec_history(self, i: int):
         """Slot ``i``'s row, its proposer and its token history, or None
         when the row cannot verify now (spent, its verify in flight, or
-        still chunking its prompt)."""
+        still chunking its prompt, or aborted)."""
         req = self._slots[i]
-        if req is None or i in self._spec_pending or self._remaining[i] < 2:
+        if req is None or req.cancel_requested or i in self._spec_pending \
+                or self._remaining[i] < 2:
             return None
         if self._chunk_state is not None and \
                 self._chunk_state[i] is not None:
@@ -1773,8 +2084,14 @@ class LLMServer:
         self.stall_seconds += now - t0
         rec["pinned"] = None
         for i, req in rec["pairs"]:
-            if self._slots[i] is req:
-                self._apply_token(i, req, vals[i], now)
+            if self._slots[i] is not req:
+                continue           # a token for a finished request
+            if req.cancel_requested:
+                # aborted mid-decode: the slot and its pages go now, the
+                # drained token is discarded like any speculative one
+                self._finish_slot(i, req)
+                continue
+            self._apply_token(i, req, vals[i], now)
         sp = rec.get("spec")
         if sp is not None:
             self._drain_spec(sp, vals, now)
@@ -1789,6 +2106,9 @@ class LLMServer:
         self._spec_pending.discard(i)
         if self._slots[i] is not req:
             return                 # the slot changed hands: nothing to apply
+        if req.cancel_requested:
+            self._finish_slot(i, req)
+            return
         b = self.max_batch
         n_acc = vals[b]
         self._lens[i] += n_acc
@@ -1873,7 +2193,7 @@ class LLMServer:
         victim = None
         for i in range(self.max_batch):
             req = self._slots[i]
-            if req is None or req.done.is_set():
+            if req is None or req.done.is_set() or req.cancel_requested:
                 continue
             if self._chunk_state is not None and \
                     self._chunk_state[i] is not None:
@@ -1894,18 +2214,30 @@ class LLMServer:
     def _preempt_slot(self, i: int):
         """Evict the decode in slot ``i`` losslessly: with the prefix
         cache its chain prompt + drained tokens is indexed ("indexed";
-        the resume adopts it as an ordinary hit), else dropped; the
-        slot and pages go back as at a finish, and the request re-queues
-        as prompt + generated so far with the budget it has left. Its
-        hold record, the newest in flight, keeps it out of a slot until
-        that record drains: the drain's identity check would otherwise
-        hand a stale token to it, re-admitted into its old slot. Steps
-        still in flight write past the indexed length, and every later
-        write of a freed page is enqueued behind them."""
+        the resume adopts it as an ordinary hit), and with the host tier
+        also exported into ``_parked`` ("exported": the blob keeps the
+        chain whatever the radix evicts, until the resume), else dropped;
+        the slot and pages go back as at a finish, and the request
+        re-queues as prompt + generated so far with the budget it has
+        left. Its hold record, the newest in flight, keeps it out of a
+        slot until that record drains: the drain's identity check would
+        otherwise hand a stale token to it, re-admitted into its old
+        slot. Steps still in flight write past the indexed length, and
+        every later write of a freed page is enqueued behind them."""
         req = self._slots[i]
         self._release_slot(i, req)
-        req.resume_ids = np.concatenate(
-            [req.prompt_ids, np.asarray(req.tokens, np.int32)])
+        toks = np.concatenate([req.prompt_ids,
+                               np.asarray(req.tokens, np.int32)])
+        mode = "indexed" if self._kv.enabled else "dropped"
+        if self._tier is not None:
+            try:
+                self._parked[req.id] = self._export_chain_locked(toks)
+                mode = "exported"
+            except Exception:  # noqa: BLE001 — the export is an
+                # optimisation: the resume prefills whatever is missing
+                self.errors.append(traceback.format_exc())
+        self.preempt_modes[mode] += 1
+        req.resume_ids = toks
         req.preemptions += 1
         req._hold_rec = self._inflight[-1] if self._inflight else None
         self._preempt_rec = req._hold_rec

@@ -29,7 +29,11 @@ Phase 2  hold each kernel against its plain PyTorch version on the card
          and 8 rows at offsets 17..1001) on both routes (``ragged_route``:
          ``ragged_prefill_attention_tc`` for bf16, held to 2^-8 max|V| of
          both plain versions, the CUDA-core kernel at 1e-3) and once with
-         f32 pools; inputs from a seeded ``torch.Generator`` on the card.
+         f32 pools; phase 3e's shapes (q4_0 at the 7B prefill bucket
+         2048, kernel 3 at a 1,324-token prefill, a 33-token tail behind
+         a fetched 1,024-token prefix and a one-token suffix at 1280,
+         kernel 2 behind a 1,024-token prefix); inputs from a seeded
+         ``torch.Generator`` on the card.
          Every dequant-matmul row names the kernel its route takes
          (``<wrapper>_tc`` for M >= TC_MIN_M and N % 16 == 0, else
          ``<wrapper>_gemv``, the split-K GEMV); at the q4_0 buckets and
@@ -111,6 +115,25 @@ Phase 3c the served engine's self-speculative decoding and priority
          without priority, exact launch counts. Then one verify pass
          (batch 8, 7 drafts at bucket 8) eager and as one CUDA graph, bit
          for bit over 4 passes, traced as in phase 4.
+Phase 3e the host KV tier on phase 3's model (max_batch 8, max_seq_len
+         2048, page 16, ``kvcache=True``, a pool of 200 pages: about two
+         of the four chains beside the live row). Four distinct
+         1,024-token prefixes; pass 1 sends each with a tail of 17..300
+         tokens, pass 2 with a new tail (33..257), 32 new tokens each, one
+         request at a time, driven inline, with ``kvtier=False`` and with
+         ``kvtier=True, host_pages=512`` (4 GiB page-locked): pass 2's
+         TTFT, tokens reused, spills, fetches, the mean fetch wait and
+         its MB/s, the arena's pinned MB, peak memory; checks fetches > 0
+         with none failed, the ledger whole, exact launch counts (each
+         prefill at its uncached suffix's bucket) and pass 2's
+         first-token logits within 2e-2 of the tier-off run's (leading
+         equal tokens reported). Then the last pass-2 chain exported and
+         imported into a second server, which admits the prompt from its
+         arena: its first-token logits against the exporter's own
+         re-admission (both prefill the last token over the same page
+         bytes), the blob's MB, export and import ms. Then phase 3c's
+         priority scenario with ``kvtier=True``: the victim's chain
+         parked "exported", its tokens equal to phase 3c's.
 Phase 3d the slot-static engine (``LLMServer(paged=False)``: a dense
          512-token window a slot) on phase 3's model and 8 prompts at
          depths 2 and 1: the broadcast prefill (8 x T rows), exact launch
@@ -464,16 +487,18 @@ def int4_cases(torch, dev, gen):
                                    both_routes=True))
     # decode at the served batch (8) and at 1 and 2 rows (no path's
     # count: the served step always runs max_batch rows), a verify chunk
-    # of 4 rows (phase 3c), and prefill
+    # of 4 rows (phase 3c), prefill, and the whole prefill of a prompt
+    # behind a 1,024-token prefix (phases 3b and 3e: bucket 2048)
     for m, per, count in ((1, None, 0), (2, None, 0),
                           (4, "7B verify chunk, bucket 4", 32),
-                          (8, "7B decode step", 32), (512, "7B prefill", 32)):
+                          (8, "7B decode step", 32), (512, "7B prefill", 32),
+                          (2048, "7B prefill of 1,024 + tail", 32)):
         for k, n, what, c in SEVEN_B_LINEARS:
             c = c if count else 0
             out.append(matmul_case(torch, dev, gen, "int4_matmul", what, m,
                                    k, n, torch.bfloat16, c, per,
-                                   both_routes=what in ("qkv_proj",
-                                                        "gate_up_proj"),
+                                   both_routes=m < 2048 and what in (
+                                       "qkv_proj", "gate_up_proj"),
                                    slices_sweep=m == 8))
     # the slot-static engine's broadcast prefill (phase 3d): a prompt of
     # T tokens runs as max_batch (8) identical rows, every linear and
@@ -633,6 +658,9 @@ def paged_cases(torch, dev, gen):
             ("split boundaries", 32, 8, 128, None, _split_lens(S)),
             ("split boundaries window=300", 32, 8, 128, 300, _split_lens(S)),
             ("7B decode", 32, 32, 128, None, LENS_MAIN),
+            # rows behind a 1,024-token prefix (phases 3b and 3e), one idle
+            ("7B decode after 1,024 tokens", 32, 32, 128, None,
+             [PREFIX_TOKENS + x for x in LENS_MAIN[:7]] + [0]),
             ("GQA Hkv=8", 32, 8, 128, None, [0] + LENS_MAIN[1:]),
             ("D=64", 32, 32, 64, None, LENS_MAIN),
             ("GQA window=100", 32, 8, 128, 100, LENS_MAIN),
@@ -759,6 +787,12 @@ def paged_norm_cases(torch, dev, gen):
 RAGGED_SHAPES = (
     ("7B prefill", 32, 32, 128, 0, 300, 512, None, "bf16"),
     ("7B cached tail", 32, 32, 128, 1024, 300, 512, None, "bf16"),
+    # phase 3e: a whole prefill of 1,024 + 300 tokens, the shortest pass-2
+    # tail behind a fetched prefix, and the handoff's one-token suffix
+    ("7B prefill of 1,024 + tail", 32, 32, 128, 0, 1324, 2048, None, "bf16"),
+    ("7B fetched prefix, short tail", 32, 32, 128, 1024, 33, 64, None,
+     "bf16"),
+    ("7B one-token suffix", 32, 32, 128, 1280, 1, 16, None, "bf16"),
     ("7B last chunk", 32, 32, 128, 1472, 64, 64, None, "bf16"),
     ("7B offset>0", 32, 32, 128, 64, 200, 256, None, "bf16"),
     ("GQA Hkv=8", 32, 8, 128, 32, 256, 256, None, "bf16"),
@@ -1787,17 +1821,19 @@ def profile_spec(torch, model):
     return row
 
 
-def _priority_run(torch, model, batch, late, priority, what):
+def _priority_run(torch, model, batch, late, priority, what, **extra):
     """(b)'s run, driven inline (``_admit`` then ``_step_paged``, the
     engine loop's pass) so both runs see the same schedule: a warm-up
     request captures the decode graph; then the batch requests, and
     after ``PRI_AFTER`` passes the interactive one. Exact launch counts:
     every prefill leg at its bucket (the resume's at its uncached
-    suffix's) and every decode step."""
+    suffix's) and every decode step. ``extra``: more server options
+    (phase 3e's host tier)."""
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.serving import LLMServer
     cfg = model.config
-    srv = LLMServer(model, priority=priority, kvcache=True, **SERVE_7B)
+    srv = LLMServer(model, priority=priority, kvcache=True, **SERVE_7B,
+                    **extra)
     warm = torch.randint(0, cfg.vocab_size, (20,),
                          generator=torch.Generator().manual_seed(11))
     warm[0] = 0                                   # no prompt starts so
@@ -1824,6 +1860,9 @@ def _priority_run(torch, model, batch, late, priority, what):
     counts = kernels.launch_counts()
     steps, saved = srv.steps - steps0, srv.prefix_tokens_saved - saved0
     stats = (srv.preemptions_total, srv.preempt_resumes_total)
+    modes, parked = dict(srv.preempt_modes), len(srv._parked or ())
+    handoff_mb = (srv._tier.handoff_bytes / 2**20
+                  if srv._tier is not None else 0.0)
     srv.stop()
     check(not srv.errors, f"{what}: engine errors: {srv.errors}")
     check(srv._budget_avail == srv._num_pages - 1 and srv.pages_in_use == 0,
@@ -1842,7 +1881,9 @@ def _priority_run(torch, model, batch, late, priority, what):
             for j, r in enumerate(rb)}
     return {"what": what, "priority": priority, "launches": counts,
             "passes": steps, "preemptions_total": stats[0],
-            "preempt_resumes_total": stats[1], "victims": victims,
+            "preempt_resumes_total": stats[1], "preempt_modes": modes,
+            "parked_blobs_left": parked, "exported_mb": handoff_mb,
+            "victims": victims,
             "resume_tokens_reused": saved,
             "resume_prefill_buckets": buckets[len(batch) + 1:],
             "interactive_ttft_ms": (ri.t_first_token - ri.t_submit) * 1e3,
@@ -1886,12 +1927,254 @@ def serve_priority(torch, model):
             "interactive_new": PRI_LATE_NEW, "arrives_after_passes":
             PRI_AFTER, "on": on, "off": off, "victim": v,
             "victim_tokens_before_preemption": k,
+            "victim_tokens_on": rb_on[v].tokens,
             "victim_leading_equal_tokens": _lead(rb_on[v].tokens,
                                                  rb_off[v].tokens),
             "victim_max_gap_ms_on_off": [on["batch_max_gap_ms"][v],
                                          off["batch_max_gap_ms"][v]],
             "others_tokens_equal": [rb_on[j].tokens == rb_off[j].tokens
                                     for j in range(len(batch)) if j != v]}
+
+
+# -- phase 3e: the host KV tier at 7B ------------------------------------------
+
+# four distinct 1,024-token prefixes (64 pages, 512 MiB of K and V each at
+# page 16); pass 1 sends each with one of phase 3's tails, pass 2 with a new
+# tail of 1 + a page multiple (so a prompt's last token starts a page: a
+# re-admission and an import then both prefill that one token over the same
+# pages), 32 new tokens each, one request at a time. The pool holds about
+# two of the four chains beside the live row (1,024 + 300 + 32 tokens take
+# 85 pages), so pass 1 evicts the oldest prefixes, to the host arena with
+# the tier on, and pass 2 takes them back
+TIER_TAILS = ((17, 139, 220, 300), (33, 97, 177, 257))
+TIER_NEW, TIER_NUM_PAGES, TIER_HOST_PAGES = 32, 1 + 200, 512
+
+
+def _tier_prompts(torch, cfg):
+    gen = torch.Generator().manual_seed(13)
+    prefixes = [torch.randint(0, cfg.vocab_size, (PREFIX_TOKENS,),
+                              generator=gen) for _ in range(4)]
+    return [[torch.cat([pre, torch.randint(0, cfg.vocab_size, (n,),
+                                           generator=gen)]).numpy()
+             for pre, n in zip(prefixes, tails)] for tails in TIER_TAILS]
+
+
+def _serve_one(srv, prompt, n):
+    """Serve one request driven inline as the engine loop drives it
+    (``_admit``, ``_step_paged``, a 2 ms sleep when idle: a fetch-parked
+    admission polls its upload so). Returns the request, its first-token
+    logits (``_last`` of its slot right after its prefill) and how many of
+    its tokens were cached (``matched_len``: device and fetched)."""
+    req = srv.submit(prompt, max_new_tokens=n)
+    first = matched = None
+    while not req.done.is_set():
+        srv._admit()
+        if first is None and req in srv._slots:
+            i = srv._slots.index(req)
+            first, matched = srv._last[i].clone(), srv._slot_adm[i].matched_len
+        if not srv._step_paged():
+            time.sleep(0.002)
+    while srv._inflight:
+        srv._drain_next()
+    return req, first, matched
+
+
+def _tier_run(torch, model, passes, tier, what):
+    """Both passes on a fresh server (``BIG``, ``kvcache=True``, the pool
+    of ``TIER_NUM_PAGES``) after a warm-up request that captures the
+    decode graph. Checks: no engine error, in-vocab tokens, the ledger
+    whole at the end (nothing pinned, the whole budget back, no arena
+    pin), exact launch counts (every prefill at its uncached suffix's
+    bucket); with the tier, fetches and no failed one. Returns the row,
+    pass 2's requests and first-token logits, and the server (stopped by
+    the caller)."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    cfg = model.config
+    srv = LLMServer(model, kvcache=True, kvtier=tier,
+                    host_pages=TIER_HOST_PAGES, num_pages=TIER_NUM_PAGES,
+                    **BIG)
+    warm = torch.randint(0, cfg.vocab_size, (20,),
+                         generator=torch.Generator().manual_seed(14))
+    warm[0] = 0
+    _serve_one(srv, warm.numpy(), 4)
+    check(srv._decode.graph is not None, f"{what}: the step was not captured")
+    steps0 = srv.steps
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    runs = [[_serve_one(srv, p, TIER_NEW) for p in ps] for ps in passes]
+    counts = kernels.launch_counts()
+    steps = srv.steps - steps0
+    peak = torch.cuda.max_memory_allocated()
+    st = srv._kv.debug_stats()
+    check(not srv.errors, f"{what}: engine errors: {srv.errors}")
+    check(st["pages_pinned"] == 0 and st["budget_avail"] ==
+          TIER_NUM_PAGES - 1 and srv.pages_in_use == 0,
+          f"{what}: the ledger did not come back: {st}")
+    buckets = [_bucket(len(r.prompt_ids) - m) for run in runs
+               for r, _, m in run]
+    expect = _path_expect(model, buckets, steps)
+    check(counts == expect, f"{what}: launch counts {counts} != {expect}")
+    for r, _, _ in runs[0] + runs[1]:
+        check(len(r.tokens) == TIER_NEW and all(
+            0 <= t < cfg.vocab_size for t in r.tokens),
+            f"{what}: tokens {r.tokens}")
+    ttft1, ttft2 = ([(r.t_first_token - r.t_submit) * 1e3 for r, _, _ in run]
+                    for run in runs)
+    row = {"what": what, "kvtier": tier, "launches": counts,
+           "decode_steps": steps, "prefill_buckets": buckets,
+           "pass2_cached_tokens": [m for _, _, m in runs[1]],
+           "pass2_ttft_ms": ttft2,
+           "pass2_ttft_ms_mean": statistics.mean(ttft2),
+           "pass1_ttft_ms": ttft1, "pass1_ttft_ms_mean": statistics.mean(ttft1),
+           "prefix_tokens_reused": st["prefix_tokens_reused"],
+           "evictions": st["evictions"],
+           "pool_gb": 2 * srv._k_pages.nbytes / 1e9,
+           "peak_mem_gb": peak / 1e9}
+    if tier:
+        t, mig = st["tier"], srv._tier.migrator
+        check(t["fetches"] > 0 and t["fetch_failures"] == 0
+              and t["spill_failures"] == 0 and t["pinned"] == 0,
+              f"{what}: tier {t}")
+        row.update({
+            "spills": t["spills"], "fetches": t["fetches"],
+            "fetch_failures": t["fetch_failures"],
+            "spill_failures": t["spill_failures"],
+            "fetch_wait_ms_mean": srv.fetch_wait_seconds
+            / max(srv.fetch_waits, 1) * 1e3,
+            "fetch_transfer_ms_total": mig.fetch_seconds * 1e3,
+            "fetch_mb_per_s": (mig.fetch_bytes / mig.fetch_seconds / 1e6
+                               if mig.fetch_seconds else None),
+            "arena_pinned_mb": srv._tier.arena.pinned_bytes / 2**20,
+            "arena_alloc_s": srv._tier.arena.alloc_seconds,
+            "spills_done": mig.spills_done,
+            "arena": {k: t[k] for k in ("capacity", "used", "ready",
+                                        "evictions", "bytes_used")}})
+    else:
+        check("tier" not in st, f"{what}: a tier without kvtier")
+        row.update({"spills": 0, "fetches": 0, "fetch_failures": 0})
+    return row, runs[1], srv
+
+
+def _copy_rates(torch):
+    """The card's host<->device copy rate from page-locked memory, GB/s
+    (CUDA events, median of 5): one 512 MiB copy each way (a fetch's
+    bytes), and the same bytes as 128 copies of 4 MiB on a side stream
+    (a fetch's uploads: one K and one V page a chunk)."""
+    dev = torch.device("cuda")
+    n = 512 * 2**20
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(n, dtype=torch.uint8, device=dev)
+    side = torch.cuda.Stream(dev)
+
+    def rate(fn, stream=None):
+        out = []
+        for _ in range(5):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            with torch.cuda.stream(stream or torch.cuda.current_stream()):
+                a.record()
+                fn()
+                b.record()
+            b.synchronize()
+            out.append(n / (a.elapsed_time(b) / 1e3) / 1e9)
+        return statistics.median(out)
+
+    piece = n // 128
+    res = {"h2d_gb_s": rate(lambda: card.copy_(host, non_blocking=True)),
+           "d2h_gb_s": rate(lambda: host.copy_(card, non_blocking=True)),
+           "h2d_4mib_pieces_side_stream_gb_s": rate(lambda: [
+               card[j * piece:(j + 1) * piece].copy_(
+                   host[j * piece:(j + 1) * piece], non_blocking=True)
+               for j in range(128)], side)}
+    del host, card
+    return res
+
+
+def _handoff(torch, model, exporter, prompt):
+    """A warm chain from the tier-on server into a second server on the
+    same model: ``import_chain(export_chain(prompt))``, then ``prompt``
+    admitted from the importer's arena. Its first-token logits against
+    the exporter's own re-admission of ``prompt`` (both prefill its last
+    token over the same page bytes)."""
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    t0 = time.perf_counter()
+    blob = exporter.export_chain(prompt)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    _, want, m_exp = _serve_one(exporter, prompt, 2)
+    imp = LLMServer(model, kvcache=True, kvtier=True, host_pages=128,
+                    num_pages=TIER_NUM_PAGES, **BIG)
+    try:
+        t0 = time.perf_counter()
+        n = imp.import_chain(blob)
+        import_ms = (time.perf_counter() - t0) * 1e3
+        req, got, m_imp = _serve_one(imp, prompt, 2)
+        fetches, alloc_s = imp._tier.fetches, imp._tier.arena.alloc_seconds
+        check(not imp.errors, f"handoff importer errors: {imp.errors}")
+    finally:
+        imp.stop()
+    full = len(prompt) // 16
+    check(n == full and fetches == len(prompt) // 16 and m_imp == m_exp
+          == len(prompt) - 1, f"handoff: imported {n} of {full} pages, "
+          f"fetched {fetches}, cached {m_imp} / {m_exp} tokens")
+    err = (got - want).abs().max().item()
+    rel = _rel_err(got, want)
+    check(rel <= 2e-2, f"handoff: first-token logits rel err {rel}")
+    return {"pages": n, "blob_mb": len(blob) / 2**20,
+            "export_ms": export_ms, "import_ms": import_ms,
+            "importer_arena_alloc_s": alloc_s,
+            "cached_tokens": m_imp, "first_logits_max_abs_diff": err,
+            "first_logits_rel_err": rel, "tol": 2e-2,
+            "first_logits_bit_equal": bool(torch.equal(got, want))}
+
+
+def serve_kvtier(torch, model, pri):
+    """Phase 3e: the two passes with the tier off and on, the handoff of
+    the last pass-2 chain into a second server, and phase 3c's priority
+    scenario again with the tier on (the victim's chain parked
+    "exported"; its tokens equal to phase 3c's run without the tier)."""
+    cfg = model.config
+    passes = _tier_prompts(torch, cfg)
+    rows, firsts = {}, {}
+    for tier in (False, True):
+        what = f"7B kvtier {'on' if tier else 'off'}"
+        row, pass2, srv = _tier_run(torch, model, passes, tier, what)
+        if tier:
+            row["handoff"] = _handoff(torch, model, srv, passes[1][-1])
+        srv.stop()
+        del srv
+        torch.cuda.empty_cache()
+        rows[tier], firsts[tier] = row, pass2
+    errs = [_rel_err(a[1], b[1]) for a, b in zip(firsts[True],
+                                                  firsts[False])]
+    check(max(errs) <= 2e-2, f"kvtier: pass-2 first-token logits {errs}")
+    batch = _phase3_prompts(torch, cfg)
+    late = torch.randint(0, cfg.vocab_size, (PRI_LATE,),
+                         generator=torch.Generator().manual_seed(12))
+    late[0] = 1
+    pre, rb, _ = _priority_run(torch, model, batch, late.numpy(), True,
+                               "7B priority kvtier", kvtier=True,
+                               host_pages=128)
+    torch.cuda.empty_cache()
+    v = pri["victim"]
+    check(pre["victims"] == [v] and pre["preempt_modes"]["exported"] == 1
+          and pre["parked_blobs_left"] == 0,
+          f"kvtier preemption: {pre['victims']} {pre['preempt_modes']}")
+    check(rb[v].tokens == pri["victim_tokens_on"],
+          "kvtier preemption: the victim's tokens differ from phase 3c's")
+    return {"phase": "serve_kvtier", "model": "Llama-2-7B q4_0 (phase 3's "
+            "model)", "prefix_tokens": PREFIX_TOKENS, "tails": TIER_TAILS,
+            "new_tokens": TIER_NEW, "num_pages": TIER_NUM_PAGES,
+            "host_pages": TIER_HOST_PAGES, "on": rows[True],
+            "off": rows[False], "pass2_first_logits_max_rel_err": errs,
+            "tol": 2e-2, "pass2_tokens_equal": [
+                a[0].tokens == b[0].tokens for a, b in zip(firsts[True],
+                                                           firsts[False])],
+            "pass2_leading_equal_tokens": [
+                _lead(a[0].tokens, b[0].tokens)
+                for a, b in zip(firsts[True], firsts[False])],
+            "priority": pre, "victim": v,
+            "victim_tokens_equal_phase_3c": True,
+            "copy_rates": _copy_rates(torch)}
 
 
 def reference_check(torch, dev, preset="llama2_7b", moe_factor=None):
@@ -3035,6 +3318,8 @@ def main() -> int:
     emit(spec)
     pri = serve_priority(torch, model)
     emit(pri)
+    tier = serve_kvtier(torch, model, pri)
+    emit(tier)
     prof = profile_decode(torch, model)
     emit(prof)
     mprof = profile_mixed(torch, model)
@@ -3076,6 +3361,8 @@ def main() -> int:
         paths[f"serve_7b {r['what'][3:]}"] = dict(r["launches"])
     for r in [spec[n][k] for n in ("alone", "beside 7")
               for k in ("off", "on")] + [pri["off"], pri["on"]]:
+        paths[f"serve_7b {r['what'][3:]}"] = dict(r["launches"])
+    for r in (tier["off"], tier["on"], tier["priority"]):
         paths[f"serve_7b {r['what'][3:]}"] = dict(r["launches"])
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = dict(row["launches"])
@@ -3226,6 +3513,16 @@ def main() -> int:
         "victim_max_gap_ms_on_off": pri["victim_max_gap_ms_on_off"],
         "preemptions": pri["on"]["preemptions_total"],
         "resume_tokens_reused": pri["on"]["resume_tokens_reused"]}
+    host_out["7B host KV tier"] = {
+        **{f"{k}_on_off": [tier["on"][k], tier["off"][k]] for k in (
+            "pass2_ttft_ms_mean", "pass1_ttft_ms_mean",
+            "prefix_tokens_reused", "peak_mem_gb")},
+        **{k: tier["on"][k] for k in (
+            "spills", "fetches", "fetch_wait_ms_mean", "fetch_mb_per_s",
+            "arena_pinned_mb")},
+        **{f"handoff_{k}": tier["on"]["handoff"][k] for k in (
+            "blob_mb", "export_ms", "import_ms")},
+        "preempt_exported_mb": tier["priority"]["exported_mb"]}
     host_out["7B slot-static served"] = {
         "profiled": slot_prof["what"],
         "eager_step_wall_ms": slot_prof["step_wall_ms"],
@@ -3258,7 +3555,8 @@ def main() -> int:
               "serve": serve, "profile": prof, "bert": bert,
               "serve_prefix_cache": cache, "serve_mixed": mixed,
               "profile_mixed": mprof, "serve_spec": spec,
-              "serve_priority": pri, "profile_spec": sprof,
+              "serve_priority": pri, "serve_kvtier": tier,
+              "profile_spec": sprof,
               "bert_profile": bert_prof, "generate": gen_row,
               "generate_profile": gen_prof, "checkpoint": ckpt,
               "serve_slotted": slot, "profile_slotted": slot_prof,

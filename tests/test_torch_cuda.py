@@ -13,7 +13,8 @@ eager step, with exact launch counts, at pipeline depths 1 and 2; then
 the mixed and speculative verify steps alike, and the served prefix
 cache, mixed dispatch, speculation and preemption; then the same steps
 of a mixture-of-experts model at both capacity modes, the slot-static
-engine's step, and both engines served.
+engine's step, and both engines served; last the host KV tier's
+transfers and the engine serving through it.
 The CPU parity of the plain versions against the JAX package lives in
 ``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``,
 and of ``generate`` in ``tests/test_torch_generate.py``.
@@ -1449,3 +1450,54 @@ def test_served_moe_and_slotted_on_card(cuda):
             assert srv.errors == [] and srv._decode.capture_seconds > 0
             assert all(len(t) == 10 and max(t) < 256 for t in toks)
         assert runs[0][0] == runs[1][0]
+
+
+def test_kvtier_on_card(cuda):
+    """The host KV tier on the card: a page spilled through the migrator's
+    side stream into the page-locked arena and fetched back is the same
+    bits; then a pool of about two chains serves two rounds of prompts on
+    four shared prefixes one at a time, with the migration thread and
+    with inline migration: both spill and fetch, give the same tokens,
+    and leave the ledger and the arena's pins whole."""
+    import numpy as np
+    from bigdl_tpu_torch.llm.kvtier import KVTier
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    tier = KVTier(4, PAGE, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    page = torch.randn((2, 2, PAGE, 16), generator=g, device=cuda).to(
+        torch.bfloat16)
+    key = tuple(range(PAGE))
+    slot = tier.arena.reserve(key)
+    ready = torch.cuda.Event()
+    ready.record()
+    assert tier.migrator.submit_spill(key, slot, page, page * 2,
+                                      ready).done.wait(60)
+    tier.arena.pin(slot)
+    job = tier.migrator.submit_fetch([(key, slot)])
+    assert job.done.wait(60) and job.ok and tier.arena.pinned() == 0
+    assert tier.arena._k.is_pinned() and job.event is not None
+    assert torch.equal(job.k_dev[0], page)
+    assert torch.equal(job.v_dev[0], page * 2)
+    tier.close()
+
+    model = _tiny_card_model(cuda)
+    rs = np.random.RandomState(3)
+    groups = [rs.randint(0, 256, 2 * PAGE) for _ in range(4)]
+    prompts = [np.concatenate([groups[j % 4], rs.randint(0, 256, 2 + j % 3)])
+               for j in range(8)]
+    outs = []
+    for sync in (False, True):
+        srv = LLMServer(model, max_batch=2, max_seq_len=64, page_size=PAGE,
+                        num_pages=9, kvcache=True, kvtier=True,
+                        host_pages=32, kvtier_sync=sync, device=cuda).start()
+        try:
+            outs.append([srv.submit(p, max_new_tokens=4).get(timeout=300)
+                         for p in prompts])
+        finally:
+            srv.stop()
+        st = srv._kv.debug_stats()
+        assert srv.errors == [] and st["tier"]["spills"] > 0
+        assert st["tier"]["fetches"] > 0 and st["tier"]["fetch_failures"] == 0
+        assert st["pages_pinned"] == st["tier"]["pinned"] == 0
+        assert st["budget_avail"] == 8
+    assert outs[0] == outs[1]

@@ -154,8 +154,23 @@ def test_scenario_values():
     mgr = _manager(tkv)
     assert mgr[1][4] == 2 and mgr[4][4] == 2 and mgr[5] == 16 - 2 - 3
     assert mgr[7][0] == 15 and mgr[7][3] == PAGE - 1   # >= 1 suffix token
-    with pytest.raises(NotImplementedError, match="6\\(f\\)"):
-        tkv.RadixIndex(tkv.PagePool(4, 4)).evict_lru(1, spill=print)
+    # evict_lru(spill=) offers each victim's token path and page to the
+    # host tier before its ref drops, leaf first, as the JAX index does
+    seen = []
+    for ns in (tkv, jkv):
+        pool = ns.PagePool(4, 4)
+        idx = ns.RadixIndex(pool)
+        pages = pool.alloc(2)
+        idx.insert(list(range(8)), pages)
+        for pid in pages:
+            pool.decref(pid)
+        calls = []
+        freed = idx.evict_lru(2, spill=lambda path, pid: calls.append(
+            (tuple(path), pid, pool.refcount(pid))))
+        seen.append((freed, calls))
+    assert seen[0] == seen[1]
+    assert seen[0][1] == [(tuple(range(8)), pages[1], 1),
+                          (tuple(range(4)), pages[0], 1)]
 
 
 def _random_sequence(ns, seed):

@@ -3,8 +3,8 @@ pipelined dispatch) against the JAX package's engine, plus the port's
 rules: greedy outputs are token-identical to the JAX ``LLMServer`` on
 ``LlamaConfig.tiny()`` q4_0 (f32 params and f32 KV, so argmax near-ties
 cannot flip); pages and budget come back when requests finish; the
-options this slice does not implement raise ``NotImplementedError``;
-and no module of ``bigdl_tpu_torch`` imports JAX or ``bigdl_tpu``."""
+options the port does not implement raise ``NotImplementedError`` and
+the host tier's build the engine; and no module of ``bigdl_tpu_torch`` imports JAX or ``bigdl_tpu``."""
 
 import os
 import subprocess
@@ -233,12 +233,40 @@ def test_capture_carries_gemv_launches():
 
 class TestEngineRules:
     @pytest.mark.parametrize("opt", [
-        {"kvtier": True}, {"host_pages": 4},
         {"slo": True}, {"watchdog_timeout": 5.0}])
     def test_unsupported_options_raise(self, pair, opt):
         _, tm = pair
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LLMServer(tm, device="cpu", **opt)
+
+    @pytest.mark.parametrize("opt,slots", [
+        ({"kvcache": True, "kvtier": True}, 4 * 17),
+        ({"kvcache": True, "kvtier": True, "host_pages": 4}, 4),
+        ({"kvcache": True, "kvtier": True, "kvtier_sync": True,
+          "kvtier_fetch_timeout": 5.0}, 4 * 17),
+        ({"host_pages": 4}, None)])
+    def test_tier_options_construct(self, pair, opt, slots):
+        """The host tier's options build an engine as the JAX engine's
+        do: ``host_pages`` slots (default 4 x ``num_pages``), no tier
+        without ``kvtier`` (``host_pages`` alone is inert)."""
+        jm, tm = pair
+        kw = dict(max_batch=2, max_seq_len=64, page_size=PAGE)
+        srv = LLMServer(tm, device="cpu", **kw, **opt)
+        assert srv._num_pages == 17
+        if slots is None:
+            assert srv._tier is None and srv._kv.tier is None
+        else:
+            assert srv._kv.tier is srv._tier
+            assert srv._tier.arena.capacity == slots
+            assert srv._tier.migrator.synchronous == bool(
+                opt.get("kvtier_sync"))
+            assert srv._tier.fetch_timeout == opt.get(
+                "kvtier_fetch_timeout", 30.0)
+            ref = JServer(jm, ragged_prefill=True, **kw, **{
+                k: v for k, v in opt.items() if not k.startswith("kvtier_")})
+            assert ref._tier.arena.capacity == slots
+            ref.stop()
+        srv.stop()
 
     def test_page_size_follows_the_model(self, pair):
         _, tm = pair
