@@ -372,33 +372,32 @@ def rope(x, positions, theta: float, mode: str = "half",
          partial: float = 1.0):
     """RoPE. x (B, T, H, D); positions (B, T) int.
 
-    ``mode="half"``: Llama rotate-half over the full head dim;
-    ``mode="glm"``: interleaved pairs (2i, 2i+1) over the first
-    ``D * partial`` dims, the rest passed through."""
+    Both rotate the first ``rot = int(D * partial)`` dims and pass the
+    rest through: ``mode="half"`` rotate-half (Llama over the full head
+    dim; GPT-NeoX's ``_partial_rope`` over ``rotary_pct`` of it),
+    ``mode="glm"`` interleaved pairs (2i, 2i+1)."""
     d = x.shape[-1]
-    dev = x.device
+    rot = int(d * partial)
+    if rot == 0:
+        return x
     pos = positions.to(torch.float32)[..., None]
+    inv_freq = 1.0 / (theta ** (torch.arange(
+        0, rot, 2, dtype=torch.float32, device=x.device) / rot))
+    ang = pos * inv_freq                                  # (B, T, rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x_rot = (x if rot == d else x[..., :rot]).to(torch.float32)
     if mode == "glm":
-        rot = int(d * partial)
-        x_rot, x_pass = x[..., :rot], x[..., rot:]
-        inv_freq = 1.0 / (theta ** (torch.arange(
-            0, rot, 2, dtype=torch.float32, device=dev) / rot))
-        ang = pos * inv_freq
-        cos = torch.cos(ang)[:, :, None, :]
-        sin = torch.sin(ang)[:, :, None, :]
-        xr = x_rot.to(torch.float32).reshape(x.shape[:-1] + (rot // 2, 2))
+        xr = x_rot.reshape(x.shape[:-1] + (rot // 2, 2))
         x1, x2 = xr[..., 0], xr[..., 1]
         out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                           dim=-1).reshape(x.shape[:-1] + (rot,))
-        return torch.cat([out.to(x.dtype), x_pass], dim=-1)
-    inv_freq = 1.0 / (theta ** (torch.arange(
-        0, d, 2, dtype=torch.float32, device=dev) / d))
-    ang = pos * inv_freq                                  # (B, T, D/2)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    else:
+        x1, x2 = torch.chunk(x_rot, 2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if rot == d:
+        return out.to(x.dtype)
+    return torch.cat([out.to(x.dtype), x[..., rot:]], dim=-1)
 
 
 def rope_cfg(x, positions, cfg: LlamaConfig):
@@ -623,6 +622,49 @@ def _attention(q, k_all, v_all, q_positions, kv_len_mask, cfg,
     return out.permute(0, 3, 1, 2, 4).reshape(b, tq, hq * d)
 
 
+def _embed(params, cfg, toks, positions):
+    """The llama family's input: the token embedding rows."""
+    return params["embed_tokens"][toks]
+
+
+def _head(params, cfg, x):
+    """The llama family's output: final RMSNorm, then the (possibly
+    quantized or tied) head."""
+    return lm_logits(params, rms_norm(x, params["norm"], cfg.rms_norm_eps))
+
+
+def dense_forward(params, cfg, tokens, cache, positions, *, embed, layer,
+                  head, alibi_slopes=None):
+    """The dense-cache forward pass of any family, from its three parts:
+    ``embed(params, cfg, toks, positions) -> x``, the decoder
+    ``layer(lp, x, positions, cfg, attend, kv_dtype=None) -> (x, k, v)``
+    and ``head(params, cfg, x) -> logits``. Each layer writes its K/V
+    into the cache at ``cache["pos"]`` IN PLACE and attends the cache
+    window through :func:`_attention` (with ``alibi_slopes``, Bloom's
+    ALiBi biases). Returns ``(logits (B, T, V) f32, cache)``."""
+    k_cache, v_cache = cache["k"], cache["v"]
+    start, t = int(cache["pos"]), tokens.shape[1]
+    s_max = k_cache.shape[2]
+    if start + t > s_max:
+        raise ValueError(f"writing {t} positions at {start} overflows the "
+                         f"cache of {s_max}")
+    x = embed(params, cfg, tokens.long(), positions)       # (B, T, H)
+    valid = (torch.arange(s_max, device=x.device) < start + t)[None, :]
+
+    def attend(l, q, k, v):
+        k_cache[l, :, start:start + t] = k.to(k_cache.dtype)
+        v_cache[l, :, start:start + t] = v.to(v_cache.dtype)
+        return _attention(q, k_cache[l], v_cache[l], positions, valid, cfg,
+                          alibi_slopes=alibi_slopes)
+
+    for l in range(cfg.num_hidden_layers):
+        x, _, _ = layer(layer_params(params["layers"], l), x, positions, cfg,
+                        lambda q, k, v, l=l: attend(l, q, k, v))
+    logits = head(params, cfg, x)
+    return logits.to(torch.float32), {"k": k_cache, "v": v_cache,
+                                      "pos": start + t}
+
+
 def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
             cache: Dict[str, Any], positions: torch.Tensor,
             ring: Optional[tuple] = None,
@@ -643,28 +685,48 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
         raise NotImplementedError(
             "unroll= unrolls the JAX package's layer scan; it is not "
             "applicable in eager PyTorch, where layers run in a loop")
-    k_cache, v_cache = cache["k"], cache["v"]
-    start, t = int(cache["pos"]), tokens.shape[1]
-    s_max = k_cache.shape[2]
-    if start + t > s_max:
-        raise ValueError(f"writing {t} positions at {start} overflows the "
-                         f"cache of {s_max}")
-    x = params["embed_tokens"][tokens.long()]              # (B, T, H)
-    valid = (torch.arange(s_max, device=x.device) < start + t)[None, :]
+    return dense_forward(params, cfg, tokens, cache, positions,
+                         embed=_embed, layer=decoder_layer, head=_head)
 
-    def attend(l, q, k, v):
-        k_cache[l, :, start:start + t] = k.to(k_cache.dtype)
-        v_cache[l, :, start:start + t] = v.to(v_cache.dtype)
-        return _attention(q, k_cache[l], v_cache[l], positions, valid, cfg)
 
+def ragged_prefill(params, cfg, k_pages, v_pages, toks, length, offset,
+                   bt_row, phys, slots, fork_dst, fork_src, *, page: int,
+                   full_logits: bool = False, embed, layer, head):
+    """:func:`paged_prefill_ragged` of any family, from the three parts
+    :func:`dense_forward` takes."""
+    from bigdl_tpu_torch.llm.kvcache.prefill import (device_i32,
+                                                     fork_tail_pages,
+                                                     ragged_prefill_attend,
+                                                     scatter_suffix_kv)
+    bucket, dev = toks.shape[1], toks.device
+    offset, length = device_i32(offset, dev), device_i32(length, dev)
+    k_pages, v_pages = fork_tail_pages(k_pages, v_pages, fork_dst,
+                                       fork_src)
+    positions = (offset + torch.arange(bucket, dtype=torch.int32,
+                                       device=dev))[None]
+    x = embed(params, cfg, toks.long(), positions)          # (1, Tq, H)
+    attend_l = ragged_prefill_attend(k_pages, v_pages, bt_row, offset,
+                                     length, page=page,
+                                     sliding_window=cfg.sliding_window)
+    k_new, v_new = [], []
     for l in range(cfg.num_hidden_layers):
-        x, _, _ = decoder_layer(layer_params(params["layers"], l), x,
-                                positions, cfg,
-                                lambda q, k, v, l=l: attend(l, q, k, v))
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    logits = lm_logits(params, x)
-    return logits.to(torch.float32), {"k": k_cache, "v": v_cache,
-                                      "pos": start + t}
+        # the suffix K/V are attended at POOL precision: a later
+        # re-prefill reads them back from the pages, so greedy parity
+        # needs the cast BEFORE attention, not just at the scatter
+        x, k, v = layer(layer_params(params["layers"], l), x, positions, cfg,
+                        lambda q, k, v, l=l: attend_l(l, q, k, v),
+                        kv_dtype=k_pages.dtype)
+        k_new.append(k[0])
+        v_new.append(v[0])
+    logits = head(params, cfg, x)
+    k_pages, v_pages = scatter_suffix_kv(k_pages, v_pages, phys, slots,
+                                         torch.stack(k_new),
+                                         torch.stack(v_new))
+    if full_logits:
+        return k_pages, v_pages, logits[0].to(torch.float32)
+    # the last true token's row, picked by a device index
+    last = logits[0].index_select(0, (length - 1).reshape(1).long())[0]
+    return k_pages, v_pages, last.to(torch.float32)
 
 
 def paged_prefill_ragged(params, cfg: LlamaConfig, k_pages, v_pages, toks,
@@ -687,41 +749,10 @@ def paged_prefill_ragged(params, cfg: LlamaConfig, k_pages, v_pages, toks,
     Returns ``(k_pages, v_pages, last_logits (V,) f32)``; with
     ``full_logits=True`` (the speculative verify leg) the logits of
     every bucket row instead, ``(bucket, V)`` f32."""
-    from bigdl_tpu_torch.llm.kvcache.prefill import (device_i32,
-                                                     fork_tail_pages,
-                                                     ragged_prefill_attend,
-                                                     scatter_suffix_kv)
-    bucket, dev = toks.shape[1], toks.device
-    offset, length = device_i32(offset, dev), device_i32(length, dev)
-    k_pages, v_pages = fork_tail_pages(k_pages, v_pages, fork_dst,
-                                       fork_src)
-    positions = (offset + torch.arange(bucket, dtype=torch.int32,
-                                       device=dev))[None]
-    x = params["embed_tokens"][toks.long()]                  # (1, Tq, H)
-    attend_l = ragged_prefill_attend(k_pages, v_pages, bt_row, offset,
-                                     length, page=page,
-                                     sliding_window=cfg.sliding_window)
-    k_new, v_new = [], []
-    for l in range(cfg.num_hidden_layers):
-        # the suffix K/V are attended at POOL precision: a later
-        # re-prefill reads them back from the pages, so greedy parity
-        # needs the cast BEFORE attention, not just at the scatter
-        x, k, v = decoder_layer(
-            layer_params(params["layers"], l), x, positions, cfg,
-            lambda q, k, v, l=l: attend_l(l, q, k, v),
-            kv_dtype=k_pages.dtype)
-        k_new.append(k[0])
-        v_new.append(v[0])
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    logits = lm_logits(params, x)
-    k_pages, v_pages = scatter_suffix_kv(k_pages, v_pages, phys, slots,
-                                         torch.stack(k_new),
-                                         torch.stack(v_new))
-    if full_logits:
-        return k_pages, v_pages, logits[0].to(torch.float32)
-    # the last true token's row, picked by a device index
-    last = logits[0].index_select(0, (length - 1).reshape(1).long())[0]
-    return k_pages, v_pages, last.to(torch.float32)
+    return ragged_prefill(params, cfg, k_pages, v_pages, toks, length,
+                          offset, bt_row, phys, slots, fork_dst, fork_src,
+                          page=page, full_logits=full_logits, embed=_embed,
+                          layer=decoder_layer, head=_head)
 
 
 # the dense staging prefill behind LLMServer(ragged_prefill=False): the
@@ -784,10 +815,11 @@ def _next_tokens(last, generator, temperature, finished, do_sample, top_k,
 def decode_scan(params, cache, last_logits, generator, temperature,
                 finished=None, *, cfg, num_tokens: int,
                 do_sample: bool = False, top_k: int = 0,
-                eos_token_id: Optional[int] = None):
+                eos_token_id: Optional[int] = None, forward_fn=None):
     """``num_tokens`` autoregressive steps over the dense cache: each step
     picks a token from the previous logits and runs it through
-    :func:`forward` at position ``cache["pos"]``.
+    ``forward_fn`` (the family's dense forward; :func:`forward` by
+    default) at position ``cache["pos"]``.
 
     Returns ``(tokens (B, num_tokens) int32, cache, last_logits,
     generator, finished)``. After EOS a row keeps emitting
@@ -798,13 +830,14 @@ def decode_scan(params, cache, last_logits, generator, temperature,
     if finished is None:
         finished = torch.zeros((b,), dtype=torch.bool,
                                device=last_logits.device)
+    forward_fn = forward_fn or forward
     last, toks = last_logits, []
     for _ in range(num_tokens):
         nxt, finished = _next_tokens(last, generator, temperature, finished,
                                      do_sample, top_k, eos_token_id)
         pos = torch.full((b, 1), int(cache["pos"]), dtype=torch.int32,
                          device=nxt.device)
-        logits, cache = forward(params, cfg, nxt[:, None], cache, pos)
+        logits, cache = forward_fn(params, cfg, nxt[:, None], cache, pos)
         last = logits[:, -1]
         toks.append(nxt)
     return torch.stack(toks, dim=1), cache, last, generator, finished
@@ -850,7 +883,8 @@ def pageify_cache(cache: Dict[str, Any], page: int = 16
 class PagedDecodeLoop:
     """The token loop of :func:`decode_scan_paged` over persistent
     buffers. One token's step — pick it from ``last`` (with the EOS
-    rule), run it through the serving engine's ``paged_decode_step`` at
+    rule), run it through ``step_fn``, the family's paged decode step
+    (the serving engine's llama ``paged_decode_step`` by default), at
     position ``lens``, write back ``last``, ``finished`` and ``lens + 1``
     in place — is a :class:`CapturedStep`, replayed once a token: the
     port's ``jax.jit(decode_scan_paged)``. Each token is copied out of
@@ -861,9 +895,11 @@ class PagedDecodeLoop:
     def __init__(self, params, cfg, k_pages, v_pages, bt, pos, last_logits,
                  generator, temperature, finished=None, *, page: int,
                  do_sample: bool = False, top_k: int = 0,
-                 eos_token_id: Optional[int] = None):
+                 eos_token_id: Optional[int] = None, step_fn=None):
         from bigdl_tpu_torch.llm.graphs import CapturedStep
-        from bigdl_tpu_torch.llm.serving import paged_decode_step
+        if step_fn is None:
+            from bigdl_tpu_torch.llm.serving import paged_decode_step
+            step_fn = paged_decode_step
         b, dev = last_logits.shape[0], last_logits.device
         self.pos = int(pos)
         # the buffers the step reads and writes; its closure holds them,
@@ -878,7 +914,7 @@ class PagedDecodeLoop:
         def step():
             nxt, fin_new = _next_tokens(last, generator, temperature, fin,
                                         do_sample, top_k, eos_token_id)
-            logits, kp, vp = paged_decode_step(
+            logits, kp, vp = step_fn(
                 params, cfg, k_pages, v_pages, bt, lens, nxt, page=page)
             if kp is not k_pages or vp is not v_pages:
                 raise RuntimeError("the decode step must write the pools "
@@ -930,14 +966,122 @@ def decode_scan_paged(params, k_pages, v_pages, bt, pos, last_logits,
             loop.finished)
 
 
+def as_tokens(ids, device) -> torch.Tensor:
+    """Token ids (a tensor, array or nested list) as int32 on ``device``."""
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device, torch.int32)
+    return torch.as_tensor(np.asarray(ids), dtype=torch.int32, device=device)
+
+
+def generate_tokens(model, input_ids, max_new_tokens: int, *, forward_fn,
+                    step_fn=None, do_sample: bool = False,
+                    temperature: float = 1.0, top_k: int = 0,
+                    eos_token_id: Optional[int] = None, seed: int = 0,
+                    decode_chunk: int = 32) -> np.ndarray:
+    """``generate`` of any family's model holder (``model(tokens)`` is its
+    dense prefill; ``device``, ``params``, ``config``, ``page_size`` and
+    ``max_cache_len`` as :class:`LlamaForCausalLM` has them): one dense
+    prefill, then the token loop in chunks of ``decode_chunk`` when
+    ``eos_token_id`` is set (the host stops once every row finished),
+    else in one go. With ``step_fn``, the family's paged decode step,
+    the loop runs over a page pool cut from the prefill cache
+    (:class:`PagedDecodeLoop`, one captured step for the whole call);
+    without, over the dense cache through ``forward_fn``
+    (:func:`decode_scan`), eagerly. Returns (B, T0 + new) int32 numpy."""
+    tokens = as_tokens(input_ids, model.device)
+    b, t0 = tokens.shape
+    if t0 + max_new_tokens > model.max_cache_len:
+        raise ValueError(
+            f"sequence {t0}+{max_new_tokens} exceeds cache "
+            f"{model.max_cache_len}")
+    logits, cache = model(tokens)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    last = logits[:, -1].clone()       # not a view pinning (B, T, V)
+    del logits
+    pieces = [tokens.cpu().numpy()]
+    remaining = max_new_tokens
+    chunk = max_new_tokens if eos_token_id is None else decode_chunk
+    finished = torch.zeros((b,), dtype=torch.bool, device=model.device)
+    kw = dict(do_sample=do_sample, top_k=top_k, eos_token_id=eos_token_id)
+    loop = None
+    with torch.no_grad():
+        if step_fn is not None:
+            k_pages, v_pages, bt = pageify_cache(cache, page=model.page_size)
+            loop = PagedDecodeLoop(
+                model.params, model.config, k_pages, v_pages, bt,
+                cache["pos"], last, gen, temperature, finished,
+                page=model.page_size, step_fn=step_fn, **kw)
+            del cache, k_pages, v_pages
+        try:
+            while remaining > 0:
+                n = min(chunk, remaining)
+                if loop is not None:
+                    toks, finished = loop.run(n), loop.finished
+                else:
+                    toks, cache, last, gen, finished = decode_scan(
+                        model.params, cache, last, gen, temperature,
+                        finished, cfg=model.config, num_tokens=n,
+                        forward_fn=forward_fn, **kw)
+                pieces.append(toks.cpu().numpy())
+                remaining -= n
+                if eos_token_id is not None and bool(finished.all()):
+                    break
+        finally:
+            if loop is not None:
+                loop.close()
+    return np.concatenate(pieces, axis=1)
+
+
 # ---------------------------------------------------------------------------
 # model holder
 # ---------------------------------------------------------------------------
 
-class LlamaForCausalLM:
-    """Generation facade: ``config``, ``params`` on ``device``, the KV
-    ``cache_dtype`` and ``page_size`` (what the serving engine reads),
-    and ``__call__`` (prefill into a fresh dense cache) and ``generate``.
+class ModelHolder:
+    """What every family's model holder carries, as the serving engine
+    and ``generate`` read it: ``config``, ``params`` on ``device``, the
+    KV ``cache_dtype``, ``page_size``, ``paged_decode`` and
+    ``max_cache_len`` (at most the config's positions); and ``__call__``,
+    a forward through the class's ``_forward`` / ``_init_cache`` (the
+    family's, set as ``staticmethod`` class attributes).
+    ``device=None`` means the GPU (and raises without one)."""
+
+    _forward = None
+    _init_cache = None
+
+    def __init__(self, cfg, params: Dict[str, Any], max_cache_len: int = 512,
+                 cache_dtype: torch.dtype = torch.bfloat16,
+                 paged_decode: bool = True, page_size: int = 16,
+                 device=None):
+        self.device = resolve_device(device)
+        self.config = cfg
+        self.params = _to_device(params, self.device)
+        self.cache_dtype = cache_dtype
+        self.max_cache_len = min(max_cache_len, cfg.max_position_embeddings)
+        self.paged_decode = paged_decode
+        self.page_size = page_size
+
+    def __call__(self, tokens, cache=None, positions=None):
+        """Forward ``tokens`` (B, T) from ``cache`` (a fresh dense cache of
+        ``max_cache_len`` in ``cache_dtype`` when None) at ``positions``
+        (default ``cache["pos"] + 0..T-1``); returns ``(logits (B, T, V)
+        f32, cache)``. A cache passed in is written in place."""
+        tokens = as_tokens(tokens, self.device)
+        b, t = tokens.shape
+        if cache is None:
+            cache = type(self)._init_cache(self.config, b, self.max_cache_len,
+                                           dtype=self.cache_dtype,
+                                           device=self.device)
+        if positions is None:
+            positions = (int(cache["pos"]) + torch.arange(
+                t, dtype=torch.int32, device=self.device)).expand(b, t)
+        with torch.no_grad():
+            return type(self)._forward(self.params, self.config, tokens,
+                                       cache, positions)
+
+
+class LlamaForCausalLM(ModelHolder):
+    """Generation facade of the Llama stack (:class:`ModelHolder` over
+    :func:`forward`), with sampling in ``generate``.
 
     ``paged_decode`` (default) runs ``generate``'s token loop over a page
     pool (:class:`PagedDecodeLoop`): the dense prefill cache is cut into
@@ -946,8 +1090,10 @@ class LlamaForCausalLM:
     ``paged_decode=False`` keeps the dense-cache loop
     (:func:`decode_scan`), eagerly: ``forward`` slices the cache at a
     host position, which a graph would bake in. ``decode_unroll`` unrolled the JAX layer scan
-    and only 1 is meaningful here. ``device=None`` means the GPU (and
-    raises without one)."""
+    and only 1 is meaningful here."""
+
+    _forward = staticmethod(forward)
+    _init_cache = staticmethod(init_cache)
 
     def __init__(self, cfg: LlamaConfig, params: Dict[str, Any],
                  max_cache_len: int = 512,
@@ -958,13 +1104,8 @@ class LlamaForCausalLM:
             raise NotImplementedError(
                 "decode_unroll unrolls the JAX package's layer scan; it is "
                 "not applicable in eager PyTorch")
-        self.device = resolve_device(device)
-        self.config = cfg
-        self.params = _to_device(params, self.device)
-        self.cache_dtype = cache_dtype
-        self.max_cache_len = min(max_cache_len, cfg.max_position_embeddings)
-        self.paged_decode = paged_decode
-        self.page_size = page_size
+        super().__init__(cfg, params, max_cache_len, cache_dtype,
+                         paged_decode, page_size, device)
 
     @classmethod
     def from_config(cls, cfg: LlamaConfig, seed: int = 0,
@@ -993,83 +1134,23 @@ class LlamaForCausalLM:
                           ) -> "LlamaForCausalLM":
         raise NotImplementedError(f"sequence_parallel(): {_PARALLEL}")
 
-    def _tokens(self, ids) -> torch.Tensor:
-        if isinstance(ids, torch.Tensor):
-            return ids.to(self.device, torch.int32)
-        return torch.as_tensor(np.asarray(ids), dtype=torch.int32,
-                               device=self.device)
-
-    def __call__(self, tokens, cache=None, positions=None):
-        """Forward ``tokens`` (B, T) from ``cache`` (a fresh dense cache of
-        ``max_cache_len`` in ``cache_dtype`` when None) at ``positions``
-        (default ``cache["pos"] + 0..T-1``); returns ``(logits (B, T, V)
-        f32, cache)``. A cache passed in is written in place."""
-        tokens = self._tokens(tokens)
-        b, t = tokens.shape
-        if cache is None:
-            cache = init_cache(self.config, b, self.max_cache_len,
-                               dtype=self.cache_dtype, device=self.device)
-        if positions is None:
-            positions = (int(cache["pos"]) + torch.arange(
-                t, dtype=torch.int32, device=self.device)).expand(b, t)
-        with torch.no_grad():
-            return forward(self.params, self.config, tokens, cache,
-                           positions)
-
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, temperature: float = 1.0,
                  top_k: int = 0, eos_token_id: Optional[int] = None,
                  seed: int = 0, decode_chunk: int = 32) -> np.ndarray:
         """Greedy or sampled autoregressive decode. input_ids (B, T0);
-        returns (B, T0 + new) int32 numpy. One dense prefill, then the
-        token loop in chunks of ``decode_chunk`` when ``eos_token_id`` is
-        set (the host stops once every row finished), else in one go.
+        returns (B, T0 + new) int32 numpy (:func:`generate_tokens`).
         Sampling noise comes from a ``torch.Generator`` seeded with
         ``seed`` on the model's device."""
-        tokens = self._tokens(input_ids)
-        b, t0 = tokens.shape
-        if t0 + max_new_tokens > self.max_cache_len:
-            raise ValueError(
-                f"sequence {t0}+{max_new_tokens} exceeds cache "
-                f"{self.max_cache_len}")
-        logits, cache = self(tokens)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        last = logits[:, -1].clone()       # not a view pinning (B, T, V)
-        del logits
-        pieces = [tokens.cpu().numpy()]
-        remaining = max_new_tokens
-        chunk = max_new_tokens if eos_token_id is None else decode_chunk
-        finished = torch.zeros((b,), dtype=torch.bool, device=self.device)
-        kw = dict(do_sample=do_sample, top_k=top_k,
-                  eos_token_id=eos_token_id)
-        loop = None
-        with torch.no_grad():
-            if self.paged_decode:
-                # one captured step for the whole call, across its chunks
-                k_pages, v_pages, bt = pageify_cache(cache,
-                                                     page=self.page_size)
-                loop = PagedDecodeLoop(
-                    self.params, self.config, k_pages, v_pages, bt,
-                    cache["pos"], last, gen, temperature, finished,
-                    page=self.page_size, **kw)
-                del cache, k_pages, v_pages
-            try:
-                while remaining > 0:
-                    n = min(chunk, remaining)
-                    if loop is not None:
-                        toks, finished = loop.run(n), loop.finished
-                    else:
-                        toks, cache, last, gen, finished = decode_scan(
-                            self.params, cache, last, gen, temperature,
-                            finished, cfg=self.config, num_tokens=n, **kw)
-                    pieces.append(toks.cpu().numpy())
-                    remaining -= n
-                    if eos_token_id is not None and bool(finished.all()):
-                        break
-            finally:
-                if loop is not None:
-                    loop.close()
-        return np.concatenate(pieces, axis=1)
+        step_fn = None
+        if self.paged_decode:
+            from bigdl_tpu_torch.llm.serving import paged_decode_step
+            step_fn = paged_decode_step
+        return generate_tokens(self, input_ids, max_new_tokens,
+                               forward_fn=forward, step_fn=step_fn,
+                               do_sample=do_sample, temperature=temperature,
+                               top_k=top_k, eos_token_id=eos_token_id,
+                               seed=seed, decode_chunk=decode_chunk)
 
     @classmethod
     def synthetic_q4(cls, cfg: LlamaConfig, device=None, seed: int = 0,

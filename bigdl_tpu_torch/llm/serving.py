@@ -50,7 +50,7 @@ import time
 import traceback
 import uuid
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -66,9 +66,11 @@ from bigdl_tpu_torch.llm.kvtier import KVTier
 from bigdl_tpu_torch.llm.kvtier.handoff import (HandoffError, dtype_name,
                                                 deserialize_chain,
                                                 serialize_chain)
-from bigdl_tpu_torch.llm.models.llama import (_attention, decoder_layer,
-                                              init_cache, layer_params,
-                                              lm_logits, rms_norm)
+from bigdl_tpu_torch.llm.models import llama
+from bigdl_tpu_torch.llm.models._facade import CausalLMFacade
+from bigdl_tpu_torch.llm.models.llama import (_attention, _embed, _head,
+                                              decoder_layer, init_cache,
+                                              layer_params)
 from bigdl_tpu_torch.llm.spec import NGramProposer
 
 
@@ -193,6 +195,28 @@ def scatter_new_kv(k_pages, v_pages, bt, lens, k_new, v_new, *,
     return k_pages, v_pages
 
 
+def paged_decode(params, cfg, k_pages, v_pages, bt, lens, toks, *,
+                 page: int, embed, layer, head):
+    """:func:`paged_decode_step` of any family, from the three parts
+    ``llama.dense_forward`` takes."""
+    positions = lens[:, None].to(torch.int32)
+    x = embed(params, cfg, toks.long()[:, None], positions)  # (B, 1, H)
+    attend_l = paged_attend(k_pages, v_pages, bt, lens, page=page,
+                            sliding_window=cfg.sliding_window)
+    k_new, v_new = [], []
+    for l in range(cfg.num_hidden_layers):
+        x, k, v = layer(
+            layer_params(params["layers"], l), x, positions, cfg,
+            lambda q, k, v, l=l: attend_l(l, q, k, v)[:, None])
+        k_new.append(k[:, 0])
+        v_new.append(v[:, 0])
+    logits = head(params, cfg, x)
+    k_pages, v_pages = scatter_new_kv(k_pages, v_pages, bt, lens,
+                                      torch.stack(k_new),
+                                      torch.stack(v_new), page=page)
+    return logits[:, 0].to(torch.float32), k_pages, v_pages
+
+
 def paged_decode_step(params, cfg, k_pages, v_pages, bt, lens, toks, *,
                       page: int):
     """One paged-KV decode step: next-token logits for every row, and the
@@ -207,24 +231,9 @@ def paged_decode_step(params, cfg, k_pages, v_pages, bt, lens, toks, *,
     ``bt`` (B, pages_max) int32; ``lens`` (B,) int32 EXCLUDING the token
     being decoded; ``toks`` (B,) int. Returns
     ``(logits (B, V) f32, k_pages, v_pages)``."""
-    b = toks.shape[0]
-    x = params["embed_tokens"][toks.long()][:, None]         # (B, 1, H)
-    positions = lens[:, None].to(torch.int32)
-    attend_l = paged_attend(k_pages, v_pages, bt, lens, page=page,
-                            sliding_window=cfg.sliding_window)
-    k_new, v_new = [], []
-    for l in range(cfg.num_hidden_layers):
-        x, k, v = decoder_layer(
-            layer_params(params["layers"], l), x, positions, cfg,
-            lambda q, k, v, l=l: attend_l(l, q, k, v)[:, None])
-        k_new.append(k[:, 0])
-        v_new.append(v[:, 0])
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    logits = lm_logits(params, x)
-    k_pages, v_pages = scatter_new_kv(k_pages, v_pages, bt, lens,
-                                      torch.stack(k_new),
-                                      torch.stack(v_new), page=page)
-    return logits[:, 0].to(torch.float32), k_pages, v_pages
+    return paged_decode(params, cfg, k_pages, v_pages, bt, lens, toks,
+                        page=page, embed=_embed, layer=decoder_layer,
+                        head=_head)
 
 
 # the engine's step shape for the llama family: sampling folded in,
@@ -232,20 +241,59 @@ def paged_decode_step(params, cfg, k_pages, v_pages, bt, lens, toks, *,
 paged_decode_step_sampled = make_sampled_step(paged_decode_step)
 
 
+FAMILY_STEPS = ("forward", "sampled_step", "ragged_prefill",
+                "partial_prefill", "mixed_step", "spec_step")
+
+
+def family_steps(model, paged: bool = True) -> Dict[str, Callable]:
+    """The engine's entry points for ``model`` (the keys of
+    :data:`FAMILY_STEPS`), dispatched as the JAX engine does: a
+    Llama-stack model (Mistral, Qwen2, GLM, MoE) runs the llama
+    functions; a :class:`CausalLMFacade` family its own module's, the
+    sampled decode step made with ``make_sampled_step`` where the module
+    has none. A family without a paged decode step (Bloom: ALiBi has no
+    paged-kernel hook) and the slot-static engine (``paged=False``) on
+    any such family raise, in the JAX engine's words."""
+    if not isinstance(model, CausalLMFacade):
+        return dict(zip(FAMILY_STEPS, (
+            llama.forward, paged_decode_step_sampled,
+            llama.paged_prefill_ragged, llama.paged_prefill_partial,
+            llama.paged_step_mixed, llama.paged_step_spec)))
+    fam = inspect.getmodule(type(model)._forward)
+    step = getattr(fam, "paged_decode_step", None)
+    if paged and step is None:
+        raise NotImplementedError(
+            f"{type(model).__name__} has no paged decode step (ALiBi needs "
+            "a kernel bias hook); use generate() or another family")
+    if not paged:
+        raise NotImplementedError(
+            "the slot-static (paged=False) engine is Llama-stack only; "
+            "non-llama families serve through the paged path")
+    return dict(zip(FAMILY_STEPS, (
+        fam.forward,
+        getattr(fam, "paged_decode_step_sampled", None)
+        or make_sampled_step(step),
+        fam.paged_prefill_ragged, fam.paged_prefill_partial,
+        fam.paged_step_mixed, fam.paged_step_spec)))
+
+
 def bind_decode_step(params, cfg, k_pages, v_pages, bt, lens, last, active,
                      toks, *, page: int, temperature: float = 1.0,
                      generator=None, do_sample: bool = False,
-                     top_k: int = 0):
+                     top_k: int = 0, fam_step=None):
     """The engine's decode step as a function of no arguments over
     persistent buffers, what :class:`CapturedStep` captures: it reads
     ``bt`` (B, pages_cap) int32 and ``active`` (B,) bool, samples every
     row's next token from ``last`` (B, V) f32 into ``toks`` (B,) int32,
     and writes back in place the next logits into ``last``, the advanced
     lengths into ``lens`` (B,) int32 and every row's new K/V into the
-    pools — so the next call reads what this one wrote."""
+    pools — so the next call reads what this one wrote. ``fam_step`` is
+    the family's sampled step (:func:`paged_decode_step_sampled`, the
+    llama family's, by default)."""
+    fam_step = fam_step or paged_decode_step_sampled
 
     def step():
-        t, logits, kp, vp, new_lens = paged_decode_step_sampled(
+        t, logits, kp, vp, new_lens = fam_step(
             params, cfg, k_pages, v_pages, bt, lens, last, active,
             temperature, generator, page=page, do_sample=do_sample,
             top_k=top_k)
@@ -293,8 +341,7 @@ def slotted_decode_step(params, cfg, cache_k, cache_v, pos, toks):
         x, _, _ = decoder_layer(layer_params(params["layers"], l), x,
                                 positions, cfg,
                                 lambda q, k, v, l=l: attend(l, q, k, v))
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return lm_logits(params, x)[:, 0].to(torch.float32)
+    return _head(params, cfg, x)[:, 0].to(torch.float32)
 
 
 def bind_slotted_step(params, cfg, cache_k, cache_v, pos, last, active,
@@ -502,7 +549,10 @@ def _pow2_bucket(n: int, page: int) -> int:
 
 
 class LLMServer:
-    """Continuous-batching engine over a Llama-family model, paged KV.
+    """Continuous-batching engine over a Llama-stack model, or a GPT-NeoX
+    or StarCoder one (their modules' own steps, :func:`family_steps`,
+    as the JAX engine dispatches them; Bloom and ``paged=False`` with a
+    non-llama family raise), paged KV.
 
     KV lives in a page pool ``(L, num_pages, H_kv, page_size, D)`` on the
     model's device; each request owns ``ceil(tokens / page)`` pages named
@@ -676,17 +726,11 @@ class LLMServer:
                              f"{self.device}")
         self.model = model
         self.cfg = cfg = model.config
-        # the family's entry points, found by the model's module as the
-        # JAX engine finds them (the llama module's by default)
-        from bigdl_tpu_torch.llm.models import llama as _llama
-        fam = inspect.getmodule(type(model))
-        self._fam_forward, self._fam_ragged_prefill, \
-            self._fam_partial_prefill, self._fam_mixed_step, \
-            self._fam_spec_step = (
-                getattr(fam, n, getattr(_llama, n)) for n in (
-                    "forward", "paged_prefill_ragged",
-                    "paged_prefill_partial", "paged_step_mixed",
-                    "paged_step_spec"))
+        fam = family_steps(model, paged)
+        self._fam_forward, self._fam_sampled_step, \
+            self._fam_ragged_prefill, self._fam_partial_prefill, \
+            self._fam_mixed_step, self._fam_spec_step = (
+                fam[n] for n in FAMILY_STEPS)
         self._ragged = ragged_prefill is not False
         self.max_batch = max_batch
         self.max_seq_len = (min(max_seq_len, cfg.max_position_embeddings)
@@ -853,7 +897,8 @@ class LLMServer:
             bind_decode_step(model.params, cfg, self._k_pages,
                              self._v_pages, self._bt_dev, self._lens_dev,
                              self._last, self._active_dev, self._toks_dev,
-                             page=page_size, **sampling) if paged else
+                             page=page_size, fam_step=self._fam_sampled_step,
+                             **sampling) if paged else
             bind_slotted_step(model.params, cfg, self._cache["k"],
                               self._cache["v"], self._lens_dev, self._last,
                               self._active_dev, self._toks_dev,

@@ -8,15 +8,17 @@ Three inputs load:
   ``seed``, made on the device — the test and benchmark path (an MoE
   config such as ``LlamaConfig.mixtral_8x7b()`` runs bf16: like the JAX
   package, low-bit refuses its expert-stacked weights);
-- an HF checkpoint directory of the llama lineage (llama, mistral,
-  qwen2, glm) with ``config.json`` and safetensors weights: read straight
-  into the stacked layout by the port's own reader, one layer at a time,
-  each linear quantized the moment it is read when low-bit is asked;
+- an HF checkpoint directory with ``config.json`` and safetensors
+  weights, dispatched on its ``model_type`` as the JAX package does:
+  ``gpt_neox``, ``bloom`` and ``gpt_bigcode`` to their families'
+  loaders, anything else to the llama lineage's (llama, mistral, qwen2,
+  glm). Each is read straight into the stacked layout by the port's own
+  reader, one layer at a time, each linear quantized the moment it is
+  read when low-bit is asked;
 - nothing: ``LlamaConfig.tiny()``.
 
-The gpt_neox / bloom / gpt_bigcode families are ROADMAP Queue 1 item 7;
-a checkpoint without safetensors weights (or a hub id) needs the
-``transformers`` fallback, ROADMAP Queue 1 item 13. Both raise.
+A checkpoint without safetensors weights (or a hub id) needs the
+``transformers`` fallback, ROADMAP Queue 1 item 13, and raises.
 """
 
 from __future__ import annotations
@@ -33,8 +35,6 @@ from bigdl_tpu_torch.llm.kernels.int4_matmul import quantize_tpu
 from bigdl_tpu_torch.llm.models.llama import (
     _LAYER_LINEARS, LlamaConfig, LlamaForCausalLM, fuse_decoder_params)
 from bigdl_tpu_torch.llm.transformers.st_reader import SafetensorsReader
-
-_OTHER_FAMILIES = ("gpt_neox", "bloom", "gpt_bigcode")
 
 _HF_LINEAR = {
     "q_proj": "model.layers.{}.self_attn.q_proj.weight",
@@ -127,6 +127,20 @@ def load_hf_llama_safetensors(path: str, cfg: Optional[LlamaConfig] = None,
     return params
 
 
+def _families():
+    """``model_type`` → (config class, model class, safetensors loader)
+    of the non-llama families (imported here: their modules import this
+    package's reader)."""
+    from bigdl_tpu_torch.llm.models import bloom, gptneox, starcoder
+    return {"gpt_neox": (gptneox.GptNeoXConfig, gptneox.GptNeoXForCausalLM,
+                         gptneox.load_hf_gptneox_safetensors),
+            "bloom": (bloom.BloomConfig, bloom.BloomForCausalLM,
+                      bloom.load_hf_bloom_safetensors),
+            "gpt_bigcode": (starcoder.StarCoderConfig,
+                            starcoder.StarCoderForCausalLM,
+                            starcoder.load_hf_starcoder_safetensors)}
+
+
 class AutoModelForCausalLM:
     """bigdl-llm's API: ``AutoModelForCausalLM.from_pretrained(path,
     load_in_4bit=True | load_in_low_bit="sym_int4")``."""
@@ -137,9 +151,11 @@ class AutoModelForCausalLM:
                         load_in_low_bit: Optional[str] = None,
                         config: Optional[LlamaConfig] = None,
                         max_cache_len: int = 512, seed: int = 0,
-                        device=None) -> LlamaForCausalLM:
-        """A :class:`LlamaForCausalLM` on ``device`` (``None`` = the GPU,
-        raising without one). ``lm_head`` stays dense when quantizing."""
+                        device=None):
+        """A :class:`LlamaForCausalLM` — or, for a ``gpt_neox``, ``bloom``
+        or ``gpt_bigcode`` checkpoint, the family's model — on ``device``
+        (``None`` = the GPU, raising without one). ``lm_head`` (and the
+        families' bf16 heads) stay dense when quantizing."""
         qtype = load_in_low_bit or ("sym_int4" if load_in_4bit else None)
         dev = resolve_device(device)
         path = pretrained_model_name_or_path
@@ -158,11 +174,14 @@ class AutoModelForCausalLM:
                 "hub ids and torch checkpoints need the transformers "
                 "fallback, which is ROADMAP Queue 1 item 13")
         raw = _read_raw_config(path)
-        if raw.get("model_type") in _OTHER_FAMILIES:
-            raise NotImplementedError(
-                f"model_type {raw['model_type']!r}: the gpt_neox, bloom and "
-                "gpt_bigcode families are ROADMAP Queue 1 item 7")
-        cfg = LlamaConfig.from_hf(type("HFConfig", (), raw)())
+        hf_shim = type("HFConfig", (), raw)()
+        family = _families().get(raw.get("model_type"))
+        if family is not None:
+            cfg_cls, model_cls, load = family
+            cfg = cfg_cls.from_hf(hf_shim)
+            return model_cls(cfg, load(path, cfg, qtype=qtype, device=dev),
+                             max_cache_len=max_cache_len, device=dev)
+        cfg = LlamaConfig.from_hf(hf_shim)
         params = load_hf_llama_safetensors(path, cfg, qtype=qtype,
                                            device=dev)
         return LlamaForCausalLM(cfg, params, max_cache_len=max_cache_len,

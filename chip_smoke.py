@@ -32,7 +32,15 @@ Phase 2  hold each kernel against its plain PyTorch version on the card
          f32 pools; phase 3e's shapes (q4_0 at the 7B prefill bucket
          2048, kernel 3 at a 1,324-token prefill, a 33-token tail behind
          a fetched 1,024-token prefix and a one-token suffix at 1280,
-         kernel 2 behind a 1,024-token prefix); inputs from a seeded
+         kernel 2 behind a 1,024-token prefix); phase 10's shapes, drawn
+         after every other case (``family_cases``): q4_0 at
+         StarCoder-15B's linears (its multi-query k/v at N = 128 on both
+         routes) and GPT-NeoX-20B's fc_out at M = 8 and 512, kernel 2 at
+         their served steps (g = 48; D = 96) and StarCoder's generate
+         step, kernel 3 at their prefills, a cached StarCoder suffix and
+         verify chunk and a NeoX suffix behind 1,024 tokens, then q4_0
+         at the ``generate`` paths' linears: StarCoder's at M = 1 and
+         Bloom-7b1's at M = 4 and 2048; inputs from a seeded
          ``torch.Generator`` on the card.
          Every dequant-matmul row names the kernel its route takes
          (``<wrapper>_tc`` for M >= TC_MIN_M and N % 16 == 0, else
@@ -201,6 +209,21 @@ Phase 9  Mixtral-8x7B (bf16, every width as published, 16 of 32 layers:
          factors, no copy of an expert weight in its trace, one layer's
          ``_moe_ffn`` and expert products timed against their byte
          bound, and the graphed step profiled.
+Phase 10 the GPT-NeoX, StarCoder and Bloom families, random q4_0 weights
+         drawn and quantized on the card a layer at a time from a seed
+         (``from_config(load_in_low_bit="sym_int4")``; bf16 heads): each
+         cut to 2 layers at full width on the card against the CPU's
+         plain path (its own ragged prefill and paged decode step;
+         Bloom's dense ``forward``), logits within 2e-2; StarCoder-15B
+         (40 layers): ``generate`` 1 x 512 + 32 on the paged loop, phase
+         3's 8 prompts served at depth 2 (exact launches a run and a
+         step: 6 q4_0 linears and one kernel 2 a layer), the graphed
+         step bit-equal to the eager one and profiled, and short runs
+         with the prefix cache + mixed dispatch, speculation and
+         priority; GPT-NeoX-20B (44 layers): the same served run and
+         phase 3b (a)'s prefix-cache run; Bloom-7b1 (30 layers):
+         ``generate`` 4 x 512 + 32, dense (kernel 1 only), and
+         ``LLMServer`` refusing it.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the run
@@ -470,6 +493,57 @@ SEVEN_B_LINEARS = ((4096, 12288, "qkv_proj", 32), (4096, 4096, "o_proj", 32),
                    (11008, 4096, "down_proj", 32), (4096, 32000, "lm_head", 1))
 
 
+# StarCoder-15B's q4_0 linears (K, N, name, launches a forward: 40 layers;
+# q and o, k and v share a shape) and GPT-NeoX-20B's fc_out (44 layers)
+STARCODER_LINEARS = ((6144, 6144, "StarCoder q_proj / o_proj", 80),
+                     (6144, 128, "StarCoder k_proj / v_proj", 80),
+                     (6144, 24576, "StarCoder fc_in", 40),
+                     (24576, 6144, "StarCoder fc_out", 40),
+                     (24576, 6144, "GPT-NeoX-20B fc_out", 44))
+# Bloom-7b1's (30 layers; q, k, v and o share a shape)
+BLOOM_LINEARS = ((4096, 4096, "Bloom q/k/v/o_proj", 120),
+                 (4096, 16384, "Bloom fc_in", 30),
+                 (16384, 4096, "Bloom fc_out", 30))
+
+
+def family_cases(torch, dev, gen):
+    """Phase 10's kernel shapes, drawn after every earlier case so those
+    keep their inputs: kernel 1 at StarCoder-15B's linears and
+    GPT-NeoX-20B's fc_out at the served decode step (8 rows) and at a
+    prefill bucket (512), the multi-query k/v (N = 128: one GEMV tile,
+    two tensor-core tiles) on both routes; kernel 2 at the two served
+    steps and StarCoder's ``generate`` step; kernel 3 at their
+    prefills, a cached suffix and a verify chunk; then kernel 1 at the
+    ``generate`` paths' shapes: StarCoder's decode step (1 row), and
+    Bloom-7b1's decode step (4 rows) and prefill (4 x 512 rows)."""
+    out = [matmul_case(torch, dev, gen, "int4_matmul", what, m, k, n,
+                       torch.bfloat16, c, f"{what.split()[0]} {per}",
+                       both_routes=n == 128,
+                       slices_sweep=m == 8 and n == 128)
+           for m, per in ((8, "decode step"), (512, "prefill, bucket 512"))
+           for k, n, what, c in STARCODER_LINEARS]
+    served = [x + 16 for x in LENS_MAIN]
+    out += paged_cases(torch, dev, gen, (
+        ("StarCoder-15B served decode", 48, 1, 128, None, served),
+        ("GPT-NeoX-20B served decode", 64, 64, 96, None, served),
+        ("StarCoder-15B generate decode", 48, 1, 128, None, [527])))
+    out += ragged_cases(torch, dev, gen, (
+        ("StarCoder-15B prefill", 48, 1, 128, 0, 300, 512, None, "bf16"),
+        ("GPT-NeoX-20B prefill", 64, 64, 96, 0, 300, 512, None, "bf16"),
+        ("StarCoder-15B cached suffix", 48, 1, 128, 128, 47, 64, None,
+         "bf16"),
+        ("StarCoder-15B verify W=8", 48, 1, 128, 301, 8, 8, None, "bf16"),
+        ("GPT-NeoX-20B cached tail", 64, 64, 96, 1024, 300, 512, None,
+         "bf16")))
+    gen_paths = [(1, "StarCoder generate decode step", STARCODER_LINEARS[:4]),
+                 (4, "Bloom generate decode step", BLOOM_LINEARS),
+                 (2048, "Bloom generate prefill, 4 x 512", BLOOM_LINEARS)]
+    return out + [matmul_case(torch, dev, gen, "int4_matmul", what, m, k, n,
+                              torch.bfloat16, c, per)
+                  for m, per, linears in gen_paths
+                  for k, n, what, c in linears]
+
+
 def int4_cases(torch, dev, gen):
     """q4_0 at the Llama-2-7B shapes (bf16 out, as served), at the
     Mistral-7B shapes of ``generate`` (bf16 out), at the BERT shapes (f32
@@ -644,17 +718,19 @@ def _split_lens(S):
     return [S - 1, S, S + 1, 2 * S - 1, 2 * S + 1, 3 * S + 1, 0, 5]
 
 
-def paged_cases(torch, dev, gen):
-    """Kernel 2 (stats) against its plain version; the main-path shapes
-    are also timed at every split size of ``SPLIT_SWEEP``
-    (``ms_by_split``), which is how SPLIT_KEYS was chosen."""
+def paged_cases(torch, dev, gen, shapes=None):
+    """Kernel 2 (stats) against its plain version at ``shapes`` (what,
+    Hq, Hkv, D, window, lengths; default the phases before 10); the
+    main-path shapes are also timed at every split size of
+    ``SPLIT_SWEEP`` (``ms_by_split``), which is how SPLIT_KEYS was
+    chosen."""
     from bigdl_tpu_torch.llm.kernels.paged_attention import (
         SPLIT_KEYS, _decode_cuda, paged_attention_decode_stats,
         paged_attention_reference_stats)
     page = 16
     out = []
     S = SPLIT_KEYS
-    for what, hq, hkv, d, win, lens in (
+    for what, hq, hkv, d, win, lens in shapes or (
             ("split boundaries", 32, 8, 128, None, _split_lens(S)),
             ("split boundaries window=300", 32, 8, 128, 300, _split_lens(S)),
             ("7B decode", 32, 32, 128, None, LENS_MAIN),
@@ -821,7 +897,7 @@ RAGGED_SHAPES = (
     ("7B prefill f32 cache", 32, 32, 128, 0, 300, 512, None, "f32"))
 
 
-def ragged_cases(torch, dev, gen):
+def ragged_cases(torch, dev, gen, shapes=RAGGED_SHAPES):
     """Kernel 3 on its route (``ragged_route``) against both plain
     versions: the tensor-core kernel (bf16) within 2^-8 max|V| (P rounded
     to bf16, relative 2^-9, on a convex combination of V rows), the
@@ -835,7 +911,7 @@ def ragged_cases(torch, dev, gen):
         ragged_route, ragged_tiles_reference)
     page = 16
     out = []
-    for what, hq, hkv, d, off, slen, tq, win, kv in RAGGED_SHAPES:
+    for what, hq, hkv, d, off, slen, tq, win, kv in shapes:
         kvt = torch.bfloat16 if kv == "bf16" else torch.float32
         maxp = -(-(off + 1) // page) + 1
         P = 1 + maxp + 8
@@ -932,9 +1008,10 @@ def ragged_cases(torch, dev, gen):
 def _path_expect(model, buckets, steps, paged=True):
     """What ``LLMServer`` must launch for prefill legs at ``buckets`` (one
     for each whole prefill, cached suffix or chunk: a power of two, at
-    least one page) and ``steps`` decode legs: each prefill leg's 4
-    linears a layer (and a quantized lm_head; a bf16 model's linears,
-    Mixtral's, launch none of ours) on the route of (bucket, N), its
+    least one page) and ``steps`` decode legs: each prefill leg's q4_0
+    linears (a llama model's 4 a layer and a quantized lm_head, a
+    family's 6 a layer; a bf16 model's linears, Mixtral's, launch none
+    of ours) on the route of (bucket, N), its
     attention on the route of the pools (``ragged_route``), one ragged
     kernel a layer; every decode leg runs the linears at M = max_batch
     <= 8 (the GEMV) and one stats kernel a layer. ``paged=False``: the
@@ -946,9 +1023,8 @@ def _path_expect(model, buckets, steps, paged=True):
     from bigdl_tpu_torch.llm.kernels.ragged_prefill import ragged_route
     cfg, params = model.config, model.params
     L = cfg.num_hidden_layers
-    ns = [(params["layers"][k]["q"].shape[-1], L) for k in (
-        "qkv_proj", "o_proj", "gate_up_proj", "down_proj")
-        if "q" in params["layers"].get(k, {})]
+    ns = [(lp["q"].shape[-1], L) for lp in params["layers"].values()
+          if isinstance(lp, dict) and "q" in lp]
     if "q" in params.get("lm_head", {}):
         ns.append((params["lm_head"]["q"].shape[-1], 1))
     per_pass = sum(c for _, c in ns)
@@ -1049,6 +1125,7 @@ def _serve_run(torch, model, prompts, new, what, warmup=None,
             "prefill_buckets": buckets, "max_new_tokens": new,
             "decode_steps": steps, "graph_replays": replays,
             "launches": counts,
+            "step_launches": {k: v for k, v in graph.launches.items() if v},
             "ttft_ms_mean": statistics.mean(ttft) * 1e3,
             "ttft_ms_max": max(ttft) * 1e3, "wall_s": t_end - t_start,
             "decode_tok_per_s": sum(len(o) - 1 for o in outs) / decode_s,
@@ -1276,7 +1353,8 @@ def _rel_err(a, b):
             / b.float().abs().max()).item()
 
 
-def serve_prefix_cache(torch, model):
+def serve_prefix_cache(torch, model, label="7B",
+                       name="Llama-2-7B q4_0 (phase 3's model)"):
     """(a) 8 greedy requests sharing a 1,024-token prefix, then tails of
     17..300 tokens (each tail's first token distinct), 32 new each, with
     ``kvcache=True`` and off: 7 hits reusing 1,024 tokens each, each
@@ -1301,7 +1379,7 @@ def serve_prefix_cache(torch, model):
         name = f"prefix cache {'on' if kv else 'off'}"
         first, stats = _first_logits(torch, model, prompts, kvcache=kv,
                                      **BIG)
-        row, outs = _serve_run(torch, model, prompts, 32, f"7B {name}",
+        row, outs = _serve_run(torch, model, prompts, 32, f"{label} {name}",
                                warmup=warm.numpy(), buckets=buckets,
                                kvcache=kv, **BIG)
         torch.cuda.empty_cache()
@@ -1314,8 +1392,8 @@ def serve_prefix_cache(torch, model):
     check(max(errs) <= 2e-2, f"prefix cache: first-token logits {errs}")
     lead = [next((k for k, (a, b) in enumerate(zip(x, y)) if a != b),
                  len(x)) for x, y in zip(out[True][1], out[False][1])]
-    return {"phase": "serve_prefix_cache", "model": "Llama-2-7B q4_0 "
-            "(phase 3's model)", "prefix_tokens": PREFIX_TOKENS,
+    return {"phase": "serve_prefix_cache", "model": name,
+            "prefix_tokens": PREFIX_TOKENS,
             "tails": PREFIX_TAILS, "on": out[True][0],
             "off": out[False][0],
             "first_logits_max_rel_err": errs, "tol": 2e-2,
@@ -2177,6 +2255,19 @@ def serve_kvtier(torch, model, pri):
             "copy_rates": _copy_rates(torch)}
 
 
+def _family(name):
+    """Phase 10's families at full width: ``name`` → (config, model
+    class)."""
+    from bigdl_tpu_torch.llm.models import (BloomConfig, BloomForCausalLM,
+                                            GptNeoXConfig, GptNeoXForCausalLM,
+                                            StarCoderConfig,
+                                            StarCoderForCausalLM)
+    return {"StarCoder-15B": (StarCoderConfig.starcoder_15b(),
+                              StarCoderForCausalLM),
+            "GPT-NeoX-20B": (GptNeoXConfig(), GptNeoXForCausalLM),
+            "Bloom-7b1": (BloomConfig.bloom_7b1(), BloomForCausalLM)}[name]
+
+
 def reference_check(torch, dev, preset="llama2_7b", moe_factor=None):
     """The served path on the card against the port's plain path on the
     CPU, on a small input: the ``preset``'s model (Llama-2-7B, or
@@ -2190,7 +2281,10 @@ def reference_check(torch, dev, preset="llama2_7b", moe_factor=None):
     where the card rounds P to bf16 in the prefill attention. With
     ``moe_factor`` (Mixtral-8x7B): random bf16 weights at that expert
     capacity factor, and a 12-token prompt (the CPU runs the experts in
-    bf16)."""
+    bf16). A phase 10 family (``preset`` "StarCoder-15B", "GPT-NeoX-20B"
+    or "Bloom-7b1"): random q4_0 weights drawn on the card and the
+    family's own prefill and decode step; Bloom's dense ``forward``
+    (prefill and one decode token, no attention kernel)."""
     import dataclasses
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.models.llama import (LlamaConfig,
@@ -2199,17 +2293,28 @@ def reference_check(torch, dev, preset="llama2_7b", moe_factor=None):
                                                   paged_prefill_ragged)
     from bigdl_tpu_torch.llm.serving import paged_decode_step
 
-    cfg = dataclasses.replace(getattr(LlamaConfig, preset)(),
-                              num_hidden_layers=2)
     page, T, bucket = 16, 40, 64
-    if moe_factor is None:
-        gpu = LlamaForCausalLM.synthetic_q4(cfg, device=dev, seed=3)
+    if preset in FAMILIES:
+        cfg0, cls = _family(preset)
+        cfg = dataclasses.replace(cfg0, num_hidden_layers=2)
+        gpu = cls.from_config(cfg, seed=3, load_in_low_bit="sym_int4",
+                              device=dev)
+        fam = sys.modules[cls.__module__]
+        paged_prefill_ragged = getattr(fam, "paged_prefill_ragged", None)
+        paged_decode_step = getattr(fam, "paged_decode_step", None)
     else:
-        cfg = dataclasses.replace(cfg, expert_capacity_factor=moe_factor)
-        gpu = LlamaForCausalLM(cfg, init_params(cfg, 3, device=dev),
-                               device=dev)
-        T, bucket = 12, 16
-    cpu = LlamaForCausalLM(cfg, gpu.params, device="cpu")
+        cfg = dataclasses.replace(getattr(LlamaConfig, preset)(),
+                                  num_hidden_layers=2)
+        cls = LlamaForCausalLM
+        if moe_factor is None:
+            gpu = LlamaForCausalLM.synthetic_q4(cfg, device=dev, seed=3)
+        else:
+            cfg = dataclasses.replace(cfg, expert_capacity_factor=moe_factor)
+            gpu = LlamaForCausalLM(cfg, init_params(cfg, 3, device=dev),
+                                   device=dev)
+            T, bucket = 12, 16
+    cpu = cls(cfg, gpu.params, device="cpu")
+    paged = paged_decode_step is not None
     prompt = torch.randint(0, cfg.vocab_size, (1, bucket),
                            generator=torch.Generator().manual_seed(2))
     bt_row = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
@@ -2226,20 +2331,27 @@ def reference_check(torch, dev, preset="llama2_7b", moe_factor=None):
         kp = torch.zeros(shape, dtype=m.cache_dtype, device=d)
         vp = torch.zeros(shape, dtype=m.cache_dtype, device=d)
         with torch.inference_mode():
-            kp, vp, last = paged_prefill_ragged(
-                m.params, cfg, kp, vp, prompt.to(d), T, 0, bt_row.to(d),
-                phys.to(d), slots.to(d), 0, 0, page=page)
+            if paged:
+                kp, vp, last = paged_prefill_ragged(
+                    m.params, cfg, kp, vp, prompt.to(d), T, 0, bt_row.to(d),
+                    phys.to(d), slots.to(d), 0, 0, page=page)
+            else:
+                full, cache = m(prompt[:, :T])
+                last = full[0, -1]
             if tok is None:
                 tok = int(last.argmax())
-            logits = paged_decode_step(
-                m.params, cfg, kp, vp, bt_row[None].to(d),
-                torch.tensor([T], dtype=torch.int32, device=d),
-                torch.tensor([tok], device=d), page=page)[0]
+            if paged:
+                logits = paged_decode_step(
+                    m.params, cfg, kp, vp, bt_row[None].to(d),
+                    torch.tensor([T], dtype=torch.int32, device=d),
+                    torch.tensor([tok], device=d), page=page)[0]
+            else:
+                logits = m([[tok]], cache)[0][:, 0]
         out[name] = (last.float().cpu(), logits[0].float().cpu())
         counts[name] = kernels.launch_counts()
     L = cfg.num_hidden_layers
-    check(counts["gpu"]["ragged_prefill_attention_tc"] == L
-          and counts["gpu"]["paged_attention_decode_stats"] == L
+    check(counts["gpu"]["ragged_prefill_attention_tc"] == L * paged
+          and counts["gpu"]["paged_attention_decode_stats"] == L * paged
           and not any(counts["cpu"].values()),
           f"reference check launches: {counts}")
     errs = {}
@@ -2251,7 +2363,9 @@ def reference_check(torch, dev, preset="llama2_7b", moe_factor=None):
     check(max(errs.values()) <= tol, f"card vs CPU logits: {errs}")
     return {"phase": "reference", "model": f"{preset} width (Hq "
             f"{cfg.num_attention_heads} / Hkv {cfg.num_key_value_heads}), "
-            "2 layers, " + ("synthetic q4_0" if moe_factor is None else
+            "2 layers, " + ("random bf16 weights quantized to q4_0 on the "
+                            "card" if preset in FAMILIES else
+                            "synthetic q4_0" if moe_factor is None else
                             f"bf16, expert capacity factor {moe_factor}"),
             "prompt_tokens": T,
             "card_launches": counts["gpu"],
@@ -2325,16 +2439,16 @@ def profile_graphed(torch, captured, fetch, what):
     return row
 
 
-def profile_decode(torch, model):
-    """A 7B batch-8 decode step: the engine's own step function
-    (``paged_decode_step_sampled``) on a mid-decode state, to the token
-    fetch; then the same step as the engine runs it, one captured CUDA
-    graph (``bind_decode_step``), held bit for bit against the eager
-    step and profiled beside it."""
+def profile_decode(torch, model, label="7B"):
+    """A batch-8 decode step: the engine's own step function (the sampled
+    step ``family_steps`` gives ``LLMServer``) on a mid-decode state, to
+    the token fetch; then the same step as the engine runs it, one
+    captured CUDA graph (``bind_decode_step``), held bit for bit against
+    the eager step and profiled beside it."""
     from bigdl_tpu_torch.llm.graphs import CapturedStep
-    from bigdl_tpu_torch.llm.serving import (bind_decode_step,
-                                             paged_decode_step_sampled)
+    from bigdl_tpu_torch.llm.serving import bind_decode_step, family_steps
 
+    paged_decode_step_sampled = family_steps(model)["sampled_step"]
     cfg, dev = model.config, model.device
     B, page, cap = 8, 16, 32
     L, P = cfg.num_hidden_layers, 1 + B * cap
@@ -2353,7 +2467,7 @@ def profile_decode(torch, model):
                                          last, active, page=page)[0]
         return toks.cpu()
 
-    row = profile(torch, step, "7B decode step, batch 8, lens 33..316")
+    row = profile(torch, step, f"{label} decode step, batch 8, lens 33..316")
 
     # the engine's step as one CUDA graph, over copies of the same buffers:
     # bit for bit against the eager step for 4 steps (warm-up, capture,
@@ -2367,7 +2481,7 @@ def profile_decode(torch, model):
     captured = CapturedStep(bind_decode_step(
         model.params, cfg, *(g[k] for k in (
             "kp", "vp", "bt", "lens", "last", "active", "toks")),
-        page=page), dev)
+        page=page, fam_step=paged_decode_step_sampled), dev)
     with torch.inference_mode():
         for i in range(4):
             captured()
@@ -2377,13 +2491,14 @@ def profile_decode(torch, model):
             e["last"], e["lens"] = lg, ln
             check(torch.equal(t, g["toks"]) and torch.equal(lg, g["last"])
                   and torch.equal(ln, g["lens"]),
-                  f"graphed 7B step {i} differs from the eager step")
+                  f"graphed {label} step {i} differs from the eager step")
         check(torch.equal(e["kp"], g["kp"]) and torch.equal(e["vp"], g["vp"]),
-              "graphed 7B steps wrote other pools than the eager steps")
+              f"graphed {label} steps wrote other pools than the eager "
+              "steps")
     del e
     row["graph"] = profile_graphed(
         torch, captured, lambda: g["toks"].cpu(),
-        "7B decode step as one CUDA graph, batch 8, lens 33..")
+        f"{label} decode step as one CUDA graph, batch 8, lens 33..")
     row["graph_bit_equal_to_eager_steps"] = 4
     captured.close()
     return row
@@ -2405,7 +2520,8 @@ CKPT = {"model_type": "mistral", "architectures": ["MistralForCausalLM"],
 
 def _launch_expect(counts, model, rows, n, paged):
     """What one ``generate`` of ``n`` new tokens must launch: every
-    q4_0 decoder linear (4 a layer; none in a bf16 model) at the prefill
+    q4_0 decoder linear (4 a layer in a llama model, 6 in a family's;
+    none in a bf16 model) at the prefill
     and at each of the n steps, the prefill's (``rows`` = batch x
     prompt) on the route the rule gives its shapes, and with paged
     decode one stats kernel a layer a step; the dense ``lm_head``
@@ -2413,8 +2529,8 @@ def _launch_expect(counts, model, rows, n, paged):
     from bigdl_tpu_torch.llm.kernels import matmul_route
     L = model.config.num_hidden_layers
     layers = model.params["layers"]
-    qs = [k for k in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
-          if "q" in layers.get(k, {})]
+    qs = [k for k, lp in layers.items() if isinstance(lp, dict)
+          and "q" in lp]
     want = dict.fromkeys(counts, 0)
     want["int4_matmul"] = len(qs) * L * (1 + n)
     want["int4_matmul_tc"] = L * sum(
@@ -2975,7 +3091,7 @@ def _drive(srv, reqs, late=(), late_after=4):
     return out
 
 
-def _moe_engine_runs(torch, model):
+def _engine_mode_runs(torch, model, label):
     """(c) one short run each of ``kvcache=True`` + ``mixed=True``,
     ``spec=True`` and ``priority=True`` (with the prefix cache), driven
     inline: every request completes with in-vocab tokens of its count,
@@ -3018,7 +3134,7 @@ def _moe_engine_runs(torch, model):
             f"mixed {b}": st for b, (st, _, _) in srv._mixed_steps.items()
         } | {f"verify {b}": st for b, (st, _, _) in srv._spec_steps.items()}
         replays = {k: g.replays for k, g in graphs.items()}
-        row = {"what": f"Mixtral {name}", "options": {
+        row = {"what": f"{label} {name}", "options": {
             k: v for k, v in kw.items() if k != "max_seq_len"},
             "requests": len(hs), "passes": srv.steps, "wall_s": wall,
             "graph_replays": replays, "launches": counts,
@@ -3031,27 +3147,27 @@ def _moe_engine_runs(torch, model):
             "preemptions": srv.preemptions_total,
             "resumes": srv.preempt_resumes_total}
         srv.stop()
-        check(not srv.errors, f"Mixtral {name}: engine errors {srv.errors}")
+        check(not srv.errors, f"{label} {name}: engine errors {srv.errors}")
         for h, (_, k, _) in zip(hs, reqs + late):
             check(len(h.tokens) == k and all(0 <= t < cfg.vocab_size
                                              for t in h.tokens),
-                  f"Mixtral {name}: tokens {h.tokens}")
-        check(replays["decode"] > 0, f"Mixtral {name}: decode not replayed")
+                  f"{label} {name}: tokens {h.tokens}")
+        check(replays["decode"] > 0, f"{label} {name}: decode not replayed")
         check(counts["paged_attention_decode_stats"] > 0
               and counts["ragged_prefill_attention_tc"] > 0,
-              f"Mixtral {name}: kernels 2 / 3 did not run: {counts}")
+              f"{label} {name}: kernels 2 / 3 did not run: {counts}")
         mode = [v for k, v in replays.items() if k.startswith(
             {"kvcache+mixed": "mixed", "spec": "verify"}.get(name, "-"))]
         if name == "kvcache+mixed":
             check(row["mixed_passes"] > 0 and row["prefix_tokens_saved"] > 0
-                  and any(mode), f"Mixtral {name}: {row}")
+                  and any(mode), f"{label} {name}: {row}")
         elif name == "spec":
             check(row["spec_passes"] > 0 and any(mode),
-                  f"Mixtral {name}: {row}")
+                  f"{label} {name}: {row}")
         else:
             check(row["preemptions"] >= 1
                   and row["resumes"] == row["preemptions"],
-                  f"Mixtral {name}: {row}")
+                  f"{label} {name}: {row}")
         out[name] = row
         del srv
         torch.cuda.empty_cache()
@@ -3231,7 +3347,7 @@ def mixtral_phase(torch, dev):
                                              for a, b in zip(o1, o2)]
         serve[str(f)] = r2
         torch.cuda.empty_cache()
-    engine = _moe_engine_runs(torch, model)
+    engine = _engine_mode_runs(torch, model, "Mixtral")
     steps = _moe_step_checks(torch, model)
     busy = steps[str(MIXTRAL_FACTORS[0])]["graph"]["device_busy_ms"]
     for f, r in serve.items():
@@ -3247,6 +3363,108 @@ def mixtral_phase(torch, dev):
             "weights_gb": weight_bytes / 1e9, "build_s": build_s,
             "reference": refs, "generate": gen_rows, "serve": serve,
             "engine_modes": engine, "step": steps}
+
+
+# -- phase 10: the GPT-NeoX, StarCoder and Bloom families -----------------------
+
+# the three families at full width and depth, q4_0 drawn on the card; the
+# StarCoder and Bloom generate runs (batch, prompt tokens, new tokens,
+# max_cache_len)
+FAMILIES = ("StarCoder-15B", "GPT-NeoX-20B", "Bloom-7b1")
+FAMILY_GEN = {"StarCoder-15B": (1, 512, 32, 1024),
+              "Bloom-7b1": (4, 512, 32, 1024)}
+
+
+def _family_model(torch, dev, name):
+    """``name`` at full width and depth: random bf16 weights from seed 0
+    drawn on the card one layer at a time, each decoder linear quantized
+    to q4_0 as it is drawn (``from_config(load_in_low_bit=
+    "sym_int4")``; the heads stay bf16). Returns the model, the build
+    seconds and the weights' GB."""
+    cfg, cls = _family(name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = cls.from_config(cfg, seed=0, load_in_low_bit="sym_int4",
+                            max_cache_len=1024, device=dev)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in _leaves(model.params))
+    return model, time.perf_counter() - t0, gb / 1e9
+
+
+def _family_served(torch, model, name):
+    """Phase 3's 8 prompts served at depth 2 (:func:`_serve_run`: exact
+    launch counts a run) and the served graph's launches a step: the 6
+    q4_0 linears a layer on the GEMV and one kernel 2 a layer (the bf16
+    heads are ``torch.matmul``); then the step held bit for bit against
+    the eager step and profiled (:func:`profile_decode`)."""
+    L = model.config.num_hidden_layers
+    row, _ = _serve_run(torch, model, _phase3_prompts(torch, model.config),
+                        32, f"{name} depth 2", **SERVE_7B)
+    want = {"int4_matmul": 6 * L, "int4_matmul_gemv": 6 * L,
+            "paged_attention_decode_stats": L}
+    check(row["step_launches"] == want,
+          f"{name}: a step launches {row['step_launches']} != {want}")
+    prof = profile_decode(torch, model, name)
+    busy = prof["graph"]["device_busy_ms"]
+    row["idle_share_vs_profiled_busy"] = (
+        1 - busy / row["decode_step_ms"] if busy else None)
+    torch.cuda.empty_cache()
+    return row, prof
+
+
+def family_phase(torch, dev):
+    """Phase 10: the GPT-NeoX, StarCoder and Bloom families at full width,
+    q4_0 weights drawn on the card from a seed (:func:`_family_model`).
+    (a) each family cut to 2 layers on the card against the CPU's plain
+    path (:func:`reference_check`); (b) StarCoder-15B, all 40 layers:
+    ``generate`` 1 x 512 + 32 (paged loop, exact launch counts), phase
+    3's 8 prompts served at depth 2 (TTFT, tok/s, ms a step, peak
+    memory, exact launches a run and a step), the graphed step bit-equal
+    to the eager one, and short runs with the prefix cache + mixed
+    dispatch, speculation and priority, each capturing its graphs; (c)
+    GPT-NeoX-20B, all 44 layers: the same served run and the prefix-cache
+    run of phase 3b (a); (d) Bloom-7b1, all 30 layers: ``generate``
+    4 x 512 + 32 (dense: kernel 1 only), and ``LLMServer`` refusing it."""
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    out = {"reference": {n: reference_check(torch, dev, n)
+                         for n in FAMILIES}}
+    torch.cuda.empty_cache()
+    for name in FAMILIES:
+        torch.cuda.reset_peak_memory_stats()
+        model, build_s, gb = _family_model(torch, dev, name)
+        cfg = model.config
+        row = out[name] = {
+            "model": f"{name} q4_0 (random weights from seed 0, "
+            f"{cfg.num_hidden_layers} layers, full width; bf16 heads)",
+            "entry": f"{type(model).__name__}.from_config(..., "
+            "load_in_low_bit='sym_int4')", "weights_gb": gb,
+            "build_s": build_s}
+        if name in FAMILY_GEN:
+            B, T, n, _ = FAMILY_GEN[name]
+            ids = torch.randint(0, cfg.vocab_size, (B, T),
+                                generator=torch.Generator().manual_seed(23)
+                                ).numpy()
+            row["generate"], _ = _generate_run(
+                torch, model, ids, n,
+                f"{name} {'paged' if model.paged_decode else 'dense'}")
+        if name == "Bloom-7b1":
+            try:
+                LLMServer(model)
+            except NotImplementedError as e:
+                row["engine_refuses"] = str(e)
+            check("paged decode" in row.get("engine_refuses", ""),
+                  "LLMServer did not refuse Bloom")
+        else:
+            row["serve"], row["step"] = _family_served(torch, model, name)
+        if name == "StarCoder-15B":
+            row["engine_modes"] = _engine_mode_runs(torch, model, name)
+        if name == "GPT-NeoX-20B":
+            row["prefix_cache"] = serve_prefix_cache(
+                torch, model, name, row["model"])
+        del model
+        torch.cuda.empty_cache()
+    out["phase"] = "families"
+    return out
 
 
 def main() -> int:
@@ -3300,6 +3518,10 @@ def main() -> int:
     sweep = route_sweep(torch, dev, gen)
     emit({"phase": "route_sweep", "tc_min_m": kernels.TC_MIN_M,
           "rows": sweep})
+    fcases = family_cases(torch, dev, gen)
+    for c in fcases:
+        emit(c)
+    cases += fcases
     bad = [c["case"] for c in cases + sweep if not c["passed"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
 
@@ -3350,6 +3572,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mix = mixtral_phase(torch, dev)
     emit(mix)
+    torch.cuda.empty_cache()
+    fam = family_phase(torch, dev)
+    emit(fam)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
@@ -3384,6 +3609,19 @@ def main() -> int:
             row["depth1"]["launches"])
     for name, row in mix["engine_modes"].items():
         paths[f"serve Mixtral {name}"] = dict(row["launches"])
+    for name in FAMILIES:
+        r = fam[name]
+        if "generate" in r:
+            paths[f"generate {r['generate']['what']}"] = dict(
+                r["generate"]["launches"])
+        if "serve" in r:
+            paths[f"serve {name}"] = dict(r["serve"]["launches"])
+        for m in r.get("engine_modes", {}).values():
+            paths[f"serve {m['what']}"] = dict(m["launches"])
+        for kv in ("on", "off"):
+            if "prefix_cache" in r:
+                paths[f"serve {name} prefix cache {kv}"] = dict(
+                    r["prefix_cache"][kv]["launches"])
 
     # a two-kernel wrapper's count covers both routes: a dequant-matmul's
     # calls are its GEMV and tensor-core launches, ragged prefill's
@@ -3546,6 +3784,19 @@ def main() -> int:
            for d, r in (("depth2", r0), ("depth1", r0["depth1"]))
            for k in ("decode_step_ms", "decode_tok_per_s", "ttft_ms_mean",
                      "idle_share_vs_profiled_busy")}}
+    for name in FAMILIES:
+        r = fam[name]
+        if "serve" in r:
+            host_out[f"{name} served"] = {
+                "profiled": r["step"]["graph"]["what"],
+                "eager_step_wall_ms": r["step"]["step_wall_ms"],
+                "graphed_step_wall_ms": r["step"]["graph"]["step_wall_ms"],
+                "graphed_step_busy_ms": r["step"]["graph"]["device_busy_ms"],
+                "graphed_host_calls_per_step":
+                    r["step"]["graph"]["host_launch_calls_per_step"],
+                **{k: r["serve"][k] for k in (
+                    "decode_step_ms", "decode_tok_per_s", "ttft_ms_mean",
+                    "peak_mem_gb", "idle_share_vs_profiled_busy")}}
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
               "route_sweep": sweep,
@@ -3560,7 +3811,7 @@ def main() -> int:
               "bert_profile": bert_prof, "generate": gen_row,
               "generate_profile": gen_prof, "checkpoint": ckpt,
               "serve_slotted": slot, "profile_slotted": slot_prof,
-              "mixtral": mix,
+              "mixtral": mix, "families": fam,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

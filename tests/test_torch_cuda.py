@@ -47,7 +47,17 @@ def cuda():
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 12288),
                                    (8, 11008, 4096), (37, 256, 132),
                                    (8, 768, 2), (37, 256, 3),
-                                   (1024, 768, 770)])
+                                   (1024, 768, 770),
+                                   # StarCoder-15B's decode step: the
+                                   # multi-query k/v (N = 128), fc_in
+                                   # and fc_out (K = 24576, NeoX's too)
+                                   (8, 6144, 128), (8, 6144, 24576),
+                                   (8, 24576, 6144),
+                                   # StarCoder's generate step (1 row)
+                                   (1, 6144, 6144), (1, 6144, 128),
+                                   (1, 6144, 24576), (1, 24576, 6144),
+                                   # Bloom-7b1's generate step (4 rows)
+                                   (4, 4096, 16384), (4, 16384, 4096)])
 def test_int4_matmul(cuda, m, k, n):
     """Same bf16 x and f32 weights on both sides; f32 sums in another
     order: 1e-4 of max|y| for f32 out, plus one bf16 ulp of max|y|
@@ -78,7 +88,12 @@ def test_int4_matmul(cuda, m, k, n):
 TC_SHAPES = [(m, 4096, 4096) for m in (16, 32, 64, 128, 256, 512, 1024)] + [
     (2048, 4096, 6144), (100, 4096, 4096), (130, 4096, 12288),
     (2047, 4096, 4096), (256, 14336, 4096), (2048, 4096, 28672),
-    (512, 11008, 4096), (1024, 768, 3072), (130, 96, 160)]
+    (512, 11008, 4096), (1024, 768, 3072), (130, 96, 160),
+    # StarCoder-15B's and GPT-NeoX-20B's prefill at bucket 512: the
+    # multi-query k/v (N = 128) and fc_out (K = 24576)
+    (512, 6144, 128), (512, 24576, 6144),
+    # Bloom-7b1's generate prefill (4 x 512 rows): fc_in and fc_out
+    (2048, 4096, 16384), (2048, 16384, 4096)]
 
 
 @pytest.mark.parametrize("m,k,n", TC_SHAPES)
@@ -403,7 +418,10 @@ def test_int8_matmul_broadcast_scale(cuda, kind, n):
 @pytest.mark.parametrize("hq,hkv,d,win", [(32, 32, 128, None),
                                           (32, 8, 128, None),
                                           (32, 32, 64, None),
-                                          (8, 2, 64, 40)])
+                                          (8, 2, 64, 40),
+                                          # StarCoder-15B, GPT-NeoX-20B
+                                          (48, 1, 128, None),
+                                          (64, 64, 96, None)])
 def test_paged_attention_decode_stats(cuda, hq, hkv, d, win):
     """bf16 pools, f32 math on both sides: 1e-3 on the normalised output
     and on m, relative 1e-3 on l; empty rows are the combine identity."""
@@ -477,7 +495,13 @@ TC_RAGGED = [  # (Hq, Hkv, D, offset, seq_len, Tq, window, page)
     # padding) at offsets off the page and the tile
     (32, 32, 128, 17, 2, 2, None, 16), (32, 32, 128, 301, 3, 4, None, 16),
     (32, 32, 128, 301, 4, 4, None, 16), (32, 32, 128, 1001, 5, 8, None, 16),
-    (32, 32, 128, 1001, 8, 8, None, 16)]
+    (32, 32, 128, 1001, 8, 8, None, 16),
+    # the served prefills of StarCoder-15B (48 query heads on one K/V
+    # head) and GPT-NeoX-20B (D = 96), a cached StarCoder suffix and a
+    # StarCoder verify chunk
+    (48, 1, 128, 0, 300, 512, None, 16), (64, 64, 96, 0, 300, 512, None, 16),
+    (48, 1, 128, 1024, 300, 512, None, 16),
+    (48, 1, 128, 301, 5, 8, None, 16)]
 
 
 @pytest.mark.parametrize("hq,hkv,d,off,slen,tq,win,page", TC_RAGGED)
@@ -899,11 +923,19 @@ def test_captured_served_step_equals_eager(cuda):
     _captured_decode_check(_tiny_card_model(cuda), cuda)
 
 
+def _family_steps(model):
+    """The sampled decode, mixed and verify steps of ``model``'s family,
+    as the engine picks them."""
+    from bigdl_tpu_torch.llm.serving import family_steps
+    fam = family_steps(model)
+    return fam["sampled_step"], fam["mixed_step"], fam["spec_step"]
+
+
 def _captured_decode_check(model, cuda):
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.graphs import CapturedStep
-    from bigdl_tpu_torch.llm.serving import (bind_decode_step,
-                                             paged_decode_step_sampled)
+    from bigdl_tpu_torch.llm.serving import bind_decode_step
+    paged_decode_step_sampled = _family_steps(model)[0]
     cfg, B, cap = model.config, 4, 4
     g = torch.Generator(device=cuda).manual_seed(7)
     shape = (cfg.num_hidden_layers, 1 + B * cap, cfg.num_key_value_heads,
@@ -922,7 +954,7 @@ def _captured_decode_check(model, cuda):
     step = CapturedStep(bind_decode_step(
         model.params, cfg, *(st[k] for k in (
             "kp", "vp", "bt", "lens", "last", "active", "toks")),
-        page=PAGE), cuda)
+        page=PAGE, fam_step=paged_decode_step_sampled), cuda)
     n, seen = 6, []
     kernels.reset_launch_counts()
     for _ in range(n):
@@ -1022,9 +1054,9 @@ def test_captured_mixed_step_equals_eager(cuda):
 def _captured_mixed_check(model, cuda):
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.graphs import CapturedStep
-    from bigdl_tpu_torch.llm.models.llama import paged_step_mixed
     from bigdl_tpu_torch.llm.serving import (bind_mixed_step, chunk_operands,
                                              prefill_operands)
+    paged_step_mixed = _family_steps(model)[1]
     cfg, cap, bucket = model.config, 8, 16
     st = _mixed_state(model, cuda, cap=cap)
     st["ops"] = torch.zeros(3 * bucket + 4 + cap, dtype=torch.int32,
@@ -1034,7 +1066,8 @@ def _captured_mixed_check(model, cuda):
     step = CapturedStep(bind_mixed_step(
         model.params, cfg, *(st[k] for k in (
             "kp", "vp", "bt", "lens", "last", "active", "toks", "ops",
-            "clast")), bucket=bucket, page=PAGE), cuda)
+            "clast")), bucket=bucket, page=PAGE, fam_step=paged_step_mixed),
+        cuda)
     ids = torch.randint(0, cfg.vocab_size, (60,),
                         generator=torch.Generator().manual_seed(1)).numpy()
     rows = list(range(33, 37))
@@ -1187,9 +1220,9 @@ def test_captured_spec_step_equals_eager(cuda, bucket):
 def _captured_spec_check(model, cuda, bucket):
     from bigdl_tpu_torch.llm import kernels
     from bigdl_tpu_torch.llm.graphs import CapturedStep
-    from bigdl_tpu_torch.llm.models.llama import paged_step_spec
     from bigdl_tpu_torch.llm.serving import (bind_spec_step, spec_operands,
                                              verify_operands)
+    paged_step_spec = _family_steps(model)[2]
     cfg, cap, B = model.config, 8, 4
     st = _mixed_state(model, cuda, cap=cap)
     st["active"][2] = False                  # the verify row sits out
@@ -1201,7 +1234,7 @@ def _captured_spec_check(model, cuda, bucket):
     step = CapturedStep(bind_spec_step(
         model.params, cfg, *(st[k] for k in (
             "kp", "vp", "bt", "lens", "last", "active", "sout", "ops")),
-        bucket=bucket, page=PAGE), cuda)
+        bucket=bucket, page=PAGE, fam_step=paged_step_spec), cuda)
     bt_row = st["bt"][2].cpu().numpy()
     accepted = 0
     kernels.reset_launch_counts()
@@ -1501,3 +1534,85 @@ def test_kvtier_on_card(cuda):
         assert st["pages_pinned"] == st["tier"]["pinned"] == 0
         assert st["budget_avail"] == 8
     assert outs[0] == outs[1]
+
+
+def _tiny_family_card_model(cuda, name, device=None):
+    """A small GPT-NeoX (D = 64, rotary over 16 dims), StarCoder (4 query
+    heads on one K/V head of D = 128: q4_0 multi-query k/v at N = 128) or
+    Bloom (ALiBi) with q4_0 weights drawn on the card from a seed; with
+    ``device``, the same weights there."""
+    from bigdl_tpu_torch.llm.models import (BloomConfig, BloomForCausalLM,
+                                            GptNeoXConfig, GptNeoXForCausalLM,
+                                            StarCoderConfig,
+                                            StarCoderForCausalLM)
+    small = dict(vocab_size=256, num_hidden_layers=2, num_attention_heads=4,
+                 max_position_embeddings=128)
+    cfg, cls = {
+        "neox": (GptNeoXConfig(hidden_size=256, intermediate_size=512,
+                               **small), GptNeoXForCausalLM),
+        "starcoder": (StarCoderConfig(hidden_size=512, intermediate_size=1024,
+                                      **small), StarCoderForCausalLM),
+        "bloom": (BloomConfig(hidden_size=256, **small),
+                  BloomForCausalLM)}[name]
+    model = cls.from_config(cfg, seed=8, load_in_low_bit="sym_int4",
+                            max_cache_len=128, device=cuda)
+    return model if device is None else cls(cfg, model.params, 128,
+                                            device=device)
+
+
+@pytest.mark.parametrize("name", ["neox", "starcoder"])
+def test_family_captured_steps_equal_eager(cuda, name):
+    """A family's decode, mixed and verify steps as CUDA graphs, each the
+    family's own step as the engine picks it, against the eager step bit
+    for bit (the rotary and ``wpe`` positions are device tensors)."""
+    model = _tiny_family_card_model(cuda, name)
+    _captured_decode_check(model, cuda)
+    _captured_mixed_check(model, cuda)
+    _captured_spec_check(model, cuda, 8)
+
+
+@pytest.mark.parametrize("name", ["neox", "starcoder", "bloom"])
+def test_family_card_vs_cpu(cuda, name):
+    """The same q4_0 weights on the card and the CPU: prefill logits of
+    two 24-token rows within 2e-2 of their largest magnitude; then
+    ``generate`` on the card with exact launch counts (6 linears a layer
+    at the prefill and each step, one stats kernel a layer a step on the
+    paged loop; Bloom dense, no attention kernel)."""
+    from bigdl_tpu_torch.llm import kernels
+    card = _tiny_family_card_model(cuda, name)
+    cpu = _tiny_family_card_model(cuda, name, device="cpu")
+    ids = torch.randint(0, 256, (2, 24),
+                        generator=torch.Generator().manual_seed(0)).numpy()
+    lc, _ = cpu(ids)
+    lg, _ = card(ids)
+    assert ((lg.cpu() - lc).abs().max() / lc.abs().max()).item() < 2e-2
+    n, L = 8, card.config.num_hidden_layers
+    kernels.reset_launch_counts()
+    out = card.generate(ids, max_new_tokens=n)
+    counts = kernels.launch_counts()
+    assert counts["int4_matmul"] == 6 * L * (1 + n)
+    assert counts["paged_attention_decode_stats"] == \
+        (0 if name == "bloom" else L * n)
+    assert out.shape == (2, 24 + n) and out.max() < 256
+
+
+def test_families_served_on_card(cuda):
+    """GPT-NeoX and StarCoder served on the card through the prefix cache
+    with mixed dispatch and through speculation: in-vocab tokens, the
+    decode graph and the mode's graphs captured; Bloom refuses."""
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    rs = torch.Generator().manual_seed(2)
+    shared = torch.randint(0, 256, (20,), generator=rs)
+    prompts = [torch.cat([shared, torch.randint(0, 256, (k,), generator=rs)])
+               .numpy() for k in (3, 30)]
+    for name in ("neox", "starcoder"):
+        model = _tiny_family_card_model(cuda, name)
+        for kw in (dict(kvcache=True, mixed=True, chunk_tokens=PAGE),
+                   dict(spec=True, spec_k=4)):
+            toks, srv = _serve_tiny(model, prompts, 10, **kw)
+            assert srv.errors == [] and srv._decode.capture_seconds > 0
+            assert all(len(t) == 10 and max(t) < 256 for t in toks)
+            assert srv.mixed_passes > 0 if "mixed" in kw else True
+    with pytest.raises(NotImplementedError, match="paged decode"):
+        LLMServer(_tiny_family_card_model(cuda, "bloom"), device=cuda)
+

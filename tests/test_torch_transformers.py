@@ -183,15 +183,31 @@ class TestFromPretrained:
             _assert_same_tree(want, got)
 
     def test_other_families_and_fallback_raise(self, tmp_path):
+        """The gpt_neox, bloom and gpt_bigcode families load (each as its
+        own model class); hub ids and other low-bit formats raise."""
+        from bigdl_tpu_torch.llm.models import (BloomForCausalLM,
+                                                GptNeoXForCausalLM,
+                                                StarCoderForCausalLM)
+        models = {"gpt_neox": (transformers.GPTNeoXConfig(
+            vocab_size=64, hidden_size=32, intermediate_size=64,
+            num_hidden_layers=1, num_attention_heads=2),
+            transformers.GPTNeoXForCausalLM, GptNeoXForCausalLM),
+            "bloom": (transformers.BloomConfig(
+                vocab_size=64, hidden_size=32, n_layer=1, n_head=2),
+                transformers.BloomForCausalLM, BloomForCausalLM),
+            "gpt_bigcode": (transformers.GPTBigCodeConfig(
+                vocab_size=64, n_embd=32, n_layer=1, n_head=2),
+                transformers.GPTBigCodeForCausalLM, StarCoderForCausalLM)}
+        for mt, (hf_cfg, hf_cls, cls) in models.items():
+            hf_cls(hf_cfg).save_pretrained(str(tmp_path / mt),
+                                           safe_serialization=True)
+            m = AutoModelForCausalLM.from_pretrained(
+                str(tmp_path / mt), load_in_4bit=True, device="cpu")
+            assert type(m) is cls and m.config.hidden_size == 32
+            assert m.generate([[1, 2, 3]], max_new_tokens=2).shape == (1, 5)
         (tmp_path / "neox").mkdir()
         safetensors_torch.save_file({"x": torch.zeros(2)},
                                     str(tmp_path / "neox" / "m.safetensors"))
-        for mt in ("gpt_neox", "bloom", "gpt_bigcode"):
-            with open(tmp_path / "neox" / "config.json", "w") as f:
-                json.dump({"model_type": mt}, f)
-            with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-                AutoModelForCausalLM.from_pretrained(str(tmp_path / "neox"),
-                                                     device="cpu")
         with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
             AutoModelForCausalLM.from_pretrained("meta-llama/Llama-2-7b",
                                                  device="cpu")
