@@ -20,4 +20,6 @@ Rules the port keeps:
 
 from bigdl_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["__version__", "resolve_device"]

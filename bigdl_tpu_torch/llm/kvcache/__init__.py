@@ -24,8 +24,11 @@ upload (:meth:`~KVCacheManager.materialize` lands them, and
 and :meth:`~KVCacheManager.chain_locations` walks a chain across both
 tiers for the handoff export.
 
-Not ported here: the ``kvcache.evict`` fault site and the metric
-instruments (reliability and observability, ROADMAP Queue 1 item 8).
+The tallies mirror into the ``bigdl_kvcache_*`` series (and the gauges
+``record_gauges`` sets) while the cache is on and observability
+records; each eviction is a flight-recorder ``evict`` event, and the
+``kvcache.evict`` fault site fires before eviction mutates anything, so
+an injected raise is cleanly retryable.
 """
 
 from __future__ import annotations
@@ -33,7 +36,10 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, List, Optional
 
+from bigdl_tpu_torch import observability as obs
+from bigdl_tpu_torch import reliability
 from bigdl_tpu_torch.llm.kvcache.pool import PagePool, PagePoolError
+from bigdl_tpu_torch.observability import flight
 from bigdl_tpu_torch.llm.kvcache.radix import PrefixMatch, RadixIndex
 
 
@@ -97,6 +103,57 @@ class KVCacheManager:
         self.misses = 0
         self.evictions = 0
         self.prefix_tokens_reused = 0
+        self._ins: Optional[Dict[str, Any]] = None
+
+    # -- observability -------------------------------------------------------
+    def _instruments(self):
+        if not (self.enabled and obs.enabled()):
+            return None
+        if self._ins is None:
+            self._ins = {
+                "hits": obs.counter(
+                    "bigdl_kvcache_hits_total",
+                    "Admissions that reused a cached prefix"),
+                "misses": obs.counter(
+                    "bigdl_kvcache_misses_total",
+                    "Admissions with no cached prefix"),
+                "evictions": obs.counter(
+                    "bigdl_kvcache_evictions_total",
+                    "Pages evicted from the prefix index under pool "
+                    "pressure"),
+                "reused": obs.counter(
+                    "bigdl_kvcache_prefix_tokens_reused_total",
+                    "Prompt tokens served from cached prefixes instead "
+                    "of prefill"),
+                "indexed": obs.gauge(
+                    "bigdl_kvcache_indexed_pages",
+                    "Pages currently referenced by the prefix index"),
+                "shared": obs.gauge(
+                    "bigdl_kvcache_shared_pages",
+                    "Pages with more than one reference (index + live "
+                    "requests)"),
+                "occupancy": obs.gauge(
+                    "bigdl_kvcache_pool_occupancy",
+                    "Fraction of the usable page pool allocated "
+                    "(live + indexed)"),
+            }
+        return self._ins
+
+    def record_gauges(self):
+        ins = self._instruments()
+        if ins is None:
+            return
+        ins["indexed"].set(self.index.indexed_pages())
+        ins["shared"].set(self.pool.shared_pages())
+        ins["occupancy"].set(
+            self.pool.allocated() / max(self.pool.num_pages - 1, 1))
+        if self.tier is not None:
+            self.tier.record_gauges()
+
+    def _count(self, name: str, n: int = 1):
+        ins = self._instruments()
+        if ins is not None:
+            ins[name].inc(n)
 
     # -- host tier -----------------------------------------------------------
     def attach_tier(self, tier, reader, writer):
@@ -159,7 +216,9 @@ class KVCacheManager:
             adm.fetch = []
             adm.fetch_job = None
             self.prefix_tokens_reused += n * self.page
+            self._count("reused", n * self.page)
             self.tier.count_fetch(n)
+            self.record_gauges()
 
     def degrade(self, adm: Admission):
         """A failed, timed-out or cancelled fetch becomes a plain miss:
@@ -301,8 +360,12 @@ class KVCacheManager:
                 # host tokens count as reused only once their fetch lands
                 self.hits += 1
                 self.prefix_tokens_reused += adm.device_matched
+                self._count("hits")
+                if adm.device_matched:
+                    self._count("reused", adm.device_matched)
             else:
                 self.misses += 1
+                self._count("misses")
             return adm
 
     def cancel(self, adm: Admission):
@@ -375,6 +438,7 @@ class KVCacheManager:
             return
         with self._lock:
             self.index.insert(tokens, pages)
+            self.record_gauges()
 
     def chain_locations(self, tokens):
         """Where a chain's cached FULL pages live now (the handoff
@@ -393,7 +457,8 @@ class KVCacheManager:
     def ensure_free(self, n: int):
         """Make ``n`` pages allocatable, LRU-evicting index-only chains
         under pool pressure (each evicted full page offered to the host
-        tier first)."""
+        tier first). The ``kvcache.evict`` fault site fires before any
+        mutation, so an injected raise is cleanly retryable."""
         with self._lock:
             short = n - self.pool.free_pages()
             if short <= 0:
@@ -402,9 +467,14 @@ class KVCacheManager:
                 raise PagePoolError(
                     "page shortage with the prefix cache disabled: the "
                     "admission budget should have prevented this")
+            reliability.inject("kvcache.evict")
             freed = self.index.evict_lru(
                 short, spill=self._spill if self.tier is not None else None)
             self.evictions += len(freed)
+            self._count("evictions", len(freed))
+            if freed:
+                flight.record("evict", pages=len(freed), requested=short)
+            self.record_gauges()
             if len(freed) < short:
                 raise PagePoolError(
                     f"eviction reclaimed {len(freed)}/{short} pages: the "

@@ -17,9 +17,10 @@ uploads those pages back, then adopts them like a device prefix hit:
   held by the engine's :class:`~bigdl_tpu_torch.llm.kvcache.KVCacheManager`.
 
 An engine built without ``kvtier=True`` makes none of this: no arena, no
-thread, no ``tier`` block in ``debug_stats``. Not ported: the
-``bigdl_kvtier_*`` metric instruments and ``record_gauges``
-(observability, ROADMAP Queue 1 item 8).
+thread, no ``tier`` block in ``debug_stats``, no ``bigdl_kvtier_*``
+series. The tallies mirror into those series (``record_gauges`` for the
+arena's fill and the migrations in flight) while observability is on,
+and each spill is a flight-recorder ``spill`` event.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from bigdl_tpu_torch import observability as obs
+from bigdl_tpu_torch.observability import flight
 from bigdl_tpu_torch.llm.kvtier.arena import HostArena, HostArenaError
 from bigdl_tpu_torch.llm.kvtier.handoff import (HandoffError,
                                                 deserialize_chain,
@@ -56,15 +59,70 @@ class KVTier:
         self.handoffs_out = 0
         self.handoffs_in = 0
         self.handoff_bytes = 0
+        self._ins: Optional[Dict[str, Any]] = None
+
+    # -- observability -------------------------------------------------------
+    def _instruments(self):
+        if not obs.enabled():
+            return None
+        if self._ins is None:
+            self._ins = {
+                "spills": obs.counter(
+                    "bigdl_kvtier_spills_total",
+                    "Pages spilled from HBM to the host arena"),
+                "fetches": obs.counter(
+                    "bigdl_kvtier_fetches_total",
+                    "Pages fetched from the host arena back into HBM"),
+                "fetch_failures": obs.counter(
+                    "bigdl_kvtier_fetch_failures_total",
+                    "Host-tier fetches that degraded to a cache miss"),
+                "handoffs": obs.counter(
+                    "bigdl_kvtier_handoffs_total",
+                    "KV-chain handoffs across the prefill/decode split",
+                    labelnames=("direction",)),
+                "handoff_bytes": obs.counter(
+                    "bigdl_kvtier_handoff_bytes_total",
+                    "Serialized KV bytes moved by handoffs"),
+                "host_used": obs.gauge(
+                    "bigdl_kvtier_host_pages_used",
+                    "Host arena slots currently holding a page"),
+                "host_capacity": obs.gauge(
+                    "bigdl_kvtier_host_pages",
+                    "Host arena capacity in page slots"),
+                "inflight": obs.gauge(
+                    "bigdl_kvtier_inflight_migrations",
+                    "Migration jobs queued or running"),
+            }
+        return self._ins
+
+    def record_gauges(self):
+        ins = self._instruments()
+        if ins is None:
+            return
+        ins["host_used"].set(self.arena.used())
+        ins["host_capacity"].set(self.arena.capacity)
+        ins["inflight"].set(self.migrator.inflight())
 
     def count_spill(self, n: int = 1):
         self.spills += n
+        flight.record("spill", pages=n)
+        ins = self._instruments()
+        if ins is not None:
+            ins["spills"].inc(n)
+            self.record_gauges()
 
     def count_fetch(self, n: int):
         self.fetches += n
+        ins = self._instruments()
+        if ins is not None:
+            ins["fetches"].inc(n)
+            self.record_gauges()
 
     def count_fetch_failure(self, n: int = 1):
         self.fetch_failures += n
+        ins = self._instruments()
+        if ins is not None:
+            ins["fetch_failures"].inc(n)
 
     def count_handoff(self, direction: str, nbytes: int):
         if direction == "export":
@@ -72,6 +130,10 @@ class KVTier:
         else:
             self.handoffs_in += 1
         self.handoff_bytes += nbytes
+        ins = self._instruments()
+        if ins is not None:
+            ins["handoffs"].labels(direction=direction).inc()
+            ins["handoff_bytes"].inc(nbytes)
 
     def cancel_fetch(self, job: Optional[MigrationJob]):
         """Flag an in-flight fetch cancelled from outside the engine

@@ -25,10 +25,10 @@ behind the spill that produced its bytes.
 Failure contract, as the JAX package's: a failed spill aborts its arena
 entry (the page is simply not cached); a failed fetch marks the job
 failed and releases its pins, and the engine degrades the admission to
-a plain cache miss. Nothing raises into the engine loop. Not ported:
-the ``kvtier.{spill,fetch}`` fault sites and the ``kvtier/migrate``
-trace span (reliability and observability, ROADMAP Queue 1 item 8); the
-tests make a transfer fail by patching :meth:`Migrator._run_fetch`.
+a plain cache miss. Nothing raises into the engine loop. The
+``kvtier.spill`` / ``kvtier.fetch`` fault sites sit at the top of each
+transfer, as in the JAX package, and a transfer that succeeds records a
+``kvtier/migrate`` span.
 """
 
 from __future__ import annotations
@@ -41,6 +41,8 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
+from bigdl_tpu_torch import observability as obs
+from bigdl_tpu_torch import reliability
 from bigdl_tpu_torch.llm.kvtier.arena import HostArena
 
 
@@ -152,9 +154,11 @@ class Migrator:
                 else contextlib.nullcontext())
 
     def _run(self, job: MigrationJob):
+        t0 = time.time()
         try:
             if job.cancelled:
                 raise RuntimeError("cancelled before transfer")
+            reliability.inject(f"kvtier.{job.kind}")
             with torch.inference_mode():
                 if job.kind == "spill":
                     self._run_spill(job)
@@ -175,6 +179,10 @@ class Migrator:
                 self.fetch_failures += 1
                 self._resolve_pins(job)
         finally:
+            if job.ok:
+                obs.add_complete(
+                    "kvtier/migrate", t0, time.time() - t0,
+                    direction=job.kind, pages=len(job.entries))
             job.done.set()
 
     def _run_spill(self, job: MigrationJob):

@@ -33,11 +33,19 @@ and its slot-static engine (``paged=False``):
   ``max_seq_len`` window a slot, its prompt prefilled by the broadcast
   pass, its decode step one captured CUDA graph).
 
-The engine's other options raise ``NotImplementedError`` naming their
-ROADMAP item; none is silently ignored. Not ported with these paths:
-their metric instruments, flight-recorder events and trace spans, the
-``llm.spec`` / ``llm.preempt`` / ``kvtier.*`` fault sites and the
-watchdog (observability and reliability, ROADMAP Queue 1 item 8).
+The engine's options default from the layered config (``bigdl.llm.*``
+keys, ``bigdl_tpu_torch/utils/conf.py``) as the JAX engine's do, and it
+carries the JAX engine's observability and reliability planes: every
+``bigdl_llm_*`` / ``bigdl_kvcache_*`` / ``bigdl_kvtier_*`` series with
+its labels, the ``llm/queue_wait`` / ``llm/prefill`` / ``llm/decode`` /
+``llm/preempt`` spans stitched under ``Request.trace``, the flight
+recorder's decision events, the SLO account (``slo=``), the step
+watchdog (``watchdog_timeout=``) and the fault sites ``llm.submit``,
+``llm.step``, ``worker.stall``, ``llm.chunk``, ``llm.spec``,
+``llm.preempt``, ``kvcache.evict`` and ``kvtier.{spill,fetch}``. The
+instruments read host values the engine already has at its drain
+fence: they add no device read, no synchronize and no launch, and the
+captured steps are the same graphs with them on or off.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import observability as obs
+from bigdl_tpu_torch import reliability
 from bigdl_tpu_torch.device import resolve_device
 from bigdl_tpu_torch.llm.graphs import CapturedStep
 from bigdl_tpu_torch.llm.kernels.paged_attention import (
@@ -72,11 +82,96 @@ from bigdl_tpu_torch.llm.models.llama import (_attention, _embed, _head,
                                               decoder_layer, init_cache,
                                               layer_params)
 from bigdl_tpu_torch.llm.spec import NGramProposer
+from bigdl_tpu_torch.observability import flight
+from bigdl_tpu_torch.observability import request_context as rc
+from bigdl_tpu_torch.observability.slo import SLOAccount
+from bigdl_tpu_torch.reliability.policies import _count
+from bigdl_tpu_torch.utils.conf import conf
+
+#: the server refuses a request for capacity (full queue, draining); the
+#: worker and the gateway answer it with 503 / 429 + Retry-After
+OverloadError = reliability.OverloadError
 
 
-class OverloadError(RuntimeError):
-    """The server refuses a request for capacity (full queue, draining);
-    the caller may retry later."""
+def _trace_of(req) -> Optional[str]:
+    """The trace id riding a Request handle, if its submitter had one."""
+    t = getattr(req, "trace", None)
+    return t.get("trace_id") if t else None
+
+
+def _llm_instruments():
+    """The engine's series (declared only while observability records),
+    the JAX engine's names, help texts and labels."""
+    return {
+        "prefill_tokens": obs.counter(
+            "bigdl_llm_prefill_tokens_total",
+            "Prompt tokens prefilled into the KV cache"),
+        "prefill_seconds": obs.histogram(
+            "bigdl_llm_prefill_seconds",
+            "Host wall of one request prefill (compile excluded after "
+            "first hit per length bucket). At pipeline_depth 1 this "
+            "covers execution (the prefill barriers); at depth > 1 it "
+            "is DISPATCH time — execution overlaps decode by design"),
+        "decode_tokens": obs.counter(
+            "bigdl_llm_decode_tokens_total",
+            "Tokens decoded across all slots"),
+        "decode_seconds": obs.histogram(
+            "bigdl_llm_decode_step_seconds",
+            "Host wall attributed to one decode step: scheduling + "
+            "fence stall (under pipelining device compute overlaps the "
+            "host, so this is NOT pure device time — see the host/stall "
+            "split below and docs/PERFORMANCE.md)"),
+        "decode_host": obs.histogram(
+            "bigdl_llm_decode_host_seconds",
+            "Host-side scheduling slice of one decode step (page "
+            "allocation + dispatch; no device wait)",
+            buckets=obs.FAST_BUCKETS),
+        "decode_stall": obs.histogram(
+            "bigdl_llm_decode_stall_seconds",
+            "Host time blocked on the device fence when draining a "
+            "decode step (the pipeline's residual stall)",
+            buckets=obs.FAST_BUCKETS),
+        "inflight": obs.gauge(
+            "bigdl_llm_pipeline_inflight",
+            "Decode steps dispatched but not yet drained (bounded by "
+            "bigdl.llm.pipeline_depth)"),
+        "requests": obs.counter(
+            "bigdl_llm_requests_total",
+            "Requests finished by the engine", labelnames=("reason",)),
+        "active": obs.gauge(
+            "bigdl_llm_active_slots", "Slots currently decoding"),
+        "queue": obs.gauge(
+            "bigdl_llm_queue_depth",
+            "Requests accepted and waiting for an engine slot (the "
+            "fleet autoscaler's primary pressure signal)"),
+        "kv_pages": obs.gauge(
+            "bigdl_llm_kv_pages_in_use",
+            "Physical KV pages owned by live requests"),
+        "kv_occupancy": obs.gauge(
+            "bigdl_llm_kv_pool_occupancy",
+            "Fraction of the KV page pool in use (0..1)"),
+    }
+
+
+def _priority_instruments():
+    """The priority scheduler's series: declared only when the scheduler
+    exists and observability records."""
+    return {
+        "preemptions": obs.counter(
+            "bigdl_llm_preemptions_total",
+            "In-flight decodes losslessly preempted for a higher "
+            "SLO class, by the victim's class",
+            labelnames=("class",)),
+        "queue_class": obs.gauge(
+            "bigdl_llm_queue_depth_class",
+            "Scheduler backlog by SLO class (the fleet autoscaler's "
+            "interactive-starvation signal)",
+            labelnames=("class",)),
+        "parked": obs.gauge(
+            "bigdl_llm_preempt_parked",
+            "Preempted requests parked for resume on this engine "
+            "(scale-in must not drain the worker holding them)"),
+    }
 
 
 #: SLO classes in strictly descending scheduling priority; anything
@@ -133,6 +228,11 @@ class _PriorityScheduler:
     def best_rank(self) -> Optional[int]:
         ranks = [e[0] for e in self._heap if not e[2].done.is_set()]
         return min(ranks) if ranks else None
+
+    def requests(self) -> List["Request"]:
+        """The parked handles, read without popping (the watchdog's
+        sweep flags them from its own thread)."""
+        return [r for _, _, r in list(self._heap)]
 
     def drain(self) -> List[tuple]:
         ents, self._heap = self._heap, []
@@ -520,11 +620,21 @@ class Request:
         self.cancel_requested = False
         self.error: Optional[str] = None
         self.done = threading.Event()
+        # the submitter's trace context rides the handle into the engine
+        # thread (context variables do not cross threads); None when no
+        # trace is active or observability is off
+        self.trace = rc.to_wire(rc.current())
+        self.submitted_at = time.time() if self.trace else 0.0
+        self.decode_started_at = 0.0
         # TTFT accounting: submit stamp here, first-token stamp at drain;
         # t_tokens holds each token's drain time (one clock read a drain)
         self.t_submit = time.perf_counter()
         self.t_first_token = 0.0
         self.t_tokens: List[float] = []
+        # the SLO account's per-request state: the last token's drain
+        # stamp and the worst gap so far
+        self.t_last_token = 0.0
+        self.itl_max = -1.0
 
     def get(self, timeout: Optional[float] = None) -> List[int]:
         if not self.done.wait(timeout):
@@ -532,15 +642,6 @@ class Request:
         if self.error is not None:
             raise RuntimeError(f"request {self.id} failed: {self.error}")
         return list(self.tokens)
-
-
-# options of the JAX engine that the port does not implement yet, and the
-# ROADMAP item that will (asking for one raises; none is ignored)
-_NOT_PORTED = {
-    "slo": "SLO accounting (observability) is ROADMAP Queue 1 item 8",
-    "watchdog_timeout": "the engine watchdog (reliability) is ROADMAP "
-                        "Queue 1 item 8",
-}
 
 
 def _pow2_bucket(n: int, page: int) -> int:
@@ -674,6 +775,53 @@ class LLMServer:
     ``priority`` and the host tier refuse with the JAX engine's
     ``ValueError``; ``pages_in_use`` is -1.
 
+    **Configuration**: an option left at ``None`` takes its ``bigdl.llm.*``
+    key from the layered config (``bigdl_tpu_torch/utils/conf.py``: the
+    ``BIGDL_TPU_*`` environment, a ``bigdl-tpu.conf`` file,
+    ``conf.set``), with the JAX engine's keys and defaults:
+    ``pipeline_depth`` (``bigdl.llm.pipeline_depth``), ``kvcache``,
+    ``ragged_prefill`` (``bigdl.llm.prefill.ragged``; its "auto" is on
+    in the port), ``mixed``, ``chunk_tokens``, ``chunk_wait``
+    (``bigdl.llm.prefill.chunk.wait``), ``spec``, ``spec_k`` (and
+    ``bigdl.llm.spec.min_match`` / ``.backoff``), ``priority``, the tier's
+    ``kvtier``, ``host_pages``, ``kvtier_sync`` and
+    ``kvtier_fetch_timeout`` (``bigdl.llm.kvtier.*``), ``slo``
+    (``bigdl.slo.enabled``) and ``watchdog_timeout``
+    (``bigdl.llm.watchdog.step_timeout``).
+
+    **Observability**: with ``bigdl.observability.enabled`` (the default)
+    the engine writes the JAX engine's series into the port's registry,
+    declared at first use; ``slo=True`` adds the TTFT / ITL sketches and
+    the ``bigdl_slo_*`` classification of each finished request; with
+    ``bigdl.observability.flight.enabled`` its decisions (queue, admit,
+    radix hit / miss, COW fork, park, fetch, chunk charge, rollback,
+    draft, verify, preempt, finish, ...) land in the flight ring.
+
+    **Watchdog** (``watchdog_timeout`` seconds > 0): a monitor thread
+    watches the heartbeat the engine loop stamps at the top of every
+    pass. A pass older than the timeout trips it: ``watchdog_tripped``
+    (the worker's ``/healthz`` answers 503 "stalled"), one count on
+    ``bigdl_llm_watchdog_trips_total``, and every pending request (queue,
+    class heap, slots, fetch-parked) failed with a retriable error while
+    the engine thread stays wedged; ``submit`` fails fast meanwhile. The
+    sweep runs on the monitor thread while the engine thread may be
+    inside a graph launch, so it touches only thread-safe host surfaces
+    (the intake queue, request handles, fetch jobs' cancel flags), never
+    the device. A fresh heartbeat clears the trip. A kernel's first
+    build (``nvcc``) and each bucket's first graph capture look like a
+    stalled pass from the host: warm every bucket before arming a short
+    timeout, or set it above the longest build and capture.
+
+    **Failing passes**: a pass that raises an
+    :class:`~bigdl_tpu_torch.reliability.InjectedFault` (a fault site,
+    each before any device work) is retried as the JAX engine retries
+    every failing pass: ``bigdl_reliability_retries_total
+    {component="llm_server"}`` counts it, the loop backs off under a
+    :class:`~bigdl_tpu_torch.reliability.RetryPolicy` and the surviving
+    slots keep decoding. Any other exception fails every request in
+    flight and the engine goes on serving: a CUDA error is sticky, so
+    retrying the pass would only hang its clients.
+
     ``device=None`` means the GPU (and raises without one); the model
     must live on the same device. ``page_size=None`` takes the model's;
     another value than the model's raises.
@@ -688,14 +836,19 @@ class LLMServer:
                  temperature: float = 0.0, top_k: int = 0,
                  sample_seed: int = 0,
                  ragged_prefill: Optional[bool] = None,
-                 kvcache: bool = False, mixed: bool = False,
+                 kvcache: Optional[bool] = None,
+                 mixed: Optional[bool] = None,
                  chunk_tokens: Optional[int] = None,
                  chunk_wait: Optional[float] = None,
-                 spec: bool = False, spec_k: Optional[int] = None,
-                 priority: bool = False, kvtier: bool = False,
-                 host_pages: Optional[int] = None, kvtier_sync: bool = False,
-                 kvtier_fetch_timeout: float = 30.0, device=None,
-                 **options):
+                 spec: Optional[bool] = None, spec_k: Optional[int] = None,
+                 priority: Optional[bool] = None,
+                 kvtier: Optional[bool] = None,
+                 host_pages: Optional[int] = None,
+                 kvtier_sync: Optional[bool] = None,
+                 kvtier_fetch_timeout: Optional[float] = None,
+                 slo: Optional[bool] = None,
+                 watchdog_timeout: Optional[float] = None, device=None):
+        obs.require_unported_off()
         if not paged:
             # the JAX engine's refusals, in its order
             if kvtier:
@@ -713,12 +866,40 @@ class LLMServer:
                 raise ValueError("self-speculative decoding is "
                                  "page-pool only; the verify chunk is "
                                  "a ragged chunk over pool pages")
-        for name, value in options.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value not in (None, False, 0):
-                raise NotImplementedError(f"{name}={value!r}: "
-                                          f"{_NOT_PORTED[name]}")
+        else:
+            # the page-pool options the caller left open come from the
+            # layered config, as in the JAX engine (the slot-static engine
+            # reads none of them)
+            def opt(value, getter, key, default):
+                return value if value is not None else getter(key, default)
+
+            kvcache = opt(kvcache, conf.get_bool,
+                          "bigdl.llm.kvcache.enabled", False)
+            if ragged_prefill is None:
+                rag = str(conf.get("bigdl.llm.prefill.ragged", "auto"))
+                ragged_prefill = (rag.lower() == "auto" or conf.get_bool(
+                    "bigdl.llm.prefill.ragged"))
+            mixed = opt(mixed, conf.get_bool, "bigdl.llm.mixed.enabled",
+                        False)
+            chunk_tokens = opt(chunk_tokens, conf.get_int,
+                               "bigdl.llm.prefill.chunk_tokens", 0)
+            chunk_wait = opt(chunk_wait, conf.get_float,
+                             "bigdl.llm.prefill.chunk.wait", 30.0)
+            spec = opt(spec, conf.get_bool, "bigdl.llm.spec.enabled", False)
+            spec_k = opt(spec_k, conf.get_int, "bigdl.llm.spec.k", 4)
+            priority = opt(priority, conf.get_bool,
+                           "bigdl.llm.priority.enabled", False)
+            kvtier = opt(kvtier, conf.get_bool, "bigdl.llm.kvtier.enabled",
+                         False)
+            host_pages = opt(host_pages, conf.get_int,
+                             "bigdl.llm.kvtier.host_pages", 0)
+            kvtier_sync = opt(kvtier_sync, conf.get_bool,
+                              "bigdl.llm.kvtier.sync", False)
+            kvtier_fetch_timeout = opt(
+                kvtier_fetch_timeout, conf.get_float,
+                "bigdl.llm.kvtier.fetch.timeout", 30.0)
+        if pipeline_depth is None:
+            pipeline_depth = conf.get_int("bigdl.llm.pipeline_depth", 2)
         self.paged = paged
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -749,8 +930,7 @@ class LLMServer:
         # the window of dispatched, undrained steps; each record keeps the
         # pinned host buffers its uploads read until its drain proves the
         # step (and every copy enqueued before it) retired
-        self.pipeline_depth = max(1, int(2 if pipeline_depth is None
-                                         else pipeline_depth))
+        self.pipeline_depth = max(1, int(pipeline_depth))
         self._inflight: deque = deque()
         self._pending_release: List[torch.Tensor] = []
         self.steps = 0
@@ -763,6 +943,24 @@ class LLMServer:
         self._gen = torch.Generator(device=self.device).manual_seed(
             sample_seed)
         self.errors: List[str] = []
+        # observability: the series are declared at first use (so
+        # obs.enable() on a live server starts recording); the SLO account
+        # exists only when asked for
+        self._ins = None
+        self._pri_ins = None
+        self._mixed_ins = None
+        self._spec_ins = None
+        self._slo = SLOAccount.if_enabled("engine", enabled=slo)
+        # the watchdog: the loop stamps _hb at the top of every pass
+        wd = (watchdog_timeout if watchdog_timeout is not None else
+              conf.get_float("bigdl.llm.watchdog.step_timeout", 0.0))
+        self.watchdog_timeout = float(wd or 0.0)
+        self.watchdog_enabled = self.watchdog_timeout > 0.0
+        self.watchdog_tripped = False
+        self.watchdog_trips = 0
+        self._hb = time.monotonic()
+        self._watchdog_stop = threading.Event()
+        self._watchdog_thread: Optional[threading.Thread] = None
 
         if page_size is None:
             page_size = model.page_size
@@ -797,6 +995,9 @@ class LLMServer:
                              "is not implemented, in the JAX engine either")
         self._spec_active = bool(spec) and self._ragged
         self._spec_k = max(1, int(4 if spec_k is None else spec_k))
+        self._spec_min_match = max(1, conf.get_int(
+            "bigdl.llm.spec.min_match", 2))
+        self._spec_backoff = conf.get_float("bigdl.llm.spec.backoff", 0.5)
         self._spec_state: Optional[List[Optional[dict]]] = (
             [None] * max_batch if self._spec_active else None)
         # slots whose verify is in flight: how far the row advanced is
@@ -942,7 +1143,12 @@ class LLMServer:
                priority: Optional[str] = None) -> Request:
         """Queue a request; ``priority`` is its SLO class (normalized by
         :func:`normalize_priority`; scheduled by only with
-        ``priority=True``)."""
+        ``priority=True``). A refusal for capacity raises
+        :class:`OverloadError` (``draining=True`` on a draining server;
+        ``pages_needed`` / ``pages_free`` when the queue is full). While
+        the watchdog is tripped and the engine still wedged, the request
+        comes back failed (retriably) at once."""
+        reliability.inject("llm.submit")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         req = Request(prompt_ids, max_new_tokens,
@@ -951,19 +1157,31 @@ class LLMServer:
             raise ValueError("empty prompt")
         if len(req.prompt_ids) + max_new_tokens > self.max_seq_len:
             raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
-        need = ""
+        pages = None
         if self.paged:
+            # the post-lookup suffix cost: feasibility and the shed
+            # diagnostics are judged on what admission would charge
             pages = self._kv.peek(req.prompt_ids, max_new_tokens)
             if pages["pages_needed"] > self._num_pages - 1:
                 raise ValueError(
-                    f"request needs {pages['pages_needed']} pages but the "
-                    f"pool holds {self._num_pages - 1}; it could never be "
-                    "admitted")
-            need = (f" [needs {pages['pages_needed']} pages, "
-                    f"{pages['pages_free']} budget-free]")
+                    f"request needs {pages['pages_needed']} pages "
+                    f"(uncached suffix of prompt + max_new_tokens) but "
+                    f"the pool holds {self._num_pages - 1}; it could "
+                    "never be admitted")
         if self._draining.is_set():
-            raise OverloadError("server is draining: not accepting new "
+            reliability.count_shed("llm_server", request_id=req.id,
+                                   trace_id=_trace_of(req),
+                                   reason="draining")
+            err = OverloadError("server is draining: not accepting new "
                                 "requests")
+            err.draining = True
+            raise err
+        if self.watchdog_enabled and self.watchdog_tripped \
+                and time.monotonic() - self._hb > self.watchdog_timeout:
+            # wedged mid-pass right now (the flag and a stale heartbeat):
+            # a queued request would only hang behind the stalled pass
+            self._watchdog_fail(req, self._watchdog_msg())
+            return req
         try:
             # the engine drains the intake into the scheduler's heap every
             # pass, so bound the intake and the backlog together
@@ -973,9 +1191,37 @@ class LLMServer:
                 raise queue.Full
             self._queue.put_nowait(req)
         except queue.Full:
-            raise OverloadError(
-                f"request queue full ({self.max_queue} waiting); retry "
-                f"later{need}") from None
+            # the page accounting tells queue pressure from page pressure
+            shed = dict(request_id=req.id, trace_id=_trace_of(req),
+                        queue_depth=self._queue.qsize(),
+                        pages_needed=pages["pages_needed"] if pages else None,
+                        pages_free=pages["pages_free"] if pages else None)
+            if pages is not None and \
+                    pages["pages_needed"] > pages["pages_free"]:
+                reliability.count_shed("llm_server_pages",
+                                       reason="page_pressure", **shed)
+            else:
+                reliability.count_shed("llm_server", reason="queue_full",
+                                       **shed)
+            msg = (f"request queue full ({self.max_queue} waiting); "
+                   "retry later")
+            if pages is not None:
+                msg += (f" [needs {pages['pages_needed']} pages for the "
+                        f"uncached suffix, {pages['pages_free']} "
+                        "budget-free]")
+            err = OverloadError(msg)
+            if pages is not None:
+                err.pages_needed = pages["pages_needed"]
+                err.pages_free = pages["pages_free"]
+            raise err from None
+        if flight.enabled:
+            flight.record(
+                "queue", request_id=req.id, trace_id=_trace_of(req),
+                prompt_tokens=len(req.prompt_ids),
+                max_new_tokens=req.max_new_tokens,
+                queue_depth=self._queue.qsize(),
+                pages_needed=pages["pages_needed"] if pages else None,
+                pages_free=pages["pages_free"] if pages else None)
         return req
 
     def retry_depth(self, priority: Optional[str] = None) -> float:
@@ -1130,11 +1376,95 @@ class LLMServer:
         if not req.done.is_set():
             req.error = req.error or f"request aborted: {reason}"
             req.done.set()
+        # no count here: the engine counts the reaped slot as
+        # requests{reason="cancelled"} at its next drain
+
+    # -- the watchdog ----------------------------------------------------------
+    def _watchdog_loop(self):
+        """The step-deadline monitor (see the class docstring): trip on a
+        heartbeat older than the timeout, sweep every tick while the
+        engine stays wedged (a request that raced past ``submit``'s gate
+        into the queue must not hang), clear the trip when the heartbeat
+        moves again."""
+        interval = min(max(self.watchdog_timeout / 4.0, 0.01), 0.25)
+        while not self._watchdog_stop.wait(interval):
+            age = time.monotonic() - self._hb
+            if age <= self.watchdog_timeout:
+                if self.watchdog_tripped:
+                    self.watchdog_tripped = False    # the engine recovered
+                continue
+            if self.watchdog_tripped:
+                self._watchdog_sweep(self._watchdog_msg())
+                continue
+            self._watchdog_trip(age)
+
+    def _watchdog_msg(self) -> str:
+        return (f"engine stalled: step exceeded the "
+                f"{self.watchdog_timeout:g}s watchdog timeout "
+                "(retriable: resubmit to another backend)")
+
+    def _watchdog_trip(self, age: float):
+        self.watchdog_tripped = True
+        self.watchdog_trips += 1
+        failed = self._watchdog_sweep(self._watchdog_msg())
+        if obs.enabled():
+            obs.counter(
+                "bigdl_llm_watchdog_trips_total",
+                "Engine stalls detected by the step-deadline "
+                "watchdog").inc()
+            obs.add_complete("llm/watchdog_trip", time.time() - age, age,
+                             stage="llm_server", failed_requests=failed,
+                             timeout_s=self.watchdog_timeout)
+
+    def _watchdog_sweep(self, msg: str) -> int:
+        """Fail every pending request from the monitor thread. The engine
+        thread is wedged, maybe holding the lock and maybe inside a graph
+        launch, so only thread-safe host surfaces are touched: the intake
+        queue, request handles and fetch jobs' cancel flags. Pages,
+        budget and device state stay the engine thread's to clean up when
+        it wakes."""
+        failed = 0
+        try:
+            while True:
+                failed += self._watchdog_fail(self._queue.get_nowait(), msg)
+        except queue.Empty:
+            pass
+        head = self._pending_head
+        if head is not None:
+            failed += self._watchdog_fail(head, msg)
+        if self._sched is not None:
+            for req in self._sched.requests():
+                failed += self._watchdog_fail(req, msg)
+        for req in list(self._slots):
+            if req is not None:
+                failed += self._watchdog_fail(req, msg)
+        for ent in list(self._fetch_wait):
+            failed += self._watchdog_fail(ent["req"], msg)
+            if self._tier is not None:
+                self._tier.cancel_fetch(ent["adm"].fetch_job)
+        for req, _adm in list(self._fetch_ready):
+            failed += self._watchdog_fail(req, msg)
+        return failed
+
+    @staticmethod
+    def _watchdog_fail(req: Request, msg: str) -> int:
+        req.cancel_requested = True
+        if req.done.is_set():
+            return 0
+        req.error = msg
+        req.done.set()
+        return 1
 
     def start(self) -> "LLMServer":
         self._thread = threading.Thread(target=self._loop,
                                         name="bigdl-torch-llm", daemon=True)
         self._thread.start()
+        if self.watchdog_enabled:
+            self._hb = time.monotonic()
+            self._watchdog_thread = threading.Thread(
+                target=self._watchdog_loop, name="bigdl-torch-llm-watchdog",
+                daemon=True)
+            self._watchdog_thread.start()
         return self
 
     def stop(self, drain: bool = True, timeout: float = 30.0):
@@ -1151,6 +1481,9 @@ class LLMServer:
                         break
                 time.sleep(0.005)
         self._stop.set()
+        if self._watchdog_thread is not None:
+            self._watchdog_stop.set()
+            self._watchdog_thread.join(timeout=5)
         if self._thread is not None:
             self._thread.join(timeout=60)
         if self._thread is not None and self._thread.is_alive():
@@ -1171,12 +1504,26 @@ class LLMServer:
 
     # -- engine --------------------------------------------------------------
     def _loop(self):
+        backoff = reliability.RetryPolicy(max_attempts=1 << 30,
+                                          base_delay=0.005, max_delay=0.5)
+        delays = None
         with torch.inference_mode():
             while not self._stop.is_set():
+                self._hb = time.monotonic()   # the watchdog's heartbeat
                 try:
                     with self._lock:
                         self._admit()
                         busy = self._step()
+                except reliability.InjectedFault:
+                    # a fault site fired, before any device work: the JAX
+                    # engine's retry (count, back off, keep the slots)
+                    _count("bigdl_reliability_retries_total",
+                           "Retries performed under a RetryPolicy",
+                           component="llm_server")
+                    if delays is None:
+                        delays = backoff.delays()
+                    time.sleep(next(delays, 0.5))
+                    continue
                 except Exception as e:  # noqa: BLE001 — engine boundary
                     # the engine thread survives a failing pass: the
                     # requests in flight fail with the error (a CUDA
@@ -1187,8 +1534,10 @@ class LLMServer:
                     with self._lock:
                         self._fail_all(msg)
                     continue
+                delays = None    # a healthy pass resets the backoff
                 if not busy:
                     time.sleep(0.002)
+
 
     def _fail_all(self, msg: str):
         self._inflight.clear()
@@ -1359,15 +1708,10 @@ class LLMServer:
                     continue       # aborted while queued: nothing charged
             ids, budget = self._prompt_of(req), self._budget_of(req)
             if not self.paged:
-                try:
-                    self._prefill_slot(i, req)
-                    self.prefill_tokens_total += len(ids)
-                except Exception as e:  # noqa: BLE001 — fails this request
-                    self.errors.append(traceback.format_exc())
-                    req.error = f"{type(e).__name__}: {e}"
-                    req.done.set()
+                self._prefill_admitted(i, req, None)
                 return True
             chunk_first = None
+            t_lk = time.perf_counter()
             if self._mixed_active and len(ids) > self._chunk_tokens:
                 # a long uncached suffix is fed in chunks, the first
                 # charged now; a match the arena extends keeps the
@@ -1382,7 +1726,16 @@ class LLMServer:
                         len(ids) - off0 > self._chunk_tokens:
                     end0 = self._chunk_end(off0, len(ids))
                     chunk_first = -(-end0 // page) - off0 // page
-            adm = self._kv.admit(ids, budget, chunk_pages=chunk_first)
+            try:
+                adm = self._kv.admit(ids, budget, chunk_pages=chunk_first)
+            except BaseException:
+                # an injected kvcache.evict: nothing was charged or
+                # adopted; the head keeps its place for the pass's retry
+                if ent is not None:
+                    self._sched.push_entry(ent)
+                else:
+                    self._pending_head = req
+                raise
             if adm is None:
                 peek = self._kv.peek(ids, budget)
                 if peek["pages_needed"] > self._num_pages - 1:
@@ -1397,9 +1750,15 @@ class LLMServer:
                 else:
                     self._pending_head = req        # retry next pass
                 return False
+            if self._kv.enabled:
+                self._record_lookup(req, adm, len(ids), t_lk)
             if adm.fetch:
                 # a host-tier hit: parked until its pages land; the sweep
                 # goes on filling this slot
+                if flight.enabled:
+                    flight.record("park", request_id=req.id,
+                                  trace_id=_trace_of(req),
+                                  pages=len(adm.fetch))
                 self._fetch_wait.append({"req": req, "adm": adm,
                                          "t0": time.perf_counter()})
                 continue
@@ -1407,34 +1766,128 @@ class LLMServer:
                                    chunked=chunk_first is not None)
             return True
 
-    def _prefill_admitted(self, i: int, req: Request, adm: Admission,
-                          chunked: bool = False, prepaid: bool = False):
+    def _record_lookup(self, req: Request, adm: Admission, n_ids: int,
+                       t0: float):
+        """The prefix-cache lookup's span and flight events."""
+        wall = time.perf_counter() - t0
+        obs.add_complete("kvcache/lookup", time.time() - wall, wall,
+                         request=req.id, matched_tokens=adm.matched_len,
+                         prompt_tokens=n_ids)
+        if flight.enabled:
+            flight.record("radix_hit" if adm.matched_len else "radix_miss",
+                          request_id=req.id, trace_id=_trace_of(req),
+                          matched_tokens=adm.matched_len,
+                          device_matched=adm.device_matched,
+                          prompt_tokens=n_ids)
+            if adm.tail_src is not None:
+                flight.record("cow_fork", request_id=req.id,
+                              trace_id=_trace_of(req), src_page=adm.tail_src,
+                              tail_tokens=adm.tail_len)
+
+    def _prefill_admitted(self, i: int, req: Request,
+                          adm: Optional[Admission], chunked: bool = False,
+                          prepaid: bool = False):
         """Seat a request whose cache grant is held (the shared tail of
-        direct and fetch-parked admissions): a whole prefill, or the
-        start of a chunked admission (``prepaid``: its whole budget was
-        charged at admission)."""
+        direct and fetch-parked admissions; ``adm`` None on the
+        slot-static cache): a whole prefill, or the start of a chunked
+        admission (``prepaid``: its whole budget was charged at
+        admission)."""
+        ctx = rc.from_wire(req.trace)
+        if ctx is not None and req.submitted_at:
+            # the engine-side admission wait, parented to the submitter
+            args = {"parent_span": ctx.span_id} if ctx.span_id else {}
+            obs.add_complete("llm/queue_wait", req.submitted_at,
+                             time.time() - req.submitted_at,
+                             trace=ctx.trace_id, stage="queue",
+                             request=req.id, **args)
+        ids = self._prompt_of(req)
+        if flight.enabled:
+            flight.record("admit", request_id=req.id, trace_id=_trace_of(req),
+                          slot=i, chunked=chunked, prepaid=prepaid,
+                          matched_tokens=adm.matched_len if adm else 0,
+                          prompt_tokens=len(ids))
         self._slot_adm[i] = adm
         if self._sched is not None and req.resume_ids is not None:
             self.preempt_resumes_total += 1
             if self._parked is not None:
                 self._parked.pop(req.id, None)
+            if flight.enabled:
+                flight.record("preempt_resume", request_id=req.id,
+                              trace_id=_trace_of(req), slot=i,
+                              priority=req.priority,
+                              tokens_done=len(req.tokens),
+                              remaining=self._budget_of(req))
         if chunked:
             self._begin_chunked(i, req, adm, prepaid)
             return
+        t0 = time.perf_counter()
         try:
-            (self._prefill_ragged if self._ragged
-             else self._prefill_dense)(i, req, adm)
-            self.prefill_tokens_total += \
-                len(self._prompt_of(req)) - adm.matched_len
+            with rc.activate(ctx), obs.span(
+                    "llm/prefill", slot=i, tokens=len(ids),
+                    stage="llm_server", request=req.id):
+                if not self.paged:
+                    self._prefill_slot(i, req)
+                else:
+                    (self._prefill_ragged if self._ragged
+                     else self._prefill_dense)(i, req, adm)
         except Exception as e:  # noqa: BLE001 — fails this request
             # a failing prefill must not leak its budget or adoption
             # refs, nor leave the client blocked until its timeout; the
-            # slot stays free for the next request
-            self._kv.cancel(adm)
+            # slot stays free for the next request. An injected fault
+            # also fails the pass (the loop's retry), as in the JAX engine
+            if adm is not None:
+                self._kv.cancel(adm)
             self._slot_adm[i] = None
             self.errors.append(traceback.format_exc())
             req.error = f"{type(e).__name__}: {e}"
             req.done.set()
+            if isinstance(e, reliability.InjectedFault):
+                raise
+            return
+        req.decode_started_at = time.time()
+        self._record_prefill(len(ids) - (adm.matched_len if adm else 0),
+                             time.perf_counter() - t0)
+
+    def _instruments(self):
+        """The engine's series, or None while observability is off
+        (declared at first use)."""
+        if not obs.enabled():
+            return None
+        if self._ins is None:
+            self._ins = _llm_instruments()
+        return self._ins
+
+    def _priority_instruments_get(self):
+        """The scheduler's series: None without the scheduler or while
+        observability is off."""
+        if not (self._sched is not None and obs.enabled()):
+            return None
+        if self._pri_ins is None:
+            self._pri_ins = _priority_instruments()
+        return self._pri_ins
+
+    def _record_kv_gauges(self, ins):
+        backlog = len(self._sched) if self._sched is not None else 0
+        ins["queue"].set(self._queue.qsize() + backlog)
+        pri = self._priority_instruments_get()
+        if pri is not None:
+            for cls, depth in self._sched.depths().items():
+                pri["queue_class"].labels(**{"class": cls}).set(depth)
+            pri["parked"].set(self._sched.parked())
+        if self.paged:
+            ins["kv_pages"].set(self.pages_in_use)
+            # page 0 is the trash page, never allocatable
+            ins["kv_occupancy"].set(
+                self.pages_in_use / max(self._num_pages - 1, 1))
+            self._kv.record_gauges()
+
+    def _record_prefill(self, n_tokens: int, seconds: float):
+        self.prefill_tokens_total += n_tokens
+        ins = self._instruments()
+        if ins is not None:
+            ins["prefill_tokens"].inc(n_tokens)
+            ins["prefill_seconds"].observe(seconds)
+            self._record_kv_gauges(ins)
 
     def _read_page_kv(self, pid: int):
         """The spill's copy of one page: ``(k, v, ready)``, standalone
@@ -1479,13 +1932,29 @@ class LLMServer:
             if not done and time.perf_counter() - ent["t0"] <= timeout:
                 k += 1
                 continue
-            if done and job is not None and job.ok and not job.cancelled:
+            landed = (done and job is not None and job.ok
+                      and not job.cancelled)
+            if landed:
                 self._kv.materialize(adm, job.k_dev, job.v_dev, job.event)
             else:
                 self._kv.degrade(adm)
             del self._fetch_wait[k]
+            wait_s = time.perf_counter() - ent["t0"]
             self.fetch_waits += 1
-            self.fetch_wait_seconds += time.perf_counter() - ent["t0"]
+            self.fetch_wait_seconds += wait_s
+            if flight.enabled:
+                flight.record("fetch", request_id=req.id,
+                              trace_id=_trace_of(req),
+                              pages=len(adm.shared_pages),
+                              wait_ms=round(wait_s * 1000.0, 3),
+                              status="landed" if landed else "degraded")
+            if req.trace:
+                obs.add_complete(
+                    "kvtier/fetch_wait", time.time() - wait_s, wait_s,
+                    trace=req.trace["trace_id"], request=req.id,
+                    pages=len(adm.shared_pages),
+                    degraded=adm.matched_len == adm.device_matched
+                    and job is not None and not job.ok)
             self._fetch_ready.append((req, adm))
 
     def _prefill_ragged(self, i: int, req: Request, adm: Admission):
@@ -1645,7 +2114,8 @@ class LLMServer:
         self._chunk_state[i] = {
             "req": req, "adm": adm, "off": adm.matched_len,
             "row_pages": list(adm.shared_pages), "own": [],
-            "prepaid": prepaid, "first": True, "wait_t0": None}
+            "prepaid": prepaid, "first": True,
+            "t0": time.perf_counter(), "wait_t0": None}
         self._slots[i] = req
         self._remaining[i] = 0
 
@@ -1693,6 +2163,17 @@ class LLMServer:
         req, adm = st["req"], st["adm"]
         page, ids = self._page, self._prompt_of(req)
         T, off = len(ids), st["off"]
+        if not st["first"]:
+            # the fault site between chunks: a raise frees the partial
+            # chain and fails the request retriably
+            try:
+                reliability.inject("llm.chunk")
+            except Exception as e:  # noqa: BLE001 — any injected fault
+                self._rollback_chunk(
+                    i, f"chunked admission failed between chunks: "
+                       f"{type(e).__name__}: {e} (retriable: partial "
+                       "chain rolled back; resubmit)")
+                return None
         end = self._chunk_end(off, T)
         n_new = -(-end // page) - len(st["row_pages"])
         final = end == T
@@ -1745,6 +2226,12 @@ class LLMServer:
                                pages_cap=self._pages_cap,
                                fork_dst=new_pages[0] if tail else 0,
                                fork_src=adm.tail_src if tail else 0)
+        if flight.enabled:
+            flight.record("chunk_charge", request_id=req.id,
+                          trace_id=_trace_of(req), chunk_tokens=end - off,
+                          off=off, end=end, final=final,
+                          charged_pages=charge_now,
+                          new_pages=len(new_pages))
         return {"i": i, "c": end - off, "end": end, "final": final,
                 "bucket": bucket, "new_pages": new_pages,
                 "charged": charge_now, "ops": ops}
@@ -1764,10 +2251,20 @@ class LLMServer:
             self._kv.release_transient(st["adm"])
         self.prefill_tokens_total += cargs["c"]
         self.prefill_chunks_total += 1
+        ins = self._instruments()
+        if ins is not None:
+            ins["prefill_tokens"].inc(cargs["c"])
         if cargs["final"]:
             self._chunk_state[i] = None
             self._finish_prefill(i, st["req"], st["row_pages"], st["own"],
                                  clast, bt_row_dev, None)
+            st["req"].decode_started_at = time.time()
+            if ins is not None:
+                # admission to prompt complete: decode passes interleave,
+                # so this is the chunked prefill's latency
+                ins["prefill_seconds"].observe(
+                    time.perf_counter() - st["t0"])
+                self._record_kv_gauges(ins)
 
     def _rollback_chunk(self, i: int, msg: Optional[str]):
         """Shed or abandon a chunked admission mid-prompt: the partial
@@ -1777,6 +2274,7 @@ class LLMServer:
         (``msg`` None: its handle is already done)."""
         st = self._chunk_state[i]
         req, adm = st["req"], st["adm"]
+        released = len(st["own"]) + len(adm.shared_pages)
         self._kv.release_transient(adm)
         self._kv.release_slot(adm.charge + adm.fetch_reserved, st["own"],
                               adm.shared_pages)
@@ -1787,9 +2285,18 @@ class LLMServer:
         self._slots[i] = None
         self._remaining[i] = 0
         self._slot_adm[i] = None
+        if flight.enabled:
+            flight.record("rollback", request_id=req.id,
+                          trace_id=_trace_of(req),
+                          reason="cancelled" if msg is None else "starved",
+                          released_pages=released)
         if msg is not None and not req.done.is_set():
             req.error = msg
             req.done.set()
+        ins = self._instruments()
+        if ins is not None:
+            ins["requests"].labels(
+                reason="cancelled" if msg is None else "error").inc()
 
     def _restore_chunk_pass(self, cargs: dict):
         """A pass failed after :meth:`_prepare_chunk`: give the chunk's
@@ -1798,7 +2305,46 @@ class LLMServer:
         self._kv.uncharge_chunk(self._chunk_state[cargs["i"]]["adm"],
                                 cargs["charged"])
 
-    def _dispatch_chunk_solo(self, cargs: dict):
+    def _mixed_instruments(self):
+        """The mixed dispatch's series: None unless it is live and
+        observability records."""
+        if not (self._mixed_active and obs.enabled()):
+            return None
+        if self._mixed_ins is None:
+            self._mixed_ins = {
+                "pass_rows": obs.counter(
+                    "bigdl_llm_pass_rows_total",
+                    "Rows served by unified engine passes, by kind",
+                    labelnames=("kind",)),
+                "chunks": obs.counter(
+                    "bigdl_llm_prefill_chunks_total",
+                    "Prefill chunks dispatched by the unified engine"),
+                "mix": obs.gauge(
+                    "bigdl_llm_pass_mix",
+                    "Decode-row fraction of the last unified pass "
+                    "(1.0 = pure decode, 0.0 = chunk-only)"),
+            }
+        return self._mixed_ins
+
+    def _record_mixed_pass(self, n_decode: int, cargs: dict,
+                           t_step: float):
+        """One chunk-carrying pass's batch mix and its span."""
+        ins = self._mixed_instruments()
+        if ins is None:
+            return
+        wall = time.perf_counter() - t_step
+        ins["pass_rows"].labels(kind="prefill_chunk").inc()
+        if n_decode:
+            ins["pass_rows"].labels(kind="decode").inc(n_decode)
+        ins["chunks"].inc()
+        ins["mix"].set(n_decode / (n_decode + 1))
+        obs.add_complete(
+            "llm/mixed_step", time.time() - wall, wall,
+            decode_rows=n_decode, chunk_tokens=cargs["c"],
+            offset=cargs["end"] - cargs["c"], final=cargs["final"],
+            slot=cargs["i"])
+
+    def _dispatch_chunk_solo(self, cargs: dict, t_step: float):
         """A chunk with no decode row to fuse with: the family's ragged
         prefill alone, eagerly (the mixed step's chunk leg, the same
         math)."""
@@ -1812,6 +2358,7 @@ class LLMServer:
             self._restore_chunk_pass(cargs)
             raise
         self._chunk_dispatched(cargs, clast, chunk[3])
+        self._record_mixed_pass(0, cargs, t_step)
 
     def _mixed_step(self, bucket: int) -> tuple:
         """The mixed step of chunk bucket ``bucket`` (made at its first
@@ -1853,6 +2400,7 @@ class LLMServer:
         self._chunk_dispatched(cargs, clast, chunk_operands(
             ops, cargs["bucket"], self._pages_cap)[3])
         self.mixed_passes += 1
+        self._record_mixed_pass(len(disp), cargs, t_step)
         return self._after_dispatch(rec, t_step)
 
     # -- self-speculative decoding -------------------------------------------
@@ -1861,9 +2409,10 @@ class LLMServer:
         adaptive state is the request's own."""
         st = self._spec_state[i]
         if st is None or st["req"] is not req:
-            # min_match 2 and backoff 0.5: the JAX engine's defaults
             st = self._spec_state[i] = {
-                "req": req, "prop": NGramProposer(k=self._spec_k)}
+                "req": req, "prop": NGramProposer(
+                    k=self._spec_k, min_match=self._spec_min_match,
+                    backoff=self._spec_backoff)}
         return st["prop"]
 
     def _spec_history(self, i: int):
@@ -1901,6 +2450,12 @@ class LLMServer:
                 break
         if cand is None:
             return None
+        # the fault site between drafting and dispatch: a raise drops the
+        # drafts and the pass runs as plain decode, the same tokens
+        try:
+            reliability.inject("llm.spec")
+        except Exception:  # noqa: BLE001 — any injected fault
+            return None
         while self._inflight:
             self._drain_next()
         i = cand
@@ -1920,7 +2475,8 @@ class LLMServer:
         return {"i": i, "req": req, "drafts": drafts, "clen": clen,
                 "bucket": max(2, 1 << (clen - 1).bit_length()),
                 "pos0": pos0, "p_have": p_have,
-                "n_new": -(-(pos0 + clen) // page) - p_have}
+                "n_new": -(-(pos0 + clen) // page) - p_have,
+                "match": prop.last_match}
 
     def _spec_step(self, bucket: int) -> tuple:
         """The verify step of draft bucket ``bucket`` (made at its first
@@ -1943,6 +2499,26 @@ class LLMServer:
             ss = self._spec_steps[bucket] = (step, ops, sout)
         return ss
 
+    def _spec_instruments(self):
+        """The speculation counters: None unless speculation is live and
+        observability records."""
+        if not (self._spec_active and obs.enabled()):
+            return None
+        if self._spec_ins is None:
+            self._spec_ins = {
+                "proposed": obs.counter(
+                    "bigdl_llm_spec_proposed_tokens_total",
+                    "Draft tokens dispatched to speculative verify"),
+                "accepted": obs.counter(
+                    "bigdl_llm_spec_accepted_tokens_total",
+                    "Draft tokens accepted by speculative verify"),
+                "passes": obs.counter(
+                    "bigdl_llm_spec_passes_total",
+                    "Engine passes carrying a speculative verify "
+                    "chunk"),
+            }
+        return self._spec_ins
+
     def _dispatch_spec(self, disp, sargs: dict, t_step: float) -> bool:
         """One speculative pass: every other decode row advances one
         token while the chosen row's drafts run as a verify chunk (a
@@ -1961,6 +2537,18 @@ class LLMServer:
         self._spec_pending.add(i)
         self.spec_proposed_total += n_draft
         self.spec_passes += 1
+        ins = self._spec_instruments()
+        if ins is not None:
+            ins["proposed"].inc(n_draft)
+            ins["passes"].inc()
+        req = sargs["req"]
+        if flight.enabled:
+            flight.record("draft", request_id=req.id,
+                          trace_id=_trace_of(req), slot=i, n_draft=n_draft,
+                          match_len=sargs["match"], offset=sargs["pos0"])
+        wall = time.perf_counter() - t_step
+        obs.add_complete("llm/spec_step", time.time() - wall, wall,
+                         decode_rows=len(disp), n_draft=n_draft, slot=i)
         return self._after_dispatch(rec, t_step)
 
     def _dispatchable(self) -> List[int]:
@@ -1985,7 +2573,7 @@ class LLMServer:
         cargs = self._prepare_chunk(ci) if ci is not None else None
         if not disp:
             if cargs is not None:
-                self._dispatch_chunk_solo(cargs)
+                self._dispatch_chunk_solo(cargs, time.perf_counter())
                 return True
             if self._inflight:
                 self._drain_next()
@@ -2048,6 +2636,12 @@ class LLMServer:
             return self._dispatch_spec(disp, sargs, t_step)
         if cargs is not None:
             return self._dispatch_mixed(disp, cargs, t_step)
+        mins = self._mixed_instruments()
+        if mins is not None:
+            # a pure decode pass of the mixed dispatch: the batch mix
+            # still tells the whole story
+            mins["pass_rows"].labels(kind="decode").inc(len(disp))
+            mins["mix"].set(1.0)
         self._decode()
         return self._after_dispatch(self._record(disp), t_step)
 
@@ -2069,7 +2663,12 @@ class LLMServer:
 
     def _step(self) -> bool:
         """One engine pass after admission: the paged or the slot-static
-        engine's."""
+        engine's. ``llm.step`` fires every pass; ``worker.stall`` (a
+        ``delay`` there wedges the pass as a hung step would) only while
+        a slot is live, so idle passes spend none of a plan's events."""
+        reliability.inject("llm.step")
+        if any(r is not None for r in self._slots):
+            reliability.inject("worker.stall")
         return self._step_paged() if self.paged else self._step_slotted()
 
     def _set_active(self, disp: List[int]):
@@ -2111,6 +2710,9 @@ class LLMServer:
         self.host_seconds += rec["host_s"]
         self.steps += 1
         self._inflight.append(rec)
+        ins = self._instruments()
+        if ins is not None:
+            ins["inflight"].set(len(self._inflight))
         while len(self._inflight) >= self.pipeline_depth:
             self._drain_next()
         return True
@@ -2126,8 +2728,11 @@ class LLMServer:
             rec["event"].synchronize()
         vals = rec["out"].tolist()
         now = time.perf_counter()
-        self.stall_seconds += now - t0
+        stall = now - t0
+        self.stall_seconds += stall
         rec["pinned"] = None
+        # delivered tokens, finished and reaped requests of this drain
+        tally = [0, 0, 0]
         for i, req in rec["pairs"]:
             if self._slots[i] is not req:
                 continue           # a token for a finished request
@@ -2135,13 +2740,45 @@ class LLMServer:
                 # aborted mid-decode: the slot and its pages go now, the
                 # drained token is discarded like any speculative one
                 self._finish_slot(i, req)
+                tally[2] += 1
                 continue
-            self._apply_token(i, req, vals[i], now)
+            tally[0] += 1
+            tally[1] += self._apply_token(i, req, vals[i], now)
         sp = rec.get("spec")
         if sp is not None:
-            self._drain_spec(sp, vals, now)
+            self._drain_spec(sp, vals, now, tally)
+        ins = self._instruments()
+        if ins is not None:
+            ins["inflight"].set(len(self._inflight))
+            self._record_decode(ins, len(rec["pairs"]), tally,
+                                rec.get("host_s", 0.0), stall)
 
-    def _drain_spec(self, sp: dict, vals: List[int], now: float):
+    def _record_decode(self, ins, n_active: int, tally: List[int],
+                       host_s: float, stall_s: float):
+        """One drained step's series: the tokens delivered (speculative
+        tokens of finished requests excluded), its host and stall times
+        (times the drain already measured: no device read), the finished
+        and reaped requests, and the gauges."""
+        applied, finished, cancelled = tally
+        wall = host_s + stall_s
+        ins["decode_tokens"].inc(applied)
+        ins["decode_seconds"].observe(wall)
+        ins["decode_host"].observe(host_s)
+        ins["decode_stall"].observe(stall_s)
+        obs.add_complete("llm/decode_step", time.time() - wall, wall,
+                         active=n_active, step=self.steps,
+                         host_s=round(host_s, 6), stall_s=round(stall_s, 6))
+        # live occupancy: a record may carry pairs of requests an earlier
+        # drain finished
+        ins["active"].set(sum(r is not None for r in self._slots))
+        if finished:
+            ins["requests"].labels(reason="done").inc(finished)
+        if cancelled:
+            ins["requests"].labels(reason="cancelled").inc(cancelled)
+        self._record_kv_gauges(ins)
+
+    def _drain_spec(self, sp: dict, vals: List[int], now: float,
+                    tally: List[int]):
         """A verify record's row: its output is ``[B ids][n_acc][W chunk
         tokens]``; ``g0`` and the accepted drafts go through
         :meth:`_apply_token` one by one, so EOS and ``max_new_tokens``
@@ -2153,6 +2790,7 @@ class LLMServer:
             return                 # the slot changed hands: nothing to apply
         if req.cancel_requested:
             self._finish_slot(i, req)
+            tally[2] += 1
             return
         b = self.max_batch
         n_acc = vals[b]
@@ -2163,8 +2801,19 @@ class LLMServer:
             st["prop"].observe(sp["n_draft"], n_acc - 1)
         self.spec_accepted_total += n_acc - 1
         self.spec_emitted_total += n_acc
+        ins = self._spec_instruments()
+        if ins is not None:
+            ins["accepted"].inc(n_acc - 1)
+        if flight.enabled:
+            flight.record("verify_accept" if n_acc - 1 == sp["n_draft"]
+                          else "verify_reject", request_id=req.id,
+                          trace_id=_trace_of(req), slot=i,
+                          n_draft=sp["n_draft"], accepted=n_acc - 1,
+                          emitted=n_acc)
         for tok in vals[b + 1:b + 1 + n_acc]:
+            tally[0] += 1
             if self._apply_token(i, req, tok, now):
+                tally[1] += 1
                 break
 
     def _apply_token(self, i: int, req: Request, tok: int,
@@ -2173,11 +2822,23 @@ class LLMServer:
         (EOS or its budget)."""
         req.tokens.append(tok)
         req.t_tokens.append(now)
+        slo = self._slo
         if len(req.tokens) == 1:
             req.t_first_token = now                   # TTFT stamp
+            if slo is not None:
+                slo.observe_ttft(now - req.t_submit)
+                req.t_last_token = now
+        elif slo is not None:
+            gap = now - req.t_last_token
+            req.t_last_token = now
+            req.itl_max = max(req.itl_max, gap)
+            slo.observe_itl(gap)
         if (self.eos_token_id is not None and tok == self.eos_token_id) \
                 or len(req.tokens) >= req.max_new_tokens:
             self._finish_slot(i, req)
+            if slo is not None:
+                slo.finish(req.t_first_token - req.t_submit,
+                           req.itl_max if req.itl_max >= 0 else None)
             return True
         return False
 
@@ -2185,10 +2846,31 @@ class LLMServer:
         """Retire a finished request: with the prefix cache, index its
         prompt + output first (indexed pages stay warm at refcount 1),
         then drop its refs, pins and charge."""
+        self._emit_decode_span(req)
+        if flight.enabled:
+            flight.record(
+                "finish", request_id=req.id, trace_id=_trace_of(req),
+                tokens=len(req.tokens),
+                cancelled=req.cancel_requested or None,
+                ttft_ms=(round((req.t_first_token - req.t_submit) * 1000.0,
+                               3) if req.t_first_token else None))
         req.done.set()
         if self._spec_state is not None:
             self._spec_state[i] = None   # the next occupant drafts afresh
         self._release_slot(i, req)
+
+    def _emit_decode_span(self, req: Request):
+        """One ``llm/decode`` span over a finished request's whole decode
+        phase, stitched under its trace (decode steps are shared by every
+        slot, so the per-request span is emitted per request)."""
+        if not req.trace or not req.decode_started_at:
+            return
+        args = {"trace": req.trace["trace_id"], "stage": "llm_server",
+                "request": req.id, "tokens": len(req.tokens)}
+        if req.trace.get("parent_span"):
+            args["parent_span"] = req.trace["parent_span"]
+        obs.add_complete("llm/decode", req.decode_started_at,
+                         time.time() - req.decode_started_at, **args)
 
     def _release_slot(self, i: int, req: Request):
         """Give slot ``i`` back: with the prefix cache, index prompt +
@@ -2268,23 +2950,39 @@ class LLMServer:
         slot until that record drains: the drain's identity check would
         otherwise hand a stale token to it, re-admitted into its old
         slot. Steps still in flight write past the indexed length, and
-        every later write of a freed page is enqueued behind them."""
+        every later write of a freed page is enqueued behind them. The
+        ``llm.preempt`` fault site fires before anything moves."""
+        reliability.inject("llm.preempt")
         req = self._slots[i]
-        self._release_slot(i, req)
-        toks = np.concatenate([req.prompt_ids,
-                               np.asarray(req.tokens, np.int32)])
-        mode = "indexed" if self._kv.enabled else "dropped"
-        if self._tier is not None:
-            try:
-                self._parked[req.id] = self._export_chain_locked(toks)
-                mode = "exported"
-            except Exception:  # noqa: BLE001 — the export is an
-                # optimisation: the resume prefills whatever is missing
-                self.errors.append(traceback.format_exc())
-        self.preempt_modes[mode] += 1
-        req.resume_ids = toks
-        req.preemptions += 1
-        req._hold_rec = self._inflight[-1] if self._inflight else None
-        self._preempt_rec = req._hold_rec
-        self.preemptions_total += 1
-        self._sched.push(req)
+        t0 = time.perf_counter()
+        with obs.span("llm/preempt", slot=i, stage="llm_server",
+                      request=req.id, victim_class=req.priority,
+                      tokens_done=len(req.tokens)):
+            self._release_slot(i, req)
+            toks = np.concatenate([req.prompt_ids,
+                                   np.asarray(req.tokens, np.int32)])
+            mode = "indexed" if self._kv.enabled else "dropped"
+            if self._tier is not None:
+                try:
+                    self._parked[req.id] = self._export_chain_locked(toks)
+                    mode = "exported"
+                except Exception:  # noqa: BLE001 — the export is an
+                    # optimisation: the resume prefills whatever is missing
+                    self.errors.append(traceback.format_exc())
+            self.preempt_modes[mode] += 1
+            req.resume_ids = toks
+            req.preemptions += 1
+            req._hold_rec = self._inflight[-1] if self._inflight else None
+            self._preempt_rec = req._hold_rec
+            self.preemptions_total += 1
+            self._sched.push(req)
+        pri = self._priority_instruments_get()
+        if pri is not None:
+            pri["preemptions"].labels(**{"class": req.priority}).inc()
+        if flight.enabled:
+            flight.record(
+                "preempt", request_id=req.id, trace_id=_trace_of(req),
+                slot=i, priority=req.priority, mode=mode,
+                tokens_done=len(req.tokens),
+                remaining=self._budget_of(req),
+                wall_ms=round((time.perf_counter() - t0) * 1000.0, 3))

@@ -224,6 +224,32 @@ Phase 10 the GPT-NeoX, StarCoder and Bloom families, random q4_0 weights
          phase 3b (a)'s prefix-cache run; Bloom-7b1 (30 layers):
          ``generate`` 4 x 512 + 32, dense (kernel 1 only), and
          ``LLMServer`` refusing it.
+Phase 11 (after phase 3d, on phase 3's model) the HTTP surface: an
+         ``LLMWorker(api=True, tokenizer=ByteTokenizer())`` on
+         127.0.0.1 over ``LLMServer(slo=True, watchdog_timeout=5,
+         max_queue=16)`` (phase 3's engine settings), every bucket warmed
+         inline before ``start()`` arms the watchdog. (a) phase 3's 8
+         prompts as 8 concurrent ``POST /worker_generate``: ids equal to
+         phase 3's; (b) the same streamed: joined ids equal, time to the
+         first chunk beside the engine's ``bigdl_llm_ttft_seconds``,
+         aggregate tok/s beside phase 3's; (c) ``/v1/completions`` (token
+         prompts) and ``/v1/chat/completions``, plain and SSE: ids equal
+         to the engine's, the text's ASCII characters those of
+         ``ByteTokenizer.decode`` of the ids, exact ``usage``; (d) the
+         ``/metrics`` deltas of decode tokens, finished requests and the
+         TTFT sketch's count equal to what was served; (f) a
+         ``worker.stall`` delay of twice the timeout under 2 streams:
+         ``/healthz`` 503 "stalled" within the timeout + 1 s, both
+         streams' terminal chunks ``retriable``, one trip, 200 again
+         after, the same ids again; (g) a full queue: 503 with
+         Retry-After; (e) phase 3's served run 3 times each with
+         observability off and on (flight recorder on), alternating, and
+         a window of graphed passes traced both ways (2 host calls a
+         pass, the same kernels); (h) a prefill and a decode worker over
+         host-tier engines: ``/worker_prefill``, ``/worker_import_chain``,
+         ``/worker_generate``, the ids equal to the exporter's own
+         re-admission over the same page bytes, the blob's MB and each
+         leg's ms. Report key ``serve_http``.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the run
@@ -3467,6 +3493,436 @@ def family_phase(torch, dev):
     return out
 
 
+# -- phase 11: the HTTP worker and the OpenAI gateway over the engine ---------
+
+HTTP_WATCHDOG_S = 5.0          # the served engine's watchdog_timeout
+HTTP_CHAT = ("Name two prime numbers.", "Say hi.")
+HTTP_CHAT_NEW = 16
+
+
+def _http(addr, method, path, body=None, timeout=600):
+    """One HTTP call to the worker: ``(status, parsed body, headers)``
+    (header names lower-cased)."""
+    import http.client
+    conn = http.client.HTTPConnection(*addr, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body),
+                     {} if body is None else
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        data = r.read().decode()
+        try:
+            data = json.loads(data)
+        except ValueError:
+            pass
+        return r.status, data, {k.lower(): v for k, v in r.getheaders()}
+    finally:
+        conn.close()
+
+
+def _http_lines(addr, path, body, sse=False, timeout=600):
+    """A streamed POST: ``(seconds from the send to the first chunk that
+    carries a token, the chunks)``; SSE events when ``sse``, else the
+    native stream's JSON lines."""
+    import http.client
+
+    from bigdl_tpu_torch.llm.api import parse_sse
+    conn = http.client.HTTPConnection(*addr, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        check(r.status == 200, f"{path}: status {r.status}")
+        lines = (parse_sse(r) if sse else
+                 (json.loads(x) for x in r if x.strip()))
+        first, chunks = None, []
+        for obj in lines:
+            chunks.append(obj)
+            has = (obj.get("output_ids") if not sse else
+                   any(c.get("token_ids") for c in obj["choices"]))
+            if first is None and has:
+                first = time.perf_counter() - t0
+        return first, chunks
+    finally:
+        conn.close()
+
+
+def _ascii(text):
+    """The ASCII characters of a text: what a byte-level decode gives
+    whatever the grouping of the bytes into drained deltas (the gateway
+    decodes each delta alone, so a multi-byte character split across two
+    deltas becomes replacement characters)."""
+    return "".join(c for c in text if ord(c) < 128)
+
+
+def _sse_ids(chunks):
+    """The token ids of choice 0 joined over an SSE stream."""
+    return [t for c in chunks for ch in c["choices"] if ch["index"] == 0
+            for t in ch.get("token_ids", [])]
+
+
+def _metrics(addr):
+    from bigdl_tpu_torch import observability as obs
+    st, text, _ = _http(addr, "GET", "/metrics")
+    check(st == 200, f"/metrics: status {st}")
+    return obs.parse_prometheus(text)
+
+
+def _delta(m1, m0, name, labels=()):
+    return m1.get(name, {}).get(labels, 0.0) - m0.get(name, {}).get(
+        labels, 0.0)
+
+
+def _wait(cond, timeout, what, every=0.005):
+    t0 = time.monotonic()
+    while not cond():
+        check(time.monotonic() - t0 < timeout, f"{what}: timed out")
+        time.sleep(every)
+    return time.monotonic()
+
+
+def _pass_profile(torch, model, on):
+    """One window of engine passes traced with ``torch.profiler``, with
+    observability (and the flight recorder) ``on`` or off: 8 rows of 129
+    prompt tokens decoding, driven inline after the decode graph is
+    captured; no page grant falls in the window (positions 132..137), so
+    a pass is one graph replay, the token copy and the drain. Host launch
+    calls, kernels and device busy ms a pass."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.observability import flight
+
+    (obs.enable if on else obs.disable)()
+    flight.enabled = on
+    cfg, n = model.config, 6
+    gen = torch.Generator().manual_seed(21)
+    srv = LLMServer(model, **SERVE_7B)
+    try:
+        with torch.inference_mode():
+            reqs = [srv.submit(torch.randint(0, cfg.vocab_size, (129,),
+                                             generator=gen).numpy(), 14)
+                    for _ in range(8)]
+            for _ in range(4):
+                srv._admit()
+                srv._step()
+            check(srv._decode.graph is not None
+                  and all(r in srv._slots for r in reqs),
+                  "phase 11 profile: rows not decoding on the graph")
+            with trace(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    srv._admit()
+                    srv._step()
+            while not all(r.done.is_set() for r in reqs):
+                srv._admit()
+                srv._step()
+        check(not srv.errors, f"phase 11 profile: {srv.errors}")
+    finally:
+        srv.stop()
+        obs.enable()
+        flight.enabled = False
+    cuda_t = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.events() if e.device_type == cuda_t]
+    host = Counter(e.name for e in prof.events()
+                   if e.device_type != cuda_t and e.name in HOST_LAUNCH_CALLS)
+    return {"observability": on,
+            "host_launch_calls_per_pass": sum(host.values()) / n,
+            "host_launch_calls_by_name": {k: v / n for k, v in host.items()},
+            "kernels_per_pass": len(kern) / n,
+            "device_busy_ms_per_pass": sum(
+                e.time_range.elapsed_us() for e in kern) / 1e3 / n}
+
+
+def serve_http(torch, model, serve):
+    """Phase 11: phase 3's engine served over HTTP by the port's
+    ``LLMWorker`` with the OpenAI gateway, on phase 3's model."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch import reliability
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.api import ByteTokenizer, apply_chat_template
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.llm.worker import LLMWorker
+    from bigdl_tpu_torch.observability import flight
+
+    cfg, new = model.config, 32
+    prompts = [p.tolist() for p in _phase3_prompts(torch, cfg)]
+    want = serve["outputs"]
+    tok = ByteTokenizer()
+    out = {"phase": "serve_http", "model": "Llama-2-7B q4_0 (phase 3's "
+           "model)", "engine": dict(SERVE_7B, slo=True,
+                                    watchdog_timeout=HTTP_WATCHDOG_S,
+                                    max_queue=16)}
+    obs.enable()
+    srv = LLMServer(model, slo=True, watchdog_timeout=HTTP_WATCHDOG_S,
+                    max_queue=16, **SERVE_7B)
+    # every bucket warm (each prompt's prefill, the decode graph's capture)
+    # before start() arms the watchdog: a first use looks like a stall
+    with torch.inference_mode():
+        reqs = [srv.submit(p, 2) for p in prompts]
+        while not all(r.done.is_set() for r in reqs):
+            srv._admit()
+            srv._step()
+        while srv._inflight:
+            srv._drain_next()
+    check(srv._decode.graph is not None and not srv.errors,
+          f"phase 11 warm-up: {srv.errors}")
+    srv.start()
+    worker = LLMWorker(srv, api=True, tokenizer=tok).start()
+    addr = worker.address
+    try:
+        m0 = _metrics(addr)
+        kernels.reset_launch_counts()
+        # (a) 8 concurrent blocking requests
+        body = [{"prompt_ids": p, "max_new_tokens": new} for p in prompts]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            res = list(ex.map(lambda b: _http(addr, "POST",
+                                              "/worker_generate", b), body))
+        a_wall = time.perf_counter() - t0
+        for i, (st, b, _) in enumerate(res):
+            check(st == 200 and b["output_ids"] == want[i]
+                  and b["finish_reason"] == "length",
+                  f"(a) request {i}: {st} {b}")
+        # (b) the same, streamed
+        mb0 = _metrics(addr)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            sres = list(ex.map(lambda b: _http_lines(
+                addr, "/worker_generate_stream", b), body))
+        b_wall = time.perf_counter() - t0
+        mb1 = _metrics(addr)
+        for i, (first, chunks) in enumerate(sres):
+            last = chunks[-1]
+            check(last["done"] and last["output_ids"] == want[i]
+                  and "error" not in last, f"(b) stream {i}: {last}")
+        name = "bigdl_llm_ttft_seconds"
+        ttft_n = _delta(mb1, mb0, name + "_count")
+        check(ttft_n == 8, f"(b) TTFT sketch count {ttft_n}")
+        first_ms = [f * 1e3 for f, _ in sres]
+        out["stream"] = {
+            "first_chunk_ms": first_ms,
+            "first_chunk_ms_mean": statistics.mean(first_ms),
+            "engine_ttft_ms_mean": _delta(mb1, mb0, name + "_sum")
+            / ttft_n * 1e3,
+            "engine_ttft_ms_p50_p90_p99_cumulative": [
+                mb1[name][(("quantile", q),)] * 1e3
+                for q in ("0.5", "0.9", "0.99")],
+            "aggregate_tok_per_s": 8 * new / b_wall, "wall_s": b_wall,
+            "phase3_decode_tok_per_s": serve["decode_tok_per_s"],
+            "phase3_ttft_ms_mean": serve["ttft_ms_mean"]}
+        out["blocking"] = {"wall_s": a_wall,
+                           "aggregate_tok_per_s": 8 * new / a_wall}
+        # (c) the gateway, plain and SSE
+        gw, served, n_req = {}, 16 * new, 16
+        for i in (0, 1):
+            req = {"model": "bigdl-tpu-llm", "prompt": prompts[i],
+                   "max_tokens": new}
+            st, b, _ = _http(addr, "POST", "/v1/completions", req)
+            ch = b["choices"][0] if st == 200 else {}
+            usage = {"prompt_tokens": len(prompts[i]),
+                     "completion_tokens": new,
+                     "total_tokens": len(prompts[i]) + new}
+            check(st == 200 and ch["token_ids"] == want[i]
+                  and _ascii(ch["text"]) == _ascii(tok.decode(want[i]))
+                  and b["usage"] == usage, f"(c) completion {i}: {st} {b}")
+            gw[f"completion {i}"] = {
+                "text_equals_decode": ch["text"] == tok.decode(want[i])}
+            _, chunks = _http_lines(addr, "/v1/completions",
+                                    dict(req, stream=True), sse=True)
+            check(_sse_ids(chunks) == want[i]
+                  and chunks[-1]["usage"] == usage,
+                  f"(c) completion {i} SSE: {chunks[-1]}")
+        for k, text in enumerate(HTTP_CHAT):
+            messages = [{"role": "user", "content": text}]
+            ids = tok.encode(apply_chat_template("plain", messages))
+            st, ref, _ = _http(addr, "POST", "/worker_generate",
+                               {"prompt_ids": ids,
+                                "max_new_tokens": HTTP_CHAT_NEW})
+            check(st == 200, f"(c) chat reference {k}: {st} {ref}")
+            ref = ref["output_ids"]
+            req = {"messages": messages, "max_tokens": HTTP_CHAT_NEW}
+            st, b, _ = _http(addr, "POST", "/v1/chat/completions", req)
+            usage = {"prompt_tokens": len(ids),
+                     "completion_tokens": HTTP_CHAT_NEW,
+                     "total_tokens": len(ids) + HTTP_CHAT_NEW}
+            text = b["choices"][0]["message"]["content"] if st == 200 \
+                else ""
+            check(st == 200 and _ascii(text) == _ascii(tok.decode(ref))
+                  and b["usage"] == usage, f"(c) chat {k}: {st} {b}")
+            _, chunks = _http_lines(addr, "/v1/chat/completions",
+                                    dict(req, stream=True), sse=True)
+            check(_sse_ids(chunks) == ref and chunks[-1]["usage"] == usage,
+                  f"(c) chat {k} SSE: {chunks[-1]}")
+            gw[f"chat {k}"] = {"prompt_tokens": len(ids), "ids": ref,
+                               "text_equals_decode":
+                                   text == tok.decode(ref)}
+        served += 4 * new + 6 * HTTP_CHAT_NEW
+        n_req += 4 + 6
+        out["launches"] = kernels.launch_counts()
+        # (d) the engine's own counts of what it served
+        m1 = _metrics(addr)
+        d = {"decode_tokens": _delta(m1, m0, "bigdl_llm_decode_tokens_total"),
+             "requests_done": _delta(m1, m0, "bigdl_llm_requests_total",
+                                     (("reason", "done"),)),
+             "ttft_count": _delta(m1, m0, "bigdl_llm_ttft_seconds_count")}
+        check(d == {"decode_tokens": served, "requests_done": n_req,
+                    "ttft_count": n_req}, f"(d) metric deltas {d} against "
+              f"{served} tokens, {n_req} requests")
+        check("bigdl_slo_requests_total" in m1, "(d) no SLO series")
+        out["metrics"] = dict(d, tokens_served=served, requests=n_req,
+                              slo_requests={
+                                  ",".join(f"{k}={v}" for k, v in lab): n
+                                  for lab, n in m1[
+                                      "bigdl_slo_requests_total"].items()})
+        out["gateway"] = gw
+        # (f) the watchdog: a stall of twice the timeout mid-decode
+        plan = reliability.FaultPlan(seed=0).add(
+            "worker.stall", "delay", after=8, times=1,
+            delay=2 * HTTP_WATCHDOG_S)
+        reliability.set_plan(plan)
+        with ThreadPoolExecutor(2) as ex:
+            futs = [ex.submit(_http_lines, addr, "/worker_generate_stream",
+                              {"prompt_ids": prompts[i],
+                               "max_new_tokens": 96}) for i in (2, 3)]
+            t_stall = _wait(lambda: plan.fired, 120, "(f) the stall")
+            t_503 = _wait(lambda: _http(addr, "GET", "/healthz")[:2][0]
+                          == 503, HTTP_WATCHDOG_S + 5, "(f) 503",
+                          every=0.05)
+            st, hz, _ = _http(addr, "GET", "/healthz")
+            streams = [f.result()[1] for f in futs]
+        t_ok = _wait(lambda: _http(addr, "GET", "/healthz")[0] == 200,
+                     4 * HTTP_WATCHDOG_S, "(f) recovery", every=0.05)
+        reliability.set_plan(None)
+        check(t_503 - t_stall <= HTTP_WATCHDOG_S + 1.0 and st == 503
+              and hz["status"] == "stalled",
+              f"(f) /healthz {st} {hz} {t_503 - t_stall:.2f}s after the "
+              "stall")
+        for s in streams:
+            check(s[-1]["done"] and s[-1].get("retriable") is True
+                  and "error" in s[-1], f"(f) terminal chunk {s[-1]}")
+        trips = _metrics(addr)["bigdl_llm_watchdog_trips_total"][()]
+        check(srv.watchdog_trips == 1 and trips == 1,
+              f"(f) trips {srv.watchdog_trips} / {trips}")
+        st, b, _ = _http(addr, "POST", "/worker_generate", body[0])
+        check(st == 200 and b["output_ids"] == want[0],
+              f"(f) after recovery: {st} {b}")
+        out["watchdog"] = {
+            "timeout_s": HTTP_WATCHDOG_S, "stall_s": 2 * HTTP_WATCHDOG_S,
+            "stalled_503_after_s": t_503 - t_stall,
+            "healthy_again_after_s": t_ok - t_stall, "trips": trips,
+            "terminal_errors": [s[-1]["error"] for s in streams]}
+        # (g) the full queue sheds with 503 + Retry-After
+        plan = reliability.FaultPlan(seed=1).add(
+            "worker.stall", "delay", times=1, delay=HTTP_WATCHDOG_S * 0.4)
+        live = srv.submit(prompts[0], new)
+        reliability.set_plan(plan)
+        _wait(lambda: plan.fired, 60, "(g) the hold")
+        fill = [srv.submit(prompts[0][:20], 4) for _ in range(16)]
+        st, b, hdrs = _http(addr, "POST", "/worker_generate", body[1])
+        for r in [live] + fill:
+            r.get(timeout=120)
+        reliability.set_plan(None)
+        check(st == 503 and int(hdrs.get("retry-after", 0)) >= 1,
+              f"(g) full queue: {st} {b} {hdrs}")
+        check(srv.watchdog_trips == 1, "(g) the hold tripped the watchdog")
+        out["shed"] = {"status": st, "retry_after": hdrs["retry-after"],
+                       "body": b}
+        check(not srv.errors, f"phase 11 engine errors: {srv.errors}")
+    finally:
+        reliability.set_plan(None)
+        worker.stop()
+        srv.stop()
+    ok = [k for k, v in out["launches"].items() if v]
+    for k in ("int4_matmul_gemv", "int4_matmul_tc",
+              "paged_attention_decode_stats", "ragged_prefill_attention_tc"):
+        check(k in ok, f"phase 11: {k} never ran: {out['launches']}")
+    torch.cuda.empty_cache()
+    # (e) the instruments' cost: phase 3's served run, off and on
+    runs = []
+    for k in range(6):
+        on = bool(k % 2)
+        (obs.enable if on else obs.disable)()
+        flight.enabled = on
+        try:
+            row, outs = _serve_run(torch, model, [np.asarray(p) for p in
+                                                  prompts], new,
+                                   f"7B observability {'on' if on else 'off'}",
+                                   **SERVE_7B)
+        finally:
+            obs.enable()
+            flight.enabled = False
+        check(outs == want, "(e) tokens differ with observability "
+              f"{'on' if on else 'off'}")
+        runs.append({"observability": on, **{
+            x: row[x] for x in ("decode_tok_per_s", "ttft_ms_mean",
+                                "decode_step_ms",
+                                "host_dispatch_ms_per_step",
+                                "drain_wait_ms_per_step")}})
+    prof = {on: _pass_profile(torch, model, on) for on in (False, True)}
+    for on, p in prof.items():
+        check(p["host_launch_calls_by_name"] == {
+            "cudaGraphLaunch": 1.0, "cudaMemcpyAsync": 1.0},
+            f"(e) host calls a pass, observability {on}: {p}")
+    check(prof[True]["kernels_per_pass"] == prof[False]["kernels_per_pass"],
+          f"(e) kernels a pass on / off: {prof}")
+    out["overhead"] = {"runs": runs, "profile": list(prof.values()),
+                       "decode_tok_per_s_on_off": [
+                           statistics.mean(r["decode_tok_per_s"] for r in
+                                           runs if r["observability"] is b)
+                           for b in (True, False)]}
+    # (h) the prefill and decode roles: a handoff over HTTP
+    tier = dict(SERVE_7B, kvcache=True, kvtier=True, host_pages=64)
+    pre, dec = (LLMServer(model, **tier).start() for _ in range(2))
+    wp = LLMWorker(pre, role="prefill").start()
+    wd = LLMWorker(dec, role="decode").start()
+    try:
+        for s in (pre, dec):        # the decode graphs captured first
+            s.submit(prompts[5][:40], 3).get(timeout=600)
+        legs = {}
+        t0 = time.perf_counter()
+        st, b, _ = _http(wp.address, "POST", "/worker_prefill",
+                         {"prompt_ids": prompts[0]})
+        legs["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        check(st == 200, f"(h) /worker_prefill: {st} {b}")
+        blob_mb = b["handoff_bytes"] / 2**20
+        t0 = time.perf_counter()
+        st, imp, _ = _http(wd.address, "POST", "/worker_import_chain",
+                           {"handoff": b["handoff"]})
+        legs["import_ms"] = (time.perf_counter() - t0) * 1e3
+        check(st == 200 and imp["imported_pages"] ==
+              len(prompts[0]) // 16, f"(h) import: {st} {imp}")
+        t0 = time.perf_counter()
+        st, g, _ = _http(wd.address, "POST", "/worker_generate", body[0])
+        legs["generate_ms"] = (time.perf_counter() - t0) * 1e3
+        # the exporter admits the prompt again over the same page bytes:
+        # the same prefix hit and one-token suffix prefill
+        ref = pre.submit(np.asarray(prompts[0]), new).get(timeout=600)
+        check(st == 200 and g["output_ids"] == ref and dec._tier.fetches
+              == imp["imported_pages"], f"(h) decode worker {st} {g} "
+              f"against the exporter's {ref}, {dec._tier.fetches} fetched")
+        check(not pre.errors and not dec.errors,
+              f"(h) engine errors: {pre.errors} {dec.errors}")
+    finally:
+        for x in (wp, wd, pre, dec):
+            x.stop()
+    out["roles"] = dict(
+        legs, blob_mb=blob_mb, pages=imp["imported_pages"],
+        ids_equal_exporter_readmission=True,
+        ids_equal_a=g["output_ids"] == want[0],
+        leading_equal_to_a=_lead(g["output_ids"], want[0]))
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3553,6 +4009,8 @@ def main() -> int:
     emit(slot)
     slot_prof = profile_slotted(torch, model)
     emit(slot_prof)
+    http = serve_http(torch, model, serve)
+    emit(http)
     del model
     torch.cuda.empty_cache()
     bert, bert_prof = bert_path(torch, dev)
@@ -3589,6 +4047,7 @@ def main() -> int:
         paths[f"serve_7b {r['what'][3:]}"] = dict(r["launches"])
     for r in (tier["off"], tier["on"], tier["priority"]):
         paths[f"serve_7b {r['what'][3:]}"] = dict(r["launches"])
+    paths["serve_7b over HTTP"] = dict(http["launches"])
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = dict(row["launches"])
     for name, row in gen_row["runs"].items():
@@ -3797,6 +4256,19 @@ def main() -> int:
                 **{k: r["serve"][k] for k in (
                     "decode_step_ms", "decode_tok_per_s", "ttft_ms_mean",
                     "peak_mem_gb", "idle_share_vs_profiled_busy")}}
+    host_out["7B served over HTTP"] = {
+        **{k: http["stream"][k] for k in (
+            "first_chunk_ms_mean", "engine_ttft_ms_mean",
+            "aggregate_tok_per_s", "phase3_decode_tok_per_s",
+            "phase3_ttft_ms_mean")},
+        "overhead_decode_tok_per_s_on_off":
+            http["overhead"]["decode_tok_per_s_on_off"],
+        "graphed_host_calls_per_pass_on_off": [
+            p["host_launch_calls_per_pass"]
+            for p in http["overhead"]["profile"][::-1]],
+        "watchdog_stalled_503_after_s":
+            http["watchdog"]["stalled_503_after_s"],
+        "handoff_blob_mb": http["roles"]["blob_mb"]}
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
               "route_sweep": sweep,
@@ -3811,7 +4283,7 @@ def main() -> int:
               "bert_profile": bert_prof, "generate": gen_row,
               "generate_profile": gen_prof, "checkpoint": ckpt,
               "serve_slotted": slot, "profile_slotted": slot_prof,
-              "mixtral": mix, "families": fam,
+              "mixtral": mix, "families": fam, "serve_http": http,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -13,12 +13,16 @@ eager step, with exact launch counts, at pipeline depths 1 and 2; then
 the mixed and speculative verify steps alike, and the served prefix
 cache, mixed dispatch, speculation and preemption; then the same steps
 of a mixture-of-experts model at both capacity modes, the slot-static
-engine's step, and both engines served; last the host KV tier's
-transfers and the engine serving through it.
+engine's step, and both engines served; the host KV tier's
+transfers and the engine serving through it; last the engine's
+instruments (the same host calls and kernels a pass with observability
+on and off) and its watchdog through a warmed run.
 The CPU parity of the plain versions against the JAX package lives in
 ``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``,
 and of ``generate`` in ``tests/test_torch_generate.py``.
 """
+
+import time
 
 import pytest
 import torch
@@ -1616,3 +1620,96 @@ def test_families_served_on_card(cuda):
     with pytest.raises(NotImplementedError, match="paged decode"):
         LLMServer(_tiny_family_card_model(cuda, "bloom"), device=cuda)
 
+
+
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
+def _observed_passes(model, cuda, on):
+    """Five served passes of 4 decoding rows traced with
+    ``torch.profiler``, observability and the flight recorder ``on`` or
+    off: host launch calls by name and kernels, a pass. No page grant
+    falls in the window (positions 20..24), so a pass is one graph
+    replay, the token copy and the drain."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.observability import flight
+    (obs.enable if on else obs.disable)()
+    flight.enabled = on
+    try:
+        srv = LLMServer(model, max_batch=4, max_seq_len=128, page_size=PAGE,
+                        device=cuda)
+        gen = torch.Generator().manual_seed(3)
+        reqs = [srv.submit(torch.randint(0, 256, (17,), generator=gen)
+                           .numpy(), 12) for _ in range(4)]
+        with torch.inference_mode():
+            for _ in range(3):
+                srv._admit()
+                srv._step()
+            assert srv._decode.graph is not None
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    srv._admit()
+                    srv._step()
+            while not all(r.done.is_set() for r in reqs):
+                srv._admit()
+                srv._step()
+        assert srv.errors == []
+        srv.stop()
+    finally:
+        obs.enable()
+        flight.enabled = False
+    cuda_t = torch.autograd.DeviceType.CUDA
+    host = Counter(e.name for e in prof.events()
+                   if e.device_type != cuda_t and e.name in HOST_LAUNCH_CALLS)
+    kernels = sum(e.device_type == cuda_t for e in prof.events())
+    return {n: c / 5 for n, c in host.items()}, kernels / 5, \
+        [r.tokens for r in reqs]
+
+
+def test_instruments_keep_the_graphed_pass(cuda):
+    """The graphed decode pass makes the same host calls (one graph
+    launch, one token copy) and runs the same kernels with observability
+    on and off, and serves the same tokens."""
+    model = _tiny_card_model(cuda)
+    on, off = (_observed_passes(model, cuda, x) for x in (True, False))
+    assert on == off
+    assert on[0] == {"cudaGraphLaunch": 1.0, "cudaMemcpyAsync": 1.0}
+    assert on[1] > 0
+
+
+def test_watchdog_quiet_through_warmed_run(cuda):
+    """Every bucket warmed inline before ``start()`` arms the watchdog: a
+    served run then never trips it, and the SLO account classifies every
+    request."""
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    model = _tiny_card_model(cuda)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, 256, (n,), generator=gen).numpy()
+               for n in (5, 17, 33, 70)]
+    srv = LLMServer(model, max_batch=4, max_seq_len=128, page_size=PAGE,
+                    watchdog_timeout=1.0, slo=True, device=cuda)
+    with torch.inference_mode():
+        warm = [srv.submit(p, 3) for p in prompts]
+        while not all(r.done.is_set() for r in warm):
+            srv._admit()
+            srv._step()
+        while srv._inflight:
+            srv._drain_next()
+    srv.start()
+    try:
+        outs = [r.get(timeout=120) for r in
+                [srv.submit(p, 16) for p in prompts * 2]]
+        time.sleep(1.5)                   # idle longer than the timeout
+    finally:
+        srv.stop()
+    assert all(len(o) == 16 for o in outs) and outs[:4] == outs[4:]
+    assert srv.watchdog_enabled and srv.watchdog_trips == 0
+    assert not srv.watchdog_tripped and srv.errors == []
+    assert srv._slo.requests == 12

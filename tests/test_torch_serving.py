@@ -233,11 +233,21 @@ def test_capture_carries_gemv_launches():
 
 class TestEngineRules:
     @pytest.mark.parametrize("opt", [
-        {"slo": True}, {"watchdog_timeout": 5.0}])
+        {"bigdl.observability.timeseries.enabled": "true"},
+        {"bigdl.observability.federation": "true"}])
     def test_unsupported_options_raise(self, pair, opt):
+        """``slo=`` and ``watchdog_timeout=`` are ported; the planes the
+        port still lacks raise when their switch is on, naming their
+        ROADMAP item."""
+        from bigdl_tpu_torch.utils.conf import conf
         _, tm = pair
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LLMServer(tm, device="cpu", **opt)
+        (key, value), = opt.items()
+        conf.set(key, value)
+        try:
+            with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+                LLMServer(tm, device="cpu")
+        finally:
+            conf.unset(key)
 
     @pytest.mark.parametrize("opt,slots", [
         ({"kvcache": True, "kvtier": True}, 4 * 17),
