@@ -29,6 +29,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from bigdl_tpu_torch.llm import kernels
+from bigdl_tpu_torch.observability import compile_recorder
 
 
 class CapturedStep:
@@ -47,13 +48,26 @@ class CapturedStep:
     to the counters, the capture adds nothing); ``capture_seconds``; and
     ``pool_bytes``, the device memory the graph's private pool holds (the
     step's temporaries), as the allocator's reserved bytes grew over the
-    capture."""
+    capture.
+
+    Each capture records one entry in the capture records
+    (:func:`~bigdl_tpu_torch.observability.compile_recorder.
+    record_capture`) under ``name``, the JAX engine's program name, with
+    its capture seconds, pool bytes, launches a replay and ``costs``
+    (the FLOPs and bytes a call, reckoned by the caller from the step's
+    shapes: ``serving.step_costs``)."""
 
     def __init__(self, fn: Callable[[], None], device,
-                 generators: Iterable[torch.Generator] = ()):
+                 generators: Iterable[torch.Generator] = (),
+                 name: str = "captured_step", signature: str = "",
+                 costs: Optional[Dict[str, float]] = None):
         self.fn = fn
         self.device = torch.device(device)
         self.generators = tuple(generators)
+        self.name = name
+        self.signature = signature
+        self.costs = costs
+        self.captures = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.calls = 0
         self.replays = 0
@@ -91,6 +105,11 @@ class CapturedStep:
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph, self.launches = graph, delta
         self.capture_seconds = time.perf_counter() - t0
+        compile_recorder.record_capture(
+            self.name, self.capture_seconds, self.pool_bytes, delta,
+            costs=self.costs, signature=self.signature,
+            recapture=self.captures > 0)
+        self.captures += 1
 
     def close(self):
         """Free the graph and its pool. A later call warms up and captures

@@ -84,6 +84,7 @@ from bigdl_tpu_torch.llm.models.llama import (_attention, _embed, _head,
 from bigdl_tpu_torch.llm.spec import NGramProposer
 from bigdl_tpu_torch.observability import flight
 from bigdl_tpu_torch.observability import request_context as rc
+from bigdl_tpu_torch.observability import utilization
 from bigdl_tpu_torch.observability.slo import SLOAccount
 from bigdl_tpu_torch.reliability.policies import _count
 from bigdl_tpu_torch.utils.conf import conf
@@ -375,6 +376,49 @@ def family_steps(model, paged: bool = True) -> Dict[str, Callable]:
         or make_sampled_step(step),
         fam.paged_prefill_ragged, fam.paged_prefill_partial,
         fam.paged_step_mixed, fam.paged_step_spec)))
+
+
+def step_costs(params, cfg, rows: int, kv_dtype,
+               fixed_keys: int = 0) -> Dict[str, float]:
+    """What one call of a captured step over ``rows`` rows costs, from
+    its shapes (the capture records' ``costs``; see
+    ``observability/compile_recorder.py``): ``bytes``, every linear's
+    weight planes (packed codes and scales, or a dense matrix; the head
+    too, the embedding when it is tied) read once; ``flops``, 2 x
+    ``rows`` x their weight elements; per attended key ``kv_bytes``, its
+    K and V in every layer (``kv_dtype``), and per (query, key) pair
+    ``attn_flops``, 4 x query heads x head dim x layers. ``fixed_keys``
+    keys attended by every call (the slot-static step's whole window)
+    go into the fixed part."""
+    nbytes = elems = 0
+
+    def walk(t):
+        nonlocal nbytes, elems
+        if isinstance(t, dict):
+            if "q" in t or "w" in t:
+                w = t.get("q", t.get("w"))
+                # packed 4-bit codes hold two weights a byte
+                elems += w.numel() * (2 if w.dtype == torch.uint8 else 1)
+                nbytes += sum(x.numel() * x.element_size()
+                              for x in t.values()
+                              if isinstance(x, torch.Tensor))
+                return
+            for v in t.values():
+                walk(v)
+
+    walk(params)
+    if "lm_head" not in params and "embed_tokens" in params:
+        e = params["embed_tokens"]
+        elems += e.numel()
+        nbytes += e.numel() * e.element_size()
+    layers, hkv = cfg.num_hidden_layers, cfg.num_key_value_heads
+    d = cfg.head_dim
+    kv_bytes = 2.0 * layers * hkv * d * torch.empty(
+        (), dtype=kv_dtype).element_size()
+    attn_flops = 4.0 * cfg.num_attention_heads * d * layers
+    return {"flops": 2.0 * rows * elems + attn_flops * fixed_keys,
+            "bytes": float(nbytes) + kv_bytes * fixed_keys,
+            "attn_flops": attn_flops, "kv_bytes": kv_bytes}
 
 
 def bind_decode_step(params, cfg, k_pages, v_pages, bt, lens, last, active,
@@ -1104,7 +1148,12 @@ class LLMServer:
                               self._cache["v"], self._lens_dev, self._last,
                               self._active_dev, self._toks_dev,
                               **sampling),
-            dev, generators=self._gens)
+            dev, generators=self._gens,
+            name="llm/decode_paged" if paged else "llm/decode_slotted",
+            signature=f"B={max_batch} S={self.max_seq_len}",
+            costs=step_costs(model.params, cfg, max_batch,
+                             model.cache_dtype, 0 if paged else
+                             max_batch * self.max_seq_len))
         # chunk bucket -> (its mixed step, operand buffer, clast buffer)
         self._mixed_steps: Dict[int, tuple] = {}
         # draft bucket -> (its verify step, operand buffer, output buffer)
@@ -2377,7 +2426,12 @@ class LLMServer:
                 self._toks_dev, ops, clast, bucket=bucket, page=self._page,
                 temperature=self._temp, generator=self._gen,
                 do_sample=self._do_sample, top_k=self.top_k,
-                fam_step=self._fam_mixed_step), dev, generators=self._gens)
+                fam_step=self._fam_mixed_step), dev, generators=self._gens,
+                name="llm/step_mixed",
+                signature=f"B={self.max_batch} chunk={bucket}",
+                costs=step_costs(self.model.params, self.cfg,
+                                 self.max_batch + bucket,
+                                 self.model.cache_dtype))
             ms = self._mixed_steps[bucket] = (step, ops, clast)
         return ms
 
@@ -2394,7 +2448,8 @@ class LLMServer:
         except BaseException:
             self._restore_chunk_pass(cargs)
             raise
-        rec = self._record(disp)
+        rec = self._record(disp, fn=step.name,
+                           chunk=(cargs["end"] - cargs["c"], cargs["c"]))
         # the final chunk's epilogue goes behind this pass's record: its
         # table writes pin into the next record's uploads
         self._chunk_dispatched(cargs, clast, chunk_operands(
@@ -2495,7 +2550,12 @@ class LLMServer:
                 sout, ops, bucket=bucket, page=self._page,
                 temperature=self._temp, generator=self._gen,
                 do_sample=self._do_sample, top_k=self.top_k,
-                fam_step=self._fam_spec_step), dev, generators=self._gens)
+                fam_step=self._fam_spec_step), dev, generators=self._gens,
+                name="llm/step_spec",
+                signature=f"B={self.max_batch} drafts={bucket}",
+                costs=step_costs(self.model.params, self.cfg,
+                                 self.max_batch + bucket,
+                                 self.model.cache_dtype))
             ss = self._spec_steps[bucket] = (step, ops, sout)
         return ss
 
@@ -2530,7 +2590,8 @@ class LLMServer:
             i, sargs["drafts"], sargs["pos0"], bucket, self._bt[i],
             page=self._page)), non_blocking=True)
         step()
-        rec = self._record(disp, sout)
+        rec = self._record(disp, sout, fn=step.name,
+                           chunk=(sargs["pos0"], sargs["clen"]))
         n_draft = sargs["clen"] - 1
         rec["spec"] = {"i": i, "req": sargs["req"], "n_draft": n_draft,
                        "bucket": bucket}
@@ -2680,11 +2741,17 @@ class LLMServer:
             self._active_dev.copy_(self._upload(mask))
             self._active = mask
 
-    def _record(self, disp, src: Optional[torch.Tensor] = None) -> dict:
+    def _record(self, disp, src: Optional[torch.Tensor] = None,
+                fn: Optional[str] = None,
+                chunk: Optional[tuple] = None) -> dict:
         """The in-flight record of the step just enqueued: its output
         (``src``, by default the sampled ids) copied to a host buffer of
         its own, an event behind it, the rows it decoded (their host
-        lengths advanced) and the pinned buffers its uploads read."""
+        lengths advanced), the pinned buffers its uploads read, and for
+        the live roofline (flight recorder on) the step's program name
+        ``fn`` (by default the decode step's) and the (keys, pairs) it
+        attends: each decode row's keys, and a prefill ``chunk`` of
+        ``(offset, n)`` tokens."""
         src = self._toks_dev if src is None else src
         out = self._toks_host[self.steps % self.pipeline_depth][
             :src.shape[0]]
@@ -2698,8 +2765,17 @@ class LLMServer:
             self._remaining[i] -= 1
         rec = {"out": out, "event": event,
                "pairs": [(i, self._slots[i]) for i in disp],
-               "pinned": self._pending_release}
+               "pinned": self._pending_release,
+               "fn": fn or self._decode.name}
         self._pending_release = []
+        if flight.enabled and self.paged:
+            keys = int(self._lens[disp].sum()) if disp else 0
+            pairs = keys
+            if chunk is not None:
+                off, n = chunk
+                keys += off + n
+                pairs += n * off + n * (n + 1) // 2
+            rec["attn"] = (keys, pairs)
         return rec
 
     def _after_dispatch(self, rec: dict, t0: float) -> bool:
@@ -2750,15 +2826,22 @@ class LLMServer:
         ins = self._instruments()
         if ins is not None:
             ins["inflight"].set(len(self._inflight))
-            self._record_decode(ins, len(rec["pairs"]), tally,
-                                rec.get("host_s", 0.0), stall)
+        self._record_decode(ins, len(rec["pairs"]), tally,
+                            rec.get("host_s", 0.0), stall, rec["fn"],
+                            rec.get("attn"))
 
     def _record_decode(self, ins, n_active: int, tally: List[int],
-                       host_s: float, stall_s: float):
+                       host_s: float, stall_s: float, fn: str,
+                       attn: Optional[tuple] = None):
         """One drained step's series: the tokens delivered (speculative
         tokens of finished requests excluded), its host and stall times
         (times the drain already measured: no device read), the finished
-        and reaped requests, and the gauges."""
+        and reaped requests, and the gauges; and the live roofline's
+        sample of program ``fn`` (gated on the flight switch inside
+        ``observe``)."""
+        utilization.observe(fn, host_s + stall_s, attn)
+        if ins is None:
+            return
         applied, finished, cancelled = tally
         wall = host_s + stall_s
         ins["decode_tokens"].inc(applied)

@@ -17,7 +17,18 @@ One process-wide surface, as in the JAX package:
 - :mod:`~bigdl_tpu_torch.observability.flight` — the engine's decision
   event ring behind ``/debug/flight`` and ``/debug/explain/<id>``;
 - :mod:`~bigdl_tpu_torch.observability.slo` — per-request TTFT / ITL
-  accounting (``LLMServer(slo=True)``).
+  accounting (``LLMServer(slo=True)``);
+- :mod:`~bigdl_tpu_torch.observability.compile_recorder` — the CUDA-graph
+  capture records (the JAX package's compile records: the same
+  ``bigdl_xla_*`` series, one entry a capture, each step's FLOPs and
+  bytes a call reckoned from its shapes);
+- :mod:`~bigdl_tpu_torch.observability.utilization` — the live roofline
+  gauges (``bigdl_device_mfu``, ``bigdl_device_hbm_bw_gbps``,
+  ``bigdl_device_bw_util``) and the per-program table, behind the flight
+  switch;
+- :mod:`~bigdl_tpu_torch.observability.federation` — the fleet merge
+  (``/metrics/snapshot``, the router's collector), behind
+  ``bigdl.observability.federation``.
 
 The port's registry, ring and switches are its own: both packages can
 live in one process (the parity tests do) without sharing a series.
@@ -27,13 +38,9 @@ host-side python over clocks the engine already reads; the
 ``BIGDL_TPU_OBSERVABILITY_ENABLED``) or :func:`disable` turns every
 mutator and ``span`` into a no-op that records nothing.
 
-Not ported yet (ROADMAP Queue 1 item 8): ``timeseries``, ``alerts`` and
-``federation``, whose switches raise :class:`NotImplementedError` when
-turned on (:func:`require_unported_off`); and ``compile_recorder`` and
-``utilization`` (on a card: CUDA-graph capture records and CUDA-event
-timing), which have no switch of their own (the JAX package runs them
-under ``bigdl.observability.enabled`` and the flight switch): the port
-mints no ``bigdl_xla_*`` or ``bigdl_device_*`` series.
+Not ported yet (ROADMAP Queue 1 item 8): ``timeseries`` and ``alerts``,
+whose switch raises :class:`NotImplementedError` when turned on
+(:func:`require_unported_off`).
 """
 
 from __future__ import annotations
@@ -53,7 +60,10 @@ from bigdl_tpu_torch.observability.tracing import (
 from bigdl_tpu_torch.observability import request_context
 from bigdl_tpu_torch.observability.request_context import (
     PARENT_HEADER, TRACE_HEADER, TraceContext)
+from bigdl_tpu_torch.observability import compile_recorder
+from bigdl_tpu_torch.observability.compile_recorder import compile_stats
 from bigdl_tpu_torch.observability import flight
+from bigdl_tpu_torch.observability import utilization
 
 #: The process-global registry every built-in hook writes to.
 REGISTRY = MetricRegistry()
@@ -128,20 +138,22 @@ def render() -> str:
 
 
 def reset():
-    """Clear the global registry, the trace ring, the exemplar store
-    and the flight ring. Test isolation only: instruments held by live
-    modules detach from the registry."""
+    """Clear the global registry, the trace ring, the exemplar store,
+    the capture records, the flight ring and the roofline window. Test
+    isolation only: instruments held by live modules detach from the
+    registry."""
     REGISTRY.clear()
     TRACE.clear()
     EXEMPLARS.clear()
+    compile_recorder.reset()
     flight.reset()
+    utilization.reset()
 
 
 #: Switches of the JAX package's planes the port has not ported, and what
 #: they become on the card (ROADMAP Queue 1 item 8).
 UNPORTED_SWITCHES = {
     "bigdl.observability.timeseries.enabled": "the time-series plane",
-    "bigdl.observability.federation": "metric federation",
 }
 
 
@@ -163,9 +175,10 @@ __all__ = [
     "QuantileSketch", "REGISTRY", "SUMMARY_QUANTILES", "Sketch",
     "TRACE", "TRACE_HEADER", "TraceBuffer", "TraceContext",
     "DEFAULT_BUCKETS", "FAST_BUCKETS", "add_complete", "assemble_trace",
-    "configure",
+    "compile_recorder", "compile_stats", "configure",
     "counter", "disable", "enable", "enabled", "export_chrome_trace",
     "flight", "gauge", "histogram", "parse_prometheus", "render",
     "render_prometheus", "request_context", "reset", "sketch", "span",
     "tracing", "UNPORTED_SWITCHES", "require_unported_off",
+    "utilization",
 ]

@@ -442,6 +442,21 @@ class MetricRegistry:
         with self._lock:
             return [self._metrics[k] for k in sorted(self._metrics)]
 
+    def sample_value(self, name: str, **labels) -> Optional[float]:
+        """Read one series' current value (a histogram's or sketch's
+        count) — tests and report tooling; None when it does not exist."""
+        m = self.get(name)
+        if m is None:
+            return None
+        key = tuple(str(labels[n]) for n in m.labelnames) \
+            if m.labelnames else ()
+        for k, child in m.children():
+            if k == key:
+                if isinstance(child, (_HistogramChild, _SketchChild)):
+                    return float(child.count)
+                return child.value
+        return None
+
     def clear(self):
         """Drop every declaration — test isolation only; live code holds
         instrument references that would silently detach."""

@@ -250,8 +250,46 @@ Phase 11 (after phase 3d, on phase 3's model) the HTTP surface: an
          ``/worker_generate``, the ids equal to the exporter's own
          re-admission over the same page bytes, the blob's MB and each
          leg's ms. Report key ``serve_http``.
+Phase 12 (after phase 11, on phase 3's model) ``LLMRouter`` over two
+         ``LLMWorker(role="decode", federation=True)`` on two engines
+         that share the weights (phase 3's settings, ``slo=True``,
+         ``watchdog_timeout=5``, flight recorder on), every bucket warmed
+         inline before ``start()``. (a) blocking round-robin: phase 3's 8
+         prompts concurrently, ids equal to phase 3's, both engines
+         serving, exact launch counts (zeroed after the warm-up, read
+         once both engines are idle: each prompt's prefill at its bucket
+         and both engines' decode steps), end-to-end ms and engine TTFT
+         beside phase 11's direct figures; (b) ``failover=True``: the
+         same ids and exact launch counts, then one stream
+         cut mid-generation (``shutdown`` of the worker's accepted
+         socket): the tokens before the cut equal the unfailed run's, the
+         resumed suffix equals the surviving engine's own answer to
+         ``prompt + tokens so far``, ``bigdl_router_failovers_total`` +1,
+         the cut engine's pages back, the ms from the cut to the next
+         token; (c) a ``worker.stall`` of twice the watchdog on engine 1
+         under 2 streams, engine 2 joined by ``POST /backends``: the
+         prober marks engine 1, both streams finish on engine 2 with no
+         error, engine 1 healthy again, the client-visible stall; (d)
+         ``hedge=True`` at budget 1.0 and a 1 ms delay: (a)'s ids, the
+         hedges by outcome, every page back; (g) ``api=True``:
+         ``/v1/completions`` gives (a)'s ids with exact ``usage``; (h)
+         each worker's ``/metrics/snapshot`` roofline names
+         ``llm/decode_paged`` with (a)'s steps, ``bigdl_device_bw_util``
+         in (0, 1.05] after (a), and over phase 3's run on one engine
+         within 25% of phase 3's bytes a step, reckoned from the 7B
+         shapes (``SEVEN_B_LINEARS``' q4_0 planes and the K/V at the
+         rows' lengths), over its step ms over 3.35 TB/s; the host cost
+         of one ``utilization.observe`` over a full window; one capture
+         record per decode graph built; (e)
+         the two-stage route over host-tier engines: the ids equal the
+         exporter's re-admission, each leg's ms; (f) ``federation=True``:
+         the merged decode-token count equal to the members' sum,
+         ``/fleet/status`` naming both workers, a stopped worker stale
+         within 2 scrape intervals. Report key ``router``.
 
-Then a ``{"kernels": [...]}`` line, and as the last line
+Every phase's line has the SM clock and power draw (``nvidia-smi
+--query-gpu=clocks.sm,power.draw``) on the line before it. Then a
+``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the run
 ends nonzero and prints no result. The full report also goes to
 ``chiprun_out/chip_smoke.json``. Imports nothing of JAX or ``bigdl_tpu``.
@@ -270,7 +308,26 @@ BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
+def smi_clocks():
+    """The card's SM clock and power draw now, as ``nvidia-smi`` gives
+    them (the 7B step runs at one of two speeds: the clock tells which)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line has the SM clock and power draw on
+    the line before it, and its seconds since the script started."""
+    if "phase" in obj:
+        obj["t_s"] = time.perf_counter() - T0
+        obj["sm_clock_power"] = smi_clocks()
+        print(f"{obj['phase']}: clocks.sm, power.draw = "
+              f"{obj['sm_clock_power']}", flush=True)
     print(json.dumps(obj), flush=True)
 
 
@@ -3923,6 +3980,479 @@ def serve_http(torch, model, serve):
     return out
 
 
+# -- phase 12: the router over two 7B engines ----------------------------------
+
+ROUTER_WATCHDOG_S = 5.0        # each engine's watchdog_timeout
+ROUTER_NEW = 64                # (b)'s and (c)'s tokens a request
+
+
+def _taps(worker):
+    """The accepted sockets of ``worker``'s ``/worker_generate_stream``
+    calls, in order: the handle a cut needs (closing the listening socket
+    does not end a live stream; ``shutdown`` of the accepted one does)."""
+    cls = worker._httpd.RequestHandlerClass
+    socks, orig = [], cls.do_POST
+
+    def do_post(self):
+        if self.path == "/worker_generate_stream":
+            socks.append(self.connection)
+        return orig(self)
+
+    cls.do_POST = do_post
+    return socks
+
+
+def _journal_log(router):
+    """Every journal entry the router adds, and each failover's (entry,
+    tokens drained, time): harness-side wrappers over the journal."""
+    log = {"entries": [], "failovers": []}
+    j = router._journal
+    add, fail = j.add, j.record_failover
+
+    def add_w(*a, **k):
+        ent = add(*a, **k)
+        log["entries"].append(ent)
+        return ent
+
+    def fail_w(ent):
+        log["failovers"].append((ent, len(ent.tokens), time.monotonic()))
+        fail(ent)
+
+    j.add, j.record_failover = add_w, fail_w
+    return log
+
+
+def _idle_free(srv, want, timeout, what):
+    """Wait until ``srv`` holds no request and ``want`` free pages."""
+    _wait(lambda: not any(srv._slots) and len(srv._free) == want, timeout,
+          what)
+
+
+def _q4_weight_bytes(linears):
+    """The bytes of q4_0 weight planes from their shapes alone, as the
+    kernel cases' bound counts them: K x N / 2 packed codes and K / 32 x
+    N f32 scales a linear, times its launches a forward. Over
+    ``SEVEN_B_LINEARS``, what one 7B decode step reads besides the K/V."""
+    return sum(c * (k * n // 2 + k // 32 * n * 4) for k, n, _, c in linears)
+
+
+def serve_router(torch, model, serve, http):
+    """Phase 12: ``LLMRouter`` over two ``LLMWorker(role="decode")`` on
+    two engines sharing phase 3's model (phase 3's engine settings,
+    ``slo=True``, ``watchdog_timeout=5``, flight recorder on)."""
+    from concurrent.futures import ThreadPoolExecutor
+    import socket
+
+    import numpy as np
+
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch import reliability
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.llm.worker import LLMRouter, LLMWorker
+    from bigdl_tpu_torch.observability import (compile_recorder, flight,
+                                               utilization)
+    from bigdl_tpu_torch.utils.conf import conf
+
+    t_phase = time.perf_counter()
+    cfg, new = model.config, 32
+    prompts = [p.tolist() for p in _phase3_prompts(torch, cfg)]
+    want = serve["outputs"]
+    out = {"phase": "serve_router", "model": "Llama-2-7B q4_0 (phase 3's "
+           "model), two engines on its weights",
+           "engine": dict(SERVE_7B, slo=True,
+                          watchdog_timeout=ROUTER_WATCHDOG_S)}
+    obs.enable()
+    flight.enabled = True
+    caps0 = {r["fn"]: r["compiles"] for r in compile_recorder.compile_stats()}
+    engines = [LLMServer(model, slo=True, watchdog_timeout=ROUTER_WATCHDOG_S,
+                         **SERVE_7B) for _ in range(2)]
+    # every bucket warm and each decode graph captured before start() arms
+    # the watchdog: a first use looks like a stall
+    with torch.inference_mode():
+        for srv in engines:
+            reqs = [srv.submit(p, 2) for p in prompts]
+            while not all(r.done.is_set() for r in reqs):
+                srv._admit()
+                srv._step()
+            while srv._inflight:
+                srv._drain_next()
+            check(srv._decode.graph is not None and not srv.errors,
+                  f"phase 12 warm-up: {srv.errors}")
+    for srv in engines:
+        srv.start()
+    free0 = [len(s._free) for s in engines]
+    workers = [LLMWorker(s, role="decode", federation=True).start()
+               for s in engines]
+    taps = [_taps(w) for w in workers]
+    addrs = [w.address for w in workers]
+    body = [{"prompt_ids": p, "max_new_tokens": new} for p in prompts]
+    routers, extra = [], []
+
+    def router(*a, **k):
+        k.setdefault("start_prober", False)
+        r = LLMRouter(*a, **k).start()
+        routers.append(r)
+        return r
+
+    def concurrent(addr, bodies, path="/worker_generate"):
+        t0 = time.perf_counter()
+
+        def one(b):
+            t = time.perf_counter()
+            st, res, _ = _http(addr, "POST", path, b)
+            return st, res, (time.perf_counter() - t) * 1e3
+        with ThreadPoolExecutor(len(bodies)) as ex:
+            res = list(ex.map(one, bodies))
+        return res, time.perf_counter() - t0
+
+    def counter(name, **labels):
+        return obs.REGISTRY.sample_value(name, **labels) or 0.0
+
+    def sketch_sum(name):
+        m = obs.REGISTRY.get(name)
+        return m.sum if m is not None else 0.0
+
+    buckets = [_bucket(len(p), model.page_size) for p in prompts]
+
+    def routed_launches(addr, what):
+        """Phase 3's 8 prompts through the router at ``addr``, the launch
+        counts zeroed just before and read once both engines are idle:
+        exactly each prompt's prefill at its bucket and both engines'
+        decode steps. Returns the responses, the wall, the counts and
+        the steps."""
+        steps0 = [s.steps for s in engines]
+        kernels.reset_launch_counts()
+        res, wall = concurrent(addr, body)
+        for k, s in enumerate(engines):
+            _idle_free(s, free0[k], 15, f"{what}: engine {k} idle")
+        counts = kernels.launch_counts()
+        steps = sum(s.steps - s0 for s, s0 in zip(engines, steps0))
+        for i, (st, b, _) in enumerate(res):
+            check(st == 200 and b["output_ids"] == want[i],
+                  f"{what} request {i}: {st} {b}")
+        expect = _path_expect(model, buckets, steps)
+        check(counts == expect, f"{what}: launch counts {counts} != "
+              f"expected {expect}")
+        return res, wall, counts, steps
+
+    try:
+        # (a) blocking round-robin: phase 3's ids, both engines serve
+        utilization.reset()
+        served0 = [w._tokens_out for w in workers]
+        t0 = [counter("bigdl_llm_ttft_seconds"),
+              sketch_sum("bigdl_llm_ttft_seconds")]
+        ra = router([], addrs)
+        res, wall, out["launches"], steps_a = routed_launches(ra.address,
+                                                              "(a)")
+        served = [w._tokens_out - s0 for w, s0 in zip(workers, served0)]
+        check(all(served), f"(a) an engine served nothing: {served}")
+        ttft_n = counter("bigdl_llm_ttft_seconds") - t0[0]
+        ttft_s = sketch_sum("bigdl_llm_ttft_seconds") - t0[1]
+        e2e = [ms for _, _, ms in res]
+        out["blocking"] = {
+            "tokens_by_engine": served, "wall_s": wall,
+            "aggregate_tok_per_s": 8 * new / wall,
+            "e2e_ms_mean": statistics.mean(e2e), "e2e_ms_max": max(e2e),
+            "engine_ttft_ms_mean": ttft_s / ttft_n * 1e3,
+            "phase11_direct": {
+                "blocking_wall_s": http["blocking"]["wall_s"],
+                "blocking_aggregate_tok_per_s":
+                    http["blocking"]["aggregate_tok_per_s"],
+                "engine_ttft_ms_mean": http["stream"]["engine_ttft_ms_mean"],
+                "first_chunk_ms_mean": http["stream"]["first_chunk_ms_mean"]}}
+        # (h), first half: the roofline of (a)'s run on each worker's
+        # snapshot, its capture records and the gauge
+        roofs = []
+        for w in workers:
+            st, doc, _ = _http(w.address, "GET", "/metrics/snapshot")
+            rows = {r["fn"]: r for r in doc.get("roofline", {}).get(
+                "programs", [])}
+            check(st == 200 and rows.get("llm/decode_paged", {}).get(
+                "calls") == steps_a, f"(h) roofline {st} {rows} against "
+                f"{steps_a} steps")
+            roofs.append(doc["roofline"])
+        bw_a = obs.REGISTRY.sample_value("bigdl_device_bw_util")
+        check(bw_a is not None and 0 < bw_a <= 1.05,
+              f"(h) bigdl_device_bw_util after (a): {bw_a}")
+        out["roofline_a"] = {"bw_util": bw_a, "mfu": obs.REGISTRY.sample_value(
+            "bigdl_device_mfu"), "hbm_bw_gbps": obs.REGISTRY.sample_value(
+            "bigdl_device_hbm_bw_gbps"), "steps": steps_a,
+            "table": roofs[0]["programs"]}
+
+        # (b) failover streamed: the same ids, then a mid-stream cut
+        rb = router([], addrs, failover=True, slo=True)
+        log = _journal_log(rb)
+        _, _, out["launches_failover"], _ = routed_launches(rb.address, "(b)")
+        req = {"prompt_ids": prompts[0], "max_new_tokens": ROUTER_NEW}
+        st, unfailed, _ = _http(rb.address, "POST", "/worker_generate", req)
+        check(st == 200, f"(b) unfailed run: {st} {unfailed}")
+        unfailed = unfailed["output_ids"]
+        n_taps = [len(t) for t in taps]
+        fo0 = counter("bigdl_router_failovers_total", stage="decode")
+        n_ent = len(log["entries"])
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(_http, rb.address, "POST", "/worker_generate",
+                            req)
+            _wait(lambda: len(log["entries"]) > n_ent
+                  and len(log["entries"][-1].tokens) >= 16, 60,
+                  "(b) 16 tokens drained")
+            ent = log["entries"][-1]
+            cut = next(i for i, t in enumerate(taps) if len(t) > n_taps[i])
+            before = list(ent.tokens)
+            t_cut = time.monotonic()
+            taps[cut][-1].shutdown(socket.SHUT_RDWR)
+            st, ans, _ = fut.result()
+        check(st == 200 and len(ans["output_ids"]) == ROUTER_NEW,
+              f"(b) after the cut: {st} {ans}")
+        ans = ans["output_ids"]
+        check(ans[:len(before)] == unfailed[:len(before)],
+              f"(b) the tokens before the cut {before} against the unfailed "
+              f"{unfailed[:len(before)]}")
+        fos = [f for f in log["failovers"] if f[0] is ent]
+        check(len(fos) == 1, f"(b) {len(fos)} failovers of the cut request")
+        n_res = fos[0][1]
+        surv = engines[1 - cut]
+        direct = surv.submit(np.asarray(prompts[0] + ans[:n_res]),
+                             ROUTER_NEW - n_res).get(timeout=120)
+        check(ans[n_res:] == direct, f"(b) the resumed suffix {ans[n_res:]} "
+              f"against the surviving engine's own {direct}")
+        fo_delta = counter("bigdl_router_failovers_total",
+                           stage="decode") - fo0
+        check(fo_delta == 1, f"(b) bigdl_router_failovers_total +{fo_delta}")
+        _idle_free(engines[cut], free0[cut], 10, "(b) the cut engine's pages")
+        nxt = next(t for t in ent.token_times if t > t_cut)
+        out["failover"] = {
+            "cut_engine": cut, "tokens_before_cut": len(before),
+            "tokens_resumed": n_res,
+            "cut_to_next_token_ms": (nxt - t_cut) * 1e3,
+            "equals_surviving_engines_own_answer": True,
+            "equals_unfailed_bit_for_bit": ans == unfailed,
+            "leading_equal_to_unfailed": _lead(ans, unfailed),
+            "failovers_total_delta": fo_delta,
+            "cut_engine_free_pages_back": True}
+
+        # (c) a stall of twice the watchdog on engine 1 under 2 streams:
+        # the prober marks it, both finish on engine 2
+        rc_ = router([], addrs[:1], failover=True, prober_interval=0.25,
+                     start_prober=True)
+        log = _journal_log(rc_)
+        plan = reliability.FaultPlan(seed=0).add(
+            "worker.stall", "delay", after=8, times=1,
+            delay=2 * ROUTER_WATCHDOG_S)
+        reliability.set_plan(plan)
+        unhealthy = []
+        try:
+            with ThreadPoolExecutor(2) as ex:
+                futs = [ex.submit(_http, rc_.address, "POST",
+                                  "/worker_generate",
+                                  {"prompt_ids": prompts[i],
+                                   "max_new_tokens": ROUTER_NEW})
+                        for i in (2, 3)]
+                t_stall = _wait(lambda: plan.fired, 60, "(c) the stall")
+                st, _, _ = _http(rc_.address, "POST", "/backends", {
+                    "action": "add", "role": "decode",
+                    "host": addrs[1][0], "port": addrs[1][1]})
+                check(st == 200, f"(c) POST /backends: {st}")
+                _wait(lambda: not rc_._prober.healthy(addrs[0]),
+                      ROUTER_WATCHDOG_S + 3, "(c) the prober's verdict",
+                      every=0.02)
+                unhealthy.append(time.monotonic() - t_stall)
+                res = [f.result() for f in futs]
+            t_ok = _wait(lambda: rc_._prober.healthy(addrs[0]),
+                         4 * ROUTER_WATCHDOG_S, "(c) engine 1 healthy again",
+                         every=0.05)
+        finally:
+            reliability.set_plan(None)
+        gaps = []
+        for k, (st, b, _) in zip((2, 3), res):
+            check(st == 200 and len(b["output_ids"]) == ROUTER_NEW
+                  and "error" not in b, f"(c) stream {k}: {st} {b}")
+            # the journal's entries are in arrival order: match by prompt
+            (ent,) = [e for e in log["entries"]
+                      if e.prompt_ids == prompts[k]]
+            fos = [f for f in log["failovers"] if f[0] is ent]
+            check(len(fos) >= 1, f"(c) stream {k} never failed over")
+            n_res = fos[-1][1]
+            ans = b["output_ids"]
+            direct = engines[1].submit(np.asarray(
+                prompts[k] + ans[:n_res]), ROUTER_NEW - n_res).get(
+                timeout=120)
+            check(ans[n_res:] == direct, f"(c) stream {k}'s resumed suffix "
+                  f"after {n_res} tokens ({len(fos)} failovers) against "
+                  f"engine 2's own answer: {ans[n_res:]} / {direct}")
+            times = list(ent.token_times)
+            gaps.append(max(b - a for a, b in zip(times, times[1:])))
+        check(engines[0].watchdog_trips >= 1, "(c) no watchdog trip")
+        out["stall"] = {
+            "stall_s": 2 * ROUTER_WATCHDOG_S,
+            "prober_unhealthy_after_s": unhealthy[0],
+            "healthy_again_after_s": t_ok - t_stall,
+            "client_visible_stall_s": gaps,
+            "engine1_trips": engines[0].watchdog_trips,
+            "failovers": rc_.failovers}
+        for k, s in enumerate(engines):
+            _idle_free(s, free0[k], 30, f"(c) engine {k} idle")
+
+        # (d) hedging at budget 1.0: (a)'s ids, every page back
+        h0 = {o: counter("bigdl_router_hedges_total", stage="decode",
+                         outcome=o)
+              for o in ("issued", "primary_won", "hedge_won")}
+        conf.set("bigdl.llm.hedge.budget", "1.0")
+        try:
+            rd = router([], addrs, failover=True, hedge=True,
+                        hedge_delay_ms=1.0)
+        finally:
+            conf.unset("bigdl.llm.hedge.budget")
+        res, wall = concurrent(rd.address, body)
+        for i, (st, b, _) in enumerate(res):
+            check(st == 200 and b["output_ids"] == want[i],
+                  f"(d) request {i}: {st} {b}")
+        hedges = {o: counter("bigdl_router_hedges_total", stage="decode",
+                             outcome=o) - h0[o] for o in h0}
+        check(hedges["issued"] >= 1, f"(d) no hedge issued: {hedges}")
+        for k, s in enumerate(engines):
+            _idle_free(s, free0[k], 15, f"(d) engine {k}'s pages")
+        out["hedge"] = {"hedges": hedges, "wall_s": wall,
+                        "free_pages_back": True}
+
+        # (g) the OpenAI gateway on the router: (a)'s ids, exact usage
+        rg = router([], addrs, failover=True, api=True)
+        st, b, _ = _http(rg.address, "POST", "/v1/completions",
+                         {"model": "bigdl-tpu-llm", "prompt": prompts[0],
+                          "max_tokens": new})
+        usage = {"prompt_tokens": len(prompts[0]), "completion_tokens": new,
+                 "total_tokens": len(prompts[0]) + new}
+        check(st == 200 and b["choices"][0]["token_ids"] == want[0]
+              and b["usage"] == usage, f"(g) /v1/completions: {st} {b}")
+        out["api"] = {"ids_equal_a": True, "usage": b["usage"]}
+
+        # (h), second half: phase 3's run on one engine, the gauge read
+        # over its decode window, against phase 3's reckoned bytes a step
+        # over its measured step ms
+        reqs = [engines[0].submit(np.asarray(p), new) for p in prompts]
+        _wait(lambda: all(r.tokens for r in reqs), 60, "(h) first tokens")
+        utilization.reset()
+        lens = [len(r.tokens) for r in reqs]
+        outs = [r.get(timeout=120) for r in reqs]
+        check(outs == want, "(h) phase 3's ids on one engine")
+        bw = obs.REGISTRY.sample_value("bigdl_device_bw_util")
+        kv_key = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads \
+            * cfg.head_dim * 2
+        # the window's mean keys a step: each row from its length at the
+        # reset to its last token
+        keys = sum(len(p) + (k + new) / 2 for p, k in zip(prompts, lens))
+        step_b = _q4_weight_bytes(SEVEN_B_LINEARS) + kv_key * keys
+        expect = step_b / (serve["decode_step_ms"] / 1e3) / HBM_BYTES_PER_S
+        check(bw is not None and 0 < bw <= 1.05
+              and abs(bw / expect - 1) <= 0.25,
+              f"(h) bigdl_device_bw_util {bw} against phase 3's {expect}")
+        out["roofline"] = {
+            "bw_util": bw, "phase3_expect": expect,
+            "phase3_bytes_per_step": step_b,
+            "phase3_decode_step_ms": serve["decode_step_ms"],
+            "mfu": obs.REGISTRY.sample_value("bigdl_device_mfu"),
+            "hbm_bw_gbps": obs.REGISTRY.sample_value(
+                "bigdl_device_hbm_bw_gbps"),
+            "table": utilization.roofline_table()}
+
+        # (e) the two-stage route over host-tier engines
+        tier = dict(SERVE_7B, kvcache=True, kvtier=True, host_pages=64)
+        pre, dec = (LLMServer(model, **tier).start() for _ in range(2))
+        wp = LLMWorker(pre, role="prefill").start()
+        wd = LLMWorker(dec, role="decode").start()
+        extra += [wp, wd, pre, dec]
+        for s in (pre, dec):        # the decode graphs captured first
+            s.submit(prompts[5][:40], 3).get(timeout=600)
+        re_ = router([wp.address], [wd.address], failover=True)
+        legs = {}
+        for name in ("_call", "_stream_decode"):
+            fn = getattr(re_, name)
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    key = a[1] if _name == "_call" else "decode stream"
+                    legs[key] = (time.perf_counter() - t) * 1e3
+            setattr(re_, name, timed)
+        st, g, _ = _http(re_.address, "POST", "/worker_generate", body[0])
+        ref = pre.submit(np.asarray(prompts[0]), new).get(timeout=600)
+        check(st == 200 and g["output_ids"] == ref and re_.handoffs_routed
+              == 1 and dec._tier.fetches >= 1, f"(e) {st} {g} against the "
+              f"exporter's {ref}, {dec._tier.fetches} fetched")
+        out["two_stage"] = {"legs_ms": legs, "ids_equal_a":
+                            g["output_ids"] == want[0],
+                            "ids_equal_exporter_readmission": True}
+
+        # (f) federation: the merged view and a stopped member
+        conf.set("bigdl.observability.federation.interval", "0.25")
+        try:
+            rf = router([], addrs, federation=True, failover=True)
+        finally:
+            conf.unset("bigdl.observability.federation.interval")
+        rf._collector.collect_now()
+        merged = _metrics(rf.address)
+        name = "bigdl_llm_decode_tokens_total"
+        per = [sum(s["value"] for d in snap["metrics"] if d["name"] == name
+                   for s in d["series"])
+               for snap in rf._collector.snapshots().values()]
+        check(merged[name][()] == sum(per) and len(per) == 3,
+              f"(f) merged {merged[name]} against the members' {per}")
+        st, status, _ = _http(rf.address, "GET", "/fleet/status")
+        check(st == 200 and set(status["members"]) == {
+            f"{a[0]}:{a[1]}" for a in addrs}, f"(f) /fleet/status {status}")
+        workers[1].stop()
+        t_stop = time.monotonic()
+        key = f"{addrs[1][0]}:{addrs[1][1]}"
+        t_stale = _wait(lambda: rf._collector.status()["members"][key][
+            "stale"], 10, "(f) the stopped member stale", every=0.01)
+        check(t_stale - t_stop <= 2 * rf._collector.interval,
+              f"(f) stale {t_stale - t_stop:.3f} s after the stop")
+        out["federation"] = {
+            "merged_decode_tokens": merged[name][()], "members": per,
+            "stale_after_s": t_stale - t_stop,
+            "interval_s": rf._collector.interval}
+        for e in engines + [pre, dec]:
+            check(not e.errors, f"phase 12 engine errors: {e.errors}")
+        # the roofline hook's host cost, which the engine thread pays once
+        # a drained step with the flight recorder on: one observe over a
+        # full window of 7B decode entries, on this host
+        entry = ("llm/decode_paged", serve["decode_step_ms"] / 1e3,
+                 (int(keys), int(keys)))
+        for _ in range(utilization.WINDOW):
+            utilization.observe(*entry)
+        t = time.perf_counter()
+        for _ in range(200):
+            utilization.observe(*entry)
+        out["roofline"]["observe_us_full_window"] = (
+            time.perf_counter() - t) / 200 * 1e6
+        utilization.reset()
+        rec = {r["fn"]: r for r in compile_recorder.compile_stats()}.get(
+            "llm/decode_paged", {"compiles": 0, "history": []})
+        n_cap = rec["compiles"] - caps0.get("llm/decode_paged", 0)
+        check(n_cap == 4, f"(h) {n_cap} capture records for 4 engines' "
+              "decode steps")
+        hist = rec["history"][-n_cap:] if n_cap else []
+        out["captures"] = {"llm/decode_paged": {
+            "captures": n_cap, "capture_s": [h["capture_s"] for h in hist],
+            "pool_mb": [h["pool_bytes"] / 2**20 for h in hist],
+            "launches_per_replay": {
+                k: v for k, v in hist[0]["launches"].items() if v}
+            if hist else None}}
+    finally:
+        reliability.set_plan(None)
+        for r in routers:
+            r.stop()
+        for x in workers + extra + engines:
+            x.stop()
+        flight.enabled = False
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4011,6 +4541,8 @@ def main() -> int:
     emit(slot_prof)
     http = serve_http(torch, model, serve)
     emit(http)
+    router = serve_router(torch, model, serve, http)
+    emit(router)
     del model
     torch.cuda.empty_cache()
     bert, bert_prof = bert_path(torch, dev)
@@ -4048,6 +4580,9 @@ def main() -> int:
     for r in (tier["off"], tier["on"], tier["priority"]):
         paths[f"serve_7b {r['what'][3:]}"] = dict(r["launches"])
     paths["serve_7b over HTTP"] = dict(http["launches"])
+    paths["serve_7b through the router"] = dict(router["launches"])
+    paths["serve_7b through the router, failover streamed"] = dict(
+        router["launches_failover"])
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = dict(row["launches"])
     for name, row in gen_row["runs"].items():
@@ -4269,6 +4804,17 @@ def main() -> int:
         "watchdog_stalled_503_after_s":
             http["watchdog"]["stalled_503_after_s"],
         "handoff_blob_mb": http["roles"]["blob_mb"]}
+    host_out["7B through the router"] = {
+        **{f"blocking_{k}": router["blocking"][k] for k in (
+            "e2e_ms_mean", "engine_ttft_ms_mean", "aggregate_tok_per_s")},
+        "failover_cut_to_next_token_ms":
+            router["failover"]["cut_to_next_token_ms"],
+        "stall_client_visible_s": router["stall"]["client_visible_stall_s"],
+        "bw_util_one_engine_two_engines": [router["roofline"]["bw_util"],
+                                           router["roofline_a"]["bw_util"]],
+        "bw_util_phase3_expect": router["roofline"]["phase3_expect"],
+        "utilization_observe_us_full_window":
+            router["roofline"]["observe_us_full_window"]}
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
               "route_sweep": sweep,
@@ -4284,6 +4830,7 @@ def main() -> int:
               "generate_profile": gen_prof, "checkpoint": ckpt,
               "serve_slotted": slot, "profile_slotted": slot_prof,
               "mixtral": mix, "families": fam, "serve_http": http,
+              "router": router,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

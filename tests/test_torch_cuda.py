@@ -1713,3 +1713,84 @@ def test_watchdog_quiet_through_warmed_run(cuda):
     assert srv.watchdog_enabled and srv.watchdog_trips == 0
     assert not srv.watchdog_tripped and srv.errors == []
     assert srv._slo.requests == 12
+
+
+def test_peaks_from_the_device_name(cuda):
+    """The roofline's peaks match the card by its name (the H100 SXM:
+    989 TFLOP/s dense bf16, 3,350 GB/s); a conf override wins."""
+    from bigdl_tpu_torch.observability import utilization
+    from bigdl_tpu_torch.utils.conf import conf
+    name = torch.cuda.get_device_name(0).lower()
+    if "h100" not in name or "pcie" in name or "nvl" in name:
+        pytest.skip(f"not an H100 SXM: {name}")
+    assert utilization.peaks() == (989e12, 3350.0)
+    conf.set("bigdl.device.peak.gbps", "1000")
+    try:
+        assert utilization.peaks() == (989e12, 1000.0)
+    finally:
+        conf.unset("bigdl.device.peak.gbps")
+
+
+def test_capture_records_one_entry(cuda):
+    """One captured decode step of the tiny (7B-shaped: Llama, q4_0,
+    fused linears) model records one capture entry under its name: its
+    capture seconds, pool bytes, launches a replay and costs."""
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.llm.graphs import CapturedStep
+    from bigdl_tpu_torch.llm.serving import bind_decode_step, step_costs
+    from bigdl_tpu_torch.observability import compile_recorder
+    model = _tiny_card_model(cuda)
+    cfg, B, cap = model.config, 4, 4
+    shape = (cfg.num_hidden_layers, 1 + B * cap, cfg.num_key_value_heads,
+             PAGE, cfg.head_dim)
+    bufs = [torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+            for _ in range(2)] + [
+        (1 + torch.arange(B * cap, device=cuda)).reshape(B, cap).int(),
+        torch.tensor([3, 9, 0, 0], dtype=torch.int32, device=cuda),
+        torch.zeros((B, cfg.vocab_size), device=cuda),
+        torch.tensor([True, True, False, False], device=cuda),
+        torch.zeros(B, dtype=torch.int32, device=cuda)]
+    costs = step_costs(model.params, cfg, B, torch.bfloat16)
+    obs.enable()
+    before = {r["fn"]: r["compiles"]
+              for r in compile_recorder.compile_stats()}
+    step = CapturedStep(bind_decode_step(model.params, cfg, *bufs,
+                                         page=PAGE), cuda,
+                        name="llm/test_decode", signature=f"B={B}",
+                        costs=costs)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    (rec,) = [r for r in compile_recorder.compile_stats()
+              if r["fn"] == "llm/test_decode"]
+    assert rec["compiles"] - before.get("llm/test_decode", 0) == 1
+    entry = rec["history"][-1]
+    assert entry["capture_s"] == round(step.capture_seconds, 4) > 0
+    assert entry["pool_bytes"] == step.pool_bytes
+    assert entry["launches"] == step.launches and \
+        entry["launches"]["paged_attention_decode_stats"] == \
+        cfg.num_hidden_layers
+    assert compile_recorder.latest_costs()["llm/test_decode"] == \
+        (costs["flops"], costs["bytes"])
+    step.close()
+
+
+def test_bw_util_after_a_graphed_run(cuda):
+    """With the flight recorder on, the drained steps of a graphed served
+    run feed ``bigdl_device_bw_util``: in (0, 1.05]."""
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.observability import flight, utilization
+    model = _tiny_card_model(cuda)
+    obs.enable()
+    utilization.reset()
+    flight.enabled = True
+    try:
+        outs, srv = _serve_tiny(model, [list(range(1, 20)),
+                                        list(range(5, 40))], 24)
+        bw = obs.REGISTRY.sample_value("bigdl_device_bw_util")
+        rows = {r["fn"]: r for r in utilization.roofline_table()}
+    finally:
+        flight.enabled = False
+    assert all(len(o) == 24 for o in outs)
+    assert rows["llm/decode_paged"]["calls"] >= 23
+    assert bw is not None and 0 < bw <= 1.05

@@ -238,14 +238,21 @@ class TestEngineRules:
     def test_unsupported_options_raise(self, pair, opt):
         """``slo=`` and ``watchdog_timeout=`` are ported; the planes the
         port still lacks raise when their switch is on, naming their
-        ROADMAP item."""
+        ROADMAP item. Metric federation is ported: with its switch on
+        the engine builds."""
+        from bigdl_tpu_torch.observability import UNPORTED_SWITCHES
         from bigdl_tpu_torch.utils.conf import conf
         _, tm = pair
         (key, value), = opt.items()
         conf.set(key, value)
         try:
-            with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-                LLMServer(tm, device="cpu")
+            if key in UNPORTED_SWITCHES:
+                with pytest.raises(NotImplementedError,
+                                   match="Queue 1 item 8"):
+                    LLMServer(tm, device="cpu")
+            else:
+                assert key == "bigdl.observability.federation"
+                LLMServer(tm, device="cpu").stop()
         finally:
             conf.unset(key)
 

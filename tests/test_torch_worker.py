@@ -317,10 +317,22 @@ def test_metrics_and_status(fleet):
 
 
 def test_unported_worker_switches_raise(fleet):
+    """``fleet=True`` still raises; ``federation=True`` (ported) serves
+    the member surface ``/metrics/snapshot``, which a worker without it
+    answers 404."""
     srv = fleet["torch"]["api"].server
-    for kw in ({"federation": True}, {"fleet": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            LLMWorker(srv, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        LLMWorker(srv, fleet=True)
+    w = LLMWorker(srv, federation=True).start()
+    try:
+        st, doc, _ = _req(w.address, "GET", "/metrics/snapshot")
+    finally:
+        w.stop()
+    addr = w.address
+    assert st == 200 and doc["instance"] == f"{addr[0]}:{addr[1]}"
+    assert "bigdl_build_info" in {m["name"] for m in doc["metrics"]}
+    assert _req(fleet["torch"]["api"].address, "GET",
+                "/metrics/snapshot")[0] == 404
 
 
 def test_jax_router_over_port_worker(fleet):
