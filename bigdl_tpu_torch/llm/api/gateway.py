@@ -19,9 +19,8 @@ Layering:
   gate; off means /v1/* 404s and none of this exists).
 - A *backend* adapter carries dispatch: :class:`EngineBackend` drains
   an in-process :class:`~bigdl_tpu_torch.llm.serving.LLMServer` request
-  (single-node worker), while the JAX package's router passes its own
-  adapter over the failover journal (the port's router is ROADMAP
-  Queue 1 item 8) — there the per-token SSE relay IS the journal
+  (single-node worker), while the router passes its own adapter over
+  the failover journal — there the per-token SSE relay IS the journal
   drain listener, so a mid-stream failover is invisible to the client
   and every token is stamped exactly once for the router SLO sketches
   (one accounting, not two).

@@ -6,7 +6,7 @@ launch, or all at once with :func:`build_kernels`."""
 
 import contextlib
 
-from bigdl_tpu_torch.llm.kernels import _build
+from bigdl_tpu_torch.llm.kernels import _build, _counts
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (
     TC_MIN_M, TC_SMS, asym_int4_matmul, asym_int4_matmul_grouped,
     asym_int4_matmul_reference, dequant_q4, dequant_q4_1, dequant_q8_0,
@@ -61,11 +61,8 @@ _ROUTE_COUNTERS = {"_tc": ("tc_launches", TC_WRAPPERS),
 
 
 def reset_launch_counts():
-    for w in WRAPPERS.values():
-        w.launches = 0
-    for attr, ws in _ROUTE_COUNTERS.values():
-        for w in ws:
-            setattr(w, attr, 0)
+    _counts.add([(w, attr, -getattr(w, attr))
+                 for w, attr in map(_counter, launch_counts())])
 
 
 def launch_counts():
@@ -80,15 +77,17 @@ def launch_counts():
     return counts
 
 
+def _counter(name):
+    """The ``(wrapper, attribute)`` behind a :func:`launch_counts` key."""
+    if name in WRAPPERS:
+        return WRAPPERS[name], "launches"
+    suffix = next(s for s in _ROUTE_COUNTERS if name.endswith(s))
+    return (WRAPPERS[name.removesuffix(suffix)],
+            _ROUTE_COUNTERS[suffix][0])
+
+
 def _add_counts(delta, sign: int = 1):
-    for name, n in delta.items():
-        if name in WRAPPERS:
-            WRAPPERS[name].launches += sign * n
-            continue
-        suffix = next(s for s in _ROUTE_COUNTERS if name.endswith(s))
-        w = WRAPPERS[name.removesuffix(suffix)]
-        attr = _ROUTE_COUNTERS[suffix][0]
-        setattr(w, attr, getattr(w, attr) + sign * n)
+    _counts.add([(*_counter(name), sign * n) for name, n in delta.items()])
 
 
 @contextlib.contextmanager
@@ -99,15 +98,18 @@ def launches_of_capture():
     ``{launch_counts() key: n}`` delta; the counters are then set back
     by that delta. Each replay of the graph adds it
     (:func:`add_launches`), so the counters read as if every replayed
-    kernel had been launched from Python."""
-    before = launch_counts()
+    kernel had been launched from Python. What other threads launch or
+    replay during the capture stays out of its delta."""
     delta = {}
     try:
-        yield delta
+        with _counts.others_during(launch_counts) as (before, res):
+            yield delta
     finally:
-        after = launch_counts()
-        delta.update({k: after[k] - before[k] for k in after
-                      if after[k] != before[k]})
+        keys = {_counter(k): k for k in res["after"]}
+        own = {k: n - before[k] for k, n in res["after"].items()}
+        for counter, n in res["others"].items():
+            own[keys[counter]] -= n
+        delta.update({k: n for k, n in own.items() if n})
         _add_counts(delta, -1)
 
 

@@ -36,7 +36,7 @@ import torch
 
 from bigdl_tpu_torch.llm.ggml.quantize import (QK, _check_qtype, quantize,
                                                quantize_torch)
-from bigdl_tpu_torch.llm.kernels import _build
+from bigdl_tpu_torch.llm.kernels import _build, _counts
 
 # the least M that takes the tensor-core kernels. Chosen from H100
 # timings of both routes at M = 1..64 on the decode shapes (PERF.md): the
@@ -371,11 +371,8 @@ def _launch(wrapper, xb: torch.Tensor, planes: Sequence[torch.Tensor],
         [_build.P] * (len(planes) + 2) + [_build.I] * len(ints) + [_build.P])
     rc = fn(xb.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(),
             *ints, _stream(xb))
-    wrapper.launches += 1
-    if route == "tc":
-        wrapper.tc_launches += 1
-    else:
-        wrapper.gemv_launches += 1
+    _counts.launched(wrapper, "tc_launches" if route == "tc"
+                     else "gemv_launches")
     return rc
 
 

@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from bigdl_tpu_torch.llm.kernels import _build
+from bigdl_tpu_torch.llm.kernels import _build, _counts
 
 LANE = 128   # the JAX package's block-table bucketing unit (kept for shapes)
 
@@ -210,7 +210,7 @@ def _decode_cuda(q, k_pages, v_pages, block_tables, lengths,
                 nsplit, tail[-1])
         entry = (paged_attention_decode if normalize
                  else paged_attention_decode_stats)
-        entry.launches += 1
+        _counts.launched(entry)
         _build.check(rc, entry.__name__)
     return outs[0] if normalize else tuple(outs)
 

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from bigdl_tpu_torch.llm.kernels import _build
+from bigdl_tpu_torch.llm.kernels import _build, _counts
 from bigdl_tpu_torch.llm.kernels.paged_attention import (_KV_ENTRY,
                                                          _gather,
                                                          _sliced_tables)
@@ -238,14 +238,14 @@ def _ragged_cuda(q, k_suf, v_suf, k_pages, v_pages, block_tables, offsets,
                          [P] * 9 + [I] * 9 + [F, P])
         rc = fn(*ptrs, b, tq, hq, hkv, page, d, bt.shape[1], p_, window,
                 1.0 / math.sqrt(d), stream)
-        ragged_prefill_attention.tc_launches += 1
     else:
         fn = _build.bind("ragged_prefill",
                          f"ragged_prefill_{_KV_ENTRY[kvt]}",
                          [P] * 9 + [I] * 8 + [F, P])
         rc = fn(*ptrs, b, tq, hq, hkv, page, d, bt.shape[1], window,
                 1.0 / math.sqrt(d), stream)
-    ragged_prefill_attention.launches += 1
+    _counts.launched(ragged_prefill_attention,
+                     *(("tc_launches",) if route == "tc" else ()))
     _build.check(rc, f"ragged_prefill_attention ({route})")
     return out
 

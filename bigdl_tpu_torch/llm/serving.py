@@ -892,7 +892,6 @@ class LLMServer:
                  kvtier_fetch_timeout: Optional[float] = None,
                  slo: Optional[bool] = None,
                  watchdog_timeout: Optional[float] = None, device=None):
-        obs.require_unported_off()
         if not paged:
             # the JAX engine's refusals, in its order
             if kvtier:
@@ -1514,6 +1513,11 @@ class LLMServer:
                 target=self._watchdog_loop, name="bigdl-torch-llm-watchdog",
                 daemon=True)
             self._watchdog_thread.start()
+        # time-series plane: the engine's refcount on the sampler, so
+        # store-backed SLO burn windows work in a process with no HTTP
+        # surface. Builds nothing when the gate is off.
+        from bigdl_tpu_torch.observability import timeseries
+        self._timeseries = timeseries.acquire()
         return self
 
     def stop(self, drain: bool = True, timeout: float = 30.0):
@@ -1533,6 +1537,10 @@ class LLMServer:
         if self._watchdog_thread is not None:
             self._watchdog_stop.set()
             self._watchdog_thread.join(timeout=5)
+        if getattr(self, "_timeseries", None) is not None:
+            from bigdl_tpu_torch.observability import timeseries
+            timeseries.release()
+            self._timeseries = None
         if self._thread is not None:
             self._thread.join(timeout=60)
         if self._thread is not None and self._thread.is_alive():

@@ -27,6 +27,14 @@ Endpoints (bodies, status codes and headers are the JAX worker's):
 - ``POST /v1/completions``, ``POST /v1/chat/completions``, ``GET
   /v1/models`` with ``api=True`` (``bigdl.llm.api.enabled``): the
   OpenAI gateway (``llm/api``), 404 naming the gate otherwise.
+- ``GET /worker_drain`` / ``POST /worker_drain`` {"action":
+  "begin"|"cancel", "peers", "timeout"} with ``fleet=True``
+  (``bigdl.llm.fleet.enabled``): the graceful drain of
+  :class:`~bigdl_tpu_torch.llm.fleet.DrainCoordinator`, 404 otherwise.
+- ``GET /metrics/query``, ``/fleet/timeline`` and ``/alerts`` with
+  ``bigdl.observability.timeseries.enabled``: the time-series store and
+  the alert engine (``observability/timeseries.py``, ``alerts.py``),
+  404 naming the gate otherwise.
 
 Submission splits failures 422 (invalid request) / 503 + Retry-After
 (the engine's ``OverloadError``: queue full, draining) / 500 (anything
@@ -52,14 +60,12 @@ resume on another backend, the ``/healthz`` prober and live
 ``POST /backends`` membership; with ``hedge=True`` hedged dispatch;
 with ``federation=True`` the merged fleet ``/metrics`` and
 ``/fleet/status``; with ``api=True`` the OpenAI gateway over the
-journal. Router code touches HTTP and host state only, never an engine.
-
-Not ported yet (ROADMAP Queue 1 item 8): the fleet's drain coordinator
-and autoscaler (``/worker_drain``, ``/fleet/autoscaler``) and the
-time-series plane (``/metrics/query``, ``/fleet/timeline``,
-``/alerts``). Their endpoints answer the JAX package's 404s while their
-switches are off, which is the default; turning one on raises
-:class:`NotImplementedError`.
+journal; with ``fleet=True`` (failover mode only) the autoscaler,
+:class:`~bigdl_tpu_torch.llm.fleet.FleetController`, and
+``/fleet/autoscaler``; with the time-series plane on, ``/metrics/query``,
+``/fleet/timeline`` (riding the federation collector's cache) and
+``/alerts``. Router code touches HTTP and host state only, never an
+engine.
 """
 
 from __future__ import annotations
@@ -70,7 +76,6 @@ import json
 import sys
 import threading
 import time
-from urllib.parse import urlsplit
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
@@ -78,17 +83,15 @@ import numpy as np
 
 from bigdl_tpu_torch import observability as obs
 from bigdl_tpu_torch import reliability
+from bigdl_tpu_torch.observability import alerts
 from bigdl_tpu_torch.observability import flight
 from bigdl_tpu_torch.observability import request_context as rc
+from bigdl_tpu_torch.observability import timeseries
 from bigdl_tpu_torch.observability import tracing
 from bigdl_tpu_torch.observability.federation import (
     federation_enabled, registry_snapshot)
 
 ROLES = ("", "prefill", "decode")
-
-# the time-series plane's endpoints, answered with the JAX worker's 404
-# (the plane is not ported)
-_TIMESERIES_PATHS = ("/metrics/query", "/fleet/timeline", "/alerts")
 
 # SLO-class header: case-insensitive (HTTPMessage lookups
 # already are), propagated router→worker beside the trace and deadline
@@ -155,14 +158,15 @@ class LLMWorker:
         # only when the federation plane is on — a disabled worker keeps
         # the endpoint structurally absent (404)
         self.federation = federation_enabled(federation)
-        # planes the port has not ported: off (the default) they answer
-        # the JAX worker's 404s; asked for, they raise
-        if (fleet if fleet is not None else
-                conf.get_bool("bigdl.llm.fleet.enabled", False)):
-            raise NotImplementedError(
-                "fleet=True: the drain coordinator (/worker_drain) is not "
-                "ported yet (ROADMAP Queue 1 item 8)")
-        obs.require_unported_off()
+        # elastic fleet drain: constructed ONLY when
+        # bigdl.llm.fleet.enabled — disabled mode has no drain state
+        # and /worker_drain answers 404 (structural absence)
+        fleet_on = (fleet if fleet is not None else
+                    conf.get_bool("bigdl.llm.fleet.enabled", False))
+        self._drain = None
+        if fleet_on:
+            from bigdl_tpu_torch.llm.fleet import DrainCoordinator
+            self._drain = DrainCoordinator(server)
         # OpenAI-compatible gateway: constructed ONLY when
         # bigdl.llm.api.enabled — disabled mode keeps /v1/* answering
         # 404 naming the gate and mints no bigdl_api_* series
@@ -263,12 +267,14 @@ class LLMWorker:
                     # flight recorder + per-request explain: same
                     # shared-helper idiom, 404 arms included
                     debug = flight.debug_endpoint(self.path)
+                if debug is None:
+                    # time-series plane: /metrics/query +
+                    # /fleet/timeline + /alerts, 404 arms included
+                    debug = timeseries.debug_endpoint(self.path)
+                if debug is None:
+                    debug = alerts.debug_endpoint(self.path)
                 if debug is not None:
                     self._json(*debug)
-                elif urlsplit(self.path).path in _TIMESERIES_PATHS:
-                    self._json(404, {
-                        "error": "timeseries disabled",
-                        "gate": "bigdl.observability.timeseries.enabled"})
                 elif self.path == "/debug/kvcache":
                     # prefix-cache state: pool refcounts,
                     # radix index size, hit/miss/evict tallies. 404
@@ -280,7 +286,12 @@ class LLMWorker:
                     else:
                         self._json(200, kv.debug_stats())
                 elif self.path == "/worker_drain":
-                    self._json(404, {"error": "fleet disabled"})
+                    # drain status poll: 404 when the fleet
+                    # plane is off — structurally absent, not idle
+                    if worker._drain is None:
+                        self._json(404, {"error": "fleet disabled"})
+                    else:
+                        self._json(200, worker._drain.status())
                 elif self.path == "/v1/models":
                     # OpenAI surface: 404 when the gateway
                     # is off — structurally absent, naming the gate
@@ -425,7 +436,41 @@ class LLMWorker:
                         worker._api.handle_post(self, self.path)
                     return
                 if self.path == "/worker_drain":
-                    self._json(404, {"error": "fleet disabled"})
+                    # graceful drain control: begin flips
+                    # the engine to DRAINING and starts the finish-
+                    # then-migrate thread; cancel resumes admission.
+                    # 404 when the fleet plane is off.
+                    if worker._drain is None:
+                        self._json(404, {"error": "fleet disabled"})
+                        return
+                    try:
+                        n = int(self.headers.get("Content-Length", 0))
+                        body = json.loads(self.rfile.read(n)) if n \
+                            else {}
+                        action = body.get("action", "begin")
+                        if action not in ("begin", "cancel"):
+                            raise ValueError(
+                                "action must be begin|cancel")
+                        # coerce peers/timeout HERE: malformed values
+                        # are the client's 400, not a torn connection
+                        peers = [(str(p[0]), int(p[1]))
+                                 for p in body.get("peers", [])]
+                        drain_timeout = float(body.get("timeout", 60.0))
+                    except Exception as e:  # noqa: BLE001
+                        self._json(400, {"error": f"bad request: {e}"})
+                        return
+                    if action == "cancel":
+                        worker._drain.cancel()
+                        self._json(200, worker._drain.status())
+                        return
+                    started = worker._drain.begin(
+                        peers, timeout=drain_timeout)
+                    if not started:
+                        self._json(409, {
+                            "error": "drain already active",
+                            **worker._drain.status()})
+                        return
+                    self._json(200, worker._drain.status())
                     return
                 if self.path == "/worker_prefill":
                     # run the prompt once (one decoded token pins the
@@ -658,9 +703,20 @@ class LLMWorker:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True)
         self._thread.start()
+        # time-series plane: refcounted — released on stop
+        self._timeseries = timeseries.acquire()
         return self
 
     def stop(self):
+        # shutdown during an active drain: cancel and JOIN the drain
+        # thread first — after this there are no orphaned migration
+        # posts and no drain-held state; resume=False keeps admission
+        # closed (the engine is about to stop for good)
+        if self._drain is not None:
+            self._drain.cancel(resume=False)
+        if getattr(self, "_timeseries", None) is not None:
+            timeseries.release()
+            self._timeseries = None
         if self._thread is not None:
             # shutdown() handshakes with serve_forever — calling it on
             # a never-started server would wait forever
@@ -843,6 +899,11 @@ class LLMRouter:
     the merged fleet view (the router's own registry as instance
     ``"router"``) and ``GET /fleet/status`` the members' staleness.
     ``api=True`` serves the OpenAI gateway over the failover journal.
+    ``fleet=True`` (``bigdl.llm.fleet.enabled``; failover mode only)
+    embeds the :class:`~bigdl_tpu_torch.llm.fleet.FleetController`
+    autoscaler over ``provider`` (``fleet_opts`` its bounds and knobs,
+    ``start_fleet=False`` to tick it by hand) and serves
+    ``GET /fleet/autoscaler``.
 
     Reused machinery, not re-invented: per-backend
     :class:`~bigdl_tpu_torch.reliability.CircuitBreaker` trips on connection
@@ -871,18 +932,13 @@ class LLMRouter:
                  slo: Optional[bool] = None,
                  federation: Optional[bool] = None,
                  fleet: Optional[bool] = None,
+                 provider=None,
+                 fleet_opts: Optional[dict] = None,
+                 start_fleet: bool = True,
                  api: Optional[bool] = None,
                  model_name: str = "bigdl-tpu-llm",
                  tokenizer=None):
         from bigdl_tpu_torch.utils.conf import conf
-        # the elastic fleet autoscaler is not ported: asked for, it
-        # raises (off, /fleet/autoscaler answers the JAX router's 404)
-        if (fleet if fleet is not None else
-                conf.get_bool("bigdl.llm.fleet.enabled", False)):
-            raise NotImplementedError(
-                "fleet=True: the fleet autoscaler is not ported yet "
-                "(ROADMAP Queue 1 item 8)")
-        obs.require_unported_off()
         if not decode_workers:
             raise ValueError("the router needs at least one "
                              "decode-role backend")
@@ -956,6 +1012,23 @@ class LLMRouter:
                 FederationCollector)
             self._collector = FederationCollector(
                 self._federation_targets, include_self="router")
+        # elastic fleet autoscaler: constructed ONLY when
+        # bigdl.llm.fleet.enabled — disabled mode has no controller
+        # thread, no bigdl_fleet_* series, and /fleet/autoscaler 404s
+        fleet_on = (fleet if fleet is not None else
+                    conf.get_bool("bigdl.llm.fleet.enabled", False))
+        self._fleet = None
+        self._start_fleet = False
+        if fleet_on:
+            if not self.failover_enabled:
+                raise ValueError(
+                    "bigdl.llm.fleet needs bigdl.llm.failover.enabled: "
+                    "the autoscaler drives the prober and the live "
+                    "POST /backends membership")
+            from bigdl_tpu_torch.llm.fleet import FleetController
+            self._fleet = FleetController(self, provider=provider,
+                                          **(fleet_opts or {}))
+            self._start_fleet = start_fleet
         # OpenAI-compatible gateway: constructed ONLY when
         # bigdl.llm.api.enabled. On the router it REQUIRES failover
         # mode — the SSE relay streams from the failover journal's
@@ -995,14 +1068,15 @@ class LLMRouter:
                     # the journal's failover/hedge/shed events live in
                     # this process, so explain works here too
                     debug = flight.debug_endpoint(self.path)
+                if debug is None:
+                    # time-series plane: with the collector
+                    # attached, /fleet/timeline serves per-member +
+                    # merged series off the scrape cache
+                    debug = timeseries.debug_endpoint(self.path)
+                if debug is None:
+                    debug = alerts.debug_endpoint(self.path)
                 if debug is not None:
                     self._json(*debug)
-                elif urlsplit(self.path).path in _TIMESERIES_PATHS:
-                    # the time-series plane is not ported: the JAX
-                    # router's 404 while its switch is off
-                    self._json(404, {
-                        "error": "timeseries disabled",
-                        "gate": "bigdl.observability.timeseries.enabled"})
                 elif self.path == "/healthz":
                     self._json(*router._healthz())
                 elif self.path == "/metrics":
@@ -1028,9 +1102,12 @@ class LLMRouter:
                     else:
                         self._json(200, router._collector.status())
                 elif self.path == "/fleet/autoscaler":
-                    # the autoscaler is not ported: the JAX router's
-                    # 404 with its fleet plane off
-                    self._json(404, {"error": "fleet disabled"})
+                    # autoscaler state: 404 when the fleet
+                    # plane is off — structurally absent, not idle
+                    if router._fleet is None:
+                        self._json(404, {"error": "fleet disabled"})
+                    else:
+                        self._json(200, router._fleet.status())
                 elif self.path == "/v1/models":
                     # OpenAI surface: 404 when the gateway
                     # is off — structurally absent, naming the gate
@@ -1230,6 +1307,10 @@ class LLMRouter:
             # drain-aware verdicts: "draining" is visibly
             # distinct from "dead"/"stalled" in the fleet view
             body["backend_states"] = self._prober.states()
+        if self._fleet is not None:
+            body["fleet"] = {"workers": len(self.decode_workers),
+                             "scale_outs": self._fleet.scale_outs,
+                             "scale_ins": self._fleet.scale_ins}
         if self._slo is not None:
             # rolling burn rate: one number an autoscaler
             # or alert reads instead of differencing counters
@@ -1807,9 +1888,26 @@ class LLMRouter:
             self._prober.start()
         if self._collector is not None:
             self._collector.start()
+        # time-series plane: the router's store rides the
+        # federation collector's scrape cache when there is one
+        self._timeseries = timeseries.acquire()
+        if self._timeseries is not None and self._collector is not None:
+            timeseries.attach_collector(self._collector)
+        if self._fleet is not None and self._start_fleet:
+            self._fleet.start()
         return self
 
     def stop(self):
+        # the fleet controller stops FIRST: it may hold an in-progress
+        # drain, which must be cancelled before the prober/membership
+        # surfaces it depends on go away
+        if self._fleet is not None:
+            self._fleet.stop()
+        if getattr(self, "_timeseries", None) is not None:
+            if self._collector is not None:
+                timeseries.detach_collector(self._collector)
+            timeseries.release()
+            self._timeseries = None
         if self._collector is not None:
             self._collector.stop()
         if self._prober is not None:

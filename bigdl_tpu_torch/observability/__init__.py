@@ -28,7 +28,12 @@ One process-wide surface, as in the JAX package:
   switch;
 - :mod:`~bigdl_tpu_torch.observability.federation` — the fleet merge
   (``/metrics/snapshot``, the router's collector), behind
-  ``bigdl.observability.federation``.
+  ``bigdl.observability.federation``;
+- :mod:`~bigdl_tpu_torch.observability.timeseries` and
+  :mod:`~bigdl_tpu_torch.observability.alerts` — the windowed store
+  behind ``/metrics/query`` and ``/fleet/timeline``, and the alert
+  engine behind ``/alerts``, behind
+  ``bigdl.observability.timeseries.enabled``.
 
 The port's registry, ring and switches are its own: both packages can
 live in one process (the parity tests do) without sharing a series.
@@ -37,10 +42,6 @@ host-side python over clocks the engine already reads; the
 ``bigdl.observability.enabled`` key (env
 ``BIGDL_TPU_OBSERVABILITY_ENABLED``) or :func:`disable` turns every
 mutator and ``span`` into a no-op that records nothing.
-
-Not ported yet (ROADMAP Queue 1 item 8): ``timeseries`` and ``alerts``,
-whose switch raises :class:`NotImplementedError` when turned on
-(:func:`require_unported_off`).
 """
 
 from __future__ import annotations
@@ -139,34 +140,18 @@ def render() -> str:
 
 def reset():
     """Clear the global registry, the trace ring, the exemplar store,
-    the capture records, the flight ring and the roofline window. Test
-    isolation only: instruments held by live modules detach from the
-    registry."""
+    the capture records, the flight ring, the roofline window, the alert
+    engine and the time-series store. Test isolation only: instruments
+    held by live modules detach from the registry."""
     REGISTRY.clear()
     TRACE.clear()
     EXEMPLARS.clear()
     compile_recorder.reset()
     flight.reset()
     utilization.reset()
-
-
-#: Switches of the JAX package's planes the port has not ported, and what
-#: they become on the card (ROADMAP Queue 1 item 8).
-UNPORTED_SWITCHES = {
-    "bigdl.observability.timeseries.enabled": "the time-series plane",
-}
-
-
-def require_unported_off():
-    """Raise :class:`NotImplementedError` naming ROADMAP Queue 1 item 8
-    when a caller turned on a plane the port does not have: none is
-    silently ignored."""
-    from bigdl_tpu_torch.utils.conf import conf
-    for key, what in UNPORTED_SWITCHES.items():
-        if conf.get_bool(key, False):
-            raise NotImplementedError(
-                f"{key}=true: {what} is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
+    from bigdl_tpu_torch.observability import alerts, timeseries
+    alerts.reset()
+    timeseries.reset()
 
 
 __all__ = [
@@ -179,6 +164,5 @@ __all__ = [
     "counter", "disable", "enable", "enabled", "export_chrome_trace",
     "flight", "gauge", "histogram", "parse_prometheus", "render",
     "render_prometheus", "request_context", "reset", "sketch", "span",
-    "tracing", "UNPORTED_SWITCHES", "require_unported_off",
-    "utilization",
+    "tracing", "utilization",
 ]

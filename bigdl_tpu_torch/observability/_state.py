@@ -60,3 +60,17 @@ def refresh(key: str):
         if flight is not None:
             flight.set_capacity(conf.get_int(
                 "bigdl.observability.flight.capacity", 4096))
+    elif key == "bigdl.observability.timeseries.enabled":
+        ts = sys.modules.get("bigdl_tpu_torch.observability.timeseries")
+        if ts is not None:
+            ts.enabled = conf.get_bool(
+                "bigdl.observability.timeseries.enabled", False)
+    elif key in ("bigdl.observability.timeseries.interval",
+                 "bigdl.observability.timeseries.retention"):
+        ts = sys.modules.get("bigdl_tpu_torch.observability.timeseries")
+        st = ts.store() if ts is not None else None
+        if st is not None:
+            st.interval = conf.get_float(
+                "bigdl.observability.timeseries.interval", 5.0)
+            st.retention = conf.get_float(
+                "bigdl.observability.timeseries.retention", 600.0)

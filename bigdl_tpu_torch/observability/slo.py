@@ -10,8 +10,8 @@ sides of the stack instantiate when ``bigdl.slo.enabled`` is on:
 - the **engine** (:class:`~bigdl_tpu_torch.llm.serving.LLMServer`) records
   TTFT at the first drained token and one ITL sample per subsequent
   token, into ``bigdl_llm_{ttft,itl}_seconds`` quantile sketches;
-- the **router** (the JAX package's ``LLMRouter`` in failover mode;
-  the port's router is ROADMAP Queue 1 item 8) records the *client-visible* equivalents from the journal's
+- the **router** (:class:`~bigdl_tpu_torch.llm.worker.LLMRouter` in
+  failover mode) records the *client-visible* equivalents from the journal's
   streamed-token arrival timestamps into
   ``bigdl_router_{ttft,itl}_seconds`` — resumed and hedged tokens are
   stamped exactly once (the journal's longest-prefix-wins ``drained``
@@ -24,9 +24,12 @@ Each finished request is classified against ``bigdl.slo.ttft_ms`` /
 ``bigdl_slo_requests_total{slo,verdict,scope}``, and a rolling burn
 rate is exported as ``bigdl_slo_burn_rate{slo,scope}`` and surfaced
 in the ``/healthz`` bodies, so a prober or autoscaler reads one
-number instead of differencing counters. The burn is over the last
-``bigdl.slo.window`` requests: the JAX package's behaviour while its
-time-series plane is off (the port has no such plane yet).
+number instead of differencing counters. With the time-series plane
+on the burn is a *time* window — violated/classified over the store's
+last ``bigdl.observability.timeseries.slo.window`` seconds, windowed
+off the very counters this module exports — and the
+last-``bigdl.slo.window``-requests deque is only the fallback while
+the plane is off or its store is still cold.
 
 Structural absence: with ``bigdl.slo.enabled=false`` (the default)
 :meth:`SLOAccount.if_enabled` returns ``None`` — no sketch series, no
@@ -153,6 +156,7 @@ class SLOAccount:
                 self._window[slo].append(0 if ok else 1)
             burns = {slo: (sum(w) / len(w) if w else 0.0)
                      for slo, w in self._window.items()}
+        burns = self._store_burns(burns)
         ins = self._instruments()
         if ins is not None:
             for slo, ok in verdicts.items():
@@ -162,16 +166,32 @@ class SLOAccount:
                 ins["burn"].labels(slo=slo, scope=self.scope).set(
                     burns[slo])
 
+    def _store_burns(self, fallback: Dict[str, float]
+                     ) -> Dict[str, float]:
+        """Time-windowed burns off the time-series store when the plane
+        is on and warm; the request-count deque values otherwise."""
+        from bigdl_tpu_torch.observability import timeseries
+        if not timeseries.enabled:
+            return fallback
+        out = dict(fallback)
+        for slo in out:
+            burn = timeseries.slo_burn(slo, self.scope)
+            if burn is not None:
+                out[slo] = burn
+        return out
+
     def burn_rates(self) -> Dict[str, float]:
         with self._lock:
-            return {slo: (sum(w) / len(w) if w else 0.0)
-                    for slo, w in self._window.items()}
+            burns = {slo: (sum(w) / len(w) if w else 0.0)
+                     for slo, w in self._window.items()}
+        return self._store_burns(burns)
 
     def status(self) -> dict:
         """The ``/healthz`` block."""
         with self._lock:
             burns = {slo: (sum(w) / len(w) if w else 0.0)
                      for slo, w in self._window.items()}
+            burns = self._store_burns(burns)
             return {
                 "scope": self.scope,
                 "ttft_ms": self.ttft_s * 1000.0,

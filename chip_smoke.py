@@ -286,6 +286,40 @@ Phase 12 (after phase 11, on phase 3's model) ``LLMRouter`` over two
          the merged decode-token count equal to the members' sum,
          ``/fleet/status`` naming both workers, a stopped worker stale
          within 2 scrape intervals. Report key ``router``.
+Phase 13 (after phase 12, on phase 3's model) the time-series plane,
+         alerts, the elastic fleet, the converter, the CLI and LangChain.
+         (a) phase 3's served run 3 times each with the plane off and
+         on (0.25 s sampler), alternating: tok/s, step and dispatch ms;
+         a window of graphed passes traced with the plane off and on
+         (a 10 ms sampler): 2 host calls and phase 11's kernels a pass;
+         one ``sample_now`` over the live registry (median of 25);
+         ``/metrics/query`` p99 of ``bigdl_llm_ttft_seconds`` equal to
+         ``sketch_window`` over the engine's own sketch snapshots taken
+         at the window's two samples, and the decode-token delta equal
+         to the tokens served; (b) one ``burn_rate`` rule on ttft (short
+         2 s, long 4 s, factor 2, objective 0.99; ``bigdl.slo.ttft_ms``
+         3x phase 3's mean TTFT) over an engine behind ``LLMWorker``:
+         sparse clean traffic keeps it inactive, a storm of ``llm.step``
+         delays (1.2x the target + 50 ms a pass) fires it on the first
+         sample that holds a violation, clean traffic resolves it; the
+         transitions equal the flight events, the
+         ``bigdl_alerts_transitions_total`` deltas and ``/alerts``; (c)
+         ``LLMRouter(failover, federation, fleet)`` over a
+         ``LocalWorkerProvider`` of phase 3's engines (host tier on,
+         every bucket warmed inline at launch), the controller ticked
+         from the harness at its interval: 32 requests scale it out
+         (pressured tick to join, split into build, warm-up with
+         capture, and join), a prompt only the new engine holds, the
+         idle pool scales in (``draining`` → ``migrating`` →
+         ``drained``: chains, pages, MB, ms), the survivor reuses the
+         migrated prefix and answers as the drained engine did, no
+         request lost, one engine left, exact kernels ran; (d)
+         ``save_model`` of the 7B into a temporary directory (free disk
+         first), ``load_model`` bit for bit (ids and last logits)
+         against the source with its q4_0 scales rounded to bf16 (the
+         format's rule), ``cli.main`` (its tok/s), ``BigdlTpuLLM`` equal
+         to the CLI, ``BigdlTpuOpenAI`` over an ``LLMWorker(api=True)``
+         equal to that engine's answer. Report key ``fleet``.
 
 Every phase's line has the SM clock and power draw (``nvidia-smi
 --query-gpu=clocks.sm,power.draw``) on the line before it. Then a
@@ -3640,15 +3674,31 @@ def _wait(cond, timeout, what, every=0.005):
     return time.monotonic()
 
 
+def _warm_inline(torch, srv, prompts, what):
+    """Every prompt's prefill bucket and the decode graph's capture,
+    driven inline before ``start()`` arms the watchdog (a first use looks
+    like a stall to it)."""
+    with torch.inference_mode():
+        reqs = [srv.submit(p, 2) for p in prompts]
+        while not all(r.done.is_set() for r in reqs):
+            srv._admit()
+            srv._step()
+        while srv._inflight:
+            srv._drain_next()
+    check(srv._decode.graph is not None and not srv.errors,
+          f"{what} warm-up: {srv.errors}")
+
+
 def _pass_profile(torch, model, on):
     """One window of engine passes traced with ``torch.profiler``, with
     observability (and the flight recorder) ``on`` or off: 8 rows of 129
     prompt tokens decoding, driven inline after the decode graph is
-    captured; no page grant falls in the window (positions 132..137), so
-    a pass is one graph replay, the token copy and the drain. Host launch
-    calls, kernels and device busy ms a pass."""
+    captured; no page grant falls in the window (positions 132..138, the
+    first a profiler warm-up left out of the counts), so a pass is one
+    graph replay, the token copy and the drain. Host launch calls,
+    kernels and device busy ms a pass."""
     from collections import Counter
-    from torch.profiler import ProfilerActivity, profile as trace
+    from torch.profiler import ProfilerActivity, profile as trace, schedule
 
     from bigdl_tpu_torch import observability as obs
     from bigdl_tpu_torch.llm.serving import LLMServer
@@ -3670,11 +3720,21 @@ def _pass_profile(torch, model, on):
             check(srv._decode.graph is not None
                   and all(r in srv._slots for r in reqs),
                   "phase 11 profile: rows not decoding on the graph")
+            # the counted window holds exactly its own passes' device
+            # work: a warm-up pass first (the tracer can miss the events
+            # just after it starts), no work in flight when the window
+            # opens (a pipelined step enqueued before it would land
+            # inside by time), all of it done when it closes
             with trace(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=n,
+                                         repeat=1)) as prof:
+                for i in range(n + 1):
                     srv._admit()
                     srv._step()
+                    if i in (0, n):
+                        torch.cuda.synchronize()
+                    prof.step()
             while not all(r.done.is_set() for r in reqs):
                 srv._admit()
                 srv._step()
@@ -3684,7 +3744,9 @@ def _pass_profile(torch, model, on):
         obs.enable()
         flight.enabled = False
     cuda_t = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.events() if e.device_type == cuda_t]
+    # the schedule's step markers ride the device timeline too
+    kern = [e for e in prof.events() if e.device_type == cuda_t
+            and not e.name.startswith("ProfilerStep")]
     host = Counter(e.name for e in prof.events()
                    if e.device_type != cuda_t and e.name in HOST_LAUNCH_CALLS)
     return {"observability": on,
@@ -3721,17 +3783,7 @@ def serve_http(torch, model, serve):
     obs.enable()
     srv = LLMServer(model, slo=True, watchdog_timeout=HTTP_WATCHDOG_S,
                     max_queue=16, **SERVE_7B)
-    # every bucket warm (each prompt's prefill, the decode graph's capture)
-    # before start() arms the watchdog: a first use looks like a stall
-    with torch.inference_mode():
-        reqs = [srv.submit(p, 2) for p in prompts]
-        while not all(r.done.is_set() for r in reqs):
-            srv._admit()
-            srv._step()
-        while srv._inflight:
-            srv._drain_next()
-    check(srv._decode.graph is not None and not srv.errors,
-          f"phase 11 warm-up: {srv.errors}")
+    _warm_inline(torch, srv, prompts, "phase 11")
     srv.start()
     worker = LLMWorker(srv, api=True, tokenizer=tok).start()
     addr = worker.address
@@ -4067,18 +4119,8 @@ def serve_router(torch, model, serve, http):
     caps0 = {r["fn"]: r["compiles"] for r in compile_recorder.compile_stats()}
     engines = [LLMServer(model, slo=True, watchdog_timeout=ROUTER_WATCHDOG_S,
                          **SERVE_7B) for _ in range(2)]
-    # every bucket warm and each decode graph captured before start() arms
-    # the watchdog: a first use looks like a stall
-    with torch.inference_mode():
-        for srv in engines:
-            reqs = [srv.submit(p, 2) for p in prompts]
-            while not all(r.done.is_set() for r in reqs):
-                srv._admit()
-                srv._step()
-            while srv._inflight:
-                srv._drain_next()
-            check(srv._decode.graph is not None and not srv.errors,
-                  f"phase 12 warm-up: {srv.errors}")
+    for srv in engines:
+        _warm_inline(torch, srv, prompts, "phase 12")
     for srv in engines:
         srv.start()
     free0 = [len(s._free) for s in engines]
@@ -4453,6 +4495,776 @@ def serve_router(torch, model, serve, http):
     return out
 
 
+# -- phase 13: the time-series plane, alerts, the elastic fleet, the converter,
+#    the CLI and the LangChain wrappers ----------------------------------------
+
+PLANE_INTERVAL_S = 0.25        # the time-series sampler's cadence
+ALERT_RULE = {"name": "ttft-burn", "kind": "burn_rate", "slo": "ttft",
+              "short": 2.0, "long": 4.0, "factor": 2.0, "objective": 0.99}
+FLEET_OPTS = dict(min_workers=1, max_workers=2, interval=0.1, sustain=2,
+                  cooldown=2.0, queue_high=2.0, idle_low=0.0,
+                  drain_timeout=60.0)
+FLEET_P_LEN = 480              # (c)'s prompt held by the drained engine only
+
+
+def _plane_conf(on, interval=PLANE_INTERVAL_S):
+    """The time-series plane's gate and cadence in the port's config."""
+    from bigdl_tpu_torch.utils.conf import conf
+    keys = ("bigdl.observability.timeseries.enabled",
+            "bigdl.observability.timeseries.interval")
+    if on:
+        conf.set(keys[0], "true")
+        conf.set(keys[1], str(interval))
+    else:
+        for k in keys:
+            conf.unset(k)
+
+
+def _plane_profile(torch, model, on):
+    """:func:`_pass_profile` (observability on) with the time-series
+    plane on or off; on, the sampler ticks every 10 ms so that samples
+    fall inside the traced window."""
+    from bigdl_tpu_torch.observability import timeseries
+    _plane_conf(on, 0.01)
+    st = timeseries.acquire()
+    try:
+        n0 = st.samples_total if st is not None else 0
+        row = _pass_profile(torch, model, True)
+        row["samples_during"] = (st.samples_total - n0
+                                 if st is not None else 0)
+    finally:
+        if st is not None:
+            timeseries.release()
+        _plane_conf(False)
+        timeseries.reset()
+    row["timeseries"] = on
+    return row
+
+
+def _plane_and_alerts(torch, model, serve, http):
+    """Phase 13 (a) and (b): the time-series plane's cost on phase 3's
+    served run, its queries against the engine's own sketch, and one
+    burn-rate alert fired and resolved by a storm of ``llm.step``
+    delays."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch import reliability
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.llm.worker import LLMWorker
+    from bigdl_tpu_torch.observability import alerts, flight, timeseries
+    from bigdl_tpu_torch.utils.conf import conf
+
+    cfg, new = model.config, 32
+    prompts = [p.tolist() for p in _phase3_prompts(torch, cfg)]
+    want = serve["outputs"]
+    out = {}
+    obs.enable()
+    timeseries.reset()
+    alerts.reset()
+    # (a) phase 3's served run 3 times each with the plane off and on,
+    # alternating (each run's engine acquires the sampler when on)
+    runs = []
+    for k in range(6):
+        on = bool(k % 2)
+        _plane_conf(on)
+        n0 = getattr(timeseries.store(), "samples_total", 0)
+        try:
+            row, outs = _serve_run(
+                torch, model, [np.asarray(p) for p in prompts], new,
+                f"7B time-series plane {'on' if on else 'off'}", slo=True,
+                **SERVE_7B)
+            samples = getattr(timeseries.store(), "samples_total", 0) - n0
+        finally:
+            _plane_conf(False)
+        check(outs == want, "(a) tokens differ with the plane "
+              f"{'on' if on else 'off'}")
+        check((samples > 0) == on, f"(a) {samples} samples, plane {on}")
+        runs.append({"timeseries": on, "samples": samples, **{
+            x: row[x] for x in ("decode_tok_per_s", "ttft_ms_mean",
+                                "decode_step_ms",
+                                "host_dispatch_ms_per_step",
+                                "drain_wait_ms_per_step")}})
+    timeseries.reset()
+    prof = {on: _plane_profile(torch, model, on) for on in (False, True)}
+    phase11 = http["overhead"]["profile"][-1]          # observability on
+    for on, p in prof.items():
+        check(p["host_launch_calls_by_name"] == {
+            "cudaGraphLaunch": 1.0, "cudaMemcpyAsync": 1.0}
+            and p["kernels_per_pass"] == phase11["kernels_per_pass"],
+            f"(a) a graphed pass with the plane {on}: {p} against phase "
+            f"11's {phase11}")
+    check(prof[True]["samples_during"] > 0, "(a) no sample in the window")
+    # one sample over the live registry (every series the phases before
+    # minted), and the alert engine's evaluation behind it
+    _plane_conf(True, 3600.0)
+    st = timeseries.acquire()
+    try:
+        cost = []
+        for _ in range(25):
+            t = time.perf_counter()
+            st.sample_now()
+            cost.append((time.perf_counter() - t) * 1e6)
+        snap_us = st.last_overhead_us
+        n_series = len(st._samples[-1][1][st.local_instance()]["metrics"])
+    finally:
+        timeseries.release()
+        _plane_conf(False)
+        timeseries.reset()
+        alerts.reset()
+    out["overhead"] = {
+        "interval_s": PLANE_INTERVAL_S, "runs": runs,
+        "profile": list(prof.values()),
+        "decode_tok_per_s_on_off": [
+            statistics.mean(r["decode_tok_per_s"] for r in runs
+                            if r["timeseries"] is b) for b in (True, False)],
+        "host_dispatch_ms_per_step_on_off": [
+            statistics.mean(r["host_dispatch_ms_per_step"] for r in runs
+                            if r["timeseries"] is b) for b in (True, False)],
+        "sample_now_us_median_of_25": statistics.median(cost),
+        "snapshot_us_last": snap_us, "registry_metrics": n_series}
+
+    # (b) one burn-rate rule over the engine's TTFT verdicts
+    target_ms = 3 * serve["ttft_ms_mean"]
+    rule = dict(ALERT_RULE)
+    conf.set("bigdl.slo.ttft_ms", str(target_ms))
+    conf.set("bigdl.observability.alerts.rules", json.dumps([rule]))
+    _plane_conf(True)
+    flight.enabled = True
+    srv = LLMServer(model, slo=True, watchdog_timeout=HTTP_WATCHDOG_S,
+                    **SERVE_7B)
+    _warm_inline(torch, srv, prompts, "phase 13 (b)")
+    worker = None
+    try:
+        srv.start()
+        worker = LLMWorker(srv).start()
+        addr = worker.address
+        st, eng = timeseries.store(), alerts.engine()
+        check(st is not None and eng is not None and eng.rules == [rule],
+              "(b) the plane did not build its store and rule")
+        trail, name = [], rule["name"]
+
+        def on_sample(now):
+            pts = st.points("bigdl_slo_requests_total",
+                            {"slo": "ttft", "verdict": "violated"},
+                            window=0.0, now=now)
+            trail.append((now, pts[-1][2] if pts else 0.0,
+                          eng.status()["rules"][0]["state"]))
+        st.on_sample.append(on_sample)
+
+        def count(state):
+            return obs.REGISTRY.sample_value(
+                "bigdl_alerts_transitions_total", rule=name,
+                state=state) or 0.0
+
+        def fl(kind):
+            ring = flight.ring()
+            return [e for e in (ring.events() if ring else [])
+                    if e["kind"] == kind
+                    and e.get("detail", {}).get("rule") == name]
+        c0 = {s: count(s) for s in ("firing", "resolved")}
+        f0 = {k: len(fl(k)) for k in ("alert_fire", "alert_resolve")}
+
+        def clean(seconds):
+            """One short request every 0.5 s (few enough that one
+            violation in the long window burns past the factor)."""
+            t_end = time.monotonic() + seconds
+            ttft = []
+            while time.monotonic() < t_end:
+                t = time.monotonic()
+                r = srv.submit(prompts[0], 4)
+                r.get(timeout=60)
+                ttft.append((r.t_first_token - r.t_submit) * 1e3)
+                time.sleep(max(0.0, 0.5 - (time.monotonic() - t)))
+            return ttft
+
+        clean_ttft = clean(4.5)
+        check(all(s != "firing" for _, _, s in trail),
+              f"(b) the rule fired on clean traffic: {trail[-4:]}")
+        check(max(clean_ttft) < target_ms,
+              f"(b) clean TTFT {max(clean_ttft):.1f} ms over the "
+              f"{target_ms:.1f} ms target")
+        n_clean = len(trail)
+        v0 = trail[-1][1]               # earlier phases' violations
+        delay = 1.2 * target_ms / 1e3 + 0.05
+        plan = reliability.FaultPlan(seed=0).add("llm.step", "delay",
+                                                 times=None, delay=delay)
+        t_storm = time.time()
+        reliability.set_plan(plan)
+        with ThreadPoolExecutor(2) as ex:
+            storm = list(ex.map(lambda i: srv.submit(prompts[i], 1),
+                                range(2)))
+            for r in storm:
+                r.get(timeout=120)
+        reliability.set_plan(None)
+        t_calm = time.time()
+        storm_ttft = [(r.t_first_token - r.t_submit) * 1e3 for r in storm]
+        check(min(storm_ttft) > target_ms, f"(b) storm TTFTs {storm_ttft}")
+        t_fire = None
+        t0 = time.monotonic()
+        while t_fire is None and time.monotonic() - t0 < 10:
+            hit = [(ts, v, s) for ts, v, s in trail[n_clean:] if v > v0]
+            if hit:
+                t_fire = hit[0]
+            time.sleep(0.05)
+        check(t_fire is not None and t_fire[2] == "firing",
+              f"(b) the first sample after a violation did not fire: "
+              f"{trail[n_clean:]}")
+        resolve_ttft = clean(rule["long"] + 3.0)
+        res = [(ts, v, s) for ts, v, s in trail if s == "resolved"]
+        check(res, f"(b) never resolved: {trail[-6:]}")
+        # a firing burn rule needs both windows over the factor, so it
+        # resolves once the SHORT window holds no violation: within
+        # ``short`` (and a sample or two) of the last violating sample
+        v_end = max(v for ts, v, s in trail if ts <= res[0][0])
+        t_last_bad = min(ts for ts, v, s in trail if v == v_end)
+        lag = res[0][0] - t_last_bad
+        check(lag <= rule["short"] + 3 * PLANE_INTERVAL_S,
+              f"(b) resolved {lag:.2f} s after the last violating sample")
+        st_, body, _ = _http(addr, "GET", "/alerts")
+        r0 = body["rules"][0] if st_ == 200 else {}
+        transitions = {s: count(s) - c0[s] for s in ("firing", "resolved")}
+        events = {k: len(fl(k)) - f0[k] for k in ("alert_fire",
+                                                  "alert_resolve")}
+        check(transitions == {"firing": 1.0, "resolved": 1.0}
+              and events == {"alert_fire": 1, "alert_resolve": 1}
+              and r0.get("state") == "resolved"
+              and r0.get("fired_count") == 1
+              and r0.get("last_fired") == t_fire[0]
+              and r0.get("last_resolved") == res[0][0],
+              f"(b) transitions {transitions}, flight {events}, /alerts "
+              f"{st_} {r0}, fire {t_fire}, resolve {res[0]}")
+        out["alerts"] = {
+            "rule": rule, "slo_ttft_ms": target_ms,
+            "phase3_ttft_ms_mean": serve["ttft_ms_mean"],
+            "storm_delay_s_per_pass": delay,
+            "clean_ttft_ms_max": max(clean_ttft + resolve_ttft),
+            "storm_ttft_ms": storm_ttft,
+            "storm_to_firing_s": t_fire[0] - t_storm,
+            "storm_end_to_resolved_s": res[0][0] - t_calm,
+            "last_violation_to_resolved_s": lag,
+            "samples": len(trail), "transitions": transitions,
+            "flight_events": events, "alerts_body": r0}
+
+        # (a) the store's windows against the engine's own sketch: idle a
+        # second, a sample, phase 3's 8 prompts over HTTP, a sample
+        sk = obs.REGISTRY.get("bigdl_llm_ttft_seconds")
+        time.sleep(1.2)
+        t_pre = timeseries.sample_now()
+        pre = sk.to_snapshot()
+        body = [{"prompt_ids": p, "max_new_tokens": new} for p in prompts]
+        with ThreadPoolExecutor(8) as ex:
+            res_a = list(ex.map(lambda b: _http(addr, "POST",
+                                                "/worker_generate", b), body))
+        t_post = timeseries.sample_now()
+        post = sk.to_snapshot()
+        for i, (code, b, _) in enumerate(res_a):
+            check(code == 200 and b["output_ids"] == want[i],
+                  f"(a) request {i}: {code} {b}")
+        window = t_post - t_pre + 1.0
+        q = {}
+        for key, path in (
+                ("p99", "/metrics/query?series=bigdl_llm_ttft_seconds"
+                        f"&fn=p99&window={window}"),
+                ("tokens", "/metrics/query?series=bigdl_llm_decode_tokens_"
+                           f"total&fn=delta&window={window}"),
+                ("timeline", "/fleet/timeline?series=bigdl_llm_decode_"
+                             f"tokens_total&window={window}")):
+            code, q[key], _ = _http(addr, "GET", path)
+            check(code == 200, f"(a) {path}: {code} {q[key]}")
+        p99 = timeseries.sketch_window(pre, post, (0.99,))[0.99]
+        check(q["p99"]["value"] == p99 and q["tokens"]["value"] == 8 * new,
+              f"(a) /metrics/query p99 {q['p99']} against the sketch's "
+              f"{p99}; tokens {q['tokens']} against {8 * new}")
+        out["queries"] = {"window_s": window, "ttft_p99_s": p99,
+                          "ttft_p99_query": q["p99"],
+                          "decode_tokens_delta": q["tokens"]["value"],
+                          "timeline_points": len(
+                              q["timeline"]["merged"])}
+        check(not srv.errors, f"phase 13 (b) engine errors: {srv.errors}")
+    finally:
+        reliability.set_plan(None)
+        if worker is not None:
+            worker.stop()
+        srv.stop()
+        _plane_conf(False)
+        for k in ("bigdl.slo.ttft_ms", "bigdl.observability.alerts.rules"):
+            conf.unset(k)
+        timeseries.reset()
+        alerts.reset()
+        flight.enabled = False
+    return out
+
+
+def _fleet_run(torch, model, serve):
+    """Phase 13 (c): ``LLMRouter(failover=True, federation=True,
+    fleet=True)`` over a provider of phase 3's engines (one set of
+    weights), its controller ticked here at its interval: scale-out under
+    a routed burst, a prompt routed to the new engine, scale-in with its
+    drain, and the survivor's prefix hit, routed. Each segment's launch
+    counts, zeroed just before it and read once every engine is idle, are
+    held exactly to what its prefills (the flight recorder's ``admit``
+    events: prompt less cached tokens) and decode steps must launch. The
+    drain is read from the shipped instruments: the controller's events,
+    the ``worker/drain``, ``fleet/scale`` and ``llm/handoff_import``
+    spans, the ``drain_migrate`` flight events and the ``bigdl_fleet_*``
+    series. Then one scale-out and scale-in by the shipped
+    ``LocalWorkerProvider`` under the controller's own thread, its engine
+    un-warmed with the watchdog on."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.fleet import LocalWorkerProvider
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.llm.worker import LLMRouter, LLMWorker
+    from bigdl_tpu_torch.observability import flight, tracing
+    from bigdl_tpu_torch.utils.conf import conf
+
+    cfg, new, page = model.config, 32, model.page_size
+    prompts = [p.tolist() for p in _phase3_prompts(torch, cfg)]
+    want = serve["outputs"]
+    engine_kw = dict(SERVE_7B, kvcache=True, kvtier=True, host_pages=192,
+                     slo=True, watchdog_timeout=HTTP_WATCHDOG_S)
+    # one prompt a prefill bucket of phase 3's (32..512): every bucket
+    # warm, and fewer warm-up chains for the drain to migrate
+    warm, seen = [], set()
+    for p_ in prompts:
+        if _bucket(len(p_), page) not in seen:
+            seen.add(_bucket(len(p_), page))
+            warm.append(p_)
+    engines, launched = {}, []       # every engine of (c), kept once stopped
+
+    class WarmProvider(LocalWorkerProvider):
+        """Each launch builds the engine, warms every bucket inline
+        (graph capture included) before ``start()``, and serves it."""
+
+        def launch(self):
+            t0 = time.time()
+            srv = LLMServer(self.model, **self.server_kwargs)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            _warm_inline(torch, srv, warm, "phase 13 (c) launch")
+            torch.cuda.synchronize()
+            t2 = time.time()
+            warm_steps = srv.steps
+            srv.start()
+            w = LLMWorker(srv, role="decode", fleet=True,
+                          federation=True).start()
+            addr = tuple(w.address)
+            with self._lock:
+                self._pairs[addr] = (srv, w)
+                self.launches += 1
+            engines[addr] = srv
+            launched.append({"addr": addr, "t0": t0, "build_s": t1 - t0,
+                             "warm_s": t2 - t1, "warm_steps": warm_steps,
+                             "decode_capture_s":
+                                 srv._decode.capture_seconds})
+            return addr
+
+    def idle():
+        return all(e.engine_idle() for e in engines.values())
+
+    def events(kind, s0):
+        return [e for e in flight.ring().events(kind) if e["seq"] > s0["seq"]]
+
+    def spans(name, s0, **args):
+        return [r for r in tracing.TRACE.spans() if r["name"] == name
+                and r["ts"] >= s0["t"] * 1e6 and all(
+                    r["args"].get(k) == v for k, v in args.items())]
+
+    def begin():
+        """Zero the counts; note the flight ring's last event, the wall
+        clock and each engine's decode steps so far."""
+        ev = flight.ring().events()
+        s0 = {"seq": ev[-1]["seq"] if ev else 0, "t": time.time(),
+              "steps": {a: e.steps for a, e in engines.items()}}
+        kernels.reset_launch_counts()
+        return s0
+
+    def end(s0, what):
+        """Once every engine is idle: the segment's launch counts held to
+        exactly its prefills at their buckets and its decode steps."""
+        _wait(idle, 60, f"{what}: engines idle")
+
+        def steps():
+            return sum(e.steps - s0["steps"].get(a, 0)
+                       for a, e in engines.items())
+        n = steps()
+        counts = kernels.launch_counts()
+        check(steps() == n, f"{what}: a step ran after the engines idled")
+        ev = flight.ring().events()
+        check(ev and ev[0]["seq"] <= s0["seq"] + 1,
+              f"{what}: the flight ring dropped this segment's events")
+        admits = events("admit", s0)
+        buckets = [_bucket(e["detail"]["prompt_tokens"]
+                           - e["detail"]["matched_tokens"], page)
+                   for e in admits]
+        expect = _path_expect(model, buckets, n)
+        check(counts == expect, f"{what}: launch counts {counts} != "
+              f"expected {expect} ({len(buckets)} prefills, {n} steps)")
+        return {"launches": counts, "prefills": len(buckets),
+                "prefill_buckets": sorted(buckets), "decode_steps": n}
+
+    def routed(addr, prompt, n, what):
+        """One blocking request through the router at ``addr``: its ids,
+        the engine that served it (the one whose decode steps moved), and
+        its ``admit`` and ``finish`` flight events (cached tokens, TTFT)."""
+        s0 = {"seq": flight.ring().events()[-1]["seq"],
+              "steps": {a: e.steps for a, e in engines.items()}}
+        st, b, _ = _http(addr, "POST", "/worker_generate",
+                         {"prompt_ids": [int(t) for t in prompt],
+                          "max_new_tokens": n})
+        check(st == 200 and len(b.get("output_ids", ())) == n,
+              f"{what}: {st} {b}")
+        _wait(idle, 60, f"{what}: engines idle")
+        moved = [a for a, e in engines.items() if e.steps != s0["steps"][a]]
+        adm, fin = events("admit", s0), events("finish", s0)
+        check(len(moved) == 1 and len(adm) == len(fin) == 1,
+              f"{what}: engines {moved}, admits {adm}, finishes {fin}")
+        return {"ids": b["output_ids"], "engine": moved[0],
+                "cached_tokens": adm[0]["detail"]["matched_tokens"],
+                "ttft_ms": fin[0]["detail"]["ttft_ms"]}
+
+    def series(name, **labels):
+        return obs.REGISTRY.sample_value(name, **labels) or 0.0
+
+    def burst(addr, n_req, until=None, what=""):
+        """Phase 3's prompts ``n_req`` at once through the router, while
+        ``until`` (ticking the controller here) runs; every answer must be
+        that prompt's one-engine answer."""
+        body = [{"prompt_ids": prompts[i % 8], "max_new_tokens": new}
+                for i in range(n_req)]
+        with ThreadPoolExecutor(n_req) as ex:
+            futs = [ex.submit(_http, addr, "POST", "/worker_generate", b)
+                    for b in body]
+            if until is not None:
+                until()
+            res = [f.result() for f in futs]
+        for i, (code, b, _) in enumerate(res):
+            check(code == 200 and b["output_ids"] == want[i % 8],
+                  f"{what} request {i}: {code} {b}")
+
+    obs.enable()
+    flight.enabled = True
+    torch.cuda.reset_peak_memory_stats()
+    provider = WarmProvider(model, server_kwargs=engine_kw)
+    router = router2 = provider2 = None
+    out = {"engine": dict(engine_kw), "fleet_opts": FLEET_OPTS}
+    try:
+        seed = provider.launch()
+        flight.set_capacity(1 << 16)
+        conf.set("bigdl.observability.federation.interval", "0.1")
+        try:
+            router = LLMRouter([], [seed], failover=True, federation=True,
+                               fleet=True, provider=provider,
+                               fleet_opts=FLEET_OPTS, start_fleet=False)
+        finally:
+            conf.unset("bigdl.observability.federation.interval")
+        fc = router._fleet
+        router.start()
+        ra = router.address
+        marks = {"pressure": None}
+
+        def ticks(done, timeout, what):
+            """The controller's ticks at its interval, from this thread,
+            until ``done()``."""
+            t0 = time.monotonic()
+            while not done():
+                check(time.monotonic() - t0 < timeout, f"{what}: timed out")
+                fc.tick()
+                d = fc.decisions[-1] if fc.decisions else {}
+                if d.get("pressure") and marks["pressure"] is None:
+                    marks["pressure"] = time.time()
+                time.sleep(fc.interval)
+
+        # A: scale-out under phase 3's prompts 4 times at once
+        s0 = begin()
+        burst(ra, 32, lambda: ticks(lambda: fc.scale_outs >= 1, 90,
+                                    "(c) scale-out"), "(c) burst")
+        seg = {"burst": end(s0, "(c) the routed burst and scale-out")}
+        peak2 = torch.cuda.max_memory_allocated()
+        check(len(launched) == 2 and len(router.decode_workers) == 2
+              and marks["pressure"], f"(c) launches {launched} {marks}")
+        victim, new_eng = launched[1]["addr"], launched[1]
+        out_span = spans("fleet/scale", s0, direction="out")
+        check(len(out_span) == 1, f"(c) fleet/scale out spans {out_span}")
+        joined = (out_span[0]["ts"] + out_span[0]["dur"]) / 1e6
+        # the new engine's warm-up, inside the burst's window
+        seg["burst"]["new_engine_warmup"] = _path_expect(
+            model, [_bucket(len(p_), page) for p_ in warm],
+            new_eng["warm_steps"])
+        # B: a prompt routed to the new engine only, cold then again; the
+        # fillers (short prompts) take the seed's turns of the round-robin
+        gen = torch.Generator().manual_seed(13)
+        p = torch.randint(0, cfg.vocab_size, (FLEET_P_LEN,), generator=gen)
+        fillers = [torch.randint(0, cfg.vocab_size, (24,), generator=gen)
+                   for _ in range(3)]
+        s0 = begin()
+        f0 = routed(ra, fillers[0], 4, "(c) filler")
+        if f0["engine"] == victim:
+            routed(ra, fillers[1], 4, "(c) filler")
+        cold = routed(ra, p, 8, "(c) cold")
+        f2 = routed(ra, fillers[2], 4, "(c) filler")
+        again = routed(ra, p, 8, "(c) again")
+        check(cold["engine"] == again["engine"] == victim
+              and f2["engine"] == seed and cold["cached_tokens"] == 0
+              and again["cached_tokens"] > 0,
+              f"(c) the prompt's turns: cold {cold}, filler {f2}, "
+              f"again {again}")
+        seg["two_engines"] = end(s0, "(c) routed to two engines")
+        # C: scale-in when idle; the drain launches no kernel
+        c0 = {k: series(f"bigdl_fleet_{k}", **lb) for k, lb in (
+            ("chains_migrated_total", {}),
+            ("drains_total", {"outcome": "drained"}),
+            ("scale_events_total", {"direction": "in"}))}
+        s0 = begin()
+        ticks(lambda: fc.scale_ins >= 1, 90, "(c) scale-in")
+        seg["drain"] = end(s0, "(c) the drain")
+        acts = [e["action"] for e in fc.status()["events"]]
+        drain = spans("worker/drain", s0)
+        imports = spans("llm/handoff_import", s0)
+        moved = events("drain_migrate", s0)
+        fl = {k: series(f"bigdl_fleet_{k}", **lb) - c0[k] for k, lb in (
+            ("chains_migrated_total", {}),
+            ("drains_total", {"outcome": "drained"}),
+            ("scale_events_total", {"direction": "in"}))}
+        a = drain[0]["args"] if len(drain) == 1 else {}
+        states = (["draining"] * ("drain_begun" in acts)
+                  + ["migrating"] * bool(moved) + [a.get("state")])
+        pages = sum(e["detail"]["pages"] for e in moved)
+        check(states == ["draining", "migrating", "drained"]
+              and a.get("chains") == len(moved) == len(imports)
+              == fl["chains_migrated_total"] >= 1
+              and a.get("pages") == pages and a.get("failed") == 0
+              and fl["drains_total"] == fl["scale_events_total"] == 1
+              and acts[-2:] == ["drain_begun", "scale_in"],
+              f"(c) drain: states {states}, span {drain}, migrate events "
+              f"{moved}, imports {len(imports)}, series {fl}, events {acts}")
+        check(router.decode_workers == [seed] and fc.drains_lost == 0
+              and victim not in provider.servers()
+              and series("bigdl_fleet_workers") == 1,
+              f"(c) pool {router.decode_workers}, lost {fc.drains_lost}")
+        # D: the survivor's prefix hit on the migrated chain, routed
+        s0 = begin()
+        hot = routed(ra, p, 8, "(c) survivor hit")
+        seg["survivor_hit"] = end(s0, "(c) the survivor's hit")
+        check(hot["engine"] == seed and hot["cached_tokens"] > 0
+              and hot["ids"] == again["ids"],
+              f"(c) survivor {hot} against the drained engine's "
+              f"re-admission {again}")
+        check(router.failovers == 0, f"(c) {router.failovers} failovers")
+        st, status, _ = _http(ra, "GET", "/fleet/autoscaler")
+        check(st == 200 and status["scale_outs"] == 1
+              and status["scale_ins"] == 1, f"(c) autoscaler {status}")
+        router.stop()
+        router = None
+        kv_bytes = (2 * cfg.num_hidden_layers * page * cfg.num_key_value_heads
+                    * cfg.head_dim * model.cache_dtype.itemsize)
+        out.update({
+            "requests": 37 + (f0["engine"] == victim), "lost": 0,
+            "failovers": 0,
+            "scale_out": {
+                "pressured_tick_to_joined_s": joined - marks["pressure"],
+                "pressured_tick_to_launch_s": new_eng["t0"]
+                - marks["pressure"],
+                "engine_build_s": new_eng["build_s"],
+                "warm_and_capture_s": new_eng["warm_s"],
+                "decode_graph_capture_s": new_eng["decode_capture_s"],
+                "join_s": joined - new_eng["t0"] - new_eng["build_s"]
+                - new_eng["warm_s"],
+                "fleet_scale_span_ms": out_span[0]["dur"] / 1e3},
+            "scale_in": {
+                "states": states, "worker_drain_span": a,
+                "migrated_chains": len(moved), "migrated_pages": pages,
+                "migrated_mb": pages * kv_bytes / 2**20,
+                "drain_ms": drain[0]["dur"] / 1e3,
+                "import_ms": sum(r["dur"] for r in imports) / 1e3,
+                "fleet_series_deltas": fl, "controller_events": acts},
+            "prefix_hit": {
+                "prompt_tokens": FLEET_P_LEN,
+                "tokens_reused": hot["cached_tokens"],
+                "ttft_ms_survivor_hit": hot["ttft_ms"],
+                "ttft_ms_cold": cold["ttft_ms"],
+                "ttft_ms_victim_again": again["ttft_ms"],
+                "ids_equal_cold": hot["ids"] == cold["ids"]},
+            "peak_mem_gb_two_engines": peak2 / 1e9,
+            "segments": seg,
+            "autoscaler": {k: status[k] for k in (
+                "scale_outs", "scale_ins", "ticks", "drains_lost")}})
+
+        # E: the shipped provider (no warm-up) under the controller's own
+        # thread, the new engine's watchdog armed from its first pass
+        provider2 = LocalWorkerProvider(model, server_kwargs=engine_kw)
+        conf.set("bigdl.observability.federation.interval", "0.1")
+        try:
+            router2 = LLMRouter([], [seed], failover=True, federation=True,
+                                fleet=True, provider=provider2,
+                                fleet_opts=FLEET_OPTS).start()
+        finally:
+            conf.unset("bigdl.observability.federation.interval")
+        fc2, rb = router2._fleet, router2.address
+        s0 = begin()
+
+        def joined2():
+            engines.update(provider2.servers())
+            return fc2.scale_outs >= 1 and len(engines) == 3
+        burst(rb, 16, lambda: _wait(joined2, 90, "(c) shipped scale-out"),
+              "(c) shipped provider's burst")
+        new2 = list(engines.values())[-1]
+        steps2 = new2.steps
+        burst(rb, 8, None, "(c) shipped provider, two engines")
+        check(new2.steps > steps2, "(c) the shipped provider's engine "
+              "served nothing")
+        _wait(lambda: fc2.scale_ins >= 1 and not provider2.servers(), 90,
+              "(c) shipped scale-in")
+        seg["shipped"] = end(s0, "(c) the shipped provider")
+        out2 = spans("fleet/scale", s0, direction="out")
+        check(router2.decode_workers == [seed] and router2.failovers == 0
+              and len(out2) == 1 and fc2.drains_lost == 0,
+              f"(c) shipped provider: pool {router2.decode_workers}, "
+              f"failovers {router2.failovers}, spans {out2}")
+        out["shipped_provider"] = {
+            "requests": 24, "lost": 0, "failovers": router2.failovers,
+            "fleet_scale_span_ms": out2[0]["dur"] / 1e3,
+            "watchdog_timeout_s": HTTP_WATCHDOG_S,
+            "watchdog_trips": new2.watchdog_trips,
+            "decode_graph_capture_s": new2._decode.capture_seconds,
+            "engine_errors": len(new2.errors),
+            "events": [e["action"] for e in fc2.status()["events"]]}
+        check(not engines[seed].errors,
+              f"(c) engine errors: {engines[seed].errors}")
+    finally:
+        for r in (router, router2):
+            if r is not None:
+                r.stop()
+        for pv in (provider2, provider):
+            if pv is not None:
+                pv.stop_all()
+        flight.enabled = False
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tools_run(torch, model, serve):
+    """Phase 13 (d): ``save_model`` / ``load_model`` of phase 3's model,
+    ``cli.main``, ``BigdlTpuLLM`` and ``BigdlTpuOpenAI``."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.llm import cli, convert_model, langchain
+    from bigdl_tpu_torch.llm.api import ByteTokenizer
+    from bigdl_tpu_torch.llm.models.llama import LlamaForCausalLM
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.llm.worker import LLMWorker
+
+    cfg, new, text = model.config, 32, "Once upon a time"
+    out = {"free_disk_gb": shutil.disk_usage(tempfile.gettempdir()).free
+           / 1e9}
+    check(out["free_disk_gb"] > 10, f"(d) {out['free_disk_gb']:.1f} GB free")
+    d = tempfile.mkdtemp()
+    try:
+        t = time.perf_counter()
+        convert_model.save_model(model, d)
+        out["save_s"] = time.perf_counter() - t
+        out["dir_gb"] = sum(os.path.getsize(os.path.join(d, f))
+                            for f in os.listdir(d)) / 1e9
+        t = time.perf_counter()
+        loaded = convert_model.load_model(d)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t
+        # bit for bit against the source as the format keeps it (its q4_0
+        # scales rounded to bf16), and beside the unrounded source
+        ref = LlamaForCausalLM(cfg, convert_model.as_stored(model.params),
+                               device=model.device)
+        ids = _phase3_prompts(torch, cfg)[0][None]
+        got = loaded.generate(ids, max_new_tokens=new)
+        exp = ref.generate(ids, max_new_tokens=new)
+        src = model.generate(ids, max_new_tokens=new)
+        full = torch.as_tensor(got[:, :-1], device=model.device)
+        lg, le, ls = (m(full)[0][0, -1] for m in (loaded, ref, model))
+        check((got == exp).all() and torch.equal(lg, le),
+              f"(d) the reloaded 7B differs: ids {got.tolist()} against "
+              f"{exp.tolist()}, logits max diff "
+              f"{(lg - le).abs().max().item()}")
+        out["reload"] = {
+            "ids_equal": True, "last_logits_bit_equal": True,
+            "vs_unrounded_source": {
+                "leading_ids_equal": _lead(got[0].tolist(),
+                                           src[0].tolist()) - ids.shape[1],
+                "last_logits_max_abs_diff": (lg - ls).abs().max().item()}}
+        del ref, lg, le, ls
+        # the CLI over the directory
+        so, se = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = cli.main(["-m", d, "-p", text, "-n", str(new)])
+        m = re.fullmatch(r"\[(\d+) tokens in (\d+\.\d\d)s — (\d+\.\d\d) "
+                         r"tok/s\]\n", se.getvalue())
+        check(rc == 0 and m and int(m.group(1)) == new,
+              f"(d) cli {rc} {se.getvalue()!r}")
+        cli_text = so.getvalue()[:-1]
+        want_ids = loaded.generate(
+            [ByteTokenizer().encode(text)], max_new_tokens=new)[0, -new:]
+        check(cli_text == ByteTokenizer().decode(want_ids),
+              f"(d) cli text {cli_text!r}")
+        out["cli"] = {"rc": rc, "tok_per_s": float(m.group(3)),
+                      "stderr": se.getvalue().strip()}
+        del loaded
+        llm = langchain.BigdlTpuLLM(d, max_new_tokens=new)
+        check(llm.invoke(text) == cli_text, "(d) BigdlTpuLLM != the CLI")
+        srv = LLMServer(llm.model, **SERVE_7B).start()
+        w = LLMWorker(srv, api=True, tokenizer=ByteTokenizer()).start()
+        try:
+            client = langchain.BigdlTpuOpenAI(
+                "http://%s:%d/v1" % tuple(w.address), max_tokens=new)
+            oa_text = client.invoke(text)
+            served = srv.submit(ByteTokenizer().encode(text), new).get(
+                timeout=120)
+        finally:
+            w.stop()
+            srv.stop()
+        check(oa_text == ByteTokenizer().decode(served)
+              or _ascii(oa_text) == _ascii(ByteTokenizer().decode(served)),
+              f"(d) BigdlTpuOpenAI {oa_text!r} against the engine's "
+              f"{served}")
+        out["langchain"] = {
+            "llm_equals_cli": True,
+            "openai_equals_cli": oa_text == cli_text,
+            "engine_ids_leading_equal_to_generate": _lead(
+                served, [int(t) for t in want_ids]),
+            "openai_text_equals_engine_decode":
+                oa_text == ByteTokenizer().decode(served)}
+        del llm
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_fleet(torch, model, serve, http):
+    """Phase 13 on phase 3's model: (a) and (b) the time-series plane and
+    an alert, (c) the elastic fleet, (d) the converter, the CLI and the
+    LangChain wrappers."""
+    t_phase = time.perf_counter()
+    out = {"phase": "fleet", "model": "Llama-2-7B q4_0 (phase 3's model)"}
+    t = time.perf_counter()
+    out.update(_plane_and_alerts(torch, model, serve, http))
+    out["plane_alerts_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["fleet"] = _fleet_run(torch, model, serve)
+    out["fleet_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["tools"] = _tools_run(torch, model, serve)
+    out["tools_s"] = time.perf_counter() - t
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4543,6 +5355,8 @@ def main() -> int:
     emit(http)
     router = serve_router(torch, model, serve, http)
     emit(router)
+    fleet = serve_fleet(torch, model, serve, http)
+    emit(fleet)
     del model
     torch.cuda.empty_cache()
     bert, bert_prof = bert_path(torch, dev)
@@ -4583,6 +5397,14 @@ def main() -> int:
     paths["serve_7b through the router"] = dict(router["launches"])
     paths["serve_7b through the router, failover streamed"] = dict(
         router["launches_failover"])
+    for seg, label in (("burst", "routed burst and scale-out, with the "
+                                 "new engine's warm-up"),
+                       ("two_engines", "routed to two engines"),
+                       ("survivor_hit", "the survivor's prefix hit, routed"),
+                       ("shipped", "the shipped provider, controller "
+                                   "thread")):
+        paths[f"serve_7b fleet: {label}"] = dict(
+            fleet["fleet"]["segments"][seg]["launches"])
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = dict(row["launches"])
     for name, row in gen_row["runs"].items():
@@ -4815,6 +5637,26 @@ def main() -> int:
         "bw_util_phase3_expect": router["roofline"]["phase3_expect"],
         "utilization_observe_us_full_window":
             router["roofline"]["observe_us_full_window"]}
+    host_out["7B time-series plane and fleet"] = {
+        **{f"plane_{k}": fleet["overhead"][k] for k in (
+            "decode_tok_per_s_on_off", "host_dispatch_ms_per_step_on_off",
+            "sample_now_us_median_of_25")},
+        "graphed_host_calls_per_pass_on_off": [
+            p["host_launch_calls_per_pass"]
+            for p in fleet["overhead"]["profile"][::-1]],
+        "alert_storm_to_firing_s": fleet["alerts"]["storm_to_firing_s"],
+        "alert_storm_end_to_resolved_s":
+            fleet["alerts"]["storm_end_to_resolved_s"],
+        "scale_out_s": fleet["fleet"]["scale_out"][
+            "pressured_tick_to_joined_s"],
+        "drain_ms": fleet["fleet"]["scale_in"]["drain_ms"],
+        "shipped_provider_watchdog_trips":
+            fleet["fleet"]["shipped_provider"]["watchdog_trips"],
+        "survivor_hit_ttft_ms_vs_cold": [
+            fleet["fleet"]["prefix_hit"]["ttft_ms_survivor_hit"],
+            fleet["fleet"]["prefix_hit"]["ttft_ms_cold"]],
+        "save_load_s": [fleet["tools"]["save_s"], fleet["tools"]["load_s"]],
+        "cli_tok_per_s": fleet["tools"]["cli"]["tok_per_s"]}
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
               "route_sweep": sweep,
@@ -4830,7 +5672,7 @@ def main() -> int:
               "generate_profile": gen_prof, "checkpoint": ckpt,
               "serve_slotted": slot, "profile_slotted": slot_prof,
               "mixtral": mix, "families": fam, "serve_http": http,
-              "router": router,
+              "router": router, "fleet": fleet,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -1631,10 +1631,11 @@ def _observed_passes(model, cuda, on):
     """Five served passes of 4 decoding rows traced with
     ``torch.profiler``, observability and the flight recorder ``on`` or
     off: host launch calls by name and kernels, a pass. No page grant
-    falls in the window (positions 20..24), so a pass is one graph
-    replay, the token copy and the drain."""
+    falls in the window (positions 20..25, the first a profiler warm-up
+    left out of the counts), so a pass is one graph replay, the token
+    copy and the drain."""
     from collections import Counter
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from bigdl_tpu_torch import observability as obs
     from bigdl_tpu_torch.llm.serving import LLMServer
@@ -1652,11 +1653,18 @@ def _observed_passes(model, cuda, on):
                 srv._admit()
                 srv._step()
             assert srv._decode.graph is not None
+            # a warm-up pass outside the counts, and no device work in
+            # flight across the counted window's edges
             with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=5,
+                                           repeat=1)) as prof:
+                for i in range(6):
                     srv._admit()
                     srv._step()
+                    if i in (0, 5):
+                        torch.cuda.synchronize()
+                    prof.step()
             while not all(r.done.is_set() for r in reqs):
                 srv._admit()
                 srv._step()
@@ -1668,7 +1676,9 @@ def _observed_passes(model, cuda, on):
     cuda_t = torch.autograd.DeviceType.CUDA
     host = Counter(e.name for e in prof.events()
                    if e.device_type != cuda_t and e.name in HOST_LAUNCH_CALLS)
-    kernels = sum(e.device_type == cuda_t for e in prof.events())
+    kernels = sum(e.device_type == cuda_t        # not the step markers
+                  and not e.name.startswith("ProfilerStep")
+                  for e in prof.events())
     return {n: c / 5 for n, c in host.items()}, kernels / 5, \
         [r.tokens for r in reqs]
 
@@ -1794,3 +1804,57 @@ def test_bw_util_after_a_graphed_run(cuda):
     assert all(len(o) == 24 for o in outs)
     assert rows["llm/decode_paged"]["calls"] >= 23
     assert bw is not None and 0 < bw <= 1.05
+
+
+def test_timeseries_plane_keeps_the_graphed_pass(cuda):
+    """With the time-series plane on — its sampler reading the registry
+    every 10 ms while the passes run — the graphed decode pass makes the
+    same host calls and runs the same kernels as with it off."""
+    from bigdl_tpu_torch.observability import timeseries
+    from bigdl_tpu_torch.utils.conf import conf
+    model = _tiny_card_model(cuda)
+    off = _observed_passes(model, cuda, True)
+    conf.set("bigdl.observability.timeseries.enabled", "true")
+    conf.set("bigdl.observability.timeseries.interval", "0.01")
+    try:
+        st = timeseries.acquire()
+        on = _observed_passes(model, cuda, True)
+        samples = st.samples_total
+    finally:
+        timeseries.release()
+        conf.unset("bigdl.observability.timeseries.enabled")
+        conf.unset("bigdl.observability.timeseries.interval")
+        timeseries.reset()
+    assert on == off and samples > 0
+    assert on[0] == {"cudaGraphLaunch": 1.0, "cudaMemcpyAsync": 1.0}
+
+
+def test_converted_model_reloads_bit_for_bit(cuda, tmp_path):
+    """``save_model`` then ``load_model`` on the card: greedy ids and the
+    last step's logits bit for bit those of the source with its q4_0
+    scales rounded to bf16 (the on-disk format's rule), and the served
+    engine's answers equal on the two models."""
+    from bigdl_tpu_torch.llm.convert_model import (as_stored, load_model,
+                                                   save_model)
+    from bigdl_tpu_torch.llm.models.llama import LlamaForCausalLM
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    model = _tiny_card_model(cuda)
+    save_model(model, str(tmp_path))
+    loaded = load_model(str(tmp_path), device=cuda)
+    ref = LlamaForCausalLM(model.config, as_stored(model.params),
+                           device=cuda)
+    ids = torch.randint(0, 256, (2, 21),
+                        generator=torch.Generator().manual_seed(8)).numpy()
+    got, want = (m.generate(ids, max_new_tokens=24) for m in (loaded, ref))
+    assert (got == want).all()
+    full = torch.as_tensor(got[:, :-1], device=cuda)
+    assert torch.equal(loaded(full)[0][:, -1], ref(full)[0][:, -1])
+    outs = []
+    for m in (loaded, ref):
+        srv = LLMServer(m, max_batch=2, max_seq_len=64, page_size=PAGE,
+                        device=cuda).start()
+        try:
+            outs.append([srv.submit(p, 12).get(timeout=120) for p in ids])
+        finally:
+            srv.stop()
+    assert outs[0] == outs[1]

@@ -402,8 +402,11 @@ def test_all_open_sheds_and_breaker_gauges():
 
 
 def test_fleet_switch_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tworker.LLMRouter([], [("127.0.0.1", 1)], fleet=True)
+    """The fleet autoscaler is ported: without failover a fleet router
+    raises the JAX router's ``ValueError`` naming failover."""
+    for wk in (jworker, tworker):
+        with pytest.raises(ValueError, match="failover.enabled"):
+            wk.LLMRouter([], [("127.0.0.1", 1)], fleet=True)
 
 
 def test_port_router_over_jax_workers(fleet):

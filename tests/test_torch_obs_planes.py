@@ -285,13 +285,27 @@ def test_disabled_mode_records_nothing(clean):
 
 
 def test_unported_switches_raise(clean):
+    """The switch that raised before the time-series plane was ported
+    now builds the plane: the store and the alert engine exist, and
+    ``/metrics/query`` answers over them (404 naming the gate when
+    off), as in the JAX package."""
+    from bigdl_tpu_torch.observability import alerts, timeseries
     from bigdl_tpu_torch.utils.conf import conf
-    for key in tobs.UNPORTED_SWITCHES:
-        conf.set(key, "true")
-        try:
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 8"):
-                tobs.require_unported_off()
-        finally:
-            conf.unset(key)
-    tobs.require_unported_off()
+    gate = "bigdl.observability.timeseries.enabled"
+    path = "/metrics/query?series=bigdl_timeseries_samples_total&fn=delta"
+    assert timeseries.debug_endpoint(path)[0] == 404
+    conf.set(gate, "true")
+    conf.set("bigdl.observability.timeseries.interval", "3600")
+    try:
+        st = timeseries.acquire()
+        assert st is timeseries.store() and alerts.engine().store is st
+        for _ in range(3):     # the series is born at the first sample
+            st.sample_now()
+        status, body = timeseries.debug_endpoint(path)
+        assert status == 200 and body["value"] == 1.0
+        assert body["samples"] == 2 and body["instance"] == "local"
+    finally:
+        timeseries.release()
+        conf.unset("bigdl.observability.timeseries.interval")
+        conf.unset(gate)
+    assert timeseries.debug_endpoint(path)[0] == 404

@@ -231,30 +231,53 @@ def test_capture_carries_gemv_launches():
         k: 2 * v for k, v in delta.items()}
 
 
+def test_capture_leaves_out_other_threads():
+    """What another thread launches or replays while a graph is captured
+    (a fleet's new engine captures while another serves) stays on the
+    counters and out of the capture's delta."""
+    import threading
+
+    from bigdl_tpu_torch.llm import kernels
+    kernels.reset_launch_counts()
+    other = {"int4_matmul": 7, "int4_matmul_gemv": 7,
+             "paged_attention_decode_stats": 3}
+    with kernels.launches_of_capture() as delta:
+        kernels.int4_matmul.launches += 2
+        kernels.int4_matmul.tc_launches += 2
+        t = threading.Thread(target=kernels.add_launches, args=(other,))
+        t.start()
+        t.join()
+    assert delta == {"int4_matmul": 2, "int4_matmul_tc": 2}
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == other
+    kernels.add_launches(delta)
+    assert kernels.launch_counts()["int4_matmul"] == 9
+
+
 class TestEngineRules:
     @pytest.mark.parametrize("opt", [
         {"bigdl.observability.timeseries.enabled": "true"},
         {"bigdl.observability.federation": "true"}])
     def test_unsupported_options_raise(self, pair, opt):
-        """``slo=`` and ``watchdog_timeout=`` are ported; the planes the
-        port still lacks raise when their switch is on, naming their
-        ROADMAP item. Metric federation is ported: with its switch on
-        the engine builds."""
-        from bigdl_tpu_torch.observability import UNPORTED_SWITCHES
+        """The planes that once raised here are ported: with the
+        time-series plane's or metric federation's switch on, the engine
+        builds (and with the plane on, its start acquires the sampler
+        and its stop releases it)."""
+        from bigdl_tpu_torch.observability import timeseries
         from bigdl_tpu_torch.utils.conf import conf
         _, tm = pair
         (key, value), = opt.items()
         conf.set(key, value)
+        conf.set("bigdl.observability.timeseries.interval", "3600")
         try:
-            if key in UNPORTED_SWITCHES:
-                with pytest.raises(NotImplementedError,
-                                   match="Queue 1 item 8"):
-                    LLMServer(tm, device="cpu")
-            else:
-                assert key == "bigdl.observability.federation"
-                LLMServer(tm, device="cpu").stop()
+            srv = LLMServer(tm, device="cpu").start()
+            plane = key == "bigdl.observability.timeseries.enabled"
+            assert (timeseries.store() is not None) == plane
+            srv.stop()
+            assert srv._timeseries is None
         finally:
+            conf.unset("bigdl.observability.timeseries.interval")
             conf.unset(key)
+            timeseries.reset()
 
     @pytest.mark.parametrize("opt,slots", [
         ({"kvcache": True, "kvtier": True}, 4 * 17),

@@ -317,12 +317,24 @@ def test_metrics_and_status(fleet):
 
 
 def test_unported_worker_switches_raise(fleet):
-    """``fleet=True`` still raises; ``federation=True`` (ported) serves
-    the member surface ``/metrics/snapshot``, which a worker without it
-    answers 404."""
+    """``fleet=True`` (once unported) serves ``/worker_drain``: the idle
+    drain status, and a 400 on a bad action, as the JAX worker does;
+    ``federation=True`` serves the member surface ``/metrics/snapshot``,
+    which a worker without it answers 404."""
     srv = fleet["torch"]["api"].server
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        LLMWorker(srv, fleet=True)
+    out = []
+    for side, wk in (("jax", jworker.LLMWorker), ("torch", LLMWorker)):
+        w = wk(fleet[side]["api"].server, fleet=True).start()
+        try:
+            st, body, _ = _req(w.address, "GET", "/worker_drain")
+            body.pop("age_s")
+            out.append((st, body, _req(w.address, "POST", "/worker_drain",
+                                       {"action": "nope"})[:2]))
+        finally:
+            w.stop()
+    assert out[0] == out[1]
+    assert out[1][0] == 200 and out[1][1]["state"] == "idle"
+    assert out[1][2][0] == 400
     w = LLMWorker(srv, federation=True).start()
     try:
         st, doc, _ = _req(w.address, "GET", "/metrics/snapshot")
