@@ -19,13 +19,15 @@ from bigdl_tpu_torch.device import resolve_device
 
 
 def tensor_from_numpy(a: np.ndarray, device: torch.device):
-    """One numpy array → an owned tensor on ``device``, bf16 carried bit
-    for bit; a string array (a ``"qtype"`` tag) stays a string."""
+    """One numpy array → an owned tensor on ``device``, bf16 and e4m3fn
+    carried bit for bit; a string array (a ``"qtype"`` tag) stays a string."""
     if a.dtype.kind in "US":
         return str(a)                  # a "qtype" string leaf, as array
     a = np.array(a, order="C", copy=True)     # writable, owned
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(device)

@@ -34,7 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.llm.ggml.quantize import (QK, _check_qtype, quantize,
+from bigdl_tpu_torch.llm.ggml.quantize import (KERNEL_QTYPES, QK, quantize,
                                                quantize_torch)
 from bigdl_tpu_torch.llm.kernels import _build, _counts
 
@@ -60,9 +60,12 @@ def to_tpu_layout(qdict: Dict) -> Dict:
     """ggml row-major ``quantize()`` dict → k-major kernel layout:
     q (N, K/2) or (N, K) → (K/2, N) or (K, N); scale (and zero) (N, G)
     fp16 → (G, N) f32. Works on numpy arrays and on tensors (kept on
-    their device)."""
+    their device). The formats without a kernel (``sym_int5``, ``nf4``,
+    ``fp4``, ``fp8``, ``bf16``) pass through unchanged, as in the JAX
+    package: they keep the row-major ggml layout."""
     qtype = qdict.get("qtype", "sym_int4")
-    _check_qtype(qtype)
+    if qtype not in KERNEL_QTYPES:
+        return dict(qdict)
     out = {"qtype": qtype}
     for key in ("q", "scale", "zero"):
         if key not in qdict:

@@ -2,12 +2,17 @@
 ``bigdl_tpu/llm/transformers/low_bit_linear.py`` (ref:
 P:llm/transformers/low_bit_linear.py).
 
-The weight lives as buffers in the k-major kernel layout
-(``to_tpu_layout``): ``q`` (K/2, N) uint8 or (K, N) int8, ``scale`` (and
-``zero``) (K/32, N) f32 — the JAX package's state shapes, so states carry
-across unchanged. The forward goes through the kernel wrapper of its
-qtype: a CUDA input launches the CUDA kernel, a CPU input takes the
-kernel's plain version.
+For ``sym_int4``, ``asym_int4`` and ``sym_int8`` the weight lives as
+buffers in the k-major kernel layout (``to_tpu_layout``): ``q`` (K/2, N)
+uint8 or (K, N) int8, ``scale`` (and ``zero``) (K/32, N) f32, and the
+forward goes through the kernel wrapper of its qtype: a CUDA input
+launches the CUDA kernel, a CPU input takes the kernel's plain version.
+``sym_int5``, ``nf4``, ``fp4``, ``fp8`` and ``bf16`` keep the row-major
+ggml states (``q`` (N, K) or (N, K/2), ``scale`` (N, K/32) fp16; the
+cast formats ``q`` alone, as bf16 / e4m3fn) and forward ``x @ w`` with
+``w`` dequantized in plain PyTorch, as the JAX package computes them
+outside any Pallas kernel. Either way the states are the JAX package's,
+so they carry across unchanged.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ from typing import Optional
 
 import torch
 
-from bigdl_tpu_torch.llm.ggml.quantize import _check_qtype, quantize_torch
+from bigdl_tpu_torch.llm.ggml.quantize import (CAST_QTYPES, FP4_CODE,
+                                               NF4_CODE, QK, as_tensor,
+                                               quantize_torch)
 from bigdl_tpu_torch.llm.kernels.int4_matmul import (asym_int4_matmul,
                                                      int4_matmul,
                                                      int8_matmul,
@@ -25,14 +32,12 @@ from bigdl_tpu_torch.nn.module import TensorModule
 
 
 class LowBitLinear(TensorModule):
-    """y = x @ dequant(W)^T + b with ggml-block-quantized W
-    (``sym_int4``, ``asym_int4`` or ``sym_int8``; the other ggml qtypes
-    are ROADMAP Queue 1 item 2)."""
+    """y = x @ dequant(W)^T + b with W in any ggml qtype of
+    :func:`~bigdl_tpu_torch.llm.ggml.quantize.ggml_qtypes`."""
 
     def __init__(self, input_size: int, output_size: int,
                  qtype: str = "sym_int4", with_bias: bool = False,
                  name: Optional[str] = None):
-        _check_qtype(qtype)
         super().__init__(name)
         self.input_size = input_size
         self.output_size = output_size
@@ -64,13 +69,15 @@ class LowBitLinear(TensorModule):
 
     def load_quantized(self, qdict):
         """Store a ggml row-major ``quantize()`` dict (numpy or tensors)
-        as the k-major states ``q``, ``scale`` and ``zero``."""
+        as the states ``q``, ``scale`` and ``zero``: k-major for the
+        kernel qtypes, row-major for the rest."""
         if qdict.get("qtype", self.qtype) != self.qtype:
             raise ValueError((qdict.get("qtype"), self.qtype))
         for k, v in to_tpu_layout(dict(qdict, qtype=self.qtype)).items():
             if k != "qtype":
                 # quantized planes are constants, not trainable: buffers
-                self.add_state(k, v)
+                self.add_state(k, as_tensor(v, self.qtype if k == "q"
+                                            else ""))
 
     def forward(self, x):
         shape = x.shape
@@ -80,11 +87,34 @@ class LowBitLinear(TensorModule):
         elif self.qtype == "asym_int4":
             y = asym_int4_matmul(x2, self.q, self.scale, self.zero,
                                  out_dtype=x.dtype)
-        else:
+        elif self.qtype == "sym_int8":
             y = int8_matmul(x2, self.q, self.scale, out_dtype=x.dtype)
+        else:
+            y = (x2 @ self._dequant(x.dtype)).to(x.dtype)
         if self.with_bias:
             y = y + self.bias
         return y.reshape(*shape[:-1], self.output_size)
+
+    def _dequant(self, dtype) -> torch.Tensor:
+        """w (K, N) of a row-major qtype in ``dtype``, so that forward is
+        ``y = x @ w`` (``LowBitLinear._dequant`` of the JAX package)."""
+        qtype, n = self.qtype, self.output_size
+        if qtype in CAST_QTYPES:
+            return self.q.to(dtype).t()
+        scale = self.scale.to(torch.float32)
+        nb = scale.shape[1]
+        if qtype == "sym_int5":
+            q = self.q.reshape(n, nb, QK).to(torch.float32) - 16.0
+            return (q * scale[..., None]).reshape(n, -1).to(dtype).t()
+        if qtype not in ("nf4", "fp4"):
+            raise ValueError(f"unknown qtype {qtype!r}")
+        lo = (self.q & 0xF).to(torch.int64)
+        hi = (self.q >> 4).to(torch.int64)
+        idx = torch.stack([lo, hi], dim=-1).reshape(n, -1)
+        code = torch.from_numpy(NF4_CODE if qtype == "nf4" else FP4_CODE) \
+            .to(self.q.device)
+        w = code[idx].reshape(n, nb, QK) * scale[..., None]
+        return w.reshape(n, -1).to(dtype).t()
 
     def extra_repr(self):
         return f"{self.input_size} -> {self.output_size}, {self.qtype}"

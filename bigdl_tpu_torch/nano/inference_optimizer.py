@@ -66,10 +66,11 @@ class InferenceOptimizer:
     @staticmethod
     def quantize(model, precision: str = "bf16", calib_data=None,
                  device=None, **kwargs) -> _CompiledModel:
-        """precision: bf16 | fp16 | int8 | int4 | sym_int4 | asym_int4 |
-        sym_int8. The low-bit ones run the LowBitLinear surgery on a copy
-        of the model moved to ``device`` (weights quantized there);
-        bf16/fp16 cast a copy's float params."""
+        """precision: bf16 | fp16 | int8 | int4 | any ggml qtype
+        (sym_int4 / asym_int4 / sym_int5 / sym_int8 / nf4 / fp4 / fp8).
+        The low-bit ones run the LowBitLinear surgery on a copy of the
+        model moved to ``device`` (weights quantized there); bf16/fp16
+        cast a copy's float params."""
         model = getattr(model, "module", model)   # keras-style wrappers
         if precision in _FLOAT_DTYPES:
             return _CompiledModel(copy.deepcopy(model), device,

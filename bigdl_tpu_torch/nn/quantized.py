@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from bigdl_tpu_torch.llm.ggml.quantize import QK
+from bigdl_tpu_torch.llm.ggml.quantize import QK, true_div
 from bigdl_tpu_torch.llm.kernels.int4_matmul import int8_matmul
 from bigdl_tpu_torch.nn.layers.linear import Linear as FloatLinear
 from bigdl_tpu_torch.nn.module import Module, TensorModule
@@ -25,7 +25,7 @@ def _quantize_per_channel(w: torch.Tensor):
     the weights' device; the JAX package's arithmetic (f32 division,
     half-to-even rounding), so the bits agree."""
     flat = w.to(torch.float32).reshape(w.shape[0], -1)
-    scale = flat.abs().amax(dim=1) / 127.0
+    scale = true_div(flat.abs().amax(dim=1), 127)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.round(flat / safe[:, None]).clamp(-127, 127).to(torch.int8)
     return q.reshape(w.shape), scale

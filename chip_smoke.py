@@ -321,6 +321,33 @@ Phase 13 (after phase 12, on phase 3's model) the time-series plane,
          to the CLI, ``BigdlTpuOpenAI`` over an ``LLMWorker(api=True)``
          equal to that engine's answer. Report key ``fleet``.
 
+Phase 14 every bigdl-llm low-bit format, the native quantizer and the
+         operator tools. (a) after phase 5: BERT-base (phase 5's model
+         and weights) through nano ``quantize`` at sym_int5 / nf4 / fp4
+         / fp8 and ``optimize_model`` at bf16, beside sym_int4: ms a
+         forward (batch 8 x 128), no kernel launched (the formats
+         dequantize in plain PyTorch, as the JAX package's do outside
+         Pallas), the card's log-probs against the same quantized
+         model's CPU forward within 2e-2 of their largest magnitude;
+         ``LowBitLinear`` of every format at the 7B qkv / o / gate_up /
+         down shapes, M = 8 (quantize ms, forward ms beside the sym_int4
+         GEMV; figures); the native quantizer built with ``g++`` here
+         and bit-equal to the numpy path at 4096 x 4096 (times, the host
+         CPU), ``quantize_torch`` on the card at every format and
+         ``quantize_model``'s per-channel int8 bit-equal to the host's.
+         Report key ``formats``. (b) after phase 13 on phase 3's model:
+         ``run_load`` of 64 seeded prompts (a 16-token shared prefix, 8
+         new tokens, 32 qps, 8 clients) through an ``LLMWorker`` native
+         and through the gateway's SSE: none lost, each index the
+         engine's answer to that prompt alone, client p50 / p99, launch
+         counts exactly ``_path_expect``; 16 of them through a federated
+         router over two engines (exact launches) read back by
+         ``fleet_report --url`` (merged counters equal the members'
+         sums); ``run_fleet_soak(model=...)`` (none lost, a scale-out and
+         a scale-in); ``run_alerts_chaos`` and ``run_fleet_chaos`` (held
+         to the engine's answers alone) in smoke mode at 7B, each
+         passing its own contract. Report key ``tools``.
+
 Every phase's line has the SM clock and power draw (``nvidia-smi
 --query-gpu=clocks.sm,power.draw``) on the line before it. Then a
 ``{"kernels": [...]}`` line, and as the last line
@@ -5265,6 +5292,365 @@ def serve_fleet(torch, model, serve, http):
     return out
 
 
+# -- phase 14: every low-bit format, the native quantizer, the tools ----------
+
+FORMATS = ("sym_int5", "nf4", "fp4", "fp8", "bf16")
+# the 7B linears (N, K) at decode batch M = 8
+FORMAT_SHAPES = ((12288, 4096, "qkv_proj"), (4096, 4096, "o_proj"),
+                 (22016, 4096, "gate_up_proj"), (4096, 11008, "down_proj"))
+NATIVE_SHAPE = (4096, 4096)
+LOAD_N, LOAD_NEW, LOAD_QPS = 64, 8, 32.0   # run_load: requests, tokens, qps
+ROUTED_N = 16                              # fleet_report's routed requests
+
+
+def _host_cpu():
+    """The host CPU as ``/proc/cpuinfo`` names it, and its cores: the
+    native quantizer's time depends on them."""
+    import platform
+    from bigdl_tpu_torch.native.build import host_cpu
+    return {"cpuinfo": host_cpu().splitlines()[0], "cores": os.cpu_count(),
+            "machine": platform.machine()}
+
+
+def _bert_formats(torch, dev):
+    """BERT-base (phase 5's model and weights) at every new format: nano
+    ``quantize`` (sym_int5 / nf4 / fp4 / fp8; its ``"bf16"`` is the float
+    cast, so bf16 goes through ``optimize_model``) and ``sym_int4`` beside
+    them: ms a forward at batch 8 x 128 (median of 10), launch counts (the
+    new formats reach none of the port's kernels), and the card's
+    log-probs against the same quantized model's plain forward on the CPU
+    (batch 2 x 128), within 2e-2 of their largest magnitude, the same
+    argmax on every row."""
+    import copy
+
+    import numpy as np
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.transformers import LowBitLinear, optimize_model
+    from bigdl_tpu_torch.models.bert import BertConfig, build_classifier
+    from bigdl_tpu_torch.nano import InferenceOptimizer
+    from bigdl_tpu_torch.nano.inference_optimizer import _CompiledModel
+    from bigdl_tpu_torch.nn import set_seed
+
+    cfg = BertConfig.base()
+    set_seed(0)
+    model = build_classifier(cfg, 2, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (8, 128),
+                        generator=torch.Generator().manual_seed(5)).numpy()
+    n_linears = 6 * cfg.num_hidden_layers + 2
+    rows = {}
+    for fmt in ("sym_int4",) + FORMATS:
+        t0 = time.perf_counter()
+        if fmt == "bf16":
+            pipe = _CompiledModel(optimize_model(copy.deepcopy(model),
+                                                 "bf16"), dev)
+        else:
+            pipe = InferenceOptimizer.quantize(model, fmt, device=dev)
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        lows = [m for m in pipe._model.modules()
+                if isinstance(m, LowBitLinear)]
+        check(len(lows) == n_linears and {m.qtype for m in lows} == {fmt},
+              f"BERT {fmt}: {len(lows)} LowBitLinear of "
+              f"{ {m.qtype for m in lows} }")
+        pipe.forward(ids)                    # warm-up: cuBLAS handles
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        y = pipe.forward(ids)
+        counts = kernels.launch_counts()
+        check(y.shape == (8, 2) and bool(np.isfinite(y).all()),
+              f"BERT {fmt}: output {y.shape} not finite")
+        want = dict.fromkeys(counts, 0)
+        if fmt == "sym_int4":
+            want["int4_matmul"] = n_linears
+            want["int4_matmul_tc"] = sum(
+                c for _, m, _, n, c in BERT_SHAPES
+                if kernels.matmul_route(m, n) == "tc")
+            want["int4_matmul_gemv"] = n_linears - want["int4_matmul_tc"]
+        check(counts == want, f"BERT {fmt}: launch counts {counts} != "
+              f"{want}")
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            pipe.forward(ids)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        cpu = _CompiledModel(copy.deepcopy(pipe._model), "cpu").forward(
+            ids[:2])
+        card = pipe.forward(ids[:2])
+        err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+        same = bool((card.argmax(1) == cpu.argmax(1)).all())
+        check(err <= 2e-2 and same, f"BERT {fmt}: card vs CPU log-probs "
+              f"{card.tolist()} vs {cpu.tolist()} (rel err {err})")
+        rows[fmt] = {"entry": ("optimize_model" if fmt == "bf16"
+                               else "InferenceOptimizer.quantize"),
+                     "launches": {k: v for k, v in counts.items() if v},
+                     "convert_s": convert_s,
+                     "ms_per_forward": statistics.median(walls),
+                     "card_vs_cpu_rel_err": err, "same_argmax": same}
+        del pipe
+    base = rows["sym_int4"]["ms_per_forward"]
+    for fmt in FORMATS:
+        rows[fmt]["ms_vs_sym_int4"] = [rows[fmt]["ms_per_forward"], base]
+    del model
+    torch.cuda.empty_cache()
+    return {"batch": [8, 128], "linears_per_forward": n_linears,
+            "tol": 2e-2, "pipelines": rows}
+
+
+def _linear_formats(torch, dev):
+    """``LowBitLinear`` of every format at the 7B shapes, M = 8, bf16 x:
+    the quantize on the card (one call) and the forward (median of 25
+    device times), beside the ``sym_int4`` GEMV's. Figures, not gates."""
+    import numpy as np
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.ggml.quantize import quantize_torch
+    from bigdl_tpu_torch.llm.transformers import LowBitLinear
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = {}
+    for n, k, name in FORMAT_SHAPES:
+        w = torch.randn((n, k), generator=gen, device=dev) * 0.02
+        x = torch.randn((8, k), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        row = {}
+        for fmt in ("sym_int4",) + FORMATS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            quantize_torch(w, fmt)
+            torch.cuda.synchronize()
+            q_ms = (time.perf_counter() - t0) * 1e3
+            m = LowBitLinear.from_weight(w, fmt)
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                y = m(x)
+                ms = time_ms(lambda: m(x))
+            check(y.shape == (8, n) and bool(torch.isfinite(y).all()),
+                  f"LowBitLinear {fmt} {name}: output not finite")
+            launched = kernels.launch_counts()["int4_matmul_gemv"]
+            check((launched > 0) == (fmt == "sym_int4"),
+                  f"LowBitLinear {fmt} {name}: {launched} GEMV launches")
+            nbytes = sum(b.numel() * b.element_size() for b in m.buffers())
+            row[fmt] = {"ms": ms, "quantize_ms": q_ms,
+                        "weight_mb": nbytes / 2**20,
+                        "bound_ms": bound(nbytes + x.numel() * 2
+                                          + y.numel() * 2,
+                                          2 * 8 * n * k)[0]}
+            del m
+        rows[f"{name} M=8 K={k} N={n}"] = row
+        del w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _native_quantizer(torch, dev):
+    """The native quantizer built with ``g++`` on this machine, bit-equal
+    to the numpy path on a 4096 x 4096 weight (q4_0 and q8_0; times of
+    both); then ``quantize_torch`` on the card at every format of the
+    same weight (a few edge values planted: a zero block, e4m3fn's tie
+    at 464, an overflow, ±inf for the casts) bit-equal to numpy, and
+    ``quantize_model``'s per-channel int8 on the card bit-equal to the
+    CPU's."""
+    import numpy as np
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.llm.ggml.quantize import (CAST_QTYPES, ggml_qtypes,
+                                                   quantize, quantize_numpy,
+                                                   quantize_torch)
+    from bigdl_tpu_torch.native import build as native_build
+    from bigdl_tpu_torch.nn.quantized import _quantize_per_channel
+
+    t0 = time.perf_counter()
+    check(native.available(), "the native quantizer did not build with "
+          "g++ on this machine")
+    out = {"host_cpu": _host_cpu(),
+           "library": os.path.basename(native_build.lib_path()),
+           "build_s": native_build.build_seconds,
+           "first_use_s": time.perf_counter() - t0, "shape": NATIVE_SHAPE}
+    w = (np.random.RandomState(14).randn(*NATIVE_SHAPE) * 0.02).astype(
+        np.float32)
+    w[0, :32] = 0.0
+    w[1, :4] = [464.0, -464.0, 480.0, 1e5]
+    errs = np.seterr(over="ignore")    # the planted overflow's fp16 scale
+    for qtype in ("sym_int4", "sym_int8"):
+        t = time.perf_counter()
+        nat = quantize(w, qtype)
+        nat_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        ref = quantize_numpy(w, qtype)
+        np_ms = (time.perf_counter() - t) * 1e3
+        check(all(np.array_equal(nat[k], ref[k]) for k in ("q", "scale")),
+              f"native {qtype} differs from the numpy path")
+        out[qtype] = {"native_ms": nat_ms, "numpy_ms": np_ms,
+                      "bit_equal": True}
+    wd = torch.from_numpy(w).to(dev)
+    for qtype in ggml_qtypes():
+        wq = w.copy()
+        if qtype in CAST_QTYPES:
+            wq[2, :2] = [np.inf, -np.inf]
+        wd.copy_(torch.from_numpy(wq))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = quantize_torch(wd, qtype)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        ref = quantize_numpy(wq, qtype)
+        np_ms = (time.perf_counter() - t) * 1e3
+        for k, v in ref.items():
+            if k == "qtype":
+                continue
+            g = got[k].cpu()
+            if g.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+                g = g.view(torch.int16 if g.element_size() == 2
+                           else torch.uint8)
+            g = g.numpy()
+            check(np.array_equal(g.view(v.dtype), v),
+                  f"quantize_torch {qtype} on the card: {k} differs from "
+                  "numpy")
+        out[f"quantize_torch {qtype}"] = {"card_ms": card_ms,
+                                          "numpy_ms": np_ms,
+                                          "bit_equal": True}
+    np.seterr(**errs)
+    wd.copy_(torch.from_numpy(w))
+    card = _quantize_per_channel(wd)
+    cpu = _quantize_per_channel(torch.from_numpy(w))
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)),
+          "quantize_model's per-channel int8 on the card differs from the "
+          "CPU's")
+    out["quantize_model per-channel int8"] = {"bit_equal": True}
+    return out
+
+
+def formats_phase(torch, dev):
+    """Phase 14 (a): every low-bit format on the card."""
+    t = time.perf_counter()
+    out = {"phase": "formats", "formats": FORMATS}
+    out["bert"] = _bert_formats(torch, dev)
+    out["linears"] = _linear_formats(torch, dev)
+    out["native"] = _native_quantizer(torch, dev)
+    out["wall_s"] = time.perf_counter() - t
+    return out
+
+
+def _load_run(torch, model, srvs, addr, prompts, want, what, **kw):
+    """``run_load`` of ``prompts`` against ``addr`` (engines ``srvs``):
+    no request lost, each index ``want``'s, and the launch counts (zeroed
+    just before) exactly each prompt's whole prefill and the engines'
+    decode steps."""
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.tools import loadgen
+
+    steps0 = sum(s.steps for s in srvs)
+    kernels.reset_launch_counts()
+    res = loadgen.run_load(addr, prompts, max_new_tokens=LOAD_NEW,
+                           qps=LOAD_QPS, concurrency=8, **kw)
+    counts = kernels.launch_counts()
+    steps = sum(s.steps for s in srvs) - steps0
+    check(res["lost"] == 0 and res["ok"] == len(prompts),
+          f"{what}: lost {res['lost']}: {res['errors']}")
+    check(res["outputs"] == want, f"{what}: outputs differ from the "
+          f"engine's answers alone: {res['outputs']} vs {want}")
+    expect = _path_expect(model, [_bucket(len(p), model.page_size)
+                                  for p in prompts], steps)
+    check(counts == expect, f"{what}: launch counts {counts} != {expect}")
+    res.pop("outputs")
+    return {**res, "decode_steps": steps, "launches": counts}
+
+
+def tools_phase(torch, model):
+    """Phase 14 (b) on phase 3's model: the load generator, the fleet
+    soak, ``fleet_report --url`` and the alerts and fleet chaos drives."""
+    import contextlib
+    import io
+
+    from bigdl_tpu_torch.llm import chaos
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.llm.worker import LLMRouter, LLMWorker
+    from bigdl_tpu_torch.tools import fleet_report, loadgen
+
+    t_phase = time.perf_counter()
+    out = {"phase": "tools", "model": "Llama-2-7B q4_0 (phase 3's model)",
+           "engine": dict(SERVE_7B, max_queue=16)}
+    prompts = loadgen.gen_prompts(LOAD_N, seed=0, shared_prefix=16)
+    srv = LLMServer(model, max_queue=16, **SERVE_7B)
+    _warm_inline(torch, srv, prompts[:len(loadgen.PROMPT_LENS)],
+                 "phase 14 (b)")
+    srv.start()
+    w = LLMWorker(srv, api=True).start()
+    try:
+        # the reference: each prompt alone on this engine
+        want = [list(map(int, srv.submit(p, LOAD_NEW).get(timeout=600)))
+                for p in prompts]
+        out["load"] = {
+            name: _load_run(torch, model, [srv], w.address, prompts, want,
+                            f"run_load {name}", **kw)
+            for name, kw in (("native", {}),
+                             ("openai streamed", dict(openai=True,
+                                                      stream=True)))}
+    finally:
+        w.stop()
+        srv.stop()
+    check(not srv.errors, f"phase 14 (b) engine errors: {srv.errors}")
+    out["load"]["requests"] = LOAD_N
+    out["load"]["qps"] = LOAD_QPS
+    out["load"]["max_new_tokens"] = LOAD_NEW
+
+    # fleet_report --url against a federated router over two engines
+    srvs = [LLMServer(model, slo=True, **SERVE_7B) for _ in range(2)]
+    for s in srvs:
+        _warm_inline(torch, s, prompts[:len(loadgen.PROMPT_LENS)],
+                     "phase 14 (b) fleet")
+        s.start()
+    workers = [LLMWorker(s, role="decode", federation=True).start()
+               for s in srvs]
+    router = LLMRouter([], [x.address for x in workers], failover=True,
+                       federation=True, slo=True,
+                       start_prober=False).start()
+    try:
+        routed = _load_run(torch, model, srvs, router.address,
+                           prompts[:ROUTED_N], want[:ROUTED_N],
+                           "run_load through the federated router")
+        router._collector.collect_now()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fleet_report.main(["--url", "%s:%d" % router.address,
+                                    "--json"])
+        rep = json.loads(buf.getvalue())
+    finally:
+        router.stop()
+        for x in workers:
+            x.stop()
+        for s in srvs:
+            s.stop()
+    check(rc == 0 and len(rep["instances"]) >= 2,
+          f"fleet_report --url: rc {rc}, instances {rep.get('instances')}")
+    bad = [r for r in rep["counters"] if r["sum"] != r["federated"]]
+    check(not bad, f"fleet_report --url: merged counters differ from the "
+          f"members' sums: {bad}")
+    tokens = next(r for r in rep["counters"]
+                  if r["name"] == "bigdl_llm_decode_tokens_total")
+    check(tokens["federated"] > 0, f"fleet_report: {tokens}")
+    out["fleet_report"] = {"routed": routed,
+                           "instances": rep["instances"],
+                           "counters": len(rep["counters"]),
+                           "sketches": len(rep["sketches"]),
+                           "decode_tokens_federated": tokens["federated"]}
+
+    t = time.perf_counter()
+    soak = loadgen.run_fleet_soak(model=model)
+    check(soak["requests_lost"] == 0 and soak["scale_outs"] >= 1
+          and soak["scale_ins"] >= 1 and soak["converged_workers"] == 1,
+          f"run_fleet_soak at 7B: {soak}")
+    out["fleet_soak"] = {**soak, "wall_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    alerts = chaos.run_alerts_chaos(model=model, smoke=True)
+    out["alerts_chaos"] = {**alerts, "wall_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    fleet = chaos.run_fleet_chaos(model=model, smoke=True)
+    check(fleet["reference"] == "engine", f"fleet chaos: {fleet}")
+    out["fleet_chaos"] = {**fleet, "wall_s": time.perf_counter() - t}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5357,11 +5743,15 @@ def main() -> int:
     emit(router)
     fleet = serve_fleet(torch, model, serve, http)
     emit(fleet)
+    tools = tools_phase(torch, model)
+    emit(tools)
     del model
     torch.cuda.empty_cache()
     bert, bert_prof = bert_path(torch, dev)
     emit(bert)
     emit(bert_prof)
+    formats = formats_phase(torch, dev)
+    emit(formats)
     torch.cuda.empty_cache()
     gen_row, gen_prof = generate_phase(torch, dev)
     emit(gen_row)
@@ -5405,6 +5795,11 @@ def main() -> int:
                                    "thread")):
         paths[f"serve_7b fleet: {label}"] = dict(
             fleet["fleet"]["segments"][seg]["launches"])
+    for name in ("native", "openai streamed"):
+        paths[f"serve_7b under loadgen, {name}"] = dict(
+            tools["load"][name]["launches"])
+    paths["serve_7b under loadgen, through the federated router"] = dict(
+        tools["fleet_report"]["routed"]["launches"])
     for name, row in bert["pipelines"].items():
         paths[f"bert {name}"] = dict(row["launches"])
     for name, row in gen_row["runs"].items():
@@ -5657,6 +6052,19 @@ def main() -> int:
             fleet["fleet"]["prefix_hit"]["ttft_ms_cold"]],
         "save_load_s": [fleet["tools"]["save_s"], fleet["tools"]["load_s"]],
         "cli_tok_per_s": fleet["tools"]["cli"]["tok_per_s"]}
+    host_out["7B under the load generator"] = {
+        **{f"{name}_{k}": tools["load"][name][k]
+           for name in ("native", "openai streamed")
+           for k in ("latency_p50_ms", "latency_p99_ms", "achieved_qps",
+                     "decode_steps")},
+        "fleet_soak_ttft_p99_ms": tools["fleet_soak"]["ttft_p99_ms"],
+        "fleet_soak_scale_outs_ins": [tools["fleet_soak"]["scale_outs"],
+                                      tools["fleet_soak"]["scale_ins"]],
+        "chaos_wall_s_alerts_fleet": [tools["alerts_chaos"]["wall_s"],
+                                      tools["fleet_chaos"]["wall_s"]]}
+    host_out["BERT-base formats, ms a forward (sym_int4 beside)"] = {
+        f: formats["bert"]["pipelines"][f]["ms_vs_sym_int4"]
+        for f in FORMATS}
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
               "route_sweep": sweep,
@@ -5672,7 +6080,8 @@ def main() -> int:
               "generate_profile": gen_prof, "checkpoint": ckpt,
               "serve_slotted": slot, "profile_slotted": slot_prof,
               "mixtral": mix, "families": fam, "serve_http": http,
-              "router": router, "fleet": fleet,
+              "router": router, "fleet": fleet, "tools": tools,
+              "formats": formats,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

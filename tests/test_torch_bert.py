@@ -280,9 +280,20 @@ class TestBert:
         np.testing.assert_allclose(tc.forward(ids), want, rtol=0, atol=3e-2)
 
     def test_unsupported_precision_raises(self, models):
-        _, tm = models
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            InferenceOptimizer.quantize(tm, "nf4", device="cpu")
+        """nf4, once refused, runs as the JAX pipeline does (logits within
+        3e-2); a precision the JAX package does not know raises its
+        ValueError on both sides."""
+        jm, tm = models
+        ids = _ids(6)
+        want = np.asarray(JInferenceOptimizer.quantize(jm, "nf4")
+                          .forward(ids), np.float32)
+        got = InferenceOptimizer.quantize(tm, "nf4", device="cpu")
+        np.testing.assert_allclose(got.forward(ids), want, rtol=0,
+                                   atol=3e-2)
+        with pytest.raises(ValueError, match="unknown qtype"):
+            JInferenceOptimizer.quantize(jm, "int3")
+        with pytest.raises(ValueError, match="unknown qtype"):
+            InferenceOptimizer.quantize(tm, "int3", device="cpu")
 
     def test_default_device_is_the_gpu(self, models, monkeypatch):
         """``device=None`` means the card; without one the entry points

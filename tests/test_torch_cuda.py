@@ -1858,3 +1858,28 @@ def test_converted_model_reloads_bit_for_bit(cuda, tmp_path):
         finally:
             srv.stop()
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("qtype", ("sym_int4", "asym_int4", "sym_int5",
+                                   "sym_int8", "nf4", "fp4", "fp8", "bf16"))
+def test_quantize_torch_on_card_bit_equal_numpy(cuda, qtype):
+    """``quantize_torch`` on the card gives the numpy path's bits (a CUDA
+    tensor divided by a Python number is multiplied by its reciprocal:
+    the scales divide by a 0-d tensor instead), edges included."""
+    import numpy as np
+    from bigdl_tpu_torch.llm.ggml.quantize import (quantize_numpy,
+                                                   quantize_torch)
+    w = (np.random.RandomState(3).randn(512, 1024) * 0.05).astype(
+        np.float32)
+    w[0, :32] = 0.0
+    w[1, :3] = [464.0, -480.0, 1e5 if qtype == "fp8" else 3.0]
+    with np.errstate(over="ignore"):
+        want = quantize_numpy(w, qtype)
+    got = quantize_torch(torch.from_numpy(w).to(cuda), qtype)
+    for k, v in want.items():
+        if k != "qtype":
+            g = got[k].cpu()
+            if g.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+                g = g.view(torch.int16 if g.element_size() == 2
+                           else torch.uint8)
+            assert np.array_equal(g.numpy().view(v.dtype), v), k

@@ -517,10 +517,17 @@ class TestLowBitLinear:
                                       np.asarray(jm._params["bias"]))
 
     def test_unsupported_qtype_raises(self):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            LowBitLinear(64, 8, "nf4")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            LowBitLinear.from_weight(_weights(10, 8, 64), "fp4")
+        """nf4 and fp4, once refused, make the JAX module's states; a
+        qtype the JAX package does not know raises its ValueError."""
+        w = _weights(10, 8, 64)
+        for qtype in ("nf4", "fp4"):
+            _assert_same_tree(
+                LowBitLinear.from_weight(w, qtype).states_dict(),
+                jax.tree_util.tree_map(np.asarray, JLowBitLinear.from_weight(
+                    w, qtype).states_dict()))
+        for make in (JLowBitLinear.from_weight, LowBitLinear.from_weight):
+            with pytest.raises(ValueError, match="unknown qtype"):
+                make(w, "int3")
 
 
 class TestQuantizedLinear:

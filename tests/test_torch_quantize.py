@@ -72,8 +72,15 @@ class TestQuantize:
         np.testing.assert_array_equal(_unpack_nibbles(packed), q)
 
     def test_unsupported_qtype_raises(self):
-        with pytest.raises(NotImplementedError):
-            quantize(np.zeros((2, QK), np.float32), "nf4")
+        """nf4, once refused, quantizes as the JAX package does; an
+        unknown qtype and K % 32 != 0 raise its ValueError."""
+        w = _weights(4, 8, 64, True)
+        got, want = quantize(w, "nf4"), j_quantize(w, "nf4")
+        np.testing.assert_array_equal(got["q"], want["q"])
+        np.testing.assert_array_equal(got["scale"], want["scale"])
+        for q in (quantize, j_quantize):
+            with pytest.raises(ValueError, match="unknown qtype"):
+                q(np.zeros((2, QK), np.float32), "int3")
         with pytest.raises(ValueError):
             quantize(np.zeros((2, 33), np.float32))
 
