@@ -1,1 +1,2 @@
-"""Model zoo of the port (``bigdl_tpu/models``): BERT so far."""
+"""Model zoo of the port (``bigdl_tpu/models``): BERT, LeNet-5 and
+ResNet so far."""

@@ -1,16 +1,58 @@
-"""DLlib ``nn`` of the port (``bigdl_tpu/nn``): the module contract, the
-layers BERT needs, the three initialisers they use, and ``nn.quantized``
-(import it as ``bigdl_tpu_torch.nn.quantized``)."""
+"""DLlib ``nn`` of the port (``bigdl_tpu/nn``): the module contract and
+``Criterion``, the initialisers, the containers, the linear, conv,
+pooling, normalization, activation, dropout, shape, embedding and
+attention layers, the criterions, and ``nn.quantized`` (import it as
+``bigdl_tpu_torch.nn.quantized``). ``CosineDistance``, ``DotProduct``,
+``MM`` and ``MV`` are the containers' versions (the JAX package exports
+``nn/layers/misc.py``'s, still to port)."""
 
-from bigdl_tpu_torch.nn.initialization import (InitializationMethod,
-                                               RandomNormal, Xavier, Zeros)
-from bigdl_tpu_torch.nn.layers import (GELU, Dropout, Embedding, LayerNorm,
-                                       Linear, LookupTable,
-                                       MultiHeadAttention, Tanh,
-                                       TransformerEncoderLayer)
-from bigdl_tpu_torch.nn.module import Module, TensorModule, set_seed
+from bigdl_tpu_torch.nn.module import (Criterion, Module, TensorModule,
+                                       set_seed)
+from bigdl_tpu_torch.nn.initialization import (
+    ConstInitMethod, InitializationMethod, MsraFiller, Ones, RandomNormal,
+    RandomUniform, Xavier, Zeros)
+from bigdl_tpu_torch.nn.containers import (
+    Bottle, CAddTable, CAveTable, CDivTable, CMaxTable, CMinTable, CMulTable,
+    CSubTable, Checkpoint, Concat, ConcatTable, Container, CosineDistance,
+    DotProduct, Echo, FlattenTable, JoinTable, MM, MV, MapTable,
+    ParallelTable, SelectTable, Sequential, SplitTable)
+from bigdl_tpu_torch.nn.layers import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.layers import __all__ as _layers
+from bigdl_tpu_torch.nn.criterion import (
+    AbsCriterion, BCECriterion, BCEWithLogitsCriterion,
+    CategoricalCrossEntropy, ClassNLLCriterion, ClassSimplexCriterion,
+    CosineDistanceCriterion, CosineEmbeddingCriterion,
+    CosineProximityCriterion, CrossEntropyCriterion,
+    DiceCoefficientCriterion, DistKLDivCriterion, GaussianCriterion,
+    HingeEmbeddingCriterion, KLDCriterion,
+    KullbackLeiblerDivergenceCriterion, L1Cost, L1HingeEmbeddingCriterion,
+    MAECriterion, MarginCriterion, MarginRankingCriterion,
+    MeanAbsolutePercentageCriterion, MeanSquaredLogarithmicCriterion,
+    MSECriterion, MultiCriterion, MultiLabelMarginCriterion,
+    MultiLabelSoftMarginCriterion, MultiMarginCriterion, ParallelCriterion,
+    PoissonCriterion, SmoothL1Criterion, SoftMarginCriterion,
+    SoftmaxWithCriterion, TimeDistributedCriterion,
+    TimeDistributedMaskCriterion)
 
-__all__ = ["Dropout", "Embedding", "GELU", "InitializationMethod",
-           "LayerNorm", "Linear", "LookupTable", "Module",
-           "MultiHeadAttention", "RandomNormal", "Tanh", "TensorModule",
-           "TransformerEncoderLayer", "Xavier", "Zeros", "set_seed"]
+__all__ = list(_layers) + [
+    "AbsCriterion", "BCECriterion", "BCEWithLogitsCriterion", "Bottle",
+    "CAddTable", "CAveTable", "CDivTable", "CMaxTable", "CMinTable",
+    "CMulTable", "CSubTable", "CategoricalCrossEntropy", "Checkpoint",
+    "ClassNLLCriterion", "ClassSimplexCriterion", "Concat", "ConcatTable",
+    "ConstInitMethod", "Container", "CosineDistance",
+    "CosineDistanceCriterion", "CosineEmbeddingCriterion",
+    "CosineProximityCriterion", "Criterion", "CrossEntropyCriterion",
+    "DiceCoefficientCriterion", "DistKLDivCriterion", "DotProduct", "Echo",
+    "FlattenTable", "GaussianCriterion", "HingeEmbeddingCriterion",
+    "InitializationMethod", "JoinTable", "KLDCriterion",
+    "KullbackLeiblerDivergenceCriterion", "L1Cost",
+    "L1HingeEmbeddingCriterion", "MAECriterion", "MM", "MSECriterion", "MV",
+    "MapTable", "MarginCriterion", "MarginRankingCriterion",
+    "MeanAbsolutePercentageCriterion", "MeanSquaredLogarithmicCriterion",
+    "Module", "MsraFiller", "MultiCriterion", "MultiLabelMarginCriterion",
+    "MultiLabelSoftMarginCriterion", "MultiMarginCriterion", "Ones",
+    "ParallelCriterion", "ParallelTable", "PoissonCriterion", "RandomNormal",
+    "RandomUniform", "SelectTable", "Sequential", "SmoothL1Criterion",
+    "SoftMarginCriterion", "SoftmaxWithCriterion", "SplitTable",
+    "TensorModule", "TimeDistributedCriterion",
+    "TimeDistributedMaskCriterion", "Xavier", "Zeros", "set_seed"]

@@ -29,7 +29,7 @@ from bigdl_tpu_torch.reliability.faults import (
     set_plan)
 from bigdl_tpu_torch.reliability.policies import (
     DEADLINE_HEADER, CircuitBreaker, CircuitOpenError, Deadline,
-    DeadlineExceeded, OverloadError, RetryPolicy,
+    DeadlineExceeded, OverloadError, RetryPolicy, TrainingPreempted,
     health_checks, health_report, register_health, retry_after_seconds,
     unregister_health)
 
@@ -68,6 +68,7 @@ __all__ = [
     "DEADLINE_HEADER", "SITES",
     "CircuitBreaker", "CircuitOpenError", "Deadline", "DeadlineExceeded",
     "FaultPlan", "InjectedFault", "OverloadError", "RetryPolicy",
+    "TrainingPreempted",
     "active_plan", "armed_sites", "count_shed", "disable", "enable",
     "enabled", "health_checks", "health_report", "inject",
     "register_health", "retry_after_seconds", "set_plan",

@@ -19,8 +19,10 @@ failure can be silently swallowed.
 the same rules from the same seed in both packages. The port wires the
 serving ones: ``llm.submit``, ``llm.step``, ``worker.stall``,
 ``llm.chunk``, ``llm.spec``, ``llm.preempt``, ``kvcache.evict`` and
-``kvtier.spill`` / ``kvtier.fetch``; the training, cluster-serving,
-router, elastic and fleet sites arrive with their modules.
+``kvtier.spill`` / ``kvtier.fetch``, the router's and the fleet's,
+and the training ones: ``checkpoint.*``, ``optimizer.step`` and
+``optimizer.checkpoint``; the cluster-serving and elastic sites arrive
+with their modules.
 """
 
 from __future__ import annotations

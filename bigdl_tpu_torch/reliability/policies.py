@@ -33,6 +33,11 @@ class CircuitOpenError(RuntimeError):
     """The breaker is open: the call was rejected without being tried."""
 
 
+class TrainingPreempted(RuntimeError):
+    """SIGTERM/SIGINT arrived mid-training: state was checkpointed and
+    the training loop exited. A fresh ``optimize()`` auto-resumes."""
+
+
 class OverloadError(RuntimeError):
     """Admission control rejected new work (bounded queue full or the
     component is draining). HTTP surfaces map this to 503 + Retry-After."""

@@ -348,6 +348,24 @@ Phase 14 every bigdl-llm low-bit format, the native quantizer and the
          to the engine's answers alone) in smoke mode at 7B, each
          passing its own contract. Report key ``tools``.
 
+Phase 15 DLlib training, last, after phase 10 (report key ``dllib``):
+         (a) LeNet-5 on ``load_mnist()``'s synthetic digits through the
+         port's ``LocalOptimizer`` (Adam 0.003, batch 128, 6 epochs, Top1
+         validation and a checkpoint every epoch): top-1 above 0.9, and a
+         run stopped after epoch 3 and auto-resumed by a fresh model and
+         optimizer within 1e-3 of each tensor's largest weight of the
+         uninterrupted run (cuDNN and max-pool backward are not bitwise
+         deterministic); (b) ResNet-50 NHWC at 224 x 224, batch 256,
+         bf16 inputs, SGD 0.1 / 0.9 / 1e-4: 3 warm-up and 20 timed steps
+         (CUDA events at dispatch: ms a step, images/s), peak memory, a
+         3-step profiler window (device busy and idle share, launches a
+         step), the port's launch counters 0 (no custom kernel on this
+         path); (c) ResNet-50 f32 at batch 2, one step on the card and on
+         the CPU from the same weights (TF32 off): the loss, the BN
+         statistics, each parameter within its update and the update's
+         L2 deviation beside the CPU's own across thread counts; NHWC
+         and NCHW give one loss.
+
 Every phase's line has the SM clock and power draw (``nvidia-smi
 --query-gpu=clocks.sm,power.draw``) on the line before it. Then a
 ``{"kernels": [...]}`` line, and as the last line
@@ -5651,6 +5669,322 @@ def tools_phase(torch, model):
     return out
 
 
+
+# -- phase 15: DLlib training — LeNet-5 and ResNet-50 ----------------------------
+
+def _device_window(torch, prof, steps):
+    """A profiler window of ``steps`` train steps: the device's busy time
+    (the union of its kernel and copy intervals, so a side-stream copy
+    under a kernel counts once), the span from the first device event to
+    the last, kernels and copies a step, the top kernels."""
+    cuda_t = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.events() if e.device_type == cuda_t]
+    check(evs, "phase 15 profile: no device events (CUPTI gave nothing)")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    window = spans[-1][1] - spans[0][0]
+    copies = [e for e in evs if e.name.startswith(("Memcpy", "Memset"))]
+    by_name = {}
+    for e in evs:
+        if e in copies:
+            continue
+        n = e.name if len(e.name) < 60 else e.name[:57] + "..."
+        t, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / window,
+            "device_idle_share": 1 - busy / window,
+            "kernel_launches_per_step": (len(evs) - len(copies)) / steps,
+            "copies_per_step": len(copies) / steps,
+            "top_kernels_ms_per_step": {n: [t / steps, c / steps]
+                                        for n, (t, c) in top}}
+
+
+def _lenet_run(dev, data, val, tmp, name, epochs, model=None):
+    """The JAX package's LeNet-5 recipe through ``LocalOptimizer``, its
+    checkpoints under ``tmp/name``: (optimizer, top-1 by validation)."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.models import lenet
+    if model is None:
+        nn.set_seed(0)
+        model = lenet.build_model(10, device=dev)
+    opt = optim.LocalOptimizer(model, data, nn.ClassNLLCriterion(),
+                               batch_size=128,
+                               end_trigger=optim.Trigger.max_epoch(epochs),
+                               device=dev)
+    opt.set_optim_method(optim.Adam(learning_rate=0.003))
+    opt.set_validation(optim.Trigger.every_epoch(), val,
+                       [optim.Top1Accuracy()], batch_size=128)
+    opt.set_checkpoint(os.path.join(tmp, name), optim.Trigger.every_epoch())
+    summary = optim.ValidationSummary(os.path.join(tmp, "logs"), name)
+    opt.set_val_summary(summary)
+    opt.optimize()
+    scores = [v for _, v in summary.read_scalar("Top1Accuracy")]
+    summary.close()
+    return opt, scores
+
+
+def lenet_phase(torch, dev, tmp):
+    """(a) LeNet-5 on ``load_mnist()``'s synthetic digits through the
+    port's ``LocalOptimizer`` (the JAX package's recipe: Adam 0.003,
+    batch 128, 6 epochs, Top1 validation and a checkpoint every epoch);
+    top-1 on the test split above 0.9; then a run stopped after epoch 3,
+    a fresh model and optimizer auto-resuming from its checkpoint
+    directory (the dataset object carries on, so the batches are the
+    uninterrupted run's), ending within 1e-3 of each weight tensor's
+    largest magnitude of the uninterrupted run's weights: cuDNN's
+    backward and the max-pool backward sum with atomics, so the two runs
+    differ in the last bits, not bit for bit."""
+    from bigdl_tpu_torch import nn, optim, reliability
+    from bigdl_tpu_torch.feature.dataset import LocalDataSet
+    from bigdl_tpu_torch.feature.mnist import load_mnist, normalize
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.utils.tree import tree_leaves
+    check(reliability.enabled(), "phase 15 (a): the auto-resume needs "
+          "bigdl.reliability.enabled")
+    x, y = load_mnist(synthetic_size=1024)
+    x = normalize(x)
+    xv, yv = load_mnist(synthetic_size=256, train=False)
+    val = (normalize(xv), yv)
+    t = time.perf_counter()
+    opt, scores = _lenet_run(dev, LocalDataSet(x, y, seed=0), val, tmp,
+                             "full", 6)
+    full = opt.model
+    full_s = time.perf_counter() - t
+    top1 = optim.Evaluator(full, device=dev).evaluate(
+        val, [optim.Top1Accuracy()], batch_size=128)[0].result
+    check(top1 > 0.9, f"phase 15 (a): LeNet-5 top-1 {top1} <= 0.9")
+    check(len(scores) == 6, f"phase 15 (a): validations {scores}")
+    ds = LocalDataSet(x, y, seed=0)
+    _lenet_run(dev, ds, val, tmp, "cut", 3)
+    nn.set_seed(1)
+    fresh = lenet.build_model(10, device=dev)
+    opt, rscores = _lenet_run(dev, ds, val, tmp, "cut", 6, model=fresh)
+    resumed = opt.model
+    # one log: the cut run validated epochs 1-3, the resumed run 4-6
+    check(resumed is fresh and opt.state["epoch"] == 7
+          and len(rscores) == 6,
+          f"phase 15 (a): the resumed run: {opt.state}, {rscores}")
+    diffs = []
+    for a, b in zip(tree_leaves(resumed.parameters_dict()),
+                    tree_leaves(full.parameters_dict())):
+        a, b = a.detach(), b.detach()
+        d = float((a - b).abs().max())
+        diffs.append(d)
+        check(d <= 1e-3 * max(1.0, float(b.abs().max())),
+              f"phase 15 (a): resumed weights differ by {d}")
+    return {"what": "LeNet-5, synthetic MNIST 1024 / 256, Adam 0.003, "
+                    "batch 128, 6 epochs",
+            "top1": top1, "val_top1_by_epoch": scores,
+            "final_loss": opt.state["loss"], "train_s": full_s,
+            "steps": 6 * (1024 // 128),
+            "resume_max_abs_diff_by_tensor": diffs,
+            "resume_tolerance": "1e-3 x max(1, max|w|) per tensor"}
+
+
+def _resnet_batches(n, batch):
+    """``n`` batches of bf16-bound images (NHWC, U[0, 1), made as f32 on
+    the host: numpy has no bf16) and 1-based labels, from seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    x = rng.random((n * batch, 224, 224, 3), dtype=np.float32)
+    y = (rng.integers(0, 1000, n * batch) + 1).astype(np.int32)
+    return x, y
+
+
+def resnet_phase(torch, dev):
+    """(b) ResNet-50 at ImageNet width (``resnet_imagenet(50, 1000,
+    format="NHWC")``, 224 x 224, batch 256, bf16 inputs cast on the card
+    by ``set_input_dtype``, f32 weights and update, 1-based labels) under
+    SGD 0.1 with momentum 0.9 and weight decay 1e-4 through the port's
+    ``LocalOptimizer``: 3 warm-up steps, then 20 timed by CUDA events
+    recorded as each step is dispatched (ms a step: their mean, and the
+    median beside it; images/s from the mean), peak
+    memory, and a ``torch.profiler`` window of 3 more steps (device busy
+    and idle share, launches a step). No kernel of the port's runs on
+    this path (its conv, pool and BN are ATen / cuDNN ops): the port's
+    launch counters stay 0."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.models import resnet
+    from torch.profiler import ProfilerActivity, profile as trace
+    batch, warm, timed, prof_steps = 256, 3, 20, 3
+    t = time.perf_counter()
+    x, y = _resnet_batches(warm + timed + prof_steps + 1, batch)
+    data_s = time.perf_counter() - t
+    nn.set_seed(0)
+    model = resnet.resnet_imagenet(50, 1000, format="NHWC", device=dev)
+    opt = optim.LocalOptimizer(model, (x, y), nn.ClassNLLCriterion(),
+                               batch, optim.Trigger.max_iteration(
+                                   warm + timed + prof_steps), device=dev)
+    opt.set_optim_method(optim.SGD(0.1, momentum=0.9, weight_decay=1e-4))
+    opt.set_input_dtype(torch.bfloat16)
+    marks, window = [], {}
+    step = opt._train_step
+
+    def timed_step(*a):
+        i = len(marks)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()            # before the profiler's start-up, which
+        marks.append(ev)       # holds the host for seconds
+        if i == warm + timed:
+            torch.cuda.synchronize()
+            window["prof"] = trace(activities=[ProfilerActivity.CUDA])
+            window["prof"].start()
+        out = step(*a)
+        if i == warm + timed + prof_steps - 1:
+            torch.cuda.synchronize()
+            window["prof"].stop()
+        return out
+
+    opt._train_step = timed_step
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(not counts, f"phase 15 (b): port kernels launched: {counts}")
+    ms = [marks[i].elapsed_time(marks[i + 1])
+          for i in range(warm, warm + timed)]
+    step_ms = sum(ms) / len(ms)
+    loss = opt.state["loss"]
+    check(math.isfinite(loss), f"phase 15 (b): loss {loss}")
+    prof = _device_window(torch, window["prof"], prof_steps)
+    return {"what": "ResNet-50 NHWC 224x224 batch 256, bf16 inputs, SGD "
+                    "0.1 m 0.9 wd 1e-4, LocalOptimizer",
+            "step_ms": step_ms, "step_ms_each": ms,
+            "step_ms_median": statistics.median(ms),
+            "images_per_s": batch / step_ms * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "final_loss": loss, "optimize_wall_s": wall,
+            "data_gen_s": data_s,
+            "host_step_s_mean": opt.metrics.mean("compute"),
+            "host_data_wait_s_mean": opt.metrics.mean("data"),
+            "port_kernel_launches": counts, "profile": prof}
+
+
+def _resnet_step(torch, init, x, y, device, fmt="NHWC"):
+    """One ``LocalOptimizer`` SGD step of ResNet-50 from ``init`` on
+    ``device``: (the model after it, its loss, seconds)."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.models import resnet
+    m = resnet.resnet_imagenet(50, 1000, format=fmt, device="cpu")
+    m.load_state_dict(init)
+    opt = optim.LocalOptimizer(m, (x, y), nn.ClassNLLCriterion(), 2,
+                               optim.Trigger.max_iteration(1), device=device)
+    opt.set_optim_method(optim.SGD(0.1, momentum=0.9, weight_decay=1e-4))
+    t = time.perf_counter()
+    out = opt.optimize()
+    return out, opt.state["loss"], time.perf_counter() - t
+
+
+def resnet_card_vs_cpu(torch, dev):
+    """(c) The same full-width ResNet-50 (NHWC, f32, batch 2 at 224,
+    TF32 off) one ``LocalOptimizer`` SGD step on the card and on the CPU
+    from the same weights. The loss within 1e-5 (relative) and every BN
+    running statistic within 1e-4 + 1e-4 x |value|: both come from the
+    forward. The step's gradient is ill-conditioned in f32 at batch 2 (a
+    ReLU input that rounds across 0 moves whole BN channels): the CPU
+    against itself at 1 and at all threads already moves single update
+    tensors by 10-25% of their largest entry. So every parameter tensor
+    is held to its own update (|w_card - w_cpu| <= max |w_cpu - w_0|),
+    the whole update's L2 deviation to max(0.1, 3 x the CPU's own across
+    thread counts), and both deviations are reported. The NCHW model on
+    the same weights gives the NHWC loss within 1e-5 on the card."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.utils.tree import tree_leaves
+    rng = np.random.default_rng(1)
+    x = rng.random((2, 224, 224, 3), dtype=np.float32)
+    y = np.array([17.0, 905.0], np.float32)
+    nn.set_seed(0)
+    init = {k: v.detach().clone() for k, v in resnet.resnet_imagenet(
+        50, 1000, format="NHWC", device="cpu").state_dict().items()}
+    cpu_m, cpu_l, cpu_s = _resnet_step(torch, init, x, y, "cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one_m, one_l, one_s = _resnet_step(torch, init, x, y, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    card_m, card_l, card_s = _resnet_step(torch, init, x, y, dev)
+    check(abs(card_l - cpu_l) <= 1e-5 * abs(cpu_l),
+          f"phase 15 (c): loss {card_l} vs {cpu_l}")
+    stats = 0.0
+    for a, b in zip(tree_leaves(card_m.states_dict()),
+                    tree_leaves(cpu_m.states_dict())):
+        a = a.cpu()
+        check(bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all()),
+              f"phase 15 (c): BN statistics differ by "
+              f"{float((a - b).abs().max())}")
+        stats = max(stats, float((a - b).abs().max()))
+    w0 = [init[k] for k, _ in cpu_m.named_parameters()]
+    per, sq = {"card": [], "cpu_1_thread": []}, {"card": 0.0,
+                                                  "cpu_1_thread": 0.0}
+    upd_sq = 0.0
+    for (name, w), w_0, c, o in zip(cpu_m.named_parameters(), w0,
+                                    card_m.parameters(), one_m.parameters()):
+        w, c, o = w.detach(), c.detach().cpu(), o.detach()
+        upd = float((w - w_0).abs().max())
+        upd_sq += float(((w - w_0) ** 2).sum())
+        for key, other in (("card", c), ("cpu_1_thread", o)):
+            d = float((other - w).abs().max())
+            per[key].append(d / upd if upd else 0.0)
+            sq[key] += float(((other - w) ** 2).sum())
+            if key == "card":
+                check(d <= upd + 1e-7, f"phase 15 (c): {name} moved "
+                      f"{d} from the CPU's, its update is {upd}")
+    l2 = {k: math.sqrt(v / upd_sq) for k, v in sq.items()}
+    check(l2["card"] <= max(0.1, 3 * l2["cpu_1_thread"]),
+          f"phase 15 (c): the card's update deviates by {l2}")
+    nchw = resnet.resnet_imagenet(50, 1000, device="cpu")
+    nchw.load_state_dict(init)
+    nhwc = resnet.resnet_imagenet(50, 1000, format="NHWC", device="cpu")
+    nhwc.load_state_dict(init)
+    crit = nn.ClassNLLCriterion()
+    xt = torch.from_numpy(x).to(dev)
+    yt = torch.from_numpy(y).to(dev)
+    with torch.no_grad():
+        l_nhwc = float(crit.apply_loss(nhwc.to(dev).train()(xt), yt))
+        l_nchw = float(crit.apply_loss(
+            nchw.to(dev).train()(xt.permute(0, 3, 1, 2).contiguous()), yt))
+    check(abs(l_nhwc - l_nchw) <= 1e-5 * abs(l_nhwc),
+          f"phase 15 (c): NHWC loss {l_nhwc} vs NCHW {l_nchw}")
+    return {"loss_card_cpu_cpu1": [card_l, cpu_l, one_l],
+            "bn_stats_max_abs_diff": stats,
+            "update_dev_max_over_tensors": {k: max(v)
+                                            for k, v in per.items()},
+            "update_dev_l2": l2,
+            "loss_nhwc_nchw": [l_nhwc, l_nchw],
+            "step_s_card_cpu_cpu1": [card_s, cpu_s, one_s],
+            "tolerance": "loss 1e-5 rel; BN stats 1e-4 + 1e-4 |x|; each "
+                         "parameter within its own update's max; the "
+                         "update's L2 deviation <= max(0.1, 3 x CPU 1 vs "
+                         "all threads); NHWC vs NCHW 1e-5 rel; TF32 off"}
+
+
+def dllib_phase(torch, dev):
+    """Phase 15: (a) LeNet-5, (b) ResNet-50 timed and profiled, (c)
+    ResNet-50 card against CPU."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lenet = lenet_phase(torch, dev, tmp)
+    torch.cuda.empty_cache()
+    train = resnet_phase(torch, dev)
+    torch.cuda.empty_cache()
+    parity = resnet_card_vs_cpu(torch, dev)
+    return {"phase": "dllib", "lenet": lenet, "resnet50": train,
+            "card_vs_cpu": parity, "wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5769,6 +6103,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam = family_phase(torch, dev)
     emit(fam)
+    torch.cuda.empty_cache()
+    dllib = dllib_phase(torch, dev)
+    dllib["nvidia_smi"] = smi
+    emit(dllib)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
@@ -6081,7 +6419,7 @@ def main() -> int:
               "serve_slotted": slot, "profile_slotted": slot_prof,
               "mixtral": mix, "families": fam, "serve_http": http,
               "router": router, "fleet": fleet, "tools": tools,
-              "formats": formats,
+              "formats": formats, "dllib": dllib,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

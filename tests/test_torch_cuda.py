@@ -16,7 +16,10 @@ of a mixture-of-experts model at both capacity modes, the slot-static
 engine's step, and both engines served; the host KV tier's
 transfers and the engine serving through it; last the engine's
 instruments (the same host calls and kernels a pass with observability
-on and off) and its watchdog through a warmed run.
+on and off) and its watchdog through a warmed run. The DLlib training
+tests hold ``resnet_cifar(8)``'s optimizer step on the card to the CPU
+step, and check that the training entry points refuse ``device=None``
+without a GPU (that one runs on any machine).
 The CPU parity of the plain versions against the JAX package lives in
 ``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``,
 and of ``generate`` in ``tests/test_torch_generate.py``.
@@ -1883,3 +1886,68 @@ def test_quantize_torch_on_card_bit_equal_numpy(cuda, qtype):
                 g = g.view(torch.int16 if g.element_size() == 2
                            else torch.uint8)
             assert np.array_equal(g.numpy().view(v.dtype), v), k
+
+
+# -- DLlib training ---------------------------------------------------------------
+
+def _cifar_sgd_step(model, x, y, device):
+    from bigdl_tpu_torch import nn, optim
+    opt = optim.LocalOptimizer(model, (x, y), nn.ClassNLLCriterion(), 4,
+                               optim.Trigger.max_iteration(2),
+                               device=device)
+    opt.set_optim_method(optim.SGD(0.1, momentum=0.9, weight_decay=1e-4))
+    return opt.optimize(), opt.state["loss"]
+
+
+def test_resnet_cifar8_step_card_matches_cpu(cuda, monkeypatch):
+    """Two SGD iterations of ``resnet_cifar(8)`` on the card and on the
+    CPU from the same weights, f32 with TF32 off: the loss, every
+    parameter and the BN running statistics within 1e-4."""
+    import numpy as np
+
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.utils.tree import tree_leaves
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rs = np.random.RandomState(0)
+    x = rs.rand(8, 3, 32, 32).astype(np.float32)
+    y = (rs.randint(0, 10, 8) + 1).astype(np.float32)
+    host = resnet.resnet_cifar(8, 10, device="cpu")
+    card = resnet.resnet_cifar(8, 10, device="cpu")
+    card.load_state_dict(host.state_dict())
+    (h, hl), (c, cl) = (_cifar_sgd_step(host, x, y, "cpu"),
+                        _cifar_sgd_step(card, x, y, cuda))
+    assert abs(cl - hl) <= 1e-4 * max(1.0, abs(hl))
+    for tree in ("parameters_dict", "states_dict"):
+        for a, b in zip(tree_leaves(getattr(c, tree)()),
+                        tree_leaves(getattr(h, tree)())):
+            torch.testing.assert_close(a.detach().cpu(), b.detach(),
+                                       rtol=1e-4, atol=1e-4)
+
+
+def test_training_entry_points_need_a_gpu_unless_cpu(monkeypatch,
+                                                     tmp_path):
+    """Without a GPU, ``device=None`` raises on every training entry
+    point; ``device="cpu"`` runs. Runs on any machine."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.models import lenet, resnet
+    m = lenet.build_model(10, device="cpu")
+    m.save_module(str(tmp_path / "m"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = (np.zeros((4, 28, 28), np.float32), np.ones(4, np.float32))
+    for call in (lambda: optim.Optimizer(m, data, nn.ClassNLLCriterion()),
+                 lambda: optim.LocalOptimizer(m, data,
+                                              nn.ClassNLLCriterion()),
+                 lambda: optim.Evaluator(m), lambda: optim.Predictor(m),
+                 lambda: lenet.build_model(10),
+                 lambda: resnet.resnet_cifar(8),
+                 lambda: resnet.resnet_imagenet(18),
+                 lambda: nn.Module.load_module(str(tmp_path / "m"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    opt = optim.Optimizer(m, data, nn.ClassNLLCriterion(), batch_size=2,
+                          end_trigger=optim.Trigger.max_iteration(1),
+                          device="cpu")
+    assert opt.optimize() is m and opt.state["iteration_done"] == 1
