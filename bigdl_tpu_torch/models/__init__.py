@@ -1,2 +1,3 @@
-"""Model zoo of the port (``bigdl_tpu/models``): BERT, LeNet-5 and
-ResNet so far."""
+"""Model zoo of the port (``bigdl_tpu/models``): autoencoder, BERT,
+Inception-v1, LeNet-5, ResNet, the RNN language model and VGG. Each
+builder takes ``device=`` (``None``: the GPU)."""

@@ -1,10 +1,12 @@
 """DLlib ``nn`` of the port (``bigdl_tpu/nn``): the module contract and
-``Criterion``, the initialisers, the containers, the linear, conv,
-pooling, normalization, activation, dropout, shape, embedding and
-attention layers, the criterions, and ``nn.quantized`` (import it as
-``bigdl_tpu_torch.nn.quantized``). ``CosineDistance``, ``DotProduct``,
-``MM`` and ``MV`` are the containers' versions (the JAX package exports
-``nn/layers/misc.py``'s, still to port)."""
+``Criterion``, the initialisers, the containers, the layers (linear,
+conv, pooling, normalization, activation, dropout, shape, embedding,
+attention, misc, recurrent, volumetric, extra3), the criterions, and
+``nn.quantized`` (import it as ``bigdl_tpu_torch.nn.quantized``).
+``CosineDistance``, ``DotProduct``, ``MM`` and ``MV`` are
+``nn/layers/misc.py``'s, as in the JAX ``nn``; the DAG container is
+``bigdl_tpu_torch.nn.graph`` (``Graph``, ``Input``, ``Module.inputs``),
+which this module does not re-export, as the JAX ``nn`` does not."""
 
 from bigdl_tpu_torch.nn.module import (Criterion, Module, TensorModule,
                                        set_seed)
@@ -13,9 +15,9 @@ from bigdl_tpu_torch.nn.initialization import (
     RandomUniform, Xavier, Zeros)
 from bigdl_tpu_torch.nn.containers import (
     Bottle, CAddTable, CAveTable, CDivTable, CMaxTable, CMinTable, CMulTable,
-    CSubTable, Checkpoint, Concat, ConcatTable, Container, CosineDistance,
-    DotProduct, Echo, FlattenTable, JoinTable, MM, MV, MapTable,
-    ParallelTable, SelectTable, Sequential, SplitTable)
+    CSubTable, Checkpoint, Concat, ConcatTable, Container, Echo,
+    FlattenTable, JoinTable, MapTable, ParallelTable, SelectTable,
+    Sequential, SplitTable)
 from bigdl_tpu_torch.nn.layers import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.layers import __all__ as _layers
 from bigdl_tpu_torch.nn.criterion import (
@@ -39,20 +41,19 @@ __all__ = list(_layers) + [
     "CAddTable", "CAveTable", "CDivTable", "CMaxTable", "CMinTable",
     "CMulTable", "CSubTable", "CategoricalCrossEntropy", "Checkpoint",
     "ClassNLLCriterion", "ClassSimplexCriterion", "Concat", "ConcatTable",
-    "ConstInitMethod", "Container", "CosineDistance",
-    "CosineDistanceCriterion", "CosineEmbeddingCriterion",
-    "CosineProximityCriterion", "Criterion", "CrossEntropyCriterion",
-    "DiceCoefficientCriterion", "DistKLDivCriterion", "DotProduct", "Echo",
-    "FlattenTable", "GaussianCriterion", "HingeEmbeddingCriterion",
+    "ConstInitMethod", "Container", "CosineDistanceCriterion",
+    "CosineEmbeddingCriterion", "CosineProximityCriterion", "Criterion",
+    "CrossEntropyCriterion", "DiceCoefficientCriterion", "DistKLDivCriterion",
+    "Echo", "FlattenTable", "GaussianCriterion", "HingeEmbeddingCriterion",
     "InitializationMethod", "JoinTable", "KLDCriterion",
     "KullbackLeiblerDivergenceCriterion", "L1Cost",
-    "L1HingeEmbeddingCriterion", "MAECriterion", "MM", "MSECriterion", "MV",
-    "MapTable", "MarginCriterion", "MarginRankingCriterion",
+    "L1HingeEmbeddingCriterion", "MAECriterion", "MSECriterion", "MapTable",
+    "MarginCriterion", "MarginRankingCriterion",
     "MeanAbsolutePercentageCriterion", "MeanSquaredLogarithmicCriterion",
     "Module", "MsraFiller", "MultiCriterion", "MultiLabelMarginCriterion",
     "MultiLabelSoftMarginCriterion", "MultiMarginCriterion", "Ones",
     "ParallelCriterion", "ParallelTable", "PoissonCriterion", "RandomNormal",
     "RandomUniform", "SelectTable", "Sequential", "SmoothL1Criterion",
     "SoftMarginCriterion", "SoftmaxWithCriterion", "SplitTable",
-    "TensorModule", "TimeDistributedCriterion",
-    "TimeDistributedMaskCriterion", "Xavier", "Zeros", "set_seed"]
+    "TensorModule", "TimeDistributedCriterion", "TimeDistributedMaskCriterion",
+    "Xavier", "Zeros", "set_seed"]

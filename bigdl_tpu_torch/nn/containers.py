@@ -227,55 +227,6 @@ class CAveTable(Module):
         return sum(xs) / len(xs)
 
 
-class DotProduct(Module):
-    """Batched dot of two inputs (ref: nn/DotProduct.scala)."""
-
-    def forward(self, x):
-        a, b = list(x)
-        return torch.sum(a * b, dim=-1)
-
-
-class CosineDistance(Module):
-    """Batched cosine similarity of two inputs (ref: nn/CosineDistance.scala)."""
-
-    def forward(self, x):
-        a, b = list(x)
-        an = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + 1e-12)
-        bn = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + 1e-12)
-        return torch.sum(an * bn, dim=-1)
-
-
-class MM(Module):
-    """Matrix multiply of table of two (ref: nn/MM.scala)."""
-
-    def __init__(self, trans_a: bool = False, trans_b: bool = False,
-                 name: Optional[str] = None):
-        super().__init__(name)
-        self.trans_a, self.trans_b = trans_a, trans_b
-
-    def forward(self, x):
-        a, b = list(x)
-        if self.trans_a:
-            a = a.transpose(-1, -2)
-        if self.trans_b:
-            b = b.transpose(-1, -2)
-        return a @ b
-
-
-class MV(Module):
-    """Matrix–vector multiply of table (ref: nn/MV.scala)."""
-
-    def __init__(self, trans: bool = False, name: Optional[str] = None):
-        super().__init__(name)
-        self.trans = trans
-
-    def forward(self, x):
-        m, v = list(x)
-        if self.trans:
-            m = m.transpose(-1, -2)
-        return torch.einsum("...ij,...j->...i", m, v)
-
-
 # -- table plumbing ---------------------------------------------------------
 
 class SelectTable(Module):

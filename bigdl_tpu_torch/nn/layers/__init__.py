@@ -1,5 +1,6 @@
 """The port's layers (``bigdl_tpu/nn/layers``): linear, conv, pooling,
-normalization, activation, dropout, shape, embedding and attention."""
+normalization, activation, dropout, shape, embedding, attention, misc,
+recurrent, volumetric and extra3."""
 
 from bigdl_tpu_torch.nn.layers.activation import (
     Abs, AddConstant, Clamp, ELU, Exp, GELU, HardSigmoid, HardTanh,
@@ -23,28 +24,55 @@ from bigdl_tpu_torch.nn.layers.normalization import (
 from bigdl_tpu_torch.nn.layers.pooling import (
     GlobalAveragePooling2D, GlobalMaxPooling2D, SpatialAveragePooling,
     SpatialMaxPooling, TemporalMaxPooling, VolumetricMaxPooling)
+from bigdl_tpu_torch.nn.layers.extra3 import (
+    ActivityRegularization, Anchor, BifurcateSplitTable, BinaryThreshold,
+    Cropping1D, DenseToSparse, GaussianSampler, HardShrink, Input,
+    LogSigmoid, MaskedSelect, MultiRNNCell, NegativeEntropyPenalty,
+    PriorBox, ResizeBilinear, RoiPooling, SoftShrink,
+    SpatialConvolutionMap, SpatialDropout1D, SpatialDropout3D,
+    SpatialShareConvolution, TanhShrink)
+from bigdl_tpu_torch.nn.layers.misc import (
+    CosineDistance, DotProduct, Euclidean, Highway, Index,
+    LocallyConnected2D, Max, Maxout, Mean, Min, MM, MV, PairwiseDistance,
+    Scale, SReLU, Sum, TimeDistributed)
+from bigdl_tpu_torch.nn.layers.recurrent import (
+    BiRecurrent, Cell, GRU, LSTM, Recurrent, RnnCell)
+from bigdl_tpu_torch.nn.layers.volumetric import (
+    Cropping2D, Cropping3D, UpSampling3D, VolumetricAveragePooling,
+    VolumetricConvolution, VolumetricFullConvolution)
 from bigdl_tpu_torch.nn.layers.shape import (
     Contiguous, Flatten, InferReshape, Masking, Narrow, Padding, Permute,
     Replicate, Reshape, Select, SpatialZeroPadding, Squeeze, Transpose,
     Unsqueeze, UpSampling1D, UpSampling2D, View)
 
 __all__ = [
-    "Abs", "Add", "AddConstant", "BatchNormalization", "Bilinear", "CAdd",
-    "CMul", "Clamp", "Contiguous", "Cosine", "Dropout", "ELU", "Embedding",
-    "Exp", "Flatten", "GELU", "GaussianDropout", "GaussianNoise",
-    "GlobalAveragePooling2D", "GlobalMaxPooling2D", "GroupNorm",
-    "HardSigmoid", "HardTanh", "Identity", "InferReshape", "LayerNorm",
-    "LeakyReLU", "Linear", "LocallyConnected1D", "Log", "LogSoftMax",
-    "LookupTable", "Masking", "Mish", "Mul", "MulConstant",
-    "MultiHeadAttention", "Narrow", "Negative", "Normalize", "PReLU",
-    "Padding", "Permute", "Power", "RMSNorm", "RReLU", "ReLU", "ReLU6",
-    "Replicate", "Reshape", "SELU", "Select", "SiLU", "Sigmoid", "SoftMax",
-    "SoftMin", "SoftPlus", "SoftSign", "SpatialAveragePooling",
-    "SpatialBatchNormalization", "SpatialConvolution",
-    "SpatialCrossMapLRN", "SpatialDilatedConvolution", "SpatialDropout2D",
+    "Abs", "ActivityRegularization", "Add", "AddConstant", "Anchor",
+    "BatchNormalization", "BiRecurrent", "BifurcateSplitTable", "Bilinear",
+    "BinaryThreshold", "CAdd", "CMul", "Cell", "Clamp", "Contiguous", "Cosine",
+    "CosineDistance", "Cropping1D", "Cropping2D", "Cropping3D",
+    "DenseToSparse", "DotProduct", "Dropout", "ELU", "Embedding", "Euclidean",
+    "Exp", "Flatten", "GELU", "GRU", "GaussianDropout", "GaussianNoise",
+    "GaussianSampler", "GlobalAveragePooling2D", "GlobalMaxPooling2D",
+    "GroupNorm", "HardShrink", "HardSigmoid", "HardTanh", "Highway",
+    "Identity", "Index", "InferReshape", "Input", "LSTM", "LayerNorm",
+    "LeakyReLU", "Linear", "LocallyConnected1D", "LocallyConnected2D", "Log",
+    "LogSigmoid", "LogSoftMax", "LookupTable", "MM", "MV", "MaskedSelect",
+    "Masking", "Max", "Maxout", "Mean", "Min", "Mish", "Mul", "MulConstant",
+    "MultiHeadAttention", "MultiRNNCell", "Narrow", "Negative",
+    "NegativeEntropyPenalty", "Normalize", "PReLU", "Padding",
+    "PairwiseDistance", "Permute", "Power", "PriorBox", "RMSNorm", "RReLU",
+    "ReLU", "ReLU6", "Recurrent", "Replicate", "Reshape", "ResizeBilinear",
+    "RnnCell", "RoiPooling", "SELU", "SReLU", "Scale", "Select", "SiLU",
+    "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
+    "SpatialAveragePooling", "SpatialBatchNormalization", "SpatialConvolution",
+    "SpatialConvolutionMap", "SpatialCrossMapLRN", "SpatialDilatedConvolution",
+    "SpatialDropout1D", "SpatialDropout2D", "SpatialDropout3D",
     "SpatialFullConvolution", "SpatialMaxPooling",
-    "SpatialSeparableConvolution", "SpatialWithinChannelLRN",
-    "SpatialZeroPadding", "Sqrt", "Square", "Squeeze", "Swish", "Tanh",
-    "TemporalConvolution", "TemporalMaxPooling", "Threshold",
+    "SpatialSeparableConvolution", "SpatialShareConvolution",
+    "SpatialWithinChannelLRN", "SpatialZeroPadding", "Sqrt", "Square",
+    "Squeeze", "Sum", "Swish", "Tanh", "TanhShrink", "TemporalConvolution",
+    "TemporalMaxPooling", "Threshold", "TimeDistributed",
     "TransformerEncoderLayer", "Transpose", "Unsqueeze", "UpSampling1D",
-    "UpSampling2D", "View", "VolumetricMaxPooling"]
+    "UpSampling2D", "UpSampling3D", "View", "VolumetricAveragePooling",
+    "VolumetricConvolution", "VolumetricFullConvolution",
+    "VolumetricMaxPooling"]

@@ -47,9 +47,10 @@ def from_nchw(y, format: str):
 
 def conv_nd(x, w, b, stride: Sequence[int], pads, dilation: Sequence[int],
             groups: int = 1):
-    """``F.conv1d`` / ``F.conv2d`` on channels-first ``x`` with per-dim
-    ``(low, high)`` pads, padding explicitly when a split is uneven."""
-    fn = F.conv2d if x.dim() == 4 else F.conv1d
+    """``F.conv1d`` / ``F.conv2d`` / ``F.conv3d`` on channels-first ``x``
+    with per-dim ``(low, high)`` pads, padding explicitly when a split is
+    uneven."""
+    fn = {3: F.conv1d, 4: F.conv2d, 5: F.conv3d}[x.dim()]
     if all(lo == hi for lo, hi in pads):
         return fn(x, w, b, tuple(stride), tuple(lo for lo, _ in pads),
                   tuple(dilation), groups)

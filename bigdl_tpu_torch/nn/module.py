@@ -222,11 +222,17 @@ class Module(torch.nn.Module):
             y = self.forward(rebuild(ins))
         outs, _ = _structure(y)
         gos, _ = _structure(grad_output)
+        # an output that does not depend on what is differentiated (a
+        # threshold's mask, prior boxes) has a zero gradient, as in JAX
+        pairs = [(o, g) for o, g in zip(outs, gos)
+                 if isinstance(o, torch.Tensor) and o.requires_grad]
         wanted = [v for v in ins
                   if isinstance(v, torch.Tensor) and v.requires_grad]
         params = [p for p in self.parameters() if p.requires_grad]
-        grads = torch.autograd.grad(outs, wanted + params, gos,
-                                    allow_unused=True)
+        grads = torch.autograd.grad(
+            [o for o, _ in pairs], wanted + params,
+            [g for _, g in pairs], allow_unused=True) if pairs \
+            else [None] * (len(wanted) + len(params))
         for p, g in zip(params, grads[len(wanted):]):
             if g is not None:
                 p.grad = g if p.grad is None else p.grad + g
@@ -284,6 +290,12 @@ class Module(torch.nn.Module):
         for m in self._modules.values():
             m.clear_state()
         return self
+
+    def inputs(self, *nodes):
+        """BigDL's ``layer.inputs(node, ...)``: this module as a node of a
+        :class:`~bigdl_tpu_torch.nn.graph.Graph` on the given parents."""
+        from bigdl_tpu_torch.nn.graph import node_inputs
+        return node_inputs(self, *nodes)
 
     def n_parameters(self) -> int:
         return sum(int(np.prod(p.shape))

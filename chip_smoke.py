@@ -366,6 +366,23 @@ Phase 15 DLlib training, last, after phase 10 (report key ``dllib``):
          L2 deviation beside the CPU's own across thread counts; NHWC
          and NCHW give one loss.
 
+Phase 16 the DLlib graph and Keras API, after phase 15 (report key
+         ``dllib_keras``): (a) Inception-v1 (``inception_v1(1000)``) at
+         224 x 224, batch 256, bf16 inputs, the reference's SGD recipe:
+         3 warm-up and 20 timed steps, a 3-step profiler window, peak
+         memory; 4 steps fed by the port's own pipeline (synthetic
+         256 x 256 images, ``RandomCrop`` and ``HFlip``, the
+         prefetcher), the host data wait beside the compute; one f32
+         step at batch 2 on the card against the CPU; (b) the Keras
+         API: ``examples/lenet_mnist.py``'s model through
+         ``keras.Sequential`` (top-1 >= 0.99), then a functional
+         ``keras.Model`` of the GoogLeNet trunk (no LRN) at 224 x 224,
+         batch 64, its loss falling; (c) the PTB "medium" LSTM language
+         model (2 x 650, 35 steps, batch 20, vocabulary 10,000): 3
+         warm-up and 10 timed steps, a 2-step profiler window, one f32
+         step at batch 2 on the card against the CPU. Each sub-phase
+         checks that the port's launch counters stay 0.
+
 Every phase's line has the SM clock and power draw (``nvidia-smi
 --query-gpu=clocks.sm,power.draw``) on the line before it. Then a
 ``{"kernels": [...]}`` line, and as the last line
@@ -2224,7 +2241,7 @@ def _tier_run(torch, model, passes, tier, what):
     of ``TIER_NUM_PAGES``) after a warm-up request that captures the
     decode graph. Checks: no engine error, in-vocab tokens, the ledger
     whole at the end (nothing pinned, the whole budget back, no arena
-    pin), exact launch counts (every prefill at its uncached suffix's
+    pin once the migrator has drained), exact launch counts (every prefill at its uncached suffix's
     bucket); with the tier, fetches and no failed one. Returns the row,
     pass 2's requests and first-token logits, and the server (stopped by
     the caller)."""
@@ -2246,6 +2263,11 @@ def _tier_run(torch, model, passes, tier, what):
     counts = kernels.launch_counts()
     steps = srv.steps - steps0
     peak = torch.cuda.max_memory_allocated()
+    if tier:
+        # the last request's spills run on the migrator's thread after it
+        # finishes: the ledger is read once they have landed
+        check(srv._tier.migrator.drain(),
+              f"{what}: a migration did not finish in 30 s")
     st = srv._kv.debug_stats()
     check(not srv.errors, f"{what}: engine errors: {srv.errors}")
     check(st["pages_pinned"] == 0 and st["budget_avail"] ==
@@ -5985,7 +6007,492 @@ def dllib_phase(torch, dev):
             "card_vs_cpu": parity, "wall_s": time.perf_counter() - t0}
 
 
+# -- phase 16: the DLlib graph and Keras API: Inception-v1, a Keras GoogLeNet
+# and a PTB LSTM ------------------------------------------------------------------
+
+# the reference's Inception-v1 recipe (models/inception: SGD, learning rate
+# 0.0898, momentum 0.9, weight decay 1e-4); Zaremba et al. 2014 (arXiv
+# 1409.2329) section 4.1, "medium": 2 x 650 LSTM, 35 steps, batch 20,
+# vocabulary 10,000, SGD 1.0 with the gradient's norm clipped at 5
+INCEPTION_SGD = dict(learning_rate=0.0898, momentum=0.9, weight_decay=1e-4)
+PTB_MEDIUM = dict(vocab=10000, hidden=650, layers=2, steps=35, batch=20)
+# the card-vs-CPU limits of (a) and (c) (see ``_card_vs_cpu``), set from
+# an H100 run's readings (Inception-v1 224 x 224 / the PTB LSTM, batch 2):
+# the centred eval log-probabilities' deviation over their spread (read
+# 6.6e-5 / 1.5e-5; two f32 ulps at -6.9 are 6.6e-5 of Inception's spread
+# 0.0144), and each parameter tensor's deviation over its own update's
+# largest entry (read 4.5e-3 / 1.5e-3; the CPU's own at 1 against 8
+# threads 2.6e-3 / 0)
+LP_TOL = 5e-4
+PER_TENSOR_TOL = 0.05
+
+
+def _no_port_launches(kernels, what):
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(not counts, f"{what}: port kernels launched: {counts}")
+    return counts
+
+
+def _timed_optimize(torch, opt, warm, timed, prof_steps):
+    """``opt.optimize()`` with its train step wrapped as phase 15 (b)
+    does: a CUDA event recorded as each step is dispatched (``warm``
+    steps, then ``timed``), then a ``torch.profiler`` window over
+    ``prof_steps`` more. Returns (ms of each timed step, the window's
+    device summary, the optimize wall s)."""
+    from torch.profiler import ProfilerActivity, profile as trace
+    marks, window = [], {}
+    step = opt._train_step
+
+    def timed_step(*a):
+        i = len(marks)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        if i == warm + timed:
+            torch.cuda.synchronize()
+            window["prof"] = trace(activities=[ProfilerActivity.CUDA])
+            window["prof"].start()
+        out = step(*a)
+        if i == warm + timed + prof_steps - 1:
+            torch.cuda.synchronize()
+            window["prof"].stop()
+        return out
+
+    opt._train_step = timed_step
+    t = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t
+    ms = [marks[i].elapsed_time(marks[i + 1])
+          for i in range(warm, warm + timed)]
+    return ms, _device_window(torch, window["prof"], prof_steps), wall
+
+
+def _update_deviation(init, ref, others, names):
+    """Each model of ``others`` beside ``ref`` after one step from
+    ``init``: the largest deviation of a parameter tensor over its own
+    update's largest entry, and the whole update's L2 deviation."""
+    per = {k: [] for k in others}
+    sq = {k: 0.0 for k in others}
+    upd_sq = 0.0
+    for name in names:
+        w = ref[name].detach().cpu()
+        w0 = init[name]
+        upd = float((w - w0).abs().max())
+        upd_sq += float(((w - w0) ** 2).sum())
+        for k, m in others.items():
+            o = m[name].detach().cpu()
+            per[k].append(float((o - w).abs().max()) / upd if upd else 0.0)
+            sq[k] += float(((o - w) ** 2).sum())
+    return ({k: max(v) for k, v in per.items()},
+            {k: math.sqrt(v / upd_sq) for k, v in sq.items()})
+
+
+def _one_step(torch, build, init, x, y, crit, method, device, clip=None):
+    """One ``LocalOptimizer`` step of ``build()`` from ``init`` on
+    ``device`` (dropout drawn from one seeded CPU generator, so the card
+    and the CPU drop the same units): (its parameters, loss, s)."""
+    from bigdl_tpu_torch import optim
+    m = build()
+    m.load_state_dict(init)
+    for mod in m.modules():
+        if hasattr(mod, "_draw_generator"):
+            mod.generator = torch.Generator().manual_seed(0)
+    opt = optim.LocalOptimizer(m, (x, y), crit, len(x),
+                               optim.Trigger.max_iteration(1), device=device)
+    opt.set_optim_method(method())
+    if clip is not None:
+        opt.set_gradient_clipping_by_l2_norm(clip)
+    t = time.perf_counter()
+    out = opt.optimize()
+    return dict(out.named_parameters()), opt.state["loss"], \
+        time.perf_counter() - t
+
+
+def _card_vs_cpu(torch, dev, build, x, y, crit, method, what, l2_floor,
+                 clip=None):
+    """One f32 step (TF32 off) on the card and on the CPU at all threads
+    and at one, from one set of weights: the loss within 1e-5 (relative);
+    the eval-mode log-probabilities of the weights before the step, each
+    row less its own mean (at init they lie near -log(classes), and what
+    the model says is their spread about that), within ``LP_TOL`` of that
+    spread's largest entry; each parameter tensor within ``PER_TENSOR_TOL``
+    of its own update's largest entry; and the update's L2 deviation
+    within max(``l2_floor``, 3 x the CPU's own between its thread
+    counts)."""
+    init = {k: v.detach().clone()
+            for k, v in build().state_dict().items()}
+    m_cpu, m_dev = build(), build()
+    m_cpu.load_state_dict(init)
+    m_dev.load_state_dict(init)
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        lp_cpu = m_cpu.eval()(xt)
+        lp_dev = m_dev.to(dev).eval()(xt.to(dev)).cpu()
+    c_cpu = lp_cpu - lp_cpu.mean(-1, keepdim=True)
+    c_dev = lp_dev - lp_dev.mean(-1, keepdim=True)
+    spread = float(c_cpu.abs().max())
+    lp_err = float((c_dev - c_cpu).abs().max()) / spread
+    check(lp_err <= LP_TOL, f"{what}: log-probabilities about their mean "
+                            f"differ by {lp_err} of their spread {spread}")
+    del m_dev
+    cpu, cpu_l, cpu_s = _one_step(torch, build, init, x, y, crit, method,
+                                  "cpu", clip)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one, one_l, one_s = _one_step(torch, build, init, x, y, crit, method,
+                                      "cpu", clip)
+    finally:
+        torch.set_num_threads(threads)
+    card, card_l, card_s = _one_step(torch, build, init, x, y, crit, method,
+                                     dev, clip)
+    check(abs(card_l - cpu_l) <= 1e-5 * abs(cpu_l),
+          f"{what}: loss {card_l} vs {cpu_l}")
+    names = [k for k in cpu]
+    per, l2 = _update_deviation(init, cpu, {"card": card,
+                                            "cpu_1_thread": one}, names)
+    check(per["card"] <= PER_TENSOR_TOL,
+          f"{what}: a parameter deviates by more than {PER_TENSOR_TOL} of "
+          f"its update: {per}")
+    check(l2["card"] <= max(l2_floor, 3 * l2["cpu_1_thread"]),
+          f"{what}: the update deviates by {l2}")
+    return {"loss_card_cpu_cpu1": [card_l, cpu_l, one_l],
+            "log_prob_dev_over_spread": lp_err,
+            "log_prob_spread": spread,
+            "log_prob_max_abs_err": float((lp_dev - lp_cpu).abs().max()),
+            "update_dev_max_over_tensors": per, "update_dev_l2": l2,
+            "step_s_card_cpu_cpu1": [card_s, cpu_s, one_s],
+            "cpu_threads": threads,
+            "tolerance": f"loss 1e-5 rel; eval log-probs less their row "
+                         f"mean within {LP_TOL} of their spread; each "
+                         f"parameter within {PER_TENSOR_TOL} of its own "
+                         f"update's max; the update's L2 deviation <= max("
+                         f"{l2_floor}, 3 x CPU 1 vs all threads); TF32 "
+                         f"off"}
+
+
+def inception_phase(torch, dev):
+    """(a) Inception-v1 at full width (``inception_v1(1000)``, 224 x 224,
+    batch 256, bf16 inputs by ``set_input_dtype``, f32 weights, 1-based
+    labels) under the reference's SGD recipe through ``LocalOptimizer``:
+    3 warm-up and 20 timed steps, a 3-step profiler window, peak memory;
+    then 4 steps fed by the port's own pipeline: the images of
+    ``synthetic_imagenet_dataset(image_size=256)`` drawn before the window
+    (their draw timed alone: it stands in for a decode, and is no part of
+    the pipeline), then ``RandomCrop(224, 224)`` → ``HFlip`` → the
+    prefetcher, whose host data wait a step is reported beside the
+    compute (host-bound; not checked); then one f32 step at batch 2 on
+    the card and on the CPU."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.feature.dataset import DataSet
+    from bigdl_tpu_torch.feature.imagenet import synthetic_imagenet_dataset
+    from bigdl_tpu_torch.feature.transformers import HFlip, RandomCrop
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.models import inception
+    batch, warm, timed, prof_steps, fed = 256, 3, 20, 3, 4
+    t = time.perf_counter()
+    rng = np.random.default_rng(0)
+    n = (warm + timed + prof_steps + 1) * batch
+    x = rng.random((n, 3, 224, 224), dtype=np.float32)
+    y = (rng.integers(0, 1000, n) + 1).astype(np.int32)
+    data_s = time.perf_counter() - t
+    nn.set_seed(0)
+    model = inception.inception_v1(1000, device=dev)
+    opt = optim.LocalOptimizer(model, (x, y), nn.ClassNLLCriterion(), batch,
+                               optim.Trigger.max_iteration(
+                                   warm + timed + prof_steps), device=dev)
+    opt.set_optim_method(optim.SGD(**INCEPTION_SGD))
+    opt.set_input_dtype(torch.bfloat16)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, prof, wall = _timed_optimize(torch, opt, warm, timed, prof_steps)
+    counts = _no_port_launches(kernels, "phase 16 (a)")
+    del x, y
+    loss = opt.state["loss"]
+    check(math.isfinite(loss), f"phase 16 (a): loss {loss}")
+    step_ms = sum(ms) / len(ms)
+    train = {"what": "Inception-v1 (GoogLeNet trunk, 2 LRN) 224x224 batch "
+                     "256 NCHW, bf16 inputs, SGD 0.0898 m 0.9 wd 1e-4, "
+                     "LocalOptimizer",
+             "step_ms": step_ms, "step_ms_each": ms,
+             "step_ms_median": statistics.median(ms),
+             "images_per_s": batch / step_ms * 1e3,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+             "final_loss": loss, "optimize_wall_s": wall,
+             "data_gen_s": data_s,
+             "host_step_s_mean": opt.metrics.mean("compute"),
+             "port_kernel_launches": counts, "profile": prof}
+    t = time.perf_counter()
+    drawn = list(synthetic_imagenet_dataset(n=fed * batch, classes=1000,
+                                            image_size=256, seed=0).data())
+    draw_s = time.perf_counter() - t
+    ds = DataSet.array(drawn, shuffle=False).transform(
+        RandomCrop(224, 224, seed=0) >> HFlip(seed=1))
+    fopt = optim.LocalOptimizer(model, ds, nn.ClassNLLCriterion(), batch,
+                                optim.Trigger.max_iteration(fed), device=dev)
+    fopt.set_optim_method(optim.SGD(**INCEPTION_SGD))
+    fopt.set_input_dtype(torch.bfloat16)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    fopt.optimize()
+    fed_wall = time.perf_counter() - t
+    _no_port_launches(kernels, "phase 16 (a) pipeline-fed")
+    check(math.isfinite(fopt.state["loss"]),
+          f"phase 16 (a) pipeline-fed: loss {fopt.state['loss']}")
+    del drawn
+    pipe = {"what": "synthetic_imagenet_dataset(image_size=256)'s images "
+                    "drawn before the window, then RandomCrop(224, 224) -> "
+                    "HFlip -> collate -> the prefetcher (depth 2), batch "
+                    "256, 4 steps",
+            "draw_s_per_step": draw_s / fed,
+            "host_data_wait_s_mean": fopt.metrics.mean("data"),
+            "host_compute_s_mean": fopt.metrics.mean("compute"),
+            "wall_s": fed_wall, "steps": fed,
+            "images_per_s_fed": fed * batch / fed_wall}
+    del model, opt, fopt
+    torch.cuda.empty_cache()
+    xs = np.random.default_rng(1).random((2, 3, 224, 224), dtype=np.float32)
+    ys = np.array([17.0, 905.0], np.float32)
+    nn.set_seed(0)
+    parity = _card_vs_cpu(
+        torch, dev, lambda: inception.inception_v1(1000, device="cpu"), xs,
+        ys, nn.ClassNLLCriterion(), lambda: optim.SGD(**INCEPTION_SGD),
+        "phase 16 (a) card vs CPU", 1e-3)  # read 2.5e-4 (CPU: 2.8e-4)
+    return {"train": train, "pipeline_fed": pipe, "card_vs_cpu": parity}
+
+
+def _keras_googlenet(K, size=224, classes=1000):
+    """The GoogLeNet trunk as a functional ``keras.Model``: the stem,
+    nine inception blocks of four towers joined by ``merge(mode=
+    "concat")``, global average pooling, dropout, a dense layer and
+    log-softmax. Keras has no LRN: the trunk's two
+    ``SpatialCrossMapLRN`` are left out."""
+    def conv(x, n, k, s=1):
+        return K.Convolution2D(n, k, k, activation="relu",
+                               border_mode="same", subsample=(s, s))(x)
+
+    def block(x, c1, c3r, c3, c5r, c5, pp):
+        pool = K.MaxPooling2D((3, 3), (1, 1), border_mode="same")(x)
+        return K.merge([conv(x, c1, 1), conv(conv(x, c3r, 1), c3, 3),
+                        conv(conv(x, c5r, 1), c5, 5), conv(pool, pp, 1)],
+                       mode="concat")
+
+    def down(x):
+        return K.MaxPooling2D((3, 3), (2, 2), border_mode="same")(x)
+
+    a = K.Input(shape=(3, size, size))
+    h = down(conv(a, 64, 7, 2))
+    h = down(conv(conv(h, 64, 1), 192, 3))
+    h = block(h, 64, 96, 128, 16, 32, 32)
+    h = down(block(h, 128, 128, 192, 32, 96, 64))
+    for cfg in ((192, 96, 208, 16, 48, 64), (160, 112, 224, 24, 64, 64),
+                (128, 128, 256, 24, 64, 64), (112, 144, 288, 32, 64, 64)):
+        h = block(h, *cfg)
+    h = down(block(h, 256, 160, 320, 32, 128, 128))
+    h = block(block(h, 256, 160, 320, 32, 128, 128),
+              384, 192, 384, 48, 128, 128)
+    h = K.Dense(classes)(K.Dropout(0.4)(K.GlobalAveragePooling2D()(h)))
+    return K.Model(input=a, output=K.Activation("log_softmax")(h))
+
+
+def keras_phase(torch, dev):
+    """(b) The Keras API on the card: ``examples/lenet_mnist.py``'s model
+    through ``keras.Sequential`` (Adam, sparse categorical cross-entropy,
+    accuracy; ``fit(distributed=False)`` on 2,048 synthetic digits, 2
+    epochs at batch 64; zero-based labels, the Keras convention), top-1
+    on the test digits >= 0.99; then a functional ``keras.Model`` of the
+    GoogLeNet trunk at 224 x 224 and 1,000 classes (no LRN), ``class_nll``
+    under Adam 1e-4 in f32: the optimizer ``fit`` builds
+    (``fit_optimizer``) on one batch of 64 for 26 one-step epochs, timed
+    as (a) is (3 warm-up steps, 20 timed by CUDA events, a 3-step
+    profiler window), its loss (``evaluate``: the criterion in eval mode)
+    finite and lower after than before, then ``predict_classes``."""
+    import numpy as np
+
+    from bigdl_tpu_torch import keras as K, nn, optim
+    from bigdl_tpu_torch.feature.mnist import load_mnist
+    from bigdl_tpu_torch.llm import kernels
+    kernels.reset_launch_counts()
+    nn.set_seed(0)
+    x, y = load_mnist(synthetic_size=2048)
+    xv, yv = load_mnist(synthetic_size=512, train=False)
+    x, xv = x.reshape(-1, 1, 28, 28), xv.reshape(-1, 1, 28, 28)
+    m = K.Sequential()
+    m.add(K.Convolution2D(6, 5, 5, activation="tanh",
+                          input_shape=(1, 28, 28)))
+    m.add(K.MaxPooling2D())
+    m.add(K.Convolution2D(12, 5, 5, activation="tanh"))
+    m.add(K.MaxPooling2D())
+    m.add(K.Flatten())
+    m.add(K.Dense(100, activation="tanh"))
+    m.add(K.Dense(10, activation="softmax"))
+    m.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+              metrics=["accuracy"])
+    t = time.perf_counter()
+    m.fit(x, y - 1, batch_size=64, nb_epoch=2, distributed=False,
+          device=dev)
+    lenet_s = time.perf_counter() - t
+    top1 = m.evaluate(xv, yv - 1, batch_size=256, device=dev)[0].result
+    check(top1 >= 0.99, f"phase 16 (b): Keras LeNet-5 top-1 {top1} < 0.99")
+    cls = m.predict_classes(xv, device=dev)
+    check(cls.shape == (512,)
+          and abs(float((cls == yv - 1).mean()) - top1) <= 1e-6,
+          f"phase 16 (b): predict_classes {cls.shape} disagrees with "
+          "evaluate")
+    lenet = {"what": "examples/lenet_mnist.py's model, keras.Sequential, "
+                     "Adam, sparse_categorical_crossentropy, batch 64, 2 "
+                     "epochs of 2,048 synthetic digits",
+             "top1": top1, "fit_s": lenet_s}
+    _no_port_launches(kernels, "phase 16 (b) LeNet-5")
+
+    batch, warm, timed, prof_steps = 64, 3, 20, 3
+    nn.set_seed(0)
+    g = _keras_googlenet(K)
+    g.compile(optim.Adam(learning_rate=1e-4), "class_nll")
+    rng = np.random.default_rng(3)
+    xg = rng.random((batch, 3, 224, 224), dtype=np.float32)
+    yg = (rng.integers(0, 1000, batch) + 1).astype(np.float32)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before = g.evaluate(xg, yg, batch_size=batch, device=dev)[0].result
+    opt = g.fit_optimizer(xg, yg, batch_size=batch,
+                          nb_epoch=warm + timed + prof_steps,
+                          distributed=False, device=dev)
+    ms, prof, wall = _timed_optimize(torch, opt, warm, timed, prof_steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = g.evaluate(xg, yg, batch_size=batch, device=dev)[0].result
+    check(math.isfinite(before) and math.isfinite(after) and after < before,
+          f"phase 16 (b): GoogLeNet eval loss {before} -> {after}")
+    pc = g.predict_classes(xg[:16], device=dev)
+    check(pc.shape == (16,) and pc.min() >= 0 and pc.max() < 1000,
+          f"phase 16 (b): predict_classes {pc}")
+    counts = _no_port_launches(kernels, "phase 16 (b) GoogLeNet")
+    graph = g.module
+    return {"lenet": lenet, "googlenet": {
+        "what": "keras.Model GoogLeNet trunk (no LRN: Keras has none), "
+                "224x224, 1000 classes, f32, batch 64, Adam 1e-4, "
+                "class_nll; fit's optimizer, 26 steps on one batch",
+        "graph_nodes": len(graph._order),
+        "graph_module_nodes": sum(n.module is not None
+                                  for n in graph._order),
+        "parameters": graph.n_parameters(),
+        "step_ms": sum(ms) / len(ms), "step_ms_each": ms,
+        "step_ms_median": statistics.median(ms),
+        "images_per_s": batch / (sum(ms) / len(ms)) * 1e3,
+        "optimize_wall_s": wall, "profile": prof, "peak_mem_gb": peak,
+        "eval_loss_before_after": [before, after],
+        "port_kernel_launches": counts}}
+
+
+def ptb_phase(torch, dev):
+    """(c) The LSTM language model at the PTB "medium" size
+    (``rnn.build_model(10000, 650, 10000, "lstm", 2)``, 35 steps, batch
+    20; the paper's dropout left out: the zoo's model has none) on seeded
+    random tokens under ``TimeDistributedCriterion(ClassNLLCriterion())``,
+    SGD 1.0 with the gradient's L2 norm clipped at 5: 3 warm-up and 10
+    timed steps, a 2-step profiler window (ms a step, tokens/s, launches
+    a step, idle share); then one f32 step at batch 2 on the card and on
+    the CPU. The Python time loop makes this host-bound."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.models import rnn
+    p = PTB_MEDIUM
+    warm, timed, prof_steps = 3, 10, 2
+    rng = np.random.default_rng(2)
+    n = (warm + timed + prof_steps + 1) * p["batch"]
+    x = (rng.integers(0, p["vocab"], (n, p["steps"])) + 1).astype(np.float32)
+    y = (rng.integers(0, p["vocab"], (n, p["steps"])) + 1).astype(np.float32)
+
+    def build(device):
+        return rnn.build_model(p["vocab"], p["hidden"], p["vocab"], "lstm",
+                               p["layers"], device=device)
+
+    def crit():
+        return nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+
+    nn.set_seed(0)
+    model = build(dev)
+    opt = optim.LocalOptimizer(model, (x, y), crit(), p["batch"],
+                               optim.Trigger.max_iteration(
+                                   warm + timed + prof_steps), device=dev)
+    opt.set_optim_method(optim.SGD(1.0))
+    opt.set_gradient_clipping_by_l2_norm(5.0)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, prof, wall = _timed_optimize(torch, opt, warm, timed, prof_steps)
+    counts = _no_port_launches(kernels, "phase 16 (c)")
+    loss = opt.state["loss"]
+    check(math.isfinite(loss), f"phase 16 (c): loss {loss}")
+    step_ms = sum(ms) / len(ms)
+    train = {"what": "PTB medium LSTM LM: 2 x 650, 35 steps, batch 20, "
+                     "vocabulary 10,000, f32, SGD 1.0, clip 5, "
+                     "LocalOptimizer, a Python time loop",
+             "parameters": model.n_parameters(),
+             "step_ms": step_ms, "step_ms_each": ms,
+             "step_ms_median": statistics.median(ms),
+             "tokens_per_s": p["batch"] * p["steps"] / step_ms * 1e3,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+             "final_loss": loss, "optimize_wall_s": wall,
+             "host_step_s_mean": opt.metrics.mean("compute"),
+             "port_kernel_launches": counts, "profile": prof}
+    del model, opt
+    xs, ys = x[:2], y[:2]
+    nn.set_seed(0)
+    parity = _card_vs_cpu(torch, dev, lambda: build("cpu"), xs, ys, crit(),
+                          lambda: optim.SGD(1.0), "phase 16 (c) card vs CPU",
+                          1e-5, clip=5.0)  # read 2.0e-6 (CPU's own 0)
+    return {"train": train, "card_vs_cpu": parity}
+
+
+def dllib_keras_phase(torch, dev):
+    """Phase 16: (a) Inception-v1, (b) the Keras API, (c) the PTB LSTM."""
+    t0 = time.perf_counter()
+    out = {"phase": "dllib_keras"}
+    out["inception"] = inception_phase(torch, dev)
+    torch.cuda.empty_cache()
+    out["keras"] = keras_phase(torch, dev)
+    torch.cuda.empty_cache()
+    out["ptb_lstm"] = ptb_phase(torch, dev)
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# The caching allocator's split limit, set before torch starts. A
+# thread's or a stream's first cuBLAS call takes a 32 MiB workspace from
+# the allocator and holds it for the rest of the process. Without a
+# limit it may be cut from a large block just freed and still cached (a
+# served model's KV pool), and the whole segment then stays reserved
+# past ``empty_cache``: a later phase's 14 GiB weight stack no longer
+# fits. Blocks of 512 MiB or more are never split under the limit.
+ALLOC_CONF = "max_split_size_mb:512"
+
+# (allocated, reserved) in bytes after each ``release_memory``
+RELEASES = []
+
+
+def release_memory(torch):
+    """Between phases: collect Python's reference cycles (a model held in
+    one by a captured graph or a server thread's closure is freed only by
+    the cycle collector, whose timing moves with every import), then give
+    the allocator's free blocks back, so the next phase's large weights
+    find contiguous memory. Records what stays reserved in ``RELEASES``."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    RELEASES.append((torch.cuda.memory_allocated(),
+                     torch.cuda.memory_reserved()))
+
+
 def main() -> int:
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "")
+    if "max_split_size_mb" not in conf:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = ",".join(
+            c for c in (conf, ALLOC_CONF) if c)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -6047,7 +6554,7 @@ def main() -> int:
     emit(ref)
     ref_glm = reference_check(torch, dev, "glm4_9b")
     emit(ref_glm)
-    torch.cuda.empty_cache()
+    release_memory(torch)
     serve, model = serve_7b(torch, dev)
     emit(serve)
     cache = serve_prefix_cache(torch, model)
@@ -6066,7 +6573,7 @@ def main() -> int:
     emit(mprof)
     sprof = profile_spec(torch, model)
     emit(sprof)
-    torch.cuda.empty_cache()
+    release_memory(torch)
     slot = serve_slotted(torch, model, serve, serve["outputs"])
     emit(slot)
     slot_prof = profile_slotted(torch, model)
@@ -6080,33 +6587,37 @@ def main() -> int:
     tools = tools_phase(torch, model)
     emit(tools)
     del model
-    torch.cuda.empty_cache()
+    release_memory(torch)
     bert, bert_prof = bert_path(torch, dev)
     emit(bert)
     emit(bert_prof)
     formats = formats_phase(torch, dev)
     emit(formats)
-    torch.cuda.empty_cache()
+    release_memory(torch)
     gen_row, gen_prof = generate_phase(torch, dev)
     emit(gen_row)
     emit(gen_prof)
-    torch.cuda.empty_cache()
+    release_memory(torch)
     ckpt = checkpoint_check(torch, dev)
     emit(ckpt)
-    torch.cuda.empty_cache()
+    release_memory(torch)
     glm, glm_prof = glm_phase(torch, dev)
     emit(glm)
     emit(glm_prof)
-    torch.cuda.empty_cache()
+    release_memory(torch)
     mix = mixtral_phase(torch, dev)
     emit(mix)
-    torch.cuda.empty_cache()
+    release_memory(torch)
     fam = family_phase(torch, dev)
     emit(fam)
-    torch.cuda.empty_cache()
+    release_memory(torch)
     dllib = dllib_phase(torch, dev)
     dllib["nvidia_smi"] = smi
     emit(dllib)
+    release_memory(torch)
+    dllib_keras = dllib_keras_phase(torch, dev)
+    dllib_keras["nvidia_smi"] = smi
+    emit(dllib_keras)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
@@ -6405,6 +6916,10 @@ def main() -> int:
         for f in FORMATS}
     emit({"phase": "host", "paths": host_out})
     report = {"nvidia_smi": smi, "build": built, "cases": cases,
+              "alloc_conf": os.environ["PYTORCH_CUDA_ALLOC_CONF"],
+              "memory_between_phases_gib": [
+                  [round(a / 2**30, 3), round(r / 2**30, 3)]
+                  for a, r in RELEASES],
               "route_sweep": sweep,
               "host": host_out,
               "reference": ref, "reference_glm": ref_glm, "glm": glm,
@@ -6420,6 +6935,7 @@ def main() -> int:
               "mixtral": mix, "families": fam, "serve_http": http,
               "router": router, "fleet": fleet, "tools": tools,
               "formats": formats, "dllib": dllib,
+              "dllib_keras": dllib_keras,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

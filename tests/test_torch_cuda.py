@@ -19,7 +19,9 @@ instruments (the same host calls and kernels a pass with observability
 on and off) and its watchdog through a warmed run. The DLlib training
 tests hold ``resnet_cifar(8)``'s optimizer step on the card to the CPU
 step, and check that the training entry points refuse ``device=None``
-without a GPU (that one runs on any machine).
+without a GPU (that one runs on any machine); the last three hold an
+Inception-v1 step, a Keras ``fit`` and a PTB LSTM step on the card to
+the CPU.
 The CPU parity of the plain versions against the JAX package lives in
 ``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``,
 and of ``generate`` in ``tests/test_torch_generate.py``.
@@ -1951,3 +1953,136 @@ def test_training_entry_points_need_a_gpu_unless_cpu(monkeypatch,
                           end_trigger=optim.Trigger.max_iteration(1),
                           device="cpu")
     assert opt.optimize() is m and opt.state["iteration_done"] == 1
+
+
+# -- the DLlib graph, Keras API and zoo: phase 16's card-vs-CPU checks, small
+
+def _step_both(build, x, y, crit, method, cuda, clip=None):
+    """One ``LocalOptimizer`` step of ``build()`` on the CPU and on the
+    card from one set of weights (dropout from one seeded CPU generator):
+    ``(init, cpu params, card params, cpu loss, card loss)``."""
+    from bigdl_tpu_torch import optim
+    init = {k: v.detach().clone() for k, v in build().state_dict().items()}
+    out = []
+    for dev in ("cpu", cuda):
+        m = build()
+        m.load_state_dict(init)
+        for mod in m.modules():
+            if hasattr(mod, "_draw_generator"):
+                mod.generator = torch.Generator().manual_seed(0)
+        opt = optim.LocalOptimizer(m, (x, y), crit, len(x),
+                                   optim.Trigger.max_iteration(1),
+                                   device=dev)
+        opt.set_optim_method(method)
+        if clip is not None:
+            opt.set_gradient_clipping_by_l2_norm(clip)
+        out.append((dict(opt.optimize().named_parameters()),
+                    opt.state["loss"]))
+    (cpu, cpu_l), (card, card_l) = out
+    return init, cpu, card, cpu_l, card_l
+
+
+def _update_dev(init, cpu, card):
+    """The card's step beside the CPU's: the update's L2 deviation over
+    its L2 norm, and the largest deviation of a parameter tensor over its
+    own update's largest entry."""
+    dev_sq = upd_sq = per = 0.0
+    for k in cpu:
+        d = card[k].detach().cpu() - cpu[k].detach()
+        u = cpu[k].detach() - init[k]
+        dev_sq += float((d ** 2).sum())
+        upd_sq += float((u ** 2).sum())
+        umax = float(u.abs().max())
+        if umax:
+            per = max(per, float(d.abs().max()) / umax)
+    return (dev_sq / upd_sq) ** 0.5, per
+
+
+def test_inception_step_card_matches_cpu(cuda, monkeypatch):
+    """Inception-v1 at full width, 64 x 64, batch 2, one f32 SGD step
+    (TF32 off): the loss within 1e-5 (relative), the update's L2
+    deviation within 1e-4 of the update and each parameter tensor within
+    1e-2 of its own update's largest entry (an H100 read 6.8e-6 and
+    6.3e-4; phase 16 (a) holds the same at 224 x 224)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.models import inception
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rs = np.random.RandomState(0)
+    x = rs.rand(2, 3, 64, 64).astype(np.float32)
+    y = np.array([5.0, 900.0], np.float32)
+    init, cpu, card, cpu_l, card_l = _step_both(
+        lambda: inception.inception_v1(1000, device="cpu"), x, y,
+        nn.ClassNLLCriterion(), optim.SGD(0.0898, momentum=0.9,
+                                          weight_decay=1e-4), cuda)
+    assert abs(card_l - cpu_l) <= 1e-5 * abs(cpu_l)
+    l2, per = _update_dev(init, cpu, card)
+    assert l2 <= 1e-4 and per <= 1e-2, (l2, per)
+
+
+def test_keras_fit_card_matches_cpu(cuda, monkeypatch):
+    """A functional Keras model (two convolution towers merged, pooling,
+    dense) fit for 2 steps at ``distributed=False`` on the card and on
+    the CPU from one set of weights: weights and ``predict`` within 1e-4
+    (phase 16 (b))."""
+    import numpy as np
+
+    from bigdl_tpu_torch import keras as K
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    def build():
+        a = K.Input(shape=(3, 16, 16))
+        c1 = K.Convolution2D(4, 3, 3, activation="relu",
+                             border_mode="same", subsample=(2, 2))(a)
+        c2 = K.Convolution2D(4, 1, 1, subsample=(2, 2))(a)
+        h = K.MaxPooling2D((3, 3), (2, 2), "same")(
+            K.merge([c1, c2], mode="concat"))
+        out = K.Activation("log_softmax")(K.Dense(5)(
+            K.GlobalAveragePooling2D()(h)))
+        m = K.Model(input=a, output=out)
+        m.compile("sgd", "class_nll")
+        return m
+
+    rs = np.random.RandomState(1)
+    x = rs.rand(16, 3, 16, 16).astype(np.float32)
+    y = (rs.randint(0, 5, 16) + 1).astype(np.float32)
+    host, card = build(), build()
+    card.set_weights(host.get_weights())
+    host.fit(x, y, batch_size=8, nb_epoch=1, distributed=False, device="cpu")
+    card.fit(x, y, batch_size=8, nb_epoch=1, distributed=False, device=cuda)
+    from bigdl_tpu_torch.utils.tree import tree_leaves
+    want = tree_leaves(card.module.carry_keys(host.get_weights()))
+    got = tree_leaves(card.get_weights())
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card.predict(x, device=cuda),
+                               host.predict(x, device="cpu"),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_ptb_lstm_step_card_matches_cpu(cuda, monkeypatch):
+    """The PTB LSTM language model, narrowed (2 x 64, vocabulary 500, 35
+    steps, batch 2), one f32 SGD 1.0 step with the norm clipped at 5: the
+    loss within 1e-5 (relative), the update's L2 deviation within 1e-5 of
+    the update and each parameter tensor within 1e-2 of its own update's
+    largest entry (an H100 read 1.4e-6 and 3.1e-4; phase 16 (c) holds the
+    same at the medium size)."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.models import rnn
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rs = np.random.RandomState(2)
+    x = (rs.randint(0, 500, (2, 35)) + 1).astype(np.float32)
+    y = (rs.randint(0, 500, (2, 35)) + 1).astype(np.float32)
+    init, cpu, card, cpu_l, card_l = _step_both(
+        lambda: rnn.build_model(500, 64, 500, "lstm", 2, device="cpu"), x, y,
+        nn.TimeDistributedCriterion(nn.ClassNLLCriterion()), optim.SGD(1.0),
+        cuda, clip=5.0)
+    assert abs(card_l - cpu_l) <= 1e-5 * abs(cpu_l)
+    l2, per = _update_dev(init, cpu, card)
+    assert l2 <= 1e-5 and per <= 1e-2, (l2, per)

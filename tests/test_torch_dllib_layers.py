@@ -7,8 +7,6 @@ and the vjp (input and parameter gradients) in f32 at rtol 1e-4 / atol
 checked by contract (rate, scaling, one mask in forward and backward):
 JAX's random streams are not reproduced."""
 
-import types
-
 import numpy as np
 import pytest
 import torch
@@ -17,7 +15,6 @@ import jax
 import jax.numpy as jnp
 
 import bigdl_tpu.nn as _jnn
-import bigdl_tpu.nn.containers as _jcont
 from bigdl_tpu.utils import checkpoint as jckpt
 from bigdl_tpu.utils.table import Table as JTable
 
@@ -26,9 +23,7 @@ from bigdl_tpu_torch.nn.module import Module as TModule, replay_state
 from bigdl_tpu_torch.utils import checkpoint as tckpt
 from bigdl_tpu_torch.utils.table import Table
 
-JNN = types.SimpleNamespace(**{k: getattr(_jnn, k) for k in dir(_jnn)})
-for _k in ("MM", "MV", "DotProduct", "CosineDistance"):
-    setattr(JNN, _k, getattr(_jcont, _k))
+JNN = _jnn
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
