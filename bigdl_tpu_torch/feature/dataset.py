@@ -137,16 +137,18 @@ class LocalDataSet(AbstractDataSet):
 class DistributedDataSet(LocalDataSet):
     """Rank-sharded dataset (ref: CachedDistriDataSet): each rank sees
     samples ``[rank::world]`` of the shuffled order. ``rank`` and
-    ``world`` must be given: the port has no process group of its own
-    yet (ROADMAP Queue 1 item 10)."""
+    ``world`` not given come from the process group (the Engine's), or
+    are 0 and 1 in a process without one, as ``jax.process_index`` and
+    ``process_count`` are before any distributed init."""
 
     def __init__(self, x, y=None, shuffle: bool = True, seed: int = 0,
                  rank: Optional[int] = None, world: Optional[int] = None):
         super().__init__(x, y, shuffle, seed)
         if rank is None or world is None:
-            raise NotImplementedError(
-                "DistributedDataSet needs an explicit rank and world: "
-                "distributed training is ROADMAP Queue 1 item 10")
+            import torch.distributed as dist
+            live = dist.is_initialized()
+            rank = dist.get_rank() if live else 0
+            world = dist.get_world_size() if live else 1
         self.rank, self.world = rank, world
 
     def data(self, train: bool = True):

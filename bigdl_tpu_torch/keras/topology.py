@@ -10,11 +10,12 @@ channels-first (``th`` ordering), as ``nn``'s NCHW layers take it.
 
 ``compile`` / ``fit`` / ``evaluate`` / ``predict`` lower onto the port's
 ``optim``: ``fit`` builds ``optim.Optimizer``, whose
-``distributed=True`` — ``fit``'s default, as in the JAX package, where
-it builds ``DistriOptimizer`` — raises until distributed training is
-ported (ROADMAP Queue 1 item 10); pass ``distributed=False`` for the
-local optimizer. ``fit``, ``evaluate`` and ``predict`` take ``device=``
-as the optimizer does: ``None`` is the GPU.
+``distributed=True`` — ``fit``'s default, as in the JAX package —
+builds ``DistriOptimizer`` over the Engine's mesh (initialised when
+cold: NCCL at world 1 on one card, gloo with ``device="cpu"``);
+``distributed=False`` builds the local optimizer. ``fit``, ``evaluate``
+and ``predict`` take ``device=`` as the optimizer does: ``None`` is the
+GPU.
 """
 
 from __future__ import annotations
@@ -129,7 +130,8 @@ class _Compiled:
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
             validation_data=None, distributed: bool = True, device=None):
         """Train through ``optim.Optimizer``: ``distributed=True`` (the
-        default) raises until ROADMAP Queue 1 item 10."""
+        default) trains through ``DistriOptimizer`` on the Engine's
+        mesh."""
         self.fit_optimizer(x, y, batch_size, nb_epoch, validation_data,
                            distributed, device).optimize()
         return self

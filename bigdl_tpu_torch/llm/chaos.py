@@ -455,10 +455,14 @@ def run_alerts_chaos(model=None, seed: int = 0, new_tokens: int = 3,
             ev_before = _alert_events()
             tr_before = {s: _trans(s) for s in ("firing", "resolved")}
 
+            walls = []     # each request's wall ms, for the messages
+
             def serve(p):
+                t0 = time.perf_counter()
                 stt, body = _post(router.address, "/worker_generate",
                                   {"prompt_ids": [int(t) for t in p],
                                    "max_new_tokens": new_tokens})
+                walls.append(round((time.perf_counter() - t0) * 1e3, 1))
                 assert stt == 200, body
 
             # clean phase: fast traffic, the rule must stay inactive
@@ -468,7 +472,8 @@ def run_alerts_chaos(model=None, seed: int = 0, new_tokens: int = 3,
             st.sample_now(now=2.0)
             st.sample_now(now=4.0)
             assert eng.firing() == [], \
-                f"clean traffic fired {eng.firing()}"
+                f"clean traffic fired {eng.firing()} (request walls " \
+                f"{walls} ms)"
 
             # the storm: a mid-stream dispatch kill (failover resumes it)
             # and per-step delays pushing every TTFT past the 500 ms
@@ -521,7 +526,8 @@ def run_alerts_chaos(model=None, seed: int = 0, new_tokens: int = 3,
                 serve(p)
             st.sample_now(now=32.0)
             assert eng.firing() == [], \
-                f"alert did not resolve after recovery: {eng.status()}"
+                f"alert did not resolve after recovery: {eng.status()} " \
+                f"(request walls in order, ms: {walls})"
             rule_st = [r for r in eng.status()["rules"]
                        if r["name"] == RULE][0]
             assert rule_st["state"] == "resolved", rule_st

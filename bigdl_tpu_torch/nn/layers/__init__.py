@@ -1,6 +1,6 @@
 """The port's layers (``bigdl_tpu/nn/layers``): linear, conv, pooling,
 normalization, activation, dropout, shape, embedding, attention, misc,
-recurrent, volumetric and extra3."""
+recurrent, volumetric, extra2 and extra3."""
 
 from bigdl_tpu_torch.nn.layers.activation import (
     Abs, AddConstant, Clamp, ELU, Exp, GELU, HardSigmoid, HardTanh,
@@ -24,6 +24,10 @@ from bigdl_tpu_torch.nn.layers.normalization import (
 from bigdl_tpu_torch.nn.layers.pooling import (
     GlobalAveragePooling2D, GlobalMaxPooling2D, SpatialAveragePooling,
     SpatialMaxPooling, TemporalMaxPooling, VolumetricMaxPooling)
+from bigdl_tpu_torch.nn.layers.extra2 import (
+    ConvLSTMPeephole, GradientReversal, L1Penalty, MaskedFill, MixtureTable,
+    NarrowTable, Pack, Reverse, SpatialContrastiveNormalization,
+    SpatialDivisiveNormalization, SpatialSubtractiveNormalization, Tile)
 from bigdl_tpu_torch.nn.layers.extra3 import (
     ActivityRegularization, Anchor, BifurcateSplitTable, BinaryThreshold,
     Cropping1D, DenseToSparse, GaussianSampler, HardShrink, Input,
@@ -48,31 +52,34 @@ from bigdl_tpu_torch.nn.layers.shape import (
 __all__ = [
     "Abs", "ActivityRegularization", "Add", "AddConstant", "Anchor",
     "BatchNormalization", "BiRecurrent", "BifurcateSplitTable", "Bilinear",
-    "BinaryThreshold", "CAdd", "CMul", "Cell", "Clamp", "Contiguous", "Cosine",
-    "CosineDistance", "Cropping1D", "Cropping2D", "Cropping3D",
-    "DenseToSparse", "DotProduct", "Dropout", "ELU", "Embedding", "Euclidean",
-    "Exp", "Flatten", "GELU", "GRU", "GaussianDropout", "GaussianNoise",
-    "GaussianSampler", "GlobalAveragePooling2D", "GlobalMaxPooling2D",
-    "GroupNorm", "HardShrink", "HardSigmoid", "HardTanh", "Highway",
-    "Identity", "Index", "InferReshape", "Input", "LSTM", "LayerNorm",
-    "LeakyReLU", "Linear", "LocallyConnected1D", "LocallyConnected2D", "Log",
-    "LogSigmoid", "LogSoftMax", "LookupTable", "MM", "MV", "MaskedSelect",
-    "Masking", "Max", "Maxout", "Mean", "Min", "Mish", "Mul", "MulConstant",
-    "MultiHeadAttention", "MultiRNNCell", "Narrow", "Negative",
-    "NegativeEntropyPenalty", "Normalize", "PReLU", "Padding",
-    "PairwiseDistance", "Permute", "Power", "PriorBox", "RMSNorm", "RReLU",
-    "ReLU", "ReLU6", "Recurrent", "Replicate", "Reshape", "ResizeBilinear",
-    "RnnCell", "RoiPooling", "SELU", "SReLU", "Scale", "Select", "SiLU",
-    "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
-    "SpatialAveragePooling", "SpatialBatchNormalization", "SpatialConvolution",
-    "SpatialConvolutionMap", "SpatialCrossMapLRN", "SpatialDilatedConvolution",
+    "BinaryThreshold", "CAdd", "CMul", "Cell", "Clamp", "Contiguous",
+    "ConvLSTMPeephole", "Cosine", "CosineDistance", "Cropping1D", "Cropping2D",
+    "Cropping3D", "DenseToSparse", "DotProduct", "Dropout", "ELU", "Embedding",
+    "Euclidean", "Exp", "Flatten", "GELU", "GRU", "GaussianDropout",
+    "GaussianNoise", "GaussianSampler", "GlobalAveragePooling2D",
+    "GlobalMaxPooling2D", "GradientReversal", "GroupNorm", "HardShrink",
+    "HardSigmoid", "HardTanh", "Highway", "Identity", "Index", "InferReshape",
+    "Input", "L1Penalty", "LSTM", "LayerNorm", "LeakyReLU", "Linear",
+    "LocallyConnected1D", "LocallyConnected2D", "Log", "LogSigmoid",
+    "LogSoftMax", "LookupTable", "MM", "MV", "MaskedFill", "MaskedSelect",
+    "Masking", "Max", "Maxout", "Mean", "Min", "Mish", "MixtureTable", "Mul",
+    "MulConstant", "MultiHeadAttention", "MultiRNNCell", "Narrow",
+    "NarrowTable", "Negative", "NegativeEntropyPenalty", "Normalize", "PReLU",
+    "Pack", "Padding", "PairwiseDistance", "Permute", "Power", "PriorBox",
+    "RMSNorm", "RReLU", "ReLU", "ReLU6", "Recurrent", "Replicate", "Reshape",
+    "ResizeBilinear", "Reverse", "RnnCell", "RoiPooling", "SELU", "SReLU",
+    "Scale", "Select", "SiLU", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus",
+    "SoftShrink", "SoftSign", "SpatialAveragePooling",
+    "SpatialBatchNormalization", "SpatialContrastiveNormalization",
+    "SpatialConvolution", "SpatialConvolutionMap", "SpatialCrossMapLRN",
+    "SpatialDilatedConvolution", "SpatialDivisiveNormalization",
     "SpatialDropout1D", "SpatialDropout2D", "SpatialDropout3D",
     "SpatialFullConvolution", "SpatialMaxPooling",
     "SpatialSeparableConvolution", "SpatialShareConvolution",
-    "SpatialWithinChannelLRN", "SpatialZeroPadding", "Sqrt", "Square",
-    "Squeeze", "Sum", "Swish", "Tanh", "TanhShrink", "TemporalConvolution",
-    "TemporalMaxPooling", "Threshold", "TimeDistributed",
-    "TransformerEncoderLayer", "Transpose", "Unsqueeze", "UpSampling1D",
-    "UpSampling2D", "UpSampling3D", "View", "VolumetricAveragePooling",
-    "VolumetricConvolution", "VolumetricFullConvolution",
-    "VolumetricMaxPooling"]
+    "SpatialSubtractiveNormalization", "SpatialWithinChannelLRN",
+    "SpatialZeroPadding", "Sqrt", "Square", "Squeeze", "Sum", "Swish", "Tanh",
+    "TanhShrink", "TemporalConvolution", "TemporalMaxPooling", "Threshold",
+    "Tile", "TimeDistributed", "TransformerEncoderLayer", "Transpose",
+    "Unsqueeze", "UpSampling1D", "UpSampling2D", "UpSampling3D", "View",
+    "VolumetricAveragePooling", "VolumetricConvolution",
+    "VolumetricFullConvolution", "VolumetricMaxPooling"]

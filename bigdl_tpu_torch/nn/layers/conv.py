@@ -59,6 +59,21 @@ def conv_nd(x, w, b, stride: Sequence[int], pads, dilation: Sequence[int],
               groups)
 
 
+def conv2d(x, w, b, stride, pad, dilation, groups: int = 1,
+           format: str = "NCHW"):
+    """A 2-D convolution of ``x`` laid out as ``format`` by the OIHW
+    weight ``w``; ``stride``, ``pad`` and ``dilation`` are ``(h, w)``,
+    and a pad of -1 in either is SAME in both, as in the reference."""
+    x = to_nchw(x, format)
+    if -1 in pad:
+        pads = tuple(same_pads(x.shape[2 + i], w.shape[2 + i], stride[i],
+                               dilation[i]) for i in (0, 1))
+    else:
+        pads = tuple((p, p) for p in pad)
+    return from_nchw(conv_nd(x, w, b, stride, pads, dilation, groups),
+                     format)
+
+
 class SpatialConvolution(TensorModule):
     """2-D convolution (ref: nn/SpatialConvolution.scala).
     ``pad_w / pad_h = -1`` selects SAME padding, as in the reference."""
@@ -102,19 +117,11 @@ class SpatialConvolution(TensorModule):
         return self
 
     def forward(self, x):
-        x = to_nchw(x, self.format)
-        if self.pad_h == -1 or self.pad_w == -1:
-            pads = (same_pads(x.shape[2], self.kernel_h, self.stride_h,
-                              self.dilation_h),
-                    same_pads(x.shape[3], self.kernel_w, self.stride_w,
-                              self.dilation_w))
-        else:
-            pads = ((self.pad_h, self.pad_h), (self.pad_w, self.pad_w))
         b = self.bias.to(x.dtype) if self.with_bias else None
-        y = conv_nd(x, self.weight.to(x.dtype), b,
-                    (self.stride_h, self.stride_w), pads,
-                    (self.dilation_h, self.dilation_w), self.n_group)
-        return from_nchw(y, self.format)
+        return conv2d(x, self.weight.to(x.dtype), b,
+                      (self.stride_h, self.stride_w), (self.pad_h, self.pad_w),
+                      (self.dilation_h, self.dilation_w), self.n_group,
+                      self.format)
 
 
 class SpatialDilatedConvolution(SpatialConvolution):

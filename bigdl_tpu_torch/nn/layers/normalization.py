@@ -11,6 +11,13 @@ of the new batch, the running variance unbiased (``n / (n - 1)``), the
 output ``x * scale + shift`` cast back to ``x.dtype``; eval mode uses
 the running statistics. Training mode replaces the two buffers with the
 moved statistics (computed without a graph).
+
+Inside a data-parallel step in plain mode (``DistriOptimizer`` without
+gradient compression, ``dp_train_step``) the shifted moments are
+averaged over the data group with autograd through the reduce, so
+every rank normalises with the global batch's statistics, as the JAX
+layer does under the SPMD program; the running variance's ``n`` is the
+global count.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.module import TensorModule
+from bigdl_tpu_torch.parallel.collectives import (batch_stats_group,
+                                                  differentiable_mean,
+                                                  group_size)
 
 
 class BatchNormalization(TensorModule):
@@ -53,10 +63,17 @@ class BatchNormalization(TensorModule):
             xf = x.float() - c.reshape(shape)
             dmean = xf.mean(dim=dims)
             m2 = (xf * xf).mean(dim=dims)
+            n = x.numel() // self.n_output
+            group = batch_stats_group()
+            if group is not None:
+                # a data-parallel step in plain mode: the moments of the
+                # global batch (equal shards), differentiable
+                dmean, m2 = differentiable_mean(
+                    torch.stack([dmean, m2]), group).unbind(0)
+                n *= group_size(group)
             mean = dmean + c
             var = torch.clamp(m2 - dmean * dmean, min=0.0)
             with torch.no_grad():
-                n = x.numel() // self.n_output
                 m = self.momentum
                 self.running_mean = (1 - m) * self.running_mean + m * mean
                 self.running_var = (1 - m) * self.running_var \

@@ -1,11 +1,14 @@
 """nn.quantized — INT8 post-training-quantized inference layers; the port
-of ``Linear`` and ``quantize_model`` in ``bigdl_tpu/nn/quantized.py`` (ref:
-``S:dllib/nn/quantized/``, the BigQuant INT8 gemm).
+of ``bigdl_tpu/nn/quantized.py`` (ref: ``S:dllib/nn/quantized/``, the
+BigQuant INT8 gemm and conv): ``Linear``, ``SpatialConvolution`` and
+``quantize_model``.
 
 Semantics kept from the reference: **weight-only** symmetric INT8 with
 per-output-channel scales, computed once at conversion; activations stay
-float. ``SpatialConvolution`` waits for the conv layers (ROADMAP Queue 1
-item 11).
+float. ``Linear`` runs the int8 matmul kernel; ``SpatialConvolution``
+dequantizes its weights into the input's dtype and convolves with
+``F.conv2d`` (cuDNN on the card), as the JAX layer dequantizes into
+``lax.conv_general_dilated``: no Pallas kernel is on that path.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import torch
 
 from bigdl_tpu_torch.llm.ggml.quantize import QK, true_div
 from bigdl_tpu_torch.llm.kernels.int4_matmul import int8_matmul
+from bigdl_tpu_torch.nn.layers.conv import (SpatialConvolution as FloatConv,
+                                            conv2d)
 from bigdl_tpu_torch.nn.layers.linear import Linear as FloatLinear
 from bigdl_tpu_torch.nn.module import Module, TensorModule
 
@@ -79,14 +84,64 @@ class Linear(TensorModule):
         return f"{self.input_size} -> {self.output_size}"
 
 
+class SpatialConvolution(TensorModule):
+    """quantized.SpatialConvolution (ref: nn/quantized/SpatialConvolution
+    .scala): states ``q`` (O, I / groups, kh, kw) int8 and ``scale`` (O,)
+    f32; ``pad = -1`` is SAME; groups, dilation, NCHW and NHWC."""
+
+    def __init__(self, n_input: int, n_output: int, kw: int, kh: int,
+                 dw: int = 1, dh: int = 1, pad_w: int = 0, pad_h: int = 0,
+                 with_bias: bool = True, format: str = "NCHW",
+                 n_group: int = 1, dilation_w: int = 1,
+                 dilation_h: int = 1, name: Optional[str] = None):
+        super().__init__(name)
+        self.n_input, self.n_output = n_input, n_output
+        self.kw, self.kh, self.dw, self.dh = kw, kh, dw, dh
+        self.pad_w, self.pad_h = pad_w, pad_h
+        self.with_bias = with_bias
+        self.format = format
+        self.n_group = n_group
+        self.dilation_w, self.dilation_h = dilation_w, dilation_h
+
+    @classmethod
+    def from_float(cls, conv) -> "SpatialConvolution":
+        """Quantize one of ``nn``'s ``SpatialConvolution`` layers."""
+        mod = cls(conv.n_input_plane, conv.n_output_plane, conv.kernel_w,
+                  conv.kernel_h, conv.stride_w, conv.stride_h, conv.pad_w,
+                  conv.pad_h, with_bias="bias" in conv._parameters,
+                  format=conv.format, n_group=conv.n_group,
+                  dilation_w=conv.dilation_w, dilation_h=conv.dilation_h,
+                  name=conv.name)
+        q, scale = _quantize_per_channel(conv.weight.detach())
+        mod.add_state("q", q)
+        mod.add_state("scale", scale)
+        if mod.with_bias:
+            mod.add_param("bias", conv.bias.detach().clone())
+        return mod
+
+    def forward(self, x):
+        w = self.q.to(x.dtype) * self.scale.to(x.dtype)[:, None, None, None]
+        b = self.bias.to(x.dtype) if self.with_bias else None
+        return conv2d(x, w, b, (self.dh, self.dw), (self.pad_h, self.pad_w),
+                      (self.dilation_h, self.dilation_w), self.n_group,
+                      self.format)
+
+    def extra_repr(self):
+        return f"{self.n_input} -> {self.n_output}, {self.kw}x{self.kh}"
+
+
 def quantize_model(model: Module) -> Module:
     """Quantizer.quantize equivalent (ref: nn/quantized/Quantizer.scala):
-    swap every float ``nn.Linear`` for its INT8 twin, in place,
-    recursively. Exact type only, as in the JAX package."""
+    swap every float ``nn.Linear`` / ``nn.SpatialConvolution`` for its
+    INT8 twin, in place, recursively. Exact type only, as in the JAX
+    package: subclasses (dilated, shared) keep their float weights."""
+    twins = {FloatLinear: Linear, FloatConv: SpatialConvolution}
+
     def convert(m: Module):
         for key, child in list(m._modules.items()):
-            if type(child) is FloatLinear:
-                m._modules[key] = Linear.from_float(child)
+            twin = twins.get(type(child))
+            if twin is not None:
+                m._modules[key] = twin.from_float(child)
             else:
                 convert(child)
         return m

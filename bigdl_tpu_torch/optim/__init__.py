@@ -1,7 +1,7 @@
 """The port's ``optim`` (``bigdl_tpu/optim``): the optim methods and
 schedules, triggers, validation methods, summaries, metrics and the
-optimizers (``LocalOptimizer``; ``DistriOptimizer`` raises until ROADMAP
-Queue 1 item 10)."""
+optimizers (``LocalOptimizer``; ``DistriOptimizer``, data-parallel over
+the Engine's mesh; the ``Optimizer`` facade)."""
 
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import (

@@ -20,12 +20,25 @@ the card runs step N; no ``.item()`` in the step.
 
 Entry points take ``device=``: ``None`` is the GPU
 (:func:`~bigdl_tpu_torch.device.resolve_device` raises without one).
-``DistriOptimizer`` and the elastic plane are distributed training,
-ROADMAP Queue 1 item 10, and raise.
+
+:class:`DistriOptimizer` is data-parallel training over the Engine's
+mesh (``torch.distributed``: NCCL on the card, gloo on the CPU), one
+process a device; ``batch_size`` is the global batch. Each rank draws
+the same shuffled global batch from a ``LocalDataSet`` and trains on
+its contiguous ``1 / W`` slice (a ``DistributedDataSet`` gives each rank
+its own samples, batched ``batch_size / W`` at a time). The gradients
+are averaged over the data group before clipping, the loss is averaged
+across ranks, and every rank applies the same update. Without gradient
+compression batch normalisation takes the global batch's statistics
+(the JAX package's SPMD step); under bf16 / int8 compression each rank
+normalises its own shard and the float states are averaged after the
+step (its ``shard_map`` step). The elastic plane is ROADMAP Queue 1
+item 10 (rest) and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import os
@@ -41,7 +54,8 @@ import torch
 from bigdl_tpu_torch import observability as obs
 from bigdl_tpu_torch import reliability
 from bigdl_tpu_torch.device import resolve_device
-from bigdl_tpu_torch.feature.dataset import (AbstractDataSet, LocalDataSet,
+from bigdl_tpu_torch.feature.dataset import (AbstractDataSet,
+                                             DistributedDataSet, LocalDataSet,
                                              SampleToMiniBatch)
 from bigdl_tpu_torch.nn.module import Criterion, Module, to_numpy
 from bigdl_tpu_torch.observability import utilization
@@ -49,12 +63,13 @@ from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.utils.engine import Engine
 from bigdl_tpu_torch.utils.tree import tree_leaves, tree_map, \
     tree_unflatten
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
-_DISTRIBUTED = "distributed training is ROADMAP Queue 1 item 10"
+_ELASTIC = "the elastic training plane is ROADMAP Queue 1 item 10 (rest)"
 
 
 def _grad_norm(grads):
@@ -283,10 +298,12 @@ class BaseOptimizer:
     # -- the step -------------------------------------------------------------
     def _train_step(self, leaves, tree, opt_state, x, t, lr):
         """One iteration, eagerly: ``(loss, telemetry, new opt state)``."""
-        loss = self.criterion.apply_loss(self.model(x), t)
+        with self._forward_context():
+            loss = self.criterion.apply_loss(self.model(x), t)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        loss, grads = self._reduce(loss.detach(), grads)
         tele = {"grad_norm": _grad_norm(grads)} if self._obs else {}
         if self._clip_const is not None:
             lo, hi = self._clip_const
@@ -302,7 +319,18 @@ class BaseOptimizer:
         # tree loaded from another module may share a parameter's storage
         for p, v in zip(leaves, tree_leaves(new)):
             p.data = v
-        return loss.detach(), tele, opt_state
+        return loss, tele, opt_state
+
+    def _forward_context(self):
+        return contextlib.nullcontext()
+
+    def _reduce(self, loss, grads):
+        """The step's loss and gradients as the update sees them: this
+        process's own in one process."""
+        return loss, grads
+
+    def _batcher(self):
+        return SampleToMiniBatch(self.batch_size)
 
     def _place_batch(self, x, t):
         """``(x, t, ready)`` on the device; on the GPU the copies run on a
@@ -331,8 +359,7 @@ class BaseOptimizer:
         from bigdl_tpu_torch.utils.conf import conf
 
         if conf.get_bool("bigdl.elastic.enabled", False):
-            raise NotImplementedError(
-                f"the elastic training plane: {_DISTRIBUTED}")
+            raise NotImplementedError(_ELASTIC)
         retries = self._max_retry if self._max_retry is not None \
             else (conf.get_int("bigdl.optimizer.max.retry", 0) or 0)
         attempt = 0
@@ -476,7 +503,7 @@ class BaseOptimizer:
         else:
             opt_state = self.optim_method.init_state(params)
 
-        batcher = SampleToMiniBatch(self.batch_size)
+        batcher = self._batcher()
         state = self.state
         end_uses_loss = getattr(self.end_trigger, "uses_loss", False)
         self._pending_loss = None
@@ -660,20 +687,20 @@ class BaseOptimizer:
         if keep > 0:
             prune_checkpoints(self._checkpoint_path, keep)
 
-    @staticmethod
-    def _world_signature() -> dict:
+    def _world_signature(self) -> dict:
         """The shard-math identity a checkpoint resumes under: one
         process on one device for the local optimizer."""
         return {"processes": 1, "devices": 1}
 
     def _check_world(self, saved: Optional[dict], path: str, tag: str):
-        """Refuse a checkpoint saved by a different world size (the
-        batch math would silently change)."""
+        """Refuse a checkpoint saved by a different world size or mesh
+        shape (the batch math would silently change)."""
         if not saved:
             return
         cur = self._world_signature()
-        mismatched = [k for k in ("processes", "devices")
-                      if k in saved and saved[k] != cur[k]]
+        mismatched = [k for k in ("processes", "devices", "mesh_shape",
+                                  "mesh_axes")
+                      if k in saved and k in cur and saved[k] != cur[k]]
         if mismatched:
             raise ValueError(
                 f"checkpoint {path} @ {tag} was saved by a different "
@@ -708,23 +735,132 @@ class LocalOptimizer(BaseOptimizer):
 
 
 class DistriOptimizer(BaseOptimizer):
-    """Mesh data-parallel training (ref: DistriOptimizer.scala): not
-    ported yet."""
+    """Mesh data-parallel training (ref: DistriOptimizer.scala), over the
+    Engine's mesh (or ``mesh``) along ``data_axis``: see the module
+    docstring. ``device=None`` is the GPU under NCCL, ``"cpu"`` the host
+    under gloo; the Engine is initialised for it when cold, and a live
+    Engine of the other kind is refused."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"DistriOptimizer: {_DISTRIBUTED}")
+    def __init__(self, model, dataset, criterion, batch_size: int = 32,
+                 end_trigger=None, mesh=None, data_axis: str = "data",
+                 device=None):
+        dev = resolve_device(device)
+        if mesh is None:
+            if not Engine.is_initialized():
+                Engine.init(engine_type="cpu" if dev.type == "cpu"
+                            else "gpu")
+            mesh = Engine.mesh()
+        if mesh.device_type != dev.type:
+            raise ValueError(f"DistriOptimizer on {dev} needs a mesh of "
+                             f"{dev.type} devices; the mesh is on "
+                             f"{mesh.device_type}")
+        names = mesh.mesh_dim_names or ()
+        if data_axis not in names:
+            raise ValueError(f"the mesh's axes {names} lack the data axis "
+                             f"{data_axis!r}")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        super().__init__(model, dataset, criterion, batch_size, end_trigger,
+                         device=dev)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self._n_data = mesh.size(names.index(data_axis))
+        self._group = mesh.get_group(data_axis)
+        self._grad_compression: Optional[str] = None
+        if batch_size % self._n_data != 0:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by data-parallel "
+                f"degree {self._n_data} (ref requires batch % nodes == 0 "
+                "too)")
+
+    def set_gradient_compression(self, mode: Optional[str]):
+        """Wire-compress the gradient all-reduce (ref: AllReduceParameter's
+        FP16CompressedTensor): ``"bf16"`` / ``"fp16"`` sum in bf16
+        (``compressed_all_reduce``), ``"int8"`` the shared-scale int8
+        all-reduce (``quantized_all_reduce``), ``None`` a plain f32 sum.
+        A compressed step normalises each rank's own shard and averages
+        the float states after it, as the JAX ``shard_map`` step does."""
+        if mode not in (None, "bf16", "fp16", "int8"):
+            raise ValueError(f"unknown gradient compression {mode!r}")
+        self._grad_compression = mode
+        return self
+
+    def _per_rank_data(self) -> bool:
+        ds = self.dataset
+        while ds is not None:
+            if isinstance(ds, DistributedDataSet):
+                return True
+            ds = getattr(ds, "parent", None)
+        return False
+
+    def _batcher(self):
+        if self._per_rank_data():
+            return SampleToMiniBatch(self.batch_size // self._n_data)
+        return SampleToMiniBatch(self.batch_size)
+
+    def _place_batch(self, x, t):
+        if not self._per_rank_data():
+            from bigdl_tpu_torch.parallel.mesh import shard_batch
+            x, t = shard_batch([x, t], self.mesh, self.data_axis)
+        return super()._place_batch(x, t)
+
+    def _forward_context(self):
+        if self._grad_compression is None and self._n_data > 1:
+            from bigdl_tpu_torch.parallel.collectives import \
+                global_batch_stats
+            return global_batch_stats(self._group)
+        return contextlib.nullcontext()
+
+    def _reduce(self, loss, grads):
+        """Average the gradients (in the wire format of the compression
+        mode) and the loss over the data group; under compression, also
+        average the float states (the running statistics)."""
+        from bigdl_tpu_torch.parallel import collectives as col
+        mode, g = self._grad_compression, self._group
+        if mode == "int8":
+            grads = col.quantized_all_reduce(grads, g, mean=True)
+        elif mode:
+            grads = col.compressed_all_reduce(grads, g, mean=True)
+        else:
+            grads = col.all_reduce(grads, g, mean=True)
+        loss = col.all_reduce(loss, g, mean=True)
+        if mode:
+            bufs = [b for b in self.model.buffers() if b.is_floating_point()]
+            if bufs:
+                with torch.no_grad():
+                    torch._foreach_copy_(bufs, col.all_reduce(bufs, g,
+                                                              mean=True))
+        return loss, grads
+
+    def _world_signature(self) -> dict:
+        import torch.distributed as dist
+        world = dist.get_world_size()
+        return {"processes": world, "devices": world,
+                "mesh_shape": [int(d) for d in self.mesh.shape],
+                "mesh_axes": list(self.mesh.mesh_dim_names or ())}
+
+    def _save_checkpoint(self, opt_state, state):
+        """Rank 0 writes (the state is the same on every rank; the
+        directory must be shared); every rank waits for it."""
+        import torch.distributed as dist
+        if dist.get_rank() == 0:
+            super()._save_checkpoint(opt_state, state)
+        dist.barrier()
 
 
 class Optimizer:
-    """Facade (ref: Optimizer.apply): the local optimizer;
-    ``distributed=True`` raises until Queue 1 item 10."""
+    """Facade (ref: Optimizer.apply): ``distributed`` defaults to an
+    initialised Engine with a world above one."""
 
     def __new__(cls, model: Module, dataset, criterion,
                 batch_size: int = 32, end_trigger=None,
                 distributed: Optional[bool] = None, device=None, **kwargs):
+        if distributed is None:
+            distributed = Engine.is_initialized() and \
+                Engine.world_size() > 1
         if distributed:
-            raise NotImplementedError(f"Optimizer(distributed=True): "
-                                      f"{_DISTRIBUTED}")
+            return DistriOptimizer(model, dataset, criterion, batch_size,
+                                   end_trigger, device=device, **kwargs)
         return LocalOptimizer(model, dataset, criterion, batch_size,
                               end_trigger, device=device)
 

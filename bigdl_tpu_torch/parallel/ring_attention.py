@@ -2,7 +2,7 @@
 :func:`online_block_update` — the one flash-style recurrence that the
 JAX package shares between its ring kernel and the blockwise cache-window
 path of ``llama._attention``. Only the block update is ported: the ring
-over a device mesh is ROADMAP Queue 1 item 10.
+over a device mesh is ROADMAP Queue 1 item 10 (rest).
 
 Layout convention: ``(batch, seq, heads, head_dim)``.
 """

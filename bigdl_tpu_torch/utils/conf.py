@@ -17,9 +17,12 @@ so one deployment's configuration drives either package:
 The port keeps a store of its own (``conf.set`` on one package does not
 reach the other; the environment and the file reach both). Keys that
 configure parts of the JAX package the port does not have yet
-(``bigdl.engine.type``, ``bigdl.mesh.*``, ``bigdl.elastic.*``, the
-router's failover and hedging, the time-series and federation planes)
-stay in the table, unread.
+(``bigdl.elastic.*``, the router's failover and hedging, the
+time-series and federation planes) stay in the table, unread. The
+engine keys (``bigdl.engine.type``: ``gpu`` or ``cpu`` here,
+``bigdl.mesh.*``, ``bigdl.coordinator.address``,
+``bigdl.num.processes``, ``bigdl.process.id``) are read by
+``utils/engine.py``.
 
 Typed getters (``get_int``/``get_bool``/``get_float``) validate at read
 time.
@@ -301,6 +304,12 @@ class BigDLConf:
         if v.lower() in ("false", "0", "no", "off"):
             return False
         raise ValueError(f"config {key}={v!r} is not a bool")
+
+    def get_list(self, key: str, default=None):
+        v = self.get(key)
+        if v in (None, ""):
+            return default
+        return [s.strip() for s in v.split(",") if s.strip()]
 
     def effective(self) -> Dict[str, str]:
         """Fully-resolved view of every known key (for logging/debug)."""

@@ -383,6 +383,28 @@ Phase 16 the DLlib graph and Keras API, after phase 15 (report key
          step at batch 2 on the card against the CPU. Each sub-phase
          checks that the port's launch counters stay 0.
 
+Phase 17 data-parallel DLlib training over ``torch.distributed``, after
+         phase 16 (report key ``dllib_distributed``): (a) phase 16 (b)'s
+         Keras LeNet-5 through ``fit`` with its defaults, which trains
+         through ``DistriOptimizer`` on the Engine's NCCL world of one
+         (top-1 >= 0.99); (b) ResNet-50 NHWC, 224 x 224, batch 256, bf16
+         inputs, phase 15 (b)'s SGD, through ``DistriOptimizer`` in
+         gradient-compression modes None, bf16 and int8, between two
+         ``LocalOptimizer`` runs (the base): 3 warm-up and 10 timed
+         steps each (CUDA events at dispatch), and the three gradient
+         all-reduces alone on ResNet-50's gradients (events as called,
+         and behind a spin of the stream: the device's own time); (c)
+         one f32 step at batch 2 of a conv + batch-norm net in each
+         mode, on the card (NCCL) and on the CPU (a gloo group), the
+         loss, the statistics and each parameter within its update;
+         (d) ``quantize_model(LeNet5())`` (int8 convolutions and
+         linears) and a ``ConvLSTMPeephole`` forward and backward, card
+         against CPU. The port's launch counters stay 0
+         in (a)-(c) and on the ConvLSTM; (d)'s quantized ``Linear``
+         launches the int8 matmul once a forward (fc_1; fc_2's K = 100 is
+         not a multiple of 32 and takes the plain product). The process
+         group is destroyed before the phase ends.
+
 Every phase's line has the SM clock and power draw (``nvidia-smi
 --query-gpu=clocks.sm,power.draw``) on the line before it. Then a
 ``{"kernels": [...]}`` line, and as the last line
@@ -6462,6 +6484,371 @@ def dllib_keras_phase(torch, dev):
     return out
 
 
+# -- phase 17: data-parallel DLlib training over torch.distributed --------------
+
+DP_MODES = (None, "bf16", "int8")
+# phase 17 (c): each parameter tensor within this share of its own
+# update's largest entry, card against CPU. One step of a wire mode moves
+# a gradient element that rounds across a wire step by that step: 2^-8
+# of the element for bf16, 1/127 of its block's largest for int8; the
+# plain f32 step moves by rounding only. 0.05 is 6x the int8 step.
+DP_PER_TENSOR_TOL = 0.05
+
+
+def _dp_net(nn):
+    """The conv + batch-norm net of ``tests/test_torch_distributed.py``."""
+    return (nn.Sequential().add(nn.SpatialConvolution(2, 4, 3, 3, 1, 1, 1, 1))
+            .add(nn.SpatialBatchNormalization(4)).add(nn.ReLU())
+            .add(nn.SpatialMaxPooling(2, 2, 2, 2)).add(nn.Reshape([64]))
+            .add(nn.Linear(64, 3)).add(nn.LogSoftMax()))
+
+
+def _event_steps(torch, opt, warm, timed):
+    """``opt.optimize()`` (``warm + timed + 1`` steps) with a CUDA event
+    recorded as each step is dispatched: the ms of each timed step, the
+    optimize wall s."""
+    marks, step = [], opt._train_step
+
+    def timed_step(*a):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return step(*a)
+
+    opt._train_step = timed_step
+    t = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t
+    return [marks[i].elapsed_time(marks[i + 1])
+            for i in range(warm, warm + timed)], wall
+
+
+def _engine_row(dist, Engine, what):
+    check(dist.is_initialized() and dist.get_backend() == "nccl"
+          and Engine.world_size() == 1
+          and Engine.config().engine_type == "gpu",
+          f"{what}: the Engine is not NCCL at world 1: "
+          f"{Engine.config()}")
+    return {"backend": str(dist.get_backend()),
+            "world": Engine.world_size(),
+            "mesh": [list(Engine.mesh().mesh_dim_names),
+                     list(Engine.mesh().shape)]}
+
+
+def _keras_fit_default(torch, dev):
+    """(a) Phase 16 (b)'s Keras LeNet-5, ``fit`` with its defaults."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch import keras as K, nn
+    from bigdl_tpu_torch.feature.mnist import load_mnist
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.utils.engine import Engine
+    check(not Engine.is_initialized(), "phase 17 (a): the Engine is warm")
+    kernels.reset_launch_counts()
+    nn.set_seed(0)
+    x, y = load_mnist(synthetic_size=2048)
+    xv, yv = load_mnist(synthetic_size=512, train=False)
+    x, xv = x.reshape(-1, 1, 28, 28), xv.reshape(-1, 1, 28, 28)
+    m = K.Sequential()
+    m.add(K.Convolution2D(6, 5, 5, activation="tanh",
+                          input_shape=(1, 28, 28)))
+    m.add(K.MaxPooling2D())
+    m.add(K.Convolution2D(12, 5, 5, activation="tanh"))
+    m.add(K.MaxPooling2D())
+    m.add(K.Flatten())
+    m.add(K.Dense(100, activation="tanh"))
+    m.add(K.Dense(10, activation="softmax"))
+    m.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+              metrics=["accuracy"])
+    opt = m.fit_optimizer(x, y - 1, batch_size=64, nb_epoch=2)
+    check(type(opt).__name__ == "DistriOptimizer",
+          f"phase 17 (a): fit's default built {type(opt).__name__}")
+    engine = _engine_row(dist, Engine, "phase 17 (a)")
+    t = time.perf_counter()
+    opt.optimize()
+    fit_s = time.perf_counter() - t
+    top1 = m.evaluate(xv, yv - 1, batch_size=256)[0].result
+    check(top1 >= 0.99, f"phase 17 (a): Keras LeNet-5 top-1 {top1} < 0.99")
+    _no_port_launches(kernels, "phase 17 (a)")
+    return {"what": "examples/lenet_mnist.py's model, keras.Sequential, "
+                    "fit's defaults (distributed=True, device=None), batch "
+                    "64, 2 epochs of 2,048 synthetic digits",
+            "optimizer": type(opt).__name__, "engine": engine,
+            "top1": top1, "fit_s": fit_s}
+
+
+def _resnet_modes(torch, dev):
+    """(b) ResNet-50 through ``DistriOptimizer`` in each mode and through
+    ``LocalOptimizer``, then the three gradient all-reduces alone."""
+    import gc
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.parallel import collectives as col
+    from bigdl_tpu_torch.utils.engine import Engine
+    batch, warm, timed = 256, 3, 10
+    t = time.perf_counter()
+    x, y = _resnet_batches(warm + timed + 1, batch)
+    nn.set_seed(0)
+    init = {k: v.detach().clone() for k, v in resnet.resnet_imagenet(
+        50, 1000, format="NHWC", device="cpu").state_dict().items()}
+    setup_s = time.perf_counter() - t
+    rows = {}
+    kernels.reset_launch_counts()
+    # LocalOptimizer first and last: the base is both runs' steps, so a
+    # drift over the call does not read as a mode's cost
+    for run, mode in enumerate(("local",) + DP_MODES + ("local",)):
+        m = resnet.resnet_imagenet(50, 1000, format="NHWC", device="cpu")
+        m.load_state_dict(init)
+        cls = optim.LocalOptimizer if mode == "local" else \
+            optim.DistriOptimizer
+        opt = cls(m, (x, y), nn.ClassNLLCriterion(), batch,
+                  optim.Trigger.max_iteration(warm + timed + 1), device=dev)
+        if mode != "local":
+            opt.set_gradient_compression(mode)
+        opt.set_optim_method(optim.SGD(0.1, momentum=0.9, weight_decay=1e-4))
+        opt.set_input_dtype(torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
+        ms, wall = _event_steps(torch, opt, warm, timed)
+        loss = opt.state["loss"]
+        check(math.isfinite(loss), f"phase 17 (b) {mode}: loss {loss}")
+        name = (f"LocalOptimizer {'first' if run == 0 else 'last'}"
+                if mode == "local" else f"DistriOptimizer {mode or 'plain'}")
+        rows[name] = {"step_ms": sum(ms) / len(ms), "step_ms_each": ms,
+                      "step_ms_median": statistics.median(ms),
+                      "images_per_s": batch / (sum(ms) / len(ms)) * 1e3,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "final_loss": loss, "optimize_wall_s": wall}
+        if mode == "int8":
+            grads = [torch.randn_like(p) for p in m.parameters()]
+        del opt, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    # each all-reduce alone on ResNet-50's gradients, timed by events
+    # twice: as called (the host's Python over 161 leaves included), and
+    # behind a ~25 ms spin of the stream, so the host has queued the whole
+    # call before the first event is reached (the device's own time; a
+    # profiler window here found no device events late in a full run)
+    grp = Engine.data_group()
+    alone = {}
+    for name, fn in (("all_reduce f32", col.all_reduce),
+                     ("compressed_all_reduce bf16",
+                      col.compressed_all_reduce),
+                     ("quantized_all_reduce int8", col.quantized_all_reduce)):
+        times = {"called": [], "device": []}
+        for i in range(26):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            spin = i % 2
+            if spin:
+                torch.cuda._sleep(50_000_000)
+            a.record()
+            fn(grads, grp, mean=True)
+            b.record()
+            torch.cuda.synchronize()
+            if i >= 6:
+                times["device" if spin else "called"].append(
+                    a.elapsed_time(b))
+        alone[name] = {"ms_median": statistics.median(times["called"]),
+                       "device_ms_median": statistics.median(
+                           times["device"]), **times}
+    n = sum(g.numel() for g in grads)
+    del grads
+    counts = _no_port_launches(kernels, "phase 17 (b)")
+    base = statistics.median(rows["LocalOptimizer first"]["step_ms_each"]
+                             + rows["LocalOptimizer last"]["step_ms_each"])
+    for r in rows.values():
+        r["step_ms_median_vs_local"] = [r["step_ms_median"], base]
+    return {"what": "ResNet-50 NHWC 224x224 batch 256, bf16 inputs, SGD 0.1 "
+                    "m 0.9 wd 1e-4; 3 warm-up and 10 timed steps each",
+            "gradient_elements": n, "setup_s": setup_s, "runs": rows,
+            "collective_alone_ms_world1": alone,
+            "port_kernel_launches": counts}
+
+
+def _dp_card_vs_cpu(torch, dev):
+    """(c) One f32 step at batch 2 of the conv + BN net in each mode, on
+    the card (the Engine's NCCL mesh) and on the CPU (a gloo group of
+    the same world), from the same weights: the loss within 1e-5
+    (relative), the BN statistics within 1e-4 + 1e-4 |x|, each parameter
+    tensor within ``DP_PER_TENSOR_TOL`` of its own update's largest
+    entry, plus 1e-7: the conv bias ahead of the batch norm has a
+    gradient of rounding noise only (its update ~1e-8), and is reported
+    apart by its absolute deviation."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.utils.tree import tree_leaves
+    kernels.reset_launch_counts()
+    cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu",
+                                     mesh_dim_names=("data",))
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 2, 8, 8)).astype(np.float32)
+    y = np.array([1.0, 3.0], np.float32)
+    nn.set_seed(0)
+    init = {k: v.detach().clone() for k, v in
+            _dp_net(nn).state_dict().items()}
+    rows = {}
+    for mode in DP_MODES:
+        got = {}
+        for where in ("card", "cpu"):
+            m = _dp_net(nn)
+            m.load_state_dict(init)
+            opt = optim.DistriOptimizer(
+                m, (x, y), nn.ClassNLLCriterion(), 2,
+                optim.Trigger.max_iteration(1),
+                device=dev if where == "card" else "cpu",
+                mesh=None if where == "card" else cpu_mesh)
+            opt.set_gradient_compression(mode)
+            opt.set_optim_method(optim.SGD(0.1, momentum=0.9))
+            opt.optimize()
+            got[where] = (opt.state["loss"], m)
+        (l_card, card), (l_cpu, cpu) = got["card"], got["cpu"]
+        what = f"phase 17 (c) {mode or 'plain'}"
+        check(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu),
+              f"{what}: loss {l_card} vs {l_cpu}")
+        stats = 0.0
+        for a, b in zip(tree_leaves(card.states_dict()),
+                        tree_leaves(cpu.states_dict())):
+            a = a.cpu()
+            d = float((a - b).abs().max())
+            check(bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all()),
+                  f"{what}: BN statistics differ by {d}")
+            stats = max(stats, d)
+        per, tiny = [], 0.0
+        for (name, w), c in zip(cpu.named_parameters(), card.parameters()):
+            w, c = w.detach(), c.detach().cpu()
+            upd = float((w - init[name]).abs().max())
+            dev_ = float((c - w).abs().max())
+            if upd > 1e-6:
+                per.append(dev_ / upd)
+            else:
+                tiny = max(tiny, dev_)
+            check(dev_ <= DP_PER_TENSOR_TOL * upd + 1e-7,
+                  f"{what}: {name} is {dev_} from the CPU's, its update "
+                  f"{upd}")
+        rows[mode or "plain"] = {"loss_card_cpu": [l_card, l_cpu],
+                                 "bn_stats_max_abs_diff": stats,
+                                 "update_dev_max_over_tensors": max(per),
+                                 "tiny_update_max_abs_dev": tiny}
+    _no_port_launches(kernels, "phase 17 (c)")
+    return {"what": "conv(2->4, 3x3) + SpatialBatchNormalization + ReLU + "
+                    "pool + Linear(64, 3), f32, batch 2, one SGD 0.1 m 0.9 "
+                    "step; the CPU over a gloo group",
+            "modes": rows,
+            "tolerance": f"loss 1e-5 rel; BN stats 1e-4 + 1e-4 |x|; each "
+                         f"parameter within {DP_PER_TENSOR_TOL} of its "
+                         "update's max"}
+
+
+def _quantized_and_convlstm(torch, dev):
+    """(d) ``quantize_model(LeNet5())`` and a ``ConvLSTMPeephole``, card
+    against CPU."""
+    import copy
+
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.feature.mnist import load_mnist, normalize
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.nn import quantized
+    nn.set_seed(0)
+    cpu = lenet.build_model(10, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    quantized.quantize_model(cpu)
+    quantized.quantize_model(card)
+    twins = [type(m).__name__ for m in card.modules()
+             if isinstance(m, (quantized.Linear,
+                               quantized.SpatialConvolution))]
+    check(twins.count("SpatialConvolution") == 2
+          and twins.count("Linear") == 2,
+          f"phase 17 (d): quantize_model gave {twins}")
+    for (name, a), b in zip(card.named_buffers(), cpu.buffers()):
+        check(torch.equal(a.cpu(), b),
+              f"phase 17 (d): {name} on the card differs from the CPU's")
+    x = normalize(load_mnist(synthetic_size=64)[0])
+    xt = torch.from_numpy(x)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y_card = card.eval()(xt.to(dev)).cpu().numpy()
+    launches = dict(kernels.launch_counts())
+    counts = {k: v for k, v in launches.items() if v}
+    route = kernels.matmul_route(64, 100)
+    want = {"int8_matmul": 1, f"int8_matmul_{route}": 1}
+    check(counts == want, f"phase 17 (d): launches {counts} != {want}")
+    with torch.no_grad():
+        y_cpu = cpu.eval()(xt).numpy()
+    err = float(np.abs(y_card - y_cpu).max() / np.abs(y_cpu).max())
+    same = bool((y_card.argmax(1) == y_cpu.argmax(1)).all())
+    check(err <= 2e-2 and same, f"phase 17 (d): quantized LeNet-5 card vs "
+          f"CPU rel err {err}, same argmax {same}")
+
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(4)
+    nn.set_seed(0)
+    lstm = nn.ConvLSTMPeephole(3, 8, 3, 3)
+    lstm.load_parameters_dict({k: 0.3 * rng.standard_normal(
+        tuple(v.shape)).astype(np.float32)
+        for k, v in lstm.parameters_dict().items()})
+    card_l = copy.deepcopy(lstm).to(dev)
+    xs = rng.standard_normal((2, 4, 3, 16, 16)).astype(np.float32)
+    g = rng.standard_normal((2, 4, 8, 16, 16)).astype(np.float32)
+    out = {}
+    for where, mod, d in (("cpu", lstm, "cpu"), ("card", card_l, dev)):
+        mod.train()
+        xi = torch.from_numpy(xs).to(d)
+        y = mod(xi)
+        gi = mod.backward(xi, torch.from_numpy(g).to(d))
+        out[where] = [y.detach().cpu(), gi.cpu()] + [
+            p.grad.cpu() for p in mod.parameters()]
+    rel = []
+    for i, (a, b) in enumerate(zip(out["card"], out["cpu"])):
+        r = float((a - b).abs().max() / b.abs().max())
+        rel.append(r)
+        check(r <= (1e-5 if i == 0 else 1e-4),
+              f"phase 17 (d): ConvLSTMPeephole tensor {i} card vs CPU "
+              f"rel {r}")
+    _no_port_launches(kernels, "phase 17 (d) ConvLSTMPeephole")
+    return {"quantized_lenet": {"twins": twins, "launches": counts,
+                                "launches_all": launches,
+                                "card_vs_cpu_rel_err": err,
+                                "same_argmax": same, "tol": 2e-2},
+            "convlstm": {"what": "ConvLSTMPeephole(3, 8, 3, 3), input "
+                                 "2 x 4 x 3 x 16 x 16, f32",
+                         "rel_err_out_gradin_gradparams": rel,
+                         "tol": "output 1e-5, gradients 1e-4 of the "
+                                "largest"}}
+
+
+def dllib_distributed_phase(torch, dev):
+    """Phase 17: (a) Keras ``fit``'s default, (b) ResNet-50 by mode, (c) a
+    conv + BN step by mode card against CPU, (d) ``quantize_model`` and
+    ``ConvLSTMPeephole`` card against CPU."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.utils.engine import Engine
+    t0 = time.perf_counter()
+    out = {"phase": "dllib_distributed"}
+    try:
+        out["keras_fit_default"] = _keras_fit_default(torch, dev)
+        torch.cuda.empty_cache()
+        out["resnet50_modes"] = _resnet_modes(torch, dev)
+        torch.cuda.empty_cache()
+        out["card_vs_cpu"] = _dp_card_vs_cpu(torch, dev)
+        out["quantized_convlstm"] = _quantized_and_convlstm(torch, dev)
+    finally:
+        Engine.reset()
+    check(not dist.is_initialized(),
+          "phase 17: the process group outlived the phase")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 # The caching allocator's split limit, set before torch starts. A
 # thread's or a stream's first cuBLAS call takes a 32 MiB workspace from
 # the allocator and holds it for the rest of the process. Without a
@@ -6618,6 +7005,10 @@ def main() -> int:
     dllib_keras = dllib_keras_phase(torch, dev)
     dllib_keras["nvidia_smi"] = smi
     emit(dllib_keras)
+    release_memory(torch)
+    dllib_dist = dllib_distributed_phase(torch, dev)
+    dllib_dist["nvidia_smi"] = smi
+    emit(dllib_dist)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
@@ -6682,6 +7073,8 @@ def main() -> int:
             if "prefix_cache" in r:
                 paths[f"serve {name} prefix cache {kv}"] = dict(
                     r["prefix_cache"][kv]["launches"])
+    paths["quantize_model LeNet-5 forward, batch 64"] = dict(
+        dllib_dist["quantized_convlstm"]["quantized_lenet"]["launches_all"])
 
     # a two-kernel wrapper's count covers both routes: a dequant-matmul's
     # calls are its GEMV and tensor-core launches, ragged prefill's
@@ -6936,6 +7329,7 @@ def main() -> int:
               "router": router, "fleet": fleet, "tools": tools,
               "formats": formats, "dllib": dllib,
               "dllib_keras": dllib_keras,
+              "dllib_distributed": dllib_dist,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -1942,6 +1942,10 @@ def test_training_entry_points_need_a_gpu_unless_cpu(monkeypatch,
     for call in (lambda: optim.Optimizer(m, data, nn.ClassNLLCriterion()),
                  lambda: optim.LocalOptimizer(m, data,
                                               nn.ClassNLLCriterion()),
+                 lambda: optim.DistriOptimizer(m, data,
+                                               nn.ClassNLLCriterion()),
+                 lambda: optim.Optimizer(m, data, nn.ClassNLLCriterion(),
+                                         distributed=True),
                  lambda: optim.Evaluator(m), lambda: optim.Predictor(m),
                  lambda: lenet.build_model(10),
                  lambda: resnet.resnet_cifar(8),

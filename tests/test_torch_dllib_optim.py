@@ -188,19 +188,38 @@ def test_summary_reads_back_and_reaches_registry(tmp_path):
             obs.disable()
 
 
-def test_distributed_pieces_raise():
+def test_distributed_pieces_build():
+    """``DistributedDataSet`` without a rank, ``Optimizer(distributed=
+    True)`` and ``DistriOptimizer`` build (on the CPU, over a gloo world
+    of one); the facade's default picks the local optimizer at world 1;
+    the elastic plane still raises, naming its Queue 1 item."""
+    from bigdl_tpu_torch.utils.conf import conf
+    from bigdl_tpu_torch.utils.engine import Engine
     x, y = np.zeros((8, 2), np.float32), np.ones(8, np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        DistributedDataSet(x, y)
+    ds = DistributedDataSet(x, y)
+    assert (ds.rank, ds.world) == (0, 1) and len(list(ds.data())) == 8
     ds = DistributedDataSet(np.arange(8), shuffle=False, rank=1, world=2)
     assert [int(s.feature()) for s in ds.data()] == [1, 3, 5, 7]
     m = tnn.Linear(2, 2)
-    for kw in (dict(distributed=True),):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            toptim.Optimizer(m, (x, y), tnn.MSECriterion(), device="cpu",
-                             **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        toptim.DistriOptimizer(m, (x, y), tnn.MSECriterion())
+    Engine.reset()
+    try:
+        opt = toptim.Optimizer(m, (x, y), tnn.MSECriterion(), 4,
+                               distributed=True, device="cpu")
+        assert type(opt) is toptim.DistriOptimizer
+        assert Engine.world_size() == 1 and opt.mesh.shape == (1,)
+        assert type(toptim.Optimizer(m, (x, y), tnn.MSECriterion(),
+                                     device="cpu")) is toptim.LocalOptimizer
+        opt = toptim.DistriOptimizer(m, (x, y), tnn.MSECriterion(), 4,
+                                     device="cpu")
+        conf.set("bigdl.elastic.enabled", "true")
+        try:
+            with pytest.raises(NotImplementedError,
+                               match="Queue 1 item 10"):
+                opt.optimize()
+        finally:
+            conf.unset("bigdl.elastic.enabled")
+    finally:
+        Engine.reset()
 
 
 # -- LocalOptimizer -------------------------------------------------------------

@@ -6,7 +6,8 @@ random layers in eval mode, and their shape in train mode);
 ``Sequential`` and a functional ``Model`` train through ``fit`` at
 ``distributed=False`` from the same weights and agree in their weights
 (rtol 1e-4 / atol 1e-5), ``evaluate`` and ``predict``; ``fit``'s default
-``distributed=True`` raises the "Queue 1 item 10" message."""
+``distributed=True`` trains through ``DistriOptimizer`` (held to the JAX
+default in ``tests/test_torch_distributed.py``)."""
 
 import numpy as np
 import pytest
@@ -303,19 +304,34 @@ def test_fit_evaluate_predict_match_jax(which):
         np.asarray(jm.predict_classes(x[:7])))
 
 
-def test_fit_defaults_to_distributed_and_raises_item_10(tmp_path,
-                                                        monkeypatch):
-    """``fit``'s default ``distributed=True`` builds the JAX package's
-    ``DistriOptimizer``; the port raises until ROADMAP Queue 1 item 10,
-    and does not fall back to local training."""
+def test_fit_defaults_to_distributed_and_trains(tmp_path, monkeypatch):
+    """``fit``'s default ``distributed=True`` builds ``DistriOptimizer``
+    (the JAX package's choice) over the Engine's mesh, here a gloo world
+    of one, and trains: the weights move, as ``distributed=False``'s
+    local optimizer moves them from the same start."""
+    from bigdl_tpu_torch.optim import DistriOptimizer, LocalOptimizer
+    from bigdl_tpu_torch.utils.engine import Engine
     m = _mlp(TK)
     x = np.random.RandomState(0).rand(8, 10).astype(np.float32)
     y = np.zeros(8, np.float32)
     w0 = m.get_weights()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    Engine.reset()
+    try:
+        assert type(m.fit_optimizer(x, y, batch_size=4, device="cpu")) is \
+            DistriOptimizer
+        assert type(m.fit_optimizer(x, y, batch_size=4, distributed=False,
+                                    device="cpu")) is LocalOptimizer
         m.fit(x, y, batch_size=4, nb_epoch=1, device="cpu")
+        assert Engine.is_initialized() and Engine.world_size() == 1
+    finally:
+        Engine.reset()
+    moved = m.get_weights()
+    m.set_weights(w0)
+    m.fit(x, y, batch_size=4, nb_epoch=1, distributed=False, device="cpu")
     jax.tree_util.tree_map(np.testing.assert_array_equal, m.get_weights(),
-                           w0)
+                           moved)
+    assert any(not np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(moved), jax.tree_util.tree_leaves(w0)))
     with pytest.raises(RuntimeError, match="compile"):
         TK.Sequential().fit(x, y, distributed=False, device="cpu")
     m.save_model(str(tmp_path / "m"))
