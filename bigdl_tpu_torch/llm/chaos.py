@@ -904,8 +904,242 @@ def run_fleet_chaos(model=None, seed: int = 0, smoke: bool = False,
         keys.restore()
 
 
+# ---------------------------------------------------------------------------
+# training, prefix-cache and host-tier drives (tools/chaos_check.py
+# --chaos, --kvcache, --kvtier)
+# ---------------------------------------------------------------------------
+
+def _train_once(n: int, epochs: int, batch: int, ckpt_dir: Optional[str],
+                max_retry: int = 0, device=None) -> float:
+    """One deterministic LeNet-5 training run (the examples/lenet_mnist
+    model over synthetic digits, unshuffled) → final loss."""
+    import bigdl_tpu_torch.nn as nn
+    from bigdl_tpu_torch.feature.dataset import LocalDataSet
+    from bigdl_tpu_torch.models.lenet import build_model
+    from bigdl_tpu_torch.optim.optimizer import LocalOptimizer
+    from bigdl_tpu_torch.optim.trigger import Trigger
+
+    nn.set_seed(0)
+    rs = np.random.RandomState(0)
+    x = rs.rand(n, 1, 28, 28).astype(np.float32)
+    y = (rs.randint(0, 10, n) + 1).astype(np.int32)
+    opt = LocalOptimizer(build_model(10, device=device),
+                         LocalDataSet(x, y, shuffle=False),
+                         nn.ClassNLLCriterion(), batch_size=batch,
+                         end_trigger=Trigger.max_epoch(epochs),
+                         device=device)
+    if ckpt_dir:
+        opt.set_checkpoint(ckpt_dir, Trigger.every_epoch())
+    if max_retry:
+        opt.set_max_retry(max_retry)
+    opt.optimize()
+    return float(opt.state["loss"])
+
+
+def _with_reliability(fn):
+    """Run ``fn()`` with the reliability layer on, disarm the plan after
+    and put the master switch back as it was."""
+    from bigdl_tpu_torch import reliability as rel
+    was_enabled = rel.enabled()
+    if not was_enabled:
+        rel.enable()
+    try:
+        return fn()
+    finally:
+        rel.set_plan(None)
+        if not was_enabled:
+            rel.disable()
+
+
+def run_chaos(seed: int = 0, events: int = 5, smoke: bool = True,
+              rtol: float = 1e-4, device=None) -> dict:
+    """LeNet-5 training under a seeded fault plan: a clean run, then the
+    same run with ``events`` raise / corrupt / delay rules drawn over the
+    training and checkpoint sites (``FaultPlan.randomize``, the JAX
+    drive's draw from the same seed) and a retry budget above them; the
+    final losses must match. The unshuffled data, recovery from the last
+    epoch's checkpoint with the same batch order, and the quarantine of
+    corrupt checkpoints make any divergence a dropped or replayed step.
+    On the card cuDNN's backward is not bitwise deterministic, so
+    ``rtol`` is the contract there as on the CPU."""
+    from bigdl_tpu_torch import reliability as rel
+
+    import tempfile
+    n, epochs, batch = (64, 3, 16) if smoke else (256, 5, 32)
+    plan = rel.FaultPlan(seed=seed).randomize(
+        events, sites=("optimizer.step", "checkpoint.write",
+                       "checkpoint.write.manifest",
+                       "checkpoint.commit", "optimizer.checkpoint"))
+
+    def drive():
+        clean = _train_once(n, epochs, batch, ckpt_dir=None, device=device)
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            rel.set_plan(plan)
+            injected = _train_once(n, epochs, batch, ckpt_dir=ckpt_dir,
+                                   max_retry=events + 1, device=device)
+        return clean, injected
+
+    clean, injected = _with_reliability(drive)
+    match = bool(np.isclose(clean, injected, rtol=rtol, atol=1e-6))
+    out = {
+        "seed": seed,
+        "events_armed": events,
+        "events_fired": [f"{s}:{a}" for s, a in plan.fired],
+        "clean_loss": clean,
+        "injected_loss": injected,
+        "match": match,
+    }
+    if not match:
+        raise AssertionError(
+            f"chaos divergence: clean loss {clean} vs injected "
+            f"{injected} (fired: {out['events_fired']})")
+    return out
+
+
+def run_kvcache_chaos(model=None, seed: int = 0, n_requests: int = 6,
+                      raises: int = 2, device=None) -> dict:
+    """Serve a shared-prefix workload through the prefix cache with
+    seeded ``kvcache.evict`` faults armed (a delay on every eviction to
+    widen race windows, and ``raises`` raises: the site fires before any
+    state changes, so the engine loop retries cleanly); greedy outputs
+    must equal the clean cache-on run's. The pool (7 pages of 8 tokens)
+    is small enough that eviction happens. ``model`` defaults to
+    :func:`tiny_model` on ``device``."""
+    from bigdl_tpu_torch import reliability as rel
+    from bigdl_tpu_torch.llm.serving import LLMServer
+
+    model = model or tiny_model(device)
+    rs = np.random.RandomState(seed)
+    shared = rs.randint(0, 250, 12).astype(np.int32)
+    prompts = [np.concatenate([shared,
+                               rs.randint(0, 250, 2 + j % 5)
+                               .astype(np.int32)])
+               for j in range(n_requests)]
+
+    def serve_all():
+        srv = LLMServer(model, **_serve_kw(model, num_pages=7,
+                                           kvcache=True)).start()
+        try:
+            reqs = [srv.submit(p, max_new_tokens=4) for p in prompts]
+            return ([list(map(int, r.get(timeout=300))) for r in reqs],
+                    srv._kv.evictions)
+        finally:
+            srv.stop()
+
+    plan = rel.FaultPlan(seed=seed)
+    # rules match first-wins: the bounded raises go first (skipping
+    # the first call), the unbounded delays mop up every other pass
+    plan.add("kvcache.evict", "raise", times=raises, after=1)
+    plan.add("kvcache.evict", "delay", times=None, delay=0.002)
+
+    def drive():
+        clean = serve_all()
+        rel.set_plan(plan)
+        return clean, serve_all()
+
+    (clean, clean_evicts), (injected, injected_evicts) = \
+        _with_reliability(drive)
+    match = injected == clean
+    out = {
+        "seed": seed,
+        "requests": n_requests,
+        "clean_evictions": clean_evicts,
+        "injected_evictions": injected_evicts,
+        "events_fired": [f"{s}:{a}" for s, a in plan.fired],
+        "match": match,
+    }
+    if not out["events_fired"]:
+        raise AssertionError(
+            "kvcache chaos armed but no kvcache.evict fault fired — "
+            "the pool was not under pressure; shrink it")
+    if not match:
+        raise AssertionError(
+            f"kvcache chaos divergence under eviction faults "
+            f"(fired: {out['events_fired']}): {clean} vs {injected}")
+    return out
+
+
+def run_kvtier_chaos(model=None, seed: int = 0, n_groups: int = 4,
+                     fetch_raises: int = 2, spill_raises: int = 1,
+                     device=None) -> dict:
+    """Drive spill → reload traffic through the host tier with seeded
+    ``kvtier.spill`` / ``kvtier.fetch`` faults armed (a delay on every
+    migration, raises both ways); greedy outputs must equal the clean
+    tier-on run's. Under failure a failed spill is a plain eviction and
+    a failed fetch a plain cache miss: never a stall, a crash or another
+    token. Requests are served one at a time; the pool (9 pages) holds
+    about 2 of the 4 chains, so the second pass reloads from the arena.
+    ``model`` defaults to :func:`tiny_model` on ``device``."""
+    from bigdl_tpu_torch import reliability as rel
+    from bigdl_tpu_torch.llm.serving import LLMServer
+
+    model = model or tiny_model(device)
+    rs = np.random.RandomState(seed)
+    groups = [rs.randint(0, 250, 16).astype(np.int32)
+              for _ in range(n_groups)]
+    prompts = []
+    for rnd in range(2):          # two passes: seed chains, then reload
+        for g in range(n_groups):
+            prompts.append(np.concatenate(
+                [groups[g], rs.randint(0, 250, 2 + (rnd + g) % 3)
+                 .astype(np.int32)]))
+
+    def serve_all():
+        srv = LLMServer(model, **_serve_kw(
+            model, num_pages=9, kvcache=True, kvtier=True,
+            host_pages=32)).start()
+        try:
+            got = [list(map(int,
+                            srv.submit(p, max_new_tokens=4)
+                            .get(timeout=300)))
+                   for p in prompts]
+            srv._tier.migrator.drain()
+            return got, srv._tier.spills, srv._tier.fetches
+        finally:
+            srv.stop()
+
+    plan = rel.FaultPlan(seed=seed)
+    # first-match-wins: bounded raises first, unbounded delays mop up
+    # every other migration
+    plan.add("kvtier.fetch", "raise", times=fetch_raises, after=0)
+    plan.add("kvtier.spill", "raise", times=spill_raises, after=1)
+    plan.add("kvtier.*", "delay", times=None, delay=0.003)
+
+    def drive():
+        clean = serve_all()
+        rel.set_plan(plan)
+        return clean, serve_all()
+
+    (clean, clean_spills, clean_fetches), \
+        (injected, inj_spills, inj_fetches) = _with_reliability(drive)
+    match = injected == clean
+    out = {
+        "seed": seed,
+        "requests": len(prompts),
+        "clean_spills": clean_spills,
+        "clean_fetches": clean_fetches,
+        "injected_spills": inj_spills,
+        "injected_fetches": inj_fetches,
+        "events_fired": [f"{s}:{a}" for s, a in plan.fired],
+        "match": match,
+    }
+    if clean_fetches == 0:
+        raise AssertionError(
+            "kvtier chaos: the clean run never fetched from the host "
+            "arena — the pool is not under pressure; shrink it")
+    if not any(s.startswith("kvtier.") for s, _ in plan.fired):
+        raise AssertionError(
+            "kvtier chaos armed but no kvtier fault fired")
+    if not match:
+        raise AssertionError(
+            f"kvtier chaos divergence under migration faults "
+            f"(fired: {out['events_fired']}): {clean} vs {injected}")
+    return out
+
+
 DRIVES = {"failover": run_failover_chaos, "alerts": run_alerts_chaos,
-          "fleet": run_fleet_chaos}
+          "fleet": run_fleet_chaos, "chaos": run_chaos,
+          "kvcache": run_kvcache_chaos, "kvtier": run_kvtier_chaos}
 
 
 def main(argv=None) -> int:
@@ -919,13 +1153,22 @@ def main(argv=None) -> int:
                           const=name)
     ap.add_argument("--smoke", action="store_true",
                     help="the shrunken storm (fewer requests)")
+    ap.add_argument("--full", action="store_true",
+                    help="--chaos: the bigger training run (default: its "
+                         "smoke run)")
+    ap.add_argument("--events", type=int, default=5,
+                    help="--chaos: the fault rules drawn")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
+    kw = dict(seed=args.seed, device=args.device)
+    if args.drive == "chaos":
+        kw.update(smoke=not args.full, events=args.events)
+    elif args.drive in ("failover", "alerts", "fleet"):
+        kw.update(smoke=args.smoke)
     try:
-        out = DRIVES[args.drive](seed=args.seed, smoke=args.smoke,
-                                 device=args.device)
+        out = DRIVES[args.drive](**kw)
     except AssertionError as e:
         print(json.dumps({"drive": args.drive, "ok": False,
                           "error": str(e)}))
@@ -936,8 +1179,9 @@ def main(argv=None) -> int:
     return 0
 
 
-__all__ = ["DRIVES", "main", "run_alerts_chaos",
-           "run_failover_chaos", "run_fleet_chaos", "tiny_model"]
+__all__ = ["DRIVES", "main", "run_alerts_chaos", "run_chaos",
+           "run_failover_chaos", "run_fleet_chaos", "run_kvcache_chaos",
+           "run_kvtier_chaos", "tiny_model"]
 
 
 if __name__ == "__main__":

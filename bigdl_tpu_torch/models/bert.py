@@ -2,9 +2,11 @@
 (ref: BASELINE config 4, BERT-base).
 
 The module tree, keys and weight names are the JAX package's, so its
-weights carry across with ``load_parameters_dict``. Loading a HF
-checkpoint (``load_hf_bert_weights``) needs ``safetensors`` and a
-checkpoint, and is still to port (ROADMAP Queue 1 item 9).
+weights carry across with ``load_parameters_dict``.
+:func:`load_hf_bert_weights` maps a HF ``bert-base-uncased``-family
+safetensors checkpoint onto this tree, read by the port's own
+``llm/transformers/st_reader.SafetensorsReader`` (no ``safetensors``
+package).
 """
 
 from __future__ import annotations
@@ -132,3 +134,54 @@ def build_classifier(cfg: Optional[BertConfig] = None, num_labels: int = 2,
     dev = resolve_device(device)
     return BertForSequenceClassification(cfg or BertConfig.base(),
                                          num_labels).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint interop
+# ---------------------------------------------------------------------------
+
+_HF_LAYER_MAP = {
+    "attention.self.query": ("attention", "q"),
+    "attention.self.key": ("attention", "k"),
+    "attention.self.value": ("attention", "v"),
+    "attention.output.dense": ("attention", "out"),
+    "attention.output.LayerNorm": ("attn_norm",),
+    "intermediate.dense": ("ffn1",),
+    "output.dense": ("ffn2",),
+    "output.LayerNorm": ("ffn_norm",),
+}
+
+
+def load_hf_bert_weights(model: BertModel, path: str) -> BertModel:
+    """Map a HF BERT safetensors checkpoint (a file, or a directory of
+    ``*.safetensors``) onto a :class:`BertModel` (names per
+    transformers' bert-base; a ``bert.`` prefix is tolerated). Each
+    weight lands in f32 on its param's device."""
+    from bigdl_tpu_torch.llm.transformers.st_reader import SafetensorsReader
+
+    with SafetensorsReader(path, prefix_fallbacks=("", "bert.")) as r:
+        def get(name):
+            return r.get(name)
+
+        p = model.parameters_dict()
+        emb = p["embeddings"]
+        emb["word"]["weight"] = get("embeddings.word_embeddings.weight")
+        emb["position"]["weight"] = get(
+            "embeddings.position_embeddings.weight")
+        emb["token_type"]["weight"] = get(
+            "embeddings.token_type_embeddings.weight")
+        emb["norm"]["weight"] = get("embeddings.LayerNorm.weight")
+        emb["norm"]["bias"] = get("embeddings.LayerNorm.bias")
+        for i in range(model.cfg.num_hidden_layers):
+            layer = p[f"layer{i}"]
+            for hf_name, ours in _HF_LAYER_MAP.items():
+                dst = layer
+                for seg in ours:
+                    dst = dst[seg]
+                base = f"encoder.layer.{i}.{hf_name}"
+                dst["weight"] = get(f"{base}.weight")
+                dst["bias"] = get(f"{base}.bias")
+        p["pooler"]["weight"] = get("pooler.dense.weight")
+        p["pooler"]["bias"] = get("pooler.dense.bias")
+        model.load_parameters_dict(p)
+    return model

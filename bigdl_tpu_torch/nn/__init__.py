@@ -1,8 +1,9 @@
 """DLlib ``nn`` of the port (``bigdl_tpu/nn``): the module contract and
 ``Criterion``, the initialisers, the containers, the layers (linear,
 conv, pooling, normalization, activation, dropout, shape, embedding,
-attention, misc, recurrent, volumetric, extra2, extra3), the criterions,
-and ``nn.quantized`` (import it as ``bigdl_tpu_torch.nn.quantized``).
+attention, misc, recurrent, volumetric, extra2, extra3, sparse and
+detection's ``RoiAlign``), the criterions, and ``nn.quantized``
+(import it as ``bigdl_tpu_torch.nn.quantized``).
 ``CosineDistance``, ``DotProduct``, ``MM`` and ``MV`` are
 ``nn/layers/misc.py``'s, as in the JAX ``nn``; the DAG container is
 ``bigdl_tpu_torch.nn.graph`` (``Graph``, ``Input``, ``Module.inputs``),

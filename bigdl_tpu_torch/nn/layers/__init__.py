@@ -1,6 +1,8 @@
 """The port's layers (``bigdl_tpu/nn/layers``): linear, conv, pooling,
 normalization, activation, dropout, shape, embedding, attention, misc,
-recurrent, volumetric, extra2 and extra3."""
+recurrent, volumetric, extra2, extra3, sparse and detection (whose
+module exports ``RoiAlign``, as the JAX ``nn`` does; the functional ops
+stay in ``nn.layers.detection``)."""
 
 from bigdl_tpu_torch.nn.layers.activation import (
     Abs, AddConstant, Clamp, ELU, Exp, GELU, HardSigmoid, HardTanh,
@@ -13,6 +15,7 @@ from bigdl_tpu_torch.nn.layers.conv import (
     LocallyConnected1D, SpatialConvolution, SpatialDilatedConvolution,
     SpatialFullConvolution, SpatialSeparableConvolution,
     TemporalConvolution)
+from bigdl_tpu_torch.nn.layers.detection import RoiAlign
 from bigdl_tpu_torch.nn.layers.dropout import (
     Dropout, GaussianDropout, GaussianNoise, SpatialDropout2D)
 from bigdl_tpu_torch.nn.layers.embedding import Embedding, LookupTable
@@ -39,6 +42,8 @@ from bigdl_tpu_torch.nn.layers.misc import (
     CosineDistance, DotProduct, Euclidean, Highway, Index,
     LocallyConnected2D, Max, Maxout, Mean, Min, MM, MV, PairwiseDistance,
     Scale, SReLU, Sum, TimeDistributed)
+from bigdl_tpu_torch.nn.layers.sparse import (
+    LookupTableSparse, SparseJoinTable, SparseLinear)
 from bigdl_tpu_torch.nn.layers.recurrent import (
     BiRecurrent, Cell, GRU, LSTM, Recurrent, RnnCell)
 from bigdl_tpu_torch.nn.layers.volumetric import (
@@ -53,23 +58,25 @@ __all__ = [
     "Abs", "ActivityRegularization", "Add", "AddConstant", "Anchor",
     "BatchNormalization", "BiRecurrent", "BifurcateSplitTable", "Bilinear",
     "BinaryThreshold", "CAdd", "CMul", "Cell", "Clamp", "Contiguous",
-    "ConvLSTMPeephole", "Cosine", "CosineDistance", "Cropping1D", "Cropping2D",
-    "Cropping3D", "DenseToSparse", "DotProduct", "Dropout", "ELU", "Embedding",
-    "Euclidean", "Exp", "Flatten", "GELU", "GRU", "GaussianDropout",
-    "GaussianNoise", "GaussianSampler", "GlobalAveragePooling2D",
-    "GlobalMaxPooling2D", "GradientReversal", "GroupNorm", "HardShrink",
-    "HardSigmoid", "HardTanh", "Highway", "Identity", "Index", "InferReshape",
-    "Input", "L1Penalty", "LSTM", "LayerNorm", "LeakyReLU", "Linear",
-    "LocallyConnected1D", "LocallyConnected2D", "Log", "LogSigmoid",
-    "LogSoftMax", "LookupTable", "MM", "MV", "MaskedFill", "MaskedSelect",
-    "Masking", "Max", "Maxout", "Mean", "Min", "Mish", "MixtureTable", "Mul",
-    "MulConstant", "MultiHeadAttention", "MultiRNNCell", "Narrow",
-    "NarrowTable", "Negative", "NegativeEntropyPenalty", "Normalize", "PReLU",
-    "Pack", "Padding", "PairwiseDistance", "Permute", "Power", "PriorBox",
-    "RMSNorm", "RReLU", "ReLU", "ReLU6", "Recurrent", "Replicate", "Reshape",
-    "ResizeBilinear", "Reverse", "RnnCell", "RoiPooling", "SELU", "SReLU",
-    "Scale", "Select", "SiLU", "Sigmoid", "SoftMax", "SoftMin", "SoftPlus",
-    "SoftShrink", "SoftSign", "SpatialAveragePooling",
+    "ConvLSTMPeephole", "Cosine", "CosineDistance", "Cropping1D",
+    "Cropping2D", "Cropping3D", "DenseToSparse", "DotProduct", "Dropout",
+    "ELU", "Embedding", "Euclidean", "Exp", "Flatten", "GELU", "GRU",
+    "GaussianDropout", "GaussianNoise", "GaussianSampler",
+    "GlobalAveragePooling2D", "GlobalMaxPooling2D", "GradientReversal",
+    "GroupNorm", "HardShrink", "HardSigmoid", "HardTanh", "Highway",
+    "Identity", "Index", "InferReshape", "Input", "L1Penalty", "LSTM",
+    "LayerNorm", "LeakyReLU", "Linear", "LocallyConnected1D",
+    "LocallyConnected2D", "Log", "LogSigmoid", "LogSoftMax", "LookupTable",
+    "LookupTableSparse", "MM", "MV", "MaskedFill", "MaskedSelect",
+    "Masking", "Max", "Maxout", "Mean", "Min", "Mish", "MixtureTable",
+    "Mul", "MulConstant", "MultiHeadAttention", "MultiRNNCell", "Narrow",
+    "NarrowTable", "Negative", "NegativeEntropyPenalty", "Normalize",
+    "PReLU", "Pack", "Padding", "PairwiseDistance", "Permute", "Power",
+    "PriorBox", "RMSNorm", "RReLU", "ReLU", "ReLU6", "Recurrent",
+    "Replicate", "Reshape", "ResizeBilinear", "Reverse", "RnnCell",
+    "RoiAlign", "RoiPooling", "SELU", "SReLU", "Scale", "Select", "SiLU",
+    "Sigmoid", "SoftMax", "SoftMin", "SoftPlus", "SoftShrink", "SoftSign",
+    "SparseJoinTable", "SparseLinear", "SpatialAveragePooling",
     "SpatialBatchNormalization", "SpatialContrastiveNormalization",
     "SpatialConvolution", "SpatialConvolutionMap", "SpatialCrossMapLRN",
     "SpatialDilatedConvolution", "SpatialDivisiveNormalization",
@@ -77,9 +84,10 @@ __all__ = [
     "SpatialFullConvolution", "SpatialMaxPooling",
     "SpatialSeparableConvolution", "SpatialShareConvolution",
     "SpatialSubtractiveNormalization", "SpatialWithinChannelLRN",
-    "SpatialZeroPadding", "Sqrt", "Square", "Squeeze", "Sum", "Swish", "Tanh",
-    "TanhShrink", "TemporalConvolution", "TemporalMaxPooling", "Threshold",
-    "Tile", "TimeDistributed", "TransformerEncoderLayer", "Transpose",
-    "Unsqueeze", "UpSampling1D", "UpSampling2D", "UpSampling3D", "View",
-    "VolumetricAveragePooling", "VolumetricConvolution",
-    "VolumetricFullConvolution", "VolumetricMaxPooling"]
+    "SpatialZeroPadding", "Sqrt", "Square", "Squeeze", "Sum", "Swish",
+    "Tanh", "TanhShrink", "TemporalConvolution", "TemporalMaxPooling",
+    "Threshold", "Tile", "TimeDistributed", "TransformerEncoderLayer",
+    "Transpose", "Unsqueeze", "UpSampling1D", "UpSampling2D",
+    "UpSampling3D", "View", "VolumetricAveragePooling",
+    "VolumetricConvolution", "VolumetricFullConvolution",
+    "VolumetricMaxPooling"]

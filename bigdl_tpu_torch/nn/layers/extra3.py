@@ -6,8 +6,8 @@ The random layers (``SpatialDropout1D``, ``SpatialDropout3D``,
 ``GaussianSampler``) draw from the layer's own ``torch.Generator``
 (:class:`~bigdl_tpu_torch.nn.module.Stochastic`), so they hold the JAX
 layers' contract, not their ``jax.random`` bits. ``DenseToSparse``
-returns torch's coalesced COO tensor (indices and values in the JAX
-``SparseTensor.from_dense`` order) until ``tensor/sparse.py`` is ported.
+returns the port's ``SparseTensor`` and ``Anchor`` draws its grid from
+the detection module's ``generate_anchors``, as the JAX layers do.
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.initialization import Xavier, init_param
 from bigdl_tpu_torch.nn.layers.conv import SpatialConvolution
+from bigdl_tpu_torch.nn.layers.detection import generate_anchors
 from bigdl_tpu_torch.nn.layers.misc import _pair
 from bigdl_tpu_torch.nn.module import RNG, Module, Stochastic, TensorModule
+from bigdl_tpu_torch.tensor.sparse import SparseTensor
 
 __all__ = [
     "ActivityRegularization", "Anchor", "BifurcateSplitTable",
@@ -215,13 +217,12 @@ class MaskedSelect(Module):
 
 
 class DenseToSparse(Module):
-    """Dense tensor → COO sparse tensor (ref: nn/DenseToSparse.scala):
-    torch's coalesced ``sparse_coo`` tensor, whose ``indices().T`` and
-    ``values()`` are the JAX ``SparseTensor``'s ``indices`` and
-    ``values`` (row-major order). Eager-only, as ``MaskedSelect``."""
+    """Dense tensor → :class:`~bigdl_tpu_torch.tensor.sparse.SparseTensor`
+    (ref: nn/DenseToSparse.scala), the non-zeros in row-major order as the
+    JAX layer gives them. Eager-only, as ``MaskedSelect``."""
 
     def forward(self, x):
-        return x.to_sparse().coalesce()
+        return SparseTensor.from_dense(x)
 
 
 class GaussianSampler(Stochastic, Module):
@@ -463,29 +464,10 @@ class PriorBox(TensorModule):
         return torch.from_numpy(np.stack([pri, var])[None]).to(x.device)
 
 
-def generate_anchors(feat_h: int, feat_w: int, stride: int,
-                     sizes: Sequence[float],
-                     ratios: Sequence[float] = (0.5, 1.0, 2.0)) -> np.ndarray:
-    """A dense anchor grid for one feature level: (H * W * A, 4) numpy
-    (the JAX package's ``nn/layers/detection.py`` generator, copied)."""
-    base = []
-    for size in sizes:
-        for r in ratios:
-            w = size * np.sqrt(1.0 / r)
-            h = size * np.sqrt(r)
-            base.append([-w / 2, -h / 2, w / 2, h / 2])
-    base = np.asarray(base, np.float32)                      # (A, 4)
-    cx = (np.arange(feat_w) + 0.5) * stride
-    cy = (np.arange(feat_h) + 0.5) * stride
-    cxg, cyg = np.meshgrid(cx, cy)                           # (H, W)
-    shifts = np.stack([cxg, cyg, cxg, cyg], axis=-1)         # (H, W, 4)
-    anchors = shifts[:, :, None, :] + base[None, None, :, :]
-    return anchors.reshape(-1, 4).astype(np.float32)
-
-
 class Anchor(TensorModule):
     """RPN anchors (ref: nn/Anchor.scala): (H * W * A, 4) for a feature
-    map of the given stride."""
+    map of the given stride, from
+    :func:`~bigdl_tpu_torch.nn.layers.detection.generate_anchors`."""
 
     def __init__(self, stride: int, sizes: Sequence[float] = (32.,),
                  ratios: Sequence[float] = (0.5, 1.0, 2.0),

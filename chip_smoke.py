@@ -405,6 +405,29 @@ Phase 17 data-parallel DLlib training over ``torch.distributed``, after
          not a multiple of 32 and takes the plain product). The process
          group is destroyed before the phase ends.
 
+Phase 18 detection, Mask R-CNN, the sparse layers and three chaos
+         drives, after phase 17 (report key ``detection_sparse``): (a)
+         Mask R-CNN at ``MaskRCNNConfig()`` (81 classes, 224 x 224, 6.12
+         M parameters, f32, random weights from a seed) at batches 1 and
+         8: 3 warm-up and 20 timed forwards (CUDA events at dispatch; ms
+         a forward, images/s), one profiled forward (device kernels a
+         forward, idle share), peak memory, every slot's box inside the
+         image, masks in [0, 1], labels in [0, 80], fixed shapes; timed
+         under this script's flags (TF32 off) and once more at batch 8
+         under torch's defaults (cuDNN TF32 on); (b) batch 2 on the card
+         against the CPU from the same seed: the pyramid and RPN logits
+         under torch's defaults within ``MRCNN_TF32_TOL`` of each one's
+         largest magnitude, then with TF32 off labels and valid slots
+         exactly, boxes, scores and masks within ``MRCNN_TOL``; (c)
+         ``LookupTableSparse`` (2^20 x 64, ids 4096 x 32, a quarter
+         padding, each combiner) and ``SparseLinear`` (2^20 -> 256, 40
+         non-zeros a row, batch 4096): forward and forward + backward ms,
+         card against CPU (outputs and gradients, ``SPARSE_TOL``); the
+         port's launch counters stay 0 in (a)-(c); (d) the ``--chaos``
+         (LeNet-5 training), ``--kvcache`` and ``--kvtier`` drives of
+         ``llm/chaos.py`` on the card, each passing its contract, their
+         fired events and launch counts reported.
+
 Every phase's line has the SM clock and power draw (``nvidia-smi
 --query-gpu=clocks.sm,power.draw``) on the line before it. Then a
 ``{"kernels": [...]}`` line, and as the last line
@@ -413,6 +436,7 @@ ends nonzero and prints no result. The full report also goes to
 ``chiprun_out/chip_smoke.json``. Imports nothing of JAX or ``bigdl_tpu``.
 """
 
+import copy
 import json
 import math
 import os
@@ -4596,6 +4620,50 @@ FLEET_OPTS = dict(min_workers=1, max_workers=2, interval=0.1, sustain=2,
 FLEET_P_LEN = 480              # (c)'s prompt held by the drained engine only
 
 
+class _FrozenHeap:
+    """The heap that the phases before left (their models, traces and
+    records), collected once and then frozen out of the cycle collector's
+    passes, as a server freezes its heap after warm-up: a full pass over
+    it holds the GIL, so the engine's thread would stall for as long and
+    a clean request could miss the TTFT objective that (b) judges. Every
+    collector pass inside the block is recorded, with its ms."""
+
+    def __enter__(self):
+        import gc
+        self.objects = len(gc.get_objects())
+        t = time.perf_counter()
+        gc.collect()
+        self.collect_ms = (time.perf_counter() - t) * 1e3
+        gc.freeze()
+        self.frozen = gc.get_freeze_count()
+        self.passes, self._t = [], None
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.passes.append((info["generation"],
+                                (time.perf_counter() - self._t) * 1e3))
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._on_gc)
+        gc.unfreeze()
+        return False
+
+    def record(self):
+        return {"objects_before": self.objects,
+                "collect_ms_before": self.collect_ms,
+                "frozen_objects": self.frozen,
+                "passes_by_generation": [
+                    sum(1 for g, _ in self.passes if g == k)
+                    for k in range(3)],
+                "pass_ms_max": max((ms for _, ms in self.passes),
+                                   default=0.0)}
+
+
 def _plane_conf(on, interval=PLANE_INTERVAL_S):
     """The time-series plane's gate and cadence in the port's config."""
     from bigdl_tpu_torch.utils.conf import conf
@@ -4726,6 +4794,7 @@ def _plane_and_alerts(torch, model, serve, http):
                     **SERVE_7B)
     _warm_inline(torch, srv, prompts, "phase 13 (b)")
     worker = None
+    heap = _FrozenHeap().__enter__()
     try:
         srv.start()
         worker = LLMWorker(srv).start()
@@ -4756,6 +4825,8 @@ def _plane_and_alerts(torch, model, serve, http):
         c0 = {s: count(s) for s in ("firing", "resolved")}
         f0 = {k: len(fl(k)) for k in ("alert_fire", "alert_resolve")}
 
+        walls = []                      # (wall time, TTFT ms) a request
+
         def clean(seconds):
             """One short request every 0.5 s (few enough that one
             violation in the long window burns past the factor)."""
@@ -4766,6 +4837,7 @@ def _plane_and_alerts(torch, model, serve, http):
                 r = srv.submit(prompts[0], 4)
                 r.get(timeout=60)
                 ttft.append((r.t_first_token - r.t_submit) * 1e3)
+                walls.append((time.time(), ttft[-1]))
                 time.sleep(max(0.0, 0.5 - (time.monotonic() - t)))
             return ttft
 
@@ -4788,6 +4860,16 @@ def _plane_and_alerts(torch, model, serve, http):
             for r in storm:
                 r.get(timeout=120)
         reliability.set_plan(None)
+        # the engine's loop injects at every pass, idle ones too: a delay
+        # drawn just before the disarm still runs and would hold the first
+        # clean request past the objective, so the storm ends when the
+        # loop next beats
+        t_off = time.monotonic()
+        while srv._hb <= t_off and time.monotonic() - t_off < 30:
+            time.sleep(0.005)
+        storm_tail = time.monotonic() - t_off
+        check(srv._hb > t_off, "(b) the engine did not beat within 30 s "
+              "of the disarm")
         t_calm = time.time()
         storm_ttft = [(r.t_first_token - r.t_submit) * 1e3 for r in storm]
         check(min(storm_ttft) > target_ms, f"(b) storm TTFTs {storm_ttft}")
@@ -4815,6 +4897,7 @@ def _plane_and_alerts(torch, model, serve, http):
         st_, body, _ = _http(addr, "GET", "/alerts")
         r0 = body["rules"][0] if st_ == 200 else {}
         transitions = {s: count(s) - c0[s] for s in ("firing", "resolved")}
+        slow = [w for w in walls if w[1] > target_ms]
         events = {k: len(fl(k)) - f0[k] for k in ("alert_fire",
                                                   "alert_resolve")}
         check(transitions == {"firing": 1.0, "resolved": 1.0}
@@ -4824,18 +4907,22 @@ def _plane_and_alerts(torch, model, serve, http):
               and r0.get("last_fired") == t_fire[0]
               and r0.get("last_resolved") == res[0][0],
               f"(b) transitions {transitions}, flight {events}, /alerts "
-              f"{st_} {r0}, fire {t_fire}, resolve {res[0]}")
+              f"{st_} {r0}, fire {t_fire}, resolve {res[0]}, clean "
+              f"requests over the target {slow}, collector "
+              f"{heap.record()}")
         out["alerts"] = {
             "rule": rule, "slo_ttft_ms": target_ms,
             "phase3_ttft_ms_mean": serve["ttft_ms_mean"],
             "storm_delay_s_per_pass": delay,
             "clean_ttft_ms_max": max(clean_ttft + resolve_ttft),
             "storm_ttft_ms": storm_ttft,
+            "disarm_to_next_pass_s": storm_tail,
             "storm_to_firing_s": t_fire[0] - t_storm,
             "storm_end_to_resolved_s": res[0][0] - t_calm,
             "last_violation_to_resolved_s": lag,
             "samples": len(trail), "transitions": transitions,
-            "flight_events": events, "alerts_body": r0}
+            "flight_events": events, "alerts_body": r0,
+            "collector": heap.record()}
 
         # (a) the store's windows against the engine's own sketch: idle a
         # second, a sample, phase 3's 8 prompts over HTTP, a sample
@@ -4874,6 +4961,7 @@ def _plane_and_alerts(torch, model, serve, http):
                               q["timeline"]["merged"])}
         check(not srv.errors, f"phase 13 (b) engine errors: {srv.errors}")
     finally:
+        heap.__exit__(None, None, None)
         reliability.set_plan(None)
         if worker is not None:
             worker.stop()
@@ -6849,6 +6937,294 @@ def dllib_distributed_phase(torch, dev):
     return out
 
 
+# -- phase 18: detection, Mask R-CNN, the sparse layers, the drives ------------
+
+# (b) card against CPU, same weights, batch 2. Under the default flags
+# cuDNN convolves in TF32 (10-bit mantissa: each product's operands
+# rounded by up to 2^-11), so the pyramid and the RPN logits, 13 to 16
+# convolutions deep, are held to 2e-2 of each level's largest magnitude,
+# the LLM logits' limit. With TF32 off the detections: labels and valid
+# slots exactly, boxes within 1e-2 pixels, scores 1e-4, masks 1e-3 (the
+# CPU parity tests' limits against the JAX model, the scores' doubled).
+MRCNN_TF32_TOL = 2e-2
+MRCNN_TOL = {"boxes": 1e-2, "scores": 1e-4, "masks": 1e-3}
+# (c) the recommender sizes
+SPARSE_ROWS = 1 << 20
+LOOKUP = dict(dim=64, batch=4096, bag=32)
+SPARSE_LINEAR = dict(out=256, batch=4096, nnz=40)
+# each output and gradient within this share of its largest magnitude:
+# f32 sums in another order (atomics on the card), up to 4096 terms (the
+# bias gradient read 1.7e-7 of its largest on an H100)
+SPARSE_TOL = 1e-5
+
+
+def _tf32(torch, matmul, cudnn):
+    """Set the two TF32 flags; returns the previous pair."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+    return prev
+
+
+def _mrcnn_timed(torch, fwd, x, warm=3, timed=20):
+    """``warm`` then ``timed`` forwards back to back, a CUDA event
+    recorded at each dispatch: ms each, then one profiled forward."""
+    from torch.profiler import ProfilerActivity, profile as trace
+    with torch.inference_mode():
+        for _ in range(warm):
+            fwd(x)
+        torch.cuda.synchronize()
+        evs = [torch.cuda.Event(enable_timing=True)
+               for _ in range(timed + 1)]
+        evs[0].record()
+        for i in range(timed):
+            out = fwd(x)
+            evs[i + 1].record()
+        evs[-1].synchronize()
+        ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(timed)]
+        torch.cuda.synchronize()
+        with trace(activities=[ProfilerActivity.CUDA]) as prof:
+            fwd(x)
+            torch.cuda.synchronize()
+    return ms, _device_window(torch, prof, 1), out
+
+
+def _mrcnn_checks(torch, out, cfg, b, what):
+    d, m = cfg.detections_per_img, cfg.mask_size
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    check(shapes == {"boxes": (b, d, 4), "scores": (b, d),
+                     "labels": (b, d), "masks": (b, d, m, m)},
+          f"{what}: shapes {shapes}")
+    bx, sc, lb, mk = (out[k].float() for k in ("boxes", "scores",
+                                               "labels", "masks"))
+    check(all(bool(torch.isfinite(t).all()) for t in (bx, sc, mk)),
+          f"{what}: a value is not finite")
+    check(bool(((bx >= 0) & (bx <= cfg.image_size)).all()),
+          f"{what}: a box leaves the image")
+    check(bool(((mk >= 0) & (mk <= 1)).all()), f"{what}: a mask leaves [0, 1]")
+    check(bool(((lb >= 0) & (lb < cfg.num_classes)).all()),
+          f"{what}: a label outside [0, {cfg.num_classes - 1}]")
+    valid = lb > 0
+    check(bool((sc[valid] > cfg.box_score_thresh).all())
+          and bool((sc[~valid] == 0).all()),
+          f"{what}: scores do not follow the valid slots")
+    return int(valid.sum())
+
+
+def maskrcnn_phase(torch, dev):
+    """(a) Mask R-CNN at ``MaskRCNNConfig()`` timed at batches 1 and 8;
+    (b) batch 2 card against CPU."""
+    import numpy as np
+
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.models import maskrcnn as mr
+    cfg = mr.MaskRCNNConfig()
+    params = mr.init_params(cfg, 0, device=dev)
+    rs = np.random.RandomState(0)
+    imgs = rs.rand(8, cfg.image_size, cfg.image_size, 3).astype(np.float32)
+
+    def fwd(x):
+        return mr.forward(params, cfg, x)
+
+    out = {"what": "Mask R-CNN, MaskRCNNConfig(): 81 classes, 224 x 224, "
+                   "backbone (64, 128, 256, 512), FPN 64, 256 / 64 "
+                   "proposals, 16 detections, 28 x 28 masks, f32, random "
+                   "weights from seed 0",
+           "parameters": mr.num_params(params),
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32}}
+    kernels.reset_launch_counts()
+    for b in (1, 8):
+        x = torch.from_numpy(imgs[:b]).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        ms, prof, o = _mrcnn_timed(torch, fwd, x)
+        n_valid = _mrcnn_checks(torch, o, cfg, b, f"phase 18 (a) batch {b}")
+        med = statistics.median(ms)
+        out[f"batch{b}"] = {
+            "ms_per_forward_median": med, "ms_per_forward_mean":
+                statistics.mean(ms), "ms_each": ms,
+            "images_per_s": b / med * 1e3, "valid_detections": n_valid,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "profile": prof}
+    prev = _tf32(torch, False, True)            # torch's defaults
+    try:
+        ms, _, _ = _mrcnn_timed(torch, fwd, torch.from_numpy(imgs).to(dev))
+    finally:
+        _tf32(torch, *prev)
+    out["batch8_default_flags_cudnn_tf32"] = {"ms_per_forward_median":
+                             statistics.median(ms),
+                             "images_per_s": 8 / statistics.median(ms) * 1e3}
+    out["port_kernel_launches"] = _no_port_launches(kernels,
+                                                    "phase 18 (a)")
+
+    # (b) card against CPU, batch 2, the same weights from one seed
+    cpu = mr.init_params(cfg, 0, device="cpu")
+    x2 = imgs[:2]
+    with torch.inference_mode():
+        pyr_c = mr._fpn(cpu, mr._backbone(cpu, torch.from_numpy(x2)))
+        rpn_c = mr.rpn_logits(cpu, pyr_c)
+        want = mr.forward(cpu, cfg, torch.from_numpy(x2))
+        prev = _tf32(torch, False, True)        # torch's defaults
+        try:
+            xd = torch.from_numpy(x2).to(dev)
+            pyr_d = mr._fpn(params, mr._backbone(params, xd))
+            rpn_d = mr.rpn_logits(params, pyr_d)
+            _tf32(torch, False, False)
+            got = mr.forward(params, cfg, xd)
+        finally:
+            _tf32(torch, *prev)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    dev_tf32 = {f"P{i + 2}": rel(a, b) for i, (a, b) in
+                enumerate(zip(pyr_d, pyr_c))}
+    dev_tf32["rpn_scores"] = rel(rpn_d[0], rpn_c[0])
+    dev_tf32["rpn_deltas"] = rel(rpn_d[1], rpn_c[1])
+    worst = max(dev_tf32.values())
+    check(worst <= MRCNN_TF32_TOL,
+          f"phase 18 (b): pyramid / RPN logits under TF32 {dev_tf32}")
+    check(torch.equal(got["labels"].cpu(), want["labels"]),
+          f"phase 18 (b): labels {got['labels'].tolist()} against the "
+          f"CPU's {want['labels'].tolist()}")
+    check(torch.equal(got["scores"].cpu() > 0, want["scores"] > 0),
+          "phase 18 (b): valid slots differ")
+    det = {k: float((got[k].cpu() - want[k]).abs().max())
+           for k in MRCNN_TOL}
+    check(all(det[k] <= MRCNN_TOL[k] for k in MRCNN_TOL),
+          f"phase 18 (b): detections {det} against {MRCNN_TOL}")
+    _mrcnn_checks(torch, got, cfg, 2, "phase 18 (b)")
+    out["card_vs_cpu"] = {
+        "batch": 2, "tf32_default_flags_rel_to_max": dev_tf32,
+        "tf32_tol": MRCNN_TF32_TOL, "tf32_off_max_abs": det,
+        "tol": MRCNN_TOL, "labels_equal": True,
+        "valid_slots": int((want["labels"] > 0).sum())}
+    return out
+
+
+def sparse_phase(torch, dev):
+    """(c) ``LookupTableSparse`` (2^20 x 64, ids 4096 x 32 with padding,
+    each combiner) and ``SparseLinear`` (2^20 -> 256, 40 non-zeros a
+    row, batch 4096): forward and forward + backward ms (``time_ms``),
+    card against CPU. A forward's bound is its bytes (each used row, the
+    ids or the COO triple, the output once): its f32 sums are a few
+    operations a byte."""
+    import numpy as np
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.tensor import SparseTensor
+    rs = np.random.RandomState(0)
+    out = {}
+    kernels.reset_launch_counts()
+
+    def close(what, got, want):
+        err = float((got.detach().cpu() - want.detach()).abs().max())
+        scale = float(want.detach().abs().max())
+        check(err <= SPARSE_TOL * scale,
+              f"phase 18 (c) {what}: card against CPU {err} "
+              f"(largest {scale})")
+        return err / scale
+
+    L = LOOKUP
+    ids = rs.randint(1, SPARSE_ROWS + 1, (L["batch"], L["bag"]))
+    ids[rs.rand(L["batch"], L["bag"]) < 0.25] = 0        # padding
+    ids_t = torch.from_numpy(ids.astype(np.float32))
+    g = torch.from_numpy(rs.randn(L["batch"], L["dim"]).astype(np.float32))
+    nn.set_seed(0)
+    cpu = nn.LookupTableSparse(SPARSE_ROWS, L["dim"])
+    card = copy.deepcopy(cpu).to(dev)
+    ids_d, g_d = ids_t.to(dev), g.to(dev)
+    for comb in ("sum", "mean", "sqrtn"):
+        cpu.combiner = card.combiner = comb
+        cpu.weight.grad = card.weight.grad = None
+        yc = cpu(ids_t)
+        yc.backward(g)
+        yd = card(ids_d)
+        yd.backward(g_d)
+        errs = [close(f"LookupTableSparse {comb}", yd, yc),
+                close(f"LookupTableSparse {comb} grad", card.weight.grad,
+                      cpu.weight.grad)]
+        f_ms = time_ms(lambda: card(ids_d), iters=10)
+        fb_ms = time_ms(lambda: card(ids_d).backward(g_d), iters=10)
+        rows = int((ids > 0).sum())
+        nbytes = rows * L["dim"] * 4 + ids.size * 4 + g.numel() * 4
+        out[f"lookup_{comb}"] = {
+            "forward_ms": f_ms, "forward_backward_ms": fb_ms,
+            "forward_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "err_over_largest_out_grad": errs}
+    del cpu, card
+    S = SPARSE_LINEAR
+    # 40 columns a row, drawn with replacement (a repeat in a row, ~0.1%
+    # of rows, is two COO entries, summed as the JAX op sums them)
+    rows = np.repeat(np.arange(S["batch"]), S["nnz"])
+    cols = rs.randint(0, SPARSE_ROWS, rows.size)
+    vals = rs.randn(rows.size).astype(np.float32)
+    idx = np.stack([rows, cols], 1).astype(np.int32)
+    xc = SparseTensor(idx, vals, (S["batch"], SPARSE_ROWS), device="cpu")
+    xd = xc.to(dev)
+    g = torch.from_numpy(rs.randn(S["batch"], S["out"]).astype(np.float32))
+    nn.set_seed(0)
+    cpu = nn.SparseLinear(SPARSE_ROWS, S["out"])
+    card = copy.deepcopy(cpu).to(dev)
+    yc = cpu(xc)
+    yc.backward(g)
+    g_d = g.to(dev)
+    yd = card(xd)
+    yd.backward(g_d)
+    errs = [close("SparseLinear", yd, yc),
+            close("SparseLinear weight grad", card.weight.grad,
+                  cpu.weight.grad),
+            close("SparseLinear bias grad", card.bias.grad, cpu.bias.grad)]
+    f_ms = time_ms(lambda: card(xd), iters=10)
+    fb_ms = time_ms(lambda: card(xd).backward(g_d), iters=10)
+    nnz = rows.size
+    out["sparse_linear"] = {
+        "forward_ms": f_ms, "forward_backward_ms": fb_ms,
+        "forward_bound_ms": (nnz * (S["out"] * 4 + 12)
+                             + S["batch"] * S["out"] * 4)
+        / HBM_BYTES_PER_S * 1e3,
+        "err_over_largest_out_wgrad_bgrad": errs}
+    out["tol"] = SPARSE_TOL
+    out["port_kernel_launches"] = _no_port_launches(kernels, "phase 18 (c)")
+    return out
+
+
+def drives_phase(torch, dev):
+    """(d) The ``--chaos``, ``--kvcache`` and ``--kvtier`` drives on the
+    card, each passing its own contract; the port's launch counts of
+    each, zeroed just before it."""
+    from bigdl_tpu_torch.llm import chaos, kernels
+    out = {}
+    for name, run in (("chaos", chaos.run_chaos),
+                      ("kvcache", chaos.run_kvcache_chaos),
+                      ("kvtier", chaos.run_kvtier_chaos)):
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        rec = run(device=dev)
+        rec["wall_s"] = time.perf_counter() - t
+        rec["launches"] = kernels.launch_counts()
+        check(rec["match"], f"phase 18 (d) {name}: {rec}")
+        out[name] = rec
+    return out
+
+
+def detection_sparse_phase(torch, dev):
+    """Phase 18: (a), (b) Mask R-CNN; (c) the sparse layers; (d) the
+    training, prefix-cache and host-tier chaos drives."""
+    t0 = time.perf_counter()
+    out = {"phase": "detection_sparse", "wall_s_by_part": {}}
+    for key, part in (("maskrcnn", maskrcnn_phase),
+                      ("sparse", sparse_phase), ("drives", drives_phase)):
+        t = time.perf_counter()
+        out[key] = part(torch, dev)
+        out["wall_s_by_part"][key] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 # The caching allocator's split limit, set before torch starts. A
 # thread's or a stream's first cuBLAS call takes a 32 MiB workspace from
 # the allocator and holds it for the rest of the process. Without a
@@ -7009,6 +7385,10 @@ def main() -> int:
     dllib_dist = dllib_distributed_phase(torch, dev)
     dllib_dist["nvidia_smi"] = smi
     emit(dllib_dist)
+    release_memory(torch)
+    det = detection_sparse_phase(torch, dev)
+    det["nvidia_smi"] = smi
+    emit(det)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
@@ -7075,6 +7455,10 @@ def main() -> int:
                     r["prefix_cache"][kv]["launches"])
     paths["quantize_model LeNet-5 forward, batch 64"] = dict(
         dllib_dist["quantized_convlstm"]["quantized_lenet"]["launches_all"])
+    for name, rec in det["drives"].items():
+        paths[f"the --{name} chaos drive, tiny Llama f32"
+              if name != "chaos" else "the --chaos drive (LeNet-5)"] = \
+            dict(rec["launches"])
 
     # a two-kernel wrapper's count covers both routes: a dequant-matmul's
     # calls are its GEMV and tensor-core launches, ragged prefill's
@@ -7330,6 +7714,7 @@ def main() -> int:
               "formats": formats, "dllib": dllib,
               "dllib_keras": dllib_keras,
               "dllib_distributed": dllib_dist,
+              "detection_sparse": det,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

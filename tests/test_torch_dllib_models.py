@@ -91,7 +91,12 @@ def test_nhwc_and_remat_equal_plain(remat):
     """ResNet-18 (basic blocks) in NHWC, and wrapped in ``nn.Checkpoint``
     blocks, on the NCHW model's weights: one training step gives the
     same loss, grads (within 2e-3 of each tensor's largest) and running
-    statistics."""
+    statistics. The weights come from a seeded init stream, not from
+    whatever the tests before left in it: on 2 of 64 seeds a batch-norm
+    output within 2e-6 of zero takes the other side of a ReLU in one
+    layout (the convolutions sum in other orders), which moves a whole
+    gradient term."""
+    tnn.set_seed(0)
     torch.manual_seed(0)
     ref = tresnet.resnet_imagenet(18, 10, device="cpu")
     other = tresnet.resnet_imagenet(18, 10, format="NHWC" if not remat

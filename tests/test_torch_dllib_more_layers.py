@@ -21,6 +21,7 @@ from bigdl_tpu.utils.table import Table as JTable
 
 import bigdl_tpu_torch.nn as tnn
 from bigdl_tpu_torch.nn import graph as tgraph
+from bigdl_tpu_torch.tensor import SparseTensor
 from bigdl_tpu_torch.utils.table import Table
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -285,10 +286,10 @@ def test_masked_select_and_dense_to_sparse():
     x[x < 0.3] = 0.0
     js = jnn.DenseToSparse().forward(jnp.asarray(x))
     ts = tnn.DenseToSparse()(torch.from_numpy(x))
-    assert ts.is_sparse and tuple(ts.shape) == js.shape
-    np.testing.assert_array_equal(ts.indices().T.numpy(),
-                                  np.asarray(js.indices))
-    np.testing.assert_array_equal(ts.values().numpy(), np.asarray(js.values))
+    assert isinstance(ts, SparseTensor) and ts.shape == js.shape
+    assert ts.indices.dtype == torch.int32
+    np.testing.assert_array_equal(ts.indices.numpy(), np.asarray(js.indices))
+    np.testing.assert_array_equal(ts.values.numpy(), np.asarray(js.values))
     np.testing.assert_array_equal(ts.to_dense().numpy(),
                                   np.asarray(js.to_dense()))
 

@@ -359,15 +359,20 @@ def _serve_both(fleet, paths, mode, n=5):
 @pytest.mark.parametrize("mode", [{}, {"failover": True},
                                   {"failover": True, "slo": True}])
 def test_router_against_jax_router(fleet, mode):
+    # a series that an earlier test of the process minted in the JAX
+    # registry says nothing of what these routers declare
+    minted = {n for n in ROUTER_SERIES if jobs.REGISTRY.get(n) is not None}
     out = _serve_both(fleet, ("/healthz", "/worker_get_status"), mode)
     assert out["torch"] == out["jax"]
     want = [_golden(fleet["model"], p, 5) for p in PROMPTS[:2]]
     assert [b["output_ids"] for _, b in out["torch"][:2]] == want
     for name in ROUTER_SERIES:
-        if jobs.REGISTRY.get(name) is not None:
-            t, j = tobs.REGISTRY.get(name), jobs.REGISTRY.get(name)
-            assert (t.kind, t.help, t.labelnames) == \
-                (j.kind, j.help, j.labelnames)
+        t, j = tobs.REGISTRY.get(name), jobs.REGISTRY.get(name)
+        if j is None or (t is None and name in minted):
+            continue
+        assert t is not None, f"the port's router did not declare {name}"
+        assert (t.kind, t.help, t.labelnames) == \
+            (j.kind, j.help, j.labelnames)
 
 
 @pytest.mark.parametrize("method,path", [
