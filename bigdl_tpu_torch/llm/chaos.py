@@ -487,6 +487,10 @@ def run_alerts_chaos(model=None, seed: int = 0, new_tokens: int = 3,
                     serve(p)
             finally:
                 rel.set_plan(None)
+            # the loops inject at every pass, idle ones too: a delay drawn
+            # just before the disarm still runs, and would hold the first
+            # clean request on its engine past the objective
+            _await_next_pass((s1, s2))
             out["fired_at"] = st.sample_now(now=6.0)
             assert RULE in eng.firing(), \
                 "fast-burn rule not firing on the first evaluation " \
@@ -643,6 +647,20 @@ def run_alerts_chaos(model=None, seed: int = 0, new_tokens: int = 3,
     return out
 
 
+def _await_next_pass(servers, timeout: float = 30.0):
+    """Return once every engine of ``servers`` has begun a loop pass
+    after the call (``LLMServer._hb``, stamped at the top of each pass):
+    a fault drawn by a pass already running when a plan was disarmed has
+    then run out."""
+    t_off = time.monotonic()
+    while any(s._hb <= t_off for s in servers):
+        if time.monotonic() - t_off > timeout:
+            raise AssertionError(
+                f"an engine did not begin a pass within {timeout} s of "
+                "the disarm")
+        time.sleep(0.005)
+
+
 def _engine_answers(model, prompts, budgets, **server_kwargs) -> list:
     """Each prompt served alone by one engine of ``server_kwargs`` (the
     reference a card run holds a served pool to: on the card the
@@ -788,13 +806,27 @@ def run_fleet_chaos(model=None, seed: int = 0, smoke: bool = False,
                 holder["res"] = run_load(router.address, prompts,
                                          max_new_tokens=budgets, qps=qps,
                                          concurrency=4)
+            # hold the spike's queue while the controller samples it: an
+            # llm.step delay on every engine pass until the pool scaled
+            # out. Unheld, the warm engine drains the spike within a few
+            # ticks and the queue can stay at queue_high, never above it
+            plan.add("llm.step", "delay", times=None, delay=0.02)
+            hold = plan._rules[-1]
+            tick0 = fleet.ticks
             t = threading.Thread(target=run, daemon=True)
             t.start()
-            scaled = tick_until(lambda: pool_size() >= 2, timeout=30.0)
+            try:
+                scaled = tick_until(lambda: pool_size() >= 2, timeout=30.0)
+            finally:
+                hold["times"] = hold["fired"]       # disarm the hold
             t.join(timeout=600)
             res = holder["res"]
             results[name] = {k: res[k] for k in
                              ("sent", "ok", "lost", "retries_503")}
+            results[name]["ticks"] = [tick0, fleet.ticks]
+            results[name]["pressured_ticks"] = sum(
+                1 for d in fleet.decisions
+                if tick0 < d["tick"] <= fleet.ticks and d["pressure"])
             if not scaled:
                 raise AssertionError(
                     f"fleet soak: the {name} phase never scaled the pool "
@@ -1137,9 +1169,907 @@ def run_kvtier_chaos(model=None, seed: int = 0, n_groups: int = 4,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the engine-mode drives (tools/chaos_check.py --mixed, --spec, --flight,
+# --preempt, --api)
+# ---------------------------------------------------------------------------
+
+def _counter_total(name: str) -> Optional[float]:
+    """Sum of every child of one registry counter, or None when the
+    observability registry is disabled (the cross-checks then reconcile
+    against the plain-int ledgers instead)."""
+    from bigdl_tpu_torch import observability as obs
+    if not obs.enabled():
+        return None
+    total = 0.0
+    for m in obs.REGISTRY.collect():
+        if m.name == name:
+            for _key, child in m.children():
+                total += child.value
+    return total
+
+
+def _reference(model, prompts, budgets, **server_kwargs) -> list:
+    """The greedy answers a drive holds its served outputs to:
+    ``model.generate`` on the CPU; on the card, where a resumed suffix
+    is prefilled where it was decoded and the sums may part, each prompt
+    served alone by one engine of ``server_kwargs``."""
+    if model.device.type == "cuda":
+        return _engine_answers(model, prompts, budgets, **server_kwargs)
+    return [list(map(int, model.generate(p[None], max_new_tokens=b)
+                     [0, len(p):]))
+            for p, b in zip(prompts, budgets)]
+
+
+def run_mixed_chaos(model=None, seed: int = 0, raises: int = 2,
+                    device=None) -> dict:
+    """Chunked admissions through the unified mixed engine with seeded
+    ``llm.chunk`` faults armed: delays on every chunk boundary to widen
+    the interleaving windows, and raises that kill an admission
+    MID-CHAIN. Under failure the partial chain's pages and ledger
+    charges roll back completely (the idle budget equals the clean
+    run's), the request fails RETRIABLY, and its resubmission is
+    token-identical to the clean run. ``model`` defaults to
+    :func:`tiny_model` on ``device``."""
+    from bigdl_tpu_torch import reliability as rel
+    from bigdl_tpu_torch.llm.serving import LLMServer
+
+    model = model or tiny_model(device)
+    rs = np.random.RandomState(seed)
+    shared = rs.randint(0, 250, 16).astype(np.int32)
+    prompts = [np.concatenate([shared,
+                               rs.randint(0, 250, 16 + 8 * (j % 2))
+                               .astype(np.int32)])
+               for j in range(3)]                  # 32/40 tokens, chunked
+    prompts.append(rs.randint(0, 250, 6).astype(np.int32))   # short
+    num_pages = 32
+
+    def serve_all(resubmit: bool):
+        srv = LLMServer(model, **_serve_kw(
+            model, num_pages=num_pages, kvcache=True, mixed=True,
+            chunk_tokens=8, ragged_prefill=True)).start()
+        failed = 0
+        try:
+            reqs = [srv.submit(p, max_new_tokens=4) for p in prompts]
+            outs = []
+            for j, r in enumerate(reqs):
+                try:
+                    outs.append(list(map(int, r.get(timeout=300))))
+                except RuntimeError as e:
+                    if "retriable" not in str(e) or not resubmit:
+                        raise
+                    failed += 1
+                    r2 = srv.submit(prompts[j], max_new_tokens=4)
+                    outs.append(list(map(int, r2.get(timeout=300))))
+        finally:
+            srv.stop()
+        # read AFTER stop: the drain resolved every deferred release, so
+        # a nonzero delta is a real ledger leak
+        return outs, failed, srv.prefill_chunks_total, srv._budget_avail
+
+    plan = rel.FaultPlan(seed=seed)
+    # first-match-wins: bounded raises kill admissions mid-chain, the
+    # unbounded delays stretch every other chunk boundary
+    plan.add("llm.chunk", "raise", times=raises, after=1)
+    plan.add("llm.chunk", "delay", times=None, delay=0.002)
+
+    def drive():
+        clean = serve_all(resubmit=False)
+        rel.set_plan(plan)
+        return clean, serve_all(resubmit=True)
+
+    (clean, _, clean_chunks, clean_budget), \
+        (injected, failed, inj_chunks, inj_budget) = _with_reliability(drive)
+    match = injected == clean
+    out = {
+        "seed": seed,
+        "requests": len(prompts),
+        "clean_chunks": clean_chunks,
+        "injected_chunks": inj_chunks,
+        "failed_retriably": failed,
+        "clean_idle_budget": clean_budget,
+        "injected_idle_budget": inj_budget,
+        "events_fired": [f"{s}:{a}" for s, a in plan.fired],
+        "match": match,
+    }
+    if clean_chunks == 0:
+        raise AssertionError(
+            "mixed chaos: the clean run never chunked — prompts are "
+            "shorter than chunk_tokens; lengthen them")
+    if not any(s == "llm.chunk" for s, _ in plan.fired):
+        raise AssertionError("mixed chaos armed but no llm.chunk fault "
+                             "fired")
+    if failed == 0:
+        raise AssertionError(
+            "mixed chaos: no admission failed mid-chain — the raise rule "
+            "never landed between chunks")
+    if inj_budget != clean_budget or inj_budget != num_pages - 1:
+        raise AssertionError(
+            f"mixed chaos ledger leak: idle budget {inj_budget} vs clean "
+            f"{clean_budget} (pool {num_pages - 1})")
+    if not match:
+        raise AssertionError(
+            f"mixed chaos divergence under chunk faults "
+            f"(fired: {out['events_fired']}): {clean} vs {injected}")
+    return out
+
+
+def _cycling_pattern(model, tries: int = 64) -> np.ndarray:
+    """The spec drive's 5-token pattern: prompt lookup drafts from the
+    generated history, so acceptance needs a greedy continuation that
+    cycles. The JAX drive pins the pattern to seed 42, whose continuation
+    cycles under its weights; the port's weights come from another
+    stream (and another one on the card), so the first seed from 42 on
+    whose continuation of the six-fold tiled pattern ends in a cycle of
+    2-6 tokens (not one repeated token) is taken."""
+    for s in range(42, 42 + tries):
+        pattern = np.random.RandomState(s).randint(0, 250, 5).astype(
+            np.int32)
+        prompt = np.tile(pattern, 6)
+        c = model.generate(prompt[None], max_new_tokens=24)[0, len(prompt):]
+        tail = c[12:]
+        if (tail != tail[0]).any() and any(
+                (c[12:] == c[12 - p:24 - p]).all() for p in range(2, 7)):
+            return pattern
+    raise AssertionError(f"spec chaos: no pattern of {tries} seeds has a "
+                         "cycling greedy continuation")
+
+
+def run_spec_chaos(model=None, seed: int = 0, raises: int = 2,
+                   device=None) -> dict:
+    """Self-speculative decoding under faults. A repetitive-suffix
+    workload (so the n-gram proposer drafts) is served twice: speculation
+    off and clean, then on with seeded ``llm.spec`` faults armed between
+    drafting and the verify dispatch, where a raise degrades that tick
+    to a plain decode step. The contract: greedy outputs BIT-IDENTICAL
+    to the spec-off run, the page ledger idle after stop, and the
+    proposed / accepted counters reconciling EXACTLY with the flight
+    ``draft`` / ``verify_accept`` / ``verify_reject`` events (one call
+    site each). ``model`` defaults to :func:`tiny_model` on ``device``."""
+    from bigdl_tpu_torch import reliability as rel
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.observability import flight
+    from bigdl_tpu_torch.utils.conf import conf
+
+    model = model or tiny_model(device)
+    pattern = _cycling_pattern(model)
+    rs = np.random.RandomState(seed)
+    prompts = [np.tile(pattern, 6).astype(np.int32),
+               np.concatenate([pattern,
+                               rs.randint(0, 250, 4).astype(np.int32)]),
+               rs.randint(0, 250, 9).astype(np.int32)]
+    new_tokens = [24, 8, 8]
+    num_pages = 24
+
+    def serve_all(sp: bool):
+        srv = LLMServer(model, **_serve_kw(
+            model, num_pages=num_pages, ragged_prefill=True, spec=sp,
+            spec_k=4)).start()
+        try:
+            reqs = [srv.submit(p, max_new_tokens=n)
+                    for p, n in zip(prompts, new_tokens)]
+            outs = [list(map(int, r.get(timeout=300))) for r in reqs]
+        finally:
+            srv.stop()
+        return (outs, srv._budget_avail,
+                {"passes": srv.spec_passes,
+                 "proposed": srv.spec_proposed_total,
+                 "accepted": srv.spec_accepted_total,
+                 "emitted": srv.spec_emitted_total})
+
+    def _spec_events():
+        r = flight.ring()
+        evs = r.events() if r is not None else []
+        verdicts = [e for e in evs
+                    if e["kind"] in ("verify_accept", "verify_reject")]
+        return {
+            "draft": sum(1 for e in evs if e["kind"] == "draft"),
+            "drafted": sum(e.get("detail", {}).get("n_draft", 0)
+                           for e in evs if e["kind"] == "draft"),
+            "verdicts": len(verdicts),
+            "accepted": sum(e.get("detail", {}).get("accepted", 0)
+                            for e in verdicts),
+            "dropped": r.dropped if r is not None else 0,
+        }
+
+    def counters():
+        return {k: _counter_total(f"bigdl_llm_spec_{k}_tokens_total")
+                for k in ("proposed", "accepted")}
+
+    GATE = "bigdl.observability.flight.enabled"
+    keys = _ConfKeys((GATE,))
+    conf.set(GATE, "true")
+    plan = rel.FaultPlan(seed=seed)
+    # first-match-wins: bounded raises kill a speculative tick between
+    # the draft and its dispatch, the unbounded delays stretch the rest
+    plan.add("llm.spec", "raise", times=raises, after=1)
+    plan.add("llm.spec", "delay", times=None, delay=0.002)
+
+    def drive():
+        clean = serve_all(sp=False)
+        before = (_spec_events(), counters())
+        rel.set_plan(plan)
+        try:
+            injected = serve_all(sp=True)
+        finally:
+            rel.set_plan(None)
+        return clean, injected, before, (_spec_events(), counters())
+
+    try:
+        (clean, clean_budget, _), (injected, inj_budget, stats), \
+            (ev_before, c_before), (ev_after, c_after) = \
+            _with_reliability(drive)
+    finally:
+        keys.restore()
+    ev_delta = {k: ev_after[k] - ev_before[k] for k in ev_before}
+    match = injected == clean
+    out = {
+        "seed": seed,
+        "requests": len(prompts),
+        "spec_passes": stats["passes"],
+        "proposed": stats["proposed"],
+        "accepted": stats["accepted"],
+        "clean_idle_budget": clean_budget,
+        "injected_idle_budget": inj_budget,
+        "events_fired": [f"{s}:{a}" for s, a in plan.fired],
+        "flight_events": ev_delta,
+        "match": match,
+    }
+    if stats["passes"] == 0 or stats["accepted"] == 0:
+        raise AssertionError(
+            "spec chaos: the spec-on run never speculated (or never "
+            "accepted a draft) — the workload's continuation is not "
+            "repetitive enough, so the reconciliation is vacuous")
+    if not any(s == "llm.spec" for s, _ in plan.fired):
+        raise AssertionError("spec chaos armed but no llm.spec fault "
+                             "fired")
+    if inj_budget != clean_budget or inj_budget != num_pages - 1:
+        raise AssertionError(
+            f"spec chaos page leak: idle budget {inj_budget} vs clean "
+            f"{clean_budget} (pool {num_pages - 1})")
+    if not match:
+        raise AssertionError(
+            f"spec chaos divergence under llm.spec faults "
+            f"(fired: {out['events_fired']}): {clean} vs {injected}")
+    if ev_delta["dropped"]:
+        raise AssertionError("flight ring dropped events mid-check; raise "
+                             "bigdl.observability.flight.capacity")
+    # EXACT: the events are emitted at the counters' call sites
+    if ev_delta["draft"] != stats["passes"] \
+            or ev_delta["verdicts"] != stats["passes"]:
+        raise AssertionError(
+            f"flight draft/verdict events ({ev_delta['draft']}/"
+            f"{ev_delta['verdicts']}) != {stats['passes']} spec passes")
+    if ev_delta["drafted"] != stats["proposed"] \
+            or ev_delta["accepted"] != stats["accepted"]:
+        raise AssertionError(
+            f"flight drafted/accepted token tallies {ev_delta} != engine "
+            f"ledgers {stats}")
+    if c_before["proposed"] is not None:
+        for key in ("proposed", "accepted"):
+            got = c_after[key] - c_before[key]
+            if got != stats[key]:
+                raise AssertionError(
+                    f"bigdl_llm_spec_{key}_tokens_total delta ({got}) != "
+                    f"engine ledger ({stats[key]})")
+        out["counters_reconciled"] = True
+    else:
+        out["counters_reconciled"] = "obs disabled: ledger-only"
+    return out
+
+
+def _flight_tally() -> dict:
+    """Flight-ring totals the flight drive diffs: shed / failover event
+    counts, the pages of the evict events, and the ring's drop count (a
+    drop between two snapshots would invalidate the diff)."""
+    from bigdl_tpu_torch.observability import flight
+    r = flight.ring()
+    evs = r.events() if r is not None else []
+    return {
+        "shed": sum(1 for e in evs if e["kind"] == "shed"),
+        "failover": sum(1 for e in evs if e["kind"] == "failover"),
+        "evict_pages": sum(e.get("detail", {}).get("pages", 0)
+                           for e in evs if e["kind"] == "evict"),
+        "dropped": r.dropped if r is not None else 0,
+    }
+
+
+def run_flight_chaos(model=None, seed: int = 0, new_tokens: int = 4,
+                     smoke: bool = False, device=None) -> dict:
+    """The flight recorder under a failover storm. ``model`` defaults to
+    :func:`tiny_model` on ``device``.
+
+    Part 1 — disabled mode is STRUCTURALLY absent: with
+    ``bigdl.observability.flight.enabled`` off, ``flight.record`` grows
+    no ring, moves no ``bigdl_flight_events_total``, adds no series, and
+    both debug endpoints answer 404.
+
+    Part 2 — recorder ON, a kill storm, a pool-pressure replay and a
+    drain's sheds; then flight ``shed`` / ``failover`` events and the
+    pages of the ``evict`` events must equal the
+    ``bigdl_reliability_shed_total`` / ``bigdl_router_failovers_total``
+    / ``bigdl_kvcache_evictions_total`` deltas EXACTLY (the events are
+    emitted at the counters' call sites)."""
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch import reliability as rel
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.llm.worker import LLMRouter, LLMWorker
+    from bigdl_tpu_torch.observability import flight
+    from bigdl_tpu_torch.utils.conf import conf
+
+    GATE = "bigdl.observability.flight.enabled"
+    keys = _ConfKeys((GATE,))
+    out = {"seed": seed, "gate": GATE}
+    try:
+        # --- part 1: disabled mode is structurally absent ---------------
+        conf.set(GATE, "false")
+        assert not flight.enabled, f"{GATE}=false left the recorder armed"
+        before = _flight_tally()
+        lines_before = (set(obs.render().splitlines())
+                        if obs.enabled() else set())
+        counter_before = _counter_total("bigdl_flight_events_total")
+        flight.record("shed", request_id="chaos-probe",
+                      component="chaos_probe")
+        flight.record("evict", pages=3)
+        for path in ("/debug/flight", "/debug/explain/chaos-probe"):
+            resp = flight.debug_endpoint(path)
+            assert resp is not None and resp[0] == 404, \
+                f"{path} must 404 while {GATE} is off, got {resp!r}"
+        after = _flight_tally()
+        assert after == before, \
+            f"record() grew the ring while {GATE} was off: {after}"
+        assert _counter_total("bigdl_flight_events_total") \
+            == counter_before, \
+            f"bigdl_flight_events_total moved while {GATE} was off"
+        if obs.enabled():
+            grown = {ln.split("{")[0].split(" ")[0]
+                     for ln in set(obs.render().splitlines())
+                     - lines_before}
+            assert not any("flight" in g for g in grown), \
+                f"disabled mode grew flight series: {grown}"
+        out["disabled_mode"] = "structurally absent"
+
+        # --- part 2: the storm, recorder on -----------------------------
+        conf.set(GATE, "true")
+        assert flight.enabled
+        model = model or tiny_model(device)
+        rs = np.random.RandomState(seed)
+        storm_prompts = [rs.randint(0, 250, 10 + 2 * j).astype(np.int32)
+                         for j in range(2)]
+        shared = rs.randint(0, 250, 12).astype(np.int32)
+        evict_prompts = [np.concatenate(
+            [shared, rs.randint(0, 250, 2 + j % 5).astype(np.int32)])
+            for j in range(3 if smoke else 6)]
+
+        was_enabled = rel.enabled()
+        if not was_enabled:
+            rel.enable()
+        # the kvcache drive's small pool, so the shared-prefix replay
+        # evicts; kills tear the router -> worker stream mid-decode so
+        # the journal resume fires
+        kw = _serve_kw(model, num_pages=7, kvcache=True)
+        s1 = LLMServer(model, **kw).start()
+        s2 = LLMServer(model, **kw).start()
+        w1 = LLMWorker(s1, role="decode").start()
+        w2 = LLMWorker(s2, role="decode").start()
+        router = LLMRouter([], [w1.address, w2.address], failover=True,
+                           failover_attempts=8,
+                           start_prober=False).start()
+        plan = rel.FaultPlan(seed=seed)
+        try:
+            # warm the storm shapes on both engines (a resume re-prefills
+            # prompt + generated through the suffix shape)
+            for srv in (s1, s2):
+                for p in storm_prompts:
+                    srv.submit(p, max_new_tokens=1).get(timeout=600)
+                    srv.submit(p, max_new_tokens=1).get(timeout=600)
+
+            def counters():
+                return {"shed": _counter_total(
+                            "bigdl_reliability_shed_total"),
+                        "failover": _counter_total(
+                            "bigdl_router_failovers_total"),
+                        "evict": _counter_total(
+                            "bigdl_kvcache_evictions_total")}
+
+            t_before, c_before = _flight_tally(), counters()
+            fo_before = router.failovers
+            ev_before = s1._kv.evictions + s2._kv.evictions
+
+            plan.add("router.dispatch", "raise", times=1, after=3)
+            plan.add("llm.step", "delay", times=None, delay=0.02)
+            rel.set_plan(plan)
+            try:
+                for p in storm_prompts:
+                    st, body = _post(router.address, "/worker_generate",
+                                     {"prompt_ids": [int(t) for t in p],
+                                      "max_new_tokens": new_tokens})
+                    assert st == 200, body
+            finally:
+                rel.set_plan(None)
+            # pool-pressure replay: shared-prefix chains past the 7-page
+            # pool force radix evictions (flight "evict" events)
+            for r in [s1.submit(p, max_new_tokens=new_tokens)
+                      for p in evict_prompts]:
+                r.get(timeout=600)
+            # drain sheds: begin_drain flips the admission arm that
+            # emits the shed event and counter at one site
+            s1.begin_drain()
+            sheds_forced = 0
+            for p in storm_prompts:
+                try:
+                    s1.submit(p, max_new_tokens=1)
+                except rel.OverloadError:
+                    sheds_forced += 1
+            s1.cancel_drain()
+            assert sheds_forced == len(storm_prompts), \
+                "draining engine accepted a submit"
+
+            # one live HTTP probe: the worker surface serves the ring
+            st, ring_doc = _get(w1.address, "/debug/flight?kind=evict")
+            assert st == 200, ring_doc
+            assert ring_doc["events"], \
+                "GET /debug/flight?kind=evict returned no events"
+
+            t_after, c_after = _flight_tally(), counters()
+            fo_delta = router.failovers - fo_before
+            ev_delta = s1._kv.evictions + s2._kv.evictions - ev_before
+            assert t_after["dropped"] == t_before["dropped"], \
+                "ring dropped events mid-check; raise " \
+                "bigdl.observability.flight.capacity"
+            deltas = {k: t_after[k] - t_before[k]
+                      for k in ("shed", "failover", "evict_pages")}
+            out.update(events=deltas, failovers=fo_delta,
+                       evicted_pages=ev_delta,
+                       events_fired=[f"{s}:{a}" for s, a in plan.fired])
+            if fo_delta == 0:
+                raise AssertionError(
+                    "flight chaos storm completed without a failover — "
+                    "the kill landed outside the streams")
+            if ev_delta == 0:
+                raise AssertionError(
+                    "flight chaos replay forced no evictions — the pool "
+                    "was not under pressure; shrink it")
+            if deltas["failover"] != fo_delta:
+                raise AssertionError(
+                    f"{deltas['failover']} flight failover events vs "
+                    f"{fo_delta} journal failovers")
+            if deltas["evict_pages"] != ev_delta:
+                raise AssertionError(
+                    f"flight evict events carry {deltas['evict_pages']} "
+                    f"pages vs {ev_delta} ledger evictions")
+            if deltas["shed"] < sheds_forced:
+                raise AssertionError(
+                    f"{sheds_forced} sheds forced but only "
+                    f"{deltas['shed']} flight shed events recorded")
+            if c_before["shed"] is not None:
+                for key, counter in (("shed", "shed"),
+                                     ("failover", "failover"),
+                                     ("evict_pages", "evict")):
+                    got = c_after[counter] - c_before[counter]
+                    if deltas[key] != got:
+                        raise AssertionError(
+                            f"flight {key} events ({deltas[key]}) != "
+                            f"bigdl_*_total counter delta ({got})")
+                out["counters_reconciled"] = True
+            else:
+                out["counters_reconciled"] = "obs disabled: ledger-only"
+        finally:
+            rel.set_plan(None)
+            if not was_enabled:
+                rel.disable()
+            router.stop()
+            w1.stop()
+            w2.stop()
+            s1.stop()
+            s2.stop()
+    finally:
+        keys.restore()
+    out["match"] = True
+    return out
+
+
+def run_preempt_chaos(model=None, seed: int = 0, smoke: bool = False,
+                      device=None) -> dict:
+    """The priority storm. Batch-class decodes hold every slot, then an
+    interactive burst arrives: the class scheduler must preempt batch
+    victims LOSSLESSLY while seeded ``llm.preempt`` faults abort
+    preemption attempts mid-decision, and every request must complete
+    bit-identical to its unpreempted golden, none lost. The flight
+    ``preempt`` / ``preempt_resume`` events, the
+    ``bigdl_llm_preemptions_total`` counter and the engine's ledgers
+    reconcile EXACTLY, the KV ledger and the arena return to idle, and
+    the worst interactive TTFT beats the same storm served FIFO. With
+    ``bigdl.llm.priority.enabled`` off (the default) the engine builds
+    no scheduler objects, mints no priority series and serves the storm
+    FIFO. ``model`` defaults to :func:`tiny_model` on ``device``."""
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch import reliability as rel
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.observability import flight
+    from bigdl_tpu_torch.utils.conf import conf
+
+    GATE = "bigdl.llm.priority.enabled"
+    FLIGHT_GATE = "bigdl.observability.flight.enabled"
+    n_batch = 3 if smoke else 4
+    n_inter = 2 if smoke else 4
+    # the victims' budget sets the FIFO baseline's slot turnover; the
+    # preempted path's TTFT does not depend on it
+    batch_budget, inter_budget, num_pages = 16, 3, 32
+
+    model = model or tiny_model(device)
+    rs = np.random.RandomState(seed)
+    shared = rs.randint(0, 250, 8).astype(np.int32)
+    batch_prompts = [np.concatenate(
+        [shared, rs.randint(0, 250, 6 + 2 * (j % 3)).astype(np.int32)])
+        for j in range(n_batch)]
+    inter_prompts = [rs.randint(0, 250, 6 + j % 4).astype(np.int32)
+                     for j in range(n_inter)]
+    prompts = batch_prompts + inter_prompts
+    budgets = [batch_budget] * n_batch + [inter_budget] * n_inter
+    classes = ["batch"] * n_batch + ["interactive"] * n_inter
+    base_kw = _serve_kw(model, num_pages=num_pages, kvcache=True)
+    want = _reference(model, prompts, budgets, **base_kw)
+
+    def storm(priority: bool):
+        """Saturate the 2 slots with batch decodes, then burst the
+        interactive prompts. Returns (outputs in submit order, the
+        interactive TTFTs, the stopped server)."""
+        srv = LLMServer(model, **_serve_kw(
+            model, num_pages=num_pages, kvcache=True, kvtier=True,
+            host_pages=64, priority=priority)).start()
+        try:
+            b_reqs = [srv.submit(p, max_new_tokens=batch_budget,
+                                 priority="BATCH")     # case-insensitive
+                      for p in batch_prompts]
+            # the burst lands while batch decodes hold every slot: wait
+            # for first tokens, not just admission
+            deadline = time.time() + 120.0
+            while time.time() < deadline and \
+                    sum(1 for r in b_reqs if len(r.tokens) >= 1) < 2:
+                time.sleep(0.005)
+            i_reqs = [srv.submit(p, max_new_tokens=inter_budget,
+                                 priority="interactive")
+                      for p in inter_prompts]
+            outs = [list(map(int, r.get(timeout=600)))
+                    for r in b_reqs + i_reqs]
+            ttfts = [r.t_first_token - r.t_submit for r in i_reqs
+                     if r.t_first_token]
+        finally:
+            srv.stop()
+        return outs, ttfts, srv
+
+    def tally():
+        r = flight.ring()
+        evs = r.events() if r is not None else []
+        return {"preempt": sum(1 for e in evs if e["kind"] == "preempt"),
+                "resume": sum(1 for e in evs
+                              if e["kind"] == "preempt_resume"),
+                "dropped": r.dropped if r is not None else 0}
+
+    keys = _ConfKeys(("bigdl.llm.kvtier.sync", FLIGHT_GATE))
+    conf.set("bigdl.llm.kvtier.sync", "true")   # inline migrations:
+    was_enabled = rel.enabled()                 # deterministic spills
+    if not was_enabled:
+        rel.enable()
+    try:
+        # --- part 1: disabled mode (the default) is structurally absent
+        lines_before = (set(obs.render().splitlines())
+                        if obs.enabled() else set())
+        srv0 = LLMServer(model, **base_kw).start()
+        try:
+            assert srv0._sched is None and srv0._parked is None, \
+                f"{GATE} off (the default) built scheduler state"
+            reqs0 = [srv0.submit(p, max_new_tokens=b, priority=c)
+                     for p, b, c in zip(prompts, budgets, classes)]
+            outs0 = [list(map(int, r.get(timeout=600))) for r in reqs0]
+            assert srv0.preemptions_total == 0 \
+                and srv0.preempt_parked == 0
+            assert srv0.class_depths() is None, \
+                f"{GATE} off still reports class depths"
+        finally:
+            srv0.stop()
+        if outs0 != want:
+            raise AssertionError(
+                f"priority-off storm is not FIFO bit-identical: {outs0} "
+                f"vs {want}")
+        if obs.enabled():
+            grown = "\n".join(set(obs.render().splitlines())
+                              - lines_before)
+            for name in ("bigdl_llm_preemptions_total",
+                         "bigdl_llm_queue_depth_class",
+                         "bigdl_llm_preempt_parked"):
+                assert name not in grown, \
+                    f"{GATE} off grew metric series {name}"
+
+        # warm the resume shapes: a second pass over every prompt hits
+        # the radix chains the first indexed (the suffix prefills that
+        # preempted resumes re-enter)
+        srv_w = LLMServer(model, **base_kw).start()
+        try:
+            for p, b in zip(prompts, budgets):
+                srv_w.submit(p, max_new_tokens=b).get(timeout=600)
+                srv_w.submit(p, max_new_tokens=b).get(timeout=600)
+        finally:
+            srv_w.stop()
+
+        # --- part 2: the FIFO storm (scheduler off) under the same
+        # step delays: the TTFT baseline the scheduler must beat
+        plan_off = rel.FaultPlan(seed=seed)
+        plan_off.add("llm.step", "delay", times=None, delay=0.02)
+        rel.set_plan(plan_off)
+        try:
+            outs_off, ttft_off, _ = storm(priority=False)
+        finally:
+            rel.set_plan(None)
+        if outs_off != want:
+            raise AssertionError(
+                f"FIFO reference storm diverged: {outs_off} vs {want}")
+
+        # --- part 3: the priority storm, recorder on, seeded
+        # llm.preempt faults aborting attempts (the site fires before any
+        # state changes: the victim keeps decoding, the next pass retries)
+        conf.set(FLIGHT_GATE, "true")
+        t_before = tally()
+        c_before = _counter_total("bigdl_llm_preemptions_total")
+        plan = rel.FaultPlan(seed=seed)
+        plan.add("llm.preempt", "raise", times=1, after=0)
+        plan.add("llm.preempt", "delay", times=None, delay=0.005)
+        plan.add("llm.step", "delay", times=None, delay=0.02)
+        rel.set_plan(plan)
+        try:
+            outs_on, ttft_on, srv = storm(priority=True)
+        finally:
+            rel.set_plan(None)
+        fired = [f"{s}:{a}" for s, a in plan.fired]
+        if outs_on != want:
+            raise AssertionError(
+                f"priority storm diverged under preemption (fired: "
+                f"{fired}): {outs_on} vs {want}")
+        if srv.preemptions_total == 0:
+            raise AssertionError(
+                "priority storm completed without a single preemption — "
+                "the burst never displaced a batch decode")
+        if not any(s == "llm.preempt" for s, _ in plan.fired):
+            raise AssertionError("priority storm armed but no "
+                                 "llm.preempt fault fired")
+        if srv.preempt_resumes_total != srv.preemptions_total:
+            raise AssertionError(
+                f"{srv.preemptions_total} preemptions but "
+                f"{srv.preempt_resumes_total} resumes — a preempted "
+                "request never re-admitted")
+        if srv._budget_avail != num_pages - 1:
+            raise AssertionError(
+                f"priority storm ledger leak: idle budget "
+                f"{srv._budget_avail} vs pool {num_pages - 1}")
+        if srv.preempt_parked != 0:
+            raise AssertionError(
+                f"{srv.preempt_parked} exported chains still parked after "
+                "every request completed")
+        if srv._tier is not None and srv._tier.migrator.inflight():
+            raise AssertionError("arena migrations still in flight")
+        t_after = tally()
+        if t_after["dropped"] != t_before["dropped"]:
+            raise AssertionError("flight ring dropped events mid-check; "
+                                 "raise bigdl.observability.flight."
+                                 "capacity")
+        ev_preempt = t_after["preempt"] - t_before["preempt"]
+        ev_resume = t_after["resume"] - t_before["resume"]
+        if ev_preempt != srv.preemptions_total:
+            raise AssertionError(
+                f"{ev_preempt} flight preempt events vs "
+                f"{srv.preemptions_total} ledger preemptions")
+        if ev_resume != srv.preempt_resumes_total:
+            raise AssertionError(
+                f"{ev_resume} flight preempt_resume events vs "
+                f"{srv.preempt_resumes_total} ledger resumes")
+        counters_reconciled: object = "obs disabled: ledger-only"
+        if c_before is not None:
+            c_delta = _counter_total("bigdl_llm_preemptions_total") \
+                - c_before
+            if c_delta != srv.preemptions_total:
+                raise AssertionError(
+                    f"bigdl_llm_preemptions_total moved {c_delta} for "
+                    f"{srv.preemptions_total} ledger preemptions")
+            counters_reconciled = True
+        worst_on = max(ttft_on) if ttft_on else None
+        worst_off = max(ttft_off) if ttft_off else None
+        if worst_on is None or worst_off is None:
+            raise AssertionError("a storm stamped no interactive TTFT")
+        if worst_on >= worst_off:
+            raise AssertionError(
+                f"scheduler-on interactive TTFT {worst_on * 1e3:.1f}ms is "
+                f"no better than FIFO {worst_off * 1e3:.1f}ms — "
+                "preemption bought nothing")
+        return {
+            "seed": seed,
+            "requests": len(prompts),
+            "events_fired": fired,
+            "preemptions": srv.preemptions_total,
+            "resumes": srv.preempt_resumes_total,
+            "flight_events": {"preempt": ev_preempt, "resume": ev_resume},
+            "counters_reconciled": counters_reconciled,
+            "idle_budget": srv._budget_avail,
+            "parked": srv.preempt_parked,
+            "interactive_ttft_on_ms": round(worst_on * 1e3, 3),
+            "interactive_ttft_off_ms": round(worst_off * 1e3, 3),
+            "lost_requests": 0,
+            "match": True,
+        }
+    finally:
+        rel.set_plan(None)
+        if not was_enabled:
+            rel.disable()
+        keys.restore()
+
+
+def run_api_chaos(model=None, seed: int = 0, n_requests: int = 3,
+                  kills: int = 1, new_tokens: int = 5, smoke: bool = False,
+                  device=None) -> dict:
+    """The OpenAI gateway's SSE stream rides the failover journal: a
+    mid-stream ``router.dispatch`` kill under a live SSE client must be
+    invisible at the ``data:`` boundary (the joined stream equals the
+    reference) and every relayed token is stamped exactly once in the
+    router's SLO sketches. With the gate off the worker and router hold
+    no gateway object, ``/v1/*`` answers 404 naming
+    ``bigdl.llm.api.enabled``, and a native request grows no
+    ``bigdl_api_*`` series. ``model`` defaults to :func:`tiny_model` on
+    ``device``."""
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch import reliability as rel
+    from bigdl_tpu_torch.llm.serving import LLMServer
+    from bigdl_tpu_torch.llm.worker import LLMRouter, LLMWorker
+    from bigdl_tpu_torch.tools.loadgen import _post_stream_openai
+
+    if smoke:
+        n_requests = min(n_requests, 2)
+        new_tokens = min(new_tokens, 4)
+    model = model or tiny_model(device)
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(0, 250, 8 + 2 * j).astype(np.int32)
+               for j in range(n_requests)]
+    want = _reference(model, prompts, [new_tokens] * n_requests,
+                      **_serve_kw(model, kvcache=True))
+
+    # --- disabled-mode structural absence (gate off, one native request)
+    s0 = LLMServer(model, **_serve_kw(model)).start()
+    w0 = LLMWorker(s0, role="decode").start()
+    r0 = LLMRouter([], [w0.address], failover=True,
+                   start_prober=False).start()
+    before = set(obs.render().splitlines()) if obs.enabled() else set()
+    try:
+        assert w0._api is None and r0._api is None, \
+            "disabled mode built a gateway object"
+        for addr in (w0.address, r0.address):
+            st, body = _get(addr, "/v1/models")
+            assert st == 404 and \
+                "bigdl.llm.api.enabled" in body.get("error", ""), \
+                f"disabled /v1/models answered {st}: {body}"
+        st, body = _post_stream_openai(
+            w0.address, {"prompt_ids": [1, 2, 3], "max_new_tokens": 2},
+            60)[:2]
+        assert st == 404 and \
+            "bigdl.llm.api.enabled" in body.get("error", ""), \
+            f"disabled /v1/completions answered {st}: {body}"
+        srv_out = s0.submit(prompts[0], max_new_tokens=2).get(timeout=600)
+        assert len(srv_out) == 2, f"warmup answered {srv_out!r}"
+        if obs.enabled():
+            new = "\n".join(set(obs.render().splitlines()) - before)
+            assert "bigdl_api_" not in new, \
+                f"disabled mode grew gateway series: {new}"
+    finally:
+        r0.stop()
+        w0.stop()
+        s0.stop()
+
+    # --- the storm: an SSE client and a mid-stream dispatch kill
+    was_enabled = rel.enabled()
+    if not was_enabled:
+        rel.enable()
+    kw = _serve_kw(model, kvcache=True, slo=True)
+    s1 = LLMServer(model, **kw).start()
+    s2 = LLMServer(model, **kw).start()
+    w1 = LLMWorker(s1, role="decode").start()
+    w2 = LLMWorker(s2, role="decode").start()
+    router = LLMRouter([], [w1.address, w2.address], failover=True,
+                       failover_attempts=8, start_prober=False, slo=True,
+                       api=True).start()
+
+    def _slo_counts():
+        if not obs.enabled():
+            return None
+        reg = obs.REGISTRY
+        return {"ttft": reg.sample_value("bigdl_router_ttft_seconds") or 0.0,
+                "itl": reg.sample_value("bigdl_router_itl_seconds") or 0.0}
+
+    slo_before = _slo_counts()
+    plan = rel.FaultPlan(seed=seed)
+    try:
+        # warm every storm shape on both engines (prefill and the suffix
+        # resume) so no first build lands in a kill window
+        for srv in (s1, s2):
+            for p in prompts:
+                srv.submit(p, max_new_tokens=1).get(timeout=600)
+                srv.submit(p, max_new_tokens=1).get(timeout=600)
+        for k in range(kills):
+            plan.add("router.dispatch", "raise", times=1, after=3 + 2 * k)
+        plan.add("llm.step", "delay", times=None, delay=0.02)
+        rel.set_plan(plan)
+        got, failures = [], []
+        try:
+            for j, p in enumerate(prompts):
+                st, parsed, _, _ttft, _gaps = _post_stream_openai(
+                    router.address, {"prompt_ids": [int(t) for t in p],
+                                     "max_new_tokens": new_tokens}, 600)
+                if st != 200 or parsed.get("error") is not None:
+                    failures.append((j, st, parsed.get("error")))
+                    got.append(None)
+                else:
+                    got.append(parsed["output_ids"])
+        finally:
+            rel.set_plan(None)
+            if not was_enabled:
+                rel.disable()
+        out = {
+            "seed": seed,
+            "requests": n_requests,
+            "events_fired": [f"{s}:{a}" for s, a in plan.fired],
+            "failovers": router.failovers,
+            "tokens_resumed": router.tokens_resumed,
+            "lost_requests": len(failures),
+            "match": got == want,
+        }
+        if failures:
+            raise AssertionError(
+                f"api chaos lost {len(failures)} request(s) "
+                f"(fired: {out['events_fired']}): {failures}")
+        if not any(s == "router.dispatch" for s, _ in plan.fired):
+            raise AssertionError(
+                "api chaos armed but no router.dispatch kill fired — widen "
+                "the kill windows")
+        if router.failovers == 0:
+            raise AssertionError(
+                "api chaos completed without a failover — the kill landed "
+                "outside the SSE-relayed stream")
+        if got != want:
+            raise AssertionError(
+                f"SSE stream divergence (fired: {out['events_fired']}): "
+                f"{got} vs {want}")
+        # the SSE boundary and the SLO sketches are ONE accounting:
+        # n first-token stamps and sum(tokens - 1) gap stamps
+        slo_after = _slo_counts()
+        if slo_after is not None:
+            ttft_n = slo_after["ttft"] - slo_before["ttft"]
+            itl_n = slo_after["itl"] - slo_before["itl"]
+            want_itl = sum(len(w) - 1 for w in want)
+            out["slo_ttft_samples"] = ttft_n
+            out["slo_itl_samples"] = itl_n
+            if ttft_n != len(want):
+                raise AssertionError(
+                    f"SLO ttft sketch holds {ttft_n} samples for "
+                    f"{len(want)} SSE requests — the relay double- or "
+                    "under-stamped first tokens")
+            if itl_n != want_itl:
+                raise AssertionError(
+                    f"SLO itl sketch holds {itl_n} samples, expected "
+                    f"{want_itl}: SSE-relayed tokens were not stamped "
+                    "exactly once")
+        return out
+    finally:
+        rel.set_plan(None)
+        router.stop()
+        w1.stop()
+        w2.stop()
+        s1.stop()
+        s2.stop()
+
+
 DRIVES = {"failover": run_failover_chaos, "alerts": run_alerts_chaos,
           "fleet": run_fleet_chaos, "chaos": run_chaos,
-          "kvcache": run_kvcache_chaos, "kvtier": run_kvtier_chaos}
+          "kvcache": run_kvcache_chaos, "kvtier": run_kvtier_chaos,
+          "mixed": run_mixed_chaos, "spec": run_spec_chaos,
+          "flight": run_flight_chaos, "preempt": run_preempt_chaos,
+          "api": run_api_chaos}
 
 
 def main(argv=None) -> int:
@@ -1165,7 +2095,8 @@ def main(argv=None) -> int:
     kw = dict(seed=args.seed, device=args.device)
     if args.drive == "chaos":
         kw.update(smoke=not args.full, events=args.events)
-    elif args.drive in ("failover", "alerts", "fleet"):
+    elif args.drive in ("failover", "alerts", "fleet", "flight", "preempt",
+                        "api"):
         kw.update(smoke=args.smoke)
     try:
         out = DRIVES[args.drive](**kw)
@@ -1179,9 +2110,11 @@ def main(argv=None) -> int:
     return 0
 
 
-__all__ = ["DRIVES", "main", "run_alerts_chaos", "run_chaos",
-           "run_failover_chaos", "run_fleet_chaos", "run_kvcache_chaos",
-           "run_kvtier_chaos", "tiny_model"]
+__all__ = ["DRIVES", "main", "run_alerts_chaos", "run_api_chaos",
+           "run_chaos", "run_failover_chaos", "run_fleet_chaos",
+           "run_flight_chaos", "run_kvcache_chaos", "run_kvtier_chaos",
+           "run_mixed_chaos", "run_preempt_chaos", "run_spec_chaos",
+           "tiny_model"]
 
 
 if __name__ == "__main__":

@@ -55,13 +55,18 @@ class CapturedStep:
     record_capture`) under ``name``, the JAX engine's program name, with
     its capture seconds, pool bytes, launches a replay and ``costs``
     (the FLOPs and bytes a call, reckoned by the caller from the step's
-    shapes: ``serving.step_costs``)."""
+    shapes: ``serving.step_costs``).
+
+    ``eager`` runs ``fn`` every call and never captures: for a step that
+    syncs with the host (a gloo collective), which a graph cannot hold."""
 
     def __init__(self, fn: Callable[[], None], device,
                  generators: Iterable[torch.Generator] = (),
                  name: str = "captured_step", signature: str = "",
-                 costs: Optional[Dict[str, float]] = None):
+                 costs: Optional[Dict[str, float]] = None,
+                 eager: bool = False):
         self.fn = fn
+        self.eager = eager
         self.device = torch.device(device)
         self.generators = tuple(generators)
         self.name = name
@@ -77,7 +82,7 @@ class CapturedStep:
 
     def __call__(self) -> None:
         self.calls += 1
-        if self.device.type != "cuda" or self.calls == 1:
+        if self.device.type != "cuda" or self.calls == 1 or self.eager:
             self.fn()
             return
         if self.graph is None:

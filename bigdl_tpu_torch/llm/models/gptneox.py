@@ -15,8 +15,11 @@ kernel over the cached prefix, in place), the dense staging
 (``paged_step_mixed``, ``paged_step_spec``). Every decoder linear is a
 q4_0 ``int4_matmul`` (kernel 1) once quantized; llama's ``_linear`` adds
 the bias after it, as the JAX package's ``_linear_b`` does. The head
-``embed_out`` stays bf16. ``param_pspecs`` and ``shard`` (tensor
-parallelism) are ROADMAP Queue 1 item 10 and raise.
+``embed_out`` stays bf16. ``param_pspecs`` gives the JAX package's
+tensor-parallel specs and ``shard`` keeps this rank's Megatron slices
+(``_shard``: q/k/v and fc_in cut by heads and columns, o_proj and fc_out
+by rows, their biases added once after the sum, the embeddings over the
+vocabulary).
 """
 
 from __future__ import annotations
@@ -35,9 +38,10 @@ from bigdl_tpu_torch.llm.kvcache.prefill import (make_mixed_step,
 from bigdl_tpu_torch.llm.models._facade import (CausalLMFacade, draw,
                                                 init_layers, load_layers,
                                                 norm_params, quantize_layers)
-from bigdl_tpu_torch.llm.models.llama import (_PARALLEL, _linear,
-                                              dense_forward, init_cache,
-                                              ragged_prefill, rope)
+from bigdl_tpu_torch.llm.models import _shard as sh
+from bigdl_tpu_torch.llm.models.llama import (_linear, dense_forward,
+                                              init_cache, ragged_prefill,
+                                              rope)
 from bigdl_tpu_torch.llm.transformers.st_reader import SafetensorsReader
 
 
@@ -124,8 +128,74 @@ def quantize_params(params: Dict[str, Any], qtype: str = "sym_int4"
     return quantize_layers(params, _LAYER_LINEARS, qtype)
 
 
-def param_pspecs(params: Dict[str, Any]):
-    raise NotImplementedError(f"param_pspecs(): {_PARALLEL}")
+def param_pspecs(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX package's Megatron specs over ``model``: q/k/v and fc_in
+    cut along N (their biases with them), o_proj / fc_out along K (their
+    biases replicated), the embeddings over the vocabulary, norms
+    replicated. Quantized leaves are k-major (…, K-ish, N)."""
+    from bigdl_tpu_torch.parallel.mesh import P
+    row = {"q_proj", "k_proj", "v_proj", "fc_in"}
+
+    def spec_for(keys, leaf):
+        d0 = 1 if "layers" in keys else 0
+        nd = leaf.dim() if isinstance(leaf, torch.Tensor) else 0
+        name = next((k for k in keys if k in row or k in (
+            "o_proj", "fc_out", "embed_in", "embed_out")), None)
+        if name is None or nd <= d0:
+            return P()
+        kmajor = keys[-1] in ("q", "scale", "zero")
+        spec = [None] * nd
+        if name in row or name in ("embed_in", "embed_out"):
+            spec[-1 if kmajor else d0] = "model"
+        elif keys[-1] != "b":
+            if kmajor:
+                spec[d0] = "model"
+            elif nd > d0 + 1:
+                spec[d0 + 1] = "model"
+        return P(*spec)
+
+    def walk(tree, keys):
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + [k]) for k, v in tree.items()}
+        return spec_for(keys, tree)
+
+    return walk(params, [])
+
+
+def shard_params(params: Dict[str, Any], cfg: GptNeoXConfig, mesh):
+    """This rank's Megatron slices over the mesh's ``model`` axis (every
+    rank passes the same whole tree); returns ``(rank params, rank
+    config)``. As llama's :func:`~bigdl_tpu_torch.llm.models.llama.
+    shard_params`, without GQA or experts."""
+    w, r, group = sh._axis(mesh, "model")
+    hd, inter = cfg.head_dim, cfg.intermediate_size
+    q0, nq, _, _ = sh.head_cut(cfg.num_attention_heads,
+                               cfg.num_attention_heads, w, r)
+    if inter % w:
+        raise ValueError(f"intermediate size {inter} does not split over "
+                         f"{w} ranks")
+    tp = sh.TensorShard(group, sh.vocab_cut(w, r, cfg.vocab_size))
+    hr = (q0 * hd, (q0 + nq) * hd)
+    ir = (r * inter // w, (r + 1) * inter // w)
+    layers = {}
+    for name, d in params["layers"].items():
+        if name in ("q_proj", "k_proj", "v_proj"):
+            d = sh.cut_n(d, [hr])
+        elif name == "fc_in":
+            d = sh.cut_n(d, [ir])
+        elif name == "o_proj":
+            d = sh.cut_k(d, *hr, tp.reduce)
+        elif name == "fc_out":
+            d = sh.cut_k(d, *ir, tp.reduce)
+        layers[name] = d
+    emb = params["embed_in"]
+    out = dict(params, layers=layers, tp=tp,
+               embed_in=emb if tp.vocab is None else
+               emb[tp.vocab[0]:tp.vocab[1]].contiguous(),
+               embed_out=sh.cut_head(params["embed_out"], tp.vocab, tp))
+    return out, sh.RankConfig(cfg, num_attention_heads=nq,
+                              num_key_value_heads=nq,
+                              intermediate_size=inter // w)
 
 
 def _layer_norm(x, wd, eps: float):
@@ -146,7 +216,7 @@ def _partial_rope(x, positions, cfg: GptNeoXConfig):
 
 
 def _embed(params, cfg, toks, positions):
-    return params["embed_in"][toks]
+    return sh.embed_rows(params["embed_in"], toks, params.get("tp"))
 
 
 def _layer(lp, x, positions, cfg: GptNeoXConfig, attend, kv_dtype=None):
@@ -222,7 +292,12 @@ class GptNeoXForCausalLM(CausalLMFacade):
     _paged_step = staticmethod(paged_decode_step)
 
     def shard(self, mesh) -> "GptNeoXForCausalLM":
-        raise NotImplementedError(f"shard(): {_PARALLEL}")
+        """Keep this rank's tensor-parallel slices over the mesh's
+        ``model`` axis; the config becomes this rank's
+        (:func:`shard_params`)."""
+        self.params, self.config = shard_params(self.params, self.config,
+                                                mesh)
+        return self
 
 
 def load_hf_gptneox_safetensors(path: str,

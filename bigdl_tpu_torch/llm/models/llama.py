@@ -21,9 +21,13 @@ the JAX ``lax.scan`` has no counterpart to keep.
 
 PyTorch runs eagerly, so there is no jit and no donation: ``forward``
 writes the dense cache IN PLACE and ``decode_scan*`` are Python loops.
-Tensor-parallel ``param_pspecs``/``shard`` and the ring-attention
-prefill are not ported (ROADMAP Queue 1 item 10); asking for them
-raises.
+
+Parallelism over ``torch.distributed``: ``param_pspecs`` gives the JAX
+package's tensor-parallel specs; :func:`shard_params` (and
+``LlamaForCausalLM.shard``) keeps this rank's Megatron slices, with the
+collectives in the forward (``_shard``); ``forward(ring=(mesh, axis))``
+and ``LlamaForCausalLM.sequence_parallel`` run the prefill's attention
+as ring attention over a sequence split across ranks.
 """
 
 from __future__ import annotations
@@ -51,8 +55,6 @@ from bigdl_tpu_torch.parallel.ring_attention import online_block_update
 _MOE_QUANT = ("MoE expert-stacked FFN weights are not ggml-quantized yet "
               "(experts stay bf16; attention linears of an MoE model can "
               "be quantized through LowBitLinear module surgery)")
-_PARALLEL = ("tensor and sequence parallelism (param_pspecs / shard, ring "
-             "attention) are ROADMAP Queue 1 item 10")
 
 
 @dataclasses.dataclass
@@ -333,9 +335,126 @@ def quantize_params(params: Dict[str, Any], qtype: str = "sym_int4",
 
 
 def layer_params(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
-    """Layer ``l``'s slice of the stacked layer tree (views, no copy)."""
-    return {k: (layer_params(v, l) if isinstance(v, dict) else v[l])
+    """Layer ``l``'s slice of the stacked layer tree (views, no copy); a
+    shard's entries that are not tensors pass as they are."""
+    return {k: (layer_params(v, l) if isinstance(v, dict) else
+                v[l] if isinstance(v, torch.Tensor) else v)
             for k, v in layers.items()}
+
+
+def param_pspecs(params: Dict[str, Any],
+                 ep_axis: Optional[str] = None) -> Dict[str, Any]:
+    """The JAX package's tensor-parallel specs over the ``model`` axis:
+    q/k/v, gate/up (fused or not) cut along N, o_proj / down_proj along
+    K, the embedding and ``lm_head`` over the vocabulary, norms
+    replicated. Expert-stacked MLP weights (L, E, N, K) and the router
+    (L, E, H) split their expert dimension over ``ep_axis`` when given.
+    Dense ``w`` leaves are (…, N, K), quantized ones k-major (…, K-ish,
+    N). :func:`shard_params` keeps the slices these name, cut by whole
+    heads."""
+    from bigdl_tpu_torch.parallel.mesh import P
+    row = {"q_proj", "k_proj", "v_proj", "gate_proj", "up_proj",
+           "qkv_proj", "gate_up_proj"}
+
+    def spec_for(keys, leaf):
+        d0 = 1 if "layers" in keys else 0      # skip the layer-stack dim
+        nd = leaf.dim() if isinstance(leaf, torch.Tensor) else 0
+        if "router" in keys:
+            if ep_axis and nd > d0:
+                spec = [None] * nd
+                spec[d0] = ep_axis
+                return P(*spec)
+            return P()
+        name = next((k for k in keys if k in row
+                     or k in ("o_proj", "down_proj", "lm_head",
+                              "embed_tokens")), None)
+        if name is None or nd <= d0:
+            return P()
+        if (name in ("gate_proj", "up_proj", "down_proj")
+                and keys[-1] == "w" and nd == d0 + 3):
+            spec = [None] * nd
+            spec[d0] = ep_axis
+            spec[d0 + (2 if name == "down_proj" else 1)] = "model"
+            return P(*spec)
+        kmajor = keys[-1] in ("q", "scale", "zero")
+        spec = [None] * nd
+        if name in row or name in ("lm_head", "embed_tokens"):
+            spec[-1 if kmajor else d0] = "model"
+        elif kmajor:
+            spec[d0] = "model"
+        elif nd > d0 + 1:
+            spec[d0 + 1] = "model"
+        return P(*spec)
+
+    def walk(tree, keys):
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + [k]) for k, v in tree.items()}
+        return spec_for(keys, tree)
+
+    return walk(params, [])
+
+
+def shard_params(params: Dict[str, Any], cfg: LlamaConfig, mesh,
+                 ep_axis: Optional[str] = None):
+    """This rank's Megatron slices of ``params`` over the mesh's
+    ``model`` axis (and its experts over ``ep_axis``), with the
+    collectives its forward runs (``_shard``). Every rank passes the
+    same whole tree. Returns ``(rank params, rank config)``."""
+    from bigdl_tpu_torch.llm.models import _shard as sh
+    w, r, group = sh._axis(mesh, "model")
+    ep, er, ep_group = sh._axis(mesh, ep_axis)
+    hd, inter = cfg.head_dim, cfg.intermediate_size
+    q0, nq, kv0, nkv = sh.head_cut(cfg.num_attention_heads,
+                                   cfg.num_key_value_heads, w, r)
+    if inter % w:
+        raise ValueError(f"intermediate size {inter} does not split over "
+                         f"{w} ranks")
+    if cfg.num_experts and cfg.num_experts % ep:
+        raise ValueError(f"{cfg.num_experts} experts do not split over "
+                         f"{ep} ranks")
+    tp = sh.TensorShard(group, sh.vocab_cut(w, r, cfg.vocab_size))
+    il = inter // w
+    qh, kvh = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    qr = (q0 * hd, (q0 + nq) * hd)
+    kvr = (kv0 * hd, (kv0 + nkv) * hd)
+    ir = (r * il, (r + 1) * il)
+    expert = None
+    if cfg.num_experts:
+        el = cfg.num_experts // ep
+        expert = (er * el, (er + 1) * el)
+    moe_sum = sh.GroupSum([group, ep_group])
+    n_ranges = {
+        "q_proj": [qr], "k_proj": [kvr], "v_proj": [kvr],
+        "qkv_proj": [qr, (qh + kvr[0], qh + kvr[1]),
+                     (qh + kvh + kvr[0], qh + kvh + kvr[1])],
+        "gate_proj": [ir], "up_proj": [ir],
+        "gate_up_proj": [ir, (inter + ir[0], inter + ir[1])]}
+    layers = {}
+    for name, d in params["layers"].items():
+        stacked = isinstance(d, dict) and "w" in d and d["w"].dim() == 4
+        if name in n_ranges:
+            d = sh.cut_n(d, n_ranges[name], expert if stacked else None)
+        elif name == "o_proj":
+            d = sh.cut_k(d, *qr, tp.reduce)
+        elif name == "down_proj":
+            d = sh.cut_k(d, *ir, moe_sum if stacked else tp.reduce,
+                         expert if stacked else None)
+        if stacked:
+            d = dict(d, e0=expert[0])
+        layers[name] = d
+    out = {k: v for k, v in params.items() if k not in ("layers",
+                                                       "embed_tokens",
+                                                       "lm_head")}
+    out["layers"] = layers
+    out["tp"] = tp
+    emb = params["embed_tokens"]
+    out["embed_tokens"] = emb if tp.vocab is None else \
+        emb[tp.vocab[0]:tp.vocab[1]].contiguous()
+    if "lm_head" in params:
+        out["lm_head"] = sh.cut_head(params["lm_head"], tp.vocab, tp)
+    rank_cfg = sh.RankConfig(cfg, num_attention_heads=nq,
+                             num_key_value_heads=nkv, intermediate_size=il)
+    return out, rank_cfg
 
 
 # ---------------------------------------------------------------------------
@@ -347,17 +466,25 @@ def _linear(wd: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     ``b``. A quantized weight goes through :func:`int4_matmul`, which
     launches the CUDA kernel for a CUDA x and takes the plain version
     for a CPU x."""
+    reduce = wd.get("reduce")
+    # a K-cut linear of a tensor-parallel shard: its partial product is
+    # summed over the group (in f32 across ranks), the bias added after
+    wide = reduce is not None and reduce.size > 1
     if "w" in wd:
-        y = x @ wd["w"].t().to(x.dtype)
-        if "b" in wd:
-            y = y + wd["b"].to(y.dtype)
-        return y
-    shape = x.shape
-    y = int4_matmul(x.reshape(-1, shape[-1]), wd["q"], wd["scale"],
-                    out_dtype=x.dtype)
+        y = (x.to(torch.float32) @ wd["w"].t().to(torch.float32) if wide
+             else x @ wd["w"].t().to(x.dtype))
+    else:
+        shape = x.shape
+        y = int4_matmul(x.reshape(-1, shape[-1]), wd["q"], wd["scale"],
+                        out_dtype=torch.float32 if wide else x.dtype)
+        y = y.reshape(shape[:-1] + (y.shape[-1],))
+    if reduce is not None:
+        y = reduce(y).to(x.dtype)
     if "b" in wd:
         y = y + wd["b"].to(y.dtype)
-    return y.reshape(shape[:-1] + (y.shape[-1],))
+    if "gather" in wd:
+        y = wd["gather"].gather(y)
+    return y
 
 
 def rms_norm(x, w, eps: float):
@@ -471,6 +598,10 @@ def _moe_ffn(lp: Dict[str, Any], h: torch.Tensor,
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
     wg, wu, wd = (lp[n]["w"].to(bf)
                   for n in ("gate_proj", "up_proj", "down_proj"))
+    # an expert-parallel shard runs its experts [e0, e0 + El) only, and
+    # sums its part of every token's output over the groups
+    e0, El = lp["gate_proj"].get("e0", 0), wg.shape[0]
+    reduce = lp["down_proj"].get("reduce")
 
     def experts(xin):
         """(E, R, H) bf16 rows → (E, R, H) bf16 expert outputs."""
@@ -483,8 +614,11 @@ def _moe_ffn(lp: Dict[str, Any], h: torch.Tensor,
     if not cfg.expert_capacity_factor or cfg.expert_capacity_factor <= 0:
         w_full = torch.zeros((S, E), dtype=torch.float32, device=dev
                              ).scatter_(1, gate_idx, gate_vals)
-        out = experts(x.to(bf).expand(E, S, hd))           # (E, S, H)
-        y = torch.bmm(w_full.to(bf)[:, None, :], out.transpose(0, 1))
+        out = experts(x.to(bf).expand(El, S, hd))          # (El, S, H)
+        y = torch.bmm(w_full[:, e0:e0 + El].to(bf)[:, None, :],
+                      out.transpose(0, 1))
+        if reduce is not None:
+            y = reduce(y)
         return y.reshape(b, t, hd).to(h.dtype)
 
     C = max(int(np.ceil(S * K / E * cfg.expert_capacity_factor)), 1)
@@ -494,18 +628,22 @@ def _moe_ffn(lp: Dict[str, Any], h: torch.Tensor,
     sel = (expert_of[:, None] == torch.arange(E, device=dev)).to(
         torch.float32)                                      # (K*S, E)
     pos = ((torch.cumsum(sel, dim=0) - sel) * sel).sum(-1)
-    keep = pos < C
-    # a kept pair's place in the flat (E*C) slots; a dropped one goes to
-    # row E*C, a zero row the combine reads back as nothing
-    place = torch.where(keep, expert_of * C + pos.to(torch.int64),
-                        torch.full_like(expert_of, E * C))
-    xin = torch.zeros((E * C + 1, hd), dtype=bf, device=dev)
+    local = expert_of - e0
+    keep = (pos < C) & (local >= 0) & (local < El)
+    # a kept pair's place in this rank's flat (El*C) slots; a dropped
+    # pair (or another rank's) goes to row El*C, a zero row the combine
+    # reads back as nothing
+    place = torch.where(keep, local * C + pos.to(torch.int64),
+                        torch.full_like(expert_of, El * C))
+    xin = torch.zeros((El * C + 1, hd), dtype=bf, device=dev)
     xin.index_copy_(0, place, x.to(bf).repeat(K, 1))
-    out = experts(xin[:E * C].view(E, C, hd)).reshape(E * C, hd)
+    out = experts(xin[:El * C].view(El, C, hd)).reshape(El * C, hd)
     out = torch.cat([out, torch.zeros((1, hd), dtype=bf, device=dev)])
     y = (gates.to(bf).to(torch.float32)[:, None]
          * out.index_select(0, place).to(torch.float32)).to(bf)
     y = y.reshape(K, S, hd).sum(dim=0)
+    if reduce is not None:
+        y = reduce(y)
     return y.reshape(b, t, hd).to(h.dtype)
 
 
@@ -514,7 +652,10 @@ def lm_logits(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     embedding-tied plain matmul."""
     head = params.get("lm_head")
     if head is None:
-        return x @ params["embed_tokens"].t().to(x.dtype)
+        logits = x @ params["embed_tokens"].t().to(x.dtype)
+        tp = params.get("tp")
+        return logits if tp is None or tp.vocab is None else \
+            tp.gather(logits)
     return _linear(head, x)
 
 
@@ -624,7 +765,8 @@ def _attention(q, k_all, v_all, q_positions, kv_len_mask, cfg,
 
 def _embed(params, cfg, toks, positions):
     """The llama family's input: the token embedding rows."""
-    return params["embed_tokens"][toks]
+    from bigdl_tpu_torch.llm.models._shard import embed_rows
+    return embed_rows(params["embed_tokens"], toks, params.get("tp"))
 
 
 def _head(params, cfg, x):
@@ -676,17 +818,66 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
 
     The cache is written IN PLACE (the JAX package donates it; here the
     returned dict holds the same tensors): a caller that still needs the
-    old cache must copy it first. ``ring=`` (sequence-parallel prefill)
-    is ROADMAP Queue 1 item 10; ``unroll`` > 1 unrolled the JAX layer
-    scan and has no meaning in eager PyTorch."""
-    if ring is not None:
-        raise NotImplementedError(f"ring= prefill: {_PARALLEL}")
+    old cache must copy it first. ``unroll`` > 1 unrolled the JAX layer
+    scan and has no meaning in eager PyTorch.
+
+    ``ring=(mesh, axis)`` runs attention as ring attention over the
+    sequence split across ``axis`` (:func:`ring_forward`). Only valid for
+    a prefill from an empty cache at positions 0..T-1 (attention is over
+    the current tokens, not the cache window); the facade enforces it."""
     if unroll not in (0, 1):
         raise NotImplementedError(
             "unroll= unrolls the JAX package's layer scan; it is not "
             "applicable in eager PyTorch, where layers run in a loop")
-    return dense_forward(params, cfg, tokens, cache, positions,
-                         embed=_embed, layer=decoder_layer, head=_head)
+    parts = dict(embed=_embed, layer=decoder_layer, head=_head)
+    if ring is not None:
+        return ring_forward(params, cfg, tokens, cache, positions, ring,
+                            **parts)
+    return dense_forward(params, cfg, tokens, cache, positions, **parts)
+
+
+def ring_forward(params, cfg, tokens, cache, positions, ring, *, embed,
+                 layer, head):
+    """The sequence-parallel prefill of any family: every rank passes the
+    whole (B, T) prompt, keeps its T / n tokens of it (``n`` the size of
+    ring axis ``ring[1]`` of mesh ``ring[0]``), runs the layers on them
+    with ring attention (:func:`~bigdl_tpu_torch.parallel.ring_attention.
+    ring_self_attention`, causal, on the projections before the cache
+    cast, as the JAX ring does), and writes every layer's whole K/V into
+    its cache (each chunk gathered over the ring), so decode continues
+    from the cache on every rank. Returns the whole ``(logits (B, T, V)
+    f32, cache)`` on every rank."""
+    from bigdl_tpu_torch.parallel.collectives import all_gather
+    from bigdl_tpu_torch.parallel.mesh import mesh_axis_size
+    from bigdl_tpu_torch.parallel.ring_attention import ring_self_attention
+    mesh, axis = ring
+    n = mesh_axis_size(mesh, axis)
+    g = mesh.get_group(axis)
+    r = mesh.get_local_rank(axis)
+    b, t = tokens.shape
+    if int(cache["pos"]) != 0 or t % n:
+        raise ValueError(f"the ring prefill takes {t} tokens from an empty "
+                         f"cache over {n} ranks: T must split evenly and "
+                         "the cache must be empty")
+    k_cache, v_cache = cache["k"], cache["v"]
+    if t > k_cache.shape[2]:
+        raise ValueError(f"writing {t} positions overflows the cache of "
+                         f"{k_cache.shape[2]}")
+    tl = t // n
+    toks = tokens[:, r * tl:(r + 1) * tl].long()
+    pos = positions[:, r * tl:(r + 1) * tl]
+
+    def attend(l, q, k, v):
+        k_cache[l, :, :t] = all_gather(k.to(k_cache.dtype), g, axis=1)
+        v_cache[l, :, :t] = all_gather(v.to(v_cache.dtype), g, axis=1)
+        return ring_self_attention(q, k, v, g, causal=True)
+
+    x = embed(params, cfg, toks, pos)
+    for l in range(cfg.num_hidden_layers):
+        x, _, _ = layer(layer_params(params["layers"], l), x, pos, cfg,
+                        lambda q, k, v, l=l: attend(l, q, k, v))
+    logits = all_gather(head(params, cfg, x).to(torch.float32), g, axis=1)
+    return logits, {"k": k_cache, "v": v_cache, "pos": t}
 
 
 def ragged_prefill(params, cfg, k_pages, v_pages, toks, length, offset,
@@ -890,12 +1081,15 @@ class PagedDecodeLoop:
     port's ``jax.jit(decode_scan_paged)``. Each token is copied out of
     the step's output buffer before the next replay. The graph holds the
     addresses of the pools and ``bt``, so a loop serves one set of pools
-    (``generate`` makes one a call); ``close()`` frees it."""
+    (``generate`` makes one a call); ``close()`` frees it. ``capture=False``
+    runs the step eagerly every token (a tensor-parallel shard over gloo:
+    its collectives run on the host, which no graph may hide)."""
 
     def __init__(self, params, cfg, k_pages, v_pages, bt, pos, last_logits,
                  generator, temperature, finished=None, *, page: int,
                  do_sample: bool = False, top_k: int = 0,
-                 eos_token_id: Optional[int] = None, step_fn=None):
+                 eos_token_id: Optional[int] = None, step_fn=None,
+                 capture: bool = True):
         from bigdl_tpu_torch.llm.graphs import CapturedStep
         if step_fn is None:
             from bigdl_tpu_torch.llm.serving import paged_decode_step
@@ -925,7 +1119,7 @@ class PagedDecodeLoop:
             lens.add_(1)
 
         self.step = CapturedStep(step, dev, generators=(
-            (generator,) if do_sample else ()))
+            (generator,) if do_sample else ()), eager=not capture)
 
     def run(self, num_tokens: int) -> torch.Tensor:
         """``num_tokens`` steps; returns their tokens (B, num_tokens)
@@ -1007,10 +1201,12 @@ def generate_tokens(model, input_ids, max_new_tokens: int, *, forward_fn,
     with torch.no_grad():
         if step_fn is not None:
             k_pages, v_pages, bt = pageify_cache(cache, page=model.page_size)
+            tp = model.params.get("tp")
             loop = PagedDecodeLoop(
                 model.params, model.config, k_pages, v_pages, bt,
                 cache["pos"], last, gen, temperature, finished,
-                page=model.page_size, step_fn=step_fn, **kw)
+                page=model.page_size, step_fn=step_fn,
+                capture=tp is None or tp.capturable, **kw)
             del cache, k_pages, v_pages
         try:
             while remaining > 0:
@@ -1090,7 +1286,12 @@ class LlamaForCausalLM(ModelHolder):
     ``paged_decode=False`` keeps the dense-cache loop
     (:func:`decode_scan`), eagerly: ``forward`` slices the cache at a
     host position, which a graph would bake in. ``decode_unroll`` unrolled the JAX layer scan
-    and only 1 is meaningful here."""
+    and only 1 is meaningful here.
+
+    ``shard(mesh)`` keeps this rank's tensor-parallel slices
+    (:func:`shard_params`); ``sequence_parallel(mesh, axis)`` runs the
+    prefill of a fresh prompt as ring attention over ``axis``. Every
+    rank of the group calls the same entry points on the same inputs."""
 
     _forward = staticmethod(forward)
     _init_cache = staticmethod(init_cache)
@@ -1106,6 +1307,7 @@ class LlamaForCausalLM(ModelHolder):
                 "not applicable in eager PyTorch")
         super().__init__(cfg, params, max_cache_len, cache_dtype,
                          paged_decode, page_size, device)
+        self._ring = None          # (mesh, axis) once sequence_parallel()
 
     @classmethod
     def from_config(cls, cfg: LlamaConfig, seed: int = 0,
@@ -1128,11 +1330,44 @@ class LlamaForCausalLM(ModelHolder):
         return self
 
     def shard(self, mesh) -> "LlamaForCausalLM":
-        raise NotImplementedError(f"shard(): {_PARALLEL}")
+        """Keep this rank's tensor-parallel slices of the params over the
+        mesh's ``model`` axis; the config becomes this rank's
+        (:func:`shard_params`, which also takes an expert axis)."""
+        self.params, self.config = shard_params(self.params, self.config,
+                                                mesh)
+        return self
 
     def sequence_parallel(self, mesh, axis: str = "seq"
                           ) -> "LlamaForCausalLM":
-        raise NotImplementedError(f"sequence_parallel(): {_PARALLEL}")
+        """Run the prefill of fresh prompts as ring attention over
+        ``axis``: each rank takes T / n of the prompt and K/V chunks ride
+        the ring (decode keeps the cache-window path)."""
+        self._ring = (mesh, axis)
+        return self
+
+    def __call__(self, tokens, cache=None, positions=None):
+        """:meth:`ModelHolder.__call__`, with the ring prefill where
+        :meth:`sequence_parallel` set one and it is valid: from an empty
+        cache with the default positions 0..T-1 (given positions may be
+        packed or offset, which the ring mask does not model), more than
+        one token, no sliding window (the ring mask is plain causal), and
+        T a multiple of the ring's size."""
+        from bigdl_tpu_torch.parallel.mesh import mesh_axis_size
+        tokens = as_tokens(tokens, self.device)
+        b, t = tokens.shape
+        use_ring = (cache is None and positions is None and t > 1
+                    and self._ring is not None
+                    and self.config.sliding_window is None
+                    and t % mesh_axis_size(*self._ring) == 0)
+        if not use_ring:
+            return super().__call__(tokens, cache, positions)
+        cache = init_cache(self.config, b, self.max_cache_len,
+                           dtype=self.cache_dtype, device=self.device)
+        positions = torch.arange(t, dtype=torch.int32,
+                                 device=self.device).expand(b, t)
+        with torch.no_grad():
+            return forward(self.params, self.config, tokens, cache,
+                           positions, ring=self._ring)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, temperature: float = 1.0,

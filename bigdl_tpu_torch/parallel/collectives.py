@@ -19,6 +19,17 @@ or tuple of tensors) is reduced as one flat buffer a call: one
 collective for the whole tree, not one a leaf. Results come back in the
 structure and dtypes given.
 
+Ranks that share one card run gloo, which sums and broadcasts CUDA
+tensors itself but gathers, exchanges and sends only host tensors. For
+a gloo group holding CUDA tensors, :func:`all_gather`,
+:func:`reduce_scatter`, :func:`all_to_all` and :func:`ppermute_next`
+copy their payload to the host and their result back, explicitly; the
+compute stays on the card. Only that case stages (never NCCL, never a
+host tensor), and every staged byte is counted:
+:func:`staged_bytes` holds the tally (:func:`collective_tally` that
+of every collective), and with observability on
+``bigdl_collective_staged_bytes_total`` (label ``op``) too.
+
 Telemetry: every wrapper bumps ``bigdl_collective_traced_bytes_total``
 and ``bigdl_collective_calls_total`` (label ``op``) with its input
 payload, at the JAX package's byte rates (the carrier dtype; 2 bytes an
@@ -54,14 +65,16 @@ def group_size(group=None) -> int:
 
 
 def _count_collective(op: str, tree: Any, bytes_per_element=None):
-    if not obs.enabled():
-        return
     total = 0
     for leaf in tree_leaves(tree):
         if bytes_per_element is not None:
             total += int(leaf.numel() * bytes_per_element)
         else:
             total += leaf.numel() * leaf.element_size()
+    calls, nbytes = _TALLY.get(op, (0, 0))
+    _TALLY[op] = (calls + 1, nbytes + total)
+    if not obs.enabled():
+        return
     obs.counter("bigdl_collective_traced_bytes_total",
                 "Input payload bytes per collective call (the port counts "
                 "every executed call; multiply by the op's wire "
@@ -71,6 +84,57 @@ def _count_collective(op: str, tree: Any, bytes_per_element=None):
     obs.counter("bigdl_collective_calls_total",
                 "Collective calls executed", labelnames=("op",)
                 ).labels(op=op).inc()
+
+
+# this process's collectives: {op: (calls, input payload bytes)}, and
+# the copies between the card and the host of the staged ones
+_TALLY: dict = {}
+_STAGED = {"calls": 0, "bytes": 0}
+
+
+def collective_tally() -> dict:
+    """``{op: {"calls", "bytes"}}``: the collectives this process ran and
+    their input payload bytes (as the telemetry counts them), since the
+    last :func:`reset_tallies`."""
+    return {op: {"calls": c, "bytes": b} for op, (c, b) in _TALLY.items()}
+
+
+def staged_bytes() -> dict:
+    """``{"calls", "bytes"}``: the host copies of the staged collectives
+    and the bytes they moved between the card and the host (both ways),
+    since the last :func:`reset_tallies`."""
+    return dict(_STAGED)
+
+
+def reset_tallies():
+    _TALLY.clear()
+    _STAGED.update(calls=0, bytes=0)
+
+
+def _stages(x: torch.Tensor, g) -> bool:
+    """A gloo group holding a CUDA tensor: the data movers stage."""
+    return x.is_cuda and dist.get_backend(g) == "gloo"
+
+
+def _to_host(op: str, x: torch.Tensor) -> torch.Tensor:
+    _count_staged(op, x)
+    return x.cpu()
+
+
+def _to_card(op: str, y: torch.Tensor, device) -> torch.Tensor:
+    _count_staged(op, y)
+    return y.to(device)
+
+
+def _count_staged(op: str, x: torch.Tensor):
+    n = x.numel() * x.element_size()
+    _STAGED["calls"] += 1
+    _STAGED["bytes"] += n
+    if obs.enabled():
+        obs.counter("bigdl_collective_staged_bytes_total",
+                    "Bytes a gloo collective of CUDA tensors copied "
+                    "between the card and the host (both ways)",
+                    labelnames=("op",)).labels(op=op).inc(n)
 
 
 def _div(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -185,8 +249,12 @@ def all_gather(x: torch.Tensor, group=None, axis: int = 0,
     _count_collective("all_gather", x)
     g = resolve_group(group)
     n = dist.get_world_size(g)
-    out = x.new_empty((n,) + tuple(x.shape))
-    dist.all_gather_into_tensor(out, x.contiguous()[None], group=g)
+    staged = _stages(x, g)
+    src = _to_host("all_gather", x) if staged else x
+    out = src.new_empty((n,) + tuple(x.shape))
+    dist.all_gather_into_tensor(out, src.contiguous()[None], group=g)
+    if staged:
+        out = _to_card("all_gather", out, x.device)
     parts = out.unbind(0)
     return torch.cat(parts, dim=axis) if tiled else \
         torch.stack(parts, dim=axis)
@@ -203,8 +271,13 @@ def reduce_scatter(x: torch.Tensor, group=None, axis: int = 0
     if xm.shape[0] % n:
         raise ValueError(f"dimension {axis} of {tuple(x.shape)} does not "
                          f"split over {n} ranks")
+    staged = _stages(x, g)
+    if staged:
+        xm = _to_host("reduce_scatter", xm)
     out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
     dist.reduce_scatter_tensor(out, xm, group=g)
+    if staged:
+        out = _to_card("reduce_scatter", out, x.device)
     return out.movedim(0, axis)
 
 
@@ -224,8 +297,17 @@ def all_to_all(x: torch.Tensor, group=None, split_axis: int = 0,
     if len(pieces) != n or any(p.shape != pieces[0].shape for p in pieces):
         raise ValueError(f"dimension {split_axis} of {tuple(x.shape)} does "
                          f"not split over {n} ranks")
-    got = [torch.empty_like(p) for p in pieces]
-    dist.all_to_all(got, pieces, group=g)
+    # one buffer, piece j in row j: ``all_to_all_single`` (gloo has no
+    # list all-to-all)
+    send = torch.stack(pieces)
+    staged = _stages(x, g)
+    if staged:
+        send = _to_host("all_to_all", send)
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=g)
+    if staged:
+        got = _to_card("all_to_all", got, x.device)
+    got = got.unbind(0)
     return torch.cat(got, dim=concat_axis) if tiled else \
         torch.stack(got, dim=concat_axis)
 
@@ -242,12 +324,14 @@ def ppermute_next(x: torch.Tensor, group=None, shift: int = 1
     r = dist.get_rank(g)
     peer = [dist.get_global_rank(g, i) if g is not None else i
             for i in ((r + shift) % n, (r - shift) % n)]
-    out = torch.empty_like(x)
+    staged = _stages(x, g)
+    src = _to_host("ppermute", x) if staged else x.contiguous()
+    out = torch.empty_like(src)
     for w in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, x.contiguous(), peer[0], g),
+            dist.P2POp(dist.isend, src, peer[0], g),
             dist.P2POp(dist.irecv, out, peer[1], g)]):
         w.wait()
-    return out
+    return _to_card("ppermute", out, x.device) if staged else out
 
 
 def barrier_sum(group=None) -> torch.Tensor:

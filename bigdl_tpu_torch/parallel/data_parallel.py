@@ -8,20 +8,68 @@ batch (:func:`~bigdl_tpu_torch.parallel.mesh.shard_batch`) and the
 gradients are averaged over the mesh's ``data`` group before the
 update, so every rank applies the same update. As in the SPMD program,
 batch normalisation inside ``apply_fn`` takes the global batch's
-statistics. ``tp_linear_spec`` and ``param_shardings`` (tensor
-parallelism) are ROADMAP Queue 1 item 10 (rest).
+statistics. ``tp_linear_spec`` and ``param_shardings`` give the
+tensor-parallel layout of a parameter tree by the JAX rules.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import re
+from typing import Callable, Optional
 
 import torch
 
 from bigdl_tpu_torch.parallel.collectives import all_reduce, \
     global_batch_stats
-from bigdl_tpu_torch.parallel.mesh import mesh_axis_size
+from bigdl_tpu_torch.parallel.mesh import (NamedSharding, P,
+                                           mesh_axis_size)
 from bigdl_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+
+def tp_linear_spec(shape, axis: str = "model", dim: int = 0) -> P:
+    """The spec sharding a weight matrix's ``dim`` over ``axis``."""
+    spec = [None] * len(shape)
+    spec[dim] = axis
+    return P(*spec)
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (f"[{i}]",))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_shardings(params, mesh, rules: Optional[list] = None):
+    """Map a parameter tree to :class:`NamedSharding` s by ``rules``, an
+    ordered list of ``(path_regex, spec)``: the first rule whose regex
+    matches the leaf's '/'-joined key path (e.g. ``"fc_1/weight"``; a
+    list index as ``[i]``) wins, and a leaf no rule matches is
+    replicated. A spec axis the leaf cannot take (a dimension the axis
+    size does not divide, or one the leaf lacks) is dropped."""
+    rules = rules or []
+    rep = NamedSharding(mesh, P())
+
+    def pick(path, leaf):
+        keys = "/".join(path)
+        for pat, spec in rules:
+            if re.search(pat, keys):
+                fixed = []
+                for i, ax in enumerate(spec):
+                    if ax is None or i >= leaf.ndim:
+                        fixed.append(None)
+                        continue
+                    size = mesh_axis_size(mesh, ax) \
+                        if isinstance(ax, str) else 1
+                    fixed.append(ax if leaf.shape[i] % max(size, 1) == 0
+                                 else None)
+                return NamedSharding(mesh, P(*fixed[:leaf.ndim]))
+        return rep
+
+    return _map_with_path(pick, params)
 
 
 def dp_train_step(apply_fn: Callable, loss_fn: Callable, optim, mesh,

@@ -1,19 +1,25 @@
-"""Mesh construction and batch sharding — the port of
-``bigdl_tpu/parallel/mesh.py``'s data-parallel part.
+"""Mesh construction, batch sharding and placements — the port of
+``bigdl_tpu/parallel/mesh.py``.
 
 The JAX mesh is a ``jax.sharding.Mesh`` of devices; here it is a
 :class:`torch.distributed.device_mesh.DeviceMesh` of ranks, one device a
 rank, over the process group the Engine owns. Axis conventions (shared
 with :class:`~bigdl_tpu_torch.utils.engine.Engine`): ``data``, ``model``,
-``seq``, ``pipe``, ``expert``. The tensor-parallel placements
-(``replicated``, ``shard_along``, ``constrain``) are ROADMAP Queue 1
-item 10 (rest).
+``seq``, ``pipe``, ``expert``.
+
+A JAX ``PartitionSpec`` names, for each tensor dimension, the mesh axis
+it is split over (or ``None``); :class:`PartitionSpec` keeps that form.
+A JAX ``NamedSharding`` places an array by one; :class:`NamedSharding`
+holds the same pair and turns it into the DTensor placements of the
+mesh (``Shard(dim)`` on a mesh dimension that splits tensor dimension
+``dim``, ``Replicate()`` on every other), which ``place`` and
+:func:`constrain` apply.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 
 def create_mesh(axes: Union[Dict[str, int], Sequence[str]]):
@@ -75,3 +81,73 @@ def shard_batch(tree, mesh, axis: str = "data"):
         return a[i * k:(i + 1) * k]
 
     return tree_map(cut, tree)
+
+
+class PartitionSpec(tuple):
+    """For each tensor dimension, the mesh axis it is split over, or
+    ``None`` (``jax.sharding.PartitionSpec``'s form)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+class NamedSharding:
+    """``spec`` on ``mesh``: the port of ``jax.sharding.NamedSharding``."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    @property
+    def placements(self):
+        """One DTensor placement a mesh dimension."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for name in self.mesh.mesh_dim_names or ():
+            dims = [d for d, ax in enumerate(self.spec) if ax == name]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
+
+    def place(self, x):
+        """``x`` (the global tensor, the same on every rank) as a DTensor
+        with this sharding: each rank keeps its shard."""
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(x, self.mesh, self.placements)
+
+    def __repr__(self):
+        return f"NamedSharding(spec={self.spec!r})"
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+def shard_along(mesh, axis: str, dim: int = 0,
+                ndim: Optional[int] = None) -> NamedSharding:
+    """The sharding that splits tensor dimension ``dim`` over mesh
+    ``axis``."""
+    spec = [None] * (dim + 1 if ndim is None else ndim)
+    spec[dim] = axis
+    return NamedSharding(mesh, P(*spec))
+
+
+def constrain(x, spec):
+    """``x`` laid out by ``spec``, a :class:`PartitionSpec` (on a DTensor's
+    own mesh, or the Engine's for a plain tensor) or a
+    :class:`NamedSharding`: a DTensor is redistributed, a plain tensor
+    (the global value) placed. The JAX function constrains inside a
+    jitted program under the ambient mesh; eager PyTorch moves the data
+    here."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(spec, NamedSharding):
+        spec = NamedSharding(x.device_mesh if isinstance(x, DTensor)
+                             else default_mesh(), spec)
+    if isinstance(x, DTensor):
+        return x.redistribute(spec.mesh, spec.placements)
+    return spec.place(x)

@@ -427,6 +427,33 @@ Phase 18 detection, Mask R-CNN, the sparse layers and three chaos
          (LeNet-5 training), ``--kvcache`` and ``--kvtier`` drives of
          ``llm/chaos.py`` on the card, each passing its contract, their
          fired events and launch counts reported.
+Phase 19 tensor, sequence and pipeline parallelism and five chaos
+         drives, after phase 18 (report key ``parallel_drives``): (a)
+         kernels 1 and 2 against their plain versions at the rank shapes
+         of a W = 2 Megatron shard of Llama-2-7B (q4_0 qkv N = 6,144, o
+         K = 2,048, gate_up N = 11,008, down K = 5,504, lm_head N =
+         16,000 at M = 8 and 512; kernel 2 at batch 8 over 16 heads);
+         (b) at world 1 under NCCL in this process, ``shard`` of
+         Llama-2-7B q4_0 (32 layers) against the unsharded model:
+         prefill logits and the tokens of ``generate`` (2 x 512-token
+         prompts, 32 new) bit-identical, launches exact, each one's
+         decode step (captured); then two rank processes of this script
+         on the one card over gloo (``--tp-rank R W PORT OUT``; they
+         load the kernels built here): each keeps its slices, rank 0's
+         prefill logits within 2e-2 of the largest of the unsharded
+         model's, launches exact on each rank, the decode step (eager,
+         the collectives through the host) and the bytes staged; (c)
+         ``sequence_parallel`` prefill of 2 x 4,096 tokens at world 1 and
+         W = 2 against the dense prefill: logits within 2e-2 of the
+         largest, the cache's layer 0 exact and every layer within 2e-2
+         in L2 norm, the next decode step from each cache within 2e-2;
+         (d) GPT-NeoX-20B at 2 layers and ``tiny_moe`` over ``ep``, each
+         sharded at W = 2 against unsharded, ring and Ulysses attention
+         (B = 2, S = 2,048, 32 x 128, causal) against SDPA at world 1 and
+         W = 2, a 2-stage GPipe train step (3 steps) against one process's
+         autograd; (e) the ``--mixed``, ``--spec``, ``--flight``,
+         ``--preempt`` and ``--api`` drives on the card, each passing its
+         contract, fired events and launch counts reported.
 
 Every phase's line has the SM clock and power draw (``nvidia-smi
 --query-gpu=clocks.sm,power.draw``) on the line before it. Then a
@@ -7225,6 +7252,484 @@ def detection_sparse_phase(torch, dev):
     return out
 
 
+# -- phase 19: tensor, sequence and pipeline parallelism; five drives ---------
+
+# a W = 2 Megatron shard of Llama-2-7B: each rank's q4_0 linears (K, N,
+# name, launches a forward) and its 16 of the 32 heads
+TP_RANK_LINEARS = ((4096, 6144, "qkv_proj", 32), (2048, 4096, "o_proj", 32),
+                   (4096, 11008, "gate_up_proj", 32),
+                   (5504, 4096, "down_proj", 32), (4096, 16000, "lm_head", 1))
+TP_PROMPT, TP_NEW = 512, 32          # (b): 2 x 512-token prompts, 32 new
+SP_PROMPT = 4096                     # (c): 2 x 4,096-token prompts
+# (b) / (c) / (d): logits within this share of the largest against the
+# unsharded model (the card limit reference_check uses)
+TP_TOL = 2e-2
+
+
+def parallel_kernel_cases(torch, dev, gen):
+    """(a) Kernels 1 and 2 at the rank shapes of a W = 2 shard of
+    Llama-2-7B: q4_0 at M = 8 (the GEMV) and 512 (the tensor cores), and
+    kernel 2 at batch 8 over the rank's 16 heads."""
+    out = [matmul_case(torch, dev, gen, "int4_matmul", f"7B W=2 rank {what}",
+                       m, k, n, torch.bfloat16, count if m == 8 else 0,
+                       "7B W=2 rank decode step" if m == 8 else None)
+           for m in (8, 512) for k, n, what, count in TP_RANK_LINEARS]
+    out += paged_cases(torch, dev, gen, shapes=(
+        ("7B W=2 rank decode", 16, 16, 128, None,
+         [TP_PROMPT + 4 * i for i in range(8)]),))
+    return out
+
+
+def _tp_prompts(torch, dev, b, t, vocab=32000, seed=19):
+    return torch.randint(0, vocab, (b, t), generator=torch.Generator()
+                         .manual_seed(seed), dtype=torch.int32).to(dev)
+
+
+def _decode_ms(torch, model, ids):
+    """ms a decode step of ``generate``: 1 and TP_NEW new tokens, each
+    after a warm-up, the difference over TP_NEW - 1 steps."""
+    walls = {}
+    for n in (1, TP_NEW):
+        model.generate(ids, max_new_tokens=n)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.generate(ids, max_new_tokens=n)
+        torch.cuda.synchronize()
+        walls[n] = time.perf_counter() - t
+    return (walls[TP_NEW] - walls[1]) / (TP_NEW - 1) * 1e3
+
+
+def _tp_expected(layers=32):
+    """The launches of one ``generate`` (TP_PROMPT prompt, TP_NEW new
+    tokens) on a q4_0 Llama with a q4_0 lm_head, per rank: the prefill's
+    4 linears a layer and the head on the tensor cores, then TP_NEW
+    decode steps, each the same on the GEMV and kernel 2 once a layer."""
+    per = 4 * layers + 1
+    return {"int4_matmul": per * (1 + TP_NEW), "int4_matmul_tc": per,
+            "int4_matmul_gemv": per * TP_NEW,
+            "paged_attention_decode_stats": layers * TP_NEW}
+
+
+def _counts_match(got, want):
+    return all(got[k] == want.get(k, 0) for k in got)
+
+
+def _seven_b(torch, dev, max_cache_len=1024):
+    """Llama-2-7B q4_0, random weights from seed 0 made on the card, with
+    a cache of ``max_cache_len``. Past 4,096 the position cap is raised
+    to it, so a decode step fits after a 4,096-token prompt; the widths
+    stay Llama-2-7B's."""
+    import dataclasses
+    from bigdl_tpu_torch.llm.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b()
+    cfg = dataclasses.replace(cfg, max_position_embeddings=max(
+        cfg.max_position_embeddings, max_cache_len))
+    m = LlamaForCausalLM.synthetic_q4(cfg, device=dev, seed=0)
+    return LlamaForCausalLM(cfg, m.params, max_cache_len=max_cache_len,
+                            device=dev)
+
+
+def _ring_check(torch, model, ids, mesh):
+    """(c) on this rank: the dense prefill of ``ids``, then the ring
+    prefill over ``mesh``'s ``seq`` axis, and one decode step from each
+    cache; the largest differences over the largest magnitude."""
+    from bigdl_tpu_torch.llm.models.llama import forward
+    dense_logits, dense = model(ids)
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    model.sequence_parallel(mesh, "seq")
+    ring_logits, ring = model(ids)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t
+    model._ring = None
+    row = {"logits_rel_err": _rel_err(ring_logits, dense_logits),
+           "ring_prefill_s": ring_s}
+    # per layer: the largest difference over the largest magnitude, and
+    # the difference's L2 norm over the layer's. Layer 0's K/V are the
+    # same projections of the same rows (exact); past it the two
+    # attentions' sums part by f32 rounding, and a bf16 value on a
+    # rounding edge flips one ulp and is carried through random layers
+    for kv in ("k", "v"):
+        a, b = ring[kv].float(), dense[kv].float()
+        row[f"{kv}_rel_err_by_layer"] = [
+            _rel_err(a[l], b[l]) for l in range(a.shape[0])]
+        row[f"{kv}_l2_rel_err_by_layer"] = [
+            ((a[l] - b[l]).norm() / b[l].norm()).item()
+            for l in range(a.shape[0])]
+        row[f"{kv}_layer0_exact"] = bool(torch.equal(ring[kv][0],
+                                                     dense[kv][0]))
+        del a, b
+    nxt = dense_logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    del dense_logits, ring_logits
+    pos = torch.full((ids.shape[0], 1), ids.shape[1], device=ids.device)
+    with torch.no_grad():
+        a = forward(model.params, model.config, nxt, ring, pos)[0]
+        b = forward(model.params, model.config, nxt, dense, pos)[0]
+    row["next_step_rel_err"] = _rel_err(a, b)
+    row["passed"] = (
+        row["logits_rel_err"] <= TP_TOL and row["next_step_rel_err"] <= TP_TOL
+        and all(row[f"{kv}_layer0_exact"]
+                and max(row[f"{kv}_l2_rel_err_by_layer"]) <= TP_TOL
+                for kv in ("k", "v")))
+    row["tol_rule"] = (f"logits and the next step: {TP_TOL} of the largest; "
+                       "the cache: layer 0 exact, every layer within "
+                       f"{TP_TOL} in L2 norm (the largest difference of "
+                       "each layer reported)")
+    return row
+
+
+def _attention_checks(torch, dev, world):
+    """(d) ``ring_attention`` and ``ulysses_attention`` (causal, bf16 at
+    B = 2, S = 2048, 32 heads of 128) against SDPA on this rank, and a
+    2-stage GPipe train step (remat, 3 steps) against one process's
+    plain autograd on the same f32 weights: the losses."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch import optim
+    from bigdl_tpu_torch.parallel import (PipelineModule, create_mesh,
+                                          make_pipeline_train_step,
+                                          ring_attention, split_microbatches,
+                                          ulysses_attention)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((2, 2048, 32, 128), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    want = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2).float() for t in (q, k, v)),
+        is_causal=True).transpose(1, 2)
+    mesh = create_mesh({"seq": world})
+    # f32 math on both sides; the ring's and Ulysses' outputs are bf16
+    tol = 2.0 ** -8 * want.abs().max().item() + 1e-3
+    row = {"attention_tol": tol,
+           "attention_tol_rule": "one bf16 rounding of max|y| + 1e-3"}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        got = fn(q, k, v, mesh, causal=True, batch_axis=None)
+        row[f"{name}_max_abs_err"] = (got.float() - want).abs().max().item()
+    dim, n_micro, mb = 1024, 8, 16
+    w0 = torch.randn((2, dim, dim), generator=g, device=dev) * dim ** -0.5
+    b0 = torch.randn((2, dim), generator=g, device=dev) * 0.1
+    x = torch.randn((n_micro * mb, dim), generator=g, device=dev)
+    tgt = torch.tanh(x @ torch.randn((dim, dim), generator=g, device=dev)
+                     * dim ** -0.5)
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"].T + p["b"])
+
+    def loss_fn(o, t):
+        return torch.mean((o - t) ** 2)
+
+    sgd = optim.SGD(learning_rate=0.5)
+    losses = {}
+    if world == 2:
+        pipe = PipelineModule(stage, 2, create_mesh({"pipe": 2}), remat=True)
+        params = pipe.place_params({"w": w0, "b": b0})
+        opt = sgd.init_state(params)
+        step = make_pipeline_train_step(pipe, loss_fn, sgd, lr=0.5)
+        mx, mt = split_microbatches([x, tgt], n_micro)
+        losses["pipe"] = []
+        for _ in range(3):
+            params, opt, loss = step(params, opt, mx, mt)
+            losses["pipe"].append(float(loss))
+    p = {"w": w0.clone(), "b": b0.clone()}
+    opt = sgd.init_state(p)
+    losses["plain"] = []
+    for _ in range(3):
+        leaves = {n: t.detach().requires_grad_() for n, t in p.items()}
+        h = x
+        for s in range(2):
+            h = stage({n: t[s] for n, t in leaves.items()}, h)
+        loss = loss_fn(h, tgt)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        p, opt = sgd.step({n: t.detach() for n, t in leaves.items()}, grads,
+                          opt, 0.5)
+        losses["plain"].append(float(loss))
+    row["losses"] = losses
+    ok = all(row[f"{n}_max_abs_err"] <= tol for n in ("ring", "ulysses"))
+    if world == 2:
+        ok &= all(abs(a - b) <= 1e-4 * abs(b) + 1e-6
+                  for a, b in zip(losses["pipe"], losses["plain"]))
+    row["passed"] = ok
+    return row
+
+
+def tp_rank_main(rank, world, port, out_path):
+    """One rank of phase 19's W = 2 runs, a process of its own on the one
+    card over gloo: (b) the 7B shard's prefill (rank 0 also runs the
+    unsharded prefill first, as the yardstick) and ``generate``, with
+    exact launch counts; (c) the ring prefill; (d) GPT-NeoX-20B at 2
+    layers and ``tiny_moe`` (experts over ``ep``) sharded against
+    unsharded, and ring, Ulysses and a 2-stage pipeline. Writes its
+    report to ``out_path``."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.llm.models import gptneox, llama
+    from bigdl_tpu_torch.parallel import collectives, create_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels.build_kernels()          # built by the parent: loads only
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        # (b)
+        model = _seven_b(torch, dev)
+        ids = _tp_prompts(torch, dev, 2, TP_PROMPT)
+        ref = model(ids)[0] if rank == 0 else None
+        model.shard(create_mesh({"model": world}))
+        torch.cuda.empty_cache()
+        out["shard_config"] = {"heads": model.config.num_attention_heads,
+                               "kv_heads": model.config.num_key_value_heads,
+                               "intermediate": model.config.intermediate_size}
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_tallies()
+        logits = model(ids)[0]
+        if rank == 0:
+            out["prefill_logits_rel_err"] = _rel_err(logits, ref)
+        del logits, ref
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = model.generate(ids, max_new_tokens=TP_NEW)
+        gen_s = time.perf_counter() - t
+        out["launches"] = kernels.launch_counts()
+        out["collectives_prefill_and_generate"] = \
+            collectives.collective_tally()
+        out["staged"] = collectives.staged_bytes()
+        out["tokens"] = toks[:, TP_PROMPT:].tolist()
+        # the eager loop has no capture to warm up: one generate, less its
+        # prefill (timed alone), over its steps
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model(ids)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t
+        out["decode_step_ms"] = (gen_s - out["prefill_s"]) / TP_NEW * 1e3
+        out["peak_mem_gb_b"] = torch.cuda.max_memory_allocated() / 2**30
+        del model
+        torch.cuda.empty_cache()
+        # (c)
+        torch.cuda.reset_peak_memory_stats()
+        model = _seven_b(torch, dev, SP_PROMPT + 64)
+        collectives.reset_tallies()
+        out["ring"] = _ring_check(torch, model, _tp_prompts(
+            torch, dev, 2, SP_PROMPT, seed=23), create_mesh({"seq": world}))
+        out["ring"]["collectives"] = collectives.collective_tally()
+        out["ring"]["staged"] = collectives.staged_bytes()
+        out["peak_mem_gb_c"] = torch.cuda.max_memory_allocated() / 2**30
+        del model
+        torch.cuda.empty_cache()
+        # (d)
+        cfg = dataclasses.replace(gptneox.GptNeoXConfig(),
+                                  num_hidden_layers=2)
+        neox = gptneox.GptNeoXForCausalLM.from_config(
+            cfg, seed=3, load_in_low_bit="sym_int4", max_cache_len=256,
+            device=dev)
+        nids = _tp_prompts(torch, dev, 2, 128, cfg.vocab_size, seed=29)
+        ref = neox(nids)[0] if rank == 0 else None
+        neox.shard(create_mesh({"model": world}))
+        kernels.reset_launch_counts()
+        logits = neox(nids)[0]
+        neox.generate(nids, max_new_tokens=4)
+        out["neox"] = {"launches": kernels.launch_counts()}
+        if rank == 0:
+            out["neox"]["prefill_logits_rel_err"] = _rel_err(logits, ref)
+        del neox, logits, ref
+        moe_cfg = llama.LlamaConfig.tiny_moe()
+        p = llama.init_params(moe_cfg, 0, device=dev)
+        mids = _tp_prompts(torch, dev, 2, 8, moe_cfg.vocab_size, seed=31)
+        pos = torch.arange(8, device=dev).expand(2, 8)
+
+        def moe_logits(params, c):
+            return llama.forward(params, c, mids, llama.init_cache(
+                c, 2, 16, device=dev), pos)[0]
+        with torch.no_grad():
+            whole = moe_logits(p, moe_cfg)
+            sp, scfg = llama.shard_params(
+                p, moe_cfg, create_mesh({"ep": world}), ep_axis="ep")
+            out["moe_ep_rel_err"] = _rel_err(moe_logits(sp, scfg),
+                                             whole)
+        out["attention_pipeline"] = _attention_checks(torch, dev, world)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(world, work):
+    """Start ``world`` rank processes of this script on the one card and
+    wait for them; their reports."""
+    port = _free_port()
+    paths = [os.path.join(work, f"rank{r}.json") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         str(world), str(port), paths[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=REPO) for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=600)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0,
+              f"phase 19: rank {r} of {world} failed:\n{errs[r][-4000:]}")
+    return [json.load(open(p)) for p in paths]
+
+
+def _world_one(torch, dev):
+    """(b), (c), (d) at world 1: NCCL in this process. The 7B shard over
+    a mesh of one rank against the unsharded model (prefill logits and
+    tokens bit-identical, launches equal), each ``generate``'s decode
+    step (the shard's loop captured: NCCL runs on the stream); the ring
+    prefill; ring, Ulysses against SDPA."""
+    import torch.distributed as dist
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.parallel import collectives, create_mesh
+    from bigdl_tpu_torch.utils.engine import Engine
+    out = {}
+    Engine.init(engine_type="gpu")
+    try:
+        out["engine"] = _engine_row(dist, Engine, "phase 19")
+        model = _seven_b(torch, dev)
+        ids = _tp_prompts(torch, dev, 2, TP_PROMPT)
+        ref = model(ids)[0]
+        kernels.reset_launch_counts()
+        toks_ref = model.generate(ids, max_new_tokens=TP_NEW)
+        out["launches_unsharded"] = kernels.launch_counts()
+        out["decode_step_ms_unsharded"] = _decode_ms(torch, model, ids)
+        out["tokens"] = toks_ref[:, TP_PROMPT:].tolist()
+        sharded = _seven_b(torch, dev).shard(create_mesh({"model": 1}))
+        collectives.reset_tallies()
+        logits = sharded(ids)[0]
+        kernels.reset_launch_counts()
+        toks = sharded.generate(ids, max_new_tokens=TP_NEW)
+        out["launches"] = kernels.launch_counts()
+        out["collectives"] = collectives.collective_tally()
+        out["prefill_logits_bit_identical"] = bool(torch.equal(logits, ref))
+        out["tokens_identical"] = bool((toks == toks_ref).all())
+        out["decode_step_ms"] = _decode_ms(torch, sharded, ids)
+        out["decode_captured"] = sharded.params["tp"].capturable
+        del model, sharded, ref, logits
+        release_memory(torch)
+        model = _seven_b(torch, dev, SP_PROMPT + 64)
+        out["ring"] = _ring_check(torch, model, _tp_prompts(
+            torch, dev, 2, SP_PROMPT, seed=23), create_mesh({"seq": 1}))
+        del model
+        release_memory(torch)
+        out["attention"] = _attention_checks(torch, dev, 1)
+    finally:
+        Engine.reset()
+    check(not dist.is_initialized(),
+          "phase 19: the process group outlived world 1")
+    return out
+
+
+def parallel_drives(torch, dev):
+    """(e) The ``--mixed``, ``--spec``, ``--flight``, ``--preempt`` and
+    ``--api`` drives on the card, each passing its own contract; the
+    port's launch counts of each, zeroed just before it."""
+    from bigdl_tpu_torch.llm import chaos, kernels
+    out = {}
+    for name, run, kw in (("mixed", chaos.run_mixed_chaos, {}),
+                          ("spec", chaos.run_spec_chaos, {}),
+                          ("flight", chaos.run_flight_chaos, {}),
+                          ("preempt", chaos.run_preempt_chaos,
+                           {"smoke": True}),
+                          ("api", chaos.run_api_chaos, {"smoke": True})):
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        rec = run(device=dev, **kw)
+        rec["wall_s"] = time.perf_counter() - t
+        rec["launches"] = kernels.launch_counts()
+        check(rec["match"], f"phase 19 (e) {name}: {rec}")
+        out[name] = rec
+    return out
+
+
+def parallel_phase(torch, dev, gen):
+    """Phase 19: (a) kernels 1 and 2 at a W = 2 rank's shapes; (b)-(d) at
+    world 1 (NCCL, this process) and at W = 2 (two rank processes on the
+    one card over gloo); (e) the engine-mode drives."""
+    import tempfile
+    from bigdl_tpu_torch.llm import kernels
+    t0 = time.perf_counter()
+    out = {"phase": "parallel_drives", "wall_s_by_part": {}}
+    t = time.perf_counter()
+    out["cases"] = parallel_kernel_cases(torch, dev, gen)
+    bad = [c["case"] for c in out["cases"] if not c["passed"]]
+    check(not bad, f"phase 19 (a): kernels disagree at the rank shapes: "
+          f"{bad}")
+    out["wall_s_by_part"]["a"] = time.perf_counter() - t
+    release_memory(torch)
+
+    t = time.perf_counter()
+    w1 = out["world1"] = _world_one(torch, dev)
+    want = _tp_expected()
+    check(w1["prefill_logits_bit_identical"] and w1["tokens_identical"],
+          f"phase 19 (b) world 1: the shard is not the unsharded model: {w1}")
+    for key in ("launches", "launches_unsharded"):
+        check(_counts_match(w1[key], want),
+              f"phase 19 (b) world 1 {key}: {w1[key]} != {want}")
+    check(w1["ring"]["passed"], f"phase 19 (c) world 1: {w1['ring']}")
+    check(w1["attention"]["passed"], f"phase 19 (d) world 1: "
+          f"{w1['attention']}")
+    out["wall_s_by_part"]["world1"] = time.perf_counter() - t
+    release_memory(torch)
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = out["w2"] = _run_ranks(2, work)
+    r0 = ranks[0]
+    for r in ranks:
+        check(_counts_match(r["launches"], want),
+              f"phase 19 (b) W=2 rank {r['rank']}: launches {r['launches']} "
+              f"!= {want}")
+        check(r["ring"]["passed"], f"phase 19 (c) W=2 rank {r['rank']}: "
+              f"{r['ring']}")
+        check(r["attention_pipeline"]["passed"],
+              f"phase 19 (d) W=2 rank {r['rank']}: "
+              f"{r['attention_pipeline']}")
+    check(r0["prefill_logits_rel_err"] <= TP_TOL,
+          f"phase 19 (b) W=2: prefill logits {r0['prefill_logits_rel_err']}"
+          f" of the largest against the unsharded model (> {TP_TOL})")
+    check(r0["neox"]["prefill_logits_rel_err"] <= TP_TOL,
+          f"phase 19 (d) W=2: GPT-NeoX-20B {r0['neox']}")
+    check(all(r["moe_ep_rel_err"] <= TP_TOL for r in ranks),
+          f"phase 19 (d) W=2: tiny_moe over ep "
+          f"{[r['moe_ep_rel_err'] for r in ranks]}")
+    out["tokens_agree_w2_w1"] = [
+        sum(a == b for a, b in zip(x, y))
+        for x, y in zip(r0["tokens"], w1["tokens"])]
+    out["decode_step_ms"] = {
+        "world 1 unsharded (captured)": w1["decode_step_ms_unsharded"],
+        "world 1 shard, NCCL (captured)": w1["decode_step_ms"],
+        "W=2 shard, gloo (eager, through the host; one generate less "
+        "its prefill)": [r["decode_step_ms"] for r in ranks]}
+    out["wall_s_by_part"]["w2"] = time.perf_counter() - t
+    release_memory(torch)
+
+    t = time.perf_counter()
+    out["drives"] = parallel_drives(torch, dev)
+    out["wall_s_by_part"]["e"] = time.perf_counter() - t
+    out["wall_s"] = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    return out
+
+
 # The caching allocator's split limit, set before torch starts. A
 # thread's or a stream's first cuBLAS call takes a 32 MiB workspace from
 # the allocator and holds it for the rest of the process. Without a
@@ -7389,6 +7894,10 @@ def main() -> int:
     det = detection_sparse_phase(torch, dev)
     det["nvidia_smi"] = smi
     emit(det)
+    release_memory(torch)
+    par = parallel_phase(torch, dev, gen)
+    par["nvidia_smi"] = smi
+    emit(par)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
@@ -7459,6 +7968,14 @@ def main() -> int:
         paths[f"the --{name} chaos drive, tiny Llama f32"
               if name != "chaos" else "the --chaos drive (LeNet-5)"] = \
             dict(rec["launches"])
+    paths["generate 7B shard, world 1 (NCCL)"] = dict(
+        par["world1"]["launches"])
+    for r in par["w2"]:
+        paths[f"generate 7B shard, W=2 rank {r['rank']} (gloo)"] = dict(
+            r["launches"])
+    for name, rec in par["drives"].items():
+        paths[f"the --{name} chaos drive, tiny Llama f32"] = dict(
+            rec["launches"])
 
     # a two-kernel wrapper's count covers both routes: a dequant-matmul's
     # calls are its GEMV and tensor-core launches, ragged prefill's
@@ -7714,7 +8231,7 @@ def main() -> int:
               "formats": formats, "dllib": dllib,
               "dllib_keras": dllib_keras,
               "dllib_distributed": dllib_dist,
-              "detection_sparse": det,
+              "detection_sparse": det, "parallel_drives": par,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -7729,4 +8246,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                              int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -7,11 +7,15 @@ block, blockwise over ``attn_block_size``, sliding window, ALiBi),
 greedy tokens identical to the JAX package's on ``tiny``, ``tiny_glm``,
 ``tiny_qwen2`` and windowed ``tiny`` (q4_0 weights, f32 params and f32
 cache, so argmax near-ties cannot flip), for paged and dense decode and
-with EOS chunking. Within the port, dense and paged decode give the same
-tokens and the engine serves what ``generate`` gives. The sampled path is
+with EOS chunking; ``forward(ring=)``, ``shard`` and
+``sequence_parallel`` at world 1 (one gloo rank), the multi-rank cases
+being in ``tests/test_torch_parallel.py``. Within the port, dense and
+paged decode give the same tokens and the engine serves what
+``generate`` gives. The sampled path is
 held to its contract only (``jax.random`` cannot be reproduced): shape,
 top-k support, same seed → same tokens."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -40,6 +44,20 @@ def _np_tree(tree):
 
 def _tcfg(jcfg):
     return tl.LlamaConfig(**dataclasses.asdict(jcfg))
+
+
+@contextlib.contextmanager
+def _world_of_one():
+    """A one-rank gloo group (the Engine's) and its ``{"model": 1,
+    "seq": 1}`` mesh; the Engine is cold again after."""
+    from bigdl_tpu_torch.parallel import create_mesh
+    from bigdl_tpu_torch.utils.engine import Engine
+    Engine.reset()
+    Engine.init(engine_type="cpu")
+    try:
+        yield create_mesh({"model": 1, "seq": 1})
+    finally:
+        Engine.reset()
 
 
 def _jax_params(jcfg, seed=0, quantize=True):
@@ -205,11 +223,24 @@ class TestForward:
         pos = torch.arange(5)[None]
         with pytest.raises(ValueError, match="overflows"):
             tl.forward(tp, cfg, toks, cache, pos)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            tl.forward(tp, cfg, toks[:, :2], cache, pos[:, :2],
-                       ring=("mesh", "seq"))
         with pytest.raises(NotImplementedError, match="eager"):
             tl.forward(tp, cfg, toks[:, :2], cache, pos[:, :2], unroll=4)
+        # ring= at world 1 (one gloo rank): a single causal block, within
+        # f32 order of the dense prefill, logits and cache
+        ids = torch.from_numpy(np.random.RandomState(5).randint(
+            0, 256, (2, 12)).astype(np.int32))
+        pos = torch.arange(12).expand(2, 12)
+        dense = tl.forward(tp, cfg, ids, tl.init_cache(
+            cfg, 2, 16, dtype=torch.float32, device="cpu"), pos)
+        with _world_of_one() as mesh:
+            ring = tl.forward(tp, cfg, ids, tl.init_cache(
+                cfg, 2, 16, dtype=torch.float32, device="cpu"), pos,
+                ring=(mesh, "seq"))
+        np.testing.assert_allclose(ring[0].numpy(), dense[0].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(ring[1][key].numpy(),
+                                       dense[1][key].numpy(), atol=1e-5)
 
 
 class TestParams:
@@ -439,12 +470,23 @@ class TestFacade:
                 m.page_size) == (100, torch.float32, False, 8)
 
     def test_unported_options_raise(self, tiny_q4):
-        _, _, tp = tiny_q4
+        jcfg, jp, tp = tiny_q4
+        # shard and sequence_parallel at world 1 (one gloo rank): the
+        # JAX package's greedy tokens (the W = 2 and 4 cases are in
+        # tests/test_torch_parallel.py)
+        ids = np.array([[5, 9, 2, 7]], np.int32)
+        want = np.asarray(jl.LlamaForCausalLM(
+            jcfg, jp, max_cache_len=32, cache_dtype=jnp.float32).generate(
+                ids, max_new_tokens=5))
+        with _world_of_one() as mesh:
+            for entry in ("shard", "sequence_parallel"):
+                m = tl.LlamaForCausalLM(tl.LlamaConfig.tiny(), tp, 32,
+                                        torch.float32, device="cpu")
+                m = m.shard(mesh) if entry == "shard" else \
+                    m.sequence_parallel(mesh)
+                np.testing.assert_array_equal(
+                    m.generate(ids, max_new_tokens=5), want, err_msg=entry)
         m = tl.LlamaForCausalLM(tl.LlamaConfig.tiny(), tp, device="cpu")
-        for call in (lambda: m.shard(None),
-                     lambda: m.sequence_parallel(None)):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-                call()
         with pytest.raises(NotImplementedError, match="eager"):
             tl.LlamaForCausalLM(tl.LlamaConfig.tiny(), tp, decode_unroll=8,
                                 device="cpu")
