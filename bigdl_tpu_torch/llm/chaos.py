@@ -24,12 +24,16 @@ its contract breaks; each returns its report.
   equal to the reference, a drained worker's chains serving prefix hits
   on the survivor, convergence to ``min`` workers, the disabled fleet's
   absence).
+- :func:`run_elastic_chaos`: elastic training — two gloo ranks under
+  the elastic launcher, one killed mid-epoch, the worker set restarted
+  and resumed from the durable snapshot, final weights equal to a clean
+  run's bit for bit.
 
     from bigdl_tpu_torch.llm.chaos import run_failover_chaos
     run_failover_chaos(device="cpu", smoke=True)
 
     python -m bigdl_tpu_torch.llm.chaos --failover | --alerts | --fleet \\
-        [--smoke] [--seed N] [--device cpu]
+        | --elastic [--smoke] [--seed N] [--device cpu]
 
 The CPU holds the resumed output bit for bit to ``generate`` (f32
 weights and cache by default). On the card a resumed suffix is
@@ -2064,12 +2068,273 @@ def run_api_chaos(model=None, seed: int = 0, n_requests: int = 3,
         s2.stop()
 
 
+# ---------------------------------------------------------------------------
+# the elastic training drive (tools/chaos_check.py --elastic)
+# ---------------------------------------------------------------------------
+
+#: The elastic worker: an ordinary Engine.init + DistriOptimizer script
+#: (everything elastic arrives through the launcher's environment); it
+#: imports only torch and the port. Every rank trains its half of each
+#: global batch of 64 rows over gloo (the ranks on the card share it, the
+#: collectives staged through the host), so at W = 2 the averaged
+#: gradient is the full batch's. The seeded kill hard-exits one process
+#: mid-epoch in generation 0 only.
+_ELASTIC_WORKER = r"""
+import hashlib, logging, os, pickle
+import numpy as np
+logging.basicConfig(level=logging.INFO)   # resume lines -> the log
+
+from bigdl_tpu_torch.utils.conf import conf
+from bigdl_tpu_torch.utils.engine import Engine
+mesh = Engine.init(engine_type="cpu")     # the launcher's coordinator
+import torch.distributed as dist
+pid = dist.get_rank()
+gen = conf.get_int("bigdl.elastic.generation", 0) or 0
+device = os.environ["ELASTIC_CHAOS_DEVICE"]
+print("MODE distri", dist.get_world_size(), device, flush=True)
+
+import bigdl_tpu_torch.nn as nn
+from bigdl_tpu_torch import reliability as rel
+from bigdl_tpu_torch.feature.dataset import LocalDataSet
+from bigdl_tpu_torch.optim.optim_method import SGD
+from bigdl_tpu_torch.optim.optimizer import BaseOptimizer, DistriOptimizer
+from bigdl_tpu_torch.optim.trigger import Trigger
+
+# seeded chaos: slow every elastic-guarded step so heartbeats and
+# snapshot commits interleave with real step traffic
+delay = float(os.environ.get("ELASTIC_CHAOS_STEP_DELAY", "0") or 0)
+if delay:
+    plan = rel.FaultPlan(seed=0)
+    plan.add("elastic.step", "delay", times=None, delay=delay)
+    rel.set_plan(plan)
+
+# the kill: "pid:step" — die HARD (no cleanup, no checkpoint) once past
+# that step, generation 0 only
+die = os.environ.get("ELASTIC_CHAOS_DIE", "")
+if die:
+    dpid, dstep = (int(v) for v in die.split(":"))
+    orig = BaseOptimizer._after_iteration
+
+    def lethal(self, opt_state, state):
+        if pid == dpid and gen == 0 and state["neval"] > dstep:
+            print("CHAOS_KILLED", state["neval"], flush=True)
+            os._exit(17)
+        return orig(self, opt_state, state)
+
+    BaseOptimizer._after_iteration = lethal
+
+nn.set_seed(0)    # identical init on every process
+model = nn.Sequential().add(nn.Linear(10, 16)).add(nn.ReLU()) \
+    .add(nn.Linear(16, 2)).add(nn.LogSoftMax())
+with open(os.environ["ELASTIC_CHAOS_INIT"], "rb") as f:
+    model.load_parameters_dict(pickle.load(f))
+
+# 4 global batches of 64 rows an epoch, unshuffled: exact resume needs a
+# deterministic per-epoch batch order
+rs = np.random.RandomState(0)
+x_all = rs.rand(256, 10).astype(np.float32)
+y_all = (x_all.sum(1) > 5).astype(np.int32) + 1
+opt = DistriOptimizer(model, LocalDataSet(x_all, y_all, shuffle=False),
+                      nn.ClassNLLCriterion(), batch_size=64,
+                      end_trigger=Trigger.max_epoch(3), mesh=mesh,
+                      device=device)
+opt.set_optim_method(SGD(learning_rate=0.5))
+opt.set_checkpoint(os.environ["ELASTIC_CHAOS_CKPT"], Trigger.every_epoch())
+trained = opt.optimize()
+
+from bigdl_tpu_torch.nn.module import to_numpy
+from bigdl_tpu_torch.utils.tree import tree_leaves, tree_map
+weights = tree_map(to_numpy, trained.parameters_dict())
+h = hashlib.sha256()
+for leaf in tree_leaves(weights):
+    h.update(np.ascontiguousarray(leaf).tobytes())
+with open(os.path.join(os.environ["ELASTIC_CHAOS_OUT"],
+                       f"weights-g{gen}-p{pid}.pkl"), "wb") as f:
+    pickle.dump(weights, f)
+print("WHASH", h.hexdigest(), flush=True)
+Engine.reset()
+"""
+
+
+def elastic_mlp_init(seed: int = 0) -> dict:
+    """The drive's initial weights (numpy): its MLP as ``nn.set_seed(seed)``
+    draws it."""
+    import bigdl_tpu_torch.nn as nn
+    from bigdl_tpu_torch.nn.module import to_numpy
+    from bigdl_tpu_torch.utils.tree import tree_map
+    nn.set_seed(seed)
+    model = nn.Sequential().add(nn.Linear(10, 16)).add(nn.ReLU()) \
+        .add(nn.Linear(16, 2)).add(nn.LogSoftMax())
+    return tree_map(to_numpy, model.parameters_dict())
+
+
+def _elastic_run(work: str, init_path: str, device: str, die: str = "",
+                 step_delay: float = 0.05, timeout: float = 600.0):
+    """One launcher-supervised worker-set run under ``work``: returns
+    (record, final-generation WHASH list, final weights of process 0,
+    launcher)."""
+    import os
+    import pickle
+
+    from bigdl_tpu_torch.elastic.launch import ElasticLauncher
+
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
+    env.update({
+        "ELASTIC_CHAOS_CKPT": os.path.join(work, "ckpt"),
+        "ELASTIC_CHAOS_OUT": work,
+        "ELASTIC_CHAOS_INIT": init_path,
+        "ELASTIC_CHAOS_DEVICE": device,
+        "ELASTIC_CHAOS_STEP_DELAY": str(step_delay),
+        # fast detection for the harness; production defaults are in conf
+        "BIGDL_TPU_ELASTIC_HEARTBEAT_INTERVAL": "0.1",
+        "BIGDL_TPU_ELASTIC_HEARTBEAT_TIMEOUT": "5.0",
+        "BIGDL_TPU_ELASTIC_SNAPSHOT_EVERY": "2",
+    })
+    if die:
+        env["ELASTIC_CHAOS_DIE"] = die
+    else:
+        env.pop("ELASTIC_CHAOS_DIE", None)
+    launcher = ElasticLauncher([sys.executable, "-c", _ELASTIC_WORKER],
+                               nprocs=2, max_restarts=2, env=env,
+                               cwd=repo_root,
+                               log_dir=os.path.join(work, "logs"))
+    os.makedirs(launcher.log_dir, exist_ok=True)
+    record = launcher.run(timeout=timeout)
+    gen = launcher.supervisor.generation
+    hashes = []
+    for pid in range(launcher.nprocs):
+        path = os.path.join(record["log_dir"], f"worker-g{gen}-p{pid}.log")
+        with open(path, errors="replace") as f:
+            lines = [ln.split()[1] for ln in f if ln.startswith("WHASH")]
+        hashes.append(lines[-1] if lines else None)
+    with open(os.path.join(work, f"weights-g{gen}-p0.pkl"), "rb") as f:
+        weights = pickle.load(f)
+    return record, hashes, weights, launcher
+
+
+def run_elastic_chaos(seed: int = 0, die_after: int = 9,
+                      smoke: bool = False, device=None,
+                      init: Optional[dict] = None) -> dict:
+    """A 2-process ``DistriOptimizer`` run under the elastic launcher
+    loses one process mid-epoch (a hard exit of process 1 past step
+    ``die_after`` in generation 0); the supervisor restarts the worker
+    set; the job finishes with final weights BIT-IDENTICAL to a clean run
+    at the same world size (a resume from the durable snapshot at the
+    exact saved iteration). Also asserts the disabled-mode contract: with
+    ``bigdl.elastic.enabled=false`` training builds no supervisor, no
+    agent thread, no ring and mints no ``bigdl_elastic_*`` series. The
+    ranks run gloo on ``device`` (``None``: the GPU, which both ranks
+    share). ``init`` (numpy tree) replaces the MLP's seeded initial
+    weights. ``smoke`` only shortens the wall-clock budget. Returns the
+    report, with ``clean_weights`` (process 0's final tree, numpy)."""
+    import os
+    import pickle
+    import tempfile
+
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    t_start = time.perf_counter()
+    # --- disabled-mode structural absence (in-process, cheap)
+    before = set(obs.render().splitlines()) if obs.enabled() else set()
+    assert np.isfinite(_train_once(32, 1, 16, ckpt_dir=None, device=dev))
+    if [t for t in threading.enumerate()
+            if t.name.startswith("bigdl-elastic")]:
+        raise AssertionError(
+            "elastic-disabled training started an elastic thread")
+    if obs.enabled():
+        grown = "\n".join(set(obs.render().splitlines()) - before)
+        if "bigdl_elastic_" in grown:
+            raise AssertionError(
+                f"disabled mode grew elastic series:\n{grown}")
+
+    timeout = 420.0 if smoke else 600.0
+    with tempfile.TemporaryDirectory() as work:
+        init_path = os.path.join(work, "init.pkl")
+        with open(init_path, "wb") as f:
+            pickle.dump(init if init is not None else elastic_mlp_init(seed),
+                        f)
+        # the clean and the killed worker sets run side by side: each has
+        # its own launcher, supervisor, coordinator and directories
+        runs, errors = {}, []
+
+        def run(name, die):
+            d = os.path.join(work, name)
+            os.makedirs(d)
+            try:
+                runs[name] = _elastic_run(d, init_path, dev.type, die=die,
+                                          timeout=timeout)
+            except BaseException as e:   # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=a) for a in
+                   (("clean", ""), ("kill", f"1:{die_after}"))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        clean_rec, clean_hashes, clean_w, _ = runs["clean"]
+        kill_rec, kill_hashes, _, _ = runs["kill"]
+        logs = kill_rec["log_dir"]
+        with open(os.path.join(logs, "worker-g0-p1.log"),
+                  errors="replace") as f:
+            killed = [ln for ln in f if ln.startswith("CHAOS_KILLED")]
+        resumed = []
+        for pid in range(2):
+            path = os.path.join(logs, f"worker-g1-p{pid}.log")
+            if os.path.exists(path):
+                with open(path, errors="replace") as f:
+                    resumed += [ln for ln in f if "auto-resuming" in ln]
+    out = {
+        "seed": seed,
+        "die_after": die_after,
+        "device": dev.type,
+        "world": 2,
+        "clean": {k: clean_rec[k] for k in ("generations", "restarts")},
+        "kill": {k: kill_rec[k] for k in ("generations", "restarts")},
+        "kill_failures": kill_rec["failures"],
+        "resumed_at": [ln.strip().rsplit("@", 1)[-1].strip()
+                       for ln in resumed],
+        "clean_hashes": clean_hashes,
+        "kill_hashes": kill_hashes,
+        "match": (clean_hashes[0] is not None
+                  and len(set(clean_hashes + kill_hashes)) == 1),
+        "wall_s": time.perf_counter() - t_start,
+        "clean_weights": clean_w,
+    }
+    if not killed:
+        raise AssertionError(
+            "elastic chaos armed but process 1 never died — the kill "
+            f"step {die_after} landed outside the run")
+    if kill_rec["restarts"] < 1:
+        raise AssertionError(
+            "elastic chaos lost a process but the supervisor never "
+            f"restarted the worker set: {kill_rec}")
+    if not resumed:
+        raise AssertionError(
+            "generation 1 never auto-resumed from the snapshot tier — "
+            "recovery restarted training from scratch")
+    if clean_rec["restarts"] != 0:
+        raise AssertionError(f"the clean elastic run restarted: {clean_rec}")
+    if not out["match"]:
+        raise AssertionError(
+            f"elastic chaos divergence: clean {clean_hashes} vs recovered "
+            f"{kill_hashes} — recovery replayed or dropped work")
+    return out
+
+
 DRIVES = {"failover": run_failover_chaos, "alerts": run_alerts_chaos,
           "fleet": run_fleet_chaos, "chaos": run_chaos,
           "kvcache": run_kvcache_chaos, "kvtier": run_kvtier_chaos,
           "mixed": run_mixed_chaos, "spec": run_spec_chaos,
           "flight": run_flight_chaos, "preempt": run_preempt_chaos,
-          "api": run_api_chaos}
+          "api": run_api_chaos, "elastic": run_elastic_chaos}
 
 
 def main(argv=None) -> int:
@@ -2096,7 +2361,7 @@ def main(argv=None) -> int:
     if args.drive == "chaos":
         kw.update(smoke=not args.full, events=args.events)
     elif args.drive in ("failover", "alerts", "fleet", "flight", "preempt",
-                        "api"):
+                        "api", "elastic"):
         kw.update(smoke=args.smoke)
     try:
         out = DRIVES[args.drive](**kw)
@@ -2105,13 +2370,14 @@ def main(argv=None) -> int:
                           "error": str(e)}))
         return 1
     out.pop("outputs", None)
+    out.pop("clean_weights", None)
     print(json.dumps({"drive": args.drive, "ok": True, **out},
                      default=str))
     return 0
 
 
 __all__ = ["DRIVES", "main", "run_alerts_chaos", "run_api_chaos",
-           "run_chaos", "run_failover_chaos", "run_fleet_chaos",
+           "run_chaos", "run_elastic_chaos", "run_failover_chaos", "run_fleet_chaos",
            "run_flight_chaos", "run_kvcache_chaos", "run_kvtier_chaos",
            "run_mixed_chaos", "run_preempt_chaos", "run_spec_chaos",
            "tiny_model"]

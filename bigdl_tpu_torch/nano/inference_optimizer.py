@@ -1,18 +1,28 @@
-"""InferenceOptimizer — the port of ``quantize``, ``trace`` and the
-``_CompiledModel`` wrapper in ``bigdl_tpu/nano/inference_optimizer.py``
-(ref: P:nano/pytorch/inference/optimizer.py).
+"""InferenceOptimizer — the port of ``bigdl_tpu/nano/inference_optimizer.py``
+(ref: P:nano/pytorch/inference/optimizer.py): ``quantize``, ``trace``,
+``optimize`` (the trial table), ``save`` / ``load``, ``summary`` and
+``get_best_model``.
 
 A pipeline holds its module on a device in eval mode and runs it under
 ``torch.inference_mode()``; ``forward`` takes numpy (or tensors, or a
-tuple / Table of them) and returns numpy, as the JAX wrapper does. Every
-entry takes ``device=None``, which means the GPU. ``optimize`` (the
-trial table), ``save`` and ``load`` are still to port (ROADMAP Queue 1
-item 11).
+tuple / Table of them) and returns numpy, as the JAX wrapper does, so a
+pipeline's latency in ``optimize`` includes the device's work (each
+forward reads its result back). Every entry takes ``device=None``, which
+means the GPU.
+
+``save`` writes the module (``save_module``) and ``nano_meta.json``; the
+JAX package also writes its compiled XLA executable. A CUDA graph or a
+kernel build does not outlive its process, so the port writes no such
+artifact and a loaded pipeline's ``_aot`` stays ``None``.
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import os
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -22,6 +32,7 @@ from bigdl_tpu_torch.utils.table import Table
 
 _FLOAT_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
                  "float16": torch.float16}
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
 
 
 def _to_device(x, device):
@@ -54,8 +65,14 @@ class _CompiledModel:
             for p in self._model.parameters():
                 if p.dtype in (torch.float32, torch.float64):
                     p.data = p.data.to(dtype)
+        self._example_shape = None        # the last input's shape and
+        self._example_dtype = np.float32  # dtype, which save() records
+        self._aot = None                  # no compiled artifact: see above
 
     def forward(self, x):
+        if isinstance(x, np.ndarray):
+            self._example_shape = tuple(x.shape)
+            self._example_dtype = x.dtype
         with torch.inference_mode():
             return _to_numpy(self._model(_to_device(x, self.device)))
 
@@ -103,3 +120,105 @@ class InferenceOptimizer:
         dev = resolve_device(device)
         return _CompiledModel(quantize_model(copy.deepcopy(model).to(dev)),
                               dev)
+
+    @staticmethod
+    def optimize(model, x, latency_sample_num: int = 10,
+                 validation_data=None, metric: Optional[Callable] = None,
+                 device=None) -> Dict[str, dict]:
+        """Try the pipelines, time them, return the trial table (ref:
+        InferenceOptimizer.optimize: latency per pipeline, plus a metric
+        column when ``validation_data=(x, y)`` and a ``metric(pred, y) ->
+        float`` are given). A pipeline that cannot take the model is
+        reported ``"failed: ..."``. Each trial's model also carries
+        ``trial_launches``: the custom kernels' launches of its warm-up
+        and timed forwards (empty on the CPU)."""
+        from bigdl_tpu_torch.llm import kernels
+        model = getattr(model, "module", model)
+        dev = resolve_device(device)
+        report = {}
+        for name, builder in {
+            "original(jit)": lambda: InferenceOptimizer.trace(
+                model, device=dev),
+            "bf16": lambda: InferenceOptimizer.quantize(model, "bf16",
+                                                        device=dev),
+            "int8": lambda: InferenceOptimizer.quantize(model, "int8",
+                                                        device=dev),
+            "int8-conv": lambda: InferenceOptimizer._quantize_convs(
+                model, device=dev),
+            "int4": lambda: InferenceOptimizer.quantize(model, "sym_int4",
+                                                        device=dev),
+        }.items():
+            try:
+                m = builder()
+                before = kernels.launch_counts()
+                m.forward(x)  # warm-up: first launches, kernel builds
+                t0 = time.perf_counter()
+                for _ in range(latency_sample_num):
+                    m.forward(x)      # reads back: the device's work is in
+                dt = (time.perf_counter() - t0) / latency_sample_num
+                after = kernels.launch_counts()
+                m.trial_launches = {k: v - before.get(k, 0)
+                                    for k, v in after.items()
+                                    if v != before.get(k, 0)}
+                entry = {"latency_ms": dt * 1000, "model": m,
+                         "status": "successful"}
+                if validation_data is not None and metric is not None:
+                    try:
+                        vx, vy = validation_data
+                        entry["metric"] = float(metric(m.forward(vx), vy))
+                    except Exception as me:   # keep the timed pipeline
+                        entry["metric_error"] = str(me)
+                report[name] = entry
+            except Exception as e:  # pipeline not applicable to model
+                report[name] = {"status": f"failed: {e}"}
+        return report
+
+    @staticmethod
+    def save(compiled: _CompiledModel, path: str):
+        """Persist a pipeline (ref: P:nano InferenceOptimizer.save/load):
+        the module (``save_module``: manifest + safetensors + its
+        structure, quantized leaves included) and ``nano_meta.json`` (the
+        cast dtype and the last input's shape and dtype)."""
+        os.makedirs(path, exist_ok=True)
+        compiled._model.save_module(os.path.join(path, "module"))
+        meta = {"dtype": _DTYPE_NAMES.get(compiled._dtype),
+                "example_shape": list(compiled._example_shape)
+                if compiled._example_shape else None,
+                "example_dtype": str(np.dtype(compiled._example_dtype))}
+        with open(os.path.join(path, "nano_meta.json"), "w") as f:
+            json.dump(meta, f)
+
+    @staticmethod
+    def load(path: str, device=None) -> _CompiledModel:
+        """Reload a pipeline written by :meth:`save` onto ``device``."""
+        from bigdl_tpu_torch.nn.module import Module
+        model = Module.load_module(os.path.join(path, "module"),
+                                   device=device)
+        with open(os.path.join(path, "nano_meta.json")) as f:
+            meta = json.load(f)
+        dtype = getattr(torch, meta["dtype"]) if meta["dtype"] else None
+        compiled = _CompiledModel(model, device, dtype)
+        if meta.get("example_shape"):
+            compiled._example_shape = tuple(meta["example_shape"])
+            compiled._example_dtype = np.dtype(
+                meta.get("example_dtype", "float32"))
+        return compiled
+
+    @staticmethod
+    def summary(report: Dict[str, dict]) -> str:
+        """The reference prints a trial table; same here."""
+        lines = [f"{'pipeline':<16} {'latency(ms)':>12} {'metric':>10} "
+                 f"status"]
+        for name, e in report.items():
+            lat = (f"{e['latency_ms']:.3f}"
+                   if "latency_ms" in e else "-")
+            met = (f"{e['metric']:.4f}" if "metric" in e else "-")
+            lines.append(f"{name:<16} {lat:>12} {met:>10} {e['status']}")
+        return "\n".join(lines)
+
+    @staticmethod
+    def get_best_model(report: Dict[str, dict]):
+        ok = {k: v for k, v in report.items()
+              if v.get("status") == "successful"}
+        best = min(ok, key=lambda k: ok[k]["latency_ms"])
+        return ok[best]["model"], best

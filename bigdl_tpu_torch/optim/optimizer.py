@@ -32,8 +32,17 @@ across ranks, and every rank applies the same update. Without gradient
 compression batch normalisation takes the global batch's statistics
 (the JAX package's SPMD step); under bf16 / int8 compression each rank
 normalises its own shard and the float states are averaged after the
-step (its ``shard_map`` step). The elastic plane is ROADMAP Queue 1
-item 10 (rest) and raises.
+step (its ``shard_map`` step).
+
+With ``bigdl.elastic.enabled`` the loop drives
+:class:`~bigdl_tpu_torch.elastic.TrainElastic` as the JAX package's
+does: a step heartbeat and an abort check at the top of each iteration,
+a host snapshot into the ring every ``bigdl.elastic.snapshot.every``
+iterations, durable flushes of committed snapshots, an in-process
+rollback to the ring (one process) or an exit the elastic launcher
+answers with a new worker set (several), and auto-resume from the
+checkpoint directory whether or not the reliability switch is on.
+Switched off, nothing of the elastic package is imported or started.
 """
 
 from __future__ import annotations
@@ -68,9 +77,6 @@ from bigdl_tpu_torch.utils.tree import tree_leaves, tree_map, \
     tree_unflatten
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
-
-_ELASTIC = "the elastic training plane is ROADMAP Queue 1 item 10 (rest)"
-
 
 def _grad_norm(grads):
     return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
@@ -128,6 +134,53 @@ def _to_dev(a, device, dtype=None):
     else:
         t = t.to(device)
     return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+def _generator_states(model) -> dict:
+    """Each stochastic layer's generator state, keyed by the layer's
+    index in ``model.modules()`` (the checkpoint's ``rng`` layout)."""
+    return {str(i): m.generator.get_state()
+            for i, m in enumerate(model.modules())
+            if getattr(m, "generator", None) is not None}
+
+
+def _load_generator_states(model, rng: Optional[dict]):
+    for i, m in enumerate(model.modules()):
+        g = (rng or {}).get(str(i))
+        if g is not None and hasattr(m, "_draw_generator"):
+            m._draw_generator().set_state(g)
+
+
+@contextlib.contextmanager
+def _weights_in_place(model, params, states):
+    """Point the model's params (``.data``) and buffers at the trees'
+    tensors for the block, then give each back its own tensor: the
+    Parameter objects the training loop holds stay the model's. ``None``
+    trees leave the model as it is."""
+    undo = []
+
+    def swap(mod, p, s):
+        for k, par in mod._parameters.items():
+            if par is not None and p is not None and k in p:
+                undo.append((par, None, par.data))
+                par.data = p[k]
+        for k, buf in mod._buffers.items():
+            if buf is not None and s is not None and k in s:
+                undo.append((mod, k, buf))
+                mod._buffers[k] = s[k]
+        for name, sub in mod._modules.items():
+            swap(sub, None if p is None else p.get(name, {}),
+                 None if s is None else s.get(name, {}))
+
+    try:
+        swap(model, params, states)
+        yield model
+    finally:
+        for owner, k, old in reversed(undo):
+            if k is None:
+                owner.data = old
+            else:
+                owner._buffers[k] = old
 
 
 class BatchPrefetcher:
@@ -358,12 +411,27 @@ class BaseOptimizer:
     def optimize(self) -> Module:
         from bigdl_tpu_torch.utils.conf import conf
 
-        if conf.get_bool("bigdl.elastic.enabled", False):
-            raise NotImplementedError(_ELASTIC)
         retries = self._max_retry if self._max_retry is not None \
             else (conf.get_int("bigdl.optimizer.max.retry", 0) or 0)
         attempt = 0
-        if retries:
+        # elastic supervision: constructed ONLY when enabled — a
+        # disabled run has no agent thread, no ring, no series
+        self._elastic = None
+        elastic_restarts = 0
+        if conf.get_bool("bigdl.elastic.enabled", False):
+            from bigdl_tpu_torch import elastic
+            self._elastic = elastic.TrainElastic.from_conf().start()
+            if getattr(self.dataset, "_shuffle", False):
+                # exact resume re-skips the interrupted epoch's batches by
+                # COUNT; a stateful shuffle gives a restarted process
+                # another permutation, so the skip drops the wrong samples
+                logger.warning(
+                    "elastic exact-resume requires a deterministic "
+                    "per-epoch data order, but %s shuffles with "
+                    "process-local RNG state — a resumed run may diverge "
+                    "from an uninterrupted one (use shuffle=False)",
+                    type(self.dataset).__name__)
+        if retries or self._elastic is not None:
             # checkpoint-less recovery restarts from the initial weights
             # AND counters (fresh weights with advanced counters would
             # under-train)
@@ -375,9 +443,12 @@ class BaseOptimizer:
                 copy.deepcopy(dict(self.state)),
                 copy.deepcopy(self.optim_method.get_state()))
         rel_on = reliability.enabled()
-        if rel_on:
+        if rel_on or self._elastic is not None:
             # a fresh run against a directory holding valid state (the
-            # previous process was preempted) resumes where it stopped
+            # previous process was preempted, or a restarted elastic
+            # generation finds the durable snapshot tier) resumes where
+            # it stopped — elastic recovery must not depend on the
+            # unrelated reliability switch
             self._maybe_auto_resume()
         policy = reliability.RetryPolicy() if rel_on else None
         backoff = policy.delays() if rel_on else iter(())
@@ -391,6 +462,26 @@ class BaseOptimizer:
                 except (KeyboardInterrupt, reliability.TrainingPreempted):
                     raise    # preemption is not a failure: no retry
                 except Exception as e:  # noqa: BLE001 — retry contract
+                    if self._elastic is not None and \
+                            self._elastic.owns(e):
+                        if self._elastic.process_restart_required():
+                            # the whole worker set restarts together
+                            # (rejoining a collective solo would hang on
+                            # peers that are also restarting): persist
+                            # the newest committed snapshot and let the
+                            # launcher respawn the world
+                            self._elastic.abort_flush(self)
+                            raise
+                        elastic_restarts += 1
+                        if elastic_restarts > self._elastic.max_restarts:
+                            raise
+                        logger.warning("elastic restart %d/%d: %s",
+                                       elastic_restarts,
+                                       self._elastic.max_restarts, e)
+                        self._elastic.on_restart()
+                        if not self._elastic.rollback(self):
+                            self._restore_latest_checkpoint()
+                        continue
                     attempt += 1
                     if attempt > retries:
                         raise
@@ -407,6 +498,8 @@ class BaseOptimizer:
         finally:
             if restore_handlers is not None:
                 restore_handlers()
+            if self._elastic is not None:
+                self._elastic.close()
 
     # -- preemption safety ----------------------------------------------------
     def _install_preemption_handlers(self):
@@ -546,6 +639,11 @@ class BaseOptimizer:
                                     + (t if isinstance(t, list) else [t]):
                                 a.record_stream(cur)
                         reliability.inject("optimizer.step")
+                        if self._elastic is not None:
+                            # fault site + step heartbeat + abort check:
+                            # a directed or stalled world aborts HERE,
+                            # before a collective its peers never join
+                            self._elastic.on_step_begin(state)
                         with obs.span("train/step", step=state["neval"]):
                             self.metrics.add("data", t_data)
                             lr = self.optim_method.current_lr()
@@ -575,6 +673,11 @@ class BaseOptimizer:
                         state["batch_in_epoch"] = \
                             state.get("batch_in_epoch", 0) + 1
                         self._after_iteration(opt_state, state)
+                        if self._elastic is not None:
+                            # snapshot cadence + durable flush, after the
+                            # triggers so a snapshot carries their effects
+                            self._elastic.on_step_end(self, opt_state,
+                                                      state)
                         self._check_preemption(opt_state, state)
                         if end_uses_loss:
                             self._drain_loss()
@@ -584,6 +687,11 @@ class BaseOptimizer:
             finally:
                 if isinstance(batches, BatchPrefetcher):
                     batches.close()
+                if self._elastic is not None:
+                    # epoch-boundary work (validation, checkpointing) keeps
+                    # the loop from its step heartbeat: park the watchdog
+                    # until the next step re-arms it
+                    self._elastic.on_loop_exit()
             self._drain_loss()
             thr = records / max(time.perf_counter() - t_epoch, 1e-9)
             logger.info(
@@ -665,22 +773,30 @@ class BaseOptimizer:
 
     def _save_checkpoint(self, opt_state, state):
         reliability.inject("optimizer.checkpoint")
-        tag = f"{state['epoch']}.{state['neval']}"
+        self._write_checkpoint(None, None, opt_state,
+                               self.optim_method.get_state(), dict(state),
+                               _generator_states(self.model))
+
+    def _write_checkpoint(self, params, states, opt_state, host_state,
+                          train_state, rng):
+        """Persist one checkpoint pair: the live model's weights when
+        ``params`` / ``states`` are ``None``, else those trees (an elastic
+        ring entry's; the live module is written with them in place and
+        given back its own tensors, the same objects, after)."""
+        tag = f"{train_state['epoch']}.{train_state['neval']}"
         # model first, optim second: latest() needs the valid pair
-        self.model.save_module(
-            os.path.join(self._checkpoint_path, f"model.{tag}"))
+        with _weights_in_place(self.model, params, states):
+            self.model.save_module(
+                os.path.join(self._checkpoint_path, f"model.{tag}"))
         from bigdl_tpu_torch.utils.checkpoint import (prune_checkpoints,
                                                       save_checkpoint)
-        gens = [m.generator.get_state() if getattr(m, "generator", None)
-                is not None else None for m in self.model.modules()]
         save_checkpoint(
             os.path.join(self._checkpoint_path, f"optim.{tag}"),
             {"opt_state": opt_state,
-             "host_state": self.optim_method.get_state(),
-             "train_state": dict(state),
+             "host_state": host_state,
+             "train_state": dict(train_state),
              "world": self._world_signature(),
-             "rng": {str(i): g for i, g in enumerate(gens)
-                     if g is not None}})
+             "rng": rng})
         logger.info("checkpoint saved: %s @ %s", self._checkpoint_path, tag)
         from bigdl_tpu_torch.utils.conf import conf
         keep = conf.get_int("bigdl.checkpoint.keep", 0) or 0
@@ -716,10 +832,7 @@ class BaseOptimizer:
         blob, _ = load_checkpoint(os.path.join(path, f"optim.{tag}"))
         self._check_world(blob.get("world"), path, tag)
         self.model.load_weights(os.path.join(path, f"model.{tag}"))
-        for i, m in enumerate(self.model.modules()):
-            g = (blob.get("rng") or {}).get(str(i))
-            if g is not None and hasattr(m, "_draw_generator"):
-                m._draw_generator().set_state(g)
+        _load_generator_states(self.model, blob.get("rng"))
         self.optim_method.load_state(blob["host_state"])
         # a key absent from an older blob must not keep a live value
         self.state["batch_in_epoch"] = 0
@@ -738,8 +851,10 @@ class DistriOptimizer(BaseOptimizer):
     """Mesh data-parallel training (ref: DistriOptimizer.scala), over the
     Engine's mesh (or ``mesh``) along ``data_axis``: see the module
     docstring. ``device=None`` is the GPU under NCCL, ``"cpu"`` the host
-    under gloo; the Engine is initialised for it when cold, and a live
-    Engine of the other kind is refused."""
+    under gloo; the Engine is initialised for it when cold. A GPU device
+    over a gloo mesh is ranks sharing one card (the collectives stage
+    their CUDA tensors through the host); an NCCL mesh refuses a CPU
+    device."""
 
     def __init__(self, model, dataset, criterion, batch_size: int = 32,
                  end_trigger=None, mesh=None, data_axis: str = "data",
@@ -750,7 +865,10 @@ class DistriOptimizer(BaseOptimizer):
                 Engine.init(engine_type="cpu" if dev.type == "cpu"
                             else "gpu")
             mesh = Engine.mesh()
-        if mesh.device_type != dev.type:
+        # a gloo mesh may hold CUDA tensors (ranks sharing one card: the
+        # collectives stage through the host); NCCL holds only CUDA ones
+        if mesh.device_type != dev.type and not (
+                mesh.device_type == "cpu" and dev.type == "cuda"):
             raise ValueError(f"DistriOptimizer on {dev} needs a mesh of "
                              f"{dev.type} devices; the mesh is on "
                              f"{mesh.device_type}")

@@ -43,7 +43,7 @@ import json
 import sys
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 #: mixed prompt-length ladder (tokens) the seeded generator cycles
 #: through — short chat turns to page-spanning contexts
@@ -302,7 +302,9 @@ def run_load(addr: Tuple[str, int], prompts: Sequence[Any],
              priorities: Optional[Sequence[str]] = None,
              stream: bool = False,
              openai: bool = False,
-             openai_model: str = OPENAI_MODEL) -> Dict[str, Any]:
+             openai_model: str = OPENAI_MODEL,
+             while_outstanding: Optional[Callable[[], None]] = None
+             ) -> Dict[str, Any]:
     """Drive ``prompts`` through ``addr`` at ``qps`` scheduled arrivals.
     ``max_new_tokens`` may be one int or a per-prompt sequence of the
     same length (the mixed-output part of the soak). ``priorities``
@@ -317,7 +319,11 @@ def run_load(addr: Tuple[str, int], prompts: Sequence[Any],
     through the gateway's ``/v1/completions`` instead — SSE when
     ``stream`` — retrying the gateway's 429 translation of a shed
     exactly like the native 503 (same Retry-After honor), so every
-    parity/loss assertion is endpoint-agnostic."""
+    parity/loss assertion is endpoint-agnostic. ``while_outstanding``,
+    when given, is called again and again (1 ms apart) from the calling
+    thread while any request is sent and not yet answered: a fleet
+    controller ticked there samples the queue for as long as the load
+    holds it, however fast the load drains."""
     from bigdl_tpu_torch.observability.sketch import QuantileSketch
     n = len(prompts)
     if isinstance(max_new_tokens, (list, tuple)):
@@ -335,7 +341,7 @@ def run_load(addr: Tuple[str, int], prompts: Sequence[Any],
     errors: List[dict] = []
     sketch = QuantileSketch()
     lock = threading.Lock()
-    counters = {"ok": 0, "lost": 0, "retries_503": 0}
+    counters = {"ok": 0, "lost": 0, "retries_503": 0, "outstanding": 0}
     per_class: Dict[str, Dict[str, Any]] = {}
     if priorities is not None:
         for cls in priorities:
@@ -369,74 +375,13 @@ def run_load(addr: Tuple[str, int], prompts: Sequence[Any],
             cls = priorities[i] if priorities is not None else None
             req_headers = {PRIORITY_HEADER: cls} if cls else None
             t_req = time.perf_counter()
-            last_err = "retries exhausted"
-            done = False
-            for _attempt in range(max_retries + 1):
-                ttft = None
-                gaps: List[float] = []
-                try:
-                    if stream and openai:
-                        status, parsed, hdrs, ttft, gaps = \
-                            _post_stream_openai(addr, body,
-                                                request_timeout,
-                                                req_headers,
-                                                model=openai_model)
-                    elif stream:
-                        status, parsed, hdrs, ttft, gaps = \
-                            _post_stream(addr, body, request_timeout,
-                                         req_headers)
-                    elif openai:
-                        status, parsed, hdrs = _post_openai(
-                            addr, body, request_timeout, req_headers,
-                            model=openai_model)
-                    else:
-                        status, parsed, hdrs = _post(
-                            addr, body, request_timeout, req_headers)
-                except Exception as e:  # noqa: BLE001 — retriable
-                    last_err = f"transport: {e}"
-                    time.sleep(min(0.05, retry_cap_s))
-                    continue
-                if status == 200 and parsed.get("error") is not None:
-                    # terminal stream chunk carried the engine's error
-                    # (retriable) — same treatment as a transport fault
-                    last_err = f"stream: {parsed['error']}"
-                    time.sleep(min(0.05, retry_cap_s))
-                    continue
-                if status == 200:
-                    lat = time.perf_counter() - t_req
-                    with lock:
-                        outputs[i] = [int(t)
-                                      for t in parsed["output_ids"]]
-                        counters["ok"] += 1
-                        sketch.observe(lat)
-                        if cls is not None:
-                            rec = per_class[cls]
-                            rec["ok"] += 1
-                            rec["latency"].observe(lat)
-                            if ttft is not None:
-                                rec["ttft"].observe(ttft)
-                            for g in gaps:
-                                rec["itl"].observe(g)
-                    done = True
-                    break
-                if status in (503, 429):
-                    # backpressure: honor the server's Retry-After
-                    # (capped — the soak must finish), then retry. 429
-                    # is the gateway's OpenAI translation of the same
-                    # shed. Shed-then-served is latency, never loss.
-                    with lock:
-                        counters["retries_503"] += 1
-                        if cls is not None:
-                            per_class[cls]["retries_503"] += 1
-                    try:
-                        ra = float(hdrs.get("Retry-After") or 0.05)
-                    except (TypeError, ValueError):
-                        ra = 0.05
-                    time.sleep(min(max(ra, 0.01), retry_cap_s))
-                    last_err = f"503: {parsed.get('error', '')}"
-                    continue
-                last_err = f"{status}: {parsed.get('error', '')}"
-                break
+            with lock:
+                counters["outstanding"] += 1
+            try:
+                done, last_err = attempt(i, body, cls, req_headers, t_req)
+            finally:
+                with lock:
+                    counters["outstanding"] -= 1
             if not done:
                 with lock:
                     counters["lost"] += 1
@@ -444,11 +389,88 @@ def run_load(addr: Tuple[str, int], prompts: Sequence[Any],
                         per_class[cls]["lost"] += 1
                     errors.append({"request": i, "error": last_err})
 
+    def attempt(i, body, cls, req_headers, t_req):
+        """Request ``i`` with its retries: ``(done, last error)``."""
+        last_err = "retries exhausted"
+        done = False
+        for _attempt in range(max_retries + 1):
+            ttft = None
+            gaps: List[float] = []
+            try:
+                if stream and openai:
+                    status, parsed, hdrs, ttft, gaps = \
+                        _post_stream_openai(addr, body,
+                                            request_timeout,
+                                            req_headers,
+                                            model=openai_model)
+                elif stream:
+                    status, parsed, hdrs, ttft, gaps = \
+                        _post_stream(addr, body, request_timeout,
+                                     req_headers)
+                elif openai:
+                    status, parsed, hdrs = _post_openai(
+                        addr, body, request_timeout, req_headers,
+                        model=openai_model)
+                else:
+                    status, parsed, hdrs = _post(
+                        addr, body, request_timeout, req_headers)
+            except Exception as e:  # noqa: BLE001 — retriable
+                last_err = f"transport: {e}"
+                time.sleep(min(0.05, retry_cap_s))
+                continue
+            if status == 200 and parsed.get("error") is not None:
+                # terminal stream chunk carried the engine's error
+                # (retriable) — same treatment as a transport fault
+                last_err = f"stream: {parsed['error']}"
+                time.sleep(min(0.05, retry_cap_s))
+                continue
+            if status == 200:
+                lat = time.perf_counter() - t_req
+                with lock:
+                    outputs[i] = [int(t)
+                                  for t in parsed["output_ids"]]
+                    counters["ok"] += 1
+                    sketch.observe(lat)
+                    if cls is not None:
+                        rec = per_class[cls]
+                        rec["ok"] += 1
+                        rec["latency"].observe(lat)
+                        if ttft is not None:
+                            rec["ttft"].observe(ttft)
+                        for g in gaps:
+                            rec["itl"].observe(g)
+                done = True
+                break
+            if status in (503, 429):
+                # backpressure: honor the server's Retry-After
+                # (capped — the soak must finish), then retry. 429
+                # is the gateway's OpenAI translation of the same
+                # shed. Shed-then-served is latency, never loss.
+                with lock:
+                    counters["retries_503"] += 1
+                    if cls is not None:
+                        per_class[cls]["retries_503"] += 1
+                try:
+                    ra = float(hdrs.get("Retry-After") or 0.05)
+                except (TypeError, ValueError):
+                    ra = 0.05
+                time.sleep(min(max(ra, 0.01), retry_cap_s))
+                last_err = f"503: {parsed.get('error', '')}"
+                continue
+            last_err = f"{status}: {parsed.get('error', '')}"
+            break
+        return done, last_err
+
     threads = [threading.Thread(target=client,
                                 name=f"bigdl-loadgen-{k}", daemon=True)
                for k in range(max(1, concurrency))]
     for t in threads:
         t.start()
+    if while_outstanding is not None:
+        while any(t.is_alive() for t in threads):
+            if counters["outstanding"]:
+                while_outstanding()
+            time.sleep(0.001)
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
@@ -528,6 +550,11 @@ def _default_model(model, device):
     return tiny_model(device)
 
 
+#: the soak's own controller cadence (the load generator ticks it as well
+#: while the spike is outstanding)
+SOAK_TICK_S = 0.02
+
+
 def run_fleet_soak(n_requests: int = 8, qps: float = 100.0,
                    seed: int = 0,
                    priority_mix: Optional[str] = None,
@@ -544,7 +571,12 @@ def run_fleet_soak(n_requests: int = 8, qps: float = 100.0,
     pool worker and the router and drives the same soak through
     ``/v1/completions`` SSE instead of the native endpoint. ``model``
     (the pool's shared weights, served at its own page size) defaults to
-    a tiny f32 Llama on ``device``. The chaos variant with kills is
+    a tiny f32 Llama on ``device``. The controller is ticked by the
+    load generator while any request of the spike is outstanding
+    (``run_load``'s ``while_outstanding``), so a spike that drains
+    fast is still sampled while it queues, and every ``SOAK_TICK_S``
+    seconds by this loop until the pool has drained back to one
+    worker. The chaos variant with kills is
     :func:`bigdl_tpu_torch.llm.chaos.run_fleet_chaos`."""
     from bigdl_tpu_torch.llm.fleet import LocalWorkerProvider
     from bigdl_tpu_torch.llm.worker import LLMRouter
@@ -585,22 +617,28 @@ def run_fleet_soak(n_requests: int = 8, qps: float = 100.0,
                             drain_timeout=20.0)).start()
         fleet = router._fleet
         holder: Dict[str, Any] = {}
+        tick_lock = threading.Lock()
+
+        def _tick():
+            with tick_lock:
+                fleet.tick()
 
         def _run():
             holder["res"] = run_load(router.address, prompts,
                                      max_new_tokens=4, qps=qps,
                                      concurrency=4,
                                      priorities=classes,
-                                     openai=openai, stream=openai)
+                                     openai=openai, stream=openai,
+                                     while_outstanding=_tick)
         t = threading.Thread(target=_run, daemon=True)
         t.start()
         deadline = time.time() + 60.0
         while time.time() < deadline:
-            fleet.tick()
+            _tick()
             if not t.is_alive() and fleet.scale_ins >= 1 and \
                     len(router.decode_workers) == 1:
                 break
-            time.sleep(0.02)
+            time.sleep(SOAK_TICK_S)
         t.join(timeout=600)
         res = holder.get("res") or {}
         ttft = sketch_window(

@@ -209,10 +209,29 @@ class Engine:
     def reinit_distributed(cls, coordinator_address: str,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None, **kwargs):
-        """Rejoin a new world: destroy the live process group and
-        :meth:`init` against the next coordinator, under the same
-        loud-failure contract."""
-        cls.reset()
+        """Rejoin a new world: tear down the live process group — the old
+        coordinator's store died with the failed worker set — and
+        :meth:`init` against the next coordinator. The teardown is best
+        effort (a group wedged on a dead peer may refuse to close
+        cleanly: the failure is logged and the rejoin goes on); the
+        re-init follows the loud-failure contract, so a rejoin that
+        cannot reach the new coordinator raises instead of limping on
+        alone."""
+        with cls._lock:
+            try:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+            except Exception as e:  # noqa: BLE001 — wedged group
+                logger.warning(
+                    "torch.distributed teardown during rejoin failed "
+                    "(continuing to re-init): %s", e)
+                # forget the wedged group, or init would adopt it
+                from torch.distributed import distributed_c10d
+                distributed_c10d._update_default_pg(None)
+            cls._initialized = False
+            cls._mesh = None
+            cls._device = None
+            cls._config = EngineConfig()
         return cls.init(coordinator_address=coordinator_address,
                         num_processes=num_processes,
                         process_id=process_id, **kwargs)

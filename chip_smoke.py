@@ -454,6 +454,27 @@ Phase 19 tensor, sequence and pipeline parallelism and five chaos
          autograd; (e) the ``--mixed``, ``--spec``, ``--flight``,
          ``--preempt`` and ``--api`` drives on the card, each passing its
          contract, fired events and launch counts reported.
+Phase 20 elastic training, Orca and nano, after phase 19 (report key
+         ``elastic_orca_nano``): (a) BASELINE config 4, BERT-base (12 x
+         768, vocabulary 30,522, f32, random weights) fine-tuned through
+         ``Estimator.from_bigdl`` on ``DistriOptimizer`` at world 1
+         (NCCL): batch 32 x 128, Adam 2e-5, 30 steps timed by CUDA
+         events and profiled (idle share, launches a step), the loss
+         falling; one step at 2 x 32 card against CPU (the update's L2
+         within max(1e-3, 3 x the CPU's own)); ``Estimator.from_torch``
+         on the same model, 10 timed steps; (b) nano ``optimize`` on
+         BERT-base at 8 x 128 (every pipeline successful, kernels 1 and
+         5 launched once a linear a forward in ``int4`` / ``int8`` /
+         ``int8-conv``), ``get_best_model`` -> ``save`` -> ``load``
+         bit-equal, ``Trainer(precision="bf16")`` and the two-process
+         ``Trainer`` (workers sharing the card) on LeNet-5, losses
+         falling; (c) ResNet-50 at phase 15's recipe, 16 steps elastic
+         off, on (ring only, a snapshot every 4) and on with an abort
+         armed at step 10 rolled back to the ring: snapshot ms, ring MB,
+         step medians, rollback ms, the resumed weights within 3 x the
+         unbroken runs' own distance, the off run's absent plane; the
+         ``--elastic`` drive (two gloo ranks on the card under the
+         launcher, a seeded kill, equal weight hashes).
 
 Every phase's line has the SM clock and power draw (``nvidia-smi
 --query-gpu=clocks.sm,power.draw``) on the line before it. Then a
@@ -6170,38 +6191,70 @@ def _no_port_launches(kernels, what):
     return counts
 
 
+class _StepTimer:
+    """Wrap an optimizer class's ``_train_step`` inside the ``with``: a CUDA
+    event recorded as each step is dispatched (before the profiler's
+    start-up, which holds the host for seconds), the step's loss tensor
+    kept, and a ``torch.profiler`` window over steps ``[warm + timed,
+    warm + timed + prof)``."""
+
+    def __init__(self, torch, cls, warm, timed, prof):
+        self.torch, self.cls = torch, cls
+        self.warm, self.timed, self.prof = warm, timed, prof
+        self.marks, self.losses, self.window = [], [], {}
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile as trace
+        torch, timer = self.torch, self
+        step = self._orig = self.cls._train_step
+
+        def timed_step(opt, *a):
+            i = len(timer.marks)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            timer.marks.append(ev)
+            if i == timer.warm + timer.timed and timer.prof:
+                torch.cuda.synchronize()
+                timer.window["prof"] = trace(
+                    activities=[ProfilerActivity.CUDA])
+                timer.window["prof"].start()
+            out = step(opt, *a)
+            timer.losses.append(out[0])
+            if timer.prof and \
+                    i == timer.warm + timer.timed + timer.prof - 1:
+                torch.cuda.synchronize()
+                timer.window["prof"].stop()
+            return out
+
+        self._own = "_train_step" in self.cls.__dict__
+        self.cls._train_step = timed_step
+        return self
+
+    def __exit__(self, *exc):
+        if self._own:
+            self.cls._train_step = self._orig
+        else:
+            del self.cls._train_step
+
+    def step_ms(self, first=None, last=None):
+        first = self.warm if first is None else first
+        last = self.warm + self.timed if last is None else last
+        return [self.marks[i].elapsed_time(self.marks[i + 1])
+                for i in range(first, min(last, len(self.marks) - 1))]
+
+
 def _timed_optimize(torch, opt, warm, timed, prof_steps):
     """``opt.optimize()`` with its train step wrapped as phase 15 (b)
-    does: a CUDA event recorded as each step is dispatched (``warm``
-    steps, then ``timed``), then a ``torch.profiler`` window over
-    ``prof_steps`` more. Returns (ms of each timed step, the window's
-    device summary, the optimize wall s)."""
-    from torch.profiler import ProfilerActivity, profile as trace
-    marks, window = [], {}
-    step = opt._train_step
-
-    def timed_step(*a):
-        i = len(marks)
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append(ev)
-        if i == warm + timed:
-            torch.cuda.synchronize()
-            window["prof"] = trace(activities=[ProfilerActivity.CUDA])
-            window["prof"].start()
-        out = step(*a)
-        if i == warm + timed + prof_steps - 1:
-            torch.cuda.synchronize()
-            window["prof"].stop()
-        return out
-
-    opt._train_step = timed_step
-    t = time.perf_counter()
-    opt.optimize()
-    wall = time.perf_counter() - t
-    ms = [marks[i].elapsed_time(marks[i + 1])
-          for i in range(warm, warm + timed)]
-    return ms, _device_window(torch, window["prof"], prof_steps), wall
+    does (``_StepTimer``): a CUDA event recorded as each step is
+    dispatched (``warm`` steps, then ``timed``), then a ``torch.profiler``
+    window over ``prof_steps`` more. Returns (ms of each timed step, the
+    window's device summary, the optimize wall s)."""
+    with _StepTimer(torch, type(opt), warm, timed, prof_steps) as timer:
+        t = time.perf_counter()
+        opt.optimize()
+        wall = time.perf_counter() - t
+    return timer.step_ms(), _device_window(torch, timer.window["prof"],
+                                           prof_steps), wall
 
 
 def _update_deviation(init, ref, others, names):
@@ -7743,6 +7796,487 @@ ALLOC_CONF = "max_split_size_mb:512"
 RELEASES = []
 
 
+# ---------------------------------------------------------------------------
+# phase 20: elastic training, Orca's runtime and Estimators, nano
+# ---------------------------------------------------------------------------
+
+BERT_FT_BATCH, BERT_FT_SEQ, BERT_FT_LR = 32, 128, 2e-5
+BERT_FT_WARM, BERT_FT_TIMED, BERT_FT_PROF = 3, 24, 3
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_ABORT_AT = 16, 4, 10
+# the key biases' exact gradient is zero (a bias on every key adds one
+# constant to a query's scores): Adam steps them by rounding noise, up to
+# lr, on each device its own way; the update's deviation without them is
+# reported beside the whole one
+ZERO_GRAD_PARAMS = (".attention.k.bias",)
+
+
+def _bert_ft_data(n, seq, vocab, seed):
+    """``n`` sequences whose class shows in every token: class 1 draws
+    its ids from [1000, 6000), class 2 from [6000, 11000) (1-based
+    labels, the port's ClassNLL)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    y = rs.randint(0, 2, n)
+    x = rs.randint(1000, 6000, (n, seq)) + 5000 * y[:, None]
+    check(x.max() < vocab, "BERT fine-tune ids past the vocabulary")
+    return x.astype(np.int32), (y + 1).astype(np.int32)
+
+
+def _orca_bert_step(torch, init, x, y, device, threads=None):
+    """One Adam step of BERT-base through ``Estimator.from_bigdl`` from
+    ``init`` on ``device`` (dropout drawn from one seeded CPU generator, so
+    the card and the CPU drop the same units): (its parameters, loss)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.bert import BertConfig, build_classifier
+    from bigdl_tpu_torch.optim.optim_method import Adam
+    from bigdl_tpu_torch.orca.learn import Estimator
+    model = build_classifier(BertConfig.base(), 2, device="cpu")
+    model.load_state_dict(init)
+    for mod in model.modules():      # the same dropout masks everywhere
+        if hasattr(mod, "_draw_generator"):
+            mod.generator = torch.Generator().manual_seed(0)
+    est = Estimator.from_bigdl(model=model, loss=nn.ClassNLLCriterion(),
+                               optimizer=Adam(BERT_FT_LR), device=device,
+                               distributed=False)
+    prev = torch.get_num_threads()
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        est.fit({"x": x, "y": y}, epochs=1, batch_size=len(x))
+    finally:
+        torch.set_num_threads(prev)
+    return dict(est.get_model().named_parameters()), \
+        est.optimizer.state["loss"]
+
+
+def orca_bert_run(torch, dev):
+    """(a) BASELINE config 4: BERT-base (12 x 768, 12 heads, vocabulary
+    30,522, f32, random weights from seed 0) fine-tuned through
+    ``Estimator.from_bigdl`` at the recipe of arXiv:1810.04805 A.3 —
+    batch 32, sequence 128, Adam at 2e-5 — on ``DistriOptimizer`` at
+    world 1 (NCCL, ``init_orca_context()``): 30 steps, 3 warm-up, 24
+    timed by CUDA events at dispatch, a 3-step profiler window; the loss
+    must fall (the mean of the last 5 steps below the first 5's). Then
+    one step at batch 2 x 32 on the card and on the CPU (all threads and
+    one) from the same weights: the update's L2 deviation within max(1e-3,
+    3 x the CPU's own) (the deviation without the key biases, whose exact
+    gradient is zero, reported beside). Then ``Estimator.from_torch`` on
+    the same model as a ``torch.nn.Module`` (torch's Adam, NLL loss): 2
+    warm-up steps, then 8 timed; and once more with dropout 0, to show
+    what the step waits on."""
+    import numpy as np
+    from bigdl_tpu_torch import nn, orca
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.models.bert import BertConfig, build_classifier
+    from bigdl_tpu_torch.optim.optim_method import Adam
+    from bigdl_tpu_torch.optim.optimizer import DistriOptimizer
+    from bigdl_tpu_torch.orca.learn import Estimator
+    from bigdl_tpu_torch.utils.engine import Engine
+    import torch.distributed as dist
+
+    out = {"what": "BERT-base f32, batch 32 x 128, Adam 2e-5, "
+                   "Estimator.from_bigdl -> DistriOptimizer world 1 (NCCL)"}
+    cfg = BertConfig.base()
+    steps = BERT_FT_WARM + BERT_FT_TIMED + BERT_FT_PROF
+    x, y = _bert_ft_data(steps * BERT_FT_BATCH, BERT_FT_SEQ, cfg.vocab_size,
+                         11)
+    ctx = orca.init_orca_context(cluster_mode="local")
+    try:
+        out["engine"] = _engine_row(dist, Engine, "phase 20 (a)")
+        nn.set_seed(0)
+        model = build_classifier(cfg, 2, device=dev)
+        est = Estimator.from_bigdl(model=model,
+                                   loss=nn.ClassNLLCriterion(),
+                                   optimizer=Adam(BERT_FT_LR), device=dev,
+                                   distributed=True)
+        shards = orca.XShards.partition({"x": x, "y": y}, num_shards=4)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with _StepTimer(torch, DistriOptimizer, BERT_FT_WARM,
+                        BERT_FT_TIMED, BERT_FT_PROF) as timer:
+            est.fit(shards, epochs=1, batch_size=BERT_FT_BATCH)
+        out["fit_wall_s"] = time.perf_counter() - t
+        out["launches"] = kernels.launch_counts()
+        _no_port_launches(kernels, "phase 20 (a) from_bigdl")
+        check(type(est.optimizer) is DistriOptimizer,
+              f"phase 20 (a): from_bigdl trained on "
+              f"{type(est.optimizer).__name__}")
+        losses = [float(v) for v in timer.losses]
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f"phase 20 (a): losses {losses}")
+        ms = timer.step_ms()
+        out.update({
+            "steps": len(losses), "num_devices": ctx.num_devices,
+            "losses": losses, "loss_first_last": [losses[0], losses[-1]],
+            "loss_falls": sum(losses[-5:]) < sum(losses[:5]),
+            "step_ms_each": ms, "step_ms": sum(ms) / len(ms),
+            "step_ms_median": statistics.median(ms),
+            "samples_per_s": BERT_FT_BATCH / (sum(ms) / len(ms)) * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "profile": _device_window(torch, timer.window["prof"],
+                                      BERT_FT_PROF)})
+        check(out["loss_falls"], f"phase 20 (a): the loss did not fall: "
+              f"{losses}")
+        del est, model, timer
+    finally:
+        orca.stop_orca_context()
+    check(not dist.is_initialized(), "phase 20 (a): the group outlived it")
+    release_memory(torch)
+
+    # the card against the CPU, one step at batch 2 x 32
+    nn.set_seed(0)
+    init = {k: v.detach().clone() for k, v in build_classifier(
+        cfg, 2, device="cpu").state_dict().items()}
+    xs, ys = _bert_ft_data(2, 32, cfg.vocab_size, 12)
+    cpu, cpu_l = _orca_bert_step(torch, init, xs, ys, "cpu")
+    one, one_l = _orca_bert_step(torch, init, xs, ys, "cpu", threads=1)
+    card, card_l = _orca_bert_step(torch, init, xs, ys, dev)
+    names = list(cpu)
+    per, l2 = _update_deviation(init, cpu, {"card": card, "cpu_1_thread":
+                                            one}, names)
+    nonzero = [k for k in names if not k.endswith(ZERO_GRAD_PARAMS)]
+    per_nz, l2_nz = _update_deviation(init, cpu, {"card": card,
+                                                  "cpu_1_thread": one},
+                                      nonzero)
+    out["card_vs_cpu"] = {
+        "loss_card_cpu_cpu1": [card_l, cpu_l, one_l],
+        "update_dev_l2": l2, "update_dev_max_over_tensors": per,
+        "update_dev_l2_key_biases_left_out": l2_nz,
+        "update_dev_max_over_tensors_key_biases_left_out": per_nz,
+        "tolerance": "loss 1e-4 rel; the update's L2 deviation <= max("
+                     "1e-3, 3 x CPU 1 vs all threads); TF32 off"}
+    check(abs(card_l - cpu_l) <= 1e-4 * abs(cpu_l),
+          f"phase 20 (a) card vs CPU: loss {card_l} vs {cpu_l}")
+    check(l2["card"] <= max(1e-3, 3 * l2["cpu_1_thread"]),
+          f"phase 20 (a) card vs CPU: the update deviates by {l2}")
+    del cpu, one, card, init
+    release_memory(torch)
+
+    # Estimator.from_torch: the same model as a torch.nn.Module, 10 steps
+    # (2 warm-up, 8 timed); then, to see what the step waits on, the same
+    # with its dropout probability 0 (a diagnostic, not the recipe)
+    import dataclasses
+    xt, yt = _bert_ft_data(10 * BERT_FT_BATCH, BERT_FT_SEQ, cfg.vocab_size,
+                           13)
+    yt = (yt - 1).astype(np.int64)
+    warm = 2 * BERT_FT_BATCH
+
+    def from_torch(c):
+        def model_creator(config):
+            nn.set_seed(0)
+            return build_classifier(c, 2, device=dev)
+
+        est = Estimator.from_torch(
+            model_creator=model_creator,
+            optimizer_creator=lambda m, _: torch.optim.Adam(
+                m.parameters(), lr=BERT_FT_LR),
+            loss_creator=lambda _: torch.nn.NLLLoss(), device=dev)
+        stats = est.fit((xt[:warm], yt[:warm]), epochs=1,
+                        batch_size=BERT_FT_BATCH)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats += est.fit((xt[warm:], yt[warm:]), epochs=1,
+                         batch_size=BERT_FT_BATCH)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 8 * 1e3, stats
+
+    ms, stats = from_torch(cfg)
+    ms0, _ = from_torch(dataclasses.replace(cfg, hidden_dropout_prob=0.0))
+    out["from_torch"] = {
+        "what": "the same BERT-base as a torch.nn.Module, torch.optim.Adam "
+                "2e-5, NLLLoss, batch 32 x 128, 2 warm-up steps then 8",
+        "step_ms": ms, "step_ms_dropout_0": ms0,
+        "loss_after_2_10": stats}
+    check(all(map(math.isfinite, stats)), f"phase 20 (a) from_torch: {stats}")
+    release_memory(torch)
+    return out
+
+
+def nano_run(torch, dev, tmp):
+    """(b) nano: ``InferenceOptimizer.optimize`` on BERT-base at phase 5's
+    8 x 128 (10 timed forwards a pipeline): each pipeline's status,
+    latency and custom-kernel launches (int4: kernel 1, int8 and
+    int8-conv: kernel 5, one launch a linear a forward, warm-up
+    included), its log-probs against the float pipeline's; then
+    ``get_best_model`` -> ``save`` -> ``load`` -> forward, bit-equal to
+    the saved pipeline's output. Then ``Trainer(precision="bf16").fit`` on
+    LeNet-5 (BASELINE config 1; 3 epochs of 2,048 synthetic digits) and
+    the two-process ``Trainer`` (2 spawned workers sharing the card,
+    local SGD averaged each of 3 rounds): the losses must fall."""
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.feature.mnist import load_mnist, normalize
+    from bigdl_tpu_torch.llm import kernels
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.models.bert import BertConfig, build_classifier
+    from bigdl_tpu_torch.nano import InferenceOptimizer, Trainer
+    from bigdl_tpu_torch.optim.optim_method import SGD
+
+    out = {}
+    cfg = BertConfig.base()
+    nn.set_seed(0)
+    model = build_classifier(cfg, 2, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (8, 128),
+                        generator=torch.Generator().manual_seed(5)).numpy()
+    n_linears = 6 * cfg.num_hidden_layers + 2
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    report = InferenceOptimizer.optimize(model, ids, latency_sample_num=10,
+                                         device=dev)
+    out["optimize_wall_s"] = time.perf_counter() - t
+    out["launches"] = kernels.launch_counts()
+    ref = report["original(jit)"]["model"](ids)
+    rows = {}
+    for name, e in report.items():
+        check(e["status"] == "successful", f"phase 20 (b) {name}: {e}")
+        m = e["model"]
+        y = m(ids)
+        check(y.shape == (8, 2) and bool(np.isfinite(y).all()),
+              f"phase 20 (b) {name}: output {y.shape}")
+        launches = {k: m.trial_launches.get(k, 0)
+                    for k in kernels.launch_counts()}
+        kern = {"int8": "int8_matmul", "int8-conv": "int8_matmul",
+                "int4": "int4_matmul"}.get(name)
+        want = {kern: 11 * n_linears} if kern else {}
+        got = {k: v for k, v in launches.items()
+               if v and k in MATMUL_KERNELS + ("paged_attention_decode",
+                                               "ragged_prefill_attention",
+                                               "paged_attention_decode_stats")}
+        check(got == want, f"phase 20 (b) {name}: launches {got} != {want}")
+        rows[name] = {"status": e["status"], "latency_ms": e["latency_ms"],
+                      "launches": launches,
+                      "max_abs_err_vs_float": float(np.abs(y - ref).max())}
+    out["pipelines"] = rows
+    out["summary"] = InferenceOptimizer.summary(report)
+    best, name = InferenceOptimizer.get_best_model(report)
+    want = best(ids)
+    path = os.path.join(tmp, "nano_best")
+    t = time.perf_counter()
+    InferenceOptimizer.save(best, path)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = InferenceOptimizer.load(path, device=dev)
+    load_s = time.perf_counter() - t
+    got = loaded(ids)
+    out["best"] = {"pipeline": name, "save_s": save_s, "load_s": load_s,
+                   "reload_bit_equal": bool(np.array_equal(got, want)),
+                   "aot": loaded._aot}
+    check(out["best"]["reload_bit_equal"],
+          f"phase 20 (b): the reloaded {name} pipeline differs by "
+          f"{float(np.abs(got - want).max())}")
+    del report, best, loaded, model
+    release_memory(torch)
+
+    x, y = load_mnist(synthetic_size=2048)
+    x = normalize(x)
+    nn.set_seed(0)
+    net = lenet.build_model(10, device=dev)
+    with torch.no_grad():
+        lp = net(torch.from_numpy(x[:512]).to(dev))
+        before = float(nn.ClassNLLCriterion().apply_loss(
+            lp, torch.from_numpy(y[:512]).to(dev)))
+    t = time.perf_counter()
+    tr = Trainer(max_epochs=3, precision="bf16", device=dev)
+    tr.fit(net, nn.ClassNLLCriterion(), x, y, batch_size=128,
+           optim_method=SGD(0.05, momentum=0.9))
+    out["trainer_bf16"] = {
+        "what": "LeNet-5, bf16 params and inputs, SGD 0.05 m 0.9, batch "
+                "128, 3 epochs of 2,048", "wall_s": time.perf_counter() - t,
+        "loss_before_after": [before, tr.last_losses[-1]],
+        "param_dtypes": sorted({str(p.dtype) for p in net.parameters()})}
+    check(tr.last_losses[-1] < before,
+          f"phase 20 (b) bf16 Trainer: {out['trainer_bf16']}")
+    nn.set_seed(0)
+    net = lenet.build_model(10, device=dev)
+    t = time.perf_counter()
+    tr = Trainer(max_epochs=3, num_processes=2, device=dev)
+    tr.fit(net, nn.ClassNLLCriterion(), x, y, batch_size=128,
+           optim_method=SGD(0.05, momentum=0.9))
+    out["trainer_two_processes"] = {
+        "what": "LeNet-5 f32, 2 spawned workers on the card, 3 rounds of "
+                "one epoch each on 1,024 digits, averaged",
+        "wall_s": time.perf_counter() - t, "losses": tr.last_losses}
+    check(len(tr.last_losses) == 3 and
+          tr.last_losses[-1] < tr.last_losses[0],
+          f"phase 20 (b) two-process Trainer: {tr.last_losses}")
+    release_memory(torch)
+    return out
+
+
+def _resnet_elastic(torch, dev, x, y, on, abort_at=None):
+    """ResNet-50 as phase 15 (b) runs it, ``ELASTIC_STEPS`` steps over the
+    unshuffled batches from seed 0 weights, with the elastic plane on
+    (ring only, a snapshot every ``ELASTIC_EVERY``) or off; ``abort_at``
+    arms an abort at the top of that step (the agent's
+    ``request_abort``), so the loop rolls back to the ring. Returns
+    (final params on the host, record)."""
+    from bigdl_tpu_torch import elastic, nn, optim
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.feature.dataset import LocalDataSet
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.utils.conf import conf
+    nn.set_seed(0)
+    model = resnet.resnet_imagenet(50, 1000, format="NHWC", device=dev)
+    opt = optim.LocalOptimizer(model, LocalDataSet(x, y, shuffle=False),
+                               nn.ClassNLLCriterion(), 256,
+                               optim.Trigger.max_iteration(ELASTIC_STEPS),
+                               device=dev)
+    opt.set_optim_method(optim.SGD(0.1, momentum=0.9, weight_decay=1e-4))
+    opt.set_input_dtype(torch.bfloat16)
+    keys = {"bigdl.elastic.enabled": "true" if on else "false",
+            "bigdl.elastic.snapshot.every": str(ELASTIC_EVERY),
+            "bigdl.elastic.step.timeout": "0"}
+    for k, v in keys.items():
+        conf.set(k, v)
+    rec, orig_begin, orig_rb = {}, elastic.TrainElastic.on_step_begin, \
+        elastic.TrainElastic.rollback
+
+    def begin(self, state):
+        if abort_at is not None and state["neval"] == abort_at + 1 \
+                and "aborted_at" not in rec:
+            rec["aborted_at"] = state["neval"] - 1
+            self.agent.request_abort("chip smoke: abort armed")
+        return orig_begin(self, state)
+
+    def rollback(self, optimizer):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok = orig_rb(self, optimizer)
+        torch.cuda.synchronize()
+        rec["rollback_ms"] = (time.perf_counter() - t) * 1e3
+        rec["rolled_back_to"] = optimizer.state["neval"]
+        return ok
+
+    elastic.TrainElastic.on_step_begin = begin
+    elastic.TrainElastic.rollback = rollback
+    obs.TRACE.clear()            # its "elastic/snapshot" spans: the copies
+    try:
+        with _StepTimer(torch, optim.LocalOptimizer, 0, ELASTIC_STEPS, 0) \
+                as timer:
+            opt.optimize()
+    finally:
+        elastic.TrainElastic.on_step_begin = orig_begin
+        elastic.TrainElastic.rollback = orig_rb
+        for k in keys:
+            conf.unset(k)
+    # the median past each run's first 3 steps (the first run's warm-up)
+    ms = timer.step_ms(3, len(timer.marks) - 1)
+    rec.update({"steps_dispatched": len(timer.marks),
+                "step_ms_median": statistics.median(ms),
+                "final_loss": opt.state["loss"],
+                "iterations": opt.state["iteration_done"]})
+    el = opt._elastic
+    if el is not None:
+        rec.update({"snapshots": el.ring.taken,
+                    "snapshot_ms": [r["dur"] / 1e3 for r in obs.TRACE.spans()
+                                    if r["name"] == "elastic/snapshot"],
+                    "ring_host_mb": el.ring.nbytes() / 2**20,
+                    "ring_entries": len(el.ring),
+                    "rollbacks": el.ring.rollbacks})
+    params = {k: v.detach().float().cpu()
+              for k, v in model.named_parameters()}
+    del opt, model
+    release_memory(torch)
+    return params, rec
+
+
+def _l2(a, b):
+    return math.sqrt(sum(float(((a[k] - b[k]) ** 2).sum()) for k in a))
+
+
+def elastic_run(torch, dev):
+    """(c) elastic: ResNet-50 at phase 15's recipe, ``ELASTIC_STEPS``
+    steps three times from the same weights — elastic off, elastic on
+    (ring only, a snapshot every ``ELASTIC_EVERY`` steps), and on with an
+    abort armed at step ``ELASTIC_ABORT_AT``, rolled back to the ring's
+    newest committed snapshot and run to the end. The off run must start
+    no elastic thread and mint no ``bigdl_elastic_*`` series (the
+    observability plane on for all three). The resumed run's final
+    weights must lie within 3 x the L2 distance between the two unbroken
+    runs (cuDNN's backward is not bitwise deterministic). Then the
+    ``--elastic`` drive: two rank processes on the card over gloo under
+    the launcher, a seeded kill, the restart, equal weight hashes."""
+    import threading
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.llm import chaos, kernels
+
+    out = {"what": "ResNet-50 NHWC 224x224 batch 256, bf16 inputs, SGD 0.1 "
+                   f"m 0.9 wd 1e-4, LocalOptimizer, {ELASTIC_STEPS} steps; "
+                   f"elastic ring only, snapshot every {ELASTIC_EVERY}"}
+    x, y = _resnet_batches(ELASTIC_STEPS, 256)
+    was = obs.enabled()
+    obs.enable()
+    try:
+        before = set(obs.render().splitlines())
+        w_off, out["off"] = _resnet_elastic(torch, dev, x, y, False)
+        grown = "\n".join(set(obs.render().splitlines()) - before)
+        out["disabled"] = {
+            "elastic_threads": [t.name for t in threading.enumerate()
+                                if t.name.startswith("bigdl-elastic")],
+            "elastic_series_minted": [ln for ln in grown.splitlines()
+                                      if "bigdl_elastic_" in ln]}
+        check(not out["disabled"]["elastic_threads"] and
+              not out["disabled"]["elastic_series_minted"],
+              f"phase 20 (c): the disabled plane is not absent: "
+              f"{out['disabled']}")
+        w_on, out["on"] = _resnet_elastic(torch, dev, x, y, True)
+        w_rb, out["rollback"] = _resnet_elastic(
+            torch, dev, x, y, True, abort_at=ELASTIC_ABORT_AT)
+    finally:
+        if not was:
+            obs.disable()
+    del x, y
+    rb = out["rollback"]
+    check(rb.get("rollbacks") == 1 and rb["iterations"] == ELASTIC_STEPS,
+          f"phase 20 (c): the armed abort did not roll back: {rb}")
+    spread = _l2(w_on, w_off)
+    dist_rb = _l2(w_rb, w_on)
+    norm = math.sqrt(sum(float((v ** 2).sum()) for v in w_on.values()))
+    out["weights"] = {"l2_on_vs_off": spread, "l2_resumed_vs_on": dist_rb,
+                      "l2_resumed_vs_off": _l2(w_rb, w_off),
+                      "l2_norm_on": norm,
+                      "tolerance": "resumed within 3 x the unbroken runs' "
+                                   "own L2 distance"}
+    check(dist_rb <= 3 * spread,
+          f"phase 20 (c): the resumed weights lie {dist_rb} from the "
+          f"unbroken run's, above 3 x {spread}")
+    out["step_ms_median_on_off"] = [out["on"]["step_ms_median"],
+                                    out["off"]["step_ms_median"]]
+    del w_off, w_on, w_rb
+    release_memory(torch)
+
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    drive = chaos.run_elastic_chaos(device=dev, smoke=True)
+    drive.pop("clean_weights")
+    drive["wall_s"] = time.perf_counter() - t
+    drive["launches"] = kernels.launch_counts()
+    check(drive["match"] and drive["kill"]["restarts"] >= 1,
+          f"phase 20 (c) --elastic drive: {drive}")
+    out["drive"] = drive
+    return out
+
+
+def elastic_orca_nano_phase(torch, dev):
+    """Phase 20: (a) Orca's BERT-base fine-tune (BASELINE config 4), (b)
+    nano, (c) elastic training. Report key ``elastic_orca_nano``."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"phase": "elastic_orca_nano", "wall_s_by_part": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for part, key, run in (
+                ("a", "orca", lambda: orca_bert_run(torch, dev)),
+                ("b", "nano", lambda: nano_run(torch, dev, tmp)),
+                ("c", "elastic", lambda: elastic_run(torch, dev))):
+            t = time.perf_counter()
+            out[key] = run()
+            out["wall_s_by_part"][part] = time.perf_counter() - t
+            release_memory(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def release_memory(torch):
     """Between phases: collect Python's reference cycles (a model held in
     one by a captured graph or a server thread's closure is freed only by
@@ -7898,6 +8432,10 @@ def main() -> int:
     par = parallel_phase(torch, dev, gen)
     par["nvidia_smi"] = smi
     emit(par)
+    release_memory(torch)
+    p20 = elastic_orca_nano_phase(torch, dev)
+    p20["nvidia_smi"] = smi
+    emit(p20)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
@@ -7976,6 +8514,9 @@ def main() -> int:
     for name, rec in par["drives"].items():
         paths[f"the --{name} chaos drive, tiny Llama f32"] = dict(
             rec["launches"])
+    for name, row in p20["nano"]["pipelines"].items():
+        paths[f"nano optimize BERT-base 8x128 {name}"] = dict(
+            row["launches"])
 
     # a two-kernel wrapper's count covers both routes: a dequant-matmul's
     # calls are its GEMV and tensor-core launches, ragged prefill's
@@ -8232,6 +8773,7 @@ def main() -> int:
               "dllib_keras": dllib_keras,
               "dllib_distributed": dllib_dist,
               "detection_sparse": det, "parallel_drives": par,
+              "elastic_orca_nano": p20,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -192,10 +192,11 @@ def test_distributed_pieces_build():
     """``DistributedDataSet`` without a rank, ``Optimizer(distributed=
     True)`` and ``DistriOptimizer`` build (on the CPU, over a gloo world
     of one); the facade's default picks the local optimizer at world 1;
-    the elastic plane still raises, naming its Queue 1 item."""
+    with the elastic plane on, the distributed optimizer trains and takes
+    its ring snapshots at the cadence."""
     from bigdl_tpu_torch.utils.conf import conf
     from bigdl_tpu_torch.utils.engine import Engine
-    x, y = np.zeros((8, 2), np.float32), np.ones(8, np.float32)
+    x, y = np.zeros((8, 2), np.float32), np.ones((8, 2), np.float32)
     ds = DistributedDataSet(x, y)
     assert (ds.rank, ds.world) == (0, 1) and len(list(ds.data())) == 8
     ds = DistributedDataSet(np.arange(8), shuffle=False, rank=1, world=2)
@@ -212,12 +213,15 @@ def test_distributed_pieces_build():
         opt = toptim.DistriOptimizer(m, (x, y), tnn.MSECriterion(), 4,
                                      device="cpu")
         conf.set("bigdl.elastic.enabled", "true")
+        conf.set("bigdl.elastic.snapshot.every", "1")
         try:
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 10"):
-                opt.optimize()
+            opt.optimize()
+            assert opt.state["iteration_done"] == 2
+            assert opt._elastic.ring.taken == 2
+            assert opt._elastic.ring.newest_committed().step == 3
         finally:
             conf.unset("bigdl.elastic.enabled")
+            conf.unset("bigdl.elastic.snapshot.every")
     finally:
         Engine.reset()
 

@@ -264,3 +264,13 @@ def test_chaos_cli(monkeypatch, capsys):
                      dict(seed=7, smoke=False, device=None)]
     with pytest.raises(SystemExit):
         chaos.main(["--fleet", "--alerts"])
+
+
+def test_fleet_soak_samples_the_spike_between_its_own_ticks(monkeypatch):
+    """The soak's own loop ticks once as the spike starts and then sleeps
+    far past it: the scale-out must come from the ticks the load
+    generator makes while the spike's requests are outstanding."""
+    monkeypatch.setattr(loadgen, "SOAK_TICK_S", 1.5)
+    out = loadgen.run_fleet_soak(device="cpu", model=chaos.tiny_model("cpu"))
+    assert out["requests_lost"] == 0 and out["converged_workers"] == 1
+    assert out["scale_outs"] >= 1 and out["scale_ins"] >= 1
