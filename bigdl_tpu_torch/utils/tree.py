@@ -34,14 +34,16 @@ def tree_leaves(tree: Any) -> List[Any]:
 def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     """The tree of ``like``'s structure holding ``leaves`` in
     :func:`tree_leaves` order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
 
-    return build(like)
+def _build(t: Any, it) -> Any:
+    # module level, not a closure: a recursive closure is a reference
+    # cycle (function -> cell -> function) that would keep the leaves'
+    # iterator, and so every leaf, alive until the cyclic collector runs
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)

@@ -436,14 +436,14 @@ Phase 19 tensor, sequence and pipeline parallelism and five chaos
          (b) at world 1 under NCCL in this process, ``shard`` of
          Llama-2-7B q4_0 (32 layers) against the unsharded model:
          prefill logits and the tokens of ``generate`` (2 x 512-token
-         prompts, 32 new) bit-identical, launches exact, each one's
+         prompts, 16 new) bit-identical, launches exact, each one's
          decode step (captured); then two rank processes of this script
          on the one card over gloo (``--tp-rank R W PORT OUT``; they
          load the kernels built here): each keeps its slices, rank 0's
          prefill logits within 2e-2 of the largest of the unsharded
          model's, launches exact on each rank, the decode step (eager,
          the collectives through the host) and the bytes staged; (c)
-         ``sequence_parallel`` prefill of 2 x 4,096 tokens at world 1 and
+         ``sequence_parallel`` prefill of 2 x 2,048 tokens at world 1 and
          W = 2 against the dense prefill: logits within 2e-2 of the
          largest, the cache's layer 0 exact and every layer within 2e-2
          in L2 norm, the next decode step from each cache within 2e-2;
@@ -458,11 +458,11 @@ Phase 20 elastic training, Orca and nano, after phase 19 (report key
          ``elastic_orca_nano``): (a) BASELINE config 4, BERT-base (12 x
          768, vocabulary 30,522, f32, random weights) fine-tuned through
          ``Estimator.from_bigdl`` on ``DistriOptimizer`` at world 1
-         (NCCL): batch 32 x 128, Adam 2e-5, 30 steps timed by CUDA
+         (NCCL): batch 32 x 128, Adam 2e-5, 12 steps timed by CUDA
          events and profiled (idle share, launches a step), the loss
          falling; one step at 2 x 32 card against CPU (the update's L2
          within max(1e-3, 3 x the CPU's own)); ``Estimator.from_torch``
-         on the same model, 10 timed steps; (b) nano ``optimize`` on
+         on the same model, 2 timed steps; (b) nano ``optimize`` on
          BERT-base at 8 x 128 (every pipeline successful, kernels 1 and
          5 launched once a linear a forward in ``int4`` / ``int8`` /
          ``int8-conv``), ``get_best_model`` -> ``save`` -> ``load``
@@ -475,6 +475,24 @@ Phase 20 elastic training, Orca and nano, after phase 19 (report key
          unbroken runs' own distance, the off run's absent plane; the
          ``--elastic`` drive (two gloo ranks on the card under the
          launcher, a seeded kill, equal weight hashes).
+Phase 21 Chronos, orca.automl and nnframes, after phase 20 (report key
+         ``chronos``), on synthetic ECL (321 hourly series x 26,304
+         steps, 96 -> 96, split 7:1:2; the windows strided views):
+         (a) BASELINE config 3, the TCN (7 x 30 channels, kernel 3,
+         dropout 0.1) and the Seq2Seq (2 x 64 LSTMs), 30 ``fit`` steps
+         each timed by CUDA events and profiled (idle share, launches),
+         the loss falling, ``evaluate`` over the test split; each card
+         against CPU at 8 series, 24 -> 24 (every loss within 1e-4, the
+         update's L2 within max(1e-3, 3 x the CPU's own)); (b) the
+         Autoformer (1.04 G parameters; its auto-correlation timed
+         alone), N-BEATS and LSTM forecasters at the JAX defaults,
+         ``AEDetector`` on one column (three spikes flagged), DPGAN at
+         WWT's shape with ``dp`` off and on; (c) ``AutoEstimator`` over
+         four TCN configs serially, under ASHA (fewer epochs) and over
+         two pool processes (the serial best), then ``AutoTSEstimator``;
+         (d) ``NNClassifier`` on LeNet-5 over an MNIST-shaped frame (top-1
+         above 0.9). No part leaves 1 GiB allocated or launches one of
+         the six kernels.
 
 Every phase's line has the SM clock and power draw (``nvidia-smi
 --query-gpu=clocks.sm,power.draw``) on the line before it. Then a
@@ -6192,21 +6210,22 @@ def _no_port_launches(kernels, what):
 
 
 class _StepTimer:
-    """Wrap an optimizer class's ``_train_step`` inside the ``with``: a CUDA
-    event recorded as each step is dispatched (before the profiler's
+    """Wrap a class's train step (``attr``: an optimizer's
+    ``_train_step``, a forecaster's ``train_step``) inside the ``with``: a
+    CUDA event recorded as each step is dispatched (before the profiler's
     start-up, which holds the host for seconds), the step's loss tensor
     kept, and a ``torch.profiler`` window over steps ``[warm + timed,
     warm + timed + prof)``."""
 
-    def __init__(self, torch, cls, warm, timed, prof):
-        self.torch, self.cls = torch, cls
+    def __init__(self, torch, cls, warm, timed, prof, attr="_train_step"):
+        self.torch, self.cls, self.attr = torch, cls, attr
         self.warm, self.timed, self.prof = warm, timed, prof
         self.marks, self.losses, self.window = [], [], {}
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile as trace
         torch, timer = self.torch, self
-        step = self._orig = self.cls._train_step
+        step = self._orig = getattr(self.cls, self.attr)
 
         def timed_step(opt, *a):
             i = len(timer.marks)
@@ -6226,15 +6245,15 @@ class _StepTimer:
                 timer.window["prof"].stop()
             return out
 
-        self._own = "_train_step" in self.cls.__dict__
-        self.cls._train_step = timed_step
+        self._own = self.attr in self.cls.__dict__
+        setattr(self.cls, self.attr, timed_step)
         return self
 
     def __exit__(self, *exc):
         if self._own:
-            self.cls._train_step = self._orig
+            setattr(self.cls, self.attr, self._orig)
         else:
-            del self.cls._train_step
+            delattr(self.cls, self.attr)
 
     def step_ms(self, first=None, last=None):
         first = self.warm if first is None else first
@@ -7312,8 +7331,8 @@ def detection_sparse_phase(torch, dev):
 TP_RANK_LINEARS = ((4096, 6144, "qkv_proj", 32), (2048, 4096, "o_proj", 32),
                    (4096, 11008, "gate_up_proj", 32),
                    (5504, 4096, "down_proj", 32), (4096, 16000, "lm_head", 1))
-TP_PROMPT, TP_NEW = 512, 32          # (b): 2 x 512-token prompts, 32 new
-SP_PROMPT = 4096                     # (c): 2 x 4,096-token prompts
+TP_PROMPT, TP_NEW = 512, 16          # (b): 2 x 512-token prompts, 16 new
+SP_PROMPT = 2048                     # (c): 2 x 2,048-token prompts
 # (b) / (c) / (d): logits within this share of the largest against the
 # unsharded model (the card limit reference_check uses)
 TP_TOL = 2e-2
@@ -7801,7 +7820,8 @@ RELEASES = []
 # ---------------------------------------------------------------------------
 
 BERT_FT_BATCH, BERT_FT_SEQ, BERT_FT_LR = 32, 128, 2e-5
-BERT_FT_WARM, BERT_FT_TIMED, BERT_FT_PROF = 3, 24, 3
+BERT_FT_WARM, BERT_FT_TIMED, BERT_FT_PROF = 3, 6, 3
+FROM_TORCH_WARM, FROM_TORCH_TIMED = 1, 2
 ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_ABORT_AT = 16, 4, 10
 # the key biases' exact gradient is zero (a bias on every key adds one
 # constant to a query's scores): Adam steps them by rounding noise, up to
@@ -7854,15 +7874,15 @@ def orca_bert_run(torch, dev):
     30,522, f32, random weights from seed 0) fine-tuned through
     ``Estimator.from_bigdl`` at the recipe of arXiv:1810.04805 A.3 —
     batch 32, sequence 128, Adam at 2e-5 — on ``DistriOptimizer`` at
-    world 1 (NCCL, ``init_orca_context()``): 30 steps, 3 warm-up, 24
+    world 1 (NCCL, ``init_orca_context()``): 12 steps, 3 warm-up, 6
     timed by CUDA events at dispatch, a 3-step profiler window; the loss
     must fall (the mean of the last 5 steps below the first 5's). Then
     one step at batch 2 x 32 on the card and on the CPU (all threads and
     one) from the same weights: the update's L2 deviation within max(1e-3,
     3 x the CPU's own) (the deviation without the key biases, whose exact
     gradient is zero, reported beside). Then ``Estimator.from_torch`` on
-    the same model as a ``torch.nn.Module`` (torch's Adam, NLL loss): 2
-    warm-up steps, then 8 timed; and once more with dropout 0, to show
+    the same model as a ``torch.nn.Module`` (torch's Adam, NLL loss): 1
+    warm-up step, then 2 timed; and once more with dropout 0, to show
     what the step waits on."""
     import numpy as np
     from bigdl_tpu_torch import nn, orca
@@ -7953,14 +7973,14 @@ def orca_bert_run(torch, dev):
     del cpu, one, card, init
     release_memory(torch)
 
-    # Estimator.from_torch: the same model as a torch.nn.Module, 10 steps
-    # (2 warm-up, 8 timed); then, to see what the step waits on, the same
+    # Estimator.from_torch: the same model as a torch.nn.Module, 3 steps
+    # (1 warm-up, 2 timed); then, to see what the step waits on, the same
     # with its dropout probability 0 (a diagnostic, not the recipe)
     import dataclasses
-    xt, yt = _bert_ft_data(10 * BERT_FT_BATCH, BERT_FT_SEQ, cfg.vocab_size,
-                           13)
+    xt, yt = _bert_ft_data((FROM_TORCH_WARM + FROM_TORCH_TIMED)
+                           * BERT_FT_BATCH, BERT_FT_SEQ, cfg.vocab_size, 13)
     yt = (yt - 1).astype(np.int64)
-    warm = 2 * BERT_FT_BATCH
+    warm = FROM_TORCH_WARM * BERT_FT_BATCH
 
     def from_torch(c):
         def model_creator(config):
@@ -7979,15 +7999,16 @@ def orca_bert_run(torch, dev):
         stats += est.fit((xt[warm:], yt[warm:]), epochs=1,
                          batch_size=BERT_FT_BATCH)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t) / 8 * 1e3, stats
+        return (time.perf_counter() - t) / FROM_TORCH_TIMED * 1e3, stats
 
     ms, stats = from_torch(cfg)
     ms0, _ = from_torch(dataclasses.replace(cfg, hidden_dropout_prob=0.0))
     out["from_torch"] = {
         "what": "the same BERT-base as a torch.nn.Module, torch.optim.Adam "
-                "2e-5, NLLLoss, batch 32 x 128, 2 warm-up steps then 8",
+                f"2e-5, NLLLoss, batch 32 x 128, {FROM_TORCH_WARM} warm-up "
+                f"steps then {FROM_TORCH_TIMED}",
         "step_ms": ms, "step_ms_dropout_0": ms0,
-        "loss_after_2_10": stats}
+        "loss_after_warm_and_timed": stats}
     check(all(map(math.isfinite, stats)), f"phase 20 (a) from_torch: {stats}")
     release_memory(torch)
     return out
@@ -8277,6 +8298,466 @@ def elastic_orca_nano_phase(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: Chronos, orca.automl, nnframes (BASELINE config 3)
+# ---------------------------------------------------------------------------
+
+# ECL (electricity): 321 hourly series of 26,304 steps, lookback and
+# horizon 96, split 7:1:2, Adam at batch 32 (Autoformer, Wu et al. 2021,
+# arXiv:2106.13008 §4); the series are synthetic, from a seed
+ECL_SERIES, ECL_STEPS, ECL_LOOKBACK, ECL_HORIZON = 321, 26304, 96, 96
+ECL_SPLIT = (0.7, 0.1)
+CHRONOS_BATCH = 32
+CHRONOS_WARM, CHRONOS_TIMED, CHRONOS_PROF = 3, 25, 2      # 30 steps
+CHRONOS_CPU = dict(features=8, lookback=24, horizon=24, steps=600)
+CHRONOS_LOSS_TOL = 1e-4
+CHRONOS_L2_FLOOR = 1e-3
+# DoppelGANger's WWT: daily page views, series of 550 days, batch 100
+# (Lin et al. 2020, arXiv:1909.13403)
+WWT_LEN, WWT_SERIES, WWT_BATCH = 550, 2000, 100
+DPGAN_WARM, DPGAN_TIMED, DPGAN_PROF = 3, 12, 5
+AUTOML_SLICE, AUTOML_LOOKBACK, AUTOML_HORIZON = 1000, 96, 24
+AUTOTS_SLICE = 2000
+
+
+def _ecl(np, seed=21):
+    """The synthetic ECL matrix (steps, series), f32, each series scaled
+    by its training split's mean and deviation: a daily and a weekly
+    cycle of random phase and depth about a log-normal level, and noise."""
+    rs = np.random.RandomState(seed)
+    t = np.arange(ECL_STEPS, dtype=np.float32)[:, None]
+    n = ECL_SERIES
+    level = rs.lognormal(5.0, 1.0, n).astype(np.float32)
+    s = level * (1 + (0.4 * rs.rand(n)).astype(np.float32) * np.sin(
+        2 * np.pi * (t / 24 + rs.rand(n).astype(np.float32)))
+        + 0.15 * np.sin(2 * np.pi * (t / 168 + rs.rand(n).astype(
+            np.float32)))
+        + 0.05 * rs.randn(ECL_STEPS, n).astype(np.float32))
+    train = int(ECL_STEPS * ECL_SPLIT[0])
+    mu, sd = s[:train].mean(0), s[:train].std(0)
+    return ((s - mu) / sd).astype(np.float32)
+
+
+def _ecl_splits(np, s):
+    from bigdl_tpu_torch.chronos.data import roll_windows
+    a = int(ECL_STEPS * ECL_SPLIT[0])
+    b = a + int(ECL_STEPS * ECL_SPLIT[1])
+    out = {}
+    for name, part in (("train", s[:a]), ("val", s[a:b]), ("test", s[b:])):
+        out[name] = roll_windows(part, part, ECL_LOOKBACK, ECL_HORIZON)
+        check(not out[name][0].flags.owndata and
+              np.shares_memory(out[name][0], s),
+              f"phase 21: the {name} windows are not a view")
+    return out
+
+
+def _fit_timed(torch, f, x, y, what, warm=CHRONOS_WARM,
+               timed=CHRONOS_TIMED, prof=CHRONOS_PROF):
+    """``f.fit`` over the first ``warm + timed + prof`` batches' windows
+    (one epoch, the JAX batches), its ``train_step`` timed by CUDA events
+    at dispatch and profiled over the last ``prof`` steps: ms a step,
+    samples/s, idle share, launches a step, peak memory, the losses."""
+    steps = warm + timed + prof
+    n = steps * CHRONOS_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _StepTimer(torch, type(f), warm, timed, prof,
+                    attr="train_step") as timer:
+        t = time.perf_counter()
+        f.fit((x[:n], y[:n]), epochs=1, batch_size=CHRONOS_BATCH)
+        wall = time.perf_counter() - t
+    ms = timer.step_ms()
+    h = f.history
+    check(len(h) == steps and all(math.isfinite(v) for v in h),
+          f"phase 21 {what}: losses {h}")
+    med = statistics.median(ms)
+    row = {"what": what, "steps": steps, "fit_wall_s": wall,
+           "step_ms": ms, "step_ms_median": med,
+           "step_ms_mean": statistics.mean(ms),
+           "samples_per_s": CHRONOS_BATCH * 1e3 / med,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_step1_step_last": [h[0], h[-1]],
+           "params": sum(p.numel() for p in f.model.parameters())}
+    if prof:
+        row["profile"] = _device_window(torch, timer.window["prof"], prof)
+    return row
+
+
+def _chronos_card_vs_cpu(torch, dev, cls, kw, x, y, what):
+    """One epoch of ``fit`` at dropout 0 from one set of weights on the
+    card, the CPU at all threads and the CPU at one (f32, TF32 off):
+    every step's loss within ``CHRONOS_LOSS_TOL`` (relative) and the
+    update's L2 deviation within max(``CHRONOS_L2_FLOOR``, 3 x the CPU's
+    own between its thread counts)."""
+    src = cls(**kw, device="cpu")
+    init = {k: v.detach().clone() for k, v in src.model.named_parameters()}
+    runs = {}
+    threads = torch.get_num_threads()
+    for name, device, nt in (("cpu", "cpu", threads),
+                             ("cpu_1_thread", "cpu", 1), ("card", dev,
+                                                          threads)):
+        f = cls(**kw, device=device)
+        f.model.load_parameters_dict(src.model.parameters_dict())
+        torch.set_num_threads(nt)
+        try:
+            t = time.perf_counter()
+            f.fit((x, y), epochs=1, batch_size=CHRONOS_BATCH)
+            s = time.perf_counter() - t
+        finally:
+            torch.set_num_threads(threads)
+        runs[name] = (dict(f.model.named_parameters()), f.history, s)
+    cpu_h, card_h = runs["cpu"][1], runs["card"][1]
+    loss_dev = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(card_h, cpu_h))
+    check(len(card_h) == len(cpu_h) and loss_dev <= CHRONOS_LOSS_TOL,
+          f"phase 21 {what}: losses {card_h[-3:]} vs {cpu_h[-3:]}")
+    per, l2 = _update_deviation(init, runs["cpu"][0], {
+        "card": runs["card"][0], "cpu_1_thread": runs["cpu_1_thread"][0]},
+        list(init))
+    check(l2["card"] <= max(CHRONOS_L2_FLOOR, 3 * l2["cpu_1_thread"]),
+          f"phase 21 {what}: the update deviates by {l2}")
+    return {"what": what, "steps": len(cpu_h),
+            "loss_dev_max_rel": loss_dev,
+            "loss_first_last_card_cpu": [[card_h[0], card_h[-1]],
+                                         [cpu_h[0], cpu_h[-1]]],
+            "update_dev_l2": l2, "update_dev_max_over_tensors": per,
+            "fit_s_card_cpu_cpu1": [runs[k][2] for k in (
+                "card", "cpu", "cpu_1_thread")],
+            "tolerance": f"every loss {CHRONOS_LOSS_TOL} rel; the update's "
+                         f"L2 deviation <= max({CHRONOS_L2_FLOOR}, 3 x CPU "
+                         f"1 vs all threads); dropout 0, TF32 off"}
+
+
+def chronos_config3(torch, dev, s, splits):
+    """(a) BASELINE config 3 on ECL: TCN (7 blocks of 30 channels, kernel
+    3: a 509-step receptive field; dropout 0.1) and Seq2Seq (2 x 64
+    LSTMs), 321 series in and out, 30 ``fit`` steps each, then
+    ``evaluate`` over the test split; each card against the CPU at 8
+    series, lookback and horizon 24, dropout 0, one epoch of 600
+    steps."""
+    import numpy as np
+    from bigdl_tpu_torch.chronos.data import roll_windows
+    from bigdl_tpu_torch.chronos.forecaster import (Seq2SeqForecaster,
+                                                    TCNForecaster)
+    x, y = splits["train"]
+    tx, ty = splits["test"]
+    shape = dict(past_seq_len=ECL_LOOKBACK, future_seq_len=ECL_HORIZON,
+                 input_feature_num=ECL_SERIES,
+                 output_feature_num=ECL_SERIES)
+    models = {"tcn": (TCNForecaster, dict(num_channels=[30] * 7,
+                                          kernel_size=3, dropout=0.1)),
+              "seq2seq": (Seq2SeqForecaster, dict(lstm_hidden_dim=64,
+                                                  lstm_layer_num=2))}
+    c = CHRONOS_CPU
+    part = s[:c["steps"], :c["features"]]
+    cx, cy = roll_windows(part, part, c["lookback"], c["horizon"])
+    cpu_shape = dict(past_seq_len=c["lookback"],
+                     future_seq_len=c["horizon"],
+                     input_feature_num=c["features"],
+                     output_feature_num=c["features"])
+    out = {}
+    for name, (cls, kw) in models.items():
+        f = cls(**shape, **kw, lr=1e-3, seed=0, device=dev)
+        row = _fit_timed(torch, f, x, y, f"{name} ECL 321 x 96 -> 96")
+        first, last = row["loss_step1_step_last"]
+        check(last < first, f"phase 21 (a) {name}: loss {first} -> {last}")
+        t = time.perf_counter()
+        mse, mae = f.evaluate((tx, ty), ["mse", "mae"], batch_size=1024)
+        row["evaluate_s"] = time.perf_counter() - t
+        row["test_windows"] = len(tx)
+        row["test_mse_mae"] = [mse, mae]
+        pred = f.predict(tx[:5])
+        check(pred.shape == (5, ECL_HORIZON, ECL_SERIES) and
+              bool(np.isfinite(pred).all()) and math.isfinite(mse),
+              f"phase 21 (a) {name}: prediction {pred.shape}, mse {mse}")
+        del f
+        ckw = {**kw, "dropout": 0.0} if "dropout" in kw else kw
+        row["card_vs_cpu"] = _chronos_card_vs_cpu(
+            torch, dev, cls, {**cpu_shape, **ckw}, cx, cy,
+            f"(a) {name} 8 x 24 -> 24")
+        out[name] = row
+        release_memory(torch)
+    return out
+
+
+def chronos_others(torch, dev, s, splits):
+    """(b) the Autoformer, N-BEATS and LSTM forecasters at the JAX
+    constructors' default widths on ECL's shape (N-BEATS on one series:
+    it is univariate), the Autoformer's auto-correlation timed alone at
+    the step's shapes; ``AEDetector`` on one 26,304-step column at
+    ``roll_len`` 24, with three spikes it must flag; DPGAN at WWT's
+    shape with ``dp`` off and on."""
+    import numpy as np
+    from bigdl_tpu_torch.chronos.data import roll_windows
+    from bigdl_tpu_torch.chronos.detector import AEDetector
+    from bigdl_tpu_torch.chronos.forecaster import (
+        AutoformerForecaster, LSTMForecaster, NBeatsForecaster)
+    from bigdl_tpu_torch.chronos.forecaster.autoformer import \
+        _auto_correlation
+    from bigdl_tpu_torch.chronos.simulator import DPGANSimulator
+    x, y = splits["train"]
+    out = {}
+    t = time.perf_counter()
+    f = AutoformerForecaster(ECL_LOOKBACK, ECL_HORIZON, ECL_SERIES,
+                             ECL_SERIES, device=dev)
+    build_s = time.perf_counter() - t
+    row = _fit_timed(torch, f, x, y, "autoformer ECL 321 x 96 -> 96, "
+                     "d_model 32", warm=2, timed=4, prof=2)
+    row["build_s"] = build_s
+    b, L, d = CHRONOS_BATCH, ECL_LOOKBACK, f.d_model
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn(b, L, d, device=dev, generator=gen,
+                           requires_grad=True) for _ in range(3))
+
+    def autocorr():
+        o = _auto_correlation(q, k, v, f.top_k)
+        torch.autograd.grad(o.sum(), (q, k, v))
+
+    row["autocorr_fwd_bwd_ms"] = time_ms(autocorr)
+    row["autocorr_share_of_step"] = \
+        row["autocorr_fwd_bwd_ms"] / row["step_ms_median"]
+    pred = f.predict(x[:4])
+    check(pred.shape == (4, ECL_HORIZON, ECL_SERIES) and bool(np.isfinite(pred).all()),
+          f"phase 21 (b) autoformer: prediction {pred.shape}")
+    out["autoformer"] = row
+    del f, q, k, v
+    release_memory(torch)
+    col = np.ascontiguousarray(s[:, :1])
+    nx, ny = roll_windows(col[:int(ECL_STEPS * ECL_SPLIT[0])],
+                          col[:int(ECL_STEPS * ECL_SPLIT[0])],
+                          ECL_LOOKBACK, ECL_HORIZON)
+    for name, f in (
+            ("nbeats", NBeatsForecaster(ECL_LOOKBACK, ECL_HORIZON,
+                                        device=dev)),
+            ("lstm", LSTMForecaster(ECL_LOOKBACK, ECL_SERIES, ECL_SERIES,
+                                    future_seq_len=ECL_HORIZON,
+                                    device=dev))):
+        data = (nx, ny) if name == "nbeats" else (x, y)
+        out[name] = _fit_timed(torch, f, *data, f"{name} ECL, JAX defaults")
+        del f
+    release_memory(torch)
+    series = s[:, 0].copy()
+    spikes = [ECL_STEPS // 5, ECL_STEPS // 2, 4 * ECL_STEPS // 5]
+    series[spikes] += 10.0
+    t = time.perf_counter()
+    det = AEDetector(roll_len=24, device=dev).fit(series)
+    fit_s = time.perf_counter() - t
+    t = time.perf_counter()
+    idx = det.anomaly_indexes(series)
+    out["ae_detector"] = {
+        "what": "one ECL column, 26,304 steps, roll_len 24, 30 full-batch "
+                "Adam epochs", "fit_s": fit_s,
+        "anomaly_indexes_s": time.perf_counter() - t,
+        "threshold": det._th, "anomalies": int(len(idx)),
+        "spikes_flagged": [int(i in set(idx.tolist())) for i in spikes]}
+    check(all(out["ae_detector"]["spikes_flagged"]),
+          f"phase 21 (b) AEDetector: {out['ae_detector']}")
+    rs = np.random.RandomState(22)
+    days = np.arange(WWT_LEN)[None, :]
+    views = np.log1p(rs.lognormal(6, 1.5, (WWT_SERIES, 1)) * (
+        1 + 0.3 * np.sin(2 * np.pi * (days / 7 + rs.rand(WWT_SERIES, 1))))
+        * rs.lognormal(0, 0.2, (WWT_SERIES, WWT_LEN))).astype(np.float32)
+    for dp in (False, True):
+        sim = DPGANSimulator(WWT_LEN, device=dev, dp=dp, seed=0)
+        steps = DPGAN_WARM + DPGAN_TIMED + DPGAN_PROF
+        with _StepTimer(torch, DPGANSimulator, DPGAN_WARM, DPGAN_TIMED,
+                        DPGAN_PROF, attr="train_step") as timer:
+            t = time.perf_counter()
+            sim.fit(views, epochs=steps, batch_size=WWT_BATCH)
+            wall = time.perf_counter() - t
+        ms = timer.step_ms()
+        gen_out = sim.generate(WWT_BATCH, seed=1)
+        check(gen_out.shape == (WWT_BATCH, WWT_LEN, 1) and
+              bool(np.isfinite(gen_out).all()) and
+              all(math.isfinite(v) for p in sim.history for v in p),
+              f"phase 21 (b) DPGAN dp={dp}: {sim.history[-1]}")
+        out[f"dpgan_dp_{'on' if dp else 'off'}"] = {
+            "what": f"WWT shape: {WWT_SERIES} series of {WWT_LEN} days, "
+                    f"batch {WWT_BATCH}, dp {dp}", "fit_wall_s": wall,
+            "step_ms": ms, "step_ms_median": statistics.median(ms),
+            "profile": _device_window(torch, timer.window["prof"],
+                                      DPGAN_PROF),
+            "losses_first_last": [sim.history[0], sim.history[-1]]}
+    on, off = (out[f"dpgan_dp_{k}"]["step_ms_median"] for k in ("on", "off"))
+    out["dpgan_dp_share"] = 1 - off / on
+    return out
+
+
+class AutoTCN:
+    """The automl drive's builder: a ``TCNForecaster`` on 8 ECL series
+    (lookback 96, horizon 24, dropout 0) under ``AutoEstimator``'s
+    contract, logging each ``fit``'s epochs and seconds. Module level,
+    so the pool carries it."""
+
+    log = []
+
+    def __init__(self, config):
+        from bigdl_tpu_torch.chronos.forecaster import TCNForecaster
+        self.f = TCNForecaster(AUTOML_LOOKBACK, AUTOML_HORIZON, 8, 8,
+                               num_channels=config["num_channels"],
+                               lr=config["lr"], dropout=0.0)
+
+    def fit(self, data, epochs=1, batch_size=32):
+        t = time.perf_counter()
+        self.f.fit(data, epochs=epochs, batch_size=batch_size)
+        AutoTCN.log.append((epochs, time.perf_counter() - t))
+
+    def evaluate(self, data, metrics=("mse",)):
+        return self.f.evaluate(data, metrics=metrics)
+
+
+def chronos_automl(torch, s):
+    """(c) ``AutoEstimator`` over a grid of four TCN configs on a 1,000-step
+    slice of 8 series (2 epochs; validation on the next 600 steps):
+    serially, under ASHA, and over ``RayContext(num_workers=2)`` (two
+    spawned processes on the card); the pool's best config must be the
+    serial run's. Then ``AutoTSEstimator(model="tcn", past_seq_len=
+    hp.choice([48, 96]))``, 4 samples of one epoch on a 2,000-step slice,
+    through ``TSDataset``."""
+    import pandas as pd
+    from bigdl_tpu_torch.chronos.autots import AutoTSEstimator
+    from bigdl_tpu_torch.chronos.data import TSDataset, roll_windows
+    from bigdl_tpu_torch.orca import RayContext
+    from bigdl_tpu_torch.orca.automl import AutoEstimator, hp
+    part = s[:AUTOML_SLICE, :8]
+    val = s[AUTOML_SLICE:AUTOML_SLICE + 600, :8]
+    data = roll_windows(part, part, AUTOML_LOOKBACK, AUTOML_HORIZON)
+    vdata = roll_windows(val, val, AUTOML_LOOKBACK, AUTOML_HORIZON)
+    space = {"num_channels": hp.grid_search([[8] * 3, [30] * 3]),
+             "lr": hp.grid_search([3e-4, 3e-3])}
+    out = {}
+    for mode, kw in (("serial", {}),
+                     ("asha", dict(scheduler="asha", grace_epochs=1,
+                                   reduction_factor=2))):
+        AutoTCN.log = []
+        t = time.perf_counter()
+        est = AutoEstimator(AutoTCN).fit(
+            data, validation_data=vdata, search_space=space, epochs=2,
+            **kw)
+        out[mode] = {"wall_s": time.perf_counter() - t,
+                     "trials": est.trials, "best": est.best_config,
+                     "epochs_spent": sum(e for e, _ in AutoTCN.log),
+                     "fit_s": [s_ for _, s_ in AutoTCN.log]}
+    t = time.perf_counter()
+    with RayContext(num_workers=2) as ctx:
+        est = AutoEstimator(AutoTCN).fit(
+            data, validation_data=vdata, search_space=space, epochs=2,
+            ray_ctx=ctx)
+    ser = out["serial"]
+    out["pool"] = {"wall_s": time.perf_counter() - t, "trials": est.trials,
+                   "best": est.best_config,
+                   "score_dev_vs_serial": max(
+                       abs(a["mse"] - b["mse"])
+                       for a, b in zip(est.trials, ser["trials"]))}
+    check(est.best_config == ser["best"] and
+          [a["config"] for a in est.trials] ==
+          [b["config"] for b in ser["trials"]],
+          f"phase 21 (c): pool {est.best_config} vs serial {ser['best']}")
+    check(out["asha"]["epochs_spent"] < ser["epochs_spent"],
+          f"phase 21 (c): ASHA spent {out['asha']['epochs_spent']} epochs")
+    cols = [f"s{i}" for i in range(8)]
+    df = pd.DataFrame(s[:AUTOTS_SLICE, :8], columns=cols)
+    df.insert(0, "dt", pd.date_range("2012-01-01", periods=AUTOTS_SLICE,
+                                     freq="h"))
+    ts = TSDataset.from_pandas(df, "dt", cols)
+    t = time.perf_counter()
+    auto = AutoTSEstimator(
+        model="tcn", past_seq_len=hp.choice([48, 96]),
+        future_seq_len=AUTOML_HORIZON, output_target_num=8,
+        search_space={"num_channels": hp.choice([[16] * 4, [30] * 4]),
+                      "dropout": 0.0})
+    pipe = auto.fit(ts, n_sampling=4, epochs=1)
+    wall = time.perf_counter() - t
+    mse = pipe.evaluate(ts, metrics=["mse"])[0]
+    check(pipe.lookback in (48, 96) and math.isfinite(mse),
+          f"phase 21 (c) AutoTS: lookback {pipe.lookback}, mse {mse}")
+    out["autots"] = {"wall_s": wall, "best_lookback": pipe.lookback,
+                     "train_mse": mse}
+    return out
+
+
+def nnframes_run(torch, dev):
+    """(d) ``NNClassifier`` on LeNet-5 over an MNIST-shaped frame (4,096
+    synthetic digits, 784 floats a row; BASELINE config 1's shape):
+    ``fit`` (Adam 0.003, batch 128, 3 epochs) then ``transform``; ms a
+    step by CUDA events at dispatch, top-1 on the training frame."""
+    import numpy as np
+    import pandas as pd
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.feature.mnist import load_mnist, normalize
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.nnframes import NNClassifier
+    x, y = load_mnist(synthetic_size=4096)
+    x = normalize(x).reshape(len(x), -1)
+    df = pd.DataFrame({"features": list(x), "label": y})
+    nn.set_seed(0)
+    clf = (NNClassifier(lenet.build_model(10, device=dev),
+                        nn.ClassNLLCriterion(), feature_size=[28, 28],
+                        device=dev)
+           .set_batch_size(128).set_max_epoch(3)
+           .set_optim_method(optim.Adam(0.003)))
+    steps = 3 * (len(x) // 128)
+    with _StepTimer(torch, optim.LocalOptimizer, 3, steps - 4, 0) as timer:
+        t = time.perf_counter()
+        fitted = clf.fit(df)
+        fit_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out = fitted.transform(df)
+    transform_s = time.perf_counter() - t
+    top1 = float((out["prediction"].to_numpy() == y).mean())
+    check(top1 > 0.9, f"phase 21 (d): LeNet-5 top-1 {top1}")
+    ms = timer.step_ms()
+    return {"what": "NNClassifier(LeNet-5), 4,096 x 784 frame, Adam 0.003, "
+                    "batch 128, 3 epochs", "fit_s": fit_s,
+            "transform_s": transform_s, "step_ms_median":
+            statistics.median(ms), "step_ms_mean": statistics.mean(ms),
+            "top1_train": top1,
+            "prediction_dtype": str(out["prediction"].dtype)}
+
+
+def _live_cuda_tensors(torch, top=8):
+    """The largest CUDA tensors the collector can reach: (shape, dtype)."""
+    import gc
+    ts = sorted((o for o in gc.get_objects()
+                 if isinstance(o, torch.Tensor) and o.is_cuda),
+                key=lambda t: -t.numel())
+    return [(tuple(t.shape), str(t.dtype)) for t in ts[:top]]
+
+
+def chronos_phase(torch, dev):
+    """Phase 21: Chronos (BASELINE config 3), orca.automl and nnframes.
+    Report key ``chronos``. The six kernels' counters stay at 0."""
+    import numpy as np
+    from bigdl_tpu_torch.llm import kernels
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    out = {"phase": "chronos", "wall_s_by_part": {}}
+    t = time.perf_counter()
+    s = _ecl(np)
+    splits = _ecl_splits(np, s)
+    out["data"] = {"what": "synthetic ECL: 321 series x 26,304 hourly "
+                           "steps, split 7:1:2, windows 96 -> 96 as views",
+                   "windows": {k: len(v[0]) for k, v in splits.items()},
+                   "make_s": time.perf_counter() - t}
+    for part, key, run in (
+            ("a", "config3", lambda: chronos_config3(torch, dev, s, splits)),
+            ("b", "others", lambda: chronos_others(torch, dev, s, splits)),
+            ("c", "automl", lambda: chronos_automl(torch, s)),
+            ("d", "nnframes", lambda: nnframes_run(torch, dev))):
+        t = time.perf_counter()
+        out[key] = run()
+        out["wall_s_by_part"][part] = time.perf_counter() - t
+        release_memory(torch)
+        left = torch.cuda.memory_allocated()
+        out.setdefault("allocated_after_part_gb", {})[part] = left / 1e9
+        if left >= 2**30:        # the census only on a failure: it is slow
+            check(False, f"phase 21 ({part}) left {left / 2**30:.2f} GiB "
+                         f"allocated: {_live_cuda_tensors(torch)}")
+    out["launches"] = _no_port_launches(kernels, "phase 21")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def release_memory(torch):
     """Between phases: collect Python's reference cycles (a model held in
     one by a captured graph or a server thread's closure is freed only by
@@ -8436,6 +8917,10 @@ def main() -> int:
     p20 = elastic_orca_nano_phase(torch, dev)
     p20["nvidia_smi"] = smi
     emit(p20)
+    release_memory(torch)
+    p21 = chronos_phase(torch, dev)
+    p21["nvidia_smi"] = smi
+    emit(p21)
 
     # launches on each path, each read with the counts zeroed just before
     paths = {"serve_7b": dict(serve["launches"]),
@@ -8773,7 +9258,7 @@ def main() -> int:
               "dllib_keras": dllib_keras,
               "dllib_distributed": dllib_dist,
               "detection_sparse": det, "parallel_drives": par,
-              "elastic_orca_nano": p20,
+              "elastic_orca_nano": p20, "chronos": p21,
               "ptxas": ptxas, "kernels": summary}
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

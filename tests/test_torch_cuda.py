@@ -21,7 +21,8 @@ tests hold ``resnet_cifar(8)``'s optimizer step on the card to the CPU
 step, and check that the training entry points refuse ``device=None``
 without a GPU (that one runs on any machine); the last three hold an
 Inception-v1 step, a Keras ``fit`` and a PTB LSTM step on the card to
-the CPU.
+the CPU. The last holds each Chronos forecaster's forward and one
+``fit`` step on the card to the CPU.
 The CPU parity of the plain versions against the JAX package lives in
 ``tests/test_torch_{int4_matmul,low_bit,paged_attention,ragged_prefill}.py``,
 and of ``generate`` in ``tests/test_torch_generate.py``.
@@ -2090,3 +2091,57 @@ def test_ptb_lstm_step_card_matches_cpu(cuda, monkeypatch):
     assert abs(card_l - cpu_l) <= 1e-5 * abs(cpu_l)
     l2, per = _update_dev(init, cpu, card)
     assert l2 <= 1e-5 and per <= 1e-2, (l2, per)
+
+
+CHRONOS = {
+    "TCNForecaster": dict(past_seq_len=24, future_seq_len=6,
+                          input_feature_num=8, output_feature_num=8,
+                          num_channels=(16, 16, 16), dropout=0.0),
+    "Seq2SeqForecaster": dict(past_seq_len=24, future_seq_len=6,
+                              input_feature_num=8, output_feature_num=8,
+                              lstm_hidden_dim=16, lstm_layer_num=2),
+    "LSTMForecaster": dict(past_seq_len=24, future_seq_len=6,
+                           input_feature_num=8, output_feature_num=8,
+                           hidden_dim=16, layer_num=2, dropout=0.0),
+    "NBeatsForecaster": dict(past_seq_len=24, future_seq_len=6,
+                             nbeats_units=32),
+    "AutoformerForecaster": dict(past_seq_len=24, future_seq_len=6,
+                                 input_feature_num=8, output_feature_num=8,
+                                 d_model=16),
+}
+
+
+@pytest.mark.parametrize("name", list(CHRONOS))
+def test_forecaster_card_matches_cpu(cuda, monkeypatch, name):
+    """Each Chronos forecaster's forward, then one Adam step of ``fit``
+    (batch 16, dropout 0, f32 with TF32 off), on the card and on the CPU
+    from the same weights: the forward within 1e-5, the loss within 1e-5
+    (relative) and every weight within 1e-5 of the largest. The
+    Autoformer's ``embed_b`` and ``ff2_b`` have a zero exact gradient
+    (the series decomposition after them takes a constant out), so Adam
+    steps them by its normalised rounding noise: held to one step's lr."""
+    import numpy as np
+
+    from bigdl_tpu_torch.chronos import forecaster as F
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    kw = CHRONOS[name]
+    c_in = kw.get("input_feature_num", 1)
+    rs = np.random.RandomState(0)
+    x = rs.randn(16, 24, c_in).astype(np.float32)
+    y = rs.randn(16, 6, kw.get("output_feature_num", 1)).astype(np.float32)
+    host = getattr(F, name)(**kw, device="cpu")
+    card = getattr(F, name)(**kw, device=cuda)
+    card.model.load_parameters_dict(host.model.parameters_dict())
+    torch.testing.assert_close(torch.from_numpy(card.predict(x)),
+                               torch.from_numpy(host.predict(x)),
+                               rtol=0, atol=1e-5)
+    hl, cl = host.fit((x, y), batch_size=16), card.fit((x, y), batch_size=16)
+    assert abs(cl - hl) <= 1e-5 * max(1.0, abs(hl))
+    ws = dict(host.model.named_parameters())
+    top = max(float(w.abs().max()) for w in ws.values())
+    free = ("embed_b", "ff2_b") if name == "AutoformerForecaster" else ()
+    for k, a in card.model.named_parameters():
+        torch.testing.assert_close(
+            a.detach().cpu(), ws[k].detach(), rtol=0,
+            atol=host.lr if k in free else 1e-5 * top)
